@@ -1,0 +1,21 @@
+"""tpumathlib_torch — the port of tpumathlib to PyTorch and CUDA on an
+NVIDIA H100 (sm_90a).
+
+The JAX package ``tpumathlib`` stays the reference; this package mirrors its
+module paths and public names, imports ``torch`` and never ``jax``. Each
+TPU kernel of the reference becomes a kernel written by hand for Hopper
+(``csrc/``), with its plain PyTorch version beside it for CPU tensors.
+
+Ported so far (the GEMM slice):
+- ``tpumathlib_torch.core``       — errors, dtype traits, checks, timer,
+                                    plans, autotune cache, interop
+- ``tpumathlib_torch.dx``         — the tiled GEMM with fused epilogues
+- ``tpumathlib_torch.blas``       — Level-3, the Lt descriptor engine, and the
+                                    Level-2 helpers they need
+- ``tpumathlib_torch.heuristics`` — roofline model + discovery
+- ``tpumathlib_torch.entry``      — the main path's entry point
+"""
+
+__version__ = "0.1.0"
+
+from tpumathlib_torch.core import errors, dtypes  # noqa: F401

@@ -1,0 +1,78 @@
+"""Moving data and descriptors between the JAX package and the port.
+
+- ``from_numpy``: numpy arrays to tensors, including the bf16 and fp8
+  arrays whose dtypes come from ``ml_dtypes`` (``torch.from_numpy`` refuses
+  those, so they travel as their raw bits).
+- ``to_numpy``: tensors back to numpy; 16- and 8-bit floats widen to f32,
+  which holds every one of their values exactly.
+- ``from_reference``: a reference ``MatmulDesc``, ``Algo``,
+  ``MatmulConfig`` or ``MatrixLayout`` to the port's object. It reads
+  attributes and enum ``.value`` strings, and never imports the reference.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# numpy/ml_dtypes dtype name → (bit-carrier numpy dtype, torch dtype)
+_BIT_VIEWS = {
+    "bfloat16": (np.uint16, torch.bfloat16),
+    "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
+    "float8_e5m2": (np.uint8, torch.float8_e5m2),
+}
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """torch dtype of the same name as a numpy, ml_dtypes or JAX dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return getattr(torch, np.dtype(dtype).name)
+
+
+def from_numpy(x, device=None) -> torch.Tensor:
+    x = np.asarray(x)
+    view = _BIT_VIEWS.get(x.dtype.name)
+    if view is not None:
+        carrier, tdt = view
+        t = torch.from_numpy(np.ascontiguousarray(x).view(carrier)).view(tdt)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(x))
+    return t.to(device) if device is not None else t
+
+
+def to_numpy(x) -> np.ndarray:
+    if not isinstance(x, torch.Tensor):
+        return np.asarray(x)
+    x = x.detach().cpu().resolve_conj()
+    if x.dtype.is_floating_point and x.dtype.itemsize < 4:
+        x = x.float()
+    return x.numpy()
+
+
+def from_reference(obj):
+    """The port's counterpart of a reference descriptor object."""
+    from tpumathlib_torch.blas import lt
+    from tpumathlib_torch.dx.gemm import MatmulConfig
+
+    kind = type(obj).__name__
+    if kind == "MatmulConfig":
+        return MatmulConfig(obj.bm, obj.bn, obj.bk)
+    if kind == "Algo":
+        cfg = None if obj.config is None else from_reference(obj.config)
+        return lt.Algo(obj.backend, cfg)
+    if kind == "MatrixLayout":
+        return lt.MatrixLayout(torch_dtype(obj.dtype), obj.rows, obj.cols,
+                               obj.batch)
+    if kind == "MatmulDesc":
+        return lt.MatmulDesc(
+            compute_dtype=torch_dtype(obj.compute_dtype),
+            transa=obj.transa,
+            transb=obj.transb,
+            epilogue=lt.Epilogue(obj.epilogue.value),
+            a_scale_mode=lt.ScaleMode(obj.a_scale_mode.value),
+            b_scale_mode=lt.ScaleMode(obj.b_scale_mode.value),
+            d_scale_mode=lt.ScaleMode(obj.d_scale_mode.value),
+            amax_d=obj.amax_d,
+        )
+    raise TypeError(f"no port counterpart for {kind}")

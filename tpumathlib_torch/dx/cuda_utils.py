@@ -1,0 +1,121 @@
+"""Device detection and the kernel library's build and loader.
+
+Counterpart of ``tpumathlib/dx/pallas_utils.py``. A Pallas kernel has an
+interpret mode off the TPU; a CUDA kernel has none. So a wrapper in this
+package takes its plain PyTorch version only for tensors on the CPU, and
+for CUDA tensors it launches its kernel or raises.
+
+The kernels are compiled at first use, never at import, so the package
+imports on machines without ``nvcc``. ``nvcc`` compiles every
+``csrc/*.cu`` into one shared library with a plain C interface,
+``build/tpumathlib_torch/<hash>/libtml_kernels.so`` under the repository
+root; the hash covers the sources and the flags, so an edited source
+rebuilds. The library is loaded with ctypes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+from tpumathlib_torch.core.errors import ExecutionError
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / "build" / "tpumathlib_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def on_cuda(*tensors) -> bool:
+    """True when any of the given tensors (None skipped) lies on a CUDA device."""
+    return any(t is not None and t.is_cuda for t in tensors)
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise ExecutionError("nvcc not found: the kernels build only where the CUDA toolkit is")
+    return found
+
+
+def build_kernels() -> Path:
+    """Compile ``csrc/*.cu`` (once per content hash); returns the library path.
+    Raises ExecutionError with nvcc's output when the build fails. The
+    compiler's resource report (registers, shared memory, spills) is kept
+    beside the library as ``nvcc.log``."""
+    srcs = sorted(CSRC.glob("*.cu"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in srcs + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    out_dir = BUILD_ROOT / h.hexdigest()[:16]
+    lib = out_dir / "libtml_kernels.so"
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"libtml_kernels.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (out_dir / "nvcc.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise ExecutionError(
+            f"kernel build failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p, i64, f32, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float, ctypes.c_int
+    lib.tml_gemm_epilogue.argtypes = [
+        p, p, p, p, p, p,                       # a, b, c, bias, d, aux
+        i64, i64, i64, i64,                     # batch, m, n, k
+        ctypes.POINTER(i64),                    # strides[11]
+        f32, f32,                               # alpha, beta
+        i32, i32, i32, i32, i32,                # act, ab/c/d dtype codes, config
+        p,                                      # stream
+    ]
+    lib.tml_gemm_epilogue.restype = i32
+    lib.tml_gemm_configs.argtypes = [ctypes.POINTER(i32), i32]
+    lib.tml_gemm_configs.restype = i32
+    lib.tml_error_string.argtypes = [i32]
+    lib.tml_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def load_kernels() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; the handle is cached
+    for the process. Raises when there is no CUDA device or the build or
+    load fails."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            if not torch.cuda.is_available():
+                raise ExecutionError("the CUDA kernels need a CUDA device")
+            path = build_kernels()
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError as e:
+                raise ExecutionError(f"cannot load {path}: {e}") from e
+            _lib = _bind(lib)
+        return _lib
+
+
+def check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise ExecutionError for a non-zero CUDA status from a launch."""
+    if rc != 0:
+        msg = lib.tml_error_string(rc).decode(errors="replace")
+        raise ExecutionError(f"{what}: CUDA error {rc} ({msg})")
