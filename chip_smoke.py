@@ -21,6 +21,19 @@ Phases; any failure raises and the exit code is non-zero:
 5. times — CUDA events, 3 warm-ups, median of 20 runs (twice, in turns):
    the kernel, its plain version and the vendor route at the main path's
    shape; then each route of phase 4 on the host clock, end to end.
+6. block kernels — the two 128x128 sweeps of csrc/dense_block.cu against
+   their plain versions: Cholesky + inverse on SPD input, LU + both inverses
+   on barely dominant and SPD input, and a non-SPD block that must give
+   info > 0.
+7. solver main path — n=4096 f32 through xpotrf(a), xpotrf(a, "U"),
+   potrf_onelaunch(a), xgetrf(a, pivot=False) and getrf_onelaunch(a): each
+   must grow its driver's count, its block kernel's count and the GEMM
+   kernel's; the factor is held against a float64 factor (potrf) or the
+   residual L·U − A (getrf), with info == 0, and against the plain version.
+8. solver times — CUDA events for the kernel route, the plain version and
+   the vendor route (torch.linalg) of each factorization, and for each
+   block kernel against its plain version; then each route of phase 7 on
+   the host clock.
 The line before the last is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -42,9 +55,11 @@ from tpumathlib_torch.core.timer import benchmark
 from tpumathlib_torch.dx import cuda_utils, gemm
 from tpumathlib_torch.dx.gemm import _pallas_matmul_plain, pallas_matmul
 from tpumathlib_torch.entry import entry
+from tpumathlib_torch.solver import blocked, dense, onelaunch
 
 F32, BF16, F16, I8 = torch.float32, torch.bfloat16, torch.float16, torch.int8
 MAIN = (4096, 4096, 4096)  # (M, N, K) of the bench headline
+SOLVER_N = 4096            # the factorizations' bench size
 
 
 def card_line() -> str:
@@ -234,6 +249,25 @@ def phase_main_path(dev) -> dict:
             "routes": routes}
 
 
+def _median_ms(runs: dict, warmup: int, iters: int) -> dict:
+    """Median device ms per route, CUDA events, timed twice in turns."""
+    times: dict[str, list[float]] = {name: [] for name in runs}
+    for name in list(runs) + list(reversed(runs)):
+        times[name] += benchmark(runs[name], warmup=warmup, iters=iters)["times"]
+    return {name: float(np.median(t)) * 1e3 for name, t in times.items()}
+
+
+def _wall_ms(route, calls: int) -> float:
+    """Host-clock ms per call over back-to-back calls, after one warm-up."""
+    route()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        route()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e3
+
+
 def phase_times(main: dict, card: str) -> dict:
     m, n, k = MAIN
     a, b, bias = main["args"]
@@ -246,25 +280,160 @@ def phase_times(main: dict, card: str) -> dict:
         "vendor": lambda: lt.matmul(desc, a, b, bias=bias, algo=lt.Algo("xla"),
                                     out_dtype=BF16),
     }
-    times: dict[str, list[float]] = {name: [] for name in runs}
-    for name in list(runs) + list(reversed(runs)):
-        times[name] += benchmark(runs[name], warmup=3, iters=20)["times"]
-    ms = {name: float(np.median(t)) * 1e3 for name, t in times.items()}
+    ms = _median_ms(runs, warmup=3, iters=20)
     flop = 2.0 * m * n * k
     for name, t in ms.items():
         print(f"[times] {name:7s} {m}x{n}x{k} bf16 gelu+bias: {t:.4f} ms = "
               f"{flop / t / 1e9:.2f} TFLOP/s | {card}", flush=True)
     # each user route end to end: host clock over 10 back-to-back calls
     for name, route in main["routes"].items():
-        route()
+        print(f"[times] wall {name:30s} {_wall_ms(route, 10):.4f} ms per call "
+              f"(host clock, 10 calls) | {card}", flush=True)
+    return ms
+
+
+def _spd(gen, n, dev):
+    g = torch.randn((n, n), generator=gen, device=dev)
+    return g @ g.T / n + 4.0 * torch.eye(n, device=dev)
+
+
+def _barely_dominant(gen, n, dev):
+    """g + diag(1.05·|g| row sums): multipliers O(1), the reference tests' input."""
+    g = torch.randn((n, n), generator=gen, device=dev)
+    return g + torch.diag(1.05 * g.abs().sum(dim=1))
+
+
+def phase_blocks(dev) -> None:
+    """Each block kernel against its plain version. Tolerance 1e-5
+    max-scaled: the same f32 steps in the same order, apart from the FMAs
+    nvcc contracts."""
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    spd, dom = _spd(gen, 128, dev), _barely_dominant(gen, 128, dev)
+    cases = [("chol_inv_block", "SPD", blocked._chol_inv128, blocked._chol_inv128_plain, spd),
+             ("lu_inv_block", "barely dominant", onelaunch._lu_inv128,
+              onelaunch._lu_inv128_plain, dom),
+             ("lu_inv_block", "SPD", onelaunch._lu_inv128, onelaunch._lu_inv128_plain, spd)]
+    failures = []
+    for name, what, kernel, plain, x in cases:
+        got, want = kernel(x), plain(x)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(10):
-            route()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / 10 * 1e3
-        print(f"[times] wall {name:30s} {wall:.4f} ms per call (host clock, 10 calls) | {card}",
+        errs = [max_scaled_err(g, w) for g, w in zip(got, want)]
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        ok = max(errs) <= 1e-5 and finite
+        print(f"[blocks] {name:15s} {what:16s} max-scaled err per output "
+              f"{', '.join(f'{e:.3e}' for e in errs)} (tol 1e-5) {'ok' if ok else 'FAIL'}",
               flush=True)
+        if not ok:
+            failures.append(f"{name} {what}")
+    bad = spd.clone()
+    bad[40, 40] = -1.0   # not SPD from pivot 40 on
+    infos = [int(dense._finite_info(f(bad)[0], diag_only=True))
+             for f in (blocked._chol_inv128, blocked._chol_inv128_plain)]
+    ok = infos[0] > 0 and infos[0] == infos[1]
+    print(f"[blocks] chol_inv_block  not SPD          info kernel {infos[0]} plain {infos[1]} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append("chol_inv_block non-SPD info")
+    if failures:
+        raise SystemExit(f"chip_smoke: block kernels failed: {failures}")
+
+
+_SOLVER_COUNTS = (pallas_matmul, blocked._chol_inv128, onelaunch._lu_inv128,
+                  onelaunch.potrf_onelaunch, onelaunch.getrf_onelaunch)
+
+
+def phase_solver_main(dev) -> dict:
+    """The factorizations at n=SOLVER_N through the public drivers."""
+    n = SOLVER_N
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    a, ag = _spd(gen, n, dev), _barely_dominant(gen, n, dev)
+    routes = {
+        "xpotrf(a)": lambda: dense.xpotrf(a),
+        "xpotrf(a, 'U')": lambda: dense.xpotrf(a, "U"),
+        "potrf_onelaunch(a)": lambda: (onelaunch.potrf_onelaunch(a), None),
+        "xgetrf(a, pivot=False)": lambda: dense.xgetrf(ag, pivot=False)[::2],  # (lu, info)
+        "getrf_onelaunch(a)": lambda: (onelaunch.getrf_onelaunch(ag), None),
+    }
+    torch.cuda.synchronize()
+    for f in _SOLVER_COUNTS:
+        f.launches = 0
+    outs, grew = {}, {}
+    for name, route in routes.items():
+        before = {f.__name__: f.launches for f in _SOLVER_COUNTS}
+        outs[name] = route()
+        grew[name] = {f.__name__: f.launches - before[f.__name__] for f in _SOLVER_COUNTS}
+    torch.cuda.synchronize()
+    launches = {f.__name__: f.launches for f in _SOLVER_COUNTS}
+    print(f"[solver] launches in the main path: {launches}", flush=True)
+
+    l64 = torch.linalg.cholesky(a.double())
+    want = {"potrf": onelaunch._potrf_onelaunch_plain(a),
+            "getrf": onelaunch._getrf_onelaunch_plain(ag)}
+    eye64 = torch.eye(n, dtype=torch.float64, device=dev)
+    max_abs = {"potrf": 0.0, "getrf": 0.0}
+    failures = []
+    for name, (out, info) in outs.items():
+        kind = "potrf" if "potrf" in name else "getrf"
+        f = out.mT if name.endswith("'U')") else out   # the lower factor
+        if kind == "potrf":
+            rel = float((f.double() - l64).abs().max() / l64.abs().max())
+            upper_zero = bool((torch.triu(f, 1) == 0).all())
+        else:
+            lu64 = f.double()
+            l_u = (torch.tril(lu64, -1) + eye64) @ torch.triu(lu64)
+            rel = float((l_u - ag.double()).abs().max() / ag.double().abs().max())
+            upper_zero = True
+        vs_plain = max_scaled_err(f, want[kind])
+        abs_err = max_abs_rel(f, want[kind])[0]
+        max_abs[kind] = max(max_abs[kind], abs_err)
+        info_ok = info is None or int(info) == 0
+        g = grew[name]
+        driver = g[f"{kind}_onelaunch"]
+        block = g["_chol_inv128" if kind == "potrf" else "_lu_inv128"]
+        launched = g["pallas_matmul"] > 0 and block > 0 and driver == 1
+        finite = bool(torch.isfinite(f).all())
+        ok = (rel < 5e-5 and upper_zero and info_ok and vs_plain <= 1e-5 and launched
+              and finite and f.shape == (n, n) and f.dtype == F32)
+        print(f"[solver] {name:24s} launches gemm +{g['pallas_matmul']} block +{block} "
+              f"driver +{driver} | rel {'vs f64' if kind == 'potrf' else 'LU-A'} "
+              f"{rel:.3e} (tol 5e-5) upper=0 {upper_zero} info "
+              f"{'-' if info is None else int(info)} | vs plain max-scaled {vs_plain:.3e} "
+              f"max-abs {abs_err:.3e} (tol 1e-5) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(name)
+    if failures:
+        raise SystemExit(f"chip_smoke: solver main path failed: {failures}")
+    return {"launches": launches, "max_abs_err": max_abs, "a": a, "ag": ag, "routes": routes}
+
+
+def phase_solver_times(solver: dict, card: str) -> dict:
+    n = SOLVER_N
+    a, ag = solver["a"], solver["ag"]
+    runs = {
+        "potrf kernel": lambda: onelaunch.potrf_onelaunch(a),
+        "potrf plain": lambda: onelaunch._potrf_onelaunch_plain(a),
+        "potrf vendor": lambda: torch.linalg.cholesky(a),
+        "getrf kernel": lambda: onelaunch.getrf_onelaunch(ag),
+        "getrf plain": lambda: onelaunch._getrf_onelaunch_plain(ag),
+        "getrf vendor": lambda: torch.linalg.lu_factor_ex(ag, pivot=False),
+    }
+    ms = _median_ms(runs, warmup=1, iters=5)
+    for name, t in ms.items():
+        flop = (n**3 / 3 if name.startswith("potrf") else 2 * n**3 / 3)
+        print(f"[solver-times] {name:13s} n={n} f32: {t:.4f} ms = {flop / t / 1e6:.1f} GFLOP/s "
+              f"| {card}", flush=True)
+    blk_spd, blk_dom = a[:128, :128].contiguous(), ag[:128, :128].contiguous()
+    blocks = {
+        "chol_inv_block kernel": lambda: blocked._chol_inv128(blk_spd),
+        "chol_inv_block plain": lambda: blocked._chol_inv128_plain(blk_spd),
+        "lu_inv_block kernel": lambda: onelaunch._lu_inv128(blk_dom),
+        "lu_inv_block plain": lambda: onelaunch._lu_inv128_plain(blk_dom),
+    }
+    for name, t in _median_ms(blocks, warmup=2, iters=10).items():
+        print(f"[solver-times] {name:22s} 128x128 f32: {t:.4f} ms | {card}", flush=True)
+    for name, route in solver["routes"].items():
+        print(f"[solver-times] wall {name:24s} {_wall_ms(route, 3):.4f} ms per call "
+              f"(host clock, 3 calls) | {card}", flush=True)
     return ms
 
 
@@ -274,6 +443,9 @@ def main() -> None:
     phase_kernel(dev)
     main_run = phase_main_path(dev)
     ms = phase_times(main_run, card)
+    phase_blocks(dev)
+    solver = phase_solver_main(dev)
+    solver_ms = phase_solver_times(solver, card)
     record = {"kernels": [{
         "name": "gemm_epilogue",
         "route": "cuda",
@@ -283,7 +455,20 @@ def main() -> None:
         "max_abs_err": main_run["max_abs_err"],
         "ms": ms["kernel"],
         "plain_ms": ms["plain"],
-    }]}
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "tpumathlib_torch/csrc/dense_block.cu",
+        "replaces": replaces,
+        "launches": solver["launches"][block],
+        "max_abs_err": solver["max_abs_err"][kind],
+        "ms": solver_ms[f"{kind} kernel"],
+        "plain_ms": solver_ms[f"{kind} plain"],
+    } for name, kind, block, replaces in (
+        ("potrf_onelaunch (chol_inv_block + gemm_epilogue)", "potrf", "_chol_inv128",
+         "tpumathlib/solver/onelaunch.py:231"),
+        ("getrf_onelaunch (lu_inv_block + gemm_epilogue)", "getrf", "_lu_inv128",
+         "tpumathlib/solver/onelaunch.py:481"))]}
     print(card_line(), flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,7 @@ module paths and public names, imports ``torch`` and never ``jax``. Each
 TPU kernel of the reference becomes a kernel written by hand for Hopper
 (``csrc/``), with its plain PyTorch version beside it for CPU tensors.
 
-Ported so far (the GEMM slice):
+Ported so far (the GEMM slice, then the Cholesky / no-pivot LU slice):
 - ``tpumathlib_torch.core``       — errors, dtype traits, checks, timer,
                                     plans, autotune cache, interop
 - ``tpumathlib_torch.dx``         — the tiled GEMM with fused epilogues
@@ -14,6 +14,9 @@ Ported so far (the GEMM slice):
                                     Level-2 helpers they need
 - ``tpumathlib_torch.heuristics`` — roofline model + discovery
 - ``tpumathlib_torch.entry``      — the main path's entry point
+- ``tpumathlib_torch.solver``     — xpotrf/xgetrf/xtrtri drivers and the
+                                    blocked factorizations they route to
+                                    on the card (kernels B2, B3)
 """
 
 __version__ = "0.1.0"

@@ -6,10 +6,11 @@ package takes its plain PyTorch version only for tensors on the CPU, and
 for CUDA tensors it launches its kernel or raises.
 
 The kernels are compiled at first use, never at import, so the package
-imports on machines without ``nvcc``. ``nvcc`` compiles every
-``csrc/*.cu`` into one shared library with a plain C interface,
+imports on machines without ``nvcc``. One ``nvcc`` per ``csrc/*.cu``, all
+started together, compiles each source to an object; one more links them
+into a shared library with a plain C interface,
 ``build/tpumathlib_torch/<hash>/libtml_kernels.so`` under the repository
-root; the hash covers the sources and the flags, so an edited source
+root. The hash covers the sources and the flags, so an edited source
 rebuilds. The library is loaded with ctypes.
 """
 
@@ -30,7 +31,7 @@ from tpumathlib_torch.core.errors import ExecutionError
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / "build" / "tpumathlib_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -67,13 +68,26 @@ def build_kernels() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libtml_kernels.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "nvcc.log").write_text(proc.stdout + proc.stderr)
+    nvcc, tag = _nvcc(), os.getpid()
+    objs = [out_dir / f"{src.stem}.{tag}.o" for src in srcs]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(srcs, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in compiles]
+    outs = [proc.communicate()[0] for proc in procs]
+    (out_dir / "nvcc.log").write_text("".join(outs))
+    for cmd, proc, out in zip(compiles, procs, outs):
+        if proc.returncode != 0:
+            raise ExecutionError(
+                f"kernel build failed (exit {proc.returncode}): {' '.join(cmd)}\n{out}")
+    tmp = out_dir / f"libtml_kernels.{tag}.tmp"
+    link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+    proc = subprocess.run(link, capture_output=True, text=True)
     if proc.returncode != 0:
         raise ExecutionError(
-            f"kernel build failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+            f"kernel link failed (exit {proc.returncode}): {' '.join(link)}\n{proc.stderr}")
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, lib)
     return lib
 
@@ -89,6 +103,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         p,                                      # stream
     ]
     lib.tml_gemm_epilogue.restype = i32
+    # dense_block.cu: (a, lda, out, ld, ..., stream), f32 blocks of 128 x 128
+    lib.tml_chol_inv_block.argtypes = [p, i64, p, i64, p, i64, p]
+    lib.tml_chol_inv_block.restype = i32
+    lib.tml_lu_inv_block.argtypes = [p, i64, p, i64, p, i64, p, i64, p]
+    lib.tml_lu_inv_block.restype = i32
     lib.tml_gemm_configs.argtypes = [ctypes.POINTER(i32), i32]
     lib.tml_gemm_configs.restype = i32
     lib.tml_error_string.argtypes = [i32]
