@@ -34,6 +34,19 @@ Phases; any failure raises and the exit code is non-zero:
    the vendor route (torch.linalg) of each factorization, and for each
    block kernel against its plain version; then each route of phase 7 on
    the host clock.
+9. QR block kernels — the Householder reconstruction and the upper-
+   triangular inverse of csrc/qr_block.cu, and the whole block step
+   _qr_block128 at j0 = 0 and 128, against their plain versions on a
+   Gaussian (512, 128) block orthonormalised by the plain CholeskyQR2 steps.
+10. QR main path — n=4096 f32 through xgeqrf(a), qr_onelaunch(a) and
+   geqrf_onelaunch(a) then orgqr_onelaunch(vr, t): each must grow both
+   driver counts by 1 and the counts of every sweep and of the GEMM kernel;
+   Q·R − A, QᵀQ − I, tril(R, −1) == 0, info == 0, Q and R against the plain
+   drivers, and xormqr against Qᵀ·C. Prints the worst block's condition.
+11. QR times — CUDA events for the kernel route, the plain version and the
+   vendor route (torch.linalg.qr, torch.geqrf) of geqrf, orgqr and both,
+   and for each new block kernel against its plain version; then each route
+   of phase 10 on the host clock.
 The line before the last is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -41,6 +54,7 @@ The line before the last is a JSON record of the kernels; the last line is
 from __future__ import annotations
 
 import ctypes
+import importlib
 import json
 import subprocess
 import time
@@ -56,6 +70,8 @@ from tpumathlib_torch.dx import cuda_utils, gemm
 from tpumathlib_torch.dx.gemm import _pallas_matmul_plain, pallas_matmul
 from tpumathlib_torch.entry import entry
 from tpumathlib_torch.solver import blocked, dense, onelaunch
+
+qr = importlib.import_module("tpumathlib_torch.solver.qr_onelaunch")  # the package exports a function of this name
 
 F32, BF16, F16, I8 = torch.float32, torch.bfloat16, torch.float16, torch.int8
 MAIN = (4096, 4096, 4096)  # (M, N, K) of the bench headline
@@ -437,6 +453,179 @@ def phase_solver_times(solver: dict, card: str) -> dict:
     return ms
 
 
+def _cholqr2_plain(b):
+    """The orthonormal basis of an (m, 128) block by the plain CholeskyQR2 steps."""
+    mm = onelaunch._mm_plain
+    _, w1 = blocked._chol_inv128_plain(mm(b.mT, b))
+    q1 = mm(b, w1.mT)
+    _, w2 = blocked._chol_inv128_plain(mm(q1.mT, q1))
+    return mm(q1, w2.mT)
+
+
+def _half_diag_gram(v):
+    """T⁻¹ as _t_from_v builds it: VᵀV with its diagonal halved."""
+    s = onelaunch._mm_plain(v.mT, v)
+    s.diagonal().mul_(0.5)
+    return s
+
+
+def phase_qr_blocks(dev) -> None:
+    """The QR block kernels and the block step against their plain versions.
+    Tolerance 1e-5 max-scaled per output: the same f32 steps, apart from the
+    FMAs nvcc contracts and B1's order of summation."""
+    gen = torch.Generator(device=dev).manual_seed(8128)
+    b = torch.randn((512, 128), generator=gen, device=dev)
+    q = _cholqr2_plain(b)
+    vm = qr._unit_lower(qr._qr_block128_plain(b, 0)[0])
+    tinv = _half_diag_gram(vm)
+    cases = [("hh_recon_block", "(v1, d, inv M)", qr._hh_recon128(q[:128]),
+              qr._hh_recon128_plain(q[:128])),
+             ("inv_upper_block", "T^-1 of a block", (onelaunch._inv_upper128(tinv),),
+              (onelaunch._inv_upper128_plain(tinv),)),
+             ("_t_from_v", "B1 + inv_upper", (qr._t_from_v(vm),),
+              (qr._t_from_v(vm, qr._plain_ops()),))]
+    cases += [("_qr_block128", f"j0={j0} (v, v1, rd)", qr._qr_block128(b, j0),
+               qr._qr_block128_plain(b, j0)) for j0 in (0, 128)]
+    torch.cuda.synchronize()
+    failures = []
+    for name, what, got, want in cases:
+        errs = [max_scaled_err(g, w) for g, w in zip(got, want)]
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        ok = max(errs) <= 1e-5 and finite
+        print(f"[qr-blocks] {name:15s} {what:20s} max-scaled err per output "
+              f"{', '.join(f'{e:.3e}' for e in errs)} (tol 1e-5) {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            failures.append(f"{name} {what}")
+    if failures:
+        raise SystemExit(f"chip_smoke: QR block kernels failed: {failures}")
+
+
+_QR_COUNTS = (pallas_matmul, blocked._chol_inv128, qr._hh_recon128, onelaunch._inv_upper128,
+              qr.geqrf_onelaunch, qr.orgqr_onelaunch)
+
+
+def _geqrf_then_orgqr(a):
+    vr, t = qr.geqrf_onelaunch(a)
+    return qr.orgqr_onelaunch(vr, t), torch.triu(vr)
+
+
+def _qr_plain(a):
+    vr, t = qr._geqrf_onelaunch_plain(a)
+    return qr._orgqr_onelaunch_plain(vr, t), torch.triu(vr)
+
+
+def phase_qr_main(dev) -> dict:
+    """The QR slice at n=SOLVER_N through the public drivers. Bounds of the
+    reference test (tests/test_solver_dense.py:377-381): rel(Q·R − A) and
+    max|QᵀQ − I| < 5e-5, tril(R, −1) exactly 0. Against the plain drivers
+    1e-4 max-scaled: summation-order differences pass through two Gram-matrix
+    Cholesky factorizations per block, which square its condition number."""
+    n = SOLVER_N
+    gen = torch.Generator(device=dev).manual_seed(2025)
+    a = torch.randn((n, n), generator=gen, device=dev)
+    routes = {
+        "xgeqrf(a)": lambda: dense.xgeqrf(a),
+        "qr_onelaunch(a)": lambda: (*qr.qr_onelaunch(a), None),
+        "geqrf_onelaunch+orgqr_onelaunch": lambda: (*_geqrf_then_orgqr(a), None),
+    }
+    torch.cuda.synchronize()
+    for f in _QR_COUNTS:
+        f.launches = 0
+    outs, grew = {}, {}
+    for name, route in routes.items():
+        before = {f.__name__: f.launches for f in _QR_COUNTS}
+        outs[name] = route()
+        grew[name] = {f.__name__: f.launches - before[f.__name__] for f in _QR_COUNTS}
+    torch.cuda.synchronize()
+    launches = {f.__name__: f.launches for f in _QR_COUNTS}
+    print(f"[qr] launches in the main path: {launches}", flush=True)
+
+    q_p, r_p = _qr_plain(a)
+    conds = [float(torch.linalg.cond(r_p[j:j + 128, j:j + 128].double()))
+             for j in range(0, n, 128)]
+    print(f"[qr] worst 128-block 2-norm condition (plain route's R blocks) {max(conds):.3e} "
+          f"(CholeskyQR2 keeps f32 orthogonality below about 4e3)", flush=True)
+    a64 = a.double()
+    eye64 = torch.eye(n, dtype=torch.float64, device=dev)
+    max_abs = {"geqrf": 0.0, "orgqr": 0.0}
+    failures = []
+    for name, (q, r, info) in outs.items():
+        q64, r64 = q.double(), r.double()
+        rel = float((q64 @ r64 - a64).abs().max() / a64.abs().max())
+        orth = float((q64.mT @ q64 - eye64).abs().max())
+        lower_zero = bool((torch.tril(r, -1) == 0).all())
+        vs_q, vs_r = max_scaled_err(q, q_p), max_scaled_err(r, r_p)
+        max_abs["orgqr"] = max(max_abs["orgqr"], max_abs_rel(q, q_p)[0])
+        max_abs["geqrf"] = max(max_abs["geqrf"], max_abs_rel(r, r_p)[0])
+        g = grew[name]
+        launched = (g["geqrf_onelaunch"] == 1 and g["orgqr_onelaunch"] == 1
+                    and min(g["pallas_matmul"], g["_chol_inv128"], g["_hh_recon128"],
+                            g["_inv_upper128"]) > 0)
+        finite = bool(torch.isfinite(q).all() and torch.isfinite(r).all())
+        info_ok = info is None or int(info) == 0
+        ok = (rel < 5e-5 and orth < 5e-5 and lower_zero and info_ok and max(vs_q, vs_r) <= 1e-4
+              and launched and finite and q.shape == r.shape == (n, n)
+              and q.dtype == r.dtype == F32)
+        print(f"[qr] {name:32s} launches gemm +{g['pallas_matmul']} chol +{g['_chol_inv128']} "
+              f"recon +{g['_hh_recon128']} inv_upper +{g['_inv_upper128']} drivers "
+              f"+{g['geqrf_onelaunch']}/+{g['orgqr_onelaunch']} | rel QR-A {rel:.3e} "
+              f"orth {orth:.3e} (tol 5e-5) tril(R)=0 {lower_zero} info "
+              f"{'-' if info is None else int(info)} | vs plain max-scaled Q {vs_q:.3e} "
+              f"R {vs_r:.3e} (tol 1e-4) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(name)
+    q = outs["xgeqrf(a)"][0]
+    c = torch.randn((n, 64), generator=gen, device=dev)
+    err = max_scaled_err(dense.xormqr(q, c, "L", "T"), q.mT @ c)
+    print(f"[qr] xormqr(q, c, 'L', 'T') vs q.mT @ c: max-scaled {err:.3e} (tol 1e-6) "
+          f"{'ok' if err <= 1e-6 else 'FAIL'}", flush=True)
+    if err > 1e-6:
+        failures.append("xormqr")
+    if failures:
+        raise SystemExit(f"chip_smoke: QR main path failed: {failures}")
+    return {"launches": launches, "max_abs_err": max_abs, "a": a, "routes": routes}
+
+
+def phase_qr_times(qrd: dict, card: str) -> dict:
+    n = SOLVER_N
+    a = qrd["a"]
+    vr, t = qr.geqrf_onelaunch(a)
+    runs = {
+        "qr kernel": lambda: qr.qr_onelaunch(a),
+        "qr plain": lambda: _qr_plain(a),
+        "qr vendor": lambda: torch.linalg.qr(a),
+        "geqrf kernel": lambda: qr.geqrf_onelaunch(a),
+        "geqrf plain": lambda: qr._geqrf_onelaunch_plain(a),
+        "geqrf vendor": lambda: torch.geqrf(a),
+        "orgqr kernel": lambda: qr.orgqr_onelaunch(vr, t),
+        "orgqr plain": lambda: qr._orgqr_onelaunch_plain(vr, t),
+    }
+    ms = _median_ms(runs, warmup=1, iters=3)
+    for name, tm in ms.items():
+        flop = 8 * n**3 / 3 if name.startswith("qr") else 4 * n**3 / 3
+        print(f"[qr-times] {name:12s} n={n} f32: {tm:.4f} ms = {flop / tm / 1e6:.1f} GFLOP/s "
+              f"({'8' if name.startswith('qr') else '4'}n^3/3) | {card}", flush=True)
+    b = a[:, :128]   # the first block of the main path
+    qtop = _cholqr2_plain(b)[:128]
+    tinv = _half_diag_gram(qr._unit_lower(qr._qr_block128_plain(b, 0)[0]))
+    blocks = {
+        "hh_recon_block kernel": lambda: qr._hh_recon128(qtop),
+        "hh_recon_block plain": lambda: qr._hh_recon128_plain(qtop),
+        "inv_upper_block kernel": lambda: onelaunch._inv_upper128(tinv),
+        "inv_upper_block plain": lambda: onelaunch._inv_upper128_plain(tinv),
+        "_qr_block128 kernel": lambda: qr._qr_block128(b, 0),
+        "_qr_block128 plain": lambda: qr._qr_block128_plain(b, 0),
+    }
+    for name, tm in _median_ms(blocks, warmup=2, iters=10).items():
+        shape = f"({n}, 128)" if name.startswith("_qr") else "128x128"
+        print(f"[qr-times] {name:23s} {shape} f32: {tm:.4f} ms | {card}", flush=True)
+    for name, route in qrd["routes"].items():
+        print(f"[qr-times] wall {name:32s} {_wall_ms(route, 3):.4f} ms per call "
+              f"(host clock, 3 calls) | {card}", flush=True)
+    return ms
+
+
 def main() -> None:
     dev, card = phase_device()
     phase_build()
@@ -446,6 +635,9 @@ def main() -> None:
     phase_blocks(dev)
     solver = phase_solver_main(dev)
     solver_ms = phase_solver_times(solver, card)
+    phase_qr_blocks(dev)
+    qrd = phase_qr_main(dev)
+    qr_ms = phase_qr_times(qrd, card)
     record = {"kernels": [{
         "name": "gemm_epilogue",
         "route": "cuda",
@@ -468,7 +660,21 @@ def main() -> None:
         ("potrf_onelaunch (chol_inv_block + gemm_epilogue)", "potrf", "_chol_inv128",
          "tpumathlib/solver/onelaunch.py:231"),
         ("getrf_onelaunch (lu_inv_block + gemm_epilogue)", "getrf", "_lu_inv128",
-         "tpumathlib/solver/onelaunch.py:481"))]}
+         "tpumathlib/solver/onelaunch.py:481"))] + [{
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": qrd["launches"][count],
+        "max_abs_err": qrd["max_abs_err"][kind],
+        "ms": qr_ms[f"{kind} kernel"],
+        "plain_ms": qr_ms[f"{kind} plain"],
+    } for name, kind, count, source, replaces in (
+        ("geqrf_onelaunch (chol_inv_block + hh_recon_block + inv_upper_block + gemm_epilogue)",
+         "geqrf", "_hh_recon128", "tpumathlib_torch/csrc/qr_block.cu",
+         "tpumathlib/solver/qr_onelaunch.py:318"),
+        ("orgqr_onelaunch (gemm_epilogue)", "orgqr", "orgqr_onelaunch",
+         "tpumathlib_torch/csrc/gemm_epilogue.cu", "tpumathlib/solver/qr_onelaunch.py:439"))]}
     print(card_line(), flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """Parity of tpumathlib_torch.solver.dense with tpumathlib.solver.dense.
 
 Mirrors ``tests/test_solver_dense.py:45-107`` through both packages on the
-same seeded float64 inputs, at those tests' tolerances (LAPACK-level: 1e-12
+same seeded float64 inputs (``xgeqrf``/``xormqr`` at ``:93-100``), at those tests' tolerances (LAPACK-level: 1e-12
 for the factors, 1e-10 for the solves), and compares the two packages'
 outputs with each other. Pivots are compared as the reference returns them
 (0-based). Off the kernel route the port takes torch's vendor path where
@@ -17,8 +17,10 @@ import torch
 
 from tpumathlib.solver import dense as ref
 from tpumathlib_torch.core.check import assert_allclose, max_scaled_err
-from tpumathlib_torch.solver import dense, onelaunch, potrf_batched, xgetrf, xgetrs
-from tpumathlib_torch.solver import xpotrf, xpotrs, xtrtri
+from tpumathlib_torch.solver import dense, onelaunch, potrf_batched, xgeqrf, xgetrf, xgetrs
+from tpumathlib_torch.solver import xorgqr, xormqr, xpotrf, xpotrs, xtrtri
+from tpumathlib_torch.solver.qr_onelaunch import (_geqrf_onelaunch_plain, _orgqr_onelaunch_plain,
+                                                  qr_onelaunch)
 
 torch.set_num_threads(1)
 
@@ -128,6 +130,30 @@ def test_xgetrf_nopivot_batched(rng):
     _same(lu, rlu)
 
 
+def test_xgeqrf_ormqr(gen, rng):
+    q, r, info = xgeqrf(torch.from_numpy(gen))
+    rq, rr, rinfo = ref.xgeqrf(jnp.asarray(gen))
+    assert int(info) == int(rinfo) == 0 and info.dtype == torch.int32
+    qn, rn = q.numpy(), r.numpy()
+    assert_allclose(qn @ rn, gen, rtol=1e-10)
+    assert_allclose(qn.T @ qn, np.eye(N), rtol=1e-10)
+    # the two packages agree up to the signs of R's rows
+    s = np.sign(np.diag(rn) / np.diag(np.asarray(rr)))
+    _same(r, s[:, None] * np.asarray(rr), 1e-10)
+    _same(q, np.asarray(rq) * s, 1e-10)
+    c = rng.normal(size=(N, 4))
+    qc = xormqr(q, torch.from_numpy(c), "L", "T")
+    assert_allclose(qc.numpy(), qn.T @ c, rtol=1e-10)
+    _same(qc, s[:, None] * np.asarray(ref.xormqr(rq, jnp.asarray(c), "L", "T")), 1e-10)
+    ct = rng.normal(size=(4, N))
+    _same(xormqr(q, torch.from_numpy(ct), "R", "N"), ct @ qn)
+
+
+def test_xorgqr_returns_q(gen):
+    q, r, _ = xgeqrf(torch.from_numpy(gen))
+    assert xorgqr(q) is q and xorgqr(q, r) is q
+
+
 @pytest.mark.parametrize("uplo,diag", [("L", "N"), ("U", "N"), ("L", "U")])
 def test_xtrtri(gen, uplo, diag):
     t = np.tril(gen) if uplo == "L" else np.triu(gen)
@@ -166,6 +192,36 @@ def test_use_onelaunch_bounds():
     for shape in ((1792, 1792), (12544, 12544), (2100, 2100), (4096, 2048), (2, 4096, 4096)):
         assert not dense._use_onelaunch(_on_card(shape))
     assert not dense._use_onelaunch(_on_card((4096, 4096), torch.float64))
+
+
+def test_xgeqrf_route_bounds():
+    """QR takes the kernel route of the factorizations only up to n = 8192."""
+    assert not dense._use_qr_onelaunch(torch.empty((4096, 4096), device="meta"))
+    assert not dense._use_qr_onelaunch(torch.eye(2048))
+    for n in (2048, 4096, 8192):
+        assert dense._use_qr_onelaunch(_on_card((n, n)))
+    for shape in ((8448, 8448), (12288, 12288), (1792, 1792), (4096, 2048)):
+        assert not dense._use_qr_onelaunch(_on_card(shape))
+
+
+def test_xgeqrf_takes_the_kernel_route(monkeypatch, rng):
+    """On the route, xgeqrf returns qr_onelaunch's (Q, R) with info 0; here
+    the route runs the plain drivers (CPU tensors) at n=512."""
+    calls = []
+
+    def spy(a):
+        calls.append("qr_onelaunch")
+        return qr_onelaunch(a)
+
+    monkeypatch.setattr(dense, "_use_onelaunch", lambda a: a.ndim == 2)
+    monkeypatch.setattr(dense, "qr_onelaunch", spy)
+    a = torch.from_numpy(rng.normal(size=(512, 512)).astype(np.float32))
+    q, r, info = xgeqrf(a)
+    assert calls == ["qr_onelaunch"] and int(info) == 0
+    vr, t = _geqrf_onelaunch_plain(a)
+    assert torch.equal(r, torch.triu(vr)) and torch.equal(q, _orgqr_onelaunch_plain(vr, t))
+    qn, rn = q.double().numpy(), r.double().numpy()
+    assert np.abs(qn @ rn - a.numpy()).max() / np.abs(a.numpy()).max() < 5e-5
 
 
 def test_drivers_take_the_kernel_route(monkeypatch, rng):

@@ -6,7 +6,8 @@ module paths and public names, imports ``torch`` and never ``jax``. Each
 TPU kernel of the reference becomes a kernel written by hand for Hopper
 (``csrc/``), with its plain PyTorch version beside it for CPU tensors.
 
-Ported so far (the GEMM slice, then the Cholesky / no-pivot LU slice):
+Ported so far (the GEMM slice, the Cholesky / no-pivot LU slice, the QR
+slice):
 - ``tpumathlib_torch.core``       — errors, dtype traits, checks, timer,
                                     plans, autotune cache, interop
 - ``tpumathlib_torch.dx``         — the tiled GEMM with fused epilogues
@@ -14,9 +15,10 @@ Ported so far (the GEMM slice, then the Cholesky / no-pivot LU slice):
                                     Level-2 helpers they need
 - ``tpumathlib_torch.heuristics`` — roofline model + discovery
 - ``tpumathlib_torch.entry``      — the main path's entry point
-- ``tpumathlib_torch.solver``     — xpotrf/xgetrf/xtrtri drivers and the
-                                    blocked factorizations they route to
-                                    on the card (kernels B2, B3)
+- ``tpumathlib_torch.solver``     — xpotrf/xgetrf/xgeqrf/xtrtri drivers and
+                                    the blocked factorizations they route
+                                    to on the card (kernels B2, B3, B4a,
+                                    B4b)
 """
 
 __version__ = "0.1.0"

@@ -35,28 +35,13 @@
 
 #include <cstdint>
 
+#include "block_sweep.cuh"
+
 namespace {
 
-constexpr int kNB = 128;          // block edge
-constexpr int kLD = kNB + 1;      // padded row of a shared-memory tile
-constexpr int kThreads = 1024;
-constexpr int kRowStep = kThreads / kNB;  // 8 rows in flight per column
-constexpr size_t kTileBytes = sizeof(float) * kNB * kLD;
+using namespace tml_block;
+
 constexpr size_t kSmemBytes = 2 * kTileBytes + sizeof(float) * kNB;
-
-__device__ void load_block(float* d, const float* a, int64_t lda) {
-  for (int e = threadIdx.x; e < kNB * kNB; e += kThreads) {
-    const int i = e / kNB, k = e % kNB;
-    d[i * kLD + k] = a[i * lda + k];
-  }
-}
-
-__device__ void identity(float* w) {
-  for (int e = threadIdx.x; e < kNB * kNB; e += kThreads) {
-    const int i = e / kNB, k = e % kNB;
-    w[i * kLD + k] = i == k ? 1.f : 0.f;
-  }
-}
 
 // Fused Cholesky + inverse. Step j, with rs = 1 / sqrt(d[j][j]):
 //   d[i][k] -= (d[i][j] rs) (d[j][k] rs)   for i, k > j  (trailing block)
@@ -133,36 +118,15 @@ lu_inv_kernel(const float* a, int64_t lda, float* lu, int64_t ldlu, float* wl, i
     __syncthreads();
   }
 
-  // store L\U and inv(L); then reuse r for inv(U)
+  // store L\U and inv(L); then reuse r for inv(U) (the sweep starts with a barrier)
   for (int e = threadIdx.x; e < kNB * kNB; e += kThreads) {
     const int i = e / kNB, c = e % kNB;
     const float v = d[i * kLD + c];
     lu[i * ldlu + c] = i > c ? v / d[c * kLD + c] : v;
     wl[i * ldwl + c] = r[i * kLD + c];
   }
-  if (threadIdx.x < kNB) dinv[threadIdx.x] = 1.f / d[threadIdx.x * kLD + threadIdx.x];
-  __syncthreads();
-  identity(r);
-  __syncthreads();
-
-  for (int k = kNB - 1; k > 0; --k) {
-    if (kc >= k) {
-      const float wk = r[k * kLD + kc];
-      for (int i = r0; i < k; i += kRowStep)
-        r[i * kLD + kc] -= (d[i * kLD + k] * dinv[k]) * wk;
-    }
-    __syncthreads();
-  }
-  for (int e = threadIdx.x; e < kNB * kNB; e += kThreads) {
-    const int i = e / kNB, c = e % kNB;
-    wu[i * ldwu + c] = r[i * kLD + c] * dinv[i];
-  }
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(kSmemBytes));
+  inv_upper_sweep(d, r, dinv);
+  store_scaled(wu, ldwu, r, dinv);
 }
 
 }  // namespace
@@ -175,7 +139,7 @@ extern "C" {
 // the input block itself: the block is read whole before anything is stored.
 int tml_chol_inv_block(const float* a, int64_t lda, float* l, int64_t ldl, float* w,
                        int64_t ldw, void* stream) {
-  cudaError_t err = allow_smem(chol_inv_kernel);
+  cudaError_t err = allow_smem(chol_inv_kernel, kSmemBytes);
   if (err != cudaSuccess) return err;
   chol_inv_kernel<<<1, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       a, lda, l, ldl, w, ldw);
@@ -184,7 +148,7 @@ int tml_chol_inv_block(const float* a, int64_t lda, float* l, int64_t ldl, float
 
 int tml_lu_inv_block(const float* a, int64_t lda, float* lu, int64_t ldlu, float* wl,
                      int64_t ldwl, float* wu, int64_t ldwu, void* stream) {
-  cudaError_t err = allow_smem(lu_inv_kernel);
+  cudaError_t err = allow_smem(lu_inv_kernel, kSmemBytes);
   if (err != cudaSuccess) return err;
   lu_inv_kernel<<<1, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       a, lda, lu, ldlu, wl, ldwl, wu, ldwu);

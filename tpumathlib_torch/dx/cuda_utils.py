@@ -108,6 +108,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tml_chol_inv_block.restype = i32
     lib.tml_lu_inv_block.argtypes = [p, i64, p, i64, p, i64, p, i64, p]
     lib.tml_lu_inv_block.restype = i32
+    # qr_block.cu: the same layout; hh_recon also writes d, 128 floats
+    lib.tml_hh_recon_block.argtypes = [p, i64, p, i64, p, i64, p, p]
+    lib.tml_hh_recon_block.restype = i32
+    lib.tml_inv_upper_block.argtypes = [p, i64, p, i64, p]
+    lib.tml_inv_upper_block.restype = i32
     lib.tml_gemm_configs.argtypes = [ctypes.POINTER(i32), i32]
     lib.tml_gemm_configs.restype = i32
     lib.tml_error_string.argtypes = [i32]

@@ -41,21 +41,31 @@ def _chol_inv128_plain(d):
     return torch.tril(d.T * rs), torch.tril(r * rs[:, None])
 
 
+def _launch_block(entry: str, a, outs: int, extra=()) -> list:
+    """Launch one 128×128 sweep of the kernel library on the current stream:
+    ``entry(a, lda, out_1, ld_1, ..., out_outs, ld_outs, *extra, stream)``,
+    with fresh (128, 128) f32 outputs, which it returns. Raises on a failed
+    build, load or launch."""
+    lib = cuda_utils.load_kernels()
+    check(a.stride(-1) == 1, "the block needs unit column stride")
+    res = [torch.empty((_NB, _NB), dtype=torch.float32, device=a.device) for _ in range(outs)]
+    args = [a.data_ptr(), a.stride(0)]
+    for t in res:
+        args += [t.data_ptr(), t.stride(0)]
+    with torch.cuda.device(a.device):
+        rc = getattr(lib, entry)(*args, *(t.data_ptr() for t in extra),
+                                 torch.cuda.current_stream(a.device).cuda_stream)
+    cuda_utils.check_launch(lib, rc, entry)
+    return res
+
+
 def _chol_inv128(d):
     """Fused Cholesky + inverse of a (128, 128) f32 SPD block: (L, inv(L)),
     L lower with its strict upper triangle exactly 0."""
     _check_block(d)
     if not on_cuda(d):
         return _chol_inv128_plain(d)
-    lib = cuda_utils.load_kernels()
-    check(d.stride(-1) == 1, "the block needs unit column stride")
-    l = torch.empty((_NB, _NB), dtype=torch.float32, device=d.device)
-    w = torch.empty_like(l)
-    with torch.cuda.device(d.device):
-        rc = lib.tml_chol_inv_block(d.data_ptr(), d.stride(0), l.data_ptr(), l.stride(0),
-                                    w.data_ptr(), w.stride(0),
-                                    torch.cuda.current_stream(d.device).cuda_stream)
-    cuda_utils.check_launch(lib, rc, "chol_inv_block")
+    l, w = _launch_block("tml_chol_inv_block", d, 2)
     _chol_inv128.launches += 1
     return l, w
 

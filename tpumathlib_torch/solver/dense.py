@@ -1,9 +1,10 @@
-"""Dense Cholesky, LU and triangular inverse — the cuSOLVER 64-bit X-API.
+"""Dense Cholesky, LU, QR and triangular inverse — the cuSOLVER 64-bit X-API.
 
-Counterpart of the Cholesky/LU part of ``tpumathlib/solver/dense.py``:
+Counterpart of the Cholesky/LU/QR part of ``tpumathlib/solver/dense.py``:
 
   cusolverDnXpotrf/potrs      → xpotrf / xpotrs
   cusolverDnXgetrf (+no-pivot)→ xgetrf(pivot=True/False) / xgetrs
+  cusolverDnXgeqrf + orgqr/ormqr → xgeqrf / xorgqr / xormqr
   cusolverDnXtrtri            → xtrtri
   cusolverDnpotrfBatched      → potrf_batched
 
@@ -12,8 +13,9 @@ Every driver returns ``info`` as the reference does (0 = success; > 0 =
 
 Routing: a square 2-D f32 CUDA matrix with 2048 ≤ n ≤ 12288 and
 n % 256 == 0 goes through the repository's kernels
-(``solver.onelaunch``), as the reference routes it to its Pallas kernels on
-the TPU. Anything else takes torch's vendor path where the reference takes
+(``solver.onelaunch``; for ``xgeqrf`` only up to n = 8192,
+``solver.qr_onelaunch``), as the reference routes it to its Pallas kernels
+on the TPU. Anything else takes torch's vendor path where the reference takes
 XLA's, and the reference's unpivoted elimination for ``pivot=False``.
 """
 
@@ -22,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from tpumathlib_torch.solver.onelaunch import getrf_onelaunch, potrf_onelaunch
+from tpumathlib_torch.solver.qr_onelaunch import qr_onelaunch
 
 
 def _finite_info(x, diag_only: bool = False) -> torch.Tensor:
@@ -115,6 +118,34 @@ def xgetrs(lu, piv, b):
     vec = b.ndim == lu.ndim - 1
     x = torch.linalg.lu_solve(lu, (piv + 1).to(torch.int32), b[..., None] if vec else b)
     return x[..., 0] if vec else x
+
+
+def _use_qr_onelaunch(a) -> bool:
+    """The QR route is the factorizations' route up to n = 8192."""
+    return _use_onelaunch(a) and a.shape[0] <= 8192
+
+
+def xgeqrf(a):
+    """QR: returns (q, r, info) with Q explicit, as the reference does. On
+    the kernel route a block with f32 condition above about 4e3 degrades R
+    (finite); info flags only a non-finite diagonal of R, as in the
+    reference, with no fallback."""
+    if _use_qr_onelaunch(a):
+        q, r = qr_onelaunch(a)
+    else:
+        q, r = torch.linalg.qr(a, mode="reduced")
+    return q, r, _finite_info(r, diag_only=True)
+
+
+def xorgqr(q, r=None):
+    """≙ cusolverDnXorgqr: materialize Q (already explicit here)."""
+    return q
+
+
+def xormqr(q, c, side: str = "L", trans: str = "N"):
+    """Apply Q (or Qᴴ) to C (≙ cusolverDnXormqr)."""
+    qt = q.mT.conj() if trans.upper() in ("T", "C") else q
+    return qt @ c if side.upper() == "L" else c @ qt
 
 
 def xtrtri(a, uplo: str = "L", diag: str = "N"):

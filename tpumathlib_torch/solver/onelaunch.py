@@ -19,6 +19,9 @@ memory, and each step is a kernel of the repository:
   ``tml_chol_inv_block`` (``blocked._chol_inv128``) or ``tml_lu_inv_block``
   (``_lu_inv128``).
 
+``_inv_upper128`` (``tml_inv_upper_block``, ``csrc/qr_block.cu``) is the
+standalone upper-triangular inverse that ``solver.qr_onelaunch`` uses.
+
 CPU tensors take the plain versions beside them (``_potrf_onelaunch_plain``,
 ``_getrf_onelaunch_plain``): the same blocked algorithm with the sweeps as
 torch loops and the products as ``torch.matmul``. CUDA tensors launch the
@@ -32,10 +35,10 @@ import functools
 import torch
 
 from tpumathlib_torch.core.errors import check
-from tpumathlib_torch.dx import cuda_utils
 from tpumathlib_torch.dx.cuda_utils import on_cuda
 from tpumathlib_torch.dx.gemm import _pallas_matmul_plain, pallas_matmul
-from tpumathlib_torch.solver.blocked import _check_block, _chol_inv128, _chol_inv128_plain
+from tpumathlib_torch.solver.blocked import (_check_block, _chol_inv128, _chol_inv128_plain,
+                                             _launch_block)
 
 _NB = 128     # diagonal block of a sweep
 _P = 256      # panel width
@@ -118,20 +121,35 @@ def _inv_unit_lower128(lu):
     return w
 
 
-def _inv_upper128(lu):
-    """inv(upper(lu)): column-scaled elementary factors, then the rows
-    scaled by 1/U[k, k]."""
-    nb = lu.shape[0]
-    dinv = 1.0 / torch.diagonal(lu)
-    w = torch.eye(nb, dtype=lu.dtype, device=lu.device)
+def _inv_upper128_plain(u):
+    """inv(upper(u)): column-scaled elementary factors, then the rows
+    scaled by 1/U[k, k]. The strict lower part of u is not read."""
+    nb = u.shape[0]
+    dinv = 1.0 / torch.diagonal(u)
+    w = torch.eye(nb, dtype=u.dtype, device=u.device)
     for k in range(nb - 1, 0, -1):
-        w[:k, k:] -= (lu[:k, k] * dinv[k])[:, None] * w[k, k:]
+        w[:k, k:] -= (u[:k, k] * dinv[k])[:, None] * w[k, k:]
     return w * dinv[:, None]
+
+
+def _inv_upper128(u):
+    """inv(upper(u)) of a (128, 128) f32 block; its strict lower triangle is
+    exactly 0, and a zero diagonal entry turns its row non-finite, as in the
+    reference."""
+    _check_block(u)
+    if not on_cuda(u):
+        return _inv_upper128_plain(u)
+    (w,) = _launch_block("tml_inv_upper_block", u, 1)
+    _inv_upper128.launches += 1
+    return w
+
+
+_inv_upper128.launches = 0
 
 
 def _lu_inv128_plain(d):
     lu = _lu128(d)
-    return lu, _inv_unit_lower128(lu), _inv_upper128(lu)
+    return lu, _inv_unit_lower128(lu), _inv_upper128_plain(lu)
 
 
 def _lu_inv128(d):
@@ -139,15 +157,7 @@ def _lu_inv128(d):
     _check_block(d)
     if not on_cuda(d):
         return _lu_inv128_plain(d)
-    lib = cuda_utils.load_kernels()
-    check(d.stride(-1) == 1, "the block needs unit column stride")
-    lu, wl, wu = (torch.empty((_NB, _NB), dtype=torch.float32, device=d.device)
-                  for _ in range(3))
-    with torch.cuda.device(d.device):
-        rc = lib.tml_lu_inv_block(d.data_ptr(), d.stride(0), lu.data_ptr(), lu.stride(0),
-                                  wl.data_ptr(), wl.stride(0), wu.data_ptr(), wu.stride(0),
-                                  torch.cuda.current_stream(d.device).cuda_stream)
-    cuda_utils.check_launch(lib, rc, "lu_inv_block")
+    lu, wl, wu = _launch_block("tml_lu_inv_block", d, 3)
     _lu_inv128.launches += 1
     return lu, wl, wu
 
