@@ -47,21 +47,38 @@ Phases; any failure raises and the exit code is non-zero:
    vendor route (torch.linalg.qr, torch.geqrf) of geqrf, orgqr and both,
    and for each new block kernel against its plain version; then each route
    of phase 10 on the host clock.
-The line before the last is a JSON record of the kernels; the last line is
-{"ok": true, "device": {...}}.
+12. FFT kernel — dif_fft (csrc/fft_dif.cu) against its plain version and a
+   float64 FFT at N = 256 .. 65536: forward and inverse, natural and raw
+   order (collapse 1 and 2), f32 and bf16 planes, a strided (2, 3, N)
+   batch, and the round trip.
+13. FFT main path — batch 4096 x N 4096 f32 planes through plan_many C2C
+   (both directions), dif_fft(reorder=False) in f32 and bf16 planes, the
+   R2C -> C2R cycle in f32 and precision="bf16", and plan_2d on one
+   4096 x 4096 pair: each must grow dif_fft's count and agree with the plain
+   version and with float64.
+14. FFT times — CUDA events over back-to-back calls for the kernel route,
+   the plain version and one torch.fft call of each of bench.py's FFT lines,
+   with GB/s, TFLOP/s and the share of the bound; then each route of
+   phase 13 on the host clock.
+The line before the last is a JSON record of the kernels, each with its
+bound (the larger of its operations over the card's published peak and its
+bytes over 3.35 TB/s); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import importlib
 import json
+import math
 import subprocess
 import time
 
 import numpy as np
 import torch
 
+from tpumathlib_torch import fft
 from tpumathlib_torch.blas import level3, lt
 from tpumathlib_torch.core.check import max_abs_rel, max_scaled_err
 from tpumathlib_torch.core.interop import to_numpy
@@ -69,6 +86,7 @@ from tpumathlib_torch.core.timer import benchmark
 from tpumathlib_torch.dx import cuda_utils, gemm
 from tpumathlib_torch.dx.gemm import _pallas_matmul_plain, pallas_matmul
 from tpumathlib_torch.entry import entry
+from tpumathlib_torch.fft import stockham
 from tpumathlib_torch.solver import blocked, dense, onelaunch
 
 qr = importlib.import_module("tpumathlib_torch.solver.qr_onelaunch")  # the package exports a function of this name
@@ -626,6 +644,275 @@ def phase_qr_times(qrd: dict, card: str) -> dict:
     return ms
 
 
+# Published peaks of one H100 SXM at 700 W (NVIDIA data sheet): the least time
+# a function could take is the larger of its operations over the peak of their
+# type and its bytes (inputs read once, outputs written once) over HBM3's rate.
+PEAK_BF16 = 989e12
+PEAK_F32 = 67e12
+HBM_BYTES_S = 3.35e12
+
+
+def _bound(ops: float, peak: float, nbytes: float) -> dict:
+    """The record keys bound_ms and bound_by of a function with ``ops``
+    operations at ``peak`` per second and ``nbytes`` of device memory traffic."""
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_BYTES_S * 1e3
+    if t_ops >= t_bytes:
+        return {"bound_ms": t_ops, "bound_by": "operations"}
+    return {"bound_ms": t_bytes, "bound_by": "bytes"}
+
+
+FFT_KERNEL_NS = (256, 1024, 4096, 16384, 65536)   # phase 12's lengths
+FFT_MAIN = (4096, 4096)                           # (batch, N) of the bench's FFT lines
+
+
+DIF_FFT = stockham.dif_fft   # the kernel's wrapper, whose count the main path must grow
+
+
+def _c128(yr, yi):
+    return torch.complex(yr.double(), yi.double())
+
+
+def _rel(got, want) -> float:
+    """Relative L2 error, in float64 on the device."""
+    got = got.to(torch.complex128) if got.is_complex() else got.double()
+    want = want.to(torch.complex128) if want.is_complex() else want.double()
+    return float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+
+
+def _raw_to_natural(y, n: int, collapse: int):
+    return y[..., torch.from_numpy(stockham.shuffle_perm(n, collapse).astype(np.int64)).to(y.device)]
+
+
+@contextlib.contextmanager
+def _plain_fft_engine():
+    """Route every call of ``stockham.dif_fft`` (the plans reach it through
+    ``fft.kernels``) to its plain version, for the plain side of a comparison."""
+    kernel = stockham.dif_fft
+    stockham.dif_fft = stockham._dif_fft_plain
+    try:
+        yield
+    finally:
+        stockham.dif_fft = kernel
+
+
+def phase_fft_kernel(dev) -> None:
+    """dif_fft (csrc/fft_dif.cu) against its plain version and float64 on the
+    card. Bounds: against the plain version rel-L2 ≤ 5e-6 for f32 planes (the
+    same transform, another order of sums) and ≤ 8e-3 for bf16 (an output
+    ulp where the two roundings differ); against float64, f32 < 1e-6 at
+    N ≤ 4096 (the reference's exact=True bound, tests/test_fft_kernels.py:89)
+    and < 1e-5 above (:85), bf16 < 8e-3 (:106); the inverse of the forward
+    against N·x < 1e-5 (:92)."""
+    gen = torch.Generator(device=dev).manual_seed(5150)
+    failures, cases = [], 0
+    for n in FFT_KERNEL_NS:
+        rows = 4 if n <= 16384 else 2
+        xr = torch.randn((rows, n), generator=gen, device=dev)
+        xi = torch.randn((rows, n), generator=gen, device=dev)
+        x64 = _c128(xr, xi)
+        f64, i64 = torch.fft.fft(x64), torch.fft.ifft(x64) * n
+        wide = torch.randn((2, 3, 2 * n), generator=gen, device=dev)[..., ::2]   # (2, 3, n), stride 2
+        cases_n = [("fwd natural f32", (xr, xi), {}, f64),
+                   ("inv natural f32", (xr, xi), {"inverse": True}, i64),
+                   ("fwd raw c=1 f32", (xr, xi), {"reorder": False}, f64),
+                   ("fwd raw c=2 f32", (xr, xi), {"reorder": False, "collapse": 2}, f64),
+                   ("inv raw c=2 f32", (xr, xi), {"reorder": False, "collapse": 2, "inverse": True},
+                    i64),
+                   ("fwd natural bf16", (xr.bfloat16(), xi.bfloat16()), {"halfplanes": True}, f64),
+                   ("inv raw c=1 bf16", (xr.bfloat16(), xi.bfloat16()),
+                    {"halfplanes": True, "reorder": False, "inverse": True}, i64),
+                   ("(2,3,N) strided f32", (wide, wide.flip(0)), {},
+                    torch.fft.fft(_c128(wide, wide.flip(0))))]
+        for what, (ar, ai), kw, want in cases_n:
+            got = stockham.dif_fft(ar, ai, **kw)
+            plain = stockham._dif_fft_plain(ar, ai, **kw)
+            torch.cuda.synchronize()
+            bf16 = kw.get("halfplanes", False)
+            g, p = _c128(*got), _c128(*plain)
+            if not kw.get("reorder", True):
+                g = _raw_to_natural(g, n, kw.get("collapse", 1))
+                p = _raw_to_natural(p, n, kw.get("collapse", 1))
+            vs_plain, vs_f64 = _rel(g, p), _rel(g, want)
+            tol_plain = 8e-3 if bf16 else 5e-6
+            tol_f64 = 8e-3 if bf16 else (1e-6 if n <= 4096 else 1e-5)
+            ok = (vs_plain <= tol_plain and vs_f64 < tol_f64 and got[0].shape == ar.shape
+                  and got[0].dtype == (BF16 if bf16 else F32) and bool(torch.isfinite(g).all()))
+            cases += 1
+            if not ok:
+                failures.append(f"N={n} {what}")
+            print(f"[fft-kernel] N={n:5d} {what:20s} vs plain {vs_plain:.3e} (tol {tol_plain:g}) "
+                  f"vs f64 {vs_f64:.3e} (tol {tol_f64:g}) {'ok' if ok else 'FAIL'}", flush=True)
+        back = stockham.dif_fft(*stockham.dif_fft(xr, xi), inverse=True)
+        err = _rel(_c128(*back), n * x64)
+        cases += 1
+        if err >= 1e-5:
+            failures.append(f"N={n} round trip")
+        print(f"[fft-kernel] N={n:5d} inverse(forward(x)) vs N·x {err:.3e} (tol 1e-5) "
+              f"{'ok' if err < 1e-5 else 'FAIL'}", flush=True)
+    if failures:
+        raise SystemExit(f"chip_smoke: {len(failures)} of {cases} FFT kernel cases failed: {failures}")
+    print(f"[fft-kernel] {cases} cases agree", flush=True)
+
+
+def _as_c128(out):
+    return out.double() if isinstance(out, torch.Tensor) else _c128(*out)
+
+
+def phase_fft_main(dev) -> dict:
+    """The FFT slice at batch 4096 x N 4096 f32 planes (bench.py:137-207)
+    through the plans and dif_fft. Each route must grow dif_fft.launches and
+    is held against the plain version (the same routes with dif_fft's plain
+    version) and against float64, rel-L2 < 1e-5 for f32 planes
+    (tests/test_fft_kernels.py:85) and < 8e-3 for bf16 (:106)."""
+    b, n = FFT_MAIN
+    gen = torch.Generator(device=dev).manual_seed(4096)
+    xr = torch.randn((b, n), generator=gen, device=dev)
+    xi = torch.randn((b, n), generator=gen, device=dev)
+    br, bi = xr.bfloat16(), xi.bfloat16()
+    x = torch.randn((b, n), generator=gen, device=dev)
+    sq = (torch.randn((n, n), generator=gen, device=dev), torch.randn((n, n), generator=gen, device=dev))
+    c2c = fft.plan_many((n,), fft.FftType.C2C)
+    r2c, c2r = fft.plan_many((n,), fft.FftType.R2C), fft.plan_many((n,), fft.FftType.C2R)
+    r2c_h = fft.plan_many((n,), fft.FftType.R2C, precision="bf16")
+    c2r_h = fft.plan_many((n,), fft.FftType.C2R, precision="bf16")
+    p2d = fft.plan_2d(n, n)
+    routes = {
+        "plan_many C2C forward": lambda: c2c((xr, xi)),
+        "plan_many C2C inverse": lambda: c2c((xr, xi), fft.Direction.INVERSE),
+        "dif_fft(reorder=False)": lambda: stockham.dif_fft(xr, xi, reorder=False),
+        "dif_fft(reorder=False, halfplanes)": lambda: stockham.dif_fft(br, bi, reorder=False,
+                                                                       halfplanes=True),
+        "R2C->C2R cycle f32": lambda: c2r(r2c(x, planar=True), fft.Direction.INVERSE) / n,
+        "R2C->C2R cycle bf16": lambda: c2r_h(r2c_h(x, planar=True), fft.Direction.INVERSE) / n,
+        "plan_2d C2C": lambda: p2d(sq),
+    }
+    torch.cuda.synchronize()
+    DIF_FFT.launches = 0
+    outs, grew = {}, {}
+    for name, route in routes.items():
+        before = DIF_FFT.launches
+        outs[name] = route()
+        grew[name] = DIF_FFT.launches - before
+    torch.cuda.synchronize()
+    launches = DIF_FFT.launches
+    print(f"[fft] dif_fft launches in the main path: {launches}", flush=True)
+
+    def f64_of(name):
+        if name == "plan_many C2C forward":
+            return torch.fft.fft(_c128(xr, xi))
+        if name == "plan_many C2C inverse":
+            return torch.fft.ifft(_c128(xr, xi)) * n
+        if name == "dif_fft(reorder=False)":
+            return torch.fft.fft(_c128(xr, xi))
+        if name.startswith("dif_fft"):
+            return torch.fft.fft(_c128(br, bi))
+        if name.startswith("R2C"):
+            return x.double()
+        return torch.fft.fft2(_c128(*sq))
+
+    max_abs, failures = 0.0, []
+    for name, route in routes.items():
+        with _plain_fft_engine():
+            plain = route()
+        got, plain = _as_c128(outs[name]), _as_c128(plain)
+        if "reorder=False" in name:
+            got, plain = _raw_to_natural(got, n, 1), _raw_to_natural(plain, n, 1)
+        bf16 = "bf16" in name or "halfplanes" in name
+        tol = 8e-3 if bf16 else 1e-5
+        vs_plain, vs_f64 = _rel(got, plain), _rel(got, f64_of(name))
+        abs_err = float((got - plain).abs().max())
+        del plain
+        finite = bool(torch.isfinite(got).all())
+        shape = tuple((outs[name] if isinstance(outs[name], torch.Tensor) else outs[name][0]).shape)
+        ok = vs_plain < tol and vs_f64 < tol and finite and grew[name] >= 1 and shape[-1] == n
+        if not bf16:
+            max_abs = max(max_abs, abs_err)
+        print(f"[fft] {name:36s} launches +{grew[name]} | {shape} finite={finite} | vs plain "
+              f"{vs_plain:.3e} (max-abs {abs_err:.3e}) vs f64 {vs_f64:.3e} (tol {tol:g}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(name)
+    if failures:
+        raise SystemExit(f"chip_smoke: FFT main path failed: {failures}")
+    return {"launches": launches, "max_abs_err": max_abs, "routes": routes,
+            "args": (xr, xi, br, bi, x)}
+
+
+def _loop_ms(runs: dict, warmup: int, reps: int, samples: int) -> dict:
+    """Median device ms per call of each route: CUDA events around ``reps``
+    back-to-back calls (so the host's launch cost overlaps the device's
+    work), ``samples`` times, twice in turns."""
+    times: dict[str, list[float]] = {name: [] for name in runs}
+    for name in list(runs) + list(reversed(runs)):
+        fn = runs[name]
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        for _ in range(samples):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end) / reps)
+    return {name: float(np.median(t)) for name, t in times.items()}
+
+
+def _plain(route):
+    def run():
+        with _plain_fft_engine():
+            return route()
+    return run
+
+
+def phase_fft_times(fftd: dict, card: str) -> dict:
+    """CUDA-event times of the kernel route, the plain version and one
+    torch.fft call (library) for each FFT line of bench.py, at batch 4096 x
+    N 4096; then each route of phase 13 on the host clock."""
+    b, n = FFT_MAIN
+    xr, xi, br, bi, x = fftd["args"]
+    xc = torch.complex(xr, xi)
+    r2c, c2r = fft.plan_many((n,), fft.FftType.R2C), fft.plan_many((n,), fft.FftType.C2R)
+    r2c_h = fft.plan_many((n,), fft.FftType.R2C, precision="bf16")
+    c2r_h = fft.plan_many((n,), fft.FftType.C2R, precision="bf16")
+    lines = {
+        "c2c natural": (lambda: stockham.dif_fft(xr, xi), lambda: torch.fft.fft(xc), 4),
+        "c2c shuffled": (lambda: stockham.dif_fft(xr, xi, reorder=False), lambda: torch.fft.fft(xc), 4),
+        "c2c shuffled bf16": (lambda: stockham.dif_fft(br, bi, reorder=False, halfplanes=True),
+                              lambda: torch.fft.fft(xc), 2),
+        "r2c/c2r cycle": (lambda: c2r(r2c(x, planar=True), fft.Direction.INVERSE) / n,
+                          lambda: torch.fft.irfft(torch.fft.rfft(x), n), 4),
+        "r2c/c2r cycle bf16": (lambda: c2r_h(r2c_h(x, planar=True), fft.Direction.INVERSE) / n,
+                               lambda: torch.fft.irfft(torch.fft.rfft(x), n), 2),
+    }
+    fast, slow = {}, {}
+    for line, (kernel, library, _) in lines.items():
+        fast[f"{line} kernel"] = kernel
+        fast[f"{line} library"] = library
+        slow[f"{line} plain"] = _plain(kernel)
+    ms = _loop_ms(fast, warmup=3, reps=20, samples=5)
+    ms.update(_loop_ms(slow, warmup=1, reps=2, samples=3))
+    logn = math.log2(n)
+    for line, (_, _, width) in lines.items():
+        if line.startswith("c2c"):   # the planes in and out
+            nbytes = 4 * b * n * width
+        else:   # R2C: x in, the half spectrum's planes out; C2R: back
+            nbytes = 2 * (b * n * 4 + 2 * b * (n // 2 + 1) * width)
+        bound = _bound(5.0 * b * n * logn * (2 if "cycle" in line else 1), PEAK_F32, nbytes)
+        bound_ms, by = bound["bound_ms"], bound["bound_by"]
+        for route in ("kernel", "plain", "library"):
+            t = ms[f"{line} {route}"]
+            print(f"[fft-times] {line:18s} {route:7s} b={b} N={n}: {t:.4f} ms = "
+                  f"{2.0 * b * n * 8 / t / 1e6:.1f} GB/s (2·b·N·8/t) = "
+                  f"{5.0 * b * n * logn / t / 1e9:.2f} TFLOP/s (5·N·log2 N) | bound {bound_ms:.4f} ms "
+                  f"({by}), {bound_ms / t:.1%} of it | {card}", flush=True)
+    for name, route in fftd["routes"].items():
+        print(f"[fft-times] wall {name:36s} {_wall_ms(route, 5):.4f} ms per call "
+              f"(host clock, 5 calls) | {card}", flush=True)
+    return ms
+
+
 def main() -> None:
     dev, card = phase_device()
     phase_build()
@@ -638,6 +925,14 @@ def main() -> None:
     phase_qr_blocks(dev)
     qrd = phase_qr_main(dev)
     qr_ms = phase_qr_times(qrd, card)
+    phase_fft_kernel(dev)
+    fftd = phase_fft_main(dev)
+    fft_ms = phase_fft_times(fftd, card)
+
+    m, n, k = MAIN
+    ns = SOLVER_N
+    solver_bytes = 2 * 4 * ns * ns   # the matrix in and its factor out, f32
+    b, nf = FFT_MAIN
     record = {"kernels": [{
         "name": "gemm_epilogue",
         "route": "cuda",
@@ -647,6 +942,8 @@ def main() -> None:
         "max_abs_err": main_run["max_abs_err"],
         "ms": ms["kernel"],
         "plain_ms": ms["plain"],
+        **_bound(2.0 * m * n * k, PEAK_BF16, 2 * (m * k + k * n + m * n) + 4 * n),
+        "library_ms": None,   # bias + GELU after the product is no single torch call
     }] + [{
         "name": name,
         "route": "cuda",
@@ -656,11 +953,13 @@ def main() -> None:
         "max_abs_err": solver["max_abs_err"][kind],
         "ms": solver_ms[f"{kind} kernel"],
         "plain_ms": solver_ms[f"{kind} plain"],
-    } for name, kind, block, replaces in (
+        **_bound(flop, PEAK_F32, solver_bytes),
+        "library_ms": solver_ms[f"{kind} vendor"],
+    } for name, kind, block, replaces, flop in (
         ("potrf_onelaunch (chol_inv_block + gemm_epilogue)", "potrf", "_chol_inv128",
-         "tpumathlib/solver/onelaunch.py:231"),
+         "tpumathlib/solver/onelaunch.py:231", ns**3 / 3),
         ("getrf_onelaunch (lu_inv_block + gemm_epilogue)", "getrf", "_lu_inv128",
-         "tpumathlib/solver/onelaunch.py:481"))] + [{
+         "tpumathlib/solver/onelaunch.py:481", 2 * ns**3 / 3))] + [{
         "name": name,
         "route": "cuda",
         "source": source,
@@ -669,12 +968,28 @@ def main() -> None:
         "max_abs_err": qrd["max_abs_err"][kind],
         "ms": qr_ms[f"{kind} kernel"],
         "plain_ms": qr_ms[f"{kind} plain"],
-    } for name, kind, count, source, replaces in (
+        **_bound(4 * ns**3 / 3, PEAK_F32, nbytes),
+        "library_ms": library,
+    } for name, kind, count, source, replaces, nbytes, library in (
         ("geqrf_onelaunch (chol_inv_block + hh_recon_block + inv_upper_block + gemm_epilogue)",
          "geqrf", "_hh_recon128", "tpumathlib_torch/csrc/qr_block.cu",
-         "tpumathlib/solver/qr_onelaunch.py:318"),
+         "tpumathlib/solver/qr_onelaunch.py:318", solver_bytes + 4 * ns * 256,
+         qr_ms["geqrf vendor"]),
+        # torch's Householder product takes LAPACK's (a, tau), not (vr, t): no like call
         ("orgqr_onelaunch (gemm_epilogue)", "orgqr", "orgqr_onelaunch",
-         "tpumathlib_torch/csrc/gemm_epilogue.cu", "tpumathlib/solver/qr_onelaunch.py:439"))]}
+         "tpumathlib_torch/csrc/gemm_epilogue.cu", "tpumathlib/solver/qr_onelaunch.py:439",
+         solver_bytes + 4 * ns * 256, None))] + [{
+        "name": "dif_fft",
+        "route": "cuda",
+        "source": "tpumathlib_torch/csrc/fft_dif.cu",
+        "replaces": "tpumathlib/fft/stockham.py:382",
+        "launches": fftd["launches"],
+        "max_abs_err": fftd["max_abs_err"],
+        "ms": fft_ms["c2c natural kernel"],
+        "plain_ms": fft_ms["c2c natural plain"],
+        **_bound(5.0 * b * nf * math.log2(nf), PEAK_F32, 4 * 4 * b * nf),
+        "library_ms": fft_ms["c2c natural library"],
+    }]}
     print(card_line(), flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

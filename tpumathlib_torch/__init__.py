@@ -7,7 +7,7 @@ TPU kernel of the reference becomes a kernel written by hand for Hopper
 (``csrc/``), with its plain PyTorch version beside it for CPU tensors.
 
 Ported so far (the GEMM slice, the Cholesky / no-pivot LU slice, the QR
-slice):
+slice, the FFT slice):
 - ``tpumathlib_torch.core``       — errors, dtype traits, checks, timer,
                                     plans, autotune cache, interop
 - ``tpumathlib_torch.dx``         — the tiled GEMM with fused epilogues
@@ -19,8 +19,12 @@ slice):
                                     the blocked factorizations they route
                                     to on the card (kernels B2, B3, B4a,
                                     B4b)
+- ``tpumathlib_torch.fft``        — cuFFT-style plans (C2C/R2C/C2R, planar
+                                    and complex), the planar engines and
+                                    ``dif_fft`` (kernel B5)
 """
 
 __version__ = "0.1.0"
 
 from tpumathlib_torch.core import errors, dtypes  # noqa: F401
+from tpumathlib_torch import fft  # noqa: F401

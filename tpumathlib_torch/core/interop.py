@@ -6,8 +6,9 @@
 - ``to_numpy``: tensors back to numpy; 16- and 8-bit floats widen to f32,
   which holds every one of their values exactly.
 - ``from_reference``: a reference ``MatmulDesc``, ``Algo``,
-  ``MatmulConfig`` or ``MatrixLayout`` to the port's object. It reads
-  attributes and enum ``.value`` strings, and never imports the reference.
+  ``MatmulConfig``, ``MatrixLayout``, ``FftDescriptor``, ``FftType`` or
+  ``Direction`` to the port's object. It reads attributes and enum
+  ``.value``s, and never imports the reference.
 """
 
 from __future__ import annotations
@@ -54,8 +55,14 @@ def from_reference(obj):
     """The port's counterpart of a reference descriptor object."""
     from tpumathlib_torch.blas import lt
     from tpumathlib_torch.dx.gemm import MatmulConfig
+    from tpumathlib_torch.fft import plan as fft_plan
 
     kind = type(obj).__name__
+    if kind in ("FftType", "Direction"):
+        return getattr(fft_plan, kind)(obj.value)
+    if kind == "FftDescriptor":
+        return fft_plan.FftDescriptor(tuple(obj.shape), fft_plan.FftType(obj.fft_type.value),
+                                      obj.batch, obj.norm, obj.precision)
     if kind == "MatmulConfig":
         return MatmulConfig(obj.bm, obj.bn, obj.bk)
     if kind == "Algo":

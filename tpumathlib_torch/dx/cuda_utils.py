@@ -113,6 +113,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tml_hh_recon_block.restype = i32
     lib.tml_inv_upper_block.argtypes = [p, i64, p, i64, p]
     lib.tml_inv_upper_block.restype = i32
+    # fft_dif.cu: (xr, xi, yr, yi, scratch, twiddles, rows, log_n, log_l, bf16, stream)
+    lib.tml_dif_fft.argtypes = [p, p, p, p, p, p, i64, i32, i32, i32, p]
+    lib.tml_dif_fft.restype = i32
     lib.tml_gemm_configs.argtypes = [ctypes.POINTER(i32), i32]
     lib.tml_gemm_configs.restype = i32
     lib.tml_error_string.argtypes = [i32]

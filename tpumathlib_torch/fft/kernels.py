@@ -1,0 +1,260 @@
+"""FFT engines over the last axis, and the planar (re, im) transforms the
+plans run.
+
+Counterpart of ``tpumathlib/fft/kernels.py``:
+- the four-step (Bailey) factorisation with its DFT stages as matrix
+  products (``_fft_planar``; N = N1·N2, stage 1 over N1, twiddle, stage 2
+  over N2, index transpose; recursion above 128). These are plain products
+  in the reference too (XLA-level, HIGHEST precision), so here they are
+  ``torch.matmul`` in f32;
+- ``mxu_fft``/``mxu_fftn``/``mxu_rfft``/``mxu_irfft`` on complex tensors;
+- the planar engines: ``fft_axis_planar`` sends power-of-two N ≥ 256 to
+  ``stockham.dif_fft`` (kernel B5, ``csrc/fft_dif.cu`` on the card) and any
+  other N to ``_fft_planar``; ``rfft_planar``/``irfft_planar`` carry two
+  real rows in one complex row for even batches; ``fftn_planar``,
+  ``rfftn_planar`` and ``irfftn_planar`` walk the trailing axes.
+
+Not ported yet: ``pallas_fft`` and its kernel body (B5b), whose only caller
+is a test.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+
+from tpumathlib_torch.core.errors import check
+from tpumathlib_torch.fft import stockham
+
+
+def _best_split(n: int) -> tuple[int, int]:
+    """Factor n = n1·n2 with n1, n2 as close to sqrt(n) (MXU-tile friendly)."""
+    best = None
+    for n1 in range(int(math.isqrt(n)), 0, -1):
+        if n % n1 == 0:
+            best = (n1, n // n1)
+            break
+    return best
+
+
+@functools.lru_cache(maxsize=64)
+def _dft_mats(n: int, inverse: bool):
+    """(re, im) of the n×n DFT matrix as numpy f32 (cached host-side)."""
+    k = np.arange(n)
+    sign = 2.0 if inverse else -2.0
+    w = np.exp(sign * 1j * np.pi * np.outer(k, k) / n)
+    return np.ascontiguousarray(w.real.astype(np.float32)), np.ascontiguousarray(w.imag.astype(np.float32))
+
+
+@functools.lru_cache(maxsize=64)
+def _twiddle(n1: int, n2: int, inverse: bool):
+    k1 = np.arange(n1)
+    n2r = np.arange(n2)
+    sign = 2.0 if inverse else -2.0
+    w = np.exp(sign * 1j * np.pi * np.outer(k1, n2r) / (n1 * n2))
+    return w.real.astype(np.float32), w.imag.astype(np.float32)
+
+
+def _on(table, like):
+    return torch.from_numpy(table).to(like.device)
+
+
+def _mm(a, b):
+    # f32 products (torch.backends.cuda.matmul.allow_tf32 stays False)
+    return torch.matmul(a, b)
+
+
+def _cmatmul(ar, ai, br, bi):
+    """Planar complex matmul with 3 real products (Karatsuba)."""
+    t1 = _mm(ar, br)
+    t2 = _mm(ai, bi)
+    t3 = _mm(ar + ai, br + bi)
+    return t1 - t2, t3 - t1 - t2
+
+
+def _fft_planar(xr, xi, inverse: bool):
+    """Planar-complex FFT over the last axis; any composite N."""
+    n = xr.shape[-1]
+    if n <= 128 or _best_split(n)[0] == 1:
+        # direct DFT-as-matmul (or prime size): x @ Wᵀ; W symmetric so W==Wᵀ
+        wr, wi = _dft_mats(n, inverse)
+        return _cmatmul(xr, xi, _on(wr, xr), _on(wi, xr))
+    n1, n2 = _best_split(n)
+    batch = tuple(xr.shape[:-1])
+    ar = xr.reshape(batch + (n1, n2))
+    ai = xi.reshape(batch + (n1, n2))
+    # stage 1: DFT over n1 → B[k1, n2] = Σ_n1 W1[k1,n1] A[n1,n2]
+    if n1 <= 128:
+        w1r, w1i = _dft_mats(n1, inverse)
+        br, bi = _cmatmul(_on(w1r, xr), _on(w1i, xr), ar, ai)
+    else:
+        # recurse along n1: transpose to (..., n2, n1), fft, transpose back
+        rr, ri = _fft_planar(ar.transpose(-1, -2), ai.transpose(-1, -2), inverse)
+        br, bi = rr.transpose(-1, -2), ri.transpose(-1, -2)
+    # twiddle: C[k1, n2] = B[k1, n2] · ω^{k1·n2}
+    twr, twi = (_on(t, xr) for t in _twiddle(n1, n2, inverse))
+    cr = br * twr - bi * twi
+    ci = br * twi + bi * twr
+    # stage 2: DFT over n2 → D[k1, k2] = Σ_n2 C[k1,n2] W2[n2,k2]
+    if n2 <= 128:
+        w2r, w2i = _dft_mats(n2, inverse)
+        dr, di = _cmatmul(cr, ci, _on(w2r, xr), _on(w2i, xr))
+    else:
+        dr, di = _fft_planar(cr, ci, inverse)
+    # output index k = k2·n1 + k1 → transpose (k1,k2) → (k2,k1) then flatten
+    dr = dr.transpose(-1, -2).reshape(batch + (n,))
+    di = di.transpose(-1, -2).reshape(batch + (n,))
+    return dr, di
+
+
+def mxu_fft(x, inverse: bool = False):
+    """Unnormalized C2C FFT over the last axis via matmul stages.
+
+    complex64 in/out; matches cuFFT forward/inverse (no 1/N on inverse).
+    """
+    x = x.to(torch.complex64)
+    yr, yi = _fft_planar(x.real, x.imag, inverse)
+    return torch.complex(yr, yi)
+
+
+def mxu_fftn(x, axes=None, inverse: bool = False):
+    """N-D C2C via per-axis FFTs (trailing axes by default)."""
+    if axes is None:
+        axes_len = x.ndim
+    else:
+        axes = sorted(a % x.ndim for a in axes)
+        check(axes == list(range(x.ndim - len(axes), x.ndim)), "mxu_fftn transforms trailing axes")
+        axes_len = len(axes)
+    for ax in range(x.ndim - 1, x.ndim - 1 - axes_len, -1):
+        x = mxu_fft(torch.movedim(x, ax, -1), inverse=inverse).movedim(-1, ax)
+    return x
+
+
+def mxu_rfft(x):
+    """R2C via full complex transform, truncated spectrum."""
+    n = x.shape[-1]
+    return mxu_fft(x)[..., : n // 2 + 1]
+
+
+def mxu_irfft(y, n: int):
+    """C2R inverse (unnormalized)."""
+    # rebuild the Hermitian-symmetric full spectrum
+    tail = torch.conj(torch.flip(y[..., 1: (n + 1) // 2], dims=(-1,)))
+    full = torch.cat([y[..., : n // 2 + 1], tail], dim=-1)
+    return mxu_fft(full, inverse=True).real
+
+
+# ---------------- planar (re, im) engines ----------------
+
+def _pow2_engine(n: int) -> bool:
+    return n >= 256 and (n & (n - 1)) == 0
+
+
+def fft_axis_planar(xr, xi, inverse: bool = False, half: bool = False):
+    """Planar C2C over the LAST axis; routes to the fastest engine.
+
+    ``half=True`` selects the bf16-plane mode of ``dif_fft`` (half the
+    plane bytes; f32 inside; ~4e-3 rel-L2). Non-pow2 shapes ignore it."""
+    n = xr.shape[-1]
+    if _pow2_engine(n):
+        return stockham.dif_fft(xr, xi, inverse=inverse, halfplanes=half)
+    return _fft_planar(xr, xi, inverse)
+
+
+def fftn_planar(xr, xi, naxes: int, inverse: bool = False, half: bool = False):
+    """Planar C2C over the trailing ``naxes`` axes. Every axis but the last
+    is moved last for its transform, so ``dif_fft`` copies its rows into a
+    contiguous layout first."""
+    for ax in range(-1, -naxes - 1, -1):
+        yr, yi = fft_axis_planar(torch.movedim(xr, ax, -1), torch.movedim(xi, ax, -1),
+                                 inverse, half=half)
+        xr = torch.movedim(yr, -1, ax)
+        xi = torch.movedim(yi, -1, ax)
+    return xr, xi
+
+
+def _reversed_spectrum(z):
+    """z[..., (-k) mod n] for every k: z[0], then z[n-1], ..., z[1]."""
+    return torch.cat([z[..., :1], torch.flip(z[..., 1:], dims=(-1,))], dim=-1)
+
+
+def rfft_planar(x, half: bool = False):
+    """R2C over the last axis: real f32 → planar half spectrum
+    (..., n//2+1). Unnormalized forward (cuFFT convention).
+    ``half=True`` runs the internal C2C on bf16 planes (~4e-3 rel-L2); the
+    untangle math stays f32.
+
+    Even batches (pow2 N ≥ 256) use the two-for-one packing: row i and row
+    i + batch/2 ride one complex row (z = a + i·b, A = (Z + Z̄rev)/2,
+    B = (Z − Z̄rev)/2i); the public row order is unchanged."""
+    n = x.shape[-1]
+    x = x.float()
+    h = n // 2 + 1
+    if x.ndim >= 2 and x.shape[-2] % 2 == 0 and _pow2_engine(n):
+        bh = x.shape[-2] // 2
+        zr, zi = fft_axis_planar(x[..., :bh, :], x[..., bh:, :], half=half)
+        # half mode: bf16 planes out of the C2C; the untangle runs in f32
+        dt = zr.dtype
+        zr_rev = _reversed_spectrum(zr)[..., :h].float()
+        zi_rev = _reversed_spectrum(zi)[..., :h].float()
+        zr = zr[..., :h].float()
+        zi = zi[..., :h].float()
+        ar = (0.5 * (zr + zr_rev)).to(dt)
+        ai = (0.5 * (zi - zi_rev)).to(dt)
+        br = (0.5 * (zi + zi_rev)).to(dt)
+        bi = (0.5 * (zr_rev - zr)).to(dt)
+        return torch.cat([ar, br], dim=-2), torch.cat([ai, bi], dim=-2)
+    yr, yi = fft_axis_planar(x, torch.zeros_like(x), half=half)
+    return yr[..., :h].float(), yi[..., :h].float()
+
+
+def _hermitian_full(yr, yi, n: int):
+    """Half spectrum (..., n//2+1) → full (..., n) by conj symmetry."""
+    tr = torch.flip(yr[..., 1:(n + 1) // 2], dims=(-1,))
+    ti = -torch.flip(yi[..., 1:(n + 1) // 2], dims=(-1,))
+    return (torch.cat([yr[..., :n // 2 + 1], tr], dim=-1),
+            torch.cat([yi[..., :n // 2 + 1], ti], dim=-1))
+
+
+def irfft_planar(yr, yi, n: int, half: bool = False):
+    """C2R over the last axis: planar half spectrum (..., n//2+1) → real
+    f32 (..., n). Unnormalized inverse (ifft(fft(x)) == N·x). ``half=True``
+    runs the internal C2C on bf16 planes.
+
+    Even batches (pow2 N ≥ 256) use the two-for-one inverse: Z = A_full +
+    i·B_full, z = IFFT(Z), a = Re z, b = Im z."""
+    if yr.ndim >= 2 and yr.shape[-2] % 2 == 0 and _pow2_engine(n):
+        bh = yr.shape[-2] // 2
+        ar, ai = _hermitian_full(yr[..., :bh, :], yi[..., :bh, :], n)
+        br, bi = _hermitian_full(yr[..., bh:, :], yi[..., bh:, :], n)
+        dt = yr.dtype
+        pr = (ar.float() - bi.float()).to(dt)
+        pi = (ai.float() + br.float()).to(dt)
+        zr, zi = fft_axis_planar(pr, pi, inverse=True, half=half)
+        return torch.cat([zr, zi], dim=-2).float()
+    fr, fi = _hermitian_full(yr, yi, n)
+    zr, _ = fft_axis_planar(fr, fi, inverse=True, half=half)
+    return zr.float()
+
+
+def rfftn_planar(x, naxes: int, half: bool = False):
+    """N-D R2C (trailing axes; last axis halved) — planar output."""
+    yr, yi = rfft_planar(x, half=half)
+    if naxes > 1:
+        yr2, yi2 = fftn_planar(torch.movedim(yr, -1, 0), torch.movedim(yi, -1, 0),
+                               naxes - 1, half=half)
+        yr, yi = torch.movedim(yr2, 0, -1), torch.movedim(yi2, 0, -1)
+    return yr, yi
+
+
+def irfftn_planar(yr, yi, shape: tuple, half: bool = False):
+    """N-D C2R inverse of rfftn_planar (unnormalized)."""
+    naxes = len(shape)
+    if naxes > 1:
+        yr2, yi2 = fftn_planar(torch.movedim(yr, -1, 0), torch.movedim(yi, -1, 0),
+                               naxes - 1, inverse=True, half=half)
+        yr, yi = torch.movedim(yr2, 0, -1), torch.movedim(yi2, 0, -1)
+    return irfft_planar(yr, yi, shape[-1], half=half)
