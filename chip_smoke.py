@@ -59,7 +59,25 @@ Phases; any failure raises and the exit code is non-zero:
 14. FFT times — CUDA events over back-to-back calls for the kernel route,
    the plain version and one torch.fft call of each of bench.py's FFT lines,
    with GB/s, TFLOP/s and the share of the bound; then each route of
-   phase 13 on the host clock.
+   phase 13 on the host clock. Then the matmul four-step FFT (N = 96 and
+   1000) with TF32 turned on by the caller must still give f32 products.
+15. sparse kernels — tml_bell_spmm (csrc/bell_sparse.cu) against its plain
+   version and float64: f32, bf16, f16 and bf16 A with f32 B, bs 128 and
+   256, k = 1 .. 4096, alpha 0.5, pad slots with zero and non-zero data, a
+   3-D batched B; tml_bell_spmv through SpmvPlan with rowform true and
+   false, a ragged n and pad slots.
+16. sparse main path — bench.py's four sparse lines through the public
+   entry points: spmm on a bf16 Blocked-ELL (mb = nb = 128, ellw = 16,
+   bs = 128, k = 4096), SpmvPlan.execute (also 20 calls fed back) and spmv
+   on an f32 Blocked-ELL (ellw = 32, 268 MB), SpmvAutoPlan on the hidden-
+   block CSR (33.5 M nnz, engine "blockedell") and spmv on a CSR with
+   n = 100 000 and 32 entries a row (torch's route, no kernel); each kernel
+   route must grow its kernel's count and agree with the plain version and
+   float64.
+17. sparse times — CUDA events for each line's route, the plain version and
+   the library call (torch.bmm on gathered blocks, or torch's sparse CSR
+   product), with TFLOP/s or GB/s and the share of the bound; then each
+   route of phase 16 on the host clock.
 The line before the last is a JSON record of the kernels, each with its
 bound (the larger of its operations over the card's published peak and its
 bytes over 3.35 TB/s); the last line is {"ok": true, "device": {...}}.
@@ -78,7 +96,7 @@ import time
 import numpy as np
 import torch
 
-from tpumathlib_torch import fft
+from tpumathlib_torch import fft, sparse
 from tpumathlib_torch.blas import level3, lt
 from tpumathlib_torch.core.check import max_abs_rel, max_scaled_err
 from tpumathlib_torch.core.interop import to_numpy
@@ -86,8 +104,10 @@ from tpumathlib_torch.core.timer import benchmark
 from tpumathlib_torch.dx import cuda_utils, gemm
 from tpumathlib_torch.dx.gemm import _pallas_matmul_plain, pallas_matmul
 from tpumathlib_torch.entry import entry
+from tpumathlib_torch.fft import kernels as fft_kernels
 from tpumathlib_torch.fft import stockham
 from tpumathlib_torch.solver import blocked, dense, onelaunch
+from tpumathlib_torch.sparse import pallas_kernels as spk
 
 qr = importlib.import_module("tpumathlib_torch.solver.qr_onelaunch")  # the package exports a function of this name
 
@@ -913,6 +933,381 @@ def phase_fft_times(fftd: dict, card: str) -> dict:
     return ms
 
 
+def phase_fft_tf32(dev) -> None:
+    """The matmul four-step FFT (_fft_planar, N = 96 and 1000) with TF32
+    turned on by the caller must keep f32 products: rel-L2 against float64
+    < 1e-5 (tests/test_fft_kernels.py:85), and the caller's setting must
+    come back. A bare torch.matmul of one DFT stage under the same setting
+    is printed beside it, to show what the guard keeps out. TF32 is turned
+    off again at the end."""
+    gen = torch.Generator(device=dev).manual_seed(9632)
+    matmul = torch.backends.cuda.matmul
+    failures = []
+    torch.set_float32_matmul_precision("high")
+    matmul.allow_tf32 = True
+    try:
+        for n in (96, 1000):
+            xr = torch.randn((64, n), generator=gen, device=dev)
+            xi = torch.randn((64, n), generator=gen, device=dev)
+            got = _c128(*fft_kernels._fft_planar(xr, xi, False))
+            err = _rel(got, torch.fft.fft(_c128(xr, xi)))
+            restored = matmul.allow_tf32 and torch.get_float32_matmul_precision() == "high"
+            w = torch.randn((n, n), generator=gen, device=dev)
+            bare = _rel(xr @ w, xr.double() @ w.double())
+            ok = err < 1e-5 and restored
+            print(f"[fft-tf32] TF32 on, _fft_planar N={n:4d}: rel-L2 vs f64 {err:.3e} (tol 1e-5), "
+                  f"caller's setting restored {restored} | bare torch.matmul (64,{n})@({n},{n}) "
+                  f"under TF32 {bare:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failures.append(n)
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        matmul.allow_tf32 = False
+    if failures:
+        raise SystemExit(f"chip_smoke: TF32 reached the FFT's matmul stages at N = {failures}")
+
+
+SPMM_MAIN = (128, 128, 16, 128, 4096)   # (mb, nb, ellw, bs, k) of bench_spmm_bell
+SPMV_MAIN = (128, 128, 32, 128)         # (mb, nb, ellw, bs) of bench_spmv_bell
+AUTOPLAN_MAIN = (64, 64, 32, 128)       # (mb, nb, ellw, bs) of bench_spmv_autoplan
+CSR_MAIN = (100_000, 32)                # (n, nnz per row) of bench_spmv
+SPARSE_COUNTS = (spk.bell_spmm_pallas, spk._bell_spmv)
+
+
+def _bell_cols(rng, mb, nb, ellw):
+    """Sorted distinct block columns per block row, as the bench draws them
+    (tpumathlib/benchmarks/__init__.py:124-125)."""
+    return np.sort(rng.permuted(np.tile(np.arange(nb), (mb, 1)), axis=1)[:, :ellw],
+                   axis=1).astype(np.int32)
+
+
+def _bell_random(rng, gen, mb, nb, ellw, bs, dtype, dev, pads=None, n=None, m=None):
+    """A Blocked-ELL on the card with normal blocks. pads = "zero" or
+    "data": the last slot of every other block row becomes a pad slot, whose
+    data is zeroed or left as it is."""
+    cols = torch.from_numpy(_bell_cols(rng, mb, nb, ellw)).to(dev)
+    data = torch.randn((mb, ellw, bs, bs), generator=gen, device=dev).to(dtype)
+    if pads is not None:
+        cols[::2, -1] = -1
+        if pads == "zero":
+            data[cols < 0] = 0
+    return sparse.BlockedELL(cols, data, (m or mb * bs, n or nb * bs), bs)
+
+
+def _spmm64(a, b):
+    """A@B in float64 over the stored blocks (pad slots masked)."""
+    return spk._bell_product(a.cols, a.data, b, a.shape, torch.float64)
+
+
+def phase_sparse_kernel(dev) -> None:
+    """tml_bell_spmm and tml_bell_spmv against their plain versions and
+    float64 (on the host) on the card. Tolerances, max-scaled: 1e-5 for f32
+    output (the same f32 products, summed in another order), 1e-2 for bf16
+    or f16 output (an output ulp where the two f32 sums round apart)."""
+    gen = torch.Generator(device=dev).manual_seed(6161)
+    rng = np.random.default_rng(6161)
+    chk = Checker()
+
+    def hold(group, case, got, plain, f64, tol):
+        chk.compare(group, case + " vs plain", got, plain, tol)
+        chk.compare(group + " vs f64", case + " vs f64", got, f64, tol)
+
+    pairs = ((F32, F32), (BF16, BF16), (BF16, F32), (F16, F16))
+    for adt, bdt in pairs:
+        for bs in (128, 256):
+            for k in (1, 200, 1000, 4096):
+                if adt == F16 and (bs, k) != (128, 200):
+                    continue
+                pads = "data" if k in (1, 1000) else "zero"
+                a = _bell_random(rng, gen, 3, 5, 3, bs, adt, dev, pads=pads)
+                b = torch.randn((5 * bs, k), generator=gen, device=dev).to(bdt)
+                got = spk.bell_spmm_pallas(a, b, alpha=0.5)
+                plain = spk._bell_spmm_plain(a, b, 0.5)
+                torch.cuda.synchronize()
+                want = 0.5 * _spmm64(sparse.BlockedELL(a.cols.cpu(), a.data.cpu(), a.shape, bs),
+                                     b.cpu())
+                group = f"spmm {str(adt)[6:]}x{str(bdt)[6:]}"
+                hold(group, f"{group} bs={bs} k={k} pads={pads}", got, plain, want,
+                     1e-5 if bdt == F32 else 1e-2)
+    # a 3-D batched B: one launch for the batch
+    a = _bell_random(rng, gen, 3, 5, 3, 128, BF16, dev, pads="data")
+    b3 = torch.randn((3, 640, 100), generator=gen, device=dev).to(BF16)
+    before = spk.bell_spmm_pallas.launches
+    got = sparse.spmm(a, b3, alpha=0.5)
+    torch.cuda.synchronize()
+    one = spk.bell_spmm_pallas.launches - before == 1
+    for i in range(3):
+        want = 0.5 * _spmm64(sparse.BlockedELL(a.cols.cpu(), a.data.cpu(), a.shape, 128),
+                             b3[i].cpu())
+        hold("spmm batched", f"spmm batched B[{i}]", got[i], spk._bell_spmm_plain(a, b3[i], 0.5),
+             want, 1e-2)
+    if not one:
+        chk.failures.append("spmm with a 3-D B did not take exactly one launch")
+
+    # tml_bell_spmv through SpmvPlan: rowform true and false, ragged n, pads
+    for what, bs, pads, ragged in (("rowform bs=128", 128, None, 0),
+                                   ("bs=64", 64, None, 0),
+                                   ("rowform bs=128 pads", 128, "data", 0),
+                                   ("ragged n bs=128 pads", 128, "data", 37),
+                                   ("ragged n bs=64", 64, "zero", 21)):
+        mb, nb = 4, 6
+        a = _bell_random(rng, gen, mb, nb, 5, bs, F32, dev, pads=pads,
+                         n=nb * bs - ragged, m=mb * bs - (5 if ragged else 0))
+        plan = spk.SpmvPlan(a)
+        x = torch.randn((a.shape[1],), generator=gen, device=dev)
+        got = plan.execute(x, alpha=0.5)
+        plain = spk._bell_spmv_plain(plan.cols, plan.data, x, plan.shape, 0.5)
+        torch.cuda.synchronize()
+        want = 0.5 * _spmm64(sparse.BlockedELL(a.cols.cpu(), a.data.cpu(), a.shape, bs),
+                             x.cpu()[:, None])[:, 0]
+        hold("spmv", f"spmv {what} rowform={plan.rowform}", got, plain, want, 1e-5)
+
+    for group, err in chk.worst.items():
+        print(f"[sparse-kernel] {group:24s} worst max-scaled err {err:.3e}", flush=True)
+    for f in chk.failures:
+        print(f"[sparse-kernel] FAIL {f}", flush=True)
+    if chk.failures:
+        raise SystemExit(f"chip_smoke: {len(chk.failures)} of {chk.cases} sparse kernel cases "
+                         f"disagree")
+    print(f"[sparse-kernel] {chk.cases} cases agree with the plain versions and float64",
+          flush=True)
+
+
+def _hidden_block_csr(dev, mb, nb, ellw, bs):
+    """bench_spmv_autoplan's CSR (tpumathlib/benchmarks/__init__.py:545-560):
+    ellw random dense blocks per block row, stored as plain CSR rows."""
+    rng = np.random.default_rng(0)
+    m, n = mb * bs, nb * bs
+    cols_blk = np.stack([np.sort(rng.choice(nb, ellw, replace=False)) for _ in range(mb)])
+    rowlen = ellw * bs
+    indptr = np.arange(m + 1, dtype=np.int64) * rowlen
+    cidx = cols_blk[:, None, :, None] * bs + np.arange(bs)[None, None, None, :]
+    cidx = np.broadcast_to(cidx, (mb, bs, ellw, bs)).reshape(-1)
+    data = rng.normal(size=m * rowlen).astype(np.float32)
+    return sparse.CSR(torch.from_numpy(indptr.astype(np.int32)).to(dev),
+                      torch.from_numpy(cidx.astype(np.int32)).to(dev),
+                      torch.from_numpy(data).to(dev), (m, n))
+
+
+def _random_csr(dev, n, per_row):
+    """bench_spmv's CSR (tpumathlib/benchmarks/__init__.py:91-97)."""
+    rng = np.random.default_rng(0)
+    nnz = n * per_row
+    indptr = torch.from_numpy((np.arange(n + 1) * per_row).astype(np.int32)).to(dev)
+    indices = torch.from_numpy(rng.integers(0, n, nnz).astype(np.int32)).to(dev)
+    data = torch.from_numpy(rng.normal(size=nnz).astype(np.float32)).to(dev)
+    x = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(dev)
+    return sparse.CSR(indptr, indices, data, (n, n)), x
+
+
+def _library_csr(a, dtype=None):
+    """torch's sparse CSR tensor (cuSPARSE) of the same matrix."""
+    data = a.data if dtype is None else a.data.to(dtype)
+    return torch.sparse_csr_tensor(a.indptr.long(), a.indices.long(), data, a.shape,
+                                   check_invariants=False)
+
+
+def _chain(product, x, calls: int):
+    """``calls`` products fed back, as bench_spmv_bell's loop."""
+    v = x
+    for _ in range(calls):
+        v = product(v)
+    return v
+
+
+def phase_sparse_main(dev) -> dict:
+    """bench.py's sparse lines through the public entry points. Each
+    kernel route must grow its kernel's count and is held against the plain
+    version and float64: bf16 output 1e-2 max-scaled, f32 output 1e-5, the
+    fed-back chain 1e-4 (20 products, each within 1e-6). The CSR route runs
+    no kernel (the reference's is XLA) and is held against float64."""
+    gen = torch.Generator(device=dev).manual_seed(2468)
+    mb, nb, ellw, bs, k = SPMM_MAIN
+    a_mm = sparse.BlockedELL(torch.from_numpy(_bell_cols(np.random.default_rng(0), mb, nb, ellw))
+                             .to(dev), torch.randn((mb, ellw, bs, bs), generator=gen, device=dev)
+                             .to(BF16), (mb * bs, nb * bs), bs)
+    b_mm = torch.randn((nb * bs, k), generator=gen, device=dev).to(BF16)
+    mb, nb, ellw, bs = SPMV_MAIN
+    a_mv = sparse.BlockedELL(torch.from_numpy(_bell_cols(np.random.default_rng(0), mb, nb, ellw))
+                             .to(dev), torch.randn((mb, ellw, bs, bs), generator=gen, device=dev),
+                             (mb * bs, nb * bs), bs)
+    x_mv = torch.randn((nb * bs,), generator=gen, device=dev)
+    plan = sparse.SpmvPlan(a_mv)
+    # alpha of the fed-back chain: a product grows the vector by about
+    # sqrt(ellw·bs) (64 at the bench shape), so this keeps it near its size
+    shrink = 1 / math.sqrt(ellw * bs)
+    t0 = time.perf_counter()
+    csr_ap = _hidden_block_csr(dev, *AUTOPLAN_MAIN)
+    auto = sparse.SpmvAutoPlan(csr_ap)
+    print(f"[sparse] SpmvAutoPlan analysis of {csr_ap.nnz} nnz on the host: "
+          f"{time.perf_counter() - t0:.1f} s (CSR built and repacked), engine {auto.engine}, "
+          f"stats {auto.stats}", flush=True)
+    x_ap = torch.randn((csr_ap.shape[1],), generator=gen, device=dev)
+    csr, x_csr = _random_csr(dev, *CSR_MAIN)
+    routes = {
+        "spmm(BlockedELL bf16, B bf16)": lambda: sparse.spmm(a_mm, b_mm),
+        "SpmvPlan(BlockedELL f32).execute": lambda: plan.execute(x_mv),
+        "SpmvPlan.execute x20 fed back": lambda: _chain(lambda v: plan.execute(v, shrink), x_mv, 20),
+        "spmv(BlockedELL f32)": lambda: sparse.spmv(a_mv, x_mv),
+        "SpmvAutoPlan(CSR).execute": lambda: auto.execute(x_ap),
+        "spmv(CSR)": lambda: sparse.spmv(csr, x_csr),
+    }
+    kernel_of = {"spmm(BlockedELL bf16, B bf16)": "bell_spmm_pallas",
+                 "SpmvPlan(BlockedELL f32).execute": "_bell_spmv",
+                 "SpmvPlan.execute x20 fed back": "_bell_spmv",
+                 "spmv(BlockedELL f32)": "bell_spmm_pallas",
+                 "SpmvAutoPlan(CSR).execute": "_bell_spmv",
+                 "spmv(CSR)": None}
+    torch.cuda.synchronize()
+    for f in SPARSE_COUNTS:
+        f.launches = 0
+    outs, grew = {}, {}
+    for name, route in routes.items():
+        before = {f.__name__: f.launches for f in SPARSE_COUNTS}
+        outs[name] = route()
+        grew[name] = {f.__name__: f.launches - before[f.__name__] for f in SPARSE_COUNTS}
+    torch.cuda.synchronize()
+    launches = {f.__name__: f.launches for f in SPARSE_COUNTS}
+    print(f"[sparse] launches in the main path: {launches}", flush=True)
+
+    def plain_chain(v0, f64):
+        if f64:
+            return _chain(lambda v: shrink * _spmm64(a_mv, v[:, None])[:, 0], v0.double(), 20)
+        return _chain(lambda v: spk._bell_spmv_plain(plan.cols, plan.data, v, plan.shape, shrink),
+                      v0, 20)
+
+    sub = sparse.BlockedELL(a_mm.cols[:4], a_mm.data[:4], (4 * SPMM_MAIN[3], a_mm.shape[1]),
+                            SPMM_MAIN[3])
+    bell_ap = auto._bell
+    checks = {   # name: (plain, float64 reference, the part of the output it covers, tol)
+        "spmm(BlockedELL bf16, B bf16)": (lambda: spk._bell_spmm_plain(a_mm, b_mm),
+                                          lambda: _spmm64(sub, b_mm), 4 * SPMM_MAIN[3], 1e-2),
+        "SpmvPlan(BlockedELL f32).execute": (
+            lambda: spk._bell_spmv_plain(plan.cols, plan.data, x_mv, plan.shape),
+            lambda: _spmm64(a_mv, x_mv[:, None])[:, 0], None, 1e-5),
+        "SpmvPlan.execute x20 fed back": (lambda: plain_chain(x_mv, False),
+                                          lambda: plain_chain(x_mv, True), None, 1e-4),
+        "spmv(BlockedELL f32)": (
+            lambda: spk._bell_spmv_plain(plan.cols, plan.data, x_mv, plan.shape),
+            lambda: _spmm64(a_mv, x_mv[:, None])[:, 0], None, 1e-5),
+        "SpmvAutoPlan(CSR).execute": (
+            lambda: spk._bell_spmv_plain(bell_ap.cols, bell_ap.data, x_ap, bell_ap.shape),
+            lambda: _library_csr(csr_ap, torch.float64) @ x_ap.double(), None, 1e-5),
+        "spmv(CSR)": (None, lambda: sparse.spmv(sparse.CSR(csr.indptr, csr.indices,
+                                                            csr.data.double(), csr.shape),
+                                                 x_csr.double()), None, 1e-5),
+    }
+    max_abs = {"bell_spmm_pallas": 0.0, "_bell_spmv": 0.0}
+    failures = []
+    for name, out in outs.items():
+        plain_fn, f64_fn, rows, tol = checks[name]
+        vs_plain = abs_err = 0.0
+        if plain_fn is not None:
+            plain = plain_fn()
+            vs_plain, abs_err = max_scaled_err(out, plain), max_abs_rel(out, plain)[0]
+            del plain
+        vs_f64 = max_scaled_err(out if rows is None else out[:rows], f64_fn())
+        kernel = kernel_of[name]
+        launched = kernel is None or grew[name][kernel] >= 1
+        if kernel is not None:
+            max_abs[kernel] = max(max_abs[kernel], abs_err)
+        finite = bool(torch.isfinite(out.float()).all())
+        ok = vs_plain <= tol and vs_f64 <= tol and launched and finite
+        if name == "SpmvAutoPlan(CSR).execute" and auto.engine != "blockedell":
+            ok = False
+        print(f"[sparse] {name:34s} launches {grew[name]} | {tuple(out.shape)} {out.dtype} "
+              f"finite={finite} | vs plain max-scaled {vs_plain:.3e} max-abs {abs_err:.3e} "
+              f"vs f64{'' if rows is None else f' (first {rows} rows)'} {vs_f64:.3e} "
+              f"(tol {tol:g}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(name)
+    if failures:
+        raise SystemExit(f"chip_smoke: sparse main path failed: {failures}")
+    return {"launches": launches, "max_abs_err": max_abs, "routes": routes,
+            "args": (a_mm, b_mm, a_mv, x_mv, plan, csr_ap, auto, x_ap, csr, x_csr)}
+
+
+def phase_sparse_times(spd: dict, card: str) -> dict:
+    """CUDA-event times of each sparse line of bench.py: the route, its
+    plain version and the library call (torch.bmm of the (mb, bs, ellw·bs)
+    block rows against the rows of B or x gathered beforehand, the gather
+    timed apart; cuSPARSE through torch's sparse CSR tensor for the CSR
+    lines); then each route of phase 16 on the host clock."""
+    a_mm, b_mm, a_mv, x_mv, plan, csr_ap, auto, x_ap, csr, x_csr = spd["args"]
+
+    def rows_and_gather(a, v):
+        mb, ellw = a.cols.shape
+        bs = a.blocksize
+        rows = a.data.permute(0, 2, 1, 3).reshape(mb, bs, ellw * bs).contiguous()
+        ids = a.cols.long()
+
+        def gather():
+            return v.reshape(-1, bs, v.shape[-1])[ids].reshape(mb, ellw * bs, v.shape[-1])
+        return rows, gather
+
+    rows_mm, gather_mm = rows_and_gather(a_mm, b_mm)
+    rows_mv, gather_mv = rows_and_gather(a_mv, x_mv[:, None])
+    g_mm, g_mv = gather_mm(), gather_mv()
+    lib_ap, lib_csr = _library_csr(csr_ap), _library_csr(csr)
+    bell_ap = auto._bell
+    fast = {
+        "spmm kernel": lambda: sparse.spmm(a_mm, b_mm),
+        "spmm library": lambda: torch.bmm(rows_mm, g_mm),
+        "spmm gather": gather_mm,
+        "spmv kernel": lambda: plan.execute(x_mv),
+        "spmv library": lambda: torch.bmm(rows_mv, g_mv),
+        "spmv gather": gather_mv,
+        "autoplan kernel": lambda: auto.execute(x_ap),
+        "autoplan library": lambda: lib_ap @ x_ap,
+        "csr route": lambda: sparse.spmv(csr, x_csr),
+        "csr library": lambda: lib_csr @ x_csr,
+    }
+    slow = {
+        "spmm plain": lambda: spk._bell_spmm_plain(a_mm, b_mm),
+        "spmv plain": lambda: spk._bell_spmv_plain(plan.cols, plan.data, x_mv, plan.shape),
+        "autoplan plain": lambda: spk._bell_spmv_plain(bell_ap.cols, bell_ap.data, x_ap,
+                                                       bell_ap.shape),
+    }
+    ms = _loop_ms(fast, warmup=3, reps=20, samples=5)
+    ms.update(_loop_ms(slow, warmup=1, reps=2, samples=3))
+
+    mb, nb, ellw, bs, k = SPMM_MAIN
+    nnz_mm = mb * ellw * bs * bs
+    spmm_bytes = 2 * (nnz_mm + 2 * nb * bs * k)          # A, B and Y in bf16
+    mb, nb, ellw, bs = SPMV_MAIN
+    nnz_mv, n_mv = mb * ellw * bs * bs, nb * bs
+    mb, nb, ellw, bs = AUTOPLAN_MAIN
+    nnz_ap = mb * ellw * bs * bs
+    n_csr, per_row = CSR_MAIN
+    lines = {   # line: (flop, bytes as bench.py counts them, the rate's unit, bound)
+        "spmm": (2.0 * nnz_mm * k, spmm_bytes, "TFLOP/s", _bound(2.0 * nnz_mm * k, PEAK_BF16,
+                                                                 spmm_bytes)),
+        "spmv": (2.0 * nnz_mv, nnz_mv * 4 + 2 * n_mv * 4, "GB/s",
+                 _bound(2.0 * nnz_mv, PEAK_F32, nnz_mv * 4 + 2 * n_mv * 4)),
+        "autoplan": (2.0 * nnz_ap, nnz_ap * 4 + 2 * mb * bs * 4, "GB/s",
+                     _bound(2.0 * nnz_ap, PEAK_F32, nnz_ap * 4 + 2 * mb * bs * 4)),
+        "csr": (2.0 * n_csr * per_row, n_csr * per_row * 12 + n_csr * 8, "GB/s",
+                _bound(2.0 * n_csr * per_row, PEAK_F32, n_csr * per_row * 12 + n_csr * 8)),
+    }
+    for line, (flop, nbytes, unit, bound) in lines.items():
+        if f"{line} gather" in ms:   # the library call's operand, not the function
+            print(f"[sparse-times] {line:8s} gather  {ms[f'{line} gather']:.4f} ms (the rows "
+                  f"torch.bmm takes, gathered; not in its time) | {card}", flush=True)
+        for route in ("kernel", "route", "plain", "library"):
+            t = ms.get(f"{line} {route}")
+            if t is None:
+                continue
+            rate = flop / t / 1e9 if unit == "TFLOP/s" else nbytes / t / 1e6
+            print(f"[sparse-times] {line:8s} {route:7s} {t:.4f} ms = {rate:.2f} {unit} | bound "
+                  f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), {bound['bound_ms'] / t:.1%} "
+                  f"of it | {card}", flush=True)
+    for name, route in spd["routes"].items():
+        print(f"[sparse-times] wall {name:34s} {_wall_ms(route, 5):.4f} ms per call "
+              f"(host clock, 5 calls) | {card}", flush=True)
+    ms["bounds"] = {line: v[3] for line, v in lines.items()}
+    return ms
+
+
 def main() -> None:
     dev, card = phase_device()
     phase_build()
@@ -928,6 +1323,10 @@ def main() -> None:
     phase_fft_kernel(dev)
     fftd = phase_fft_main(dev)
     fft_ms = phase_fft_times(fftd, card)
+    phase_fft_tf32(dev)
+    phase_sparse_kernel(dev)
+    spd = phase_sparse_main(dev)
+    sp_ms = phase_sparse_times(spd, card)
 
     m, n, k = MAIN
     ns = SOLVER_N
@@ -989,7 +1388,20 @@ def main() -> None:
         "plain_ms": fft_ms["c2c natural plain"],
         **_bound(5.0 * b * nf * math.log2(nf), PEAK_F32, 4 * 4 * b * nf),
         "library_ms": fft_ms["c2c natural library"],
-    }]}
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "tpumathlib_torch/csrc/bell_sparse.cu",
+        "replaces": replaces,
+        "launches": spd["launches"][count],
+        "max_abs_err": spd["max_abs_err"][count],
+        "ms": sp_ms[f"{line} kernel"],
+        "plain_ms": sp_ms[f"{line} plain"],
+        **sp_ms["bounds"][line],
+        "library_ms": sp_ms[f"{line} library"],
+    } for name, count, line, replaces in (
+        ("bell_spmm", "bell_spmm_pallas", "spmm", "tpumathlib/sparse/pallas_kernels.py:123"),
+        ("bell_spmv", "_bell_spmv", "spmv", "tpumathlib/sparse/pallas_kernels.py:404 and :450"))]}
     print(card_line(), flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

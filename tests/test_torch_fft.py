@@ -14,6 +14,9 @@ by the CPU emulation of ``tml_dif_fft`` from ``test_torch_fft_stockham``:
 every power-of-two axis of length ≥ 256 launches the kernel, and the
 two-for-one R2C/C2R packing launches it on half the rows.
 
+The matmul stages (``kernels._mm``) are held to f32 products whatever TF32
+setting the caller made, with the caller's setting restored afterwards.
+
 Inputs are explicit f32/complex64 on both sides (the suite turns on jax
 x64).
 """
@@ -351,3 +354,60 @@ def test_plan_2d_launches_per_axis(emulated, rng):
     yr, yi = fft_plan.plan_2d(256, 512)((_t(x.real), _t(x.imag)))
     assert [(c["rows"], c["log_n"]) for c in emulated.calls] == [(256, 9), (512, 8)]
     assert rel_l2(_pl(yr, yi), np.fft.fft2(x)) < F32_TOL
+
+
+# ---------------------------------------------------------------------------
+# The matmul stages' f32 guard (C7)
+
+@pytest.fixture
+def tf32_on():
+    """TF32 allowed and float32 matmul precision "high", as a caller might
+    set them; the settings of before come back afterwards."""
+    matmul = torch.backends.cuda.matmul
+    tf32, precision = matmul.allow_tf32, torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    matmul.allow_tf32 = True
+    yield
+    torch.set_float32_matmul_precision(precision)
+    matmul.allow_tf32 = tf32
+
+
+def _settings():
+    return torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision()
+
+
+def test_matmul_stages_pin_f32_and_restore_the_callers_setting(tf32_on, monkeypatch):
+    """_mm runs every product with TF32 off and the precision at "highest",
+    whatever the caller set, and gives the caller's settings back, also when
+    the product raises."""
+    seen, matmul = [], torch.matmul
+
+    def spy(a, b):
+        seen.append(_settings())
+        return matmul(a, b)
+
+    monkeypatch.setattr(torch, "matmul", spy)
+    kernels._mm(torch.ones(3, 4), torch.ones(4, 2))
+    assert seen == [(False, "highest")] and _settings() == (True, "high")
+    with pytest.raises(RuntimeError):
+        kernels._mm(torch.ones(3, 4), torch.ones(3, 4))
+    assert _settings() == (True, "high")
+    seen.clear()
+    for n in (96, 1000):   # the four-step path, N not a power of two
+        kernels._fft_planar(torch.ones(2, n), torch.zeros(2, n), False)
+    assert seen and set(seen) == {(False, "highest")} and _settings() == (True, "high")
+
+
+def test_matmul_guard_when_the_precision_cannot_be_read(tf32_on, monkeypatch):
+    """A caller who mixed torch's legacy and new precision APIs makes
+    get_float32_matmul_precision raise: the guard then pins and restores
+    allow_tf32 alone."""
+    def unreadable():
+        raise RuntimeError("mix of the legacy and new APIs")
+
+    seen, matmul = [], torch.matmul
+    monkeypatch.setattr(torch, "get_float32_matmul_precision", unreadable)
+    monkeypatch.setattr(torch, "matmul",
+                        lambda a, b: seen.append(torch.backends.cuda.matmul.allow_tf32) or matmul(a, b))
+    kernels._mm(torch.ones(2, 2), torch.ones(2, 2))
+    assert seen == [False] and torch.backends.cuda.matmul.allow_tf32

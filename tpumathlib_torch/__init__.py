@@ -7,7 +7,7 @@ TPU kernel of the reference becomes a kernel written by hand for Hopper
 (``csrc/``), with its plain PyTorch version beside it for CPU tensors.
 
 Ported so far (the GEMM slice, the Cholesky / no-pivot LU slice, the QR
-slice, the FFT slice):
+slice, the FFT slice, the Blocked-ELL sparse slice):
 - ``tpumathlib_torch.core``       — errors, dtype traits, checks, timer,
                                     plans, autotune cache, interop
 - ``tpumathlib_torch.dx``         — the tiled GEMM with fused epilogues
@@ -22,9 +22,14 @@ slice, the FFT slice):
 - ``tpumathlib_torch.fft``        — cuFFT-style plans (C2C/R2C/C2R, planar
                                     and complex), the planar engines and
                                     ``dif_fft`` (kernel B5)
+- ``tpumathlib_torch.sparse``     — sparse containers and conversions,
+                                    SpMV/SpMM/SDDMM, ``SpmvPlan`` and the
+                                    CSR auto-plan, SpSV; the Blocked-ELL
+                                    SpMM and SpMV (kernels B6a, B6b/B6c)
 """
 
 __version__ = "0.1.0"
 
 from tpumathlib_torch.core import errors, dtypes  # noqa: F401
 from tpumathlib_torch import fft  # noqa: F401
+from tpumathlib_torch import sparse  # noqa: F401

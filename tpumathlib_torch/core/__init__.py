@@ -1,6 +1,6 @@
 """Core plumbing: error types, dtype traits, plan/handle objects, verification
-helpers, bench timers, the autotune cache, and data exchange with the JAX
-package (counterpart of ``tpumathlib/core``)."""
+helpers, the numeric sanitizer, bench timers, the autotune cache, and data
+exchange with the JAX package (counterpart of ``tpumathlib/core``)."""
 
 from tpumathlib_torch.core.errors import (  # noqa: F401
     Status,
@@ -19,6 +19,7 @@ from tpumathlib_torch.core.check import (  # noqa: F401
     rel_linf,
     assert_allclose,
 )
+from tpumathlib_torch.core.sanitize import sanitize, sanitizing  # noqa: F401
 from tpumathlib_torch.core.timer import benchmark  # noqa: F401
 from tpumathlib_torch.core.plan import Handle, Plan, PlanCache  # noqa: F401
 from tpumathlib_torch.core.tuning import AutotuneCache  # noqa: F401

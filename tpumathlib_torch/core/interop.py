@@ -6,9 +6,15 @@
 - ``to_numpy``: tensors back to numpy; 16- and 8-bit floats widen to f32,
   which holds every one of their values exactly.
 - ``from_reference``: a reference ``MatmulDesc``, ``Algo``,
-  ``MatmulConfig``, ``MatrixLayout``, ``FftDescriptor``, ``FftType`` or
-  ``Direction`` to the port's object. It reads attributes and enum
-  ``.value``s, and never imports the reference.
+  ``MatmulConfig``, ``MatrixLayout``, ``FftDescriptor``, ``FftType``,
+  ``Direction``, sparse container (``CSR``, ``COO``, ``BSR``,
+  ``BlockedELL``, ``SELL``) or ``SpmvPlan`` to the port's object. It reads
+  attributes by name, enum ``.value``s and arrays through ``np.asarray``
+  (bf16 arrays travel as bits), and never imports the reference. Carried
+  arrays land on ``sparse.containers.default_device()``: the card when
+  there is one, as the reference's sit on its default device. A carried
+  ``SpmvPlan`` is rebuilt from the reference's bf16 (hi, lo) planes with
+  ``SpmvPlan.from_parts``.
 """
 
 from __future__ import annotations
@@ -51,13 +57,35 @@ def to_numpy(x) -> np.ndarray:
     return x.numpy()
 
 
+_SPARSE_FIELDS = {   # container → (array fields, static fields), in constructor order
+    "CSR": (("indptr", "indices", "data"), ("shape",)),
+    "COO": (("row", "col", "data"), ("shape",)),
+    "BSR": (("indptr", "indices", "data"), ("shape", "blocksize")),
+    "BlockedELL": (("cols", "data"), ("shape", "blocksize")),
+    "SELL": (("cols", "data", "widths"), ("shape", "slice_height")),
+}
+
+
 def from_reference(obj):
-    """The port's counterpart of a reference descriptor object."""
+    """The port's counterpart of a reference descriptor, sparse container
+    or ``SpmvPlan``; arrays land on ``sparse.containers.default_device()``."""
+    from tpumathlib_torch import sparse
     from tpumathlib_torch.blas import lt
     from tpumathlib_torch.dx.gemm import MatmulConfig
     from tpumathlib_torch.fft import plan as fft_plan
 
+    def copy(v):   # the reference's buffers are read-only: the port gets its own
+        return from_numpy(np.array(v), sparse.containers.default_device())
+
     kind = type(obj).__name__
+    if kind in _SPARSE_FIELDS:
+        arrays, static = _SPARSE_FIELDS[kind]
+        return getattr(sparse, kind)(*(copy(getattr(obj, f)) for f in arrays),
+                                     *(tuple(obj.shape) if f == "shape" else getattr(obj, f)
+                                       for f in static))
+    if kind == "SpmvPlan":
+        return sparse.SpmvPlan.from_parts(copy(obj.cols), copy(obj.ah), copy(obj.al),
+                                          tuple(obj.shape), obj.bs)
     if kind in ("FftType", "Direction"):
         return getattr(fft_plan, kind)(obj.value)
     if kind == "FftDescriptor":

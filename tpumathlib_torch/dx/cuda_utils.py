@@ -116,6 +116,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # fft_dif.cu: (xr, xi, yr, yi, scratch, twiddles, rows, log_n, log_l, bf16, stream)
     lib.tml_dif_fft.argtypes = [p, p, p, p, p, p, i64, i32, i32, i32, p]
     lib.tml_dif_fft.restype = i32
+    # bell_sparse.cu: (cols, a, b, y, mb, ellw, bs, m, n, k, alpha, a/b dtype codes, stream)
+    lib.tml_bell_spmm.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, i64, f32, i32, i32, p]
+    lib.tml_bell_spmm.restype = i32
+    # (cols, a, x, y, mb, ellw, bs, m, n, alpha, stream), f32
+    lib.tml_bell_spmv.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, f32, p]
+    lib.tml_bell_spmv.restype = i32
     lib.tml_gemm_configs.argtypes = [ctypes.POINTER(i32), i32]
     lib.tml_gemm_configs.restype = i32
     lib.tml_error_string.argtypes = [i32]

@@ -6,7 +6,8 @@ Counterpart of ``tpumathlib/fft/kernels.py``:
   products (``_fft_planar``; N = N1·N2, stage 1 over N1, twiddle, stage 2
   over N2, index transpose; recursion above 128). These are plain products
   in the reference too (XLA-level, HIGHEST precision), so here they are
-  ``torch.matmul`` in f32;
+  ``torch.matmul`` with f32 products pinned for the call (``_mm``), so a
+  caller's TF32 setting does not reach them;
 - ``mxu_fft``/``mxu_fftn``/``mxu_rfft``/``mxu_irfft`` on complex tensors;
 - the planar engines: ``fft_axis_planar`` sends power-of-two N ≥ 256 to
   ``stockham.dif_fft`` (kernel B5, ``csrc/fft_dif.cu`` on the card) and any
@@ -20,6 +21,7 @@ is a test.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 
@@ -62,9 +64,37 @@ def _on(table, like):
     return torch.from_numpy(table).to(like.device)
 
 
+@contextlib.contextmanager
+def _f32_products():
+    """Full f32 matmul products inside, whatever the caller set (the
+    reference pins HIGHEST); the caller's TF32 settings come back after.
+    A caller who mixed torch's legacy and new precision APIs cannot have
+    its float32 matmul precision read back, so then only ``allow_tf32`` is
+    pinned: that alone decides cuBLAS's TF32."""
+    matmul = torch.backends.cuda.matmul
+    tf32 = matmul.allow_tf32
+    try:
+        precision = torch.get_float32_matmul_precision()
+    except RuntimeError:
+        precision = None
+    if precision is not None:
+        torch.set_float32_matmul_precision("highest")
+    matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        if precision is not None:
+            torch.set_float32_matmul_precision(precision)
+        matmul.allow_tf32 = tf32
+
+
 def _mm(a, b):
-    # f32 products (torch.backends.cuda.matmul.allow_tf32 stays False)
-    return torch.matmul(a, b)
+    """a @ b with full f32 products. The guard sets process-wide flags, so
+    it is not thread-safe: a matmul in another thread during the call sees
+    TF32 off, and a setting another thread makes meanwhile is overwritten
+    when the caller's comes back."""
+    with _f32_products():
+        return torch.matmul(a, b)
 
 
 def _cmatmul(ar, ai, br, bi):
