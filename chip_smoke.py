@@ -78,6 +78,22 @@ Phases; any failure raises and the exit code is non-zero:
    the library call (torch.bmm on gathered blocks, or torch's sparse CSR
    product), with TFLOP/s or GB/s and the share of the bound; then each
    route of phase 16 on the host clock.
+18. dx solver kernels — tml_potrf_batched, tml_getrf_batched (pivot on and
+   off) and tml_geqrf_batched (csrc/dx_solver.cu) against their plain
+   versions and float64 at n = 8 … 256 (256 works in place in device memory)
+   on a batch of 37, gesv and posv with 1 and 4 right-hand sides, with the
+   residuals L·Lᵀ − A, P·A − L·U (|L| ≤ 1), Q·R − A, QᵀQ − I and A·X − B,
+   and a bf16 control that each tolerance must stay under; pivot ties, a non-SPD matrix among SPD ones (C10) and a NaN in a pivot
+   column (C11), and a zero column for geqrf.
+19. dx main path — bench.py's batch 8192 × n 32 through potrf_batched and
+   getrf_batched (pivot on and off; the packed routes), geqrf_batched,
+   gesv_batched and posv_batched (4 right-hand sides), potrf and getrf at
+   batch 1024 × n 128, and potrf_blocked at n = 4096: each must grow its
+   kernel's count (potrf_blocked also B1's), and is held against its plain
+   version (pivot mismatches counted) and its residuals.
+20. dx times — CUDA events over back-to-back calls for each route of phase
+   19, its plain version and its torch.linalg call, with the share of the
+   bound.
 The line before the last is a JSON record of the kernels, each with its
 bound (the larger of its operations over the card's published peak and its
 bytes over 3.35 TB/s); the last line is {"ok": true, "device": {...}}.
@@ -102,6 +118,7 @@ from tpumathlib_torch.core.check import max_abs_rel, max_scaled_err
 from tpumathlib_torch.core.interop import to_numpy
 from tpumathlib_torch.core.timer import benchmark
 from tpumathlib_torch.dx import cuda_utils, gemm
+from tpumathlib_torch.dx import solver as dxs
 from tpumathlib_torch.dx.gemm import _pallas_matmul_plain, pallas_matmul
 from tpumathlib_torch.entry import entry
 from tpumathlib_torch.fft import kernels as fft_kernels
@@ -1308,6 +1325,415 @@ def phase_sparse_times(spd: dict, card: str) -> dict:
     return ms
 
 
+DX_KERNEL_NS = (8, 16, 24, 32, 48, 64, 128, 256)   # phase 18's sizes (256 works in place)
+DX_KERNEL_BATCH = 37                                # a batch that is a multiple of nothing
+DX_MAIN = (8192, 32)   # (batch, n) of bench.py's batched lines (bench.py:366)
+DX_WIDE = (1024, 128)  # (batch, n) of the _run_batched route
+DX_K = 4               # right-hand sides of gesv and posv
+DX_COUNTS = (dxs._potrf, dxs._getrf, dxs._geqrf, pallas_matmul)
+# Max-scaled tolerance of each kernel's factors against its plain version, on
+# the matrices whose pivots agree. The kernels contract multiply-adds to FMAs
+# and sum in their own order, and elimination carries those roundings on, so
+# the two agree to rounding only. PERF.md records the sound run's maxima under
+# these and the bf16 control (_dx_control) above them.
+DX_TOL = {"potrf": 1e-5, "getrf": 1e-4, "geqrf": 1e-4}
+
+
+def _dx_spd(gen, b, n, dev):
+    """SPD input as bench.py:367-368: G·Gᵀ + n·I."""
+    g = torch.randn((b, n, n), generator=gen, device=dev)
+    return g @ g.mT + n * torch.eye(n, device=dev)
+
+
+def _amax(x):
+    return x.abs().flatten(1).amax(dim=1)
+
+
+def _swap_rows(a, piv):
+    """a with each batch's row-swap sequence piv applied, j = 0 … n−1."""
+    a = a.clone()
+    rows = torch.arange(a.shape[0], device=a.device)
+    for j in range(piv.shape[1]):
+        p = piv[:, j].long()
+        row_j = a[rows, j].clone()
+        a[rows, j] = a[rows, p]
+        a[rows, p] = row_j
+    return a
+
+
+def _chol_residual(a, l) -> float:
+    """max over the batch of max|L·Lᵀ − A| / max|A|, in float64."""
+    a64, l64 = a.double(), l.double()
+    return float((_amax(l64 @ l64.mT - a64) / _amax(a64)).max())
+
+
+def _lu_residual(a, lu, piv) -> tuple[float, float]:
+    """(max over the batch of max|P·A − L·U| / max|A|, max|L|), in float64."""
+    a64, lu64 = a.double(), lu.double()
+    eye = torch.eye(a.shape[-1], dtype=torch.float64, device=a.device)
+    l = torch.tril(lu64, -1) + eye
+    res = _amax(l @ torch.triu(lu64) - _swap_rows(a64, piv)) / _amax(a64)
+    return float(res.max()), float(l.abs().max())
+
+
+def _q_of(qr, taus):
+    """Q = H_0 ⋯ H_{n−1} from geqrf's reflectors (v_j = 1, below it qr's
+    column j), in float64."""
+    qr64, t64 = qr.double(), taus.double()
+    b, n = qr.shape[0], qr.shape[-1]
+    q = torch.eye(n, dtype=torch.float64, device=qr.device).repeat(b, 1, 1)
+    rows = torch.arange(n, device=qr.device)
+    for j in reversed(range(n)):
+        v = torch.where(rows > j, qr64[:, :, j], (rows == j).double())
+        q -= t64[:, j, None, None] * v[:, :, None] * (v[:, None, :] @ q)
+    return q
+
+
+def _qr_residual(a, qr, taus) -> tuple[float, float]:
+    """(max|Q·R − A| / max|A|, max|QᵀQ − I|), worst over the batch, float64."""
+    q = _q_of(qr, taus)
+    a64 = a.double()
+    eye = torch.eye(a.shape[-1], dtype=torch.float64, device=a.device)
+    res = _amax(q @ torch.triu(qr.double()) - a64) / _amax(a64)
+    return float(res.max()), float(_amax(q.mT @ q - eye).max())
+
+
+def _solve_residual(a, x, b) -> float:
+    """Normwise backward error, worst over the batch:
+    max|A·X − B| / (n·max|A|·max|X| + max|B|), in float64."""
+    a64, x64, b64 = a.double(), x.double(), b.double()
+    n = a.shape[-1]
+    return float((_amax(a64 @ x64 - b64) / (n * _amax(a64) * _amax(x64) + _amax(b64))).max())
+
+
+def _pivots_agree(piv, piv_plain):
+    """Per matrix: the kernel's and the plain version's pivots are the same."""
+    return (piv == piv_plain).all(dim=1)
+
+
+def _dx_control(kind: str, m) -> float:
+    """Max-scaled distance of the plain version on m from the plain version
+    on m rounded to bf16 (on matrices whose pivots agree): what a kernel that
+    lost f32 precision would show. DX_TOL[kind] must sit below it."""
+    lo = m.to(BF16).to(F32)
+    if kind == "potrf":
+        return max_scaled_err(dxs._potrf_plain(lo), dxs._potrf_plain(m))
+    if kind == "geqrf":
+        (q_lo, t_lo), (q, t) = dxs._geqrf_plain(lo), dxs._geqrf_plain(m)
+        return max(max_scaled_err(q_lo, q), max_scaled_err(t_lo, t))
+    (lu_lo, p_lo), (lu, p) = dxs._getrf_plain(lo), dxs._getrf_plain(m)
+    agree = _pivots_agree(p_lo, p)
+    return max_scaled_err(lu_lo[agree], lu[agree])
+
+
+def phase_dx_kernel(dev) -> None:
+    """The three kernels of csrc/dx_solver.cu against their plain versions
+    and float64 on the host, at n = 8 … 256 (n = 256 takes the instantiation
+    that works in place in device memory) and a batch of 37. Against the
+    plain version, max-scaled, DX_TOL on the factors of the matrices whose
+    pivots agree (the kernels' FMAs and order of summation round otherwise,
+    and a near-tie may pick another pivot: the count of matrices whose
+    pivots differ is printed, at most 3 of 37); a solution's difference,
+    over the matrix's condition number, 5e-5 (the factors' differences
+    passed through two substitutions). The tight checks are the float64
+    residuals, which do not depend on the order of the roundings: L·Lᵀ − A,
+    P·A − L·U and Q·R − A below 5e-5 of max|A| (phase 7's bound), QᵀQ − I
+    below 5e-5, |L| ≤ 1 with pivoting, and the solves' normwise backward
+    error below 1e-5. At n = 32 and 128 the bf16 control (_dx_control) must
+    exceed each tolerance. Then the cases of ROADMAP C10 and C11, ties and
+    a zero column."""
+    gen = torch.Generator(device=dev).manual_seed(7373)
+    failures, cases = [], 0
+
+    def hold(what, ok, detail):
+        nonlocal cases
+        cases += 1
+        if not ok:
+            failures.append(what)
+        print(f"[dx-kernel] {what:34s} {detail} {'ok' if ok else 'FAIL'}", flush=True)
+
+    bsz = DX_KERNEL_BATCH
+    for n in DX_KERNEL_NS:
+        spd = _dx_spd(gen, bsz, n, dev)
+        g = torch.randn((bsz, n, n), generator=gen, device=dev)
+        dom = g + n * torch.eye(n, device=dev)
+        where = "in place" if dxs._smem_bytes(n, 0) > dxs.SMEM_MAX else "shared"
+        l, l_p = dxs._potrf(spd), dxs._potrf_plain(spd)
+        torch.cuda.synchronize()
+        l64 = torch.linalg.cholesky(spd.double().cpu())
+        vs_p, vs_64 = max_scaled_err(l, l_p), max_scaled_err(l, l64)
+        res = _chol_residual(spd.cpu(), l.cpu())
+        hold(f"potrf n={n} ({where})", vs_p <= DX_TOL["potrf"] and vs_64 < 5e-5 and res < 5e-5
+             and bool(torch.isfinite(l).all()) and bool((torch.triu(l, 1) == 0).all()),
+             f"vs plain {vs_p:.3e} vs f64 {vs_64:.3e} LLᵀ−A {res:.3e}")
+        for pivot, m in ((True, g), (False, dom)):
+            (lu, piv), (lu_p, piv_p) = dxs._getrf(m, pivot), dxs._getrf_plain(m, pivot)
+            torch.cuda.synchronize()
+            agree = _pivots_agree(piv, piv_p)
+            vs_p = max_scaled_err(lu[agree], lu_p[agree]) if bool(agree.any()) else 0.0
+            res, lmax = _lu_residual(m.cpu(), lu.cpu(), piv.cpu())
+            in_range = bool(((piv >= 0) & (piv < n)).all())
+            hold(f"getrf pivot={pivot} n={n} ({where})",
+                 vs_p <= DX_TOL["getrf"] and res < 5e-5 and (lmax <= 1 + 1e-6 or not pivot)
+                 and in_range
+                 and int((~agree).sum()) <= 3,
+                 f"pivots differ in {int((~agree).sum())}/{bsz} | vs plain {vs_p:.3e} "
+                 f"PA−LU {res:.3e} max|L| {lmax:.4f}")
+        (qr, taus), (qr_p, taus_p) = dxs._geqrf(g), dxs._geqrf_plain(g)
+        torch.cuda.synchronize()
+        vs_p = max(max_scaled_err(qr, qr_p), max_scaled_err(taus, taus_p))
+        res, orth = _qr_residual(g.cpu(), qr.cpu(), taus.cpu())
+        hold(f"geqrf n={n} ({where})", vs_p <= DX_TOL["geqrf"] and res < 5e-5 and orth < 5e-5,
+             f"vs plain {vs_p:.3e} QR−A {res:.3e} QᵀQ−I {orth:.3e}")
+        if n in (32, 128):
+            for kind, m in (("potrf", spd), ("getrf", g), ("geqrf", g)):
+                ctl = _dx_control(kind, m)
+                hold(f"{kind} bf16 control n={n}", ctl > DX_TOL[kind],
+                     f"{ctl:.3e} above the tolerance {DX_TOL[kind]:g}")
+        piv_agree = _pivots_agree(dxs._getrf(g)[1], dxs._getrf_plain(g)[1])
+        for k in (1, DX_K):
+            rhs = torch.randn((bsz, n, k), generator=gen, device=dev)
+            for kind, m, run, plain in (("gesv", g, lambda m, b: dxs._getrf(m, True, b),
+                                         dxs._gesv_plain),
+                                        ("posv", spd, dxs._potrf, dxs._posv_plain)):
+                x, x_p = run(m, rhs), plain(m, rhs)
+                torch.cuda.synchronize()
+                sel = piv_agree if kind == "gesv" else torch.ones_like(piv_agree)
+                # a solution's difference grows with the matrix's condition
+                cond = torch.linalg.cond(m[sel].double().cpu())
+                fwd = float(((x[sel] - x_p[sel]).double().cpu().flatten(1).abs().amax(1)
+                             / _amax(x_p[sel].double().cpu()).clamp(min=1) / cond).max())
+                res = _solve_residual(m.cpu(), x.cpu(), rhs.cpu())
+                hold(f"{kind} n={n} k={k} ({where})", fwd <= 5e-5 and res < 1e-5
+                     and bool(torch.isfinite(x).all()),
+                     f"vs plain / cond {fwd:.3e} backward error {res:.3e}")
+
+    for n in (32, 48):   # ties: -5 at row 7 and 5 at row 12 give pivot 7
+        m = 0.01 * torch.randn((3, n, n), generator=gen, device=dev)
+        m[:, 7, 0], m[:, 12, 0] = -5.0, 5.0
+        p0 = dxs._getrf(m)[1][:, 0].tolist()
+        hold(f"tie n={n}", p0 == [7, 7, 7] == dxs._getrf_plain(m)[1][:, 0].tolist(),
+             f"pivots {p0}")
+    # C10: a non-SPD matrix among SPD ones: NaN from its failing column on,
+    # the neighbours equal to their standalone factors
+    spd = _dx_spd(gen, 8, 32, dev)
+    spd[2, 10, 10] = -1e4
+    l = dxs._potrf(spd)
+    low = torch.tril(torch.ones((32, 32), dtype=torch.bool, device=dev))
+    alone = all(torch.equal(l[i], dxs._potrf(spd[i:i + 1])[0]) for i in range(8) if i != 2)
+    pattern = bool(torch.isfinite(l[2][:, :10]).all() and l[2][10:, 10:][low[10:, 10:]].isnan().all())
+    same = torch.equal(l.isnan(), dxs._potrf_plain(spd).isnan())
+    hold("C10 non-SPD among SPD n=32", alone and pattern and same,
+         f"neighbours alone {alone}, NaN from column 10 on {pattern}, as plain {same}")
+    # C11: NaN in a pivot column: pivots in range, the first NaN row, NaN in LU
+    for n in (32, 48):
+        m = torch.randn((3, n, n), generator=gen, device=dev)
+        m[0, 5, 0] = m[0, 9, 0] = float("nan")
+        lu, piv = dxs._getrf(m)
+        piv_p = dxs._getrf_plain(m)[1]
+        ok = (bool(((piv >= 0) & (piv < n)).all()) and int(piv[0, 0]) == 5
+              and bool(lu[0].isnan().any()) and torch.equal(piv, piv_p))
+        hold(f"C11 NaN in pivot column n={n}", ok,
+             f"piv[0][:4] {piv[0, :4].tolist()}, NaN in LU {bool(lu[0].isnan().any())}")
+    m = torch.randn((2, 32, 32), generator=gen, device=dev)
+    m[0, :, 5] = 0.0
+    m[1, 0, 0] = 0.0
+    (qr, taus), (qr_p, taus_p) = dxs._geqrf(m), dxs._geqrf_plain(m)
+    err = max(max_scaled_err(qr, qr_p), max_scaled_err(taus, taus_p))
+    hold("geqrf zero column, x_j = 0", float(taus[0, 5]) == 0.0 and err <= DX_TOL["geqrf"],
+         f"tau {float(taus[0, 5])} vs plain {err:.3e}")
+    if failures:
+        raise SystemExit(f"chip_smoke: {len(failures)} of {cases} dx solver cases failed: {failures}")
+    print(f"[dx-kernel] {cases} cases agree", flush=True)
+
+
+def _dx_inputs(gen, dev):
+    b, n = DX_MAIN
+    bw, nw = DX_WIDE
+    g = torch.randn((b, n, n), generator=gen, device=dev)
+    return {"spd": _dx_spd(gen, b, n, dev), "g": g, "dom": g + n * torch.eye(n, device=dev),
+            "rhs": torch.randn((b, n, DX_K), generator=gen, device=dev),
+            "spd_w": _dx_spd(gen, bw, nw, dev),
+            "g_w": torch.randn((bw, nw, nw), generator=gen, device=dev),
+            "big": _spd(gen, SOLVER_N, dev)}
+
+
+def _dx_routes(x):
+    """name: (public call, its kernel's counter, its plain version, its
+    library call); the kernel counter's name as in DX_COUNTS."""
+    spd, g, dom, rhs, spd_w, g_w, big = (x[k] for k in ("spd", "g", "dom", "rhs", "spd_w", "g_w",
+                                                       "big"))
+    return {
+        "potrf_batched b8192 n32": (lambda: dxs.potrf_batched(spd), "_potrf",
+                                    lambda: dxs._potrf_plain(spd),
+                                    lambda: torch.linalg.cholesky_ex(spd)),
+        "getrf_batched b8192 n32": (lambda: dxs.getrf_batched(g), "_getrf",
+                                    lambda: dxs._getrf_plain(g, True),
+                                    lambda: torch.linalg.lu_factor_ex(g)),
+        "getrf_batched nopivot b8192 n32": (lambda: dxs.getrf_batched(dom, pivot=False), "_getrf",
+                                            lambda: dxs._getrf_plain(dom, False),
+                                            lambda: torch.linalg.lu_factor_ex(dom, pivot=False)),
+        "geqrf_batched b8192 n32": (lambda: dxs.geqrf_batched(g), "_geqrf",
+                                    lambda: dxs._geqrf_plain(g), lambda: torch.geqrf(g)),
+        "gesv_batched b8192 n32 k4": (lambda: dxs.gesv_batched(g, rhs), "_getrf",
+                                      lambda: dxs._gesv_plain(g, rhs),
+                                      lambda: torch.linalg.solve(g, rhs)),
+        "posv_batched b8192 n32 k4": (lambda: dxs.posv_batched(spd, rhs), "_potrf",
+                                      lambda: dxs._posv_plain(spd, rhs),
+                                      lambda: torch.linalg.solve(spd, rhs)),
+        "potrf_batched b1024 n128": (lambda: dxs.potrf_batched(spd_w), "_potrf",
+                                     lambda: dxs._potrf_plain(spd_w),
+                                     lambda: torch.linalg.cholesky_ex(spd_w)),
+        "getrf_batched b1024 n128": (lambda: dxs.getrf_batched(g_w), "_getrf",
+                                     lambda: dxs._getrf_plain(g_w, True),
+                                     lambda: torch.linalg.lu_factor_ex(g_w)),
+        "potrf_blocked n4096": (lambda: dxs.potrf_blocked(big), "_potrf", None,
+                                lambda: torch.linalg.cholesky(big)),
+    }
+
+
+def phase_dx_main(dev) -> dict:
+    """The batched solver slice through the public functions: bench.py's
+    batch 8192 × n 32 (potrf and getrf through the packed routes, geqrf,
+    gesv and posv with 4 right-hand sides), potrf and getrf at batch 1024 ×
+    n 128, and potrf_blocked at n = 4096. Each must grow its kernel's count
+    (potrf_blocked also B1's). Held against the plain version (DX_TOL on
+    factors where the pivots agree, which at most 1 in 128 matrices may not;
+    solutions over the matrix's condition, 5e-5) and the residuals of phase
+    18; potrf_blocked against a float64 factor (5e-5)."""
+    gen = torch.Generator(device=dev).manual_seed(8192)
+    x = _dx_inputs(gen, dev)
+    routes = _dx_routes(x)
+    torch.cuda.synchronize()
+    for f in DX_COUNTS:
+        f.launches = 0
+    outs, grew = {}, {}
+    for name, (route, _, _, _) in routes.items():
+        before = {f.__name__: f.launches for f in DX_COUNTS}
+        outs[name] = route()
+        grew[name] = {f.__name__: f.launches - before[f.__name__] for f in DX_COUNTS}
+    torch.cuda.synchronize()
+    launches = {f.__name__: f.launches for f in DX_COUNTS}
+    print(f"[dx] launches in the main path: {launches}", flush=True)
+
+    piv_agree = None
+    max_abs, failures = {}, []
+    for name, (_, count, plain_fn, _) in routes.items():
+        out = outs[name]
+        launched = grew[name][count] >= 1
+        if name == "potrf_blocked n4096":
+            launched = launched and grew[name]["pallas_matmul"] >= 1
+            big = x["big"]
+            rel = float((out.double() - torch.linalg.cholesky(big.double())).abs().max()
+                        / big.double().abs().max())
+            ok = rel < 5e-5 and launched and bool(torch.isfinite(out).all())
+            detail = f"vs f64 cholesky {rel:.3e} (tol 5e-5)"
+            max_abs[name] = 0.0
+        else:
+            plain = plain_fn()
+            if name.startswith(("potrf", "posv")):
+                m = x["spd"] if name.endswith(("n32", "k4")) else x["spd_w"]
+            elif "nopivot" in name:
+                m = x["dom"]
+            else:
+                m = x["g"] if name.endswith(("n32", "k4")) else x["g_w"]
+            if name.startswith("potrf"):
+                vs_p = max_scaled_err(out, plain)
+                max_abs[name] = max_abs_rel(out, plain)[0]
+                res = _chol_residual(m, out)
+                ok = (vs_p <= DX_TOL["potrf"] and res < 5e-5
+                      and bool((torch.triu(out, 1) == 0).all()))
+                detail = f"vs plain {vs_p:.3e} LLᵀ−A {res:.3e}"
+            elif name.startswith("getrf"):
+                (lu, piv), (lu_p, piv_p) = out, plain
+                agree = _pivots_agree(piv, piv_p)
+                if name == "getrf_batched b8192 n32":
+                    piv_agree = agree
+                vs_p = max_scaled_err(lu[agree], lu_p[agree])
+                max_abs[name] = max_abs_rel(lu[agree], lu_p[agree])[0]
+                res, lmax = _lu_residual(m, lu, piv)
+                ok = (vs_p <= DX_TOL["getrf"] and res < 5e-5
+                      and ("nopivot" in name or lmax <= 1 + 1e-6)
+                      and int((~agree).sum()) <= m.shape[0] // 128)
+                detail = (f"pivots differ in {int((~agree).sum())}/{m.shape[0]} | vs plain "
+                          f"{vs_p:.3e} PA−LU {res:.3e} max|L| {lmax:.4f}")
+            elif name.startswith("geqrf"):
+                vs_p = max(max_scaled_err(out[0], plain[0]), max_scaled_err(out[1], plain[1]))
+                max_abs[name] = max(max_abs_rel(out[0], plain[0])[0],
+                                    max_abs_rel(out[1], plain[1])[0])
+                res, orth = _qr_residual(m, *out)
+                ok = vs_p <= DX_TOL["geqrf"] and res < 5e-5 and orth < 5e-5
+                detail = f"vs plain {vs_p:.3e} QR−A {res:.3e} QᵀQ−I {orth:.3e}"
+            else:
+                sel = piv_agree if name.startswith("gesv") else torch.ones(
+                    m.shape[0], dtype=torch.bool, device=dev)
+                cond = torch.linalg.cond(m[sel].double())
+                diff = (out[sel] - plain[sel]).double().flatten(1).abs().amax(1)
+                fwd = float((diff / _amax(plain[sel].double()).clamp(min=1) / cond).max())
+                max_abs[name] = max_abs_rel(out[sel], plain[sel])[0]
+                res = _solve_residual(m, out, x["rhs"])
+                ok = fwd <= 5e-5 and res < 1e-5
+                detail = f"vs plain / cond {fwd:.3e} backward error {res:.3e}"
+            del plain
+            ok = ok and launched and all(bool(torch.isfinite(t).all()) for t in
+                                         (out if isinstance(out, tuple) else (out,)))
+        print(f"[dx] {name:32s} launches {grew[name]} | {detail} {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            failures.append(name)
+    if failures:
+        raise SystemExit(f"chip_smoke: dx solver main path failed: {failures}")
+    return {"launches": launches, "grew": grew, "max_abs_err": max_abs, "routes": routes}
+
+
+def _dx_bound(name: str) -> dict:
+    """The bound of a line of phase 20: inputs read and outputs written
+    once, f32 (of A only the lower triangle for potrf and posv, which read
+    no more), and its flop at the f32 peak (potrf n³/3, getrf 2n³/3, geqrf
+    4n³/3 a matrix, and 2n²k for a solve's two substitutions)."""
+    b, n = DX_WIDE if "n128" in name else DX_MAIN
+    if name.startswith("potrf_blocked"):
+        b, n = 1, SOLVER_N
+    k = DX_K if name.startswith(("gesv", "posv")) else 0
+    flop = {"potrf": n**3 / 3, "posv": n**3 / 3, "getrf": 2 * n**3 / 3, "gesv": 2 * n**3 / 3,
+            "geqrf": 4 * n**3 / 3}[name.split("_")[0]] + 2 * n * n * k
+    a_words = n * (n + 1) // 2 if name.startswith(("potrf", "posv")) else n * n
+    if k:
+        nbytes = 4 * b * (a_words + 2 * n * k)   # A and B read, X written
+    else:
+        extra = n if name.startswith(("getrf", "geqrf")) else 0   # piv or taus
+        nbytes = 4 * b * (a_words + n * n + extra)
+    return _bound(b * flop, PEAK_F32, nbytes)
+
+
+def phase_dx_times(dxd: dict, card: str) -> dict:
+    """CUDA events around back-to-back calls (``_loop_ms``) of each route of
+    phase 19, its plain version and its library call (torch.linalg's
+    cholesky_ex, lu_factor_ex with pivot on and off, torch.geqrf,
+    torch.linalg.solve for gesv and posv, torch.linalg.cholesky for
+    potrf_blocked), each beside its bound."""
+    fast, slow = {}, {}
+    for name, (route, _, plain, library) in dxd["routes"].items():
+        target = slow if name.startswith("potrf_blocked") else fast
+        target[f"{name} kernel"] = route
+        target[f"{name} library"] = library
+        if plain is not None:
+            slow[f"{name} plain"] = plain
+    ms = _loop_ms(fast, warmup=3, reps=20, samples=5)
+    ms.update(_loop_ms(slow, warmup=1, reps=2, samples=3))
+    bounds = {}
+    for name in dxd["routes"]:
+        bounds[name] = bound = _dx_bound(name)
+        for route in ("kernel", "plain", "library"):
+            t = ms.get(f"{name} {route}")
+            if t is not None:
+                print(f"[dx-times] {name:32s} {route:7s} {t:.4f} ms | bound {bound['bound_ms']:.4f} "
+                      f"ms ({bound['bound_by']}), {bound['bound_ms'] / t:.1%} of it | {card}",
+                      flush=True)
+    ms["bounds"] = bounds
+    return ms
+
+
 def main() -> None:
     dev, card = phase_device()
     phase_build()
@@ -1327,6 +1753,9 @@ def main() -> None:
     phase_sparse_kernel(dev)
     spd = phase_sparse_main(dev)
     sp_ms = phase_sparse_times(spd, card)
+    phase_dx_kernel(dev)
+    dxd = phase_dx_main(dev)
+    dx_ms = phase_dx_times(dxd, card)
 
     m, n, k = MAIN
     ns = SOLVER_N
@@ -1401,7 +1830,29 @@ def main() -> None:
         "library_ms": sp_ms[f"{line} library"],
     } for name, count, line, replaces in (
         ("bell_spmm", "bell_spmm_pallas", "spmm", "tpumathlib/sparse/pallas_kernels.py:123"),
-        ("bell_spmv", "_bell_spmv", "spmv", "tpumathlib/sparse/pallas_kernels.py:404 and :450"))]}
+        ("bell_spmv", "_bell_spmv", "spmv", "tpumathlib/sparse/pallas_kernels.py:404 and :450"))] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "tpumathlib_torch/csrc/dx_solver.cu",
+        "replaces": f"tpumathlib/dx/solver.py:{site}",
+        "launches": dxd["grew"][line][count],
+        "max_abs_err": dxd["max_abs_err"][line],
+        "ms": dx_ms[f"{line} kernel"],
+        "plain_ms": dx_ms[f"{line} plain"],
+        **dx_ms["bounds"][line],
+        "library_ms": dx_ms[f"{line} library"],
+    } for name, line, count, site in (
+        ("potrf_batched_packed (tml_potrf_batched)", "potrf_batched b8192 n32", "_potrf", "977"),
+        ("getrf_batched_packed (tml_getrf_batched)", "getrf_batched b8192 n32", "_getrf", "480"),
+        ("getrf_batched_packed pivot=False (tml_getrf_batched)", "getrf_batched nopivot b8192 n32",
+         "_getrf", "480"),
+        ("geqrf_batched (tml_geqrf_batched)", "geqrf_batched b8192 n32", "_geqrf", "222"),
+        ("gesv_batched (tml_getrf_batched with a right-hand side)", "gesv_batched b8192 n32 k4",
+         "_getrf", "301"),
+        ("posv_batched (tml_potrf_batched with a right-hand side)", "posv_batched b8192 n32 k4",
+         "_potrf", "359"),
+        ("potrf_batched n=128 (tml_potrf_batched)", "potrf_batched b1024 n128", "_potrf", "222"),
+        ("getrf_batched n=128 (tml_getrf_batched)", "getrf_batched b1024 n128", "_getrf", "222"))]}
     print(card_line(), flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

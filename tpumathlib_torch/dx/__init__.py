@@ -2,7 +2,19 @@
 
 Each TPU kernel of the reference becomes a kernel written by hand for
 Hopper, under ``tpumathlib_torch/csrc``, with its plain PyTorch version
-beside it. This slice holds the tiled GEMM with fused epilogues.
+beside it. This package holds the tiled GEMM with fused epilogues
+(``dx.gemm``) and the cuSolverDx tier's batched small factorizations and
+solves (``dx.solver``: potrf, getrf, geqrf, gesv and posv over a batch of
+small matrices, one thread block a matrix, and the blocked Cholesky that
+composes them with the GEMM).
 """
 
 from tpumathlib_torch.dx.gemm import pallas_matmul, MatmulConfig  # noqa: F401
+from tpumathlib_torch.dx.solver import (  # noqa: F401
+    geqrf_batched,
+    gesv_batched,
+    getrf_batched,
+    posv_batched,
+    potrf_batched,
+    potrf_blocked,
+)

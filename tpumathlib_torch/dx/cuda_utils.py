@@ -122,6 +122,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # (cols, a, x, y, mb, ellw, bs, m, n, alpha, stream), f32
     lib.tml_bell_spmv.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, f32, p]
     lib.tml_bell_spmv.restype = i32
+    # dx_solver.cu, f32: (a, factor, [piv,] b, x, batch, n, k, [pivot,] stream);
+    # b = x = null and k = 0 without a right-hand side
+    lib.tml_potrf_batched.argtypes = [p, p, p, p, i64, i64, i64, p]
+    lib.tml_potrf_batched.restype = i32
+    lib.tml_getrf_batched.argtypes = [p, p, p, p, p, i64, i64, i64, i32, p]
+    lib.tml_getrf_batched.restype = i32
+    # (a, qr, tau, batch, n, stream)
+    lib.tml_geqrf_batched.argtypes = [p, p, p, i64, i64, p]
+    lib.tml_geqrf_batched.restype = i32
     lib.tml_gemm_configs.argtypes = [ctypes.POINTER(i32), i32]
     lib.tml_gemm_configs.restype = i32
     lib.tml_error_string.argtypes = [i32]
