@@ -94,6 +94,23 @@ Phases; any failure raises and the exit code is non-zero:
 20. dx times — CUDA events over back-to-back calls for each route of phase
    19, its plain version and its torch.linalg call, with the share of the
    bound.
+21. dx least squares and Jacobi — tml_unmqr_batched, tml_gels_batched
+   (csrc/dx_solver.cu), tml_syevd_batched and tml_gesvd_batched
+   (csrc/dx_jacobi.cu) through the public functions against their plain
+   versions and float64 at batch 37: syevd and gesvd at n = 2 … 64, unmqr at
+   m = n = 32 and m = 64 × n = 32 both ways, gels at (32, 32), (64, 32) and
+   (48, 10) with 1 and 4 right-hand sides; circulant matrices and
+   0.5·ones + 0.5·I, whose ties the reference never turns (ROADMAP C12),
+   against eigvalsh and svdvals; a bf16 control above every tolerance.
+22. dx lsq/eig main path — gels_batched at 8192 × 64 × 32 (k = 4),
+   unmqr_batched both ways on geqrf_batched's 8192 × 32 factors, syevd and
+   gesvd at 8192 × 32 and 2048 × 64: each must grow its kernel's count by
+   one and agree with its plain version and float64; then syevj_batched,
+   gesvdj_batched (8192 × 32, float64), xsyevd (n = 2048) and xgesvd (4096²), which
+   launch no kernel, against float64.
+23. dx lsq/eig times — CUDA events for each route of phase 22, the plain
+   version and the library call (lstsq, ormqr, eigh, svd), with the share of
+   the bound.
 The line before the last is a JSON record of the kernels, each with its
 bound (the larger of its operations over the card's published peak and its
 bytes over 3.35 TB/s); the last line is {"ok": true, "device": {...}}.
@@ -123,7 +140,7 @@ from tpumathlib_torch.dx.gemm import _pallas_matmul_plain, pallas_matmul
 from tpumathlib_torch.entry import entry
 from tpumathlib_torch.fft import kernels as fft_kernels
 from tpumathlib_torch.fft import stockham
-from tpumathlib_torch.solver import blocked, dense, onelaunch
+from tpumathlib_torch.solver import blocked, dense, jacobi, onelaunch
 from tpumathlib_torch.sparse import pallas_kernels as spk
 
 qr = importlib.import_module("tpumathlib_torch.solver.qr_onelaunch")  # the package exports a function of this name
@@ -1377,12 +1394,12 @@ def _lu_residual(a, lu, piv) -> tuple[float, float]:
 
 
 def _q_of(qr, taus):
-    """Q = H_0 ⋯ H_{n−1} from geqrf's reflectors (v_j = 1, below it qr's
-    column j), in float64."""
+    """Q = H_0 ⋯ H_{n−1} (m × m) from geqrf's reflectors of an m × n QR,
+    m ≥ n (v_j = 1, below it qr's column j), in float64."""
     qr64, t64 = qr.double(), taus.double()
-    b, n = qr.shape[0], qr.shape[-1]
-    q = torch.eye(n, dtype=torch.float64, device=qr.device).repeat(b, 1, 1)
-    rows = torch.arange(n, device=qr.device)
+    b, m, n = qr.shape
+    q = torch.eye(m, dtype=torch.float64, device=qr.device).repeat(b, 1, 1)
+    rows = torch.arange(m, device=qr.device)
     for j in reversed(range(n)):
         v = torch.where(rows > j, qr64[:, :, j], (rows == j).double())
         q -= t64[:, j, None, None] * v[:, :, None] * (v[:, None, :] @ q)
@@ -1734,6 +1751,469 @@ def phase_dx_times(dxd: dict, card: str) -> dict:
     return ms
 
 
+DXE_KERNEL_NS = (2, 7, 16, 31, 32, 63, 64)   # phase 21's Jacobi sizes
+DXE_LSQ = ((32, 32), (64, 32), (48, 10))     # phase 21's (m, n) of gels and unmqr
+DXE_GELS = (8192, 64, 32, 4)   # (batch, m, n, k): 8192 fits of 32 coefficients to 64 samples
+DXE_SQ = (8192, 32)            # (batch, n) of unmqr (k = 4), syevd and gesvd
+DXE_WIDE = (2048, 64)          # (batch, n) of syevd and gesvd at the reference's largest n
+XSYEVD_N = 2048                # bench.py:354-362
+XGESVD_N = 4096
+DXE_COUNTS = (dxs._unmqr, dxs._gels, dxs._syevd, dxs._gesvd)
+# Tolerances of each kernel against its plain version (kernels B7e-B7h): values
+# (w, s) max-scaled; vectors signed and scaled by their gap (_vec_err); X over
+# max|X| and A's condition (_x_err); Q·C max-scaled. Set from the card's
+# readings recorded in PERF.md §6 (maxima 4.0e-6, 7.2e-7, 1.4e-7 and 6.2e-7
+# on an H100 at 700 W); a bf16 control sits above each.
+DXE_TOL = {"values": 1e-5, "vectors": 1e-5, "x": 1e-6, "qc": 1e-5}
+
+
+@contextlib.contextmanager
+def _dx_plain():
+    """The public functions of dx.solver with the four new kernels' plain
+    versions in their wrappers' place."""
+    saved = dxs._unmqr, dxs._gels, dxs._syevd, dxs._gesvd
+    dxs._unmqr, dxs._gels = dxs._apply_q_plain, dxs._gels_plain
+    dxs._syevd, dxs._gesvd = dxs._syevd_plain, dxs._gesvd_plain
+    try:
+        yield
+    finally:
+        dxs._unmqr, dxs._gels, dxs._syevd, dxs._gesvd = saved
+
+
+def _plain_of(route):
+    def run():
+        with _dx_plain():
+            return route()
+    return run
+
+
+def _vec_err(v, v_ref, values) -> float:
+    """Worst column of v against v_ref, signs aligned, its largest difference
+    times its value's gap to the neighbouring values over the largest value:
+    a vector is only as well defined as its gap."""
+    v, v_ref, values = v.double(), v_ref.double(), values.double()
+    sign = torch.sign((v * v_ref).sum(-2, keepdim=True))
+    err = (v * torch.where(sign == 0, 1.0, sign) - v_ref).abs().amax(-2)
+    d = (values[:, 1:] - values[:, :-1]).abs()
+    inf = torch.full_like(d[:, :1], math.inf)
+    gap = torch.minimum(torch.cat([inf, d], 1), torch.cat([d, inf], 1))
+    return float((err * gap / values.abs().amax(1, keepdim=True)).max())
+
+
+def _x_err(a, x, x_ref) -> float:
+    """max|X − X_ref| / max(max|X_ref|, 1) over A's condition, worst matrix."""
+    diff = (x - x_ref).double().flatten(1).abs().amax(1)
+    return float((diff / _amax(x_ref.double()).clamp(min=1) / torch.linalg.cond(a.double())).max())
+
+
+def _eig_f64(a, w, v) -> tuple[float, float, float]:
+    """(|w − w64| / max|w64|, max|AV − VΛ| / (max|A|·n), max|VᵀV − I|),
+    worst over the batch, in float64 (the reference test's measures)."""
+    a64, w64, v64 = a.double(), w.double(), v.double()
+    n = a.shape[-1]
+    wt = torch.linalg.eigvalsh(a64)
+    e_w = float(((w64 - wt).abs().amax(1) / wt.abs().amax(1)).max())
+    res = float(((a64 @ v64 - v64 * w64[:, None, :]).flatten(1).abs().amax(1) / (_amax(a64) * n)).max())
+    eye = torch.eye(n, dtype=torch.float64, device=a.device)
+    return e_w, res, float((v64.mT @ v64 - eye).abs().max())
+
+
+def _svd_f64(a, u, s, vt, st=None) -> tuple[float, float, float]:
+    """(|s − s64| / max s64, max|U·S·Vᵀ − A| / (max|A|·n), max of |UᵀU − I|
+    and |VᵀV − I|), worst over the batch, in float64; st: A's float64
+    singular values, if already known."""
+    a64, u64, s64, vt64 = a.double(), u.double(), s.double(), vt.double()
+    n = a.shape[-1]
+    st = torch.linalg.svdvals(a64) if st is None else st
+    e_s = float(((s64 - st).abs().amax(1) / st.amax(1)).max())
+    rec = float((((u64 * s64[:, None, :]) @ vt64 - a64).flatten(1).abs().amax(1)
+                 / (_amax(a64) * n)).max())
+    eye = torch.eye(n, dtype=torch.float64, device=a.device)
+    orth = max(float((u64.mT @ u64 - eye).abs().max()), float((vt64 @ vt64.mT - eye).abs().max()))
+    return e_s, rec, orth
+
+
+def _gesvdj_f64(a, u, s, v) -> tuple[float, float, float, float]:
+    """Float64 gesvdj against what its stopping test (ROADMAP C13) can
+    promise, worst over the batch: (the largest off-diagonal entry of G =
+    (U·S)ᵀ(U·S) over ‖A‖²_F; max |s² − σ²| less ‖off(G)‖_F, over ‖A‖²_F,
+    which Weyl's theorem puts at rounding; max|UᵀU − I|; max|VᵀV − I|). The
+    stop fires once G's off-diagonal squares vanish below the last bit of
+    ‖G‖²_F, at about √eps·‖A‖²_F, so U's columns p, q are orthogonal only to
+    that over σ_p·σ_q, as in the reference."""
+    us = u * s[:, None, :]
+    g = us.mT @ us
+    off = g - torch.diag_embed(torch.diagonal(g, dim1=1, dim2=2))
+    fro2 = a.double().square().sum((1, 2))
+    st = torch.linalg.svdvals(a.double())
+    weyl = (s.square() - st.square()).abs().amax(1) - torch.linalg.matrix_norm(off)
+    eye = torch.eye(v.shape[-1], dtype=torch.float64, device=v.device)
+    return (float((off.abs().amax((1, 2)) / fro2).max()), float((weyl / fro2).max()),
+            float((u.mT @ u - eye).abs().max()), float((v.mT @ v - eye).abs().max()))
+
+
+def _lstsq64(a, b):
+    return torch.linalg.lstsq(a.double(), b.double(), driver="gels").solution
+
+
+def _circulant(gen, b, n, dev):
+    """Symmetric circulant matrices: a constant diagonal, and every column a
+    shift of the first, so all column norms are equal with non-zero
+    couplings (ROADMAP C12's ties, for syevd and gesvd at once)."""
+    c = torch.randn((b, n), generator=gen, device=dev)
+    c = (c + torch.roll(c.flip(1), 1, 1)) / 2
+    idx = (torch.arange(n, device=dev)[None, :] - torch.arange(n, device=dev)[:, None]) % n
+    return c[:, idx]
+
+
+def _dxe_control(kind, m, k_or_b=None) -> float:
+    """Distance of the plain version on m from the plain version on m
+    rounded to bf16 (values, Q·C or X): what a kernel that lost f32
+    precision would show. DXE_TOL must sit below it."""
+    lo = m.to(BF16).to(F32)
+    with _dx_plain():
+        if kind == "syevd":
+            return max_scaled_err(dxs.syevd_batched(lo)[0], dxs.syevd_batched(m)[0])
+        if kind == "vectors":
+            (_, v_lo), (w, v) = dxs.syevd_batched(lo), dxs.syevd_batched(m)
+            return _vec_err(v_lo, v, w)
+        if kind == "gesvd":
+            return max_scaled_err(dxs.gesvd_batched(lo)[1], dxs.gesvd_batched(m)[1])
+        if kind == "gels":
+            return _x_err(m, dxs.gels_batched(lo, k_or_b), dxs.gels_batched(m, k_or_b))
+        qr, taus = dxs._geqrf_plain(m)
+        lo_qr, lo_taus = dxs._geqrf_plain(lo)
+        return max_scaled_err(dxs.unmqr_batched(lo_qr, lo_taus, k_or_b),
+                              dxs.unmqr_batched(qr, taus, k_or_b))
+
+
+def phase_dxe_kernel(dev) -> None:
+    """Kernels B7e-B7h (tml_unmqr_batched, tml_gels_batched in
+    csrc/dx_solver.cu; tml_syevd_batched, tml_gesvd_batched in
+    csrc/dx_jacobi.cu) against their plain versions and float64, batch 37,
+    through the public functions (which sort the Jacobi results): syevd and
+    gesvd at n = 2 … 64, unmqr at (m, n) = (32, 32) and (64, 32) with both
+    trans, gels at (32, 32), (64, 32), (48, 10), k = 1 and 4. Against the
+    plain version DXE_TOL; against float64 the reference test's bounds
+    (tests/test_dx_solver.py:128-214): w and s within 2e-4 of the largest,
+    AV − VΛ and U·S·Vᵀ − A below 5e-4·max|A|·n, VᵀV − I below 5e-4 (syevd)
+    and 1e-3 (gesvd), gels within 5e-4·max|x| of float64 least squares,
+    unmqr within 5e-4 of float64 Q·C. Then C12's ties (circulant matrices:
+    constant diagonal, equal column norms) against eigvalsh and svdvals, and
+    a bf16 control above every tolerance."""
+    gen = torch.Generator(device=dev).manual_seed(2121)
+    failures, cases = [], 0
+    worst: dict[str, float] = {}
+
+    def hold(what, ok, detail, **errs):
+        nonlocal cases
+        cases += 1
+        for key, err in errs.items():
+            worst[key] = max(worst.get(key, 0.0), err)
+        if not ok:
+            failures.append(what)
+        print(f"[dxe-kernel] {what:30s} {detail} {'ok' if ok else 'FAIL'}", flush=True)
+
+    bsz, tol = DX_KERNEL_BATCH, DXE_TOL
+    for n in DXE_KERNEL_NS:
+        g = torch.randn((bsz, n, n), generator=gen, device=dev)
+        sym = (g + g.mT) / 2
+        (w, v), (w_p, v_p) = dxs.syevd_batched(sym), _plain_of(lambda: dxs.syevd_batched(sym))()
+        e_v, e_vec = max_scaled_err(w, w_p), _vec_err(v, v_p, w_p)
+        e_w, res, orth = _eig_f64(sym, w, v)
+        hold(f"syevd n={n}", e_v <= tol["values"] and e_vec <= tol["vectors"] and e_w < 2e-4
+             and res < 5e-4 and orth < 5e-4,
+             f"vs plain w {e_v:.3e} V {e_vec:.3e} | f64 w {e_w:.3e} AV−VΛ {res:.3e} VᵀV−I {orth:.3e}",
+             values=e_v, vectors=e_vec)
+        (u, s, vt), (u_p, s_p, vt_p) = dxs.gesvd_batched(g), _plain_of(lambda: dxs.gesvd_batched(g))()
+        e_v = max_scaled_err(s, s_p)
+        e_vec = max(_vec_err(u, u_p, s_p), _vec_err(vt.mT, vt_p.mT, s_p))
+        e_s, rec, orth = _svd_f64(g, u, s, vt)
+        hold(f"gesvd n={n}", e_v <= tol["values"] and e_vec <= tol["vectors"] and e_s < 2e-4
+             and rec < 5e-4 and orth < 1e-3,
+             f"vs plain s {e_v:.3e} U,V {e_vec:.3e} | f64 s {e_s:.3e} USVᵀ−A {rec:.3e} orth {orth:.3e}",
+             values=e_v, vectors=e_vec)
+    for m, n in DXE_LSQ:
+        a = torch.randn((bsz, m, n), generator=gen, device=dev)
+        qr, taus = dxs._geqrf_plain(a)
+        q64 = _q_of(qr, taus)
+        for k in (1, DX_K):
+            b = torch.randn((bsz, m, k), generator=gen, device=dev)
+            x, x_p = dxs.gels_batched(a, b), _plain_of(lambda: dxs.gels_batched(a, b))()
+            e_x, x64 = _x_err(a, x, x_p), _lstsq64(a, b)
+            e_64 = float(((x.double() - x64).flatten(1).abs().amax(1) / _amax(x64)).max())
+            hold(f"gels m={m} n={n} k={k}", e_x <= tol["x"] and e_64 < 5e-4
+                 and bool(torch.isfinite(x).all()),
+                 f"vs plain / cond {e_x:.3e} | vs f64 lstsq {e_64:.3e}", x=e_x)
+            if n == 10:   # unmqr at (32, 32) and (64, 32)
+                continue
+            for trans in (True, False):
+                qc = dxs.unmqr_batched(qr, taus, b, trans)
+                qc_p = _plain_of(lambda: dxs.unmqr_batched(qr, taus, b, trans))()
+                want = (q64.mT if trans else q64) @ b.double()
+                e_q, e_64 = max_scaled_err(qc, qc_p), float((qc.double() - want).abs().max())
+                hold(f"unmqr m={m} n={n} k={k} trans={trans}", e_q <= tol["qc"] and e_64 < 5e-4,
+                     f"vs plain {e_q:.3e} | vs f64 Q·C {e_64:.3e}", qc=e_q)
+    for n in (8, 32, 64):   # C12: ties the reference never turns
+        c = _circulant(gen, 4, n, dev)
+        w, _ = dxs.syevd_batched(c)
+        s = dxs.gesvd_batched(c)[1]
+        wt, st = torch.linalg.eigvalsh(c.double()), torch.linalg.svdvals(c.double())
+        e_w = float(((w.double() - wt).abs().amax(1) / wt.abs().amax(1)).max())
+        e_s = float(((s.double() - st).abs().amax(1) / st.amax(1)).max())
+        hold(f"C12 circulant n={n}", e_w < 2e-4 and e_s < 2e-4,
+             f"w vs eigvalsh {e_w:.3e} s vs svdvals {e_s:.3e}")
+    tie = 0.5 * torch.ones((1, 8, 8), device=dev) + 0.5 * torch.eye(8, device=dev)
+    w, s = dxs.syevd_batched(tie)[0], dxs.gesvd_batched(tie)[1]
+    hold("C12 0.5·ones + 0.5·I n=8", abs(float(w[0, -1]) - 4.5) < 1e-5
+         and abs(float(s[0, 0]) - 4.5) < 1e-5 and float((w[0, :-1] - 0.5).abs().max()) < 1e-5,
+         f"w {[round(float(t), 6) for t in w[0]]} s[0] {float(s[0, 0]):.6f}")
+    g = torch.randn((bsz, 32, 32), generator=gen, device=dev)
+    a, b = torch.randn((bsz, 64, 32), generator=gen, device=dev), torch.randn(
+        (bsz, 64, DX_K), generator=gen, device=dev)
+    for kind, key, m, extra in (("syevd", "values", (g + g.mT) / 2, None),
+                                ("vectors", "vectors", (g + g.mT) / 2, None),
+                                ("gesvd", "values", g, None), ("gels", "x", a, b),
+                                ("unmqr", "qc", g, torch.randn((bsz, 32, DX_K), generator=gen,
+                                                               device=dev))):
+        ctl = _dxe_control(kind, m, extra)
+        hold(f"{kind} bf16 control", ctl > tol[key], f"{ctl:.3e} above the tolerance {tol[key]:g}")
+    torch.cuda.synchronize()
+    print(f"[dxe-kernel] worst against the plain version: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()), flush=True)
+    if failures:
+        raise SystemExit(f"chip_smoke: {len(failures)} of {cases} dx lsq/eig cases failed: {failures}")
+    print(f"[dxe-kernel] {cases} cases agree", flush=True)
+
+
+def _dxe_routes(x):
+    """name: (public call, its kernel's counter or None, plain route or None,
+    library call or None)."""
+    a, b, qr, taus, c = x["a"], x["b"], x["qr"], x["taus"], x["c"]
+    sq, sym, wide, sym_w, big_sym, big = (x[k] for k in ("sq", "sym", "wide", "sym_w", "big_sym",
+                                                         "big"))
+    routes = {
+        "gels_batched b8192 m64 n32 k4": (lambda: dxs.gels_batched(a, b), "_gels",
+                                          lambda: torch.linalg.lstsq(a, b, driver="gels")),
+        "unmqr_batched trans b8192 n32 k4": (lambda: dxs.unmqr_batched(qr, taus, c, True),
+                                             "_unmqr", lambda: torch.ormqr(qr, taus, c,
+                                                                           transpose=True)),
+        "unmqr_batched b8192 n32 k4": (lambda: dxs.unmqr_batched(qr, taus, c, False), "_unmqr",
+                                       lambda: torch.ormqr(qr, taus, c)),
+        "syevd_batched b8192 n32": (lambda: dxs.syevd_batched(sym), "_syevd",
+                                    lambda: torch.linalg.eigh(sym)),
+        "gesvd_batched b8192 n32": (lambda: dxs.gesvd_batched(sq), "_gesvd",
+                                    lambda: torch.linalg.svd(sq)),
+        "syevd_batched b2048 n64": (lambda: dxs.syevd_batched(sym_w), "_syevd",
+                                    lambda: torch.linalg.eigh(sym_w)),
+        "gesvd_batched b2048 n64": (lambda: dxs.gesvd_batched(wide), "_gesvd",
+                                    lambda: torch.linalg.svd(wide)),
+        # the ride-along routes: no kernel of the repository
+        "syevj_batched f64 b8192 n32": (lambda: jacobi.syevj_batched(sym.double(), tol=1e-6), None,
+                                        None),
+        "gesvdj_batched f64 b8192 n32": (lambda: jacobi.gesvdj_batched(sq.double(), tol=1e-6),
+                                         None, None),
+        f"xsyevd n{XSYEVD_N}": (lambda: dense.xsyevd(big_sym), None, None),
+        f"xgesvd n{XGESVD_N}": (lambda: dense.xgesvd(big), None, None),
+    }
+    return {name: (route, count, None if count is None else _plain_of(route), library)
+            for name, (route, count, library) in routes.items()}
+
+
+def phase_dxe_main(dev) -> dict:
+    """The slice's main path through the public functions: gels_batched at
+    batch 8192 × m 64 × n 32, k 4; unmqr_batched both ways on
+    geqrf_batched's factors of 8192 × 32 × 32 and C (8192, 32, 4);
+    syevd_batched and gesvd_batched at 8192 × 32 and 2048 × 64. Each must
+    grow its kernel's count by one and is held to its plain version
+    (DXE_TOL) and to float64 (phase 21's bounds). Then the routes that
+    launch no kernel, against float64: syevj_batched and gesvdj_batched at
+    8192 × 32 (tol 1e-6, float64: in f32 the reference's stopping test,
+    which the port keeps, stops gesvdj early, ROADMAP C13; gesvdj is held
+    to what that test promises, _gesvdj_f64), xsyevd at n = 2048
+    (bench.py:354-362) and xgesvd at 4096 × 4096 (cuSOLVER's gesvd driver
+    through torch.linalg, beside torch's default driver for comparison)."""
+    gen = torch.Generator(device=dev).manual_seed(8282)
+    bg, mg, ng, kg = DXE_GELS
+    bs, ns = DXE_SQ
+    bw, nw = DXE_WIDE
+    sq, wide = (torch.randn((b_, n_, n_), generator=gen, device=dev) for b_, n_ in ((bs, ns), (bw, nw)))
+    x = {"a": torch.randn((bg, mg, ng), generator=gen, device=dev),
+         "b": torch.randn((bg, mg, kg), generator=gen, device=dev),
+         "sq": sq, "sym": (sq + sq.mT) / 2, "wide": wide, "sym_w": (wide + wide.mT) / 2,
+         "c": torch.randn((bs, ns, DX_K), generator=gen, device=dev),
+         "big": torch.randn((XGESVD_N, XGESVD_N), generator=gen, device=dev)}
+    g = torch.randn((XSYEVD_N, XSYEVD_N), generator=gen, device=dev)
+    x["big_sym"] = (g + g.T) / 2
+    x["qr"], x["taus"] = dxs.geqrf_batched(sq)
+    routes = _dxe_routes(x)
+    torch.cuda.synchronize()
+    for f in DXE_COUNTS:
+        f.launches = 0
+    outs, grew, events = {}, {}, {}
+    for name, (route, _, _, _) in routes.items():
+        before = {f.__name__: f.launches for f in DXE_COUNTS}
+        events[name] = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        events[name][0].record()
+        outs[name] = route()
+        events[name][1].record()
+        grew[name] = {f.__name__: f.launches - before[f.__name__] for f in DXE_COUNTS}
+    torch.cuda.synchronize()
+    once_ms = {name: start.elapsed_time(end) for name, (start, end) in events.items()}
+    launches = {f.__name__: f.launches for f in DXE_COUNTS}
+    print(f"[dxe] launches in the main path: {launches}", flush=True)
+
+    tol, max_abs, failures = DXE_TOL, {}, []
+    for name, (route, count, plain_fn, _) in routes.items():
+        out = outs[name]
+        if count is None:
+            launched = sum(grew[name].values()) == 0
+        else:
+            launched = grew[name][count] == 1 and sum(grew[name].values()) == 1
+        if name.startswith("gels"):
+            x_p = plain_fn()
+            e_x, x64 = _x_err(x["a"], out, x_p), _lstsq64(x["a"], x["b"])
+            e_64 = float(((out.double() - x64).flatten(1).abs().amax(1) / _amax(x64)).max())
+            ok = e_x <= tol["x"] and e_64 < 5e-4
+            max_abs[name] = max_abs_rel(out, x_p)[0]
+            detail = f"vs plain / cond {e_x:.3e} | vs f64 lstsq {e_64:.3e}"
+        elif name.startswith("unmqr"):
+            qc_p = plain_fn()
+            q64 = _q_of(x["qr"], x["taus"])
+            want = (q64.mT if "trans" in name else q64) @ x["c"].double()
+            e_q, e_64 = max_scaled_err(out, qc_p), float((out.double() - want).abs().max())
+            back = dxs.unmqr_batched(x["qr"], x["taus"], out, "trans" not in name)
+            e_back = max_scaled_err(back, x["c"])
+            ok = e_q <= tol["qc"] and e_64 < 5e-4 and e_back < 1e-5
+            max_abs[name] = max_abs_rel(out, qc_p)[0]
+            detail = f"vs plain {e_q:.3e} | vs f64 Q·C {e_64:.3e}, round trip {e_back:.3e}"
+        elif name.startswith("syevd"):
+            (w, v), (w_p, v_p) = out, plain_fn()
+            a = x["sym"] if "n32" in name else x["sym_w"]
+            e_v, e_vec = max_scaled_err(w, w_p), _vec_err(v, v_p, w_p)
+            e_w, res, orth = _eig_f64(a, w, v)
+            ok = (e_v <= tol["values"] and e_vec <= tol["vectors"] and e_w < 2e-4 and res < 5e-4
+                  and orth < 5e-4)
+            max_abs[name] = max_abs_rel(w, w_p)[0]
+            detail = (f"vs plain w {e_v:.3e} V {e_vec:.3e} | f64 w {e_w:.3e} AV−VΛ {res:.3e} "
+                      f"VᵀV−I {orth:.3e}")
+        elif name.startswith("gesvd_"):
+            (u, s, vt), (u_p, s_p, vt_p) = out, plain_fn()
+            a = x["sq"] if "n32" in name else x["wide"]
+            e_v = max_scaled_err(s, s_p)
+            e_vec = max(_vec_err(u, u_p, s_p), _vec_err(vt.mT, vt_p.mT, s_p))
+            e_s, rec, orth = _svd_f64(a, u, s, vt)
+            ok = (e_v <= tol["values"] and e_vec <= tol["vectors"] and e_s < 2e-4 and rec < 5e-4
+                  and orth < 1e-3)
+            max_abs[name] = max_abs_rel(s, s_p)[0]
+            detail = (f"vs plain s {e_v:.3e} U,V {e_vec:.3e} | f64 s {e_s:.3e} USVᵀ−A {rec:.3e} "
+                      f"orth {orth:.3e}")
+        elif name.startswith("syevj"):
+            w, v, res, sweeps = out
+            e_w, r, orth = _eig_f64(x["sym"], w, v)
+            # tol 1e-6 stops at off(A) < 1e-6·‖A‖: AV − VΛ of that order
+            ok = e_w < 1e-9 and r < 1e-6 and orth < 1e-12
+            detail = (f"f64 w {e_w:.3e} AV−VΛ {r:.3e} VᵀV−I {orth:.3e} | sweeps "
+                      f"{int(sweeps.min())}–{int(sweeps.max())}")
+        elif name.startswith("gesvdj"):
+            u, s, v, res, sweeps = out
+            e_s, rec, _ = _svd_f64(x["sq"], u, s, v.mT)
+            e_off, e_weyl, orth_u, orth_v = _gesvdj_f64(x["sq"], u, s, v)
+            # the stop (ROADMAP C13) leaves Gram entries up to √eps·‖A‖²_F:
+            # |u_pᵀu_q| ≤ that/(σ_p·σ_q), and by Weyl |s² − σ²| ≤ ‖off(G)‖
+            ok = e_off < 1.5e-8 and e_weyl < 1e-12 and rec < 1e-12 and orth_v < 1e-12
+            detail = (f"f64 s {e_s:.3e} (Weyl {e_weyl:.1e}) USVᵀ−A {rec:.3e} off(G) {e_off:.3e} "
+                      f"UᵀU−I {orth_u:.3e} VᵀV−I {orth_v:.3e} | sweeps "
+                      f"{int(sweeps.min())}–{int(sweeps.max())}")
+        elif name.startswith("xsyevd"):
+            w, v, info = out
+            e_w, r, orth = _eig_f64(x["big_sym"][None], w[None], v[None])
+            ok = e_w < 2e-4 and r < 5e-4 and orth < 5e-4 and int(info) == 0
+            detail = f"f64 w {e_w:.3e} AV−VΛ {r:.3e} VᵀV−I {orth:.3e} info {int(info)}"
+        else:
+            u, s, vh, info = out
+            st = torch.linalg.svdvals(x["big"].double())[None]
+            e_s, rec, orth = _svd_f64(x["big"][None], u[None], s[None], vh[None], st)
+            ok = e_s < 2e-4 and rec < 5e-4 and orth < 1e-3 and int(info) == 0
+            # what xgesvd's driver choice keeps out: torch's default, gesvdj
+            d_s, d_rec, d_orth = _svd_f64(x["big"][None], *(t[None] for t in torch.linalg.svd(
+                x["big"], full_matrices=False)), st)
+            detail = (f"f64 s {e_s:.3e} USVᵀ−A {rec:.3e} orth {orth:.3e} info {int(info)} | "
+                      f"torch's default driver: s {d_s:.3e} USVᵀ−A {d_rec:.3e} orth {d_orth:.3e}")
+        ok = ok and launched and all(bool(torch.isfinite(t).all()) for t in
+                                     (out if isinstance(out, tuple) else (out,)) if t is not None)
+        print(f"[dxe] {name:34s} launches {grew[name]} | {detail} {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            failures.append(name)
+    if failures:
+        raise SystemExit(f"chip_smoke: dx lsq/eig main path failed: {failures}")
+    return {"launches": launches, "max_abs_err": max_abs, "routes": routes, "once_ms": once_ms}
+
+
+def _dxe_bound(name: str) -> dict:
+    """The bound of a line of phase 23, f32: inputs read and outputs written
+    once, and the flop at the f32 peak. gels: A and B read, X written;
+    2mn² − 2n³/3 for QR, 4mnk − 2n²k for Qᵀ·B, n²k for R·X = Y. unmqr: the
+    reflectors below the diagonal and tau read, C read and written;
+    4mnk − 2n²k. syevd: 12n flop a pair turned in a round (A stays
+    symmetric, so Jᵀ·A·J needs one triangle of A's columns and rows, 6n,
+    and V's columns 6n); gesvd: 18n (A's and V's columns and the three
+    sums); over the sweeps and the schedule's live pairs; A read, V and w
+    (U, s, V) written."""
+    if name.startswith("gels"):
+        b, m, n, k = DXE_GELS
+        flop = 2 * m * n * n - 2 * n**3 / 3 + 4 * m * n * k - 2 * n * n * k + n * n * k
+        return _bound(b * flop, PEAK_F32, 4 * b * (m * n + m * k + n * k))
+    if name.startswith("unmqr"):
+        (b, n), k = DXE_SQ, DX_K
+        words = n * n - n * (n + 1) // 2 + n + 2 * n * k
+        return _bound(b * (4 * n * n * k - 2 * n * n * k), PEAK_F32, 4 * b * words)
+    b, n = DXE_WIDE if "n64" in name else DXE_SQ
+    sweeps, outs, per_pair = ((10, 2 * n * n + n, 12 * n) if name.startswith("syevd")
+                              else (12, 3 * n * n + n, 18 * n))
+    live = dxs._live_pairs(n)
+    flop = sweeps * live.shape[0] * live.shape[1] * per_pair
+    return _bound(b * flop, PEAK_F32, 4 * b * (n * n + outs))
+
+
+def phase_dxe_times(dxe: dict, card: str) -> dict:
+    """CUDA events around back-to-back calls (``_loop_ms``) of each route of
+    phase 22, its plain version (short loops) and its library call
+    (torch.linalg.lstsq with driver gels, torch.ormqr, torch.linalg.eigh,
+    torch.linalg.svd), each beside its bound. A call that takes more than
+    100 ms (the Jacobi plain versions, torch.ormqr, which loops over the
+    batch, and eigh and svd at n = 64) is timed once in each turn; the
+    routes that launch no kernel keep their one call of phase 22."""
+    fast, slow, slowest = {}, {}, {}
+    for name, (route, count, plain, library) in dxe["routes"].items():
+        if count is None:
+            continue
+        fast[f"{name} kernel"] = route
+        slow_library = name.startswith("unmqr") or "n64" in name
+        (slowest if slow_library else slow)[f"{name} library"] = library
+        (slowest if name.startswith(("syevd", "gesvd")) else slow)[f"{name} plain"] = plain
+    ms = _loop_ms(fast, warmup=2, reps=10, samples=3)
+    ms.update(_loop_ms(slow, warmup=1, reps=2, samples=2))
+    ms.update(_loop_ms(slowest, warmup=0, reps=1, samples=1))
+    ms.update({f"{name} route": t for name, t in dxe["once_ms"].items()
+               if dxe["routes"][name][1] is None})
+    bounds = {}
+    for name, (_, count, _, _) in dxe["routes"].items():
+        if count is None:
+            print(f"[dxe-times] {name:34s} route   {ms[f'{name} route']:.4f} ms (one call, phase "
+                  f"22; no kernel of the repository) | {card}", flush=True)
+            continue
+        bounds[name] = bound = _dxe_bound(name)
+        for route in ("kernel", "plain", "library"):
+            t = ms[f"{name} {route}"]
+            print(f"[dxe-times] {name:34s} {route:7s} {t:.4f} ms | bound {bound['bound_ms']:.4f} "
+                  f"ms ({bound['bound_by']}), {bound['bound_ms'] / t:.1%} of it | {card}",
+                  flush=True)
+    ms["bounds"] = bounds
+    return ms
+
+
 def main() -> None:
     dev, card = phase_device()
     phase_build()
@@ -1756,6 +2236,9 @@ def main() -> None:
     phase_dx_kernel(dev)
     dxd = phase_dx_main(dev)
     dx_ms = phase_dx_times(dxd, card)
+    phase_dxe_kernel(dev)
+    dxe = phase_dxe_main(dev)
+    dxe_ms = phase_dxe_times(dxe, card)
 
     m, n, k = MAIN
     ns = SOLVER_N
@@ -1852,7 +2335,26 @@ def main() -> None:
         ("posv_batched (tml_potrf_batched with a right-hand side)", "posv_batched b8192 n32 k4",
          "_potrf", "359"),
         ("potrf_batched n=128 (tml_potrf_batched)", "potrf_batched b1024 n128", "_potrf", "222"),
-        ("getrf_batched n=128 (tml_getrf_batched)", "getrf_batched b1024 n128", "_getrf", "222"))]}
+        ("getrf_batched n=128 (tml_getrf_batched)", "getrf_batched b1024 n128", "_getrf", "222"))] + [{
+        "name": name,
+        "route": "cuda",
+        "source": f"tpumathlib_torch/csrc/{source}",
+        "replaces": f"tpumathlib/dx/solver.py:{site}",
+        "launches": dxe["launches"][count],
+        "max_abs_err": dxe["max_abs_err"][line],
+        "ms": dxe_ms[f"{line} kernel"],
+        "plain_ms": dxe_ms[f"{line} plain"],
+        **dxe_ms["bounds"][line],
+        "library_ms": dxe_ms[f"{line} library"],
+    } for name, line, count, source, site in (
+        ("unmqr_batched (tml_unmqr_batched)", "unmqr_batched trans b8192 n32 k4", "_unmqr",
+         "dx_solver.cu", "597"),
+        ("gels_batched (tml_gels_batched)", "gels_batched b8192 m64 n32 k4", "_gels",
+         "dx_solver.cu", "637"),
+        ("syevd_batched (tml_syevd_batched)", "syevd_batched b8192 n32", "_syevd",
+         "dx_jacobi.cu", "758"),
+        ("gesvd_batched (tml_gesvd_batched)", "gesvd_batched b8192 n32", "_gesvd",
+         "dx_jacobi.cu", "843"))]}
     print(card_line(), flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

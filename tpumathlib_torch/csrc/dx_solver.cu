@@ -6,13 +6,19 @@
 //   tml_getrf_batched: LU with or without partial pivoting; (LU, piv), or with
 //                      a right-hand side the solution of A X = B (gesv).
 //   tml_geqrf_batched: Householder QR in LAPACK geqrf layout; (QR, tau).
+//   tml_unmqr_batched: Q^T C or Q C from geqrf's reflectors, QR (m, n) and C
+//                      (m, k).
+//   tml_gels_batched:  least squares min |A x - b| of each (m, n), m >= n:
+//                      the QR steps on m rows, Q^T B, then R X = (Q^T B)[:n].
 //
 // Replaces the TPU kernels of tpumathlib/dx/solver.py: _run_batched's
 // pallas_call (:222, for potrf_batched :238, getrf_batched :257 and
 // geqrf_batched :374; bodies _potrf_body :54, _getrf_body :73, _geqrf_body
 // :157), gesv_batched's (:301) and posv_batched's (:359), and the lane-packed
 // getrf_batched_packed (:480, kernel :391) and potrf_batched_packed (:977,
-// kernel :907). Lane packing (128 / n matrices to a 128-lane row, 0/1
+// kernel :907), and unmqr_batched's (:597, body _apply_q_body :538) and
+// gels_batched's (:637, bodies _geqrf_body_rect :502, _apply_q_body,
+// _trsm_upper_rect :559). Lane packing (128 / n matrices to a 128-lane row, 0/1
 // matmuls to move columns between lanes) is a TPU layout: here one thread
 // block factors one matrix, so the packed functions launch these kernels too,
 // and a non-finite value stays in its own matrix. tpumathlib_torch/dx/
@@ -34,7 +40,9 @@
 // n >= 240 without a right-hand side) is factored by a second instantiation
 // of the same kernels in place in the output, in device memory, so no n is
 // refused for its size. Warp per matrix with rows in registers, or several
-// matrices a block, are later work.
+// matrices a block, are later work. unmqr and gels take the same layout with
+// m rows: at batch 8192 x m 64 x n 32, k 4, gels reads A and B and writes X,
+// 79.7 MB, 0.024 ms, against about 1 GFLOP (0.015 ms) of QR and Q^T B.
 //
 // Numerical conventions, shared with the plain versions:
 // - potrf: 1/sqrt of the pivot; L's column is the column times it; the
@@ -48,9 +56,16 @@
 //   gives tau = 0; the reflector is stored with v_j = 1, tau = tau_h * v_j^2.
 // - solves: gesv applies the row swaps in sequence, then the unit-lower and
 //   the upper substitution; posv L y = b, then L^T x = y.
+// - unmqr: H_j = I - tau_j v v^T with v_j = 1 and v below it QR's column j,
+//   applied for j ascending (Q^T) or descending (Q); reflectors j >= m are
+//   empty. gels: geqrf on m rows, Q^T B, then R X = (Q^T B)[:n] by upper
+//   substitution, X written as the substitution leaves it (the reference's
+//   kernel adds each column's sum times 0, which turns a column holding an
+//   inf wholly to NaN).
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 namespace {
@@ -61,7 +76,7 @@ constexpr int64_t kMaxN = 16384;      // keeps n * n in an int and the vectors i
 constexpr int kScalars = 4;
 
 // The matrix a block works on, row-major with leading dimension ld: in
-// shared memory, or in place in the output in device memory.
+// shared memory, or in place in the output (or work space) in device memory.
 struct Mat {
   float* p;
   int ld;
@@ -69,54 +84,64 @@ struct Mat {
 };
 
 struct Args {
-  const float* a;  // (batch, n, n)
-  float* out;      // (batch, n, n): the factor; null for a solve that fits in shared memory
+  const float* a;  // (batch, m, n); m = n but for unmqr and gels
+  float* out;      // (batch, m, n): the factor; for a solve (unmqr, gels) null where the
+                   // block fits in shared memory, else the matrix's work space
   int32_t* piv;    // (batch, n) pivots, or null
-  float* tau;      // (batch, n), geqrf
-  const float* b;  // (batch, n, k), or null
-  float* x;        // (batch, n, k), or null
-  int n, k, pivot;
+  float* tau;      // (batch, n): geqrf's output, unmqr's input
+  const float* b;  // (batch, m, k), or null
+  float* x;        // (batch, xrows, k) where the block fits in shared memory, else
+                   // (batch, m, k), worked in place; or null
+  int m, n, k, xrows, pivot, trans;
 };
 
 int lead(int64_t n) { return static_cast<int>(n | 1); }  // odd: column reads spread over banks
-int64_t small_bytes(int64_t n) { return (3 * n + kScalars) * 4; }
-int64_t full_bytes(int64_t n, int64_t k) { return small_bytes(n) + (n * lead(n) + n * k) * 4; }
+// s_v[m], s_w[max(n, k)], s_t[n] and the scalars
+int64_t small_bytes(int64_t m, int64_t n, int64_t k) {
+  return (m + std::max(n, k) + n + kScalars) * 4;
+}
+int64_t full_bytes(int64_t m, int64_t n, int64_t k) {
+  return small_bytes(m, n, k) + (m * lead(n) + m * k) * 4;
+}
 int threads_for(int64_t n) {
   return n <= 16 ? 64 : n <= 32 ? 128 : n <= 64 ? 256 : n <= 128 ? 512 : kMaxThreads;
 }
 
-// Shared memory: s_v[n], s_w[n], s_piv[n] (int), kScalars scalars, then, in
-// the shared instantiation, the matrix (n x ld) and the right-hand side (n x k).
+// Shared memory: s_v[m], s_w[max(n, k)], s_t[n] (LU's pivots as int, or
+// gels' tau), kScalars scalars, then, in the shared instantiation, the matrix
+// (m x ld) and the right-hand side (m x k).
 struct Block {
   Mat A;
-  float* X;  // (n, k) row-major, or null
+  float* X;  // (m, k) row-major, or null
   float* v;
   float* w;
+  float* t;
   int* piv;
   float* scal;
 };
 
 template <bool kShared>
 __device__ Block stage(const Args& p, float* smem) {
-  const int n = p.n, k = p.k;
+  const int m = p.m, n = p.n, k = p.k;
   const int64_t bi = blockIdx.x;
   Block s;
   s.v = smem;
-  s.w = smem + n;
-  s.piv = reinterpret_cast<int*>(smem + 2 * n);
-  s.scal = smem + 3 * n;
+  s.w = s.v + m;
+  s.t = s.w + max(n, k);
+  s.piv = reinterpret_cast<int*>(s.t);
+  s.scal = s.t + n;
   if (kShared) {
-    s.A = Mat{smem + 3 * n + kScalars, n | 1};
-    s.X = k ? s.A.p + n * (n | 1) : nullptr;
+    s.A = Mat{s.scal + kScalars, n | 1};
+    s.X = k ? s.A.p + m * (n | 1) : nullptr;
   } else {
-    s.A = Mat{p.out + bi * n * n, n};
-    s.X = k ? p.x + bi * n * k : nullptr;
+    s.A = Mat{p.out + bi * m * n, n};
+    s.X = k ? p.x + bi * m * k : nullptr;
   }
-  const float* a = p.a + bi * n * n;
-  for (int e = threadIdx.x; e < n * n; e += blockDim.x) s.A(e / n, e % n) = a[e];
+  const float* a = p.a + bi * m * n;
+  for (int e = threadIdx.x; e < m * n; e += blockDim.x) s.A(e / n, e % n) = a[e];
   if (k) {
-    const float* b = p.b + bi * n * k;
-    for (int e = threadIdx.x; e < n * k; e += blockDim.x) s.X[e] = b[e];
+    const float* b = p.b + bi * m * k;
+    for (int e = threadIdx.x; e < m * k; e += blockDim.x) s.X[e] = b[e];
   }
   __syncthreads();
   return s;
@@ -126,18 +151,18 @@ __device__ Block stage(const Args& p, float* smem) {
 // holds it in place, apart from potrf's upper triangle, which is zeroed).
 template <bool kShared>
 __device__ void unstage(const Args& p, const Block& s, bool lower) {
-  const int n = p.n, k = p.k;
+  const int m = p.m, n = p.n, k = p.k;
   const int64_t bi = blockIdx.x;
   if (p.out != nullptr && (kShared || lower)) {
-    float* o = p.out + bi * n * n;
-    for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
+    float* o = p.out + bi * m * n;
+    for (int e = threadIdx.x; e < m * n; e += blockDim.x) {
       const int r = e / n, c = e % n;
       o[e] = (lower && c > r) ? 0.f : s.A(r, c);
     }
   }
   if (kShared && k) {
-    float* x = p.x + bi * n * k;
-    for (int e = threadIdx.x; e < n * k; e += blockDim.x) x[e] = s.X[e];
+    float* x = p.x + bi * p.xrows * k;
+    for (int e = threadIdx.x; e < p.xrows * k; e += blockDim.x) x[e] = s.X[e];
   }
 }
 
@@ -256,6 +281,19 @@ __device__ void getrf_steps(const Mat& A, int n, bool pivot, int* s_piv, int32_t
   }
 }
 
+// U X = Y in place on the first n rows of X (n x k): two barriers a step.
+__device__ void upper_solve(const Mat& U, float* X, int n, int k) {
+  for (int j = n - 1; j >= 0; --j) {
+    for (int c = threadIdx.x; c < k; c += blockDim.x) X[j * k + c] = X[j * k + c] / U(j, j);
+    __syncthreads();
+    for (int e = threadIdx.x; e < j * k; e += blockDim.x) {
+      const int r = e / k, c = e % k;
+      X[r * k + c] -= U(r, j) * X[j * k + c];
+    }
+    __syncthreads();
+  }
+}
+
 // The row swaps applied to X in sequence, then L y = P b (unit lower) and
 // U x = y.
 __device__ void gesv_solves(const Mat& LU, const int* s_piv, float* X, int n, int k) {
@@ -274,15 +312,7 @@ __device__ void gesv_solves(const Mat& LU, const int* s_piv, float* X, int n, in
     }
     __syncthreads();
   }
-  for (int j = n - 1; j >= 0; --j) {
-    for (int c = threadIdx.x; c < k; c += blockDim.x) X[j * k + c] = X[j * k + c] / LU(j, j);
-    __syncthreads();
-    for (int e = threadIdx.x; e < j * k; e += blockDim.x) {
-      const int r = e / k, c = e % k;
-      X[r * k + c] -= LU(r, j) * X[j * k + c];
-    }
-    __syncthreads();
-  }
+  upper_solve(LU, X, n, k);
 }
 
 template <bool kShared>
@@ -300,14 +330,14 @@ __global__ void __launch_bounds__(kMaxThreads) getrf_kernel(const Args p) {
 // Three barriers a step: warp 0 builds the reflector's scalars from column
 // j; every thread then forms v (s_v) and, one column each, w = tau_h v^T A
 // (s_w); then the rank-1 update of rows and columns >= j, with column j's
-// rows below the diagonal taking the normalised reflector.
-__device__ void geqrf_steps(const Mat& A, int n, float* s_v, float* s_w, float* s_scal,
+// rows below the diagonal taking the normalised reflector. A is m x n, m >= n.
+__device__ void geqrf_steps(const Mat& A, int m, int n, float* s_v, float* s_w, float* s_scal,
                             float* tau) {
   for (int j = 0; j < n; ++j) {
     if (threadIdx.x < 32) {
       const int lane = threadIdx.x;
       float ss = 0.f, ts = 0.f;
-      for (int r = j + lane; r < n; r += 32) {
+      for (int r = j + lane; r < m; r += 32) {
         const float x = A(r, j);
         ss += x * x;
         if (r > j) ts += x * x;
@@ -337,18 +367,18 @@ __device__ void geqrf_steps(const Mat& A, int n, float* s_v, float* s_w, float* 
     const float tau_h = s_scal[0], vdiv = s_scal[1], vj = s_scal[2];
     const bool degenerate = s_scal[3] != 0.f;
     // v: column j with v_j = x_j - alpha, all zero for a zero tail
-    for (int r = j + threadIdx.x; r < n; r += blockDim.x)
+    for (int r = j + threadIdx.x; r < m; r += blockDim.x)
       s_v[r] = degenerate ? 0.f : r == j ? vj : A(r, j);
     for (int c = j + threadIdx.x; c < n; c += blockDim.x) {
       float acc = 0.f;
       if (!degenerate)
-        for (int r = j; r < n; ++r) acc += (r == j ? vj : A(r, j)) * A(r, c);
+        for (int r = j; r < m; ++r) acc += (r == j ? vj : A(r, j)) * A(r, c);
       s_w[c] = acc * tau_h;
     }
     __syncthreads();
-    const int m = n - j;
-    for (int e = threadIdx.x; e < m * m; e += blockDim.x) {
-      const int r = j + e / m, c = j + e % m;
+    const int rows = m - j, cols = n - j;
+    for (int e = threadIdx.x; e < rows * cols; e += blockDim.x) {
+      const int r = j + e / cols, c = j + e % cols;
       if (c == j && r > j)
         A(r, j) = s_v[r] / vdiv;
       else
@@ -362,7 +392,56 @@ template <bool kShared>
 __global__ void __launch_bounds__(kMaxThreads) geqrf_kernel(const Args p) {
   extern __shared__ float smem[];
   const Block s = stage<kShared>(p, smem);
-  geqrf_steps(s.A, p.n, s.v, s.w, s.scal, p.tau + static_cast<int64_t>(blockIdx.x) * p.n);
+  geqrf_steps(s.A, p.m, p.n, s.v, s.w, s.scal, p.tau + static_cast<int64_t>(blockIdx.x) * p.n);
+  unstage<kShared>(p, s, false);
+}
+
+// ----------------------------- unmqr / gels -----------------------------
+
+// H_j = I - tau_j v v^T applied to X (m x k) for each reflector of QR (m x n),
+// j ascending for Q^T X, descending for Q X; v_j = 1 is implied and v's
+// entries are read below the diagonal. Two barriers a reflector: one warp a
+// column of X forms w = tau_j v^T X (s_w, a shuffle reduction), then the
+// rank-1 update X -= v w^T of rows >= j.
+__device__ void apply_q(const Mat& QR, const float* tau, float* X, int m, int n, int k,
+                        bool trans, float* s_w) {
+  const int steps = min(m, n);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  for (int i = 0; i < steps; ++i) {
+    const int j = trans ? i : steps - 1 - i;
+    for (int c = warp; c < k; c += warps) {
+      float acc = 0.f;
+      for (int r = j + lane; r < m; r += 32) acc += (r == j ? 1.f : QR(r, j)) * X[r * k + c];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      if (lane == 0) s_w[c] = acc * tau[j];
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < (m - j) * k; e += blockDim.x) {
+      const int r = j + e / k, c = e % k;
+      X[r * k + c] -= (r == j ? 1.f : QR(r, j)) * s_w[c];
+    }
+    __syncthreads();
+  }
+}
+
+template <bool kShared>
+__global__ void __launch_bounds__(kMaxThreads) unmqr_kernel(const Args p) {
+  extern __shared__ float smem[];
+  const Block s = stage<kShared>(p, smem);
+  apply_q(s.A, p.tau + static_cast<int64_t>(blockIdx.x) * p.n, s.X, p.m, p.n, p.k, p.trans != 0,
+          s.w);
+  unstage<kShared>(p, s, false);
+}
+
+// The QR steps on m rows (tau kept in s_t), Q^T B, then R X = (Q^T B)[:n].
+template <bool kShared>
+__global__ void __launch_bounds__(kMaxThreads) gels_kernel(const Args p) {
+  extern __shared__ float smem[];
+  const Block s = stage<kShared>(p, smem);
+  geqrf_steps(s.A, p.m, p.n, s.v, s.w, s.scal, s.t);
+  apply_q(s.A, s.t, s.X, p.m, p.n, p.k, true, s.w);
+  upper_solve(s.A, s.X, p.n, p.k);
   unstage<kShared>(p, s, false);
 }
 
@@ -371,33 +450,38 @@ __global__ void __launch_bounds__(kMaxThreads) geqrf_kernel(const Args p) {
 using Kernel = void (*)(Args);
 
 cudaError_t launch(Kernel in_shared, Kernel in_place, const Args& p, int64_t batch, void* stream) {
-  const bool shared = full_bytes(p.n, p.k) <= kSmemMax;
+  const bool shared = full_bytes(p.m, p.n, p.k) <= kSmemMax;
   if (!shared && p.out == nullptr) return cudaErrorInvalidValue;
   const Kernel kernel = shared ? in_shared : in_place;
-  const int64_t bytes = shared ? full_bytes(p.n, p.k) : small_bytes(p.n);
+  const int64_t bytes = shared ? full_bytes(p.m, p.n, p.k) : small_bytes(p.m, p.n, p.k);
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(bytes));
     if (e != cudaSuccess) return e;
   }
-  kernel<<<static_cast<unsigned>(batch), threads_for(p.n), static_cast<size_t>(bytes),
+  kernel<<<static_cast<unsigned>(batch), threads_for(std::max(p.m, p.n)), static_cast<size_t>(bytes),
            static_cast<cudaStream_t>(stream)>>>(p);
   return cudaGetLastError();
 }
 
-bool bad_sizes(const void* a, int64_t batch, int64_t n, int64_t k, const void* b, const void* x) {
-  return a == nullptr || batch < 0 || batch > 0x7fffffff || n < 1 || n > kMaxN || k < 0 ||
-         n * k > (int64_t{1} << 30) || (k > 0 && (b == nullptr || x == nullptr));
+bool bad_sizes(const void* a, int64_t batch, int64_t m, int64_t n, int64_t k, const void* b,
+               const void* x) {
+  return a == nullptr || batch < 0 || batch > 0x7fffffff || n < 1 || n > kMaxN || m < 1 ||
+         m > kMaxN || k < 0 || m * k > (int64_t{1} << 30) ||
+         (k > 0 && (b == nullptr || x == nullptr));
 }
 
-Args make_args(const void* a, void* out, const void* b, void* x, int64_t n, int64_t k) {
+Args make_args(const void* a, void* out, const void* b, void* x, int64_t m, int64_t n,
+               int64_t k) {
   Args p{};
   p.a = static_cast<const float*>(a);
   p.out = static_cast<float*>(out);
   p.b = static_cast<const float*>(b);
   p.x = static_cast<float*>(x);
+  p.m = static_cast<int>(m);
   p.n = static_cast<int>(n);
   p.k = static_cast<int>(k);
+  p.xrows = p.m;
   return p;
 }
 
@@ -409,13 +493,14 @@ extern "C" {
 // right-hand side (k = 0, b = x = null) writes the lower factor to l (batch,
 // n, n), zeros above the diagonal. With one, b (batch, n, k) in and x (batch,
 // n, k) out, the solution of A X = B; l may then be null where the matrix
-// fits in shared memory (full_bytes(n, k) <= 232448), else it is the factor's
+// fits in shared memory (full_bytes(n, n, k) <= 232448), else it is the factor's
 // work space. Launches on `stream`; returns the CUDA status (0 on success).
 int tml_potrf_batched(const void* a, void* l, const void* b, void* x, int64_t batch, int64_t n,
                       int64_t k, void* stream) {
-  if (bad_sizes(a, batch, n, k, b, x) || (k == 0 && l == nullptr)) return cudaErrorInvalidValue;
+  if (bad_sizes(a, batch, n, n, k, b, x) || (k == 0 && l == nullptr))
+    return cudaErrorInvalidValue;
   if (batch == 0) return cudaSuccess;
-  return launch(potrf_kernel<true>, potrf_kernel<false>, make_args(a, l, b, x, n, k), batch,
+  return launch(potrf_kernel<true>, potrf_kernel<false>, make_args(a, l, b, x, n, n, k), batch,
                 stream);
 }
 
@@ -424,11 +509,11 @@ int tml_potrf_batched(const void* a, void* l, const void* b, void* x, int64_t ba
 // pivot = 0). With a right-hand side (gesv; pivot must be 1) piv may be null.
 int tml_getrf_batched(const void* a, void* lu, void* piv, const void* b, void* x, int64_t batch,
                       int64_t n, int64_t k, int pivot, void* stream) {
-  if (bad_sizes(a, batch, n, k, b, x) || (k == 0 && (lu == nullptr || piv == nullptr)) ||
+  if (bad_sizes(a, batch, n, n, k, b, x) || (k == 0 && (lu == nullptr || piv == nullptr)) ||
       (k > 0 && pivot == 0))
     return cudaErrorInvalidValue;
   if (batch == 0) return cudaSuccess;
-  Args p = make_args(a, lu, b, x, n, k);
+  Args p = make_args(a, lu, b, x, n, n, k);
   p.piv = static_cast<int32_t*>(piv);
   p.pivot = pivot;
   return launch(getrf_kernel<true>, getrf_kernel<false>, p, batch, stream);
@@ -437,12 +522,39 @@ int tml_getrf_batched(const void* a, void* lu, void* piv, const void* b, void* x
 // a: (batch, n, n) f32 contiguous; qr (batch, n, n) the R factor and the
 // reflectors below the diagonal, tau (batch, n).
 int tml_geqrf_batched(const void* a, void* qr, void* tau, int64_t batch, int64_t n, void* stream) {
-  if (bad_sizes(a, batch, n, 0, nullptr, nullptr) || qr == nullptr || tau == nullptr)
+  if (bad_sizes(a, batch, n, n, 0, nullptr, nullptr) || qr == nullptr || tau == nullptr)
     return cudaErrorInvalidValue;
   if (batch == 0) return cudaSuccess;
-  Args p = make_args(a, qr, nullptr, nullptr, n, 0);
+  Args p = make_args(a, qr, nullptr, nullptr, n, n, 0);
   p.tau = static_cast<float*>(tau);
   return launch(geqrf_kernel<true>, geqrf_kernel<false>, p, batch, stream);
+}
+
+// qr (batch, m, n) and tau (batch, n) as geqrf leaves them, c (batch, m, k) f32
+// contiguous; writes x (batch, m, k) = Q^T C (trans = 1) or Q C. work is null
+// where full_bytes(m, n, k) <= 232448, else (batch, m, n) space for the
+// reflectors (x is then worked in place).
+int tml_unmqr_batched(const void* qr, const void* tau, const void* c, void* x, void* work,
+                      int64_t batch, int64_t m, int64_t n, int64_t k, int trans, void* stream) {
+  if (bad_sizes(qr, batch, m, n, k, c, x) || tau == nullptr) return cudaErrorInvalidValue;
+  if (batch == 0) return cudaSuccess;
+  Args p = make_args(qr, work, c, x, m, n, k);
+  p.tau = const_cast<float*>(static_cast<const float*>(tau));
+  p.trans = trans;
+  return launch(unmqr_kernel<true>, unmqr_kernel<false>, p, batch, stream);
+}
+
+// a (batch, m, n), m >= n, and b (batch, m, k) f32 contiguous; writes the
+// least-squares solution X to x: (batch, n, k) where full_bytes(m, n, k) <=
+// 232448 and work is null; else x is (batch, m, k), worked in place, X its
+// first n rows, and work (batch, m, n) holds the QR.
+int tml_gels_batched(const void* a, const void* b, void* x, void* work, int64_t batch, int64_t m,
+                     int64_t n, int64_t k, void* stream) {
+  if (bad_sizes(a, batch, m, n, k, b, x) || m < n) return cudaErrorInvalidValue;
+  if (batch == 0) return cudaSuccess;
+  Args p = make_args(a, work, b, x, m, n, k);
+  p.xrows = p.n;
+  return launch(gels_kernel<true>, gels_kernel<false>, p, batch, stream);
 }
 
 }  // extern "C"

@@ -131,6 +131,17 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # (a, qr, tau, batch, n, stream)
     lib.tml_geqrf_batched.argtypes = [p, p, p, i64, i64, p]
     lib.tml_geqrf_batched.restype = i32
+    # (qr, tau, c, x, work, batch, m, n, k, trans, stream)
+    lib.tml_unmqr_batched.argtypes = [p, p, p, p, p, i64, i64, i64, i64, i32, p]
+    lib.tml_unmqr_batched.restype = i32
+    # (a, b, x, work, batch, m, n, k, stream)
+    lib.tml_gels_batched.argtypes = [p, p, p, p, i64, i64, i64, i64, p]
+    lib.tml_gels_batched.restype = i32
+    # dx_jacobi.cu, f32: (a, pairs, [u,] w or s, v, batch, n, sweeps, stream)
+    lib.tml_syevd_batched.argtypes = [p, p, p, p, i64, i64, i64, p]
+    lib.tml_syevd_batched.restype = i32
+    lib.tml_gesvd_batched.argtypes = [p, p, p, p, p, i64, i64, i64, p]
+    lib.tml_gesvd_batched.restype = i32
     lib.tml_gemm_configs.argtypes = [ctypes.POINTER(i32), i32]
     lib.tml_gemm_configs.restype = i32
     lib.tml_error_string.argtypes = [i32]

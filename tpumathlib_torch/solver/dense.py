@@ -1,11 +1,15 @@
-"""Dense Cholesky, LU, QR and triangular inverse — the cuSOLVER 64-bit X-API.
+"""Dense factorizations and eigen/SVD drivers — the cuSOLVER 64-bit X-API.
 
-Counterpart of the Cholesky/LU/QR part of ``tpumathlib/solver/dense.py``:
+Counterpart of ``tpumathlib/solver/dense.py`` apart from ``xgesvdp``,
+``xgesvdr`` and ``xgeev``:
 
   cusolverDnXpotrf/potrs      → xpotrf / xpotrs
   cusolverDnXgetrf (+no-pivot)→ xgetrf(pivot=True/False) / xgetrs
   cusolverDnXgeqrf + orgqr/ormqr → xgeqrf / xorgqr / xormqr
   cusolverDnXtrtri            → xtrtri
+  cusolverDnXsyevd/syevdx     → xsyevd / xsyevdx (index & value ranges)
+  cusolverDnXsygvd            → xsygvd (A x = λ B x via Cholesky reduction)
+  cusolverDnXgesvd            → xgesvd
   cusolverDnpotrfBatched      → potrf_batched
 
 Every driver returns ``info`` as the reference does (0 = success; > 0 =
@@ -16,13 +20,20 @@ n % 256 == 0 goes through the repository's kernels
 (``solver.onelaunch``; for ``xgeqrf`` only up to n = 8192,
 ``solver.qr_onelaunch``), as the reference routes it to its Pallas kernels
 on the TPU. Anything else takes torch's vendor path where the reference takes
-XLA's, and the reference's unpivoted elimination for ``pivot=False``.
+XLA's, and the reference's unpivoted elimination for ``pivot=False``. The
+eigen and SVD drivers are vendor paths in both packages (``torch.linalg``'s
+eigh, eigvalsh, svd, svdvals and solve_triangular here; ``xgesvd`` asks
+for cuSOLVER's gesvd driver on the card).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from tpumathlib_torch.blas.level2 import herm_full, sym_full
+from tpumathlib_torch.core.errors import check
 from tpumathlib_torch.solver.onelaunch import getrf_onelaunch, potrf_onelaunch
 from tpumathlib_torch.solver.qr_onelaunch import qr_onelaunch
 
@@ -154,3 +165,91 @@ def xtrtri(a, uplo: str = "L", diag: str = "N"):
     eye = torch.eye(n, dtype=a.dtype, device=a.device).expand(a.shape)
     inv = _solve_triangular(a, eye, lower=uplo.upper() == "L", unit=diag.upper() == "U")
     return inv, _finite_info(inv)
+
+
+# ---------------- symmetric eigen ----------------
+
+def _nan_where_not_finite(a, decompose, nan_outs):
+    """``decompose(a)`` with the outputs flagged in ``nan_outs`` set to NaN for
+    each matrix that holds a non-finite entry (which torch.linalg refuses,
+    for the whole batch, where XLA returns NaN and the drivers' ``info``
+    reports it). Such a matrix is decomposed as the identity."""
+    bad = ~torch.isfinite(a).flatten(-2).all(-1)
+    if not bool(bad.any()):
+        return decompose(a)
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+    outs = decompose(torch.where(bad[..., None, None], eye, a))
+    return tuple(torch.where(bad.reshape(bad.shape + (1,) * (o.ndim - bad.ndim)), math.nan, o)
+                 if flag else o for o, flag in zip(outs, nan_outs))
+
+
+def xsyevd(a, uplo: str = "L", vectors: bool = True):
+    """Symmetric/Hermitian eigendecomposition (values ascending) from the
+    ``uplo`` triangle. Returns (w, v, info); v=None when vectors=False
+    (jobz=N). A matrix with a non-finite entry gets NaN values (its vectors
+    stay finite) and info > 0."""
+    af = (herm_full if a.is_complex() else sym_full)(a, uplo)
+    if vectors:
+        w, v = _nan_where_not_finite(af, torch.linalg.eigh, (True, False))
+        return w, v, _finite_info(w[..., None])
+    (w,) = _nan_where_not_finite(af, lambda m: (torch.linalg.eigvalsh(m),), (True,))
+    return w, None, _finite_info(w[..., None])
+
+
+def xsyevdx(a, uplo: str = "L", range_: str = "A",
+            il: int = 0, iu: int | None = None,
+            vl: float = -math.inf, vu: float = math.inf):
+    """≙ cusolverDnXsyevdx: eigenvalue subset by index range (range_='I',
+    0-based [il, iu]) or value interval (range_='V', (vl, vu]).
+
+    Returns (w, v, n_found, info). For 'V', w/v are padded to n with NaN/0
+    beyond n_found (static shapes, as the reference)."""
+    w, v, info = xsyevd(a, uplo, vectors=True)
+    if range_.upper() == "A":
+        return w, v, w.shape[-1], info
+    if range_.upper() == "I":
+        iu = iu if iu is not None else w.shape[-1] - 1
+        return w[..., il:iu + 1], v[..., :, il:iu + 1], iu - il + 1, info
+    mask = (w > vl) & (w <= vu)
+    n_found = mask.sum(-1)
+    order = torch.argsort((~mask).to(torch.int8), dim=-1, stable=True)  # found ones first
+    w_sorted = torch.take_along_dim(torch.where(mask, w, math.nan), order, -1)
+    v_sorted = torch.take_along_dim(v, order[..., None, :], -1)
+    v_sorted = torch.where(w_sorted.isnan()[..., None, :], 0.0, v_sorted)
+    return w_sorted, v_sorted, n_found, info
+
+
+def xsygvd(a, b, uplo: str = "L", itype: int = 1):
+    """Generalized symmetric-definite eigenproblem via Cholesky reduction
+    (≙ cusolverDnXsygvd / sygvd sample). itype=1: A x = λ B x."""
+    check(itype == 1, "itype 2/3 not implemented")
+    l, info_b = xpotrf(b, uplo="L")
+    # C = L⁻¹ A L⁻ᴴ
+    la = _solve_triangular(l, a, lower=True)
+    c = _solve_triangular(l, la.mT.conj(), lower=True)
+    c = (c + c.mT.conj()) / 2
+    w, y, info = xsyevd(c, uplo="L")
+    # x = L⁻ᴴ y
+    x = _solve_triangular(l.mT.conj(), y, lower=False)
+    return w, x, info + info_b
+
+
+# ---------------- SVD ----------------
+
+def xgesvd(a, full_matrices: bool = False, vectors: bool = True):
+    """SVD (≙ cusolverDnXgesvd). Returns (u, s, vh, info). A matrix with a
+    non-finite entry gets NaN in all three and info > 0.
+
+    On the card it asks for cuSOLVER's gesvd driver: torch's default there
+    is gesvdj, which stops short at large n in f32 (a 4096² Gaussian matrix
+    on an H100: s 5.0e-4 of the largest from float64 and U, V 2.3e-3 from
+    orthogonal, where gesvd gives 3.0e-5 and 8.4e-5; ``chip_smoke.py``
+    phase 22)."""
+    driver = "gesvd" if a.is_cuda else None
+    if vectors:
+        u, s, vh = _nan_where_not_finite(
+            a, lambda m: torch.linalg.svd(m, full_matrices=full_matrices, driver=driver),
+            (True, True, True))
+        return u, s, vh, _finite_info(s[..., None])
+    (s,) = _nan_where_not_finite(a, lambda m: (torch.linalg.svdvals(m, driver=driver),), (True,))
+    return None, s, None, _finite_info(s[..., None])
