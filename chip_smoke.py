@@ -111,6 +111,25 @@ Phases; any failure raises and the exit code is non-zero:
 23. dx lsq/eig times — CUDA events for each route of phase 22, the plain
    version and the library call (lstsq, ormqr, eigh, svd), with the share of
    the bound.
+24. codec and fused kernels — tml_cascaded_encode, tml_cascaded_decode,
+   tml_cascaded_decode_dot (csrc/dx_comp.cu) and tml_gemm_fft
+   (csrc/dx_fused.cu) against their plain versions and float64: the codec at
+   every width 1 … 32 and n = 160 … 2^20, its words and leaders bit for bit,
+   the int32 extremes and a width too narrow; decode_dot at rows 1, 37 and
+   4096, W widths 1 … 256; gemm_fft up to (4096, 1024, 1024) under every
+   epilogue and an unknown string (ROADMAP C14); a bf16 control above each
+   tolerance.
+25. codec and fused main path — bench.py's codec line (64 Mi int32, bits 8)
+   through comp.device_cascaded_compress and _decompress, with bits unset
+   and the ratio; the lossy codec on 64 Mi f32 at delta 1.0 and 0.3;
+   dx_decompress_dot on that payload (524288 rows, W 128 x 128); gemm_fft at
+   (32768, 256, 256) with gelu; gemm_fft_composed, gemm_gemm,
+   fft_convolution (4096 x 4096) and fft_convolution_nd (8 x 64^3): each
+   step must grow exactly its kernels' counts, and agree with the plain
+   version and float64.
+26. codec and fused times — CUDA events for each kernel route of phase 25
+   and its plain version (decode and encode also in GB/s), with the share of
+   the bound, and the compositions that stand in for a library call.
 The line before the last is a JSON record of the kernels, each with its
 bound (the larger of its operations over the card's published peak and its
 bytes over 3.35 TB/s); the last line is {"ok": true, "device": {...}}.
@@ -125,16 +144,18 @@ import json
 import math
 import subprocess
 import time
+import warnings
 
 import numpy as np
 import torch
 
-from tpumathlib_torch import fft, sparse
+from tpumathlib_torch import comp, fft, sparse
 from tpumathlib_torch.blas import level3, lt
 from tpumathlib_torch.core.check import max_abs_rel, max_scaled_err
 from tpumathlib_torch.core.interop import to_numpy
 from tpumathlib_torch.core.timer import benchmark
-from tpumathlib_torch.dx import cuda_utils, gemm
+from tpumathlib_torch.dx import comp as dxc
+from tpumathlib_torch.dx import cuda_utils, fused, gemm
 from tpumathlib_torch.dx import solver as dxs
 from tpumathlib_torch.dx.gemm import _pallas_matmul_plain, pallas_matmul
 from tpumathlib_torch.entry import entry
@@ -892,10 +913,12 @@ def phase_fft_main(dev) -> dict:
             "args": (xr, xi, br, bi, x)}
 
 
-def _loop_ms(runs: dict, warmup: int, reps: int, samples: int) -> dict:
+def _loop_ms(runs: dict, warmup: int, reps: int, samples: int,
+             spread: dict | None = None) -> dict:
     """Median device ms per call of each route: CUDA events around ``reps``
     back-to-back calls (so the host's launch cost overlaps the device's
-    work), ``samples`` times, twice in turns."""
+    work), ``samples`` times, twice in turns. ``spread``, where given,
+    receives each route's fastest and slowest sample."""
     times: dict[str, list[float]] = {name: [] for name in runs}
     for name in list(runs) + list(reversed(runs)):
         fn = runs[name]
@@ -910,6 +933,8 @@ def _loop_ms(runs: dict, warmup: int, reps: int, samples: int) -> dict:
             end.record()
             end.synchronize()
             times[name].append(start.elapsed_time(end) / reps)
+    if spread is not None:
+        spread.update({name: (min(t), max(t)) for name, t in times.items()})
     return {name: float(np.median(t)) for name, t in times.items()}
 
 
@@ -2214,6 +2239,445 @@ def phase_dxe_times(dxe: dict, card: str) -> dict:
     return ms
 
 
+DXC_WALK_NS = (160, 128, 32 * 1001, 1 << 20)   # phase 24's value counts (160: a partial row)
+DXC_DOT_ROWS = (1, 37, 4096)                   # phase 24's decode_dot rows (37 < the tile, 64)
+DXC_DOT_COLS = (1, 64, 100, 256)
+GEMM_FFT_SHAPES = ((16, 32, 64), (300, 96, 80), (4096, 1024, 1024))   # (m, k, n)
+GEMM_FFT_EPILOGUES = ("default", "relu", "gelu", "gelu_bias")   # gelu_bias: none (C14)
+DXC_N, DXC_BITS = 64 << 20, 8        # bench.py:403-407: 256 MB of int32, bits 8
+DXC_W = 128                          # W (128, 128) of decode_dot on that payload
+GEMM_FFT_MAIN = (32768, 256, 256)    # (m, k, n): the n at which dx/fused.py:37-40 compares
+CONV_MAIN = (4096, 4096)             # fft_convolution's (batch, n)
+CONV_ND = (8, 64)                    # fft_convolution_nd's batch and side: 8 × 64³
+DXC_COUNTS = (dxc._encode, dxc._decode, dxc._decode_dot, fused._gemm_fft, pallas_matmul, DIF_FFT)
+# Tolerances against the plain version (max over the output of |kernel −
+# plain| over max|plain|): decode_dot 1e-5 and gemm_fft 1e-5, the same f32
+# products summed in another order; the codec is held bit for bit.
+DXC_TOL = {"dot": 1e-5, "gemm_fft": 1e-5}
+
+
+def _scaled(got, want) -> float:
+    """max|got − want| / max|want|, over tensors or (re, im) pairs."""
+    if isinstance(got, tuple):
+        top = max(float(w.abs().max()) for w in want)
+        return max(float((g - w).abs().max()) for g, w in zip(got, want)) / top
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _walk(gen, n, bits, dev):
+    """int32 values whose row deltas (int32, wrapping) zigzag into ``bits``:
+    steps in [−2^(bits−1), 2^(bits−1)) from a random start."""
+    half = 1 << (bits - 1)
+    steps = torch.randint(-half, half, (n,), generator=gen, device=dev)
+    steps[0] = torch.randint(-(2**31), 2**31, (1,), generator=gen, device=dev)
+    return ((torch.cumsum(steps, 0) + 2**31) % 2**32 - 2**31).to(torch.int32)
+
+
+def _gemm_fft64(a, b, epilogue):
+    """FFT(epilogue(A@B)) over the rows in float64 (torch.fft on complex128)."""
+    c = a.double() @ b.double()
+    c = fused._epilogue(c, epilogue)
+    return torch.fft.fft(c.to(torch.complex128), dim=-1)
+
+
+def _pair_rel_l2(pair, want) -> float:
+    return _rel(torch.complex(pair[0].double(), pair[1].double()), want)
+
+
+def phase_dxc_kernel(dev) -> None:
+    """Kernels B8a, B8b (tml_cascaded_decode, tml_cascaded_encode), B8c
+    (tml_cascaded_decode_dot, csrc/dx_comp.cu) and B9 (tml_gemm_fft,
+    csrc/dx_fused.cu) against their plain versions and float64. The codec at
+    every width 1 … 32 on random walks whose steps fit the width, n = 160,
+    128, 32·1001 and 2^20: packed words and leaders equal the plain
+    encoder's bit for bit, the decode equals the plain decoder's and gives
+    the input back; the int32 extremes at 32 bits; a width too narrow
+    (corrupt, as the plain version corrupts). decode_dot at rows 1, 37 and
+    4096, W widths 1, 64, 100, 256, scale 1 and 0.01: DXC_TOL against the
+    plain version, rel < 1e-5 against float64 (tests/test_dx_gemm.py:121-124).
+    gemm_fft at (16, 32, 64), (300, 96, 80) and (4096, 1024, 1024) under
+    every epilogue and an unknown string (C14: none): DXC_TOL against the
+    plain version, rel-L2 < 1e-5 against float64
+    (tests/test_heuristics_grading_apps.py:148-149). A bf16 control above
+    each tolerance."""
+    gen = torch.Generator(device=dev).manual_seed(2424)
+    failures, cases = [], 0
+    worst: dict[str, float] = {}
+
+    def hold(what, ok, detail, quiet=False, **errs):
+        nonlocal cases
+        cases += 1
+        for key, err in errs.items():
+            worst[key] = max(worst.get(key, 0.0), err)
+        if not ok:
+            failures.append(what)
+        if not quiet or not ok:
+            print(f"[dxc-kernel] {what:36s} {detail} {'ok' if ok else 'FAIL'}", flush=True)
+
+    for bits in range(1, 33):
+        for n in DXC_WALK_NS:
+            v = _walk(gen, n, bits, dev)
+            p, ld = dxc.dx_compress(v, bits=bits)
+            p_p, ld_p = dxc._dx_compress_plain(v, bits)
+            words = torch.equal(p.view(torch.int32), p_p.view(torch.int32)) and torch.equal(ld, ld_p)
+            out = dxc.dx_decompress(p, ld, bits=bits)
+            same = torch.equal(out, dxc._dx_decompress_plain(p, ld, bits))
+            back = torch.equal(out[:n], v) and bool((out[n:] == v[-1]).all())
+            try:
+                req = dxc.dx_required_bits(v)
+            except ValueError:
+                req = 33   # a wrapped walk: the unwrapped deltas need 33 bits
+            hold(f"codec bits={bits} n={n}", words and same and back and p.shape == (
+                -(-n // 128), 4 * bits), f"words {words} decode {same} round trip {back} "
+                 f"required {req}", quiet=True)
+    print(f"[dxc-kernel] codec: widths 1..32 × n {DXC_WALK_NS}, words and leaders bit for bit, "
+          f"decode equal, round trip exact", flush=True)
+    ext = torch.tensor([2**31 - 1, -(2**31)], dtype=torch.int32, device=dev).repeat(1 << 19)
+    p, ld = dxc.dx_compress(ext, bits=32)
+    p_p, _ = dxc._dx_compress_plain(ext, 32)
+    hold("int32 extremes bits=32 n=2^20", torch.equal(p.view(torch.int32), p_p.view(torch.int32))
+         and torch.equal(dxc.dx_decompress(p, ld, bits=32), ext), "words and round trip exact")
+    nine = torch.cumsum(torch.randint(-256, 256, (1 << 20,), generator=gen, device=dev),
+                        0).to(torch.int32)
+    p, ld = dxc.dx_compress(nine, bits=4)
+    p_p, _ = dxc._dx_compress_plain(nine, 4)
+    out = dxc.dx_decompress(p, ld, bits=4)
+    wrong = int((out != nine).sum())
+    hold("too narrow: 9-bit walk at bits=4", dxc.dx_required_bits(nine) == 9 and torch.equal(
+        p.view(torch.int32), p_p.view(torch.int32)) and torch.equal(
+        out, dxc._dx_decompress_plain(p, ld, 4)) and wrong > (1 << 19),
+         f"{wrong} of {1 << 20} values wrong, as the plain version, nothing raised")
+
+    tol = DXC_TOL
+    for rows in DXC_DOT_ROWS:
+        v = torch.cumsum(torch.randint(-60, 61, (rows * 128,), generator=gen, device=dev),
+                         0).to(torch.int32)
+        p, ld = dxc.dx_compress(v, bits=8)
+        for ncols in DXC_DOT_COLS:
+            w = torch.randn((128, ncols), generator=gen, device=dev)
+            for scale in (1.0, 0.01):
+                got = dxc.dx_decompress_dot(p, ld, w, bits=8, scale=scale)
+                e_p = _scaled(got, dxc._dx_decompress_dot_plain(p, ld, w, 8, scale))
+                f64 = (v.reshape(-1, 128).double() * scale) @ w.double()
+                e_64 = _scaled(got.double(), f64)
+                hold(f"decode_dot rows={rows} N={ncols} scale={scale}",
+                     e_p <= tol["dot"] and e_64 < 1e-5 and got.shape == (rows, ncols),
+                     f"vs plain {e_p:.3e} | vs f64 {e_64:.3e}", dot=e_p)
+    for m, k, n in GEMM_FFT_SHAPES:
+        a = torch.randn((m, k), generator=gen, device=dev)
+        b = torch.randn((k, n), generator=gen, device=dev)
+        wr, wi = fused._dft_on(n, dev)
+        for epilogue in GEMM_FFT_EPILOGUES:
+            got = fused.gemm_fft(a, b, epilogue)
+            e_p = _scaled(got, fused._gemm_fft_plain(a, b, wr, wi, epilogue))
+            e_64 = _pair_rel_l2(got, _gemm_fft64(a, b, epilogue))
+            hold(f"gemm_fft ({m}, {k}, {n}) {epilogue}", e_p <= tol["gemm_fft"] and e_64 < 1e-5,
+                 f"vs plain {e_p:.3e} | vs f64 rel-L2 {e_64:.3e}", gemm_fft=e_p)
+        if (m, k, n) == GEMM_FFT_SHAPES[0]:   # C14: any other string is no epilogue
+            none, unknown = fused.gemm_fft(a, b), fused.gemm_fft(a, b, "gelu_bias")
+            hold("gemm_fft C14 gelu_bias == default", torch.equal(none[0], unknown[0])
+                 and torch.equal(none[1], unknown[1]), "no epilogue applied")
+    # bf16 controls: the plain versions on inputs rounded to bf16, against f32
+    v = torch.cumsum(torch.randint(-60, 61, (4096 * 128,), generator=gen, device=dev),
+                     0).to(torch.int32)
+    p, ld = dxc.dx_compress(v, bits=8)
+    w = torch.randn((128, 256), generator=gen, device=dev)
+    ctl = _scaled(dxc._dx_decompress_dot_plain(p, ld, w.to(BF16).float(), 8, 0.01),
+                  dxc._dx_decompress_dot_plain(p, ld, w, 8, 0.01))
+    hold("decode_dot bf16 control", ctl > tol["dot"], f"{ctl:.3e} above the tolerance {tol['dot']:g}")
+    m, k, n = GEMM_FFT_SHAPES[-1]
+    a, b = (torch.randn(s, generator=gen, device=dev) for s in ((m, k), (k, n)))
+    wr, wi = fused._dft_on(n, dev)
+    ctl = _scaled(fused._gemm_fft_plain(a.to(BF16).float(), b.to(BF16).float(), wr, wi, "gelu"),
+                  fused._gemm_fft_plain(a, b, wr, wi, "gelu"))
+    hold("gemm_fft bf16 control", ctl > tol["gemm_fft"],
+         f"{ctl:.3e} above the tolerance {tol['gemm_fft']:g}")
+    torch.cuda.synchronize()
+    print("[dxc-kernel] worst against the plain version: "
+          + ", ".join(f"{key} {err:.3e}" for key, err in worst.items()), flush=True)
+    if failures:
+        raise SystemExit(f"chip_smoke: {len(failures)} of {cases} codec/fused cases failed: "
+                         f"{failures}")
+    print(f"[dxc-kernel] {cases} cases agree", flush=True)
+
+
+def _dxc_inputs(gen, dev) -> dict:
+    """bench.py's codec input (a walk of steps uniform in −60..60, as
+    jax.random draws them; not the same bits), the lossy codec's
+    100·sin(0.001·i) in f32, W for decode_dot and the fused product's and
+    the convolutions' operands."""
+    n = DXC_N
+    m, k, nf = GEMM_FFT_MAIN
+    b, nc = CONV_MAIN
+    bn, side = CONV_ND
+    kern = torch.zeros(nc, device=dev)
+    kern[:5] = torch.randn(5, generator=gen, device=dev)
+    return {
+        "x": torch.cumsum(torch.randint(-60, 61, (n,), generator=gen, device=dev), 0).to(torch.int32),
+        "sin": (100.0 * torch.sin(torch.arange(n, dtype=torch.float64, device=dev) * 0.001)).float(),
+        "w": torch.randn((128, DXC_W), generator=gen, device=dev),
+        "a": torch.randn((m, k), generator=gen, device=dev),
+        "b": torch.randn((k, nf), generator=gen, device=dev),
+        "c": torch.randn((nf, nf), generator=gen, device=dev),
+        "conv_x": torch.randn((b, nc), generator=gen, device=dev),
+        "conv_k": kern,
+        "nd_x": torch.randn((bn, side, side, side), generator=gen, device=dev),
+        "nd_k": torch.randn((side, side, side), generator=gen, device=dev),
+    }
+
+
+def _dxc_steps(x: dict, outs: dict) -> dict:
+    """The main path in order, name: (public call, the launches it must add;
+    every other count must stay)."""
+    mkn = "({}, {}, {})".format(*GEMM_FFT_MAIN)
+    nf = GEMM_FFT_MAIN[2]
+    return {
+        "device_cascaded_compress bits=8": (
+            lambda: comp.device_cascaded_compress(x["x"], bits=DXC_BITS), {"_encode": 1}),
+        "device_cascaded_decompress": (
+            lambda: comp.device_cascaded_decompress(*outs["device_cascaded_compress bits=8"]),
+            {"_decode": 1}),
+        "device_cascaded_compress bits=None": (
+            lambda: comp.device_cascaded_compress(x["x"]), {"_encode": 1}),
+        "bitcomp_lossy_compress delta=1.0": (
+            lambda: comp.device_bitcomp_lossy_compress(x["sin"], 1.0), {"_encode": 1}),
+        "bitcomp_lossy_decompress delta=1.0": (
+            lambda: comp.device_bitcomp_lossy_decompress(*outs["bitcomp_lossy_compress delta=1.0"]),
+            {"_decode": 1}),
+        "bitcomp_lossy_compress delta=0.3": (
+            lambda: comp.device_bitcomp_lossy_compress(x["sin"], 0.3), {"_encode": 1}),
+        "bitcomp_lossy_decompress delta=0.3": (
+            lambda: comp.device_bitcomp_lossy_decompress(*outs["bitcomp_lossy_compress delta=0.3"]),
+            {"_decode": 1}),
+        f"dx_decompress_dot rows={DXC_N // 128} N={DXC_W}": (
+            lambda: dxc.dx_decompress_dot(*outs["device_cascaded_compress bits=8"][0], x["w"],
+                                          bits=DXC_BITS, scale=0.01), {"_decode_dot": 1}),
+        f"gemm_fft {mkn} gelu": (
+            lambda: fused.gemm_fft(x["a"], x["b"], "gelu"), {"_gemm_fft": 1}),
+        f"gemm_fft_composed {mkn} gelu": (
+            lambda: fused.gemm_fft_composed(x["a"], x["b"], "gelu"), {"pallas_matmul": 1}),
+        f"gemm_gemm {mkn} x ({nf}, {nf})": (
+            lambda: fused.gemm_gemm(x["a"], x["b"], x["c"]), {"pallas_matmul": 2}),
+        "fft_convolution {} x {}".format(*CONV_MAIN): (
+            lambda: fused.fft_convolution(x["conv_x"], x["conv_k"]), {"dif_fft": 3}),
+        "fft_convolution_nd {} x {}^3".format(*CONV_ND): (
+            lambda: fused.fft_convolution_nd(x["nd_x"], x["nd_k"]), {}),
+    }
+
+
+def phase_dxc_main(dev) -> dict:
+    """The slice's main path through the public functions, each step's
+    launches counted (every count set to 0 just before): bench.py's codec
+    line (bench.py:403-407), 64 Mi int32 of a walk of steps −60..60, through
+    comp.device_cascaded_compress at bits 8 and device_cascaded_decompress
+    (exact, the words equal the plain encoder's), the same with bits unset
+    (must choose 7: steps ≤ 60 zigzag to ≤ 120) and the ratio (3.88: 32/8
+    less a leader a row); device_bitcomp_lossy_compress and _decompress on 64
+    Mi f32 of 100·sin(0.001·i) at delta 1.0 and 0.3 (floors to 0.25), error
+    ≤ delta/2 (tests/test_native_dss_comp.py:525-544); dx_decompress_dot on
+    the bits-8 payload, 524288 rows against W (128, 128), scale 0.01
+    (DXC_TOL against the plain version, rel < 1e-5 against float64);
+    gemm_fft at (32768, 256, 256) with gelu; then the compositions at the same
+    sizes (gemm_fft_composed, gemm_gemm with C (256, 256)), fft_convolution
+    4096 × 4096 and fft_convolution_nd 8 × 64³ against float64, with the B1
+    and dif_fft launches each reaches."""
+    gen = torch.Generator(device=dev).manual_seed(2525)
+    x = _dxc_inputs(gen, dev)
+    outs: dict = {}
+    steps = _dxc_steps(x, outs)
+    torch.cuda.synchronize()
+    for f in DXC_COUNTS:
+        f.launches = 0
+    grew = {}
+    for name, (step, _) in steps.items():
+        before = {f.__name__: f.launches for f in DXC_COUNTS}
+        outs[name] = step()
+        grew[name] = {f.__name__: f.launches - before[f.__name__] for f in DXC_COUNTS}
+    torch.cuda.synchronize()
+    launches = {f.__name__: f.launches for f in DXC_COUNTS}
+    print(f"[dxc] launches in the main path: {launches}", flush=True)
+
+    n, tol, failures, max_abs = DXC_N, DXC_TOL, [], {}
+    (packed, leaders), meta = outs["device_cascaded_compress bits=8"]
+    for name, (_, want) in steps.items():
+        out = outs[name]
+        if name == "device_cascaded_compress bits=8":
+            p_p, ld_p = dxc._dx_compress_plain(x["x"], DXC_BITS)
+            ratio = comp.device_cascaded_ratio(meta, out[0])
+            ok = (torch.equal(packed.view(torch.int32), p_p.view(torch.int32))
+                  and torch.equal(leaders, ld_p) and meta == (n, DXC_BITS)
+                  and f"{ratio:.2f}" == "3.88")
+            max_abs["encode"] = 0.0 if ok else float("nan")
+            detail = f"words and leaders equal the plain encoder's; ratio {ratio:.4f}"
+        elif name == "device_cascaded_decompress":
+            ok = torch.equal(out, x["x"]) and torch.equal(
+                out, dxc._dx_decompress_plain(packed, leaders, DXC_BITS))
+            max_abs["decode"] = 0.0 if ok else float("nan")
+            detail = "equals the input and the plain decoder's"
+        elif name == "device_cascaded_compress bits=None":
+            (p7, l7), m7 = out
+            ok = m7 == (n, 7) and torch.equal(comp.device_cascaded_decompress((p7, l7), m7), x["x"])
+            detail = f"chose bits {m7[1]}; its round trip exact"
+        elif name.startswith("bitcomp_lossy_compress"):
+            ok = out[1][2] == (1.0 if "1.0" in name else 0.25)
+            detail = f"meta {out[1]}"
+        elif name.startswith("bitcomp_lossy_decompress"):
+            d2 = 1.0 if "1.0" in name else 0.25
+            err = float((out.double() - x["sin"].double()).abs().max())
+            ok = err <= d2 / 2
+            detail = f"max error {err:.6f} ≤ {d2 / 2}"
+        elif name.startswith("dx_decompress_dot"):
+            plain = dxc._dx_decompress_dot_plain(packed, leaders, x["w"], DXC_BITS, 0.01)
+            e_p = _scaled(out, plain)
+            f64 = (x["x"].reshape(-1, 128).double() * 0.01) @ x["w"].double()
+            e_64 = _scaled(out.double(), f64)
+            max_abs["decode_dot"] = max_abs_rel(out, plain)[0]
+            ok = e_p <= tol["dot"] and e_64 < 1e-5
+            detail = f"vs plain {e_p:.3e} | vs f64 {e_64:.3e}"
+            del plain, f64
+        elif name.startswith("gemm_fft "):
+            wr, wi = fused._dft_on(GEMM_FFT_MAIN[2], dev)
+            plain = fused._gemm_fft_plain(x["a"], x["b"], wr, wi, "gelu")
+            e_p = _scaled(out, plain)
+            e_64 = _pair_rel_l2(out, _gemm_fft64(x["a"], x["b"], "gelu"))
+            max_abs["gemm_fft"] = max(max_abs_rel(g, w)[0] for g, w in zip(out, plain))
+            ok = e_p <= tol["gemm_fft"] and e_64 < 1e-5
+            detail = f"vs plain {e_p:.3e} | vs f64 rel-L2 {e_64:.3e}"
+        elif name.startswith("gemm_fft_composed"):
+            e_64 = _pair_rel_l2(out, _gemm_fft64(x["a"], x["b"], "gelu"))
+            ok = e_64 < 1e-5
+            detail = f"vs f64 rel-L2 {e_64:.3e}"
+        elif name.startswith("gemm_gemm"):
+            want64 = (x["a"].double() @ x["b"].double()) @ x["c"].double()
+            e_64 = max_scaled_err(out, want64)
+            ok = e_64 < 1e-4   # tests/test_heuristics_grading_apps.py:152-157, rtol 1e-4
+            detail = f"vs f64 max-scaled {e_64:.3e}"
+        elif name.startswith("fft_convolution "):
+            xs, ks = x["conv_x"].double(), x["conv_k"].double()
+            want64 = torch.fft.ifft(torch.fft.fft(xs) * torch.fft.fft(ks)).real
+            e_64 = _rel(out, want64)
+            ok = e_64 < 1e-4   # :175-182, rel-L2 1e-4
+            detail = f"vs f64 rel-L2 {e_64:.3e}"
+        else:
+            dims = (-3, -2, -1)
+            want64 = torch.fft.ifftn(torch.fft.fftn(x["nd_x"].double(), dim=dims)
+                                     * torch.fft.fftn(x["nd_k"].double(), dim=dims), dim=dims).real
+            e_64 = max_scaled_err(out, want64)
+            ok = e_64 < 2e-4   # :160-172, rtol 2e-4
+            detail = f"vs f64 max-scaled {e_64:.3e}"
+        expect = {key: want.get(key, 0) for key in grew[name]}
+        launched = grew[name] == expect
+        tensors = [t for t in (out if isinstance(out, tuple) else (out,)) if isinstance(t, torch.Tensor)]
+        ok = ok and launched and all(bool(torch.isfinite(t.float()).all()) for t in tensors)
+        print(f"[dxc] {name:42s} launches {grew[name]} | {detail} {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            failures.append(name)
+    if failures:
+        raise SystemExit(f"chip_smoke: codec/fused main path failed: {failures}")
+    return {"launches": launches, "max_abs_err": max_abs, "x": x, "payload": (packed, leaders)}
+
+
+def _dxc_bound(name: str) -> dict:
+    """The bound of a line of phase 26: inputs read and outputs written once.
+    decode and encode: the words (rows·4·bits), the leaders (rows) and the
+    values (n), 4 bytes each; their integer work is not counted (the peak
+    table has no int32 rate). decode_dot: 2·rows·128·N flop at the f32 peak;
+    words, leaders, W and the output. gemm_fft: the product's 2mkn flop and
+    an FFT's 5·n·log2 n a row, counted as phase 14 counts B5 (the kernel's
+    two DFT products do 4mn², more than the function needs); A, B and the
+    two output planes."""
+    n, rows = DXC_N, DXC_N // 128
+    codec = 4 * (rows * 4 * DXC_BITS + rows + n)
+    if name in ("decode", "encode"):
+        return _bound(0.0, PEAK_F32, codec)
+    if name == "decode_dot":
+        return _bound(2.0 * rows * 128 * DXC_W, PEAK_F32,
+                      4 * (rows * 4 * DXC_BITS + rows + 128 * DXC_W + rows * DXC_W))
+    m, k, nf = GEMM_FFT_MAIN
+    return _bound(2.0 * m * k * nf + 5.0 * m * nf * math.log2(nf), PEAK_F32,
+                  4 * (m * k + k * nf + 2 * m * nf))
+
+
+def _syncs_per_call(fn) -> int:
+    """Host-device synchronisations in one call of ``fn``, as torch's sync
+    debug mode reports them."""
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def phase_dxc_times(dxc_run: dict, card: str) -> dict:
+    """CUDA events around back-to-back calls (``_loop_ms``) of each kernel
+    route of phase 25 and its plain version (short loops), each beside its
+    bound; decode and encode also as GB/s = 4n/t (bench.py:447-448). No
+    single torch call computes any of the four (nvCOMP is not installed; no
+    torch call fuses a decode with a product or a GEMM with an FFT), so
+    library_ms is null; the compositions timed instead: for decode_dot, the
+    decode kernel then torch.matmul with f32 products; for gemm_fft,
+    torch.fft.fft(gelu(A @ B)) on complex64 and the port's
+    gemm_fft_composed."""
+    x = dxc_run["x"]
+    p, ld = dxc_run["payload"]
+    n = DXC_N
+    wr, wi = fused._dft_on(GEMM_FFT_MAIN[2], x["a"].device)
+
+    def decoded_then_matmul():
+        return fft_kernels._mm(dxc.dx_decompress(p, ld, bits=DXC_BITS).view(-1, 128).float() * 0.01,
+                               x["w"])
+
+    def gelu_fft():
+        return torch.fft.fft(fused._epilogue(x["a"] @ x["b"], "gelu"))
+
+    kernels = {
+        "decode kernel": lambda: dxc.dx_decompress(p, ld, n, bits=DXC_BITS),
+        "encode kernel": lambda: dxc.dx_compress(x["x"], bits=DXC_BITS),
+        "decode_dot kernel": lambda: dxc.dx_decompress_dot(p, ld, x["w"], bits=DXC_BITS,
+                                                           scale=0.01),
+        "gemm_fft kernel": lambda: fused.gemm_fft(x["a"], x["b"], "gelu"),
+    }
+    composed = {
+        "decode_dot composed (decode, torch.matmul)": decoded_then_matmul,
+        "gemm_fft composed (torch.fft.fft(gelu(A @ B)))": gelu_fft,
+        "gemm_fft composed (gemm_fft_composed)": lambda: fused.gemm_fft_composed(x["a"], x["b"],
+                                                                                 "gelu"),
+    }
+    plains = {
+        "decode plain": lambda: dxc._dx_decompress_plain(p, ld, DXC_BITS)[:n],
+        "encode plain": lambda: dxc._dx_compress_plain(x["x"], DXC_BITS),
+        "decode_dot plain": lambda: dxc._dx_decompress_dot_plain(p, ld, x["w"], DXC_BITS, 0.01),
+        "gemm_fft plain": lambda: fused._gemm_fft_plain(x["a"], x["b"], wr, wi, "gelu"),
+    }
+    ms = _loop_ms(kernels, warmup=2, reps=10, samples=5)
+    # The compositions launch many small kernels, and the port's matmul FFT
+    # copies its tables to the card on every call; more samples, with their
+    # spread and the host-device synchronisations of one call, show how far
+    # the host sets their time.
+    spread: dict = {}
+    ms.update(_loop_ms(composed, warmup=3, reps=10, samples=15, spread=spread))
+    for route in composed:
+        lo, hi = spread[route]
+        print(f"[dxc-times] {route:48s} samples {lo:.4f}..{hi:.4f} ms | "
+              f"{_syncs_per_call(composed[route])} host syncs a call | {card}", flush=True)
+    ms.update(_loop_ms(plains, warmup=1, reps=2, samples=2))
+    bounds = {}
+    for name in ("decode", "encode", "decode_dot", "gemm_fft"):
+        bounds[name] = bound = _dxc_bound(name)
+        for route in [r for r in list(kernels) + list(composed) + list(plains)
+                      if r.startswith(name + " ")]:
+            t = ms[route]
+            rate = f" {4.0 * n / t / 1e6:.1f} GB/s |" if name in ("decode", "encode") else ""
+            print(f"[dxc-times] {route:48s} {t:.4f} ms |{rate} bound {bound['bound_ms']:.4f} ms "
+                  f"({bound['bound_by']}), {bound['bound_ms'] / t:.1%} of it | {card}", flush=True)
+    ms["bounds"] = bounds
+    return ms
+
+
 def main() -> None:
     dev, card = phase_device()
     phase_build()
@@ -2239,6 +2703,9 @@ def main() -> None:
     phase_dxe_kernel(dev)
     dxe = phase_dxe_main(dev)
     dxe_ms = phase_dxe_times(dxe, card)
+    phase_dxc_kernel(dev)
+    dxc_run = phase_dxc_main(dev)
+    dxc_ms = phase_dxc_times(dxc_run, card)
 
     m, n, k = MAIN
     ns = SOLVER_N
@@ -2354,7 +2821,33 @@ def main() -> None:
         ("syevd_batched (tml_syevd_batched)", "syevd_batched b8192 n32", "_syevd",
          "dx_jacobi.cu", "758"),
         ("gesvd_batched (tml_gesvd_batched)", "gesvd_batched b8192 n32", "_gesvd",
-         "dx_jacobi.cu", "843"))]}
+         "dx_jacobi.cu", "843"))] + [{
+        "name": name,
+        "route": "cuda",
+        "source": f"tpumathlib_torch/csrc/{source}",
+        "replaces": replaces,
+        "launches": dxc_run["launches"][count],
+        "max_abs_err": dxc_run["max_abs_err"][line],
+        "ms": dxc_ms[f"{line} kernel"],
+        "plain_ms": dxc_ms[f"{line} plain"],
+        **dxc_ms["bounds"][line],
+        "library_ms": None,
+        "library_ms_null_because": why,
+        "composed_ms": {route[len(line) + 10:]: t for route, t in dxc_ms.items()
+                        if route.startswith(f"{line} composed")},
+    } for name, line, count, source, replaces, why in (
+        ("cascaded_decode (tml_cascaded_decode)", "decode", "_decode", "dx_comp.cu",
+         "tpumathlib/dx/comp.py:186", "no torch call decodes the cascaded format (nvCOMP is not "
+         "installed)"),
+        ("cascaded_encode (tml_cascaded_encode)", "encode", "_encode", "dx_comp.cu",
+         "tpumathlib/dx/comp.py:233", "no torch call encodes the cascaded format (nvCOMP is not "
+         "installed)"),
+        ("cascaded_decode_dot (tml_cascaded_decode_dot)", "decode_dot", "_decode_dot",
+         "dx_comp.cu", "tpumathlib/dx/comp.py:302", "no torch call fuses a decode with a "
+         "product; composed_ms times the decode kernel then torch.matmul"),
+        ("gemm_fft (tml_gemm_fft)", "gemm_fft", "_gemm_fft", "dx_fused.cu",
+         "tpumathlib/dx/fused.py:70", "no torch call fuses a GEMM with an FFT; composed_ms times "
+         "torch.fft.fft(gelu(A @ B)) and gemm_fft_composed"))]}
     print(card_line(), flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

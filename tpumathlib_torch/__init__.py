@@ -7,10 +7,16 @@ TPU kernel of the reference becomes a kernel written by hand for Hopper
 (``csrc/``), with its plain PyTorch version beside it for CPU tensors.
 
 Ported so far (the GEMM slice, the Cholesky / no-pivot LU slice, the QR
-slice, the FFT slice, the Blocked-ELL sparse slice):
+slice, the FFT slice, the Blocked-ELL sparse slice, the cuSolverDx tier, the
+nvCOMPDx tier and the fused GEMM → FFT):
 - ``tpumathlib_torch.core``       — errors, dtype traits, checks, timer,
                                     plans, autotune cache, interop
-- ``tpumathlib_torch.dx``         — the tiled GEMM with fused epilogues
+- ``tpumathlib_torch.dx``         — the tiled GEMM with fused epilogues, the
+                                    batched small solvers (B7a–B7i), the
+                                    cascaded codec (B8a–B8c) and, in
+                                    ``dx.fused``, ``gemm_fft`` (B9)
+- ``tpumathlib_torch.comp``       — the device-resident cascaded and lossy
+                                    codecs (the host codecs are not ported)
 - ``tpumathlib_torch.blas``       — Level-3, the Lt descriptor engine, and the
                                     Level-2 helpers they need
 - ``tpumathlib_torch.heuristics`` — roofline model + discovery

@@ -6,7 +6,10 @@ beside it. This package holds the tiled GEMM with fused epilogues
 (``dx.gemm``) and the cuSolverDx tier's batched small factorizations and
 solves (``dx.solver``: potrf, getrf, geqrf, gesv and posv over a batch of
 small matrices, one thread block a matrix, and the blocked Cholesky that
-composes them with the GEMM).
+composes them with the GEMM) and the nvCOMPDx tier's cascaded codec
+(``dx.comp``: encode, decode, and decode fused with a product).
+``dx.fused`` (the fused GEMM → FFT and its compositions) is not exported
+here, as in the reference.
 """
 
 from tpumathlib_torch.dx.gemm import pallas_matmul, MatmulConfig  # noqa: F401
@@ -17,4 +20,10 @@ from tpumathlib_torch.dx.solver import (  # noqa: F401
     posv_batched,
     potrf_batched,
     potrf_blocked,
+)
+from tpumathlib_torch.dx.comp import (  # noqa: F401
+    dx_compress,
+    dx_decompress,
+    dx_decompress_dot,
+    dx_required_bits,
 )

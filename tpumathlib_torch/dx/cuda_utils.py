@@ -142,6 +142,18 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tml_syevd_batched.restype = i32
     lib.tml_gesvd_batched.argtypes = [p, p, p, p, p, i64, i64, i64, p]
     lib.tml_gesvd_batched.restype = i32
+    # dx_comp.cu: decode (packed, leaders, out, rows, count, bits, stream),
+    # encode (values, packed, leaders, n, bits, stream), decode_dot (packed,
+    # leaders, w, out, rows, ncols, bits, scale, stream)
+    lib.tml_cascaded_decode.argtypes = [p, p, p, i64, i64, i32, p]
+    lib.tml_cascaded_decode.restype = i32
+    lib.tml_cascaded_encode.argtypes = [p, p, p, i64, i32, p]
+    lib.tml_cascaded_encode.restype = i32
+    lib.tml_cascaded_decode_dot.argtypes = [p, p, p, p, i64, i64, i32, f32, p]
+    lib.tml_cascaded_decode_dot.restype = i32
+    # dx_fused.cu: (a, b, wr, wi, yr, yi, m, k, n, epilogue code, stream), f32
+    lib.tml_gemm_fft.argtypes = [p, p, p, p, p, p, i64, i64, i64, i32, p]
+    lib.tml_gemm_fft.restype = i32
     lib.tml_gemm_configs.argtypes = [ctypes.POINTER(i32), i32]
     lib.tml_gemm_configs.restype = i32
     lib.tml_error_string.argtypes = [i32]
