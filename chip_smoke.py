@@ -130,6 +130,28 @@ Phases; any failure raises and the exit code is non-zero:
 26. codec and fused times — CUDA events for each kernel route of phase 25
    and its plain version (decode and encode also in GB/s), with the share of
    the bound, and the compositions that stand in for a library call.
+27. RNG kernels — tml_random_uniform and tml_dropout_matmul (csrc/dx_rng.cu)
+   against their plain versions: the uniforms bit for bit at five shapes up
+   to 8192 x 8192 and four seeds, the Random123 known answers through
+   rand.philox4x32_10 on the card, the dropout's mask bit for bit against
+   the uniforms > rate and its kept values within 1e-5, f32 and bf16
+   operands, rates 0 .. 0.9, a ragged (300, 96, 77).
+28. RNG main path — random_uniform_kernel(seed, (8192, 8192)) and
+   dropout_matmul_kernel at 4096^3 f32, rate 0.1: each grows its count by
+   one; mean, variance and KS of the uniforms, the dropout's zero share and
+   mask; PhiloxGenerator's 64 Mi words equal to B10a's bits, and every rand
+   family on the card equal to its CPU words and its known answers.
+29. RNG times — CUDA events for both kernels, their plain versions and the
+   yardsticks (torch.rand; F.dropout(torch.matmul(a, b))), with GB/s and the
+   share of the bound (B10a's integer bound from its SASS).
+30. VV10 kernels — tml_vv10_fwd and tml_vv10_bwd (csrc/dx_vv10.cu) against
+   their plain versions and float64 at G = 7, 1500 and 5000.
+31. VV10 main path — vv10_pair_energy_pallas at G = 40960 and its four
+   gradients through torch.autograd.grad: each kernel's count grows by one;
+   the energy and gradients against the f32 plain route and float64.
+32. VV10 times — CUDA events for each sweep, the energy and value plus
+   gradient, kernel and plain routes, with Gpairs/s and the share of the
+   bound.
 The line before the last is a JSON record of the kernels, each with its
 bound (the larger of its operations over the card's published peak and its
 bytes over 3.35 TB/s); the last line is {"ok": true, "device": {...}}.
@@ -142,20 +164,25 @@ import ctypes
 import importlib
 import json
 import math
+import re
 import subprocess
 import time
 import warnings
 
+from pathlib import Path
+
 import numpy as np
 import torch
 
-from tpumathlib_torch import comp, fft, sparse
+from tpumathlib_torch import comp, fft, rand, sparse
 from tpumathlib_torch.blas import level3, lt
 from tpumathlib_torch.core.check import max_abs_rel, max_scaled_err
 from tpumathlib_torch.core.interop import to_numpy
 from tpumathlib_torch.core.timer import benchmark
 from tpumathlib_torch.dx import comp as dxc
 from tpumathlib_torch.dx import cuda_utils, fused, gemm
+from tpumathlib_torch.dx import rng as dxr
+from tpumathlib_torch.dx import vv10
 from tpumathlib_torch.dx import solver as dxs
 from tpumathlib_torch.dx.gemm import _pallas_matmul_plain, pallas_matmul
 from tpumathlib_torch.entry import entry
@@ -2677,6 +2704,489 @@ def phase_dxc_times(dxc_run: dict, card: str) -> dict:
     ms["bounds"] = bounds
     return ms
 
+RNG_SEEDS = (0, 42, -1, 2**31 - 1)
+RNG_SHAPES = ((1,), (3, 5), (64, 128), (1000, 7), (8192, 8192))   # phase 27's B10a shapes
+DROPOUT_CASES = ((300, 96, 77), (256, 512, 128), (1, 1, 1))        # phase 27's (m, k, n)
+DROPOUT_RATES = (0.0, 0.1, 0.5, 0.9)
+RNG_MAIN = (8192, 8192)             # B10a's full-size call: 64 Mi f32
+DROPOUT_MAIN = (4096, 4096, 4096)   # (m, k, n) of B10b, f32: the bench GEMM's shape
+DROPOUT_RATE = 0.1
+RNG_SEED = 20240601
+RNG_COUNTS = (dxr._random_uniform, dxr._dropout_matmul)
+# B10b's kept values against its plain version, max-scaled: the same f32
+# products summed in another order, as DXC_TOL["dot"].
+DROPOUT_TOL = 1e-5
+SMS = 132                  # the H100 SXM's SMs
+INT_PER_CLK = 64           # 32-bit integer add/logic/shift and IMAD a clock an SM (CUDA C++
+                           # Programming Guide, throughput table, compute capability 9.0)
+DISPATCH_PER_CLK = 128     # one warp instruction a clock in each of the four partitions
+MUFU_PER_CLK = 16          # reciprocals and conversions a clock an SM, the same table
+
+
+def _card_clock_hz() -> float:
+    """The card's highest SM clock (nvidia-smi clocks.max.sm), in Hz."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.split()[0]) * 1e6
+
+
+def _sass_counts(kernel: str) -> dict:
+    """Instruction counts of ``kernel``'s SASS in the built library
+    (cuobjdump -sass), from its entry to the first EXIT that no predicate
+    guards: the straight path a thread of a full block takes. Integer ALU
+    (IADD3, LOP3, SHF, LEA, ISETP, SEL, PRMT, MOV, VIADD), IMAD of every
+    form (the FMA pipe), conversions (I2F, I2FP, F2I) and all (the uniform
+    datapath's U* instructions take issue slots too)."""
+    sass = subprocess.run([str(Path(cuda_utils._nvcc()).parent / "cuobjdump"), "-sass",
+                           str(cuda_utils.build_kernels())],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    body, inside = [], False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if inside and m:
+            body.append(m.group(2).split(".")[0])
+            if body[-1] == "EXIT" and not m.group(1):   # a predicated EXIT is the early out
+                break
+    if not body:
+        raise SystemExit(f"chip_smoke: no SASS found for {kernel}")
+    alu = {"IADD3", "LOP3", "SHF", "LEA", "ISETP", "SEL", "PRMT", "MOV", "IABS", "IMNMX", "FLO",
+           "VIADD"}
+    return {"all": len(body), "alu": sum(op in alu for op in body),
+            "imad": sum(op.startswith("IMAD") for op in body),
+            "cvt": sum(op in ("I2F", "F2I", "I2FP", "F2IP") for op in body)}
+
+
+def _rng_bound(name: str, sass: dict | None = None) -> dict:
+    """The bound of B10a or B10b at the main path's shapes. B10a: bytes, 4 a
+    uniform written; or its integer work, one thread a Philox block running
+    the SASS counted by _sass_counts, at INT_PER_CLK for the ALU and the IMAD
+    pipes, MUFU_PER_CLK for conversions and DISPATCH_PER_CLK for all of it, at
+    the card's highest clock: the larger. B10b: 2mkn flop at the f32 peak
+    (the epilogue's Philox blocks are under 1 % of it); A and B read, the
+    output written."""
+    if name == "uniform":
+        n = RNG_MAIN[0] * RNG_MAIN[1]
+        threads = -(-n // 4)
+        per_clk = max(sass["alu"] / INT_PER_CLK, sass["imad"] / INT_PER_CLK,
+                      sass["cvt"] / MUFU_PER_CLK, sass["all"] / DISPATCH_PER_CLK)
+        t_int = threads * per_clk / (SMS * _card_clock_hz()) * 1e3
+        t_bytes = 4.0 * n / HBM_BYTES_S * 1e3
+        if t_int >= t_bytes:
+            return {"bound_ms": t_int, "bound_by": "operations"}
+        return {"bound_ms": t_bytes, "bound_by": "bytes"}
+    m, k, n = DROPOUT_MAIN
+    return _bound(2.0 * m * k * n, PEAK_F32, 4 * (m * k + k * n + m * n))
+
+
+def _check_dropout(d, a, b, seed, rate, keep) -> tuple[float, float, bool]:
+    """(max-scaled and max absolute error of the output against the plain
+    version, and whether the mask is exactly ``keep``: every dropped output
+    0, every kept one the plain product's)."""
+    plain = dxr._dropout_matmul_plain(a, b, seed, rate)
+    diff = float((d - plain).abs().max())
+    err = diff / float(plain.abs().max().clamp_min(1e-30)) if keep.any() else 0.0
+    mask_ok = (bool((d[~keep] == 0).all()) and bool(((d != 0) == keep).all())
+               and bool(((plain != 0) == keep).all()))
+    return err, diff, mask_ok
+
+
+def phase_rng_kernel(dev) -> None:
+    """Kernels B10a (tml_random_uniform) and B10b (tml_dropout_matmul,
+    csrc/dx_rng.cu) against their plain versions. B10a bit for bit at shapes
+    (1,), (3, 5), (64, 128), (1000, 7), (8192, 8192) and seeds 0, 42, −1,
+    2³¹ − 1; the Random123 known answers through rand.philox4x32_10 on the
+    card (tests/test_rand.py:23-34). B10b's mask bit for bit against
+    random_uniform_kernel(seed, (m, n)) > rate, its kept values within
+    DROPOUT_TOL of the plain version's largest, f32 and bf16 operands, rates
+    0, 0.1, 0.5 and 0.9, shapes (300, 96, 77), (256, 512, 128), (1, 1, 1)."""
+    failures, cases, worst = [], 0, 0.0
+    for seed in RNG_SEEDS:
+        for shape in RNG_SHAPES:
+            got = dxr.random_uniform_kernel(seed, shape, device=dev)
+            ok = got.dtype == F32 and torch.equal(got, dxr._random_uniform_plain(seed, shape, dev))
+            cases += 1
+            if not ok:
+                failures.append(f"uniform seed {seed} shape {shape}")
+    for ctr, key, want in (((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+                           ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2,
+                            (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD))):
+        out = rand.philox4x32_10(torch.tensor([ctr], device=dev), torch.tensor([key], device=dev))
+        got = [int(v) & 0xFFFFFFFF for v in out.view(torch.int32)[0].tolist()]
+        cases += 1
+        if got != list(want):
+            failures.append(f"philox KAT {ctr}: {[hex(v) for v in got]}")
+    gen = torch.Generator(device=dev).manual_seed(2727)
+    for dtype in (F32, BF16):
+        for m, k, n in DROPOUT_CASES:
+            a = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+            b = torch.randn((k, n), generator=gen, device=dev).to(dtype)
+            for rate in DROPOUT_RATES:
+                seed = 97 + m
+                d = dxr.dropout_matmul_kernel(a, b, seed, rate)
+                keep = dxr.random_uniform_kernel(seed, (m, n), device=dev) > rate
+                err, _, mask_ok = _check_dropout(d, a, b, seed, rate, keep)
+                cases += 1
+                worst = max(worst, err)
+                if not (mask_ok and err <= DROPOUT_TOL and d.dtype == F32 and d.shape == (m, n)):
+                    failures.append(f"dropout {dtype} {(m, k, n)} rate {rate}: err {err:.3e} "
+                                    f"mask {mask_ok}")
+    torch.cuda.synchronize()
+    print(f"[rng-kernel] {cases} cases, uniforms bit for bit, dropout worst vs plain "
+          f"{worst:.3e} (tol {DROPOUT_TOL:g})", flush=True)
+    if failures:
+        raise SystemExit(f"chip_smoke: RNG kernel checks failed: {failures}")
+
+
+def _ks_uniform(u) -> tuple[float, float]:
+    """Kolmogorov–Smirnov statistic of the samples ``u`` against U(0, 1],
+    sorted on the card, and its asymptotic p-value."""
+    x = torch.sort(u.reshape(-1).double()).values
+    n = x.numel()
+    i = torch.arange(1, n + 1, device=x.device, dtype=torch.float64)
+    d = float(torch.maximum(i / n - x, x - (i - 1) / n).max())
+    lam = (math.sqrt(n) + 0.12 + 0.11 / math.sqrt(n)) * d
+    p = 2.0 * sum((-1) ** (j - 1) * math.exp(-2.0 * j * j * lam * lam) for j in range(1, 101))
+    return d, min(max(p, 0.0), 1.0)
+
+
+def _generators_on_card(dev) -> list[str]:
+    """Each rand family on the card against its words on the CPU, and the
+    known answers: MT19937 against numpy's RandomState(1234) for 1500 words
+    and at offset 700, Sobol's first words against the Gray-code recurrence
+    on the host (and dimension 0's 0x80000000, 0xC0000000, 0x40000000)."""
+    failures = []
+
+    def bits(t):
+        return t.view(torch.int32).cpu()
+
+    for name, kw, count, off in (("PhiloxGenerator", {}, 100000, 13),
+                                 ("ThreefryGenerator", {}, 100000, 65530),
+                                 ("XorwowGenerator", {}, 20000, 5),
+                                 ("Mrg32k3aGenerator", {}, 20000, 5),
+                                 ("Mt19937Generator", {}, 20000, 700),
+                                 ("Mtgp32Generator", {"nstreams": 8}, 20000, 100)):
+        card = getattr(rand, name)(7, device=dev, **kw).set_offset(off)
+        host = getattr(rand, name)(7, device="cpu", **kw).set_offset(off)
+        for _ in range(2):
+            if not torch.equal(bits(card.random_bits(count)), bits(host.random_bits(count))):
+                failures.append(f"{name} card vs CPU")
+        if not torch.equal(card.uniform(1000).cpu(), host.uniform(1000)):
+            failures.append(f"{name} uniform card vs CPU")
+    want = np.random.RandomState(1234).randint(0, 2**32, size=1500, dtype=np.uint64).astype(np.uint32)
+    got = rand.Mt19937Generator(1234, device=dev).random_bits(1500)
+    if not np.array_equal(bits(got).numpy().view(np.uint32), want):
+        failures.append("MT19937 vs RandomState(1234)")
+    got = rand.Mt19937Generator(1234, device=dev).set_offset(700).random_bits(100)
+    if not np.array_equal(bits(got).numpy().view(np.uint32), want[700:800]):
+        failures.append("MT19937 at offset 700")
+    from tpumathlib_torch.rand import sobol
+    for dim, scrambled in ((1, False), (50, False), (3, True)):
+        g = rand.SobolGenerator(dim, scrambled, seed=99, device=dev)
+        got = bits(g.random_bits(4096)).numpy().view(np.uint32)
+        want = (sobol._sobol_words(sobol._direction_numbers(dim, 32), 0, 4096, 32)
+                ^ g._shift_np[None, :]).astype(np.uint32)
+        if not np.array_equal(got, want):
+            failures.append(f"Sobol dim {dim} scrambled {scrambled}")
+    first = bits(rand.SobolGenerator(1, device=dev).random_bits(3)).numpy().view(np.uint32)
+    if first.reshape(-1).tolist() != [0x80000000, 0xC0000000, 0x40000000]:
+        failures.append(f"Sobol dim 0 first words {first.reshape(-1)}")
+    hi, lo = rand.SobolGenerator(12, bits=64, device=dev).random_bits(64)
+    w64 = rand.SobolGenerator(12, bits=64, device="cpu").random_bits64(64)
+    if not (np.array_equal(bits(hi).numpy().view(np.uint32), (w64 >> np.uint64(32)).astype(np.uint32))
+            and np.array_equal(bits(lo).numpy().view(np.uint32), w64.astype(np.uint32))):
+        failures.append("Sobol64 planar pair")
+    return failures
+
+
+def phase_rng_main(dev) -> dict:
+    """The RNG main path, both counts set to 0 just before:
+    random_uniform_kernel(seed, (8192, 8192)) and dropout_matmul_kernel at
+    4096³ f32 with rate 0.1 and the same seed; each must grow its wrapper's
+    count by one. The uniforms equal their plain version bit for bit, their
+    mean, variance and a KS test against U(0, 1] (all 64 Mi, sorted on the
+    card); the dropout's mask equals the first 4096² uniforms > 0.1 (the flat
+    (4096, 4096) stream is the first 16 Mi words of the (8192, 8192) one),
+    its zero share within ±0.002 of the rate, its kept values within
+    DROPOUT_TOL of the plain version. Then PhiloxGenerator(seed)'s 64 Mi
+    words on the card under the 24-bit map equal the uniforms, and every rand
+    family on the card equals its CPU words (_generators_on_card)."""
+    m, k, n = DROPOUT_MAIN
+    gen = torch.Generator(device=dev).manual_seed(3131)
+    a = torch.randn((m, k), generator=gen, device=dev)
+    b = torch.randn((k, n), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    for f in RNG_COUNTS:
+        f.launches = 0
+    u = dxr.random_uniform_kernel(RNG_SEED, RNG_MAIN, device=dev)
+    d = dxr.dropout_matmul_kernel(a, b, RNG_SEED, DROPOUT_RATE)
+    torch.cuda.synchronize()
+    launches = {f.__name__: f.launches for f in RNG_COUNTS}
+    print(f"[rng] launches in the main path: {launches}", flush=True)
+    failures = [] if launches == {"_random_uniform": 1, "_dropout_matmul": 1} else ["launches"]
+
+    exact = torch.equal(u, dxr._random_uniform_plain(RNG_SEED, RNG_MAIN, dev))
+    mean, var = float(u.double().mean()), float(u.double().var())
+    ks_d, ks_p = _ks_uniform(u)
+    in_range = float(u.min()) > 0.0 and float(u.max()) <= 1.0
+    ok = exact and in_range and abs(mean - 0.5) < 1e-3 and abs(var - 1 / 12) < 1e-3 and ks_p > 1e-4
+    print(f"[rng] uniform {RNG_MAIN}: equals plain {exact} | mean {mean:.6f} var {var:.6f} "
+          f"(1/12 = {1 / 12:.6f}) | KS D {ks_d:.3e} p {ks_p:.3f} {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        failures.append("uniform")
+
+    keep = u.reshape(-1)[:m * n].reshape(m, n) > DROPOUT_RATE
+    err, diff, mask_ok = _check_dropout(d, a, b, RNG_SEED, DROPOUT_RATE, keep)
+    zero_share = float((d == 0).double().mean())
+    ok = mask_ok and err <= DROPOUT_TOL and abs(zero_share - DROPOUT_RATE) <= 0.002
+    print(f"[rng] dropout {DROPOUT_MAIN} f32 rate {DROPOUT_RATE}: mask equals the uniforms' "
+          f"{mask_ok} | kept vs plain {err:.3e} (tol {DROPOUT_TOL:g}) | zero share "
+          f"{zero_share:.6f} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append("dropout")
+
+    words = rand.PhiloxGenerator(RNG_SEED, device=dev).random_bits(RNG_MAIN[0] * RNG_MAIN[1])
+    same = torch.equal(dxr._uniform_from_words(rand.distributions.words(words)), u.reshape(-1))
+    del words
+    gen_fail = _generators_on_card(dev)
+    print(f"[rng] PhiloxGenerator's 64 Mi words equal B10a's bits: {same} | every family on the "
+          f"card equals its CPU words: {not gen_fail} {gen_fail}", flush=True)
+    if not same or gen_fail:
+        failures.append("generators")
+    if failures:
+        raise SystemExit(f"chip_smoke: RNG main path failed: {failures}")
+    return {"launches": launches, "max_abs_err": {"uniform": 0.0, "dropout": diff},
+            "args": (a, b)}
+
+
+def phase_rng_times(run: dict, card: str) -> dict:
+    """CUDA events around back-to-back calls (``_loop_ms``): B10a at (8192,
+    8192) and B10b at 4096³ f32, their plain versions, and the yardsticks:
+    torch.rand with a CUDA generator (torch's own Philox: the same
+    distribution, other bits) and F.dropout(torch.matmul(a, b), 0.1) with
+    TF32 off (no single torch call fuses the two), each beside its bound;
+    GB/s for the uniforms."""
+    a, b = run["args"]
+    dev = a.device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n = RNG_MAIN[0] * RNG_MAIN[1]
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SystemExit("chip_smoke: the dropout yardstick needs TF32 off")
+    runs = {
+        "uniform kernel": lambda: dxr.random_uniform_kernel(RNG_SEED, RNG_MAIN, device=dev),
+        "uniform library": lambda: torch.rand(RNG_MAIN, device=dev, generator=gen),
+        "dropout kernel": lambda: dxr.dropout_matmul_kernel(a, b, RNG_SEED, DROPOUT_RATE),
+        "dropout composed": lambda: torch.nn.functional.dropout(torch.matmul(a, b), DROPOUT_RATE),
+    }
+    ms = _loop_ms(runs, warmup=2, reps=10, samples=5)
+    ms.update(_loop_ms({
+        "uniform plain": lambda: dxr._random_uniform_plain(RNG_SEED, RNG_MAIN, dev),
+        "dropout plain": lambda: dxr._dropout_matmul_plain(a, b, RNG_SEED, DROPOUT_RATE),
+    }, warmup=1, reps=2, samples=3))
+    sass = _sass_counts("uniform_kernel")
+    print(f"[rng-times] uniform_kernel SASS a thread (one Philox block): {sass}; clock "
+          f"{_card_clock_hz() / 1e9:.3f} GHz", flush=True)
+    ms["bounds"] = {"uniform": _rng_bound("uniform", sass), "dropout": _rng_bound("dropout")}
+    for line in ("uniform", "dropout"):
+        bound = ms["bounds"][line]
+        for route in [r for r in ms if r.startswith(line + " ")]:
+            t = ms[route]
+            rate = f" {4.0 * n / t / 1e6:.1f} GB/s |" if line == "uniform" else \
+                f" {2.0 * math.prod(DROPOUT_MAIN) / t / 1e9:.2f} TFLOP/s |"
+            print(f"[rng-times] {route:18s} {t:.4f} ms |{rate} bound "
+                  f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), {bound['bound_ms'] / t:.1%} "
+                  f"of it | {card}", flush=True)
+    return ms
+
+
+VV10_KERNEL_GS = (7, 1500, 5000)   # phase 30's G: ragged against the 64-row block and 256-j tile
+VV10_MAIN = 40960                  # G at which the reference's notes say XLA's value_and_grad ran
+                                   # out of memory (tpumathlib/apps/vv10.py:69-73)
+VV10_B, VV10_C = 5.9, 0.0093
+VV10_COUNTS = (vv10._vv10_fwd, vv10._vv10_bwd)
+# Kernel against its plain version and float64, max-scaled (each of the six
+# sums over its largest; the energy relative): f32 sums of G terms in
+# another order (the kernel's four strided lanes and a shuffle, torch's
+# pairwise reduction).
+VV10_TOL = {"sums": 1e-5, "energy": 1e-5, "grad": 1e-5}
+VV10_FLOP = {"fwd": 17, "bwd": 36}   # a pair, an FMA as 2 (csrc/dx_vv10.cu's header)
+VV10_RCP = {"fwd": 1, "bwd": 1}      # reciprocals a pair: one of g_i g_j (g_i + g_j)
+
+
+def _vv10_inputs(g: int, dev, seed: int = 5):
+    """tests/test_vv10.py:91-96's inputs, from a seed with numpy."""
+    rs = np.random.default_rng(seed)
+    rho = rs.uniform(0.01, 0.5, g).astype(np.float32)
+    rho[::17] = 1e-12
+    cols = (rho, rs.uniform(0, 0.1, g), rs.normal(size=(g, 3)) * 3, rs.uniform(0.001, 0.02, g))
+    return [torch.tensor(np.asarray(c, np.float32), device=dev) for c in cols]
+
+
+def _vv10_channels(rho, s2, w, dtype):
+    """(wr, w0, κ) of the reference's channel chain, in ``dtype``."""
+    rho, s2, w = (t.to(dtype) for t in (rho, s2, w))
+    good = rho > 1e-9
+    rs = torch.where(good, rho, 1.0)
+    w0 = torch.sqrt(VV10_C * (s2 / (rs * rs)) ** 2 + (4.0 * math.pi) * rs / 3.0)
+    kappa = VV10_B * (1.5 * math.pi) * (rs / (9.0 * math.pi)) ** (1.0 / 6.0)
+    return torch.where(good, w * rho, 0.0), w0, kappa
+
+
+def _sums_err(got, want) -> float:
+    """The worst of each row's max|got − want| / max|want|."""
+    got, want = got.reshape(-1, got.shape[-1]), want.reshape(-1, want.shape[-1])
+    return max(float((g.double() - w.double()).abs().max() / w.double().abs().max())
+               for g, w in zip(got, want))
+
+
+@contextlib.contextmanager
+def _vv10_plain():
+    """_PairCore with the plain versions in the two wrappers' place."""
+    saved = vv10._vv10_fwd, vv10._vv10_bwd
+    vv10._vv10_fwd, vv10._vv10_bwd = vv10._vv10_fwd_plain, vv10._vv10_bwd_plain
+    try:
+        yield
+    finally:
+        vv10._vv10_fwd, vv10._vv10_bwd = saved
+
+
+def phase_vv10_kernel(dev) -> None:
+    """Kernel B11 (tml_vv10_fwd, tml_vv10_bwd, csrc/dx_vv10.cu) against its
+    plain versions at G = 7, 1500 and 5000 (ragged against the tiles), with
+    masked points: inner and the five backward sums each within
+    VV10_TOL["sums"] of their largest; the plain versions in float64 as the
+    oracle, at the same bound."""
+    failures = []
+    for g in VV10_KERNEL_GS:
+        rho, s2, pts, w = _vv10_inputs(g, dev)
+        ch = _vv10_channels(rho, s2, w, F32)
+        ch64 = [t.double() for t in ch] + [pts.double()]
+        for kind, kern, plain in (("fwd", vv10._vv10_fwd, vv10._vv10_fwd_plain),
+                                  ("bwd", vv10._vv10_bwd, vv10._vv10_bwd_plain)):
+            got = kern(*ch, pts)
+            e_p = _sums_err(got, plain(*ch, pts))
+            e_64 = _sums_err(got, plain(*ch64))
+            ok = (e_p <= VV10_TOL["sums"] and e_64 <= VV10_TOL["sums"]
+                  and bool(torch.isfinite(got).all()))
+            print(f"[vv10-kernel] G={g:5d} {kind}: vs plain {e_p:.3e} | vs f64 {e_64:.3e} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failures.append(f"{kind} G={g}")
+    if failures:
+        raise SystemExit(f"chip_smoke: VV10 kernel checks failed: {failures}")
+
+
+def _vv10_value_and_grad(rho, s2, pts, w):
+    ts = [t.detach().clone().requires_grad_() for t in (rho, s2, pts, w)]
+    e = vv10.vv10_pair_energy_pallas(*ts, VV10_B, VV10_C)
+    return e, torch.autograd.grad(e, ts)
+
+
+def _vv10_f64(rho, s2, pts, w):
+    """Energy and gradients in float64 through the plain route: the chain in
+    float64 and _PairCore's plain versions on float64."""
+    ts = [t.double().requires_grad_() for t in (rho, s2, pts, w)]
+    wr, w0, kappa = _vv10_channels(ts[0], ts[1], ts[3], torch.float64)
+    with _vv10_plain():
+        e = vv10._PairCore.apply(wr, w0, kappa, ts[2], vv10.vv10_beta(VV10_B))
+        return e, torch.autograd.grad(e, ts)
+
+
+def phase_vv10_main(dev) -> dict:
+    """The VV10 main path at G = 40960 (1.68e9 pairs), both counts set to 0
+    just before: vv10_pair_energy_pallas's energy and its gradients in ρ,
+    |∇ρ|², the points and the weights through torch.autograd.grad; each
+    kernel's count must grow by one. The energy (relative) and each gradient
+    (max-scaled) against the f32 plain route and against float64, within
+    VV10_TOL."""
+    rho, s2, pts, w = _vv10_inputs(VV10_MAIN, dev)
+    torch.cuda.synchronize()
+    for f in VV10_COUNTS:
+        f.launches = 0
+    e, grads = _vv10_value_and_grad(rho, s2, pts, w)
+    torch.cuda.synchronize()
+    launches = {f.__name__: f.launches for f in VV10_COUNTS}
+    print(f"[vv10] launches in the main path: {launches}", flush=True)
+    with _vv10_plain():
+        e_p, g_p = _vv10_value_and_grad(rho, s2, pts, w)
+    e_64, g_64 = _vv10_f64(rho, s2, pts, w)
+    e, e_p, e_64 = e.detach(), e_p.detach(), e_64.detach()
+    rel = {"plain": abs(float(e) - float(e_p)) / abs(float(e_p)),
+           "f64": abs(float(e) - float(e_64)) / abs(float(e_64))}
+    ok = launches == {"_vv10_fwd": 1, "_vv10_bwd": 1} and max(rel.values()) <= VV10_TOL["energy"]
+    print(f"[vv10] G={VV10_MAIN} energy {float(e):.9e} | rel vs plain {rel['plain']:.3e} | "
+          f"vs f64 {rel['f64']:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+    grad_abs = 0.0
+    for name, g, gp, g64 in zip(("rho", "s2", "pts", "w"), grads, g_p, g_64):
+        e_pl, e_f64 = _scaled(g, gp), _scaled(g.double(), g64)
+        grad_abs = max(grad_abs, float((g - gp).abs().max()))
+        good = e_pl <= VV10_TOL["grad"] and e_f64 <= VV10_TOL["grad"] and bool(torch.isfinite(g).all())
+        ok = ok and good
+        print(f"[vv10] d/d{name:4s} vs plain {e_pl:.3e} | vs f64 {e_f64:.3e} "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit("chip_smoke: VV10 main path failed")
+    return {"launches": launches, "inputs": (rho, s2, pts, w),
+            "max_abs_err": {"fwd": abs(float(e) - float(e_p)), "bwd": grad_abs}}
+
+
+def _vv10_bound(kind: str) -> dict:
+    """The bound of one sweep at G = VV10_MAIN: its flop at the f32 peak, or
+    its reciprocals at MUFU_PER_CLK at the card's highest
+    clock, the larger (the inputs' bytes are negligible)."""
+    pairs = float(VV10_MAIN) ** 2
+    t_flop = pairs * VV10_FLOP[kind] / PEAK_F32 * 1e3
+    t_rcp = pairs * VV10_RCP[kind] / (SMS * MUFU_PER_CLK * _card_clock_hz()) * 1e3
+    return {"bound_ms": max(t_flop, t_rcp), "bound_by": "operations"}
+
+
+def phase_vv10_times(run: dict, card: str) -> dict:
+    """CUDA events around back-to-back calls: the energy alone (the forward
+    sweep) and value plus gradient (both sweeps), kernel route and plain
+    route, and each sweep's kernel alone against its plain version, with
+    Gpairs/s and the share of the bound. No torch call computes these sums,
+    so there is no library yardstick: the plain version is timed instead."""
+    rho, s2, pts, w = run["inputs"]
+    ch = _vv10_channels(rho, s2, w, F32)
+
+    def energy():
+        with torch.no_grad():
+            return vv10.vv10_pair_energy_pallas(rho, s2, pts, w, VV10_B, VV10_C)
+
+    def plain(route):
+        def call():
+            with _vv10_plain():
+                return route()
+        return call
+
+    runs = {"fwd kernel": lambda: vv10._vv10_fwd(*ch, pts),
+            "bwd kernel": lambda: vv10._vv10_bwd(*ch, pts),
+            "energy kernel": energy,
+            "value_and_grad kernel": lambda: _vv10_value_and_grad(rho, s2, pts, w)}
+    ms = _loop_ms(runs, warmup=2, reps=5, samples=5)
+    ms.update(_loop_ms({"fwd plain": lambda: vv10._vv10_fwd_plain(*ch, pts),
+                        "bwd plain": lambda: vv10._vv10_bwd_plain(*ch, pts),
+                        "energy plain": plain(energy),
+                        "value_and_grad plain": plain(lambda: _vv10_value_and_grad(rho, s2, pts, w))},
+                       warmup=1, reps=2, samples=3))
+    bounds = {"fwd": _vv10_bound("fwd"), "bwd": _vv10_bound("bwd")}
+    bounds["energy"] = bounds["fwd"]
+    bounds["value_and_grad"] = {"bound_ms": bounds["fwd"]["bound_ms"] + bounds["bwd"]["bound_ms"],
+                                "bound_by": "operations"}
+    pairs = float(VV10_MAIN) ** 2
+    for line in ("fwd", "bwd", "energy", "value_and_grad"):
+        bound = bounds[line]
+        for kind in ("kernel", "plain"):
+            t = ms[f"{line} {kind}"]
+            print(f"[vv10-times] {line + ' ' + kind:22s} {t:.4f} ms | {pairs / t / 1e6:.1f} "
+                  f"Gpairs/s | bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
+                  f"{bound['bound_ms'] / t:.1%} of it | {card}", flush=True)
+    ms["bounds"] = bounds
+    return ms
+
 
 def main() -> None:
     dev, card = phase_device()
@@ -2706,6 +3216,12 @@ def main() -> None:
     phase_dxc_kernel(dev)
     dxc_run = phase_dxc_main(dev)
     dxc_ms = phase_dxc_times(dxc_run, card)
+    phase_rng_kernel(dev)
+    rng_run = phase_rng_main(dev)
+    rng_ms = phase_rng_times(rng_run, card)
+    phase_vv10_kernel(dev)
+    vv10_run = phase_vv10_main(dev)
+    vv10_ms = phase_vv10_times(vv10_run, card)
 
     m, n, k = MAIN
     ns = SOLVER_N
@@ -2847,7 +3363,46 @@ def main() -> None:
          "product; composed_ms times the decode kernel then torch.matmul"),
         ("gemm_fft (tml_gemm_fft)", "gemm_fft", "_gemm_fft", "dx_fused.cu",
          "tpumathlib/dx/fused.py:70", "no torch call fuses a GEMM with an FFT; composed_ms times "
-         "torch.fft.fft(gelu(A @ B)) and gemm_fft_composed"))]}
+         "torch.fft.fft(gelu(A @ B)) and gemm_fft_composed"))] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "tpumathlib_torch/csrc/dx_rng.cu",
+        "replaces": replaces,
+        "launches": rng_run["launches"][count],
+        "max_abs_err": rng_run["max_abs_err"][line],
+        "ms": rng_ms[f"{line} kernel"],
+        "plain_ms": rng_ms[f"{line} plain"],
+        **rng_ms["bounds"][line],
+        **extra,
+    } for name, line, count, replaces, extra in (
+        ("random_uniform (tml_random_uniform)", "uniform", "_random_uniform",
+         "tpumathlib/dx/rng.py:44", {
+             "library_ms": rng_ms["uniform library"],
+             "library_is": "torch.rand with a CUDA generator (torch's Philox: the same "
+                           "distribution, other bits)"}),
+        ("dropout_matmul (tml_dropout_matmul)", "dropout", "_dropout_matmul",
+         "tpumathlib/dx/rng.py:70", {
+             "library_ms": None,
+             "library_ms_null_because": "no torch call fuses dropout into a product; "
+                                        "composed_ms times F.dropout(torch.matmul(a, b), 0.1) "
+                                        "with TF32 off",
+             "composed_ms": rng_ms["dropout composed"]}))] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "tpumathlib_torch/csrc/dx_vv10.cu",
+        "replaces": replaces,
+        "launches": vv10_run["launches"][count],
+        "max_abs_err": vv10_run["max_abs_err"][line],
+        "ms": vv10_ms[f"{line} kernel"],
+        "plain_ms": vv10_ms[f"{line} plain"],
+        **vv10_ms["bounds"][line],
+        "library_ms": None,
+        "library_ms_null_because": "no torch call computes the VV10 pair sums; plain_ms is the "
+                                   "yardstick",
+    } for name, line, count, replaces in (
+        ("vv10_fwd (tml_vv10_fwd)", "fwd", "_vv10_fwd", "tpumathlib/dx/vv10.py:121 (_fwd_kernel :53)"),
+        ("vv10_bwd (tml_vv10_bwd)", "bwd", "_vv10_bwd",
+         "tpumathlib/dx/vv10.py:121 (_bwd_kernel :72)"))]}
     print(card_line(), flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from tpumathlib.blas import lt as ref
+from tpumathlib_torch.core import device as core_device
 from tpumathlib_torch.blas import lt
 from tpumathlib_torch.core.check import max_scaled_err, rel_l2
 from tpumathlib_torch.core.errors import NotSupportedError
@@ -23,6 +24,14 @@ from tpumathlib_torch.core.interop import from_numpy, from_reference, to_numpy
 from tpumathlib_torch.dx import gemm
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _host_arrays_on_the_cpu(monkeypatch):
+    """The port's default device is the card (core.device.default_device);
+    these tests turn host arrays into containers on the CPU."""
+    monkeypatch.setattr(core_device, "default_device", lambda: torch.device("cpu"))
+
 
 M, N, K = 64, 96, 128
 

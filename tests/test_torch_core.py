@@ -16,6 +16,7 @@ from tpumathlib.core import dtypes as ref_dtypes
 from tpumathlib.core import errors as ref_errors
 from tpumathlib.core import plan as ref_plan
 from tpumathlib_torch.core import check, dtypes, errors, interop, plan, timer, tuning
+from tpumathlib_torch.core import device as core_device
 
 torch.set_num_threads(1)
 
@@ -117,7 +118,8 @@ def test_plan_cache_matches_reference():
         for key in ("a", "b", "a", "c", "b"):
             cache.get_or_build((key,), lambda k=key: calls.append(k) or k)
         assert (cache.hits, cache.misses, calls) == (1, 4, ["a", "b", "c", "b"])
-    h = plan.Handle()
+    assert plan.Handle().device == torch.device("cuda")   # the card, with or without one
+    h = plan.Handle(device="cpu")
     assert h.device == torch.device("cpu")
     p = plan.Plan(("k",), lambda x: x + 1, h)
     assert p(1) == 2 and "k" in repr(p)
@@ -165,3 +167,45 @@ def test_from_numpy_and_back(rng, dt, tdt):
     # the same values as the reference's own array of that dtype
     np.testing.assert_array_equal(interop.to_numpy(t).astype(np.float64),
                                   np.asarray(jnp.asarray(x)).astype(np.float64))
+
+
+def test_default_device_is_the_card_without_a_fallback():
+    """One default device, the card: no ``torch.cuda.is_available()`` test
+    picks the CPU when there is no card."""
+    import inspect
+
+    from tpumathlib_torch.sparse import containers
+
+    assert core_device.default_device() == torch.device("cuda")
+    for mod in (core_device, plan, interop, containers):
+        assert "is_available" not in inspect.getsource(mod)
+
+
+def test_host_array_conversion_raises_without_a_card():
+    """A host array turned into a container with the default device goes to
+    the card; on a torch without CUDA that raises instead of landing on the
+    CPU."""
+    from tpumathlib_torch import sparse
+
+    if torch.cuda.is_available():
+        assert sparse.dense_to_csr(np.eye(3)).data.device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            sparse.dense_to_csr(np.eye(3))
+
+
+def test_one_patch_moves_every_default(monkeypatch):
+    """Handle, the sparse containers, from_reference and the generators all
+    read core.device.default_device through the module, so one patch covers
+    them (the meta device stands in for the card)."""
+    from tpumathlib.sparse import convert as ref_convert
+    from tpumathlib_torch import rand, sparse
+
+    meta = torch.device("meta")
+    monkeypatch.setattr(core_device, "default_device", lambda: meta)
+    assert plan.Handle().device == meta
+    assert sparse.containers.default_device() == meta
+    assert sparse.dense_to_csr(np.eye(3)).data.device == meta
+    assert interop.from_reference(ref_convert.dense_to_coo(np.eye(3))).data.device == meta
+    assert rand.PhiloxGenerator(1).device == meta
+    assert rand.SobolGenerator(2).device == meta

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from tpumathlib.dx import gemm as ref_gemm
+from tpumathlib_torch.core import device as core_device
 from tpumathlib_torch.core.check import max_scaled_err
 from tpumathlib_torch.core.errors import (
     ExecutionError, InvalidValueError, NotSupportedError)
@@ -30,6 +31,14 @@ from tpumathlib_torch.core.interop import from_numpy, from_reference, to_numpy
 from tpumathlib_torch.dx import cuda_utils, gemm
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _host_arrays_on_the_cpu(monkeypatch):
+    """The port's default device is the card (core.device.default_device);
+    these tests turn host arrays into containers on the CPU."""
+    monkeypatch.setattr(core_device, "default_device", lambda: torch.device("cpu"))
+
 
 NP = {"f32": np.float32, "bf16": ml_dtypes.bfloat16, "i8": np.int8}
 JNP = {"f32": jnp.float32, "bf16": jnp.bfloat16, "i8": jnp.int8}

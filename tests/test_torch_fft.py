@@ -28,6 +28,7 @@ import torch
 
 from tpumathlib.fft import plan as ref_plan
 from tpumathlib.fft import kernels as ref_kernels
+from tpumathlib_torch.core import device as core_device
 from tpumathlib_torch.core.check import rel_l2
 from tpumathlib_torch.core.errors import InvalidValueError
 from tpumathlib_torch.core.interop import from_reference
@@ -37,6 +38,14 @@ from tpumathlib_torch.fft.plan import Direction, FftType
 from test_torch_fft_stockham import emulated  # noqa: F401  (the emulated-library fixture)
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _host_arrays_on_the_cpu(monkeypatch):
+    """The port's default device is the card (core.device.default_device);
+    these tests turn host arrays into containers on the CPU."""
+    monkeypatch.setattr(core_device, "default_device", lambda: torch.device("cpu"))
+
 
 F32_TOL = 1e-5
 BF16_TOL = 1e-2

@@ -14,16 +14,26 @@ import sys
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
+import pytest
 import torch
 
 import __graft_entry__ as graft
 from tpumathlib.blas import lt as ref_lt
+from tpumathlib_torch.core import device as core_device
 from tpumathlib_torch.blas import lt
 from tpumathlib_torch.core.check import max_scaled_err
 from tpumathlib_torch.core.interop import from_numpy, from_reference
 from tpumathlib_torch.entry import entry
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _host_arrays_on_the_cpu(monkeypatch):
+    """The port's default device is the card (core.device.default_device);
+    these tests turn host arrays into containers on the CPU."""
+    monkeypatch.setattr(core_device, "default_device", lambda: torch.device("cpu"))
+
 
 S = 256
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

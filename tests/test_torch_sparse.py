@@ -36,6 +36,7 @@ from tpumathlib.sparse import ops as ref_ops
 from tpumathlib.sparse import pallas_kernels as ref_pk
 from tpumathlib.sparse.containers import BSR as RefBSR
 from tpumathlib.sparse.containers import SELL as RefSELL
+from tpumathlib_torch.core import device as core_device
 from tpumathlib_torch import sparse as sp
 from tpumathlib_torch.core.check import assert_allclose, max_scaled_err
 from tpumathlib_torch.core.errors import ExecutionError, InvalidValueError
@@ -44,6 +45,13 @@ from tpumathlib_torch.core.sanitize import sanitize, sanitizing
 from tpumathlib_torch.sparse import hostcsr, pallas_kernels as pk
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _host_arrays_on_the_cpu(monkeypatch):
+    """The port's default device is the card (core.device.default_device);
+    these tests turn host arrays into containers on the CPU."""
+    monkeypatch.setattr(core_device, "default_device", lambda: torch.device("cpu"))
 
 
 def rand_sparse(rng, m, n, density=0.3):
@@ -617,9 +625,9 @@ def test_host_construction_device():
 
 
 def test_carried_state_lands_on_the_default_device(monkeypatch, rng):
-    """Carried containers and plans land on ``default_device()`` (the card
-    when there is one); the meta device stands in for the card here."""
-    monkeypatch.setattr(sp.containers, "default_device", lambda: torch.device("meta"))
+    """Carried containers and plans land on ``core.device.default_device()``
+    (the card); the meta device stands in for the card here."""
+    monkeypatch.setattr(core_device, "default_device", lambda: torch.device("meta"))
     d = np.kron(np.eye(2), np.ones((8, 8))) * rng.normal(size=(16, 16))
     csr = from_reference(ref.dense_to_csr(d))
     assert {t.device.type for t in (csr.indptr, csr.indices, csr.data)} == {"meta"}

@@ -39,6 +39,7 @@ from tpumathlib.sparse import containers as ref_c
 from tpumathlib.sparse import convert as ref_convert
 from tpumathlib.sparse import ops as ref_ops
 from tpumathlib.sparse import pallas_kernels as ref_pk
+from tpumathlib_torch.core import device as core_device
 from tpumathlib_torch.core.check import max_scaled_err
 from tpumathlib_torch.core.errors import ExecutionError, NotSupportedError
 from tpumathlib_torch.core.interop import from_numpy, from_reference, to_numpy
@@ -48,6 +49,14 @@ from tpumathlib_torch.sparse import pallas_kernels as pk
 from test_torch_dx_gemm import _view
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _host_arrays_on_the_cpu(monkeypatch):
+    """The port's default device is the card (core.device.default_device);
+    these tests turn host arrays into containers on the CPU."""
+    monkeypatch.setattr(core_device, "default_device", lambda: torch.device("cpu"))
+
 
 NP = {"f32": np.float32, "bf16": ml_dtypes.bfloat16}
 TORCH = {"f32": torch.float32, "bf16": torch.bfloat16}

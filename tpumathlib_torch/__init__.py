@@ -8,13 +8,22 @@ TPU kernel of the reference becomes a kernel written by hand for Hopper
 
 Ported so far (the GEMM slice, the Cholesky / no-pivot LU slice, the QR
 slice, the FFT slice, the Blocked-ELL sparse slice, the cuSolverDx tier, the
-nvCOMPDx tier and the fused GEMM → FFT):
+nvCOMPDx tier, the fused GEMM → FFT, the cuRAND tier with the in-kernel RNG,
+and the VV10 pair kernels):
 - ``tpumathlib_torch.core``       — errors, dtype traits, checks, timer,
-                                    plans, autotune cache, interop
+                                    plans, autotune cache, interop, and the
+                                    one default device (the card)
 - ``tpumathlib_torch.dx``         — the tiled GEMM with fused epilogues, the
                                     batched small solvers (B7a–B7i), the
                                     cascaded codec (B8a–B8c) and, in
-                                    ``dx.fused``, ``gemm_fft`` (B9)
+                                    ``dx.fused``, ``gemm_fft`` (B9); in
+                                    ``dx.rng`` the in-kernel uniforms and
+                                    dropout matmul (B10a, B10b); in
+                                    ``dx.vv10`` the VV10 pair sweeps (B11)
+- ``tpumathlib_torch.rand``       — the cuRAND generators (Philox, threefry,
+                                    xorwow, MRG32k3a, MT19937, MTGP32,
+                                    Sobol) and distributions, bit for bit
+                                    the reference's
 - ``tpumathlib_torch.comp``       — the device-resident cascaded and lossy
                                     codecs (the host codecs are not ported)
 - ``tpumathlib_torch.blas``       — Level-3, the Lt descriptor engine, and the

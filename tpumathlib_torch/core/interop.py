@@ -11,16 +11,21 @@
   ``BlockedELL``, ``SELL``) or ``SpmvPlan`` to the port's object. It reads
   attributes by name, enum ``.value``s and arrays through ``np.asarray``
   (bf16 arrays travel as bits), and never imports the reference. Carried
-  arrays land on ``sparse.containers.default_device()``: the card when
-  there is one, as the reference's sit on its default device. A carried
-  ``SpmvPlan`` is rebuilt from the reference's bf16 (hi, lo) planes with
-  ``SpmvPlan.from_parts``.
+  arrays land on ``core.device.default_device()``, the card, as the
+  reference's sit on its default device. A carried ``SpmvPlan`` is rebuilt
+  from the reference's bf16 (hi, lo) planes with ``SpmvPlan.from_parts``.
+  A carried ``rand`` generator is the port's of the same class, seed and
+  offset (and ``nstreams`` for MTGP32; for Sobol the dimensions, bits,
+  scrambling and the reference's digital shift), so it draws the same next
+  words, on the default device.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from tpumathlib_torch.core import device as _device
 
 # numpy/ml_dtypes dtype name → (bit-carrier numpy dtype, torch dtype)
 _BIT_VIEWS = {
@@ -66,16 +71,21 @@ _SPARSE_FIELDS = {   # container → (array fields, static fields), in construct
 }
 
 
+_RAND_GENERATORS = ("PhiloxGenerator", "ThreefryGenerator", "XorwowGenerator",
+                    "Mrg32k3aGenerator", "Mt19937Generator", "Mtgp32Generator", "SobolGenerator")
+
+
 def from_reference(obj):
-    """The port's counterpart of a reference descriptor, sparse container
-    or ``SpmvPlan``; arrays land on ``sparse.containers.default_device()``."""
-    from tpumathlib_torch import sparse
+    """The port's counterpart of a reference descriptor, sparse container,
+    ``SpmvPlan`` or ``rand`` generator; arrays land on
+    ``core.device.default_device()``."""
+    from tpumathlib_torch import rand, sparse
     from tpumathlib_torch.blas import lt
     from tpumathlib_torch.dx.gemm import MatmulConfig
     from tpumathlib_torch.fft import plan as fft_plan
 
     def copy(v):   # the reference's buffers are read-only: the port gets its own
-        return from_numpy(np.array(v), sparse.containers.default_device())
+        return from_numpy(np.array(v), _device.default_device())
 
     kind = type(obj).__name__
     if kind in _SPARSE_FIELDS:
@@ -86,6 +96,14 @@ def from_reference(obj):
     if kind == "SpmvPlan":
         return sparse.SpmvPlan.from_parts(copy(obj.cols), copy(obj.ah), copy(obj.al),
                                           tuple(obj.shape), obj.bs)
+    if kind == "Mtgp32Generator":
+        return rand.Mtgp32Generator(obj.seed, obj.nstreams).set_offset(obj.offset)
+    if kind == "SobolGenerator":
+        gen = rand.SobolGenerator(obj.dim, obj.scrambled, bits=obj.bits)
+        gen._shift_np = np.array(obj._shift_np, np.uint64)
+        return gen.set_offset(obj.offset)
+    if kind in _RAND_GENERATORS:
+        return getattr(rand, kind)(obj.seed).set_offset(obj.offset)
     if kind in ("FftType", "Direction"):
         return getattr(fft_plan, kind)(obj.value)
     if kind == "FftDescriptor":

@@ -13,18 +13,21 @@ from typing import Any, Callable
 
 import torch
 
+from tpumathlib_torch.core import device as _device
+
 
 @dataclasses.dataclass
 class Handle:
     """Library context (≙ cublasHandle_t). Work is ordered on the device's
-    current stream; ``device`` pins placement."""
+    current stream; ``device`` pins placement, by default the card
+    (``core.device.default_device()``)."""
 
     device: Any = None
     mesh: Any = None
 
     def __post_init__(self):
         if self.device is None:
-            self.device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+            self.device = _device.default_device()
         self.device = torch.device(self.device)
 
 

@@ -12,24 +12,24 @@
 // against about 100 MB of device-memory traffic (A, B and D once each),
 // over 1000 flop per byte, so the work is compute-bound on this card.
 //
-// Design. One thread block computes one (BM, BN) tile of D and loops over K
-// in steps of BK; that loop takes the place of the TPU kernel's sequential
+// Design. One thread block computes one (BM, BN) tile of D with the SIMT
+// main loop of simt_gemm.cuh (shared with dx_rng.cu's dropout product): its
+// loop over K in steps of BK takes the place of the TPU kernel's sequential
 // ("arbitrary") K grid axis, whose f32 VMEM accumulator becomes TM x TN f32
-// registers per thread. Operands are staged through shared memory, converted
-// to f32 on load; products accumulate as f32 FMA (no TF32, no bf16 sums), so
-// int8 operands stay exact up to 2^24. The ragged M, N and K edges are
-// masked here, in place of the TPU kernel's pad-to-tile copies. blockIdx.z
-// is the batch index, and every operand carries its own batch, row and
-// column strides, so a broadcast B or C costs a stride of 0.
-//
-// This is SIMT code: it leaves the tensor cores idle, on purpose. It is the
-// simple, right first kernel of the port; wgmma and TMA are later work.
+// registers per thread. Operands are converted to f32 on load; products
+// accumulate as f32 FMA (no TF32, no bf16 sums), so int8 operands stay exact
+// up to 2^24. The ragged M, N and K edges are masked by the loaders, in place
+// of the TPU kernel's pad-to-tile copies. blockIdx.z is the batch index, and
+// every operand carries its own batch, row and column strides, so a
+// broadcast B or C costs a stride of 0.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "simt_gemm.cuh"
 
 namespace {
 
@@ -76,16 +76,7 @@ __device__ __forceinline__ float load_c(const void* c, int dtype, int64_t i) {
 template <typename TAB, typename TD, int BM, int BN, int BK, int TM, int TN>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 gemm_epilogue_kernel(const Params p) {
-  constexpr int NT = (BM / TM) * (BN / TN);
-  constexpr int TX = BN / TN;  // threads along N
-  static_assert((BM * BK) % NT == 0 && (BK * BN) % NT == 0, "tile loads must split evenly");
-  // +4 keeps rows 16-byte aligned and spreads the transposed A stores
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Bs[BK][BN + 4];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
+  using Tile = tml_simt::Tile<BM, BN, BK, TM, TN>;
   const int64_t bz = blockIdx.z;
   const int64_t m0 = static_cast<int64_t>(blockIdx.y) * BM;
   const int64_t n0 = static_cast<int64_t>(blockIdx.x) * BN;
@@ -93,55 +84,27 @@ gemm_epilogue_kernel(const Params p) {
   const TAB* B = static_cast<const TAB*>(p.b) + bz * p.b_sb;
 
   float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int64_t k0 = 0; k0 < p.k; k0 += BK) {
-    // A tile (BM x BK), stored transposed: neighbouring threads read
-    // neighbouring k of one row
-#pragma unroll
-    for (int t = 0; t < BM * BK / NT; ++t) {
-      const int e = tid + t * NT;
-      const int r = e / BK, kk = e % BK;
-      const int64_t gm = m0 + r, gk = k0 + kk;
-      As[kk][r] = (gm < p.m && gk < p.k) ? to_f32(A[gm * p.a_sm + gk * p.a_sk]) : 0.f;
-    }
-    // B tile (BK x BN): neighbouring threads read neighbouring n
-#pragma unroll
-    for (int t = 0; t < BK * BN / NT; ++t) {
-      const int e = tid + t * NT;
-      const int kk = e / BN, cn = e % BN;
-      const int64_t gk = k0 + kk, gn = n0 + cn;
-      Bs[kk][cn] = (gk < p.k && gn < p.n) ? to_f32(B[gk * p.b_sk + gn * p.b_sn]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float ra[TM], rb[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) ra[i] = As[kk][ty * TM + i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) rb[j] = Bs[kk][tx * TN + j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(ra[i], rb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
+  tml_simt::mainloop<BM, BN, BK, TM, TN>(
+      acc, p.k,
+      [&](int r, int64_t gk) {
+        const int64_t gm = m0 + r;
+        return gm < p.m && gk < p.k ? to_f32(A[gm * p.a_sm + gk * p.a_sk]) : 0.f;
+      },
+      [&](int64_t gk, int c) {
+        const int64_t gn = n0 + c;
+        return gk < p.k && gn < p.n ? to_f32(B[gk * p.b_sk + gn * p.b_sn]) : 0.f;
+      });
 
   // fused epilogue, in registers
   TD* D = static_cast<TD*>(p.d) + bz * p.d_sb;
   float* AUX = p.aux ? p.aux + bz * p.d_sb : nullptr;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const int64_t gm = m0 + ty * TM + i;
+    const int64_t gm = m0 + Tile::row(i);
     if (gm >= p.m) continue;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
-      const int64_t gn = n0 + tx * TN + j;
+      const int64_t gn = n0 + Tile::col(j);
       if (gn >= p.n) continue;
       float v = p.alpha * acc[i][j];
       if (p.c) v += p.beta * load_c(p.c, p.c_dtype, bz * p.c_sb + gm * p.c_sm + gn * p.c_sn);

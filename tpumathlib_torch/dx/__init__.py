@@ -8,8 +8,10 @@ solves (``dx.solver``: potrf, getrf, geqrf, gesv and posv over a batch of
 small matrices, one thread block a matrix, and the blocked Cholesky that
 composes them with the GEMM) and the nvCOMPDx tier's cascaded codec
 (``dx.comp``: encode, decode, and decode fused with a product).
-``dx.fused`` (the fused GEMM → FFT and its compositions) is not exported
-here, as in the reference.
+``dx.fused`` (the fused GEMM → FFT and its compositions), ``dx.rng`` (the
+in-kernel Philox uniforms and the matmul with in-kernel dropout) and
+``dx.vv10`` (the VV10 pairwise energy and its hand-derived gradient) are
+not exported here, as in the reference.
 """
 
 from tpumathlib_torch.dx.gemm import pallas_matmul, MatmulConfig  # noqa: F401

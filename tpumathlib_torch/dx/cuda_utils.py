@@ -154,6 +154,18 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # dx_fused.cu: (a, b, wr, wi, yr, yi, m, k, n, epilogue code, stream), f32
     lib.tml_gemm_fft.argtypes = [p, p, p, p, p, p, i64, i64, i64, i32, p]
     lib.tml_gemm_fft.restype = i32
+    # dx_rng.cu: uniform (out, n, key0, key1, stream); dropout matmul (a, b,
+    # out, m, k, n, key0, key1, rate, 1 - rate, a/b dtype code, stream)
+    u32 = ctypes.c_uint32
+    lib.tml_random_uniform.argtypes = [p, i64, u32, u32, p]
+    lib.tml_random_uniform.restype = i32
+    lib.tml_dropout_matmul.argtypes = [p, p, p, i64, i64, i64, u32, u32, f32, f32, i32, p]
+    lib.tml_dropout_matmul.restype = i32
+    # dx_vv10.cu, f32: (wr, w0, kappa, pts, inner (G,) or sums (5, G), G, stream)
+    lib.tml_vv10_fwd.argtypes = [p, p, p, p, p, i64, p]
+    lib.tml_vv10_fwd.restype = i32
+    lib.tml_vv10_bwd.argtypes = [p, p, p, p, p, i64, p]
+    lib.tml_vv10_bwd.restype = i32
     lib.tml_gemm_configs.argtypes = [ctypes.POINTER(i32), i32]
     lib.tml_gemm_configs.restype = i32
     lib.tml_error_string.argtypes = [i32]

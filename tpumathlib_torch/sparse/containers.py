@@ -19,12 +19,14 @@ from typing import Any
 import numpy as np
 import torch
 
+from tpumathlib_torch.core import device as _device
+
 
 def default_device() -> torch.device:
-    """The device of tensors built from host arrays: the CUDA card when
-    there is one (the reference puts them on its default device), else the
-    CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The device of tensors built from host arrays: the port's default,
+    ``core.device.default_device()``, the CUDA card (the reference puts them
+    on its default device)."""
+    return _device.default_device()
 
 
 @dataclasses.dataclass
