@@ -59,8 +59,12 @@ Phases; any failure raises and the exit code is non-zero:
 14. FFT times — CUDA events over back-to-back calls for the kernel route,
    the plain version and one torch.fft call of each of bench.py's FFT lines,
    with GB/s, TFLOP/s and the share of the bound; then each route of
-   phase 13 on the host clock. Then the matmul four-step FFT (N = 96 and
-   1000) with TF32 turned on by the caller must still give f32 products.
+   phase 13 on the host clock. Then, with TF32 turned on by the caller
+   (phase_tf32), the matmul four-step FFT (N = 96 and 1000) and the f32
+   product sites of ROADMAP C16 (syevj, gesvdj, spmv on a BSR matrix,
+   sddmm_bsr, xormqr) must still agree with float64 at their f32 bounds;
+   each C16 site is also run with its pin lifted, to show what it keeps
+   out. TF32 is off again after.
 15. sparse kernels — tml_bell_spmm (csrc/bell_sparse.cu) against its plain
    version and float64: f32, bf16, f16 and bf16 A with f32 B, bs 128 and
    256, k = 1 .. 4096, alpha 0.5, pad slots with zero and non-zero data, a
@@ -152,6 +156,21 @@ Phases; any failure raises and the exit code is non-zero:
 32. VV10 times — CUDA events for each sweep, the energy and value plus
    gradient, kernel and plain routes, with Gpairs/s and the share of the
    bound.
+33. four-step and blocked kernels — pallas_fft (one launch) and
+   pallas_fft2 (two) of csrc/fft_four_step.cu against their plain version
+   and a float64 FFT at N = 16, 127 (prime), 360, 1000, 4096 and 16384 on a
+   batch of 37: forward, inverse, a strided (2, 3, N) batch, bf16 planes and
+   the round trip; solver.potrf_blocked at n = 256/panel 128, 384/256 and
+   512/384 against its plain version and a float64 factor, a non-SPD matrix
+   (non-finite from its failing block on) and a panel of 192 (refused, C19).
+34. four-step and blocked main path — pallas_fft and pallas_fft2 at batch
+   4096 x N 4096 and 1024 x 16384 f32 planes, both directions (+1 and +2
+   launches a call), and potrf_blocked at n = 4096, panel 256 (+32 sweeps,
+   +62 B1 launches), against the plain versions and float64.
+35. four-step and blocked times — CUDA events for each route of phase 34,
+   its plain version and the library call (torch.fft.fft / ifft on
+   complex64, unnormalised; torch.linalg.cholesky), with the share of the
+   bound.
 The line before the last is a JSON record of the kernels, each with its
 bound (the larger of its operations over the card's published peak and its
 bytes over 3.35 TB/s); the last line is {"ok": true, "device": {...}}.
@@ -177,6 +196,7 @@ import torch
 from tpumathlib_torch import comp, fft, rand, sparse
 from tpumathlib_torch.blas import level3, lt
 from tpumathlib_torch.core.check import max_abs_rel, max_scaled_err
+from tpumathlib_torch.core.errors import InvalidValueError
 from tpumathlib_torch.core.interop import to_numpy
 from tpumathlib_torch.core.timer import benchmark
 from tpumathlib_torch.dx import comp as dxc
@@ -187,8 +207,9 @@ from tpumathlib_torch.dx import solver as dxs
 from tpumathlib_torch.dx.gemm import _pallas_matmul_plain, pallas_matmul
 from tpumathlib_torch.entry import entry
 from tpumathlib_torch.fft import kernels as fft_kernels
-from tpumathlib_torch.fft import stockham
+from tpumathlib_torch.fft import pallas_split, stockham
 from tpumathlib_torch.solver import blocked, dense, jacobi, onelaunch
+from tpumathlib_torch.sparse import ops as sparse_ops
 from tpumathlib_torch.sparse import pallas_kernels as spk
 
 qr = importlib.import_module("tpumathlib_torch.solver.qr_onelaunch")  # the package exports a function of this name
@@ -1019,13 +1040,95 @@ def phase_fft_times(fftd: dict, card: str) -> dict:
     return ms
 
 
-def phase_fft_tf32(dev) -> None:
-    """The matmul four-step FFT (_fft_planar, N = 96 and 1000) with TF32
-    turned on by the caller must keep f32 products: rel-L2 against float64
-    < 1e-5 (tests/test_fft_kernels.py:85), and the caller's setting must
-    come back. A bare torch.matmul of one DFT stage under the same setting
-    is printed beside it, to show what the guard keeps out. TF32 is turned
-    off again at the end."""
+TF32_TOL = 1e-5   # the reference's f32 verification rtol (core.dtypes.default_rtol), max-scaled
+
+
+@contextlib.contextmanager
+def _unpinned():
+    """The C16 product sites with their f32 pin lifted: their products follow
+    the caller's TF32 setting, as they did before the pin."""
+    mods = (jacobi, sparse_ops, dense)
+    saved = [m._f32_products for m in mods]
+    for m in mods:
+        m._f32_products = contextlib.nullcontext
+    try:
+        yield
+    finally:
+        for m, f in zip(mods, saved):
+            m._f32_products = f
+
+
+def _bsr_case(gen, dev, m: int = 512, bs: int = 32):
+    """A BSR matrix with about half of its (bs, bs) blocks present, and its
+    dense float64 copy."""
+    mb = m // bs
+    present = torch.rand((mb, mb), generator=gen, device=dev) < 0.5
+    present[:, 0] = True   # no empty block row
+    blocks = torch.randn((mb, mb, bs, bs), generator=gen, device=dev)
+    rows, cols = torch.nonzero(present, as_tuple=True)
+    indptr = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                        torch.cumsum(present.sum(1), 0).to(torch.int32)])
+    data = blocks[rows, cols]
+    bsr = sparse.BSR(indptr, cols.to(torch.int32), data, (m, m), bs)
+    dense64 = (blocks * present[:, :, None, None]).permute(0, 2, 1, 3).reshape(m, m).double()
+    return bsr, dense64, (rows, cols)
+
+
+def _tf32_sites(gen, dev) -> dict:
+    """The f32 product sites of ROADMAP C16 through their public functions at
+    a small size, name: a function that runs the site and returns its
+    errors against float64, max-scaled: the checks of the reference's tests
+    (tests/test_solver_jacobi.py:24-55, tests/test_sparse.py:307-341,
+    tests/test_solver_dense.py:93-100) at the f32 rtol."""
+    g = torch.randn((4, 32, 32), generator=gen, device=dev)
+    sym = (g + g.mT) / 2
+    tall = torch.randn((4, 48, 32), generator=gen, device=dev)
+    eye = torch.eye(32, device=dev).expand(4, 32, 32)
+    bsr, a64, (rows, cols) = _bsr_case(gen, dev)
+    xv = torch.randn(512, generator=gen, device=dev)
+    p = torch.randn((512, 64), generator=gen, device=dev)
+    q = torch.randn((64, 512), generator=gen, device=dev)
+    pattern = sparse.BSR(bsr.indptr, bsr.indices, torch.zeros_like(bsr.data), bsr.shape, 32)
+    qm = dense.xgeqrf(torch.randn((256, 256), generator=gen, device=dev))[0]
+    c = torch.randn((256, 16), generator=gen, device=dev)
+
+    def syevj():
+        w, v, _, _ = jacobi.syevj(sym)
+        return {"w": max_scaled_err(w, torch.linalg.eigvalsh(sym.double())),
+                "VᵀV−I": max_scaled_err(v.double().mT @ v.double(), eye.double())}
+
+    def gesvdj():
+        u, sv, v, _, _ = jacobi.gesvdj(tall)
+        return {"s": max_scaled_err(sv, torch.linalg.svdvals(tall.double())),
+                "U·S·Vᵀ−A": max_scaled_err(u.double() @ torch.diag_embed(sv.double())
+                                           @ v.double().mT, tall.double()),
+                "VᵀV−I": max_scaled_err(v.double().mT @ v.double(), eye.double())}
+
+    def spmv():
+        return {"y": max_scaled_err(sparse.spmv(bsr, xv, alpha=2.0), 2.0 * a64 @ xv.double())}
+
+    def sddmm():
+        out = sparse.sddmm_bsr(p, q, pattern, alpha=1.0)
+        full = (p.double() @ q.double()).reshape(16, 32, 16, 32).permute(0, 2, 1, 3)
+        return {"blocks": max_scaled_err(out.data, full[rows, cols])}
+
+    def ormqr():
+        return {"QᵀC": max_scaled_err(dense.xormqr(qm, c, "L", "T"), qm.double().mT @ c.double())}
+
+    return {"syevj (jacobi.py:127)": syevj, "gesvdj (jacobi.py:182, :185)": gesvdj,
+            "spmv BSR (sparse/ops.py:103)": spmv, "sddmm_bsr (sparse/ops.py:115)": sddmm,
+            "xormqr (solver/dense.py:159)": ormqr}
+
+
+def phase_tf32(dev) -> None:
+    """With TF32 turned on by the caller, the f32 products the port pins must
+    stay f32. First the matmul four-step FFT (_fft_planar, N = 96 and 1000):
+    rel-L2 against float64 < 1e-5 (tests/test_fft_kernels.py:85), with the
+    caller's setting back after, and a bare torch.matmul of one DFT stage
+    beside it. Then the C16 sites (syevj, gesvdj, spmv on a BSR matrix,
+    sddmm_bsr, xormqr) through their public functions against float64 at
+    TF32_TOL; each is also run with its pin lifted (``_unpinned``), to show
+    what the pin keeps out. TF32 is turned off again at the end."""
     gen = torch.Generator(device=dev).manual_seed(9632)
     matmul = torch.backends.cuda.matmul
     failures = []
@@ -1041,16 +1144,29 @@ def phase_fft_tf32(dev) -> None:
             w = torch.randn((n, n), generator=gen, device=dev)
             bare = _rel(xr @ w, xr.double() @ w.double())
             ok = err < 1e-5 and restored
-            print(f"[fft-tf32] TF32 on, _fft_planar N={n:4d}: rel-L2 vs f64 {err:.3e} (tol 1e-5), "
+            print(f"[tf32] TF32 on, _fft_planar N={n:4d}: rel-L2 vs f64 {err:.3e} (tol 1e-5), "
                   f"caller's setting restored {restored} | bare torch.matmul (64,{n})@({n},{n}) "
                   f"under TF32 {bare:.3e} {'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
-                failures.append(n)
+                failures.append(f"_fft_planar N={n}")
+        for name, site in _tf32_sites(gen, dev).items():
+            errs = site()
+            with _unpinned():
+                bare = site()
+            restored = matmul.allow_tf32 and torch.get_float32_matmul_precision() == "high"
+            ok = max(errs.values()) <= TF32_TOL and restored
+            print(f"[tf32] TF32 on, {name:30s} pinned: "
+                  f"{', '.join(f'{k} {v:.3e}' for k, v in errs.items())} (tol {TF32_TOL:g}) | "
+                  f"pin lifted: {', '.join(f'{k} {v:.3e}' for k, v in bare.items())} "
+                  f"({'would miss' if max(bare.values()) > TF32_TOL else 'would pass'}) "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failures.append(name)
     finally:
         torch.set_float32_matmul_precision("highest")
         matmul.allow_tf32 = False
     if failures:
-        raise SystemExit(f"chip_smoke: TF32 reached the FFT's matmul stages at N = {failures}")
+        raise SystemExit(f"chip_smoke: TF32 reached f32 products: {failures}")
 
 
 SPMM_MAIN = (128, 128, 16, 128, 4096)   # (mb, nb, ellw, bs, k) of bench_spmm_bell
@@ -2393,7 +2509,7 @@ def phase_dxc_kernel(dev) -> None:
     for m, k, n in GEMM_FFT_SHAPES:
         a = torch.randn((m, k), generator=gen, device=dev)
         b = torch.randn((k, n), generator=gen, device=dev)
-        wr, wi = fused._dft_on(n, dev)
+        wr, wi = fft_kernels._dft_on(n, False, dev)
         for epilogue in GEMM_FFT_EPILOGUES:
             got = fused.gemm_fft(a, b, epilogue)
             e_p = _scaled(got, fused._gemm_fft_plain(a, b, wr, wi, epilogue))
@@ -2414,7 +2530,7 @@ def phase_dxc_kernel(dev) -> None:
     hold("decode_dot bf16 control", ctl > tol["dot"], f"{ctl:.3e} above the tolerance {tol['dot']:g}")
     m, k, n = GEMM_FFT_SHAPES[-1]
     a, b = (torch.randn(s, generator=gen, device=dev) for s in ((m, k), (k, n)))
-    wr, wi = fused._dft_on(n, dev)
+    wr, wi = fft_kernels._dft_on(n, False, dev)
     ctl = _scaled(fused._gemm_fft_plain(a.to(BF16).float(), b.to(BF16).float(), wr, wi, "gelu"),
                   fused._gemm_fft_plain(a, b, wr, wi, "gelu"))
     hold("gemm_fft bf16 control", ctl > tol["gemm_fft"],
@@ -2563,7 +2679,7 @@ def phase_dxc_main(dev) -> dict:
             detail = f"vs plain {e_p:.3e} | vs f64 {e_64:.3e}"
             del plain, f64
         elif name.startswith("gemm_fft "):
-            wr, wi = fused._dft_on(GEMM_FFT_MAIN[2], dev)
+            wr, wi = fft_kernels._dft_on(GEMM_FFT_MAIN[2], False, dev)
             plain = fused._gemm_fft_plain(x["a"], x["b"], wr, wi, "gelu")
             e_p = _scaled(out, plain)
             e_64 = _pair_rel_l2(out, _gemm_fft64(x["a"], x["b"], "gelu"))
@@ -2652,7 +2768,7 @@ def phase_dxc_times(dxc_run: dict, card: str) -> dict:
     x = dxc_run["x"]
     p, ld = dxc_run["payload"]
     n = DXC_N
-    wr, wi = fused._dft_on(GEMM_FFT_MAIN[2], x["a"].device)
+    wr, wi = fft_kernels._dft_on(GEMM_FFT_MAIN[2], False, x["a"].device)
 
     def decoded_then_matmul():
         return fft_kernels._mm(dxc.dx_decompress(p, ld, bits=DXC_BITS).view(-1, 128).float() * 0.01,
@@ -2681,10 +2797,10 @@ def phase_dxc_times(dxc_run: dict, card: str) -> dict:
         "gemm_fft plain": lambda: fused._gemm_fft_plain(x["a"], x["b"], wr, wi, "gelu"),
     }
     ms = _loop_ms(kernels, warmup=2, reps=10, samples=5)
-    # The compositions launch many small kernels, and the port's matmul FFT
-    # copies its tables to the card on every call; more samples, with their
-    # spread and the host-device synchronisations of one call, show how far
-    # the host sets their time.
+    # The compositions launch many small kernels (the matmul FFT's tables
+    # now stay on the card between calls); more samples, with their spread
+    # and the host-device synchronisations of one call, show how far the
+    # host sets their time.
     spread: dict = {}
     ms.update(_loop_ms(composed, warmup=3, reps=10, samples=15, spread=spread))
     for route in composed:
@@ -3188,6 +3304,280 @@ def phase_vv10_times(run: dict, card: str) -> dict:
     return ms
 
 
+# ---------------------------------------------------------------------------
+# Phases 33-35: the matmul four-step FFT in one and two launches (B5b, B5c)
+# and the blocked-panel Cholesky (B4c)
+
+FOUR_STEP_NS = (16, 127, 360, 1000, 4096, 16384)   # phase 33's N; 127 is prime (n1 = 1)
+FOUR_STEP_ROWS = 37                                 # a batch that is a multiple of no tile
+FOUR_STEP_MAIN = ((4096, 4096), (1024, 16384))      # phase 34's (batch, N); the first is FFT_MAIN
+BLOCKED_CASES = ((256, 128), (384, 256), (512, 384))   # (n, panel); 512/384 ends on a short panel
+BLOCKED_PANEL = 256                                 # potrf_blocked's default panel
+FOUR_STEP_TOL = 5e-6    # rel-L2 against the plain version: the same f32 sums in another order
+FOUR_STEP_ROUTES = {"fused": fft_kernels.pallas_fft, "split": pallas_split.pallas_fft2}
+BLOCKED_COUNTS = (blocked.potrf_blocked, blocked._chol_inv128, pallas_matmul)
+
+
+def _blocked_counts(n: int, panel: int) -> tuple[int, int]:
+    """(sweeps, B1 launches) of one potrf_blocked call: a sweep per 128-block;
+    a trsm under every block but the last; an in-panel update after every
+    block that is not its panel's last; a trailing syrk after every panel
+    but the last."""
+    widths = [min(panel, n - s) for s in range(0, n, panel)]
+    blocks = n // 128
+    return blocks, (blocks - 1) + sum(w // 128 - 1 for w in widths) + (len(widths) - 1)
+
+
+def _blocked_failure_ok(l, pivot: int) -> bool:
+    """Finite before the failing 128-block, non-finite on the diagonal from
+    the failing pivot on."""
+    b0 = pivot // 128 * 128
+    return (bool(torch.isfinite(l[:, :b0]).all())
+            and not bool(torch.isfinite(torch.diagonal(l)[pivot:]).any()))
+
+
+def phase_four_step_kernel(dev) -> None:
+    """33. pallas_fft (B5b, one launch) and pallas_fft2 (B5c, two launches),
+    csrc/fft_four_step.cu, against their plain version (rel-L2 ≤
+    FOUR_STEP_TOL) and a float64 FFT (rel-L2 < 1e-5,
+    tests/test_fft_kernels.py:85) at N = 16, 127 (prime, n1 = 1), 360, 1000,
+    4096 and 16384 on a batch of 37: forward, inverse, a strided (2, 3, N)
+    batch and bf16 planes; the round trip against N·x < 1e-4 (:63-74).
+    Then potrf_blocked (B4c) at n = 256/panel 128, 384/256 and 512/384
+    against its plain version (max-scaled 1e-5) and a float64 factor (5e-5
+    max-relative, tests/test_solver_dense.py:318), with triu(L, 1) == 0; a
+    non-SPD matrix, non-finite from its failing block on; and a panel of 192,
+    which must raise."""
+    gen = torch.Generator(device=dev).manual_seed(3333)
+    failures, cases = [], 0
+    for n in FOUR_STEP_NS:
+        xr = torch.randn((FOUR_STEP_ROWS, n), generator=gen, device=dev)
+        xi = torch.randn((FOUR_STEP_ROWS, n), generator=gen, device=dev)
+        wide = torch.randn((2, 3, 2 * n), generator=gen, device=dev)[..., ::2]   # stride 2
+        hr, hi = xr.bfloat16(), xi.bfloat16()
+        x64 = _c128(xr, xi)
+        inputs = [("fwd", (xr, xi), False, torch.fft.fft(x64)),
+                  ("inv", (xr, xi), True, torch.fft.ifft(x64) * n),
+                  ("(2,3,N) strided", (wide, wide.flip(0)), False,
+                   torch.fft.fft(_c128(wide, wide.flip(0)))),
+                  ("bf16 planes", (hr, hi), False, torch.fft.fft(_c128(hr, hi)))]
+        for kind, fn in FOUR_STEP_ROUTES.items():
+            for what, (ar, ai), inverse, want in inputs:
+                got = fn(ar, ai, inverse=inverse)
+                plain = fft_kernels._four_step_plain(ar, ai, inverse)
+                torch.cuda.synchronize()
+                g = _c128(*got)
+                vs_plain, vs_f64 = _rel(g, _c128(*plain)), _rel(g, want)
+                ok = (vs_plain <= FOUR_STEP_TOL and vs_f64 < 1e-5 and got[0].dtype == F32
+                      and got[0].shape == ar.shape and bool(torch.isfinite(g).all()))
+                cases += 1
+                if not ok:
+                    failures.append(f"{kind} N={n} {what}")
+                print(f"[four-step] {kind:5s} N={n:5d} {what:16s} vs plain {vs_plain:.3e} "
+                      f"(tol {FOUR_STEP_TOL:g}) vs f64 {vs_f64:.3e} (tol 1e-5) "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+            back = fn(*fn(xr, xi), inverse=True)
+            err = _rel(_c128(*back), n * x64)
+            cases += 1
+            if not err < 1e-4:
+                failures.append(f"{kind} N={n} round trip")
+            print(f"[four-step] {kind:5s} N={n:5d} inverse(forward(x)) vs N·x {err:.3e} (tol 1e-4) "
+                  f"{'ok' if err < 1e-4 else 'FAIL'}", flush=True)
+    for n, panel in BLOCKED_CASES:
+        a = _spd(gen, n, dev)
+        got = blocked.potrf_blocked(a, panel)
+        plain = blocked._potrf_blocked_plain(a, panel)
+        l64 = torch.linalg.cholesky(a.double())
+        rel = float((got.double() - l64).abs().max() / l64.abs().max())
+        vs_plain = max_scaled_err(got, plain)
+        upper_zero = bool((torch.triu(got, 1) == 0).all())
+        ok = (rel < 5e-5 and vs_plain <= 1e-5 and upper_zero and got.dtype == F32
+              and bool(torch.isfinite(got).all()))
+        cases += 1
+        if not ok:
+            failures.append(f"potrf_blocked n={n} panel={panel}")
+        print(f"[four-step] potrf_blocked n={n} panel={panel}: vs f64 max-rel {rel:.3e} (tol 5e-5) "
+              f"vs plain max-scaled {vs_plain:.3e} (tol 1e-5) upper=0 {upper_zero} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+    bad = _spd(gen, 512, dev)
+    bad[300, 300] = -1.0   # the factor fails at pivot 300, in its third 128-block
+    got, plain = blocked.potrf_blocked(bad, BLOCKED_PANEL), blocked._potrf_blocked_plain(bad)
+    ok = _blocked_failure_ok(got, 300) and _blocked_failure_ok(plain, 300)
+    cases += 1
+    if not ok:
+        failures.append("potrf_blocked not SPD")
+    print(f"[four-step] potrf_blocked not SPD at pivot 300: finite before its block, non-finite "
+          f"diagonal from it on (kernel and plain) {'ok' if ok else 'FAIL'}", flush=True)
+    try:
+        blocked.potrf_blocked(_spd(gen, 256, dev), 192)
+        refused = False
+    except InvalidValueError:
+        refused = True
+    cases += 1
+    if not refused:
+        failures.append("potrf_blocked panel 192 accepted")
+    print(f"[four-step] potrf_blocked panel=192 refused (C19) {refused}", flush=True)
+    if failures:
+        raise SystemExit(f"chip_smoke: {len(failures)} of {cases} four-step/blocked cases "
+                         f"failed: {failures}")
+    print(f"[four-step] {cases} cases agree", flush=True)
+
+
+def _four_step_steps(x: dict) -> dict:
+    """Phase 34's calls in order, name: (call, the launches it must add; every
+    other count must stay)."""
+    steps = {}
+    for (b, n), (xr, xi) in x["planes"].items():
+        for kind, fn in FOUR_STEP_ROUTES.items():
+            for inverse in (False, True):
+                steps[f"{kind} b{b} N{n} {'inverse' if inverse else 'forward'}"] = (
+                    lambda fn=fn, xr=xr, xi=xi, inverse=inverse: fn(xr, xi, inverse=inverse),
+                    {fn.__name__: 1 if kind == "fused" else 2})
+    sweeps, gemms = _blocked_counts(SOLVER_N, BLOCKED_PANEL)
+    steps[f"potrf_blocked n{SOLVER_N} panel{BLOCKED_PANEL}"] = (
+        lambda: blocked.potrf_blocked(x["a"], BLOCKED_PANEL),
+        {"potrf_blocked": 1, "_chol_inv128": sweeps, "pallas_matmul": gemms})
+    return steps
+
+
+def phase_four_step_main(dev) -> dict:
+    """34. The slice at full width, each call's launches counted (every count
+    set to 0 just before): pallas_fft and pallas_fft2 at batch 4096 × N 4096
+    f32 planes (the bench FFT shape) and 1024 × 16384, both directions (+1
+    launch a call for B5b, +2 for B5c), against the plain version (rel-L2 ≤
+    FOUR_STEP_TOL) and float64 (< 1e-5); then solver.potrf_blocked at n =
+    4096, panel 256 (+32 sweeps, +62 B1), against its plain version
+    (max-scaled 1e-5) and a float64 factor (5e-5 max-relative), upper
+    triangle exactly 0."""
+    gen = torch.Generator(device=dev).manual_seed(3434)
+    x = {"planes": {(b, n): (torch.randn((b, n), generator=gen, device=dev),
+                             torch.randn((b, n), generator=gen, device=dev))
+                    for b, n in FOUR_STEP_MAIN},
+         "a": _spd(gen, SOLVER_N, dev)}
+    steps = _four_step_steps(x)
+    counts = tuple(FOUR_STEP_ROUTES.values()) + BLOCKED_COUNTS
+    torch.cuda.synchronize()
+    for f in counts:
+        f.launches = 0
+    outs, grew = {}, {}
+    for name, (step, _) in steps.items():
+        before = {f.__name__: f.launches for f in counts}
+        outs[name] = step()
+        grew[name] = {f.__name__: f.launches - before[f.__name__] for f in counts}
+    torch.cuda.synchronize()
+    launches = {f.__name__: f.launches for f in counts}
+    print(f"[four-step-main] launches in the main path: {launches}", flush=True)
+
+    failures, max_abs = [], {"fused": 0.0, "split": 0.0, "blocked": 0.0}
+    for name, (_, want) in steps.items():
+        out = outs.pop(name)
+        launched = grew[name] == {key: want.get(key, 0) for key in grew[name]}
+        if name.startswith("potrf_blocked"):
+            a = x["a"]
+            l64 = torch.linalg.cholesky(a.double())
+            rel = float((out.double() - l64).abs().max() / l64.abs().max())
+            plain = blocked._potrf_blocked_plain(a, BLOCKED_PANEL)
+            vs_plain = max_scaled_err(out, plain)
+            max_abs["blocked"] = max_abs_rel(out, plain)[0]
+            upper_zero = bool((torch.triu(out, 1) == 0).all())
+            ok = rel < 5e-5 and vs_plain <= 1e-5 and upper_zero and out.dtype == F32
+            detail = (f"vs f64 max-rel {rel:.3e} (tol 5e-5) vs plain max-scaled {vs_plain:.3e} "
+                      f"(tol 1e-5) upper=0 {upper_zero}")
+            tensors = (out,)
+        else:
+            kind, size, n_tag, direction = name.split()
+            b, n = int(size[1:]), int(n_tag[1:])
+            xr, xi = x["planes"][(b, n)]
+            inverse = direction == "inverse"
+            x64 = _c128(xr, xi)
+            want64 = torch.fft.ifft(x64) * n if inverse else torch.fft.fft(x64)
+            del x64
+            got = _c128(*out)
+            plain = _c128(*fft_kernels._four_step_plain(xr, xi, inverse))
+            vs_plain, vs_f64 = _rel(got, plain), _rel(got, want64)
+            max_abs[kind] = max(max_abs[kind], float((got - plain).abs().max()))
+            del plain, want64, got
+            ok = vs_plain <= FOUR_STEP_TOL and vs_f64 < 1e-5 and out[0].shape == (b, n)
+            detail = (f"vs plain {vs_plain:.3e} (tol {FOUR_STEP_TOL:g}) vs f64 {vs_f64:.3e} "
+                      f"(tol 1e-5)")
+            tensors = out
+        ok = ok and launched and all(bool(torch.isfinite(t).all()) for t in tensors)
+        print(f"[four-step-main] {name:34s} launches {grew[name]} | {detail} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(name)
+    if failures:
+        raise SystemExit(f"chip_smoke: four-step/blocked main path failed: {failures}")
+    return {"launches": launches, "max_abs_err": max_abs, "x": x}
+
+
+def _four_step_bound(kind: str, b: int = 0, n: int = 0) -> dict:
+    """The function's bound: for the FFT, an FFT's 5·N·log2 N flop a row at
+    the f32 peak against its planes read and written once, 16·b·N bytes (as
+    phase 14 counts B5; the DFT products do 8·N·(n1 + n2) flop a row, more
+    than the function needs); for potrf_blocked, n³/3 flop against the
+    matrix read and its factor written."""
+    if kind == "blocked":
+        return _bound(SOLVER_N ** 3 / 3, PEAK_F32, 2 * 4 * SOLVER_N ** 2)
+    return _bound(5.0 * b * n * math.log2(n), PEAK_F32, 16.0 * b * n)
+
+
+def phase_four_step_times(run: dict, card: str) -> dict:
+    """35. CUDA events around back-to-back calls (``_loop_ms``: warm-ups,
+    medians of samples taken twice in turns) of each route of phase 34, its
+    plain version and the library call for the same function
+    (torch.fft.fft / torch.fft.ifft(norm="forward"), unnormalised, on the
+    complex64 equivalent;
+    torch.linalg.cholesky at n = 4096), each beside its bound."""
+    x = run["x"]
+    kernels, plains, library, bounds = {}, {}, {}, {}
+    for (b, n), (xr, xi) in x["planes"].items():
+        xc = torch.complex(xr, xi)
+        library[f"fft b{b} N{n} forward library"] = lambda xc=xc: torch.fft.fft(xc)
+        library[f"fft b{b} N{n} inverse library"] = (   # unnormalised, as the kernel's
+            lambda xc=xc: torch.fft.ifft(xc, norm="forward"))
+        for kind, fn in FOUR_STEP_ROUTES.items():
+            bounds[kind if (b, n) == FOUR_STEP_MAIN[0] else f"{kind} b{b} N{n}"] = \
+                _four_step_bound(kind, b, n)
+            for inverse in (False, True):
+                line = f"{kind} b{b} N{n} {'inverse' if inverse else 'forward'}"
+                kernels[f"{line} kernel"] = (lambda fn=fn, xr=xr, xi=xi, inverse=inverse:
+                                             fn(xr, xi, inverse=inverse))
+                plains[f"{line} plain"] = (lambda xr=xr, xi=xi, inverse=inverse:
+                                           fft_kernels._four_step_plain(xr, xi, inverse))
+    ms = _loop_ms({**kernels, **library}, warmup=3, reps=10, samples=5)
+    ms.update(_loop_ms(plains, warmup=1, reps=3, samples=3))
+    a = x["a"]
+    ms.update(_loop_ms({"blocked kernel": lambda: blocked.potrf_blocked(a, BLOCKED_PANEL),
+                        "blocked library": lambda: torch.linalg.cholesky(a)},
+                       warmup=2, reps=3, samples=5))
+    ms.update(_loop_ms({"blocked plain": lambda: blocked._potrf_blocked_plain(a, BLOCKED_PANEL)},
+                       warmup=1, reps=1, samples=2))
+    bounds["blocked"] = _four_step_bound("blocked")
+    for route, t in ms.items():
+        if route.startswith("blocked"):
+            bound = bounds["blocked"]
+            rate = f"{SOLVER_N ** 3 / 3 / t / 1e6:.1f} GFLOP/s (n³/3)"
+        elif route.endswith("library"):
+            continue
+        else:
+            kind, size, n_tag = route.split()[:3]
+            b, n = int(size[1:]), int(n_tag[1:])
+            bound = bounds[kind if (b, n) == FOUR_STEP_MAIN[0] else f"{kind} b{b} N{n}"]
+            rate = f"{16.0 * b * n / t / 1e6:.1f} GB/s (16·b·N/t)"
+        print(f"[four-step-times] {route:36s} {t:.4f} ms | {rate} | bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}), {bound['bound_ms'] / t:.1%} of it | {card}", flush=True)
+    for route, t in ms.items():
+        if route.endswith("library") and not route.startswith("blocked"):
+            b, n = (int(v[1:]) for v in route.split()[1:3])
+            bound = _four_step_bound("fused", b, n)
+            print(f"[four-step-times] {route:36s} {t:.4f} ms | {16.0 * b * n / t / 1e6:.1f} GB/s | "
+                  f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
+                  f"{bound['bound_ms'] / t:.1%} of it | {card}", flush=True)
+    ms["bounds"] = bounds
+    return ms
+
+
 def main() -> None:
     dev, card = phase_device()
     phase_build()
@@ -3203,7 +3593,7 @@ def main() -> None:
     phase_fft_kernel(dev)
     fftd = phase_fft_main(dev)
     fft_ms = phase_fft_times(fftd, card)
-    phase_fft_tf32(dev)
+    phase_tf32(dev)
     phase_sparse_kernel(dev)
     spd = phase_sparse_main(dev)
     sp_ms = phase_sparse_times(spd, card)
@@ -3222,6 +3612,9 @@ def main() -> None:
     phase_vv10_kernel(dev)
     vv10_run = phase_vv10_main(dev)
     vv10_ms = phase_vv10_times(vv10_run, card)
+    phase_four_step_kernel(dev)
+    fs_run = phase_four_step_main(dev)
+    fs_ms = phase_four_step_times(fs_run, card)
 
     m, n, k = MAIN
     ns = SOLVER_N
@@ -3402,7 +3795,34 @@ def main() -> None:
     } for name, line, count, replaces in (
         ("vv10_fwd (tml_vv10_fwd)", "fwd", "_vv10_fwd", "tpumathlib/dx/vv10.py:121 (_fwd_kernel :53)"),
         ("vv10_bwd (tml_vv10_bwd)", "bwd", "_vv10_bwd",
-         "tpumathlib/dx/vv10.py:121 (_bwd_kernel :72)"))]}
+         "tpumathlib/dx/vv10.py:121 (_bwd_kernel :72)"))] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "tpumathlib_torch/csrc/fft_four_step.cu",
+        "replaces": replaces,
+        "launches": fs_run["launches"][count],
+        "max_abs_err": fs_run["max_abs_err"][kind],
+        "ms": fs_ms[f"{kind} b{b} N{nf} forward kernel"],
+        "plain_ms": fs_ms[f"{kind} b{b} N{nf} forward plain"],
+        **fs_ms["bounds"][kind],
+        "library_ms": fs_ms[f"fft b{b} N{nf} forward library"],
+    } for name, kind, count, replaces in (
+        ("four_step_fft fused (tml_four_step_fft mode 1)", "fused", "pallas_fft",
+         "tpumathlib/fft/kernels.py:217"),
+        ("four_step_fft split (tml_four_step_fft mode 2)", "split", "pallas_fft2",
+         "tpumathlib/fft/pallas_split.py:95"))] + [{
+        "name": "potrf_blocked (chol_inv_block + gemm_epilogue)",
+        "route": "cuda",
+        "source": "tpumathlib_torch/csrc/dense_block.cu",
+        "replaces": "tpumathlib/solver/blocked.py:172",
+        "launches": fs_run["launches"]["_chol_inv128"],
+        "gemm_launches": fs_run["launches"]["pallas_matmul"],
+        "max_abs_err": fs_run["max_abs_err"]["blocked"],
+        "ms": fs_ms["blocked kernel"],
+        "plain_ms": fs_ms["blocked plain"],
+        **fs_ms["bounds"]["blocked"],
+        "library_ms": fs_ms["blocked library"],
+    }]}
     print(card_line(), flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,7 +34,7 @@ from tpumathlib_torch.core.errors import ExecutionError, InvalidValueError
 from tpumathlib_torch.core.interop import from_numpy
 from tpumathlib_torch.dx import cuda_utils, gemm
 from tpumathlib_torch.dx import fused as port
-from tpumathlib_torch.fft import stockham
+from tpumathlib_torch.fft import kernels as fft_kernels, stockham
 from test_torch_dx_comp import _EmulatedLib as _EmulatedCompLib
 from test_torch_dx_gemm import _view
 
@@ -193,7 +193,7 @@ class _EmulatedLib(_EmulatedCompLib):
         if self.rc or not (0 <= k <= 1024 and 0 <= n <= 1024):
             return self.rc or 1
         w = [_view(t, F32, (n, n), (n, 1)).clone() for t in (wr, wi)]
-        ref_w = [torch.from_numpy(t) for t in port._dft_mats(n, False)]
+        ref_w = [torch.from_numpy(t) for t in fft_kernels._dft_mats(n, False)]
         assert torch.equal(w[0], ref_w[0]) and torch.equal(w[1], ref_w[1])
         out = port._gemm_fft_plain(_view(a, F32, (m, k), (k, 1)).clone(),
                                    _view(b, F32, (k, n), (n, 1)).clone(), *w,
@@ -224,7 +224,7 @@ def test_cuda_branch_gemm_fft(emulated, rng, shape, epilogue, act):
     got = port.gemm_fft(a.t().contiguous().t(), b, epilogue)   # a strided view is copied
     assert port._gemm_fft.launches == before + 1
     assert emulated.fused_calls == [dict(m=m, k=k, n=n, act=act)]
-    wr, wi = (torch.from_numpy(t) for t in port._dft_mats(n, False))
+    wr, wi = (torch.from_numpy(t) for t in fft_kernels._dft_mats(n, False))
     want = port._gemm_fft_plain(a, b, wr, wi, epilogue)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 

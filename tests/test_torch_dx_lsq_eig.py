@@ -310,6 +310,28 @@ def test_equal_column_norms_with_coupling_are_turned_c12():
     np.testing.assert_allclose(rs, [1.0, 1.0], atol=1e-6)     # the reference leaves it
 
 
+def test_gels_inf_column_c18():
+    """ROADMAP C18: a zero column j of A leaves R[j, j] = 0, so the back
+    substitution writes ±inf in row j of X and NaN above it (0 · inf). The
+    reference's kernel adds each column's sum times 0 and turns every column
+    of X that holds a non-finite value wholly to NaN; the port writes X as
+    its substitution leaves it, so the rows below the zero pivot stay finite
+    (and equal the reference's on the other matrices of the batch)."""
+    rng = _rng()
+    b, m, n, k, j = 3, 12, 6, 2, 2
+    a = rng.normal(size=(b, m, n)).astype(np.float32)
+    a[1, :, j] = 0.0
+    rhs = rng.normal(size=(b, m, k)).astype(np.float32)
+    ref_x = np.asarray(ref.gels_batched(jnp.asarray(a), jnp.asarray(rhs)))
+    x = to_numpy(port.gels_batched(from_numpy(a), from_numpy(rhs)))
+    assert np.isnan(ref_x[1]).all()                     # the reference: whole columns NaN
+    assert not np.isfinite(x[1, j]).any()               # the port: inf at the zero pivot,
+    assert np.isfinite(x[1, j + 1:]).all()              # finite rows below it
+    assert np.isnan(x[1, :j]).all()                     # and NaN above (0 · inf)
+    for i in (0, 2):
+        assert max_scaled_err(x[i], ref_x[i]) <= TOL
+
+
 # ---------------------------------------------------------------------------
 # The slice as a whole, through the public functions
 

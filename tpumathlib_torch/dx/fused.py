@@ -22,8 +22,6 @@ sizes the reference's VMEM tile and changes nothing here.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from tpumathlib_torch.core.errors import check
@@ -31,17 +29,11 @@ from tpumathlib_torch.dx import cuda_utils
 from tpumathlib_torch.dx.cuda_utils import on_cuda
 from tpumathlib_torch.dx.gemm import pallas_matmul
 from tpumathlib_torch.fft.kernels import (
-    _dft_mats, _fft_planar, _mm, fftn_planar, irfft_planar, rfft_planar)
+    _dft_on, _fft_planar, _mm, fftn_planar, irfft_planar, rfft_planar)
 
 F32 = torch.float32
 # epilogue codes of csrc/dx_fused.cu; any other string is none (C14)
 _ACT_CODE = {"relu": 1, "gelu": 2}
-
-
-@functools.lru_cache(maxsize=16)
-def _dft_on(n: int, device: torch.device):
-    """(re, im) of the forward n-point DFT matrix on the device, cached."""
-    return tuple(torch.from_numpy(t).to(device) for t in _dft_mats(n, False))
 
 
 def _epilogue(c, epilogue: str):
@@ -101,7 +93,7 @@ def gemm_fft(a, b, epilogue: str = "default", bm: int = 256):
     check(n <= 1024 and k <= 1024,
           "fused gemm_fft holds B and the DFT matrices in VMEM: n, k <= "
           "1024 (use gemm_fft_composed beyond)")
-    wr, wi = _dft_on(n, a.device)
+    wr, wi = _dft_on(n, False, a.device)
     return _gemm_fft(a.to(F32), b.to(F32), wr, wi, epilogue)
 
 

@@ -15,8 +15,15 @@ Counterpart of ``tpumathlib/fft/kernels.py``:
   real rows in one complex row for even batches; ``fftn_planar``,
   ``rfftn_planar`` and ``irfftn_planar`` walk the trailing axes.
 
-Not ported yet: ``pallas_fft`` and its kernel body (B5b), whose only caller
-is a test.
+- ``pallas_fft`` (kernel B5b), the same four-step in one launch of
+  ``tml_four_step_fft`` (``csrc/fft_four_step.cu``, mode 1) on CUDA tensors,
+  with ``_four_step_plain`` beside it; ``fft/pallas_split.py::pallas_fft2``
+  (B5c) runs the kernel's mode 2. Both read one device table of the N roots
+  ω_N^j (``_roots_on``).
+
+Every table reaches the device once, cached by (n, inverse, device)
+(``_dft_on``, ``_twiddle_on``, ``_roots_on``), so no call copies from the
+host.
 """
 
 from __future__ import annotations
@@ -29,7 +36,12 @@ import numpy as np
 import torch
 
 from tpumathlib_torch.core.errors import check
+from tpumathlib_torch.dx import cuda_utils
+from tpumathlib_torch.dx.cuda_utils import on_cuda
 from tpumathlib_torch.fft import stockham
+
+F32 = torch.float32
+FOUR_STEP_MAX_N = 16384   # the largest N of the four-step kernel (the reference's range)
 
 
 def _best_split(n: int) -> tuple[int, int]:
@@ -60,8 +72,30 @@ def _twiddle(n1: int, n2: int, inverse: bool):
     return w.real.astype(np.float32), w.imag.astype(np.float32)
 
 
-def _on(table, like):
-    return torch.from_numpy(table).to(like.device)
+@functools.lru_cache(maxsize=64)
+def _roots(n: int, inverse: bool):
+    """ω_N^j for j < n, (n, 2) f32 interleaved (re, im), built in float64."""
+    sign = 2.0 if inverse else -2.0
+    w = np.exp(sign * 1j * np.pi * np.arange(n) / n)
+    return np.ascontiguousarray(np.stack([w.real, w.imag], axis=-1).astype(np.float32))
+
+
+@functools.lru_cache(maxsize=64)
+def _dft_on(n: int, inverse: bool, device: torch.device):
+    """(re, im) of the n×n DFT matrix on the device, copied once."""
+    return tuple(torch.from_numpy(t).to(device) for t in _dft_mats(n, inverse))
+
+
+@functools.lru_cache(maxsize=64)
+def _twiddle_on(n1: int, n2: int, inverse: bool, device: torch.device):
+    """(re, im) of the (n1, n2) twiddle ω_N^{k1·n2} on the device, copied once."""
+    return tuple(torch.from_numpy(t).to(device) for t in _twiddle(n1, n2, inverse))
+
+
+@functools.lru_cache(maxsize=64)
+def _roots_on(n: int, inverse: bool, device: torch.device):
+    """The (n, 2) root table of ``_roots`` on the device, copied once."""
+    return torch.from_numpy(_roots(n, inverse)).to(device)
 
 
 @contextlib.contextmanager
@@ -110,34 +144,99 @@ def _fft_planar(xr, xi, inverse: bool):
     n = xr.shape[-1]
     if n <= 128 or _best_split(n)[0] == 1:
         # direct DFT-as-matmul (or prime size): x @ Wᵀ; W symmetric so W==Wᵀ
-        wr, wi = _dft_mats(n, inverse)
-        return _cmatmul(xr, xi, _on(wr, xr), _on(wi, xr))
+        return _cmatmul(xr, xi, *_dft_on(n, inverse, xr.device))
     n1, n2 = _best_split(n)
     batch = tuple(xr.shape[:-1])
     ar = xr.reshape(batch + (n1, n2))
     ai = xi.reshape(batch + (n1, n2))
     # stage 1: DFT over n1 → B[k1, n2] = Σ_n1 W1[k1,n1] A[n1,n2]
     if n1 <= 128:
-        w1r, w1i = _dft_mats(n1, inverse)
-        br, bi = _cmatmul(_on(w1r, xr), _on(w1i, xr), ar, ai)
+        br, bi = _cmatmul(*_dft_on(n1, inverse, xr.device), ar, ai)
     else:
         # recurse along n1: transpose to (..., n2, n1), fft, transpose back
         rr, ri = _fft_planar(ar.transpose(-1, -2), ai.transpose(-1, -2), inverse)
         br, bi = rr.transpose(-1, -2), ri.transpose(-1, -2)
     # twiddle: C[k1, n2] = B[k1, n2] · ω^{k1·n2}
-    twr, twi = (_on(t, xr) for t in _twiddle(n1, n2, inverse))
+    twr, twi = _twiddle_on(n1, n2, inverse, xr.device)
     cr = br * twr - bi * twi
     ci = br * twi + bi * twr
     # stage 2: DFT over n2 → D[k1, k2] = Σ_n2 C[k1,n2] W2[n2,k2]
     if n2 <= 128:
-        w2r, w2i = _dft_mats(n2, inverse)
-        dr, di = _cmatmul(cr, ci, _on(w2r, xr), _on(w2i, xr))
+        dr, di = _cmatmul(cr, ci, *_dft_on(n2, inverse, xr.device))
     else:
         dr, di = _fft_planar(cr, ci, inverse)
     # output index k = k2·n1 + k1 → transpose (k1,k2) → (k2,k1) then flatten
     dr = dr.transpose(-1, -2).reshape(batch + (n,))
     di = di.transpose(-1, -2).reshape(batch + (n,))
     return dr, di
+
+
+# ---------------- the four-step in one or two launches (B5b, B5c) ----------------
+
+def _four_step_plain(xr, xi, inverse: bool):
+    """B5b's and B5c's plain version: the reference's stage order with f32
+    products. Stage 1 over n1 as Aᵀ·W1 in (n2, k1) layout, the twiddle, stage
+    2 over n2 as W2·Cᵀ, whose (k2, k1) rows flatten to k = k2·n1 + k1. Any
+    leading batch; f32 planes out."""
+    check(xi.shape == xr.shape, "xr and xi must have one shape")
+    n = xr.shape[-1]
+    n1, n2 = _best_split(n)
+    dev = xr.device
+    rows = math.prod(xr.shape[:-1])
+    ar = xr.to(F32).reshape(rows, n1, n2).mT
+    ai = xi.to(F32).reshape(rows, n1, n2).mT
+    br, bi = _cmatmul(ar, ai, *_dft_on(n1, inverse, dev))
+    twr, twi = (t.mT for t in _twiddle_on(n1, n2, inverse, dev))
+    cr, ci = br * twr - bi * twi, br * twi + bi * twr
+    dr, di = _cmatmul(*_dft_on(n2, inverse, dev), cr, ci)
+    return dr.reshape(xr.shape), di.reshape(xr.shape)
+
+
+def _four_step_cuda(xr, xi, inverse: bool, mode: int, counter):
+    """``tml_four_step_fft`` on CUDA planes: mode 1 is the fused kernel (one
+    launch), mode 2 the two stage kernels through a device scratch of 2·b·N
+    f32 (two launches). ``counter.launches`` grows by the launches made.
+    Raises for N above ``FOUR_STEP_MAX_N`` and on a failed launch."""
+    n = xr.shape[-1]
+    check(xi.shape == xr.shape and xi.device == xr.device,
+          "xr and xi must have one shape and one device")
+    check(1 <= n <= FOUR_STEP_MAX_N,
+          f"the four-step kernel takes 1 <= N <= {FOUR_STEP_MAX_N}, not N = {n}; "
+          "fft_axis_planar transforms any N")
+    n1, n2 = _best_split(n)
+    dev = xr.device
+    xr32, xi32 = xr.to(F32).contiguous(), xi.to(F32).contiguous()
+    yr = torch.empty(xr.shape, dtype=F32, device=dev)
+    yi = torch.empty_like(yr)
+    rows = yr.numel() // n
+    if rows:
+        scratch = torch.empty(2 * rows * n, dtype=F32, device=dev) if mode == 2 else None
+        tab = _roots_on(n, inverse, dev)
+        lib = cuda_utils.load_kernels()
+        with torch.cuda.device(dev):
+            rc = lib.tml_four_step_fft(
+                xr32.data_ptr(), xi32.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), tab.data_ptr(), rows, n1, n2,
+                mode, torch.cuda.current_stream(dev).cuda_stream)
+        cuda_utils.check_launch(lib, rc, "tml_four_step_fft")
+        counter.launches += mode
+    return yr, yi
+
+
+def pallas_fft(xr, xi, inverse: bool = False, tile: int = 32):
+    """Fused planar-complex FFT over the last axis (kernel B5b), N = n1·n2
+    with ``n1, n2 = _best_split(N)`` (n1 = 1 for a prime N). Unnormalised
+    inverse; output index k = k2·n1 + k1, i.e. natural order. Planes are cast
+    to f32, any leading batch. On CUDA tensors one launch of
+    ``tml_four_step_fft`` for N ≤ 16384 (the reference's documented range;
+    larger N raises); CPU tensors take ``_four_step_plain`` at any N.
+    ``tile`` sizes the reference's VMEM block and changes nothing here."""
+    if not on_cuda(xr, xi):
+        return _four_step_plain(xr, xi, inverse)
+    return _four_step_cuda(xr, xi, inverse, 1, pallas_fft)
+
+
+pallas_fft.launches = 0
 
 
 def mxu_fft(x, inverse: bool = False):

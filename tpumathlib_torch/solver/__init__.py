@@ -4,11 +4,13 @@
 Ported so far: the drivers of ``dense`` apart from xgesvdp, xgesvdr and
 xgeev; the blocked factorizations they route to on the card
 (``onelaunch``, kernels B2 and B3, with the sweep of ``blocked``;
-``qr_onelaunch``, kernels B4a and B4b); and ``jacobi`` (one-sided gesvdj
-and two-sided syevj/sygvj, batched variants included).
+``qr_onelaunch``, kernels B4a and B4b); the opt-in blocked-panel Cholesky
+``potrf_blocked`` (B4c, ``blocked``); and ``jacobi`` (one-sided gesvdj and
+two-sided syevj/sygvj, batched variants included).
 """
 
 from tpumathlib_torch.solver import dense, jacobi  # noqa: F401
+from tpumathlib_torch.solver.blocked import potrf_blocked  # noqa: F401
 from tpumathlib_torch.solver.dense import (  # noqa: F401
     potrf_batched, xgeqrf, xgesvd, xgetrf, xgetrs, xorgqr, xormqr, xpotrf, xpotrs, xsyevd,
     xsyevdx, xsygvd, xtrtri,

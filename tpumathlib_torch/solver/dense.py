@@ -34,6 +34,7 @@ import torch
 
 from tpumathlib_torch.blas.level2 import herm_full, sym_full
 from tpumathlib_torch.core.errors import check
+from tpumathlib_torch.fft.kernels import _f32_products
 from tpumathlib_torch.solver.onelaunch import getrf_onelaunch, potrf_onelaunch
 from tpumathlib_torch.solver.qr_onelaunch import qr_onelaunch
 
@@ -154,9 +155,11 @@ def xorgqr(q, r=None):
 
 
 def xormqr(q, c, side: str = "L", trans: str = "N"):
-    """Apply Q (or Qᴴ) to C (≙ cusolverDnXormqr)."""
+    """Apply Q (or Qᴴ) to C (≙ cusolverDnXormqr), f32 products pinned
+    (ROADMAP C16)."""
     qt = q.mT.conj() if trans.upper() in ("T", "C") else q
-    return qt @ c if side.upper() == "L" else c @ qt
+    with _f32_products():
+        return qt @ c if side.upper() == "L" else c @ qt
 
 
 def xtrtri(a, uplo: str = "L", diag: str = "N"):

@@ -10,9 +10,10 @@ rotates ⌊n/2⌋ disjoint pairs, which together form one orthogonal matrix J
 (identity with 2×2 blocks at the pairs), so
   one-sided (gesvdj):  A ← A·J,  V ← V·J
   two-sided (syevj):   A ← Jᵀ·A·J, V ← V·J
-as products (``torch.matmul``, as the reference leaves them to XLA). It runs
-no kernel of the repository, on the input's device, in its dtype (f32 or
-f64).
+as products (``torch.matmul``, as the reference leaves them to XLA, with
+f32 products pinned by ``fft.kernels._f32_products`` so that a caller's
+TF32 setting does not reach them: ROADMAP C16). It runs no kernel of the
+repository, on the input's device, in its dtype (f32 or f64).
 
 The reference vmaps a ``while_loop`` over a batch, so each matrix stops at
 its own sweep count. Here the whole batch runs sweep by sweep, and a mask
@@ -30,6 +31,7 @@ import torch
 
 from tpumathlib_torch.core.errors import check
 from tpumathlib_torch.dx.solver import _rot_t
+from tpumathlib_torch.fft.kernels import _f32_products
 
 
 @functools.lru_cache(maxsize=32)
@@ -124,7 +126,8 @@ def _syevj_batched(a, tol, max_sweeps):
     def one_round(mat, v, p, q):
         c, s = _sym_schur(mat[:, p, p], mat[:, q, q], mat[:, p, q])
         j = _rotation_matrix(m, p, q, c, s)
-        return j.mT @ mat @ j, v @ j
+        with _f32_products():
+            return j.mT @ mat @ j, v @ j
 
     v0 = torch.eye(m, dtype=a.dtype, device=a.device).repeat(a.shape[0], 1, 1)
     mat, v, res, sweeps = _sweeps(a.clone(), v0, sched, one_round, off,
@@ -179,10 +182,12 @@ def _gesvdj_batched(a, tol, max_sweeps):
         ap, aq = mat[:, :, p], mat[:, :, q]
         c, s = _sym_schur((ap * ap).sum(1), (aq * aq).sum(1), (ap * aq).sum(1))
         j = _rotation_matrix(n, p, q, c, s)
-        return mat @ j, v @ j
+        with _f32_products():
+            return mat @ j, v @ j
 
     def offdiag(mat):
-        g = mat.mT @ mat
+        with _f32_products():
+            g = mat.mT @ mat
         diag = torch.diagonal(g, dim1=-2, dim2=-1)
         return torch.sqrt(torch.clamp(_sum_in_order(g * g) - _sum_in_order(diag * diag), min=0.0))
 

@@ -12,7 +12,10 @@ with ``index_add_`` (the reference's is an XLA segment sum; its
 scatter-free cumsum-and-difference row sum is a TPU workaround and is not
 ported). SELL and BSR are gathers and dense row or block reductions.
 Blocked-ELL with bs % 128 == 0 goes to ``bell_spmm_pallas`` (kernel B6a on
-the card); any other block size to a masked einsum.
+the card); any other block size to a masked einsum. ``sddmm_bsr`` pins
+f32 products (``fft.kernels._f32_products``), so a caller's TF32 setting
+does not reach them; ``_bsr_spmv``'s block products are matrix-vector
+products, which TF32 did not reach on the card (ROADMAP C16).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import Callable
 import torch
 
 from tpumathlib_torch.core.errors import check
+from tpumathlib_torch.fft.kernels import _f32_products
 from tpumathlib_torch.sparse.containers import BSR, COO, CSR, SELL, BlockedELL
 from tpumathlib_torch.sparse.pallas_kernels import _bell_product, bell_spmm_pallas
 
@@ -112,7 +116,8 @@ def sddmm_bsr(a, b, pattern: BSR, alpha=1.0, beta=0.0):
     block_rows = torch.searchsorted(pattern.indptr, pos, right=True) - 1
     arows = a.reshape(-1, bs, a.shape[-1])[block_rows.long()]          # (nnzb, bs, k)
     bcols = b.transpose(0, 1).reshape(-1, bs, b.shape[0])[pattern.indices.long()]
-    vals = alpha * torch.einsum("nik,njk->nij", arows, bcols) + beta * pattern.data
+    with _f32_products():
+        vals = alpha * torch.einsum("nik,njk->nij", arows, bcols) + beta * pattern.data
     return BSR(pattern.indptr, pattern.indices, vals.to(pattern.data.dtype), pattern.shape, bs)
 
 
