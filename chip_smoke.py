@@ -62,7 +62,8 @@ Phases; any failure raises and the exit code is non-zero:
    phase 13 on the host clock. Then, with TF32 turned on by the caller
    (phase_tf32), the matmul four-step FFT (N = 96 and 1000) and the f32
    product sites of ROADMAP C16 (syevj, gesvdj, spmv on a BSR matrix,
-   sddmm_bsr, xormqr) must still agree with float64 at their f32 bounds;
+   sddmm_bsr, xormqr, and the Mp slice's torch.matmul sites) must still
+   agree with float64 at their f32 bounds;
    each C16 site is also run with its pin lifted, to show what it keeps
    out. TF32 is off again after.
 15. sparse kernels — tml_bell_spmm (csrc/bell_sparse.cu) against its plain
@@ -171,6 +172,24 @@ Phases; any failure raises and the exit code is non-zero:
    its plain version and the library call (torch.fft.fft / ifft on
    complex64, unnormalised; torch.linalg.cholesky), with the share of the
    bound.
+36. ring kernels — matmul_ag_overlapped (B12a) and matmul_rs_overlapped
+   (B12b) through tml_ring_gemm and tml_ring_accumulate
+   (csrc/mp_overlap.cu) against their plain versions (the same schedule with
+   torch ops) at P = 1, 2 and 4 ranks on this card, f32 and bf16, (1024,
+   512, 512), 20 calls each, every call checked and counted (P² GEMMs,
+   P(P − 1) accumulates); then once each at full width.
+37. Mp main path — four ranks on the card: entry.dryrun_multichip over
+   GPT-J-6B's MLP (8192 tokens, n_embd 4096, n_inner 16384; tp_matmul with
+   B1 and GELU, then gemr2d; +4 B1 launches), the overlapped pair
+   matmul_rs_overlapped(matmul_ag_overlapped(x, w1), w2) (+16, +16, +12),
+   matmul_allreduce and the eight PBLAS ops at m = 4096, each against a
+   single-device float64 result at rtol 1e-4.
+38. Mp times — CUDA events for each ring, its GEMMs alone, its copies alone,
+   the collective routes (B1 and torch.matmul), its plain version and one
+   torch.matmul of the whole product; the overlap share with its spread
+   (unresolved where it leaves [0, 1] or its spread reaches 1) and the share
+   of the bound. Four ranks share one card: its copies are HBM to HBM, not
+   NVLink.
 The line before the last is a JSON record of the kernels, each with its
 bound (the larger of its operations over the card's published peak and its
 bytes over 3.35 TB/s); the last line is {"ok": true, "device": {...}}.
@@ -181,6 +200,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import importlib
+import itertools
 import json
 import math
 import re
@@ -193,7 +213,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tpumathlib_torch import comp, fft, rand, sparse
+from tpumathlib_torch import comp, fft, mp, rand, sparse
 from tpumathlib_torch.blas import level3, lt
 from tpumathlib_torch.core.check import max_abs_rel, max_scaled_err
 from tpumathlib_torch.core.errors import InvalidValueError
@@ -205,9 +225,10 @@ from tpumathlib_torch.dx import rng as dxr
 from tpumathlib_torch.dx import vv10
 from tpumathlib_torch.dx import solver as dxs
 from tpumathlib_torch.dx.gemm import _pallas_matmul_plain, pallas_matmul
-from tpumathlib_torch.entry import entry
+from tpumathlib_torch.entry import dryrun_multichip, entry
 from tpumathlib_torch.fft import kernels as fft_kernels
 from tpumathlib_torch.fft import pallas_split, stockham
+from tpumathlib_torch.mp import matmul as mp_matmul, overlap, pblas as mp_pblas
 from tpumathlib_torch.solver import blocked, dense, jacobi, onelaunch
 from tpumathlib_torch.sparse import ops as sparse_ops
 from tpumathlib_torch.sparse import pallas_kernels as spk
@@ -1047,7 +1068,7 @@ TF32_TOL = 1e-5   # the reference's f32 verification rtol (core.dtypes.default_r
 def _unpinned():
     """The C16 product sites with their f32 pin lifted: their products follow
     the caller's TF32 setting, as they did before the pin."""
-    mods = (jacobi, sparse_ops, dense)
+    mods = (jacobi, sparse_ops, dense, mp_matmul, mp_pblas, overlap)
     saved = [m._f32_products for m in mods]
     for m in mods:
         m._f32_products = contextlib.nullcontext
@@ -1120,6 +1141,54 @@ def _tf32_sites(gen, dev) -> dict:
             "xormqr (solver/dense.py:159)": ormqr}
 
 
+def _tf32_mp_sites(gen, dev) -> dict:
+    """The f32 product sites of the Mp slice, through their public functions
+    on MP_RANKS ranks at (m, k, n) = 256³, name: a function that runs the
+    site and returns its errors against float64, max-scaled, held at
+    MP_F64_TOL (tests/test_mp_matmul.py's and test_mp_pblas.py's rtol)."""
+    grid = mp.Grid.create([dev] * MP_RANKS)
+    m = 256
+    a, b, c = (torch.randn((m, m), generator=gen, device=dev) for _ in range(3))
+    a64, b64, c64 = a.double(), b.double(), c.double()
+    low = torch.ones((m, m), device=dev, dtype=torch.bool).tril()
+    solve = a + m * torch.eye(m, device=dev)
+
+    def local_gemm():
+        want = gemm.apply_epilogue(a64 @ b64, "gelu")[0]
+        return {"D": _mp64_err(mp.matmul_ag(a, b, grid, epilogue="gelu"), want)}
+
+    def reductions():
+        return {"rs": _mp64_err(mp.matmul_rs(a, b, grid), a64 @ b64),
+                "allreduce": _mp64_err(mp.matmul_allreduce(a, b, grid), a64 @ b64)}
+
+    thin = a[:, :32]   # syrk's diagonal outweighs its other entries by about sqrt(k)
+
+    def pblas():
+        return {"syrk": _mp64_err(mp.mp_syrk(a, c, grid), torch.where(low, a64 @ a64.mT, c64)),
+                "syrk k=32": _mp64_err(mp.mp_syrk(thin, c, grid),
+                                       torch.where(low, a64[:, :32] @ a64[:, :32].mT, c64)),
+                "syr2k": _mp64_err(mp.mp_syr2k(a, b, c, grid),
+                                   torch.where(low, a64 @ b64.mT + b64 @ a64.mT, c64)),
+                "syrkx": _mp64_err(mp.mp_syrkx(a, b, c, grid), torch.where(low, a64 @ b64.mT, c64)),
+                "symm": _mp64_err(mp.mp_symm(a, b, c, grid), torch.where(low, a64, a64.mT) @ b64),
+                "trmm": _mp64_err(mp.mp_trmm(a, b, grid), torch.tril(a64) @ b64)}
+
+    def trsm():
+        return {"X": _mp64_err(mp.mp_trsm(solve, b, grid), torch.linalg.solve_triangular(
+            torch.tril(solve.double()), b64, upper=False))}
+
+    def ring_plain():
+        with _ring_plain():
+            return {"ag": _mp64_err(overlap.matmul_ag_overlapped(a, b, grid), a64 @ b64),
+                    "rs": _mp64_err(overlap.matmul_rs_overlapped(a, b, grid), a64 @ b64)}
+
+    return {"mp _local_gemm (mp/matmul.py)": local_gemm,
+            "mp matmul_rs/_allreduce (mp/matmul.py)": reductions,
+            "mp PBLAS products (mp/pblas.py)": pblas,
+            "mp_trsm's update (mp/pblas.py)": trsm,
+            "mp _ring_gemm_plain (mp/overlap.py)": ring_plain}
+
+
 def phase_tf32(dev) -> None:
     """With TF32 turned on by the caller, the f32 products the port pins must
     stay f32. First the matmul four-step FFT (_fft_planar, N = 96 and 1000):
@@ -1127,8 +1196,9 @@ def phase_tf32(dev) -> None:
     caller's setting back after, and a bare torch.matmul of one DFT stage
     beside it. Then the C16 sites (syevj, gesvdj, spmv on a BSR matrix,
     sddmm_bsr, xormqr) through their public functions against float64 at
-    TF32_TOL; each is also run with its pin lifted (``_unpinned``), to show
-    what the pin keeps out. TF32 is turned off again at the end."""
+    TF32_TOL, and the Mp slice's sites (``_tf32_mp_sites``) at MP_F64_TOL;
+    each is also run with its pin lifted (``_unpinned``), to show what the
+    pin keeps out. TF32 is turned off again at the end."""
     gen = torch.Generator(device=dev).manual_seed(9632)
     matmul = torch.backends.cuda.matmul
     failures = []
@@ -1149,16 +1219,18 @@ def phase_tf32(dev) -> None:
                   f"under TF32 {bare:.3e} {'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
                 failures.append(f"_fft_planar N={n}")
-        for name, site in _tf32_sites(gen, dev).items():
+        sites = [(name, site, TF32_TOL) for name, site in _tf32_sites(gen, dev).items()]
+        sites += [(name, site, MP_F64_TOL) for name, site in _tf32_mp_sites(gen, dev).items()]
+        for name, site, tol in sites:
             errs = site()
             with _unpinned():
                 bare = site()
             restored = matmul.allow_tf32 and torch.get_float32_matmul_precision() == "high"
-            ok = max(errs.values()) <= TF32_TOL and restored
+            ok = max(errs.values()) <= tol and restored
             print(f"[tf32] TF32 on, {name:30s} pinned: "
-                  f"{', '.join(f'{k} {v:.3e}' for k, v in errs.items())} (tol {TF32_TOL:g}) | "
+                  f"{', '.join(f'{k} {v:.3e}' for k, v in errs.items())} (tol {tol:g}) | "
                   f"pin lifted: {', '.join(f'{k} {v:.3e}' for k, v in bare.items())} "
-                  f"({'would miss' if max(bare.values()) > TF32_TOL else 'would pass'}) "
+                  f"({'would miss' if max(bare.values()) > tol else 'would pass'}) "
                   f"{'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
                 failures.append(name)
@@ -3578,6 +3650,382 @@ def phase_four_step_times(run: dict, card: str) -> dict:
     return ms
 
 
+
+# ---------------------------------------------------------------------------
+# Phases 36-38: the Mp tier's tensor-parallel matmul and the ring-overlapped
+# AllGather+GEMM / GEMM+ReduceScatter (B12a, B12b), four ranks on one card
+
+MP_RANKS = 4                        # the TP degree; all four ranks on the one card
+MP_KERNEL_P = (1, 2, 4)             # phase 36's ring sizes
+# phase 36's (m, k, n); the second leaves ragged tiles (k a rank 75 or 150, n 50 or 100)
+MP_KERNEL_SHAPES = ((1024, 512, 512), (1000, 300, 200))
+MP_REPS = 20                        # phase 36's calls a case, each held against the plain version
+# (tokens, n_embd, n_inner): GPT-J-6B's MLP (EleutherAI/gpt-j-6b config.json: n_embd 4096,
+# n_inner null so 4 · 4096) over 8192 tokens, 4 × its n_positions 2048
+MP_MAIN = (8192, 4096, 16384)
+MP_PBLAS = (4096, 512, 512)         # phase 37's PBLAS (m, k, n) over MP_RANKS ranks
+MP_TOL = {F32: 1e-5, BF16: 1e-2}    # kernel route against the plain version, max-scaled
+MP_F64_TOL = 1e-4                   # tests/test_mp_matmul.py's and test_mp_pblas.py's rtol
+MP_RING = {"ag": overlap.matmul_ag_overlapped, "rs": overlap.matmul_rs_overlapped}
+
+
+def _ring_counts() -> tuple:
+    return (overlap.matmul_ag_overlapped.launches, overlap.matmul_rs_overlapped.launches,
+            overlap.matmul_rs_overlapped.accumulates)
+
+
+def _ring_expect(kind: str, nr: int) -> tuple:
+    """(ring AG GEMMs, ring RS GEMMs, accumulates) one call launches."""
+    return (nr * nr, 0, 0) if kind == "ag" else (0, nr * nr, nr * (nr - 1))
+
+
+@contextlib.contextmanager
+def _ring_plain():
+    """The rings with their two kernels' plain versions in the wrappers'
+    place: the same schedule, streams and events, torch ops on each stream."""
+    saved = overlap._ring_gemm, overlap._ring_accumulate
+    overlap._ring_gemm = lambda a, b, out, count: overlap._ring_gemm_plain(a, b, out)
+    overlap._ring_accumulate = overlap._ring_accumulate_plain
+    try:
+        yield
+    finally:
+        overlap._ring_gemm, overlap._ring_accumulate = saved
+
+
+def _ring_operands(grid, kind, a, b):
+    """a and b sharded with the ring's in-specs."""
+    if kind == "ag":
+        return grid.shard(a, ("x", None)), grid.shard(b, (None, "x"))
+    return grid.shard(a, (None, "x")), grid.shard(b, ("x", None))
+
+
+def phase_mp_kernel(dev) -> None:
+    """36. The two rings (csrc/mp_overlap.cu: tml_ring_gemm, and
+    tml_ring_accumulate for B12b) against their plain versions (the same
+    schedule with torch ops), P ranks on this one card: at P = 1, 2, 4, f32
+    and bf16, each (m, k, n) of MP_KERNEL_SHAPES, MP_REPS calls each, every
+    call held to MP_TOL (max-scaled: 1e-5 f32, the same f32 products summed
+    in another order where cuBLAS splits k, bit for bit where it does not;
+    1e-2 bf16, an output ulp where the two sums round apart) and growing the
+    counts by exactly P² GEMMs (and P(P − 1) accumulates); then twice at
+    full width, 4 ranks, f32."""
+    gen = torch.Generator(device=dev).manual_seed(3636)
+    failures, cases = [], 0
+
+    def run(kind, grid, a, b, tol, reps, label):
+        """Calls alternate between A and −A: the ring's buffers come back
+        from the allocator holding the last call's values, which are then
+        wrong, so a read that does not wait for its write shows."""
+        nonlocal cases
+        fn, nr = MP_RING[kind], grid.size
+        operands = [_ring_operands(grid, kind, sign * a, b) for sign in (1, -1)]
+        with _ring_plain():
+            wants = [fn(*ops, grid).full() for ops in operands]
+        worst, bad = 0.0, 0
+        for rep in range(reps):
+            before = _ring_counts()
+            got = fn(*operands[rep % 2], grid)
+            grew = tuple(y - x for x, y in zip(before, _ring_counts()))
+            full, want = got.full(), wants[rep % 2]
+            torch.cuda.synchronize()
+            err = max_scaled_err(full, want)
+            worst = max(worst, err)
+            ok = (err <= tol and grew == _ring_expect(kind, nr) and full.shape == want.shape
+                  and full.dtype == a.dtype and bool(torch.isfinite(full.float()).all()))
+            bad += not ok
+            cases += 1
+        if bad:
+            failures.append(f"{label} ({bad} of {reps} calls)")
+        print(f"[mp-kernel] {label}: {reps} calls, worst max-scaled err vs plain {worst:.3e} "
+              f"(tol {tol:g}), launches a call {_ring_expect(kind, nr)} "
+              f"{'ok' if not bad else 'FAIL'}", flush=True)
+        return worst
+
+    for (m, k, n), nr, dtype in itertools.product(MP_KERNEL_SHAPES, MP_KERNEL_P, (F32, BF16)):
+        grid = mp.Grid.create([dev] * nr)
+        a = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+        b = torch.randn((k, n), generator=gen, device=dev).to(dtype)
+        for kind in MP_RING:
+            run(kind, grid, a, b, MP_TOL[dtype], MP_REPS,
+                f"{kind} P={nr} {str(dtype)[6:]} ({m}, {k}, {n})")
+    s, hd, f = MP_MAIN
+    grid = mp.Grid.create([dev] * MP_RANKS)
+    x = torch.randn((s, hd), generator=gen, device=dev)
+    w = torch.randn((hd, f), generator=gen, device=dev) / math.sqrt(hd)
+    run("ag", grid, x, w, MP_TOL[F32], 2, f"ag P={MP_RANKS} float32 ({s}, {hd}, {f})")
+    del x, w
+    hmid = torch.randn((s, f), generator=gen, device=dev)
+    w = torch.randn((f, hd), generator=gen, device=dev) / math.sqrt(f)
+    run("rs", grid, hmid, w, MP_TOL[F32], 2, f"rs P={MP_RANKS} float32 ({s}, {f}, {hd})")
+    if failures:
+        raise SystemExit(f"chip_smoke: ring kernels disagree with their plain versions: "
+                         f"{failures}")
+    print(f"[mp-kernel] {cases} calls agree", flush=True)
+
+
+def _mp64_err(got, want64) -> float:
+    """Max-scaled error of a Sharded result against a float64 tensor."""
+    return max_scaled_err(got.full(), want64)
+
+
+def _pblas_steps(grid, gen, dev) -> dict:
+    """Phase 37's PBLAS calls at MP_PBLAS over the grid, name: (call, its
+    float64 result), the checks of tests/test_mp_pblas.py."""
+    m, k, n = MP_PBLAS
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)   # noqa: E731
+    a, b, c, sq, bn, cn = rnd(m, k), rnd(m, k), rnd(m, m), rnd(m, m), rnd(m, n), rnd(m, n)
+    a64, b64, c64, sq64, bn64, cn64 = (t.double() for t in (a, b, c, sq, bn, cn))
+    low = torch.ones((m, m), device=dev, dtype=torch.bool).tril()
+    tsolve = sq + m * torch.eye(m, device=dev) * torch.sign(torch.diagonal(sq) + 0.1)
+    sym = torch.where(low, sq64, sq64.mT)
+    return {
+        "mp_syrk lower": (lambda: mp.mp_syrk(a, c, grid, alpha=2.0, beta=0.5),
+                          torch.where(low, 2.0 * a64 @ a64.mT + 0.5 * c64, c64)),
+        "mp_syr2k upper": (lambda: mp.mp_syr2k(a, b, c, grid, alpha=1.5, beta=0.5, uplo="upper"),
+                           torch.where(low.mT, 1.5 * (a64 @ b64.mT + b64 @ a64.mT) + 0.5 * c64,
+                                       c64)),
+        "mp_syrkx lower": (lambda: mp.mp_syrkx(a, b, c, grid, alpha=1.5, beta=0.5),
+                           torch.where(low, 1.5 * a64 @ b64.mT + 0.5 * c64, c64)),
+        "mp_symm lower": (lambda: mp.mp_symm(sq, bn, cn, grid, alpha=2.0, beta=-1.0),
+                          2.0 * sym @ bn64 - cn64),
+        "mp_trmm upper trans unit": (
+            lambda: mp.mp_trmm(sq, bn, grid, alpha=1.5, uplo="upper", trans=True, unit=True),
+            1.5 * (torch.triu(sq64, 1) + torch.eye(m, device=dev, dtype=torch.float64)).mT
+            @ bn64),
+        "mp_trsm lower": (lambda: mp.mp_trsm(tsolve, bn, grid, alpha=2.0),
+                          torch.linalg.solve_triangular(torch.tril(tsolve.double()), 2.0 * bn64,
+                                                        upper=False)),
+        "mp_geadd trans": (lambda: mp.mp_geadd(sq, c, grid, alpha=2.0, beta=0.5, trans=True),
+                           2.0 * sq64.mT + 0.5 * c64),
+        "mp_tradd upper": (lambda: mp.mp_tradd(sq, c, grid, alpha=2.0, beta=0.5, uplo="upper"),
+                           torch.where(low.mT, 2.0 * sq64 + 0.5 * c64, c64)),
+    }
+
+
+def phase_mp_main(dev) -> dict:
+    """37. The Mp slice at full width, four ranks on the card, every count
+    set to 0 just before: entry.dryrun_multichip (tp_matmul with B1 and the
+    GELU epilogue over GPT-J-6B's MLP, MP_MAIN, then gemr2d; +4 B1
+    launches); the overlapped pair matmul_rs_overlapped(matmul_ag_overlapped(x,
+    w1), w2) (+16 and +16 ring GEMMs, +12 accumulates); matmul_allreduce; and
+    the eight PBLAS ops at MP_PBLAS. Each against a single-device float64
+    result at MP_F64_TOL, max-scaled; the pair also against its plain
+    version."""
+    s, hd, f = MP_MAIN
+    gen = torch.Generator(device=dev).manual_seed(3737)
+    grid = mp.Grid.create([dev] * MP_RANKS)
+    counts = (overlap.matmul_ag_overlapped, overlap.matmul_rs_overlapped, pallas_matmul)
+    torch.cuda.synchronize()
+    for fn in counts:
+        fn.launches = 0
+    overlap.matmul_rs_overlapped.accumulates = 0
+    failures, grew, errs = [], {}, {}
+
+    def step(name, call):
+        before = (*_ring_counts(), pallas_matmul.launches)
+        out = call()
+        torch.cuda.synchronize()
+        grew[name] = tuple(y - x for x, y in zip(before, (*_ring_counts(),
+                                                          pallas_matmul.launches)))
+        return out
+
+    dry = step("dryrun_multichip", lambda: dryrun_multichip(MP_RANKS, [dev] * MP_RANKS, s=s, h=hd,
+                                                            f=f, seed=3737))
+    x, w1, w2 = dry["inputs"]
+    errs["dryrun_multichip"] = dry["max_scaled_err"]
+    xs, w1s = grid.shard(x, ("x", None)), grid.shard(w1, (None, "x"))
+    w2s = grid.shard(w2, ("x", None))
+    h = step("matmul_ag_overlapped", lambda: overlap.matmul_ag_overlapped(xs, w1s, grid))
+    out = step("matmul_rs_overlapped", lambda: overlap.matmul_rs_overlapped(h, w2s, grid))
+    allreduce = step("matmul_allreduce", lambda: mp.matmul_allreduce(h, w2s, grid))
+    pblas = {name: (step(name, call), want) for name, (call, want)
+             in _pblas_steps(grid, gen, dev).items()}
+    launches = {"matmul_ag_overlapped": overlap.matmul_ag_overlapped.launches,
+                "matmul_rs_overlapped": overlap.matmul_rs_overlapped.launches,
+                "accumulates": overlap.matmul_rs_overlapped.accumulates,
+                "pallas_matmul": pallas_matmul.launches}
+    print(f"[mp-main] launches in the main path: {launches}", flush=True)
+
+    h64 = x.double() @ w1.double()
+    errs["matmul_ag_overlapped"] = _mp64_err(h, h64)
+    want64 = h64 @ w2.double()
+    del h64
+    errs["matmul_rs_overlapped"] = _mp64_err(out, want64)
+    errs["matmul_allreduce"] = _mp64_err(allreduce, want64)
+    del want64
+    with _ring_plain():
+        h_plain = overlap.matmul_ag_overlapped(xs, w1s, grid)
+        out_plain = overlap.matmul_rs_overlapped(h_plain, w2s, grid)
+    max_abs = {"ag": max_abs_rel(h.full(), h_plain.full())[0],
+               "rs": max_abs_rel(out.full(), out_plain.full())[0]}
+    vs_plain = {"matmul_ag_overlapped": max_scaled_err(h.full(), h_plain.full()),
+                "matmul_rs_overlapped": max_scaled_err(out.full(), out_plain.full())}
+    del h_plain, out_plain
+    for name, (got, want) in pblas.items():
+        errs[name] = _mp64_err(got, want)
+    expect = {"dryrun_multichip": (0, 0, 0, MP_RANKS),
+              "matmul_ag_overlapped": (*_ring_expect("ag", MP_RANKS), 0),
+              "matmul_rs_overlapped": (*_ring_expect("rs", MP_RANKS), 0)}
+    specs = {"dryrun_multichip": (dry["out"], ("x", None)),
+             "matmul_ag_overlapped": (h, (None, "x")), "matmul_rs_overlapped": (out, ("x", None)),
+             "matmul_allreduce": (allreduce, (None, None)),
+             **{name: (got, ("x", None)) for name, (got, _) in pblas.items()}}
+    for name, err in errs.items():
+        got_spec = specs[name][0].spec
+        ok = (err <= MP_F64_TOL and grew[name] == expect.get(name, (0, 0, 0, 0))
+              and got_spec == specs[name][1] and vs_plain.get(name, 0.0) <= MP_TOL[F32])
+        extra = (f" | vs plain max-scaled {vs_plain[name]:.3e} (tol {MP_TOL[F32]:g})"
+                 if name in vs_plain else "")
+        print(f"[mp-main] {name:26s} launches (ag, rs, acc, B1) {grew[name]} | vs f64 max-scaled "
+              f"{err:.3e} (tol {MP_F64_TOL:g}) | spec {got_spec}{extra} {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            failures.append(name)
+    if failures:
+        raise SystemExit(f"chip_smoke: Mp main path failed: {failures}")
+    return {"launches": launches, "max_abs_err": max_abs, "grid": grid,
+            "operands": {"ag": (xs, w1s), "rs": (h, w2s)}}
+
+
+def _ring_parts(kind: str, grid, a, b) -> dict:
+    """The ring's P² GEMM launches alone (no copies; B12b's accumulates
+    alone too) and its copies alone (no GEMMs, each chunk's chain of sends
+    kept), each on the grid's own streams between the ring's entry and exit
+    waits, calling the kernel wrappers directly."""
+    ring, nr = overlap._Ring(grid), grid.size
+    count = MP_RING[kind]
+    dev = grid.devices
+    if kind == "ag":
+        mloc, k = a.shape[0] // nr, a.shape[1]
+        full = [a.full(d) for d in dev]
+        outs = [torch.empty((a.shape[0], bp.shape[1]), device=d) for bp, d in zip(b.pieces, dev)]
+        slots = [[torch.empty((mloc, k), device=d) for _ in range(nr)] for d in dev]
+
+        def gemms():
+            ring.enter()
+            for r in range(nr):
+                with ring.on(r, overlap.COMPUTE):
+                    for c in range(nr):
+                        overlap._ring_gemm(full[r][c * mloc:(c + 1) * mloc], b.pieces[r],
+                                           outs[r][c * mloc:(c + 1) * mloc], count)
+            ring.exit()
+
+        def chunk(r, step):
+            c = (r - step) % nr
+            return a.pieces[r] if step == 0 else slots[r][c], c
+    else:
+        sp, h = a.shape[0] // nr, b.shape[1]
+        slots = [torch.empty((nr, sp, h), device=d) for d in dev]
+        mine = [torch.empty((sp, h), device=d) for d in dev]
+
+        def gemms():
+            ring.enter()
+            for r in range(nr):
+                with ring.on(r, overlap.COMPUTE):
+                    for c in range(nr):
+                        overlap._ring_gemm(a.pieces[r][c * sp:(c + 1) * sp], b.pieces[r],
+                                           slots[r][0] if c == 0 else mine[r], count)
+            ring.exit()
+
+        def accumulates():
+            ring.enter()
+            for r in range(nr):
+                with ring.on(r, overlap.COMPUTE):
+                    for s in range(1, nr):
+                        overlap._ring_accumulate(mine[r], slots[r][s])
+            ring.exit()
+
+        def chunk(r, step):
+            return slots[r][step], None
+
+    def copies():
+        ring.enter()
+        arrived = [None] * nr
+        for step in range(nr - 1):
+            landed = [None] * nr
+            for r in range(nr):
+                right = (r + 1) % nr
+                src, c = chunk(r, step)
+                dst = slots[right][c] if kind == "ag" else slots[right][step + 1]
+                with ring.on(r, overlap.COMM):
+                    ring.wait(r, overlap.COMM, arrived[r])
+                    overlap._send(dst, src)
+                    landed[right] = ring.record(r, overlap.COMM)
+            arrived = landed
+        ring.exit()
+
+    parts = {"gemms": gemms, "copies": copies}
+    if kind == "rs":
+        parts["accumulates"] = accumulates
+    return parts
+
+
+def phase_mp_times(run: dict, card: str) -> dict:
+    """38. CUDA events around back-to-back calls (``_loop_ms``) at MP_MAIN,
+    4 ranks on the card, for each ring: the ring route; its P² GEMM launches
+    alone on the same streams (and B12b's accumulates alone); its copies
+    alone; the collective route (matmul_ag with use_pallas True, on B1, and
+    False, on torch.matmul; matmul_rs, whose product is torch.matmul either
+    way, as in the reference); the plain version (the ring with torch ops);
+    and one torch.matmul of the whole product. Prints the overlap share,
+    (kernels + copies − ring) / copies, with its spread (the half-ranges of
+    the samples of ring, kernels and copies, over copies), and each route's
+    share of the bound. The share is resolved only where it lies in [0, 1]
+    and its spread is under 1: else it is printed as unresolved and stored
+    as None. One card shows HBM copies, not NVLink (450 GB/s each way)."""
+    grid = run["grid"]
+    nr = grid.size
+    s, hd, f = MP_MAIN
+    flop = 2.0 * s * hd * f
+    ms, bounds, spread = {}, {}, {}
+    for kind, (a, b) in run["operands"].items():
+        fn = MP_RING[kind]
+        a_full, b_full = a.full(), b.full()
+        routes = {f"{kind} ring": lambda fn=fn, a=a, b=b: fn(a, b, grid),
+                  f"{kind} library": lambda a=a_full, b=b_full: torch.matmul(a, b)}
+        for part, call in _ring_parts(kind, grid, a, b).items():
+            routes[f"{kind} {part}"] = call
+        if kind == "ag":
+            routes["ag collective B1"] = lambda: mp.matmul_ag(a, b, grid, use_pallas=True)
+            routes["ag collective torch"] = lambda: mp.matmul_ag(a, b, grid)
+        else:
+            routes["rs collective torch"] = lambda: mp.matmul_rs(a, b, grid)
+        ms.update(_loop_ms(routes, warmup=1, reps=3, samples=3, spread=spread))
+
+        def plain(fn=fn, a=a, b=b):
+            with _ring_plain():
+                return fn(a, b, grid)
+        ms[f"{kind} plain"] = _loop_ms({"p": plain}, warmup=1, reps=3, samples=3)["p"]
+        del a_full, b_full
+        # P(P − 1) chunks of (s / P, n_embd) f32 a call, each read and written once
+        copy_bytes = 2 * nr * (nr - 1) * 4.0 * (s // nr) * hd
+        in_out = 4.0 * (s * hd + hd * f + s * f)
+        bounds[kind] = _bound(flop, PEAK_F32, in_out)
+        bounds[f"{kind} copies"] = _bound(0.0, PEAK_F32, copy_bytes)
+        if kind == "rs":   # P(P − 1) accumulates: partial and slot read, slot or D written
+            bounds["rs accumulates"] = _bound(0.0, PEAK_F32, nr * (nr - 1) * 3 * 4.0 * (s // nr) * hd)
+        kernels = ms[f"{kind} gemms"] + ms.get(f"{kind} accumulates", 0.0)
+        copies = ms[f"{kind} copies"]
+        share = (kernels + copies - ms[f"{kind} ring"]) / copies
+        parts = [f"{kind} {p}" for p in ("ring", "gemms", "accumulates", "copies")]
+        share_spread = sum((spread[p][1] - spread[p][0]) / 2 for p in parts if p in spread) / copies
+        resolved = 0.0 <= share <= 1.0 and share_spread < 1.0
+        ms[f"{kind} overlap share"] = share if resolved else None
+        for route, t in ms.items():
+            if not route.startswith(kind + " ") or route.endswith("share"):
+                continue
+            bound = bounds.get(route, bounds[kind])
+            print(f"[mp-times] {route:22s} {t:.4f} ms | {flop / t / 1e9:.2f} TFLOP/s of the "
+                  f"function | bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
+                  f"{bound['bound_ms'] / t:.1%} of it | {card}", flush=True)
+        print(f"[mp-times] {kind} overlap share (kernels {kernels:.4f} + copies "
+              f"{copies:.4f} - ring {ms[f'{kind} ring']:.4f}) / copies = {share:.3f} "
+              f"± {share_spread:.3f}{'' if resolved else ', unresolved'} | {nr} ranks on one "
+              f"card: the copies are HBM to HBM, not NVLink | {card}", flush=True)
+    ms["bounds"] = bounds
+    return ms
+
+
 def main() -> None:
     dev, card = phase_device()
     phase_build()
@@ -3615,6 +4063,9 @@ def main() -> None:
     phase_four_step_kernel(dev)
     fs_run = phase_four_step_main(dev)
     fs_ms = phase_four_step_times(fs_run, card)
+    phase_mp_kernel(dev)
+    mp_run = phase_mp_main(dev)
+    mp_ms = phase_mp_times(mp_run, card)
 
     m, n, k = MAIN
     ns = SOLVER_N
@@ -3822,7 +4273,26 @@ def main() -> None:
         "plain_ms": fs_ms["blocked plain"],
         **fs_ms["bounds"]["blocked"],
         "library_ms": fs_ms["blocked library"],
-    }]}
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "tpumathlib_torch/csrc/mp_overlap.cu",
+        "replaces": replaces,
+        "launches": mp_run["launches"][count],
+        **({"accumulate_launches": mp_run["launches"]["accumulates"]} if kind == "rs" else {}),
+        "max_abs_err": mp_run["max_abs_err"][kind],
+        "ms": mp_ms[f"{kind} ring"],
+        "plain_ms": mp_ms[f"{kind} plain"],
+        **mp_ms["bounds"][kind],
+        "library_ms": mp_ms[f"{kind} library"],
+        "library_is": "one torch.matmul of the whole f32 product on the card",
+        "overlap_share": mp_ms[f"{kind} overlap share"],   # None where unresolved
+        "ranks": f"{MP_RANKS} on one card",
+    } for name, kind, count, replaces in (
+        ("ring_ag_gemm (tml_ring_gemm)", "ag", "matmul_ag_overlapped",
+         "tpumathlib/mp/overlap.py:112"),
+        ("ring_rs_gemm (tml_ring_gemm + tml_ring_accumulate)", "rs", "matmul_rs_overlapped",
+         "tpumathlib/mp/overlap.py:190"))]}
     print(card_line(), flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,7 @@ TPU kernel of the reference becomes a kernel written by hand for Hopper
 Ported so far (the GEMM slice, the Cholesky / no-pivot LU slice, the QR
 slice, the FFT slice, the Blocked-ELL sparse slice, the cuSolverDx tier, the
 nvCOMPDx tier, the fused GEMM → FFT, the cuRAND tier with the in-kernel RNG,
-and the VV10 pair kernels):
+the VV10 pair kernels, and the Mp tier's tensor-parallel matmul):
 - ``tpumathlib_torch.core``       — errors, dtype traits, checks, timer,
                                     plans, autotune cache, interop, and the
                                     one default device (the card)
@@ -29,7 +29,14 @@ and the VV10 pair kernels):
 - ``tpumathlib_torch.blas``       — Level-3, the Lt descriptor engine, and the
                                     Level-2 helpers they need
 - ``tpumathlib_torch.heuristics`` — roofline model + discovery
-- ``tpumathlib_torch.entry``      — the main path's entry point
+- ``tpumathlib_torch.entry``      — the entry points: the main path's GEMM
+                                    and ``dryrun_multichip``
+- ``tpumathlib_torch.mp``         — process grids of ranks (several may
+                                    share a card), the TP matmul and its
+                                    collectives, gemr2d, the row-sharded
+                                    PBLAS ops; in ``mp.overlap`` the
+                                    ring-overlapped AG+GEMM and GEMM+RS
+                                    (B12a, B12b)
 - ``tpumathlib_torch.solver``     — xpotrf/xgetrf/xgeqrf/xtrtri drivers and
                                     the blocked factorizations they route
                                     to on the card (kernels B2, B3, B4a,

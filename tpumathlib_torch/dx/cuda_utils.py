@@ -169,6 +169,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tml_vv10_fwd.restype = i32
     lib.tml_vv10_bwd.argtypes = [p, p, p, p, p, i64, p]
     lib.tml_vv10_bwd.restype = i32
+    # mp_overlap.cu: (a, b, d, m, n, k, lda, ldb, ldd, ab/d dtype codes, stream);
+    # (partial, slot, d or null, count, d dtype code, stream)
+    lib.tml_ring_gemm.argtypes = [p, p, p, i64, i64, i64, i64, i64, i64, i32, i32, p]
+    lib.tml_ring_gemm.restype = i32
+    lib.tml_ring_accumulate.argtypes = [p, p, p, i64, i32, p]
+    lib.tml_ring_accumulate.restype = i32
     lib.tml_gemm_configs.argtypes = [ctypes.POINTER(i32), i32]
     lib.tml_gemm_configs.restype = i32
     lib.tml_error_string.argtypes = [i32]
