@@ -159,9 +159,10 @@ Phases; any failure raises and the exit code is non-zero:
    bound.
 33. four-step and blocked kernels — pallas_fft (one launch) and
    pallas_fft2 (two) of csrc/fft_four_step.cu against their plain version
-   and a float64 FFT at N = 16, 127 (prime), 360, 1000, 4096 and 16384 on a
-   batch of 37: forward, inverse, a strided (2, 3, N) batch, bf16 planes and
-   the round trip; solver.potrf_blocked at n = 256/panel 128, 384/256 and
+   and a float64 FFT at N = 2, 16, 127 (prime), 243, 360, 625, 1000, 4096,
+   8192, 12289 (prime), 16383 (3·43·127) and 16384 on a batch of 37, so
+   that every radix and the direct pass run: forward, inverse, a strided
+   (2, 3, N) batch, bf16 planes and the round trip; solver.potrf_blocked at n = 256/panel 128, 384/256 and
    512/384 against its plain version and a float64 factor, a non-SPD matrix
    (non-finite from its failing block on) and a panel of 192 (refused, C19).
 34. four-step and blocked main path — pallas_fft and pallas_fft2 at batch
@@ -171,7 +172,9 @@ Phases; any failure raises and the exit code is non-zero:
 35. four-step and blocked times — CUDA events for each route of phase 34,
    its plain version and the library call (torch.fft.fft / ifft on
    complex64, unnormalised; torch.linalg.cholesky), with the share of the
-   bound.
+   bound (B5c also against its own, 32·b·N bytes); each four-step route's
+   host clock per call beside its device time (wall − device); the
+   four-step kernels' registers, spills and blocks an SM from nvcc.log.
 36. ring kernels — matmul_ag_overlapped (B12a) and matmul_rs_overlapped
    (B12b) through tml_ring_gemm and tml_ring_accumulate
    (csrc/mp_overlap.cu) against their plain versions (the same schedule with
@@ -3380,7 +3383,9 @@ def phase_vv10_times(run: dict, card: str) -> dict:
 # Phases 33-35: the matmul four-step FFT in one and two launches (B5b, B5c)
 # and the blocked-panel Cholesky (B4c)
 
-FOUR_STEP_NS = (16, 127, 360, 1000, 4096, 16384)   # phase 33's N; 127 is prime (n1 = 1)
+# phase 33's N: every radix (2, 3, 4, 5, 8, 16) and the direct pass (127 and 12289 are prime,
+# n1 = 1; 16383 = 3·43·127) in both modes
+FOUR_STEP_NS = (2, 16, 127, 243, 360, 625, 1000, 4096, 8192, 12289, 16383, 16384)
 FOUR_STEP_ROWS = 37                                 # a batch that is a multiple of no tile
 FOUR_STEP_MAIN = ((4096, 4096), (1024, 16384))      # phase 34's (batch, N); the first is FFT_MAIN
 BLOCKED_CASES = ((256, 128), (384, 256), (512, 384))   # (n, panel); 512/384 ends on a short panel
@@ -3412,9 +3417,9 @@ def phase_four_step_kernel(dev) -> None:
     """33. pallas_fft (B5b, one launch) and pallas_fft2 (B5c, two launches),
     csrc/fft_four_step.cu, against their plain version (rel-L2 ≤
     FOUR_STEP_TOL) and a float64 FFT (rel-L2 < 1e-5,
-    tests/test_fft_kernels.py:85) at N = 16, 127 (prime, n1 = 1), 360, 1000,
-    4096 and 16384 on a batch of 37: forward, inverse, a strided (2, 3, N)
-    batch and bf16 planes; the round trip against N·x < 1e-4 (:63-74).
+    tests/test_fft_kernels.py:85) at each N of FOUR_STEP_NS on a batch of
+    37: forward, inverse, a strided (2, 3, N) batch and bf16 planes; the
+    round trip against N·x < 1e-4 (:63-74).
     Then potrf_blocked (B4c) at n = 256/panel 128, 384/256 and 512/384
     against its plain version (max-scaled 1e-5) and a float64 factor (5e-5
     max-relative, tests/test_solver_dense.py:318), with triu(L, 1) == 0; a
@@ -3594,13 +3599,102 @@ def _four_step_bound(kind: str, b: int = 0, n: int = 0) -> dict:
     return _bound(5.0 * b * n * math.log2(n), PEAK_F32, 16.0 * b * n)
 
 
+def _split_own_bound(b: int, n: int) -> dict:
+    """B5c's own floor: its two launches read and write the planes twice
+    (32·b·N bytes), where the function needs 16·b·N."""
+    return _bound(0.0, PEAK_F32, 32.0 * b * n)
+
+
+def _host_ms(fn, reps: int = 20) -> tuple[float, float]:
+    """(enqueue, wall) ms a call of ``reps`` calls back to back on the host
+    clock: the enqueue before the closing synchronize, the wall after it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return (t1 - t0) / reps * 1e3, (t2 - t0) / reps * 1e3
+
+
+def _ptxas_entries(name: str) -> list[dict]:
+    """Registers, stack and spills of each compiled kernel whose mangled name
+    holds ``name``, from nvcc.log beside the built library."""
+    log = (cuda_utils.build_kernels().parent / "nvcc.log").read_text()
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"entry": m.group(1)} if name in m.group(1) else None
+            if cur is not None:
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def _blocks_per_sm(threads: int, registers: int, smem: int) -> int:
+    """Blocks an H100 SM holds: 65536 registers (allocated 256 a warp at a
+    time), 228 KB of shared memory (1 KB reserved a block), 2048 threads, 32
+    blocks."""
+    warps = -(-threads // 32)
+    regs = warps * (-(-registers * 32 // 256) * 256)
+    return min(65536 // regs, (228 * 1024) // (smem + 1024), 2048 // threads, 32)
+
+
+def _four_step_resources() -> dict:
+    """Each four-step kernel's ptxas report, and each main-path launch's
+    threads, shared memory and blocks an SM (as the C side sizes them)."""
+    kernels = {}
+    for e in _ptxas_entries("four_step_kernel"):
+        m = re.search(r"four_step_kernelILi(\d+)E", e["entry"])
+        points = int(m.group(1)) if m else 0
+        label = (f"four_step_kernel<{points}> "
+                 f"({'power of two' if points == fft_kernels.FOUR_STEP_POINTS_POW2 else 'other N'})")
+        e["points"] = points
+        kernels[label] = e
+        print(f"[four-step-times] {label}: {e.get('registers')} registers, {e.get('stack')} bytes "
+              f"stack, spill stores {e.get('spill_stores')} / loads {e.get('spill_loads')} bytes "
+              f"(nvcc.log)", flush=True)
+    launches = {}
+    regs = {e["points"]: e.get("registers", 0) for e in kernels.values()}
+    for _, n in FOUR_STEP_MAIN:
+        for mode in (1, 2):
+            for i, lp in enumerate(fft_kernels._four_step_plan(n, mode).launches):
+                ld = fft_kernels._four_step_plane_floats(n, lp.lanes, mode == 2 and i == 0)
+                smem = 4 * lp.rows * (2 * ld + 1)
+                per_sm = _blocks_per_sm(lp.threads * lp.rows, regs[lp.points], smem) \
+                    if regs.get(lp.points) else None
+                key = f"N{n} mode {mode} launch {i + 1}"
+                launches[key] = {"radices": lp.radices, "threads": lp.threads * lp.rows,
+                                 "smem": smem, "blocks_per_sm": per_sm}
+                print(f"[four-step-times] {key}: radices {lp.radices}, {lp.threads * lp.rows} "
+                      f"threads, {smem} B shared memory, {per_sm} blocks an SM "
+                      f"({None if per_sm is None else per_sm * lp.threads * lp.rows // 32} warps)",
+                      flush=True)
+    return {"kernels": kernels, "launches": launches}
+
+
 def phase_four_step_times(run: dict, card: str) -> dict:
     """35. CUDA events around back-to-back calls (``_loop_ms``: warm-ups,
     medians of samples taken twice in turns) of each route of phase 34, its
     plain version and the library call for the same function
     (torch.fft.fft / torch.fft.ifft(norm="forward"), unnormalised, on the
     complex64 equivalent;
-    torch.linalg.cholesky at n = 4096), each beside its bound."""
+    torch.linalg.cholesky at n = 4096), each beside its bound; B5c also
+    beside its own two-pass bound. Then each four-step route's host clock
+    per call of 20 back to back (enqueue, wall, wall − device) and the
+    kernels' resources."""
     x = run["x"]
     kernels, plains, library, bounds = {}, {}, {}, {}
     for (b, n), (xr, xi) in x["planes"].items():
@@ -3627,6 +3721,7 @@ def phase_four_step_times(run: dict, card: str) -> dict:
                        warmup=1, reps=1, samples=2))
     bounds["blocked"] = _four_step_bound("blocked")
     for route, t in ms.items():
+        own = ""
         if route.startswith("blocked"):
             bound = bounds["blocked"]
             rate = f"{SOLVER_N ** 3 / 3 / t / 1e6:.1f} GFLOP/s (n³/3)"
@@ -3637,8 +3732,12 @@ def phase_four_step_times(run: dict, card: str) -> dict:
             b, n = int(size[1:]), int(n_tag[1:])
             bound = bounds[kind if (b, n) == FOUR_STEP_MAIN[0] else f"{kind} b{b} N{n}"]
             rate = f"{16.0 * b * n / t / 1e6:.1f} GB/s (16·b·N/t)"
+            if kind == "split":
+                mine = _split_own_bound(b, n)
+                own = (f" | own bound {mine['bound_ms']:.4f} ms (32·b·N bytes), "
+                       f"{mine['bound_ms'] / t:.1%} of it")
         print(f"[four-step-times] {route:36s} {t:.4f} ms | {rate} | bound {bound['bound_ms']:.4f} ms "
-              f"({bound['bound_by']}), {bound['bound_ms'] / t:.1%} of it | {card}", flush=True)
+              f"({bound['bound_by']}), {bound['bound_ms'] / t:.1%} of it{own} | {card}", flush=True)
     for route, t in ms.items():
         if route.endswith("library") and not route.startswith("blocked"):
             b, n = (int(v[1:]) for v in route.split()[1:3])
@@ -3646,9 +3745,18 @@ def phase_four_step_times(run: dict, card: str) -> dict:
             print(f"[four-step-times] {route:36s} {t:.4f} ms | {16.0 * b * n / t / 1e6:.1f} GB/s | "
                   f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
                   f"{bound['bound_ms'] / t:.1%} of it | {card}", flush=True)
+    host = {}
+    for route, fn in kernels.items():
+        enqueue, wall = _host_ms(fn)
+        host[route] = {"enqueue_ms": enqueue, "wall_ms": wall, "wall_minus_device_ms": wall - ms[route]}
+        print(f"[four-step-times] {route:36s} host clock, 20 calls back to back: enqueue "
+              f"{enqueue:.4f} ms a call, wall {wall:.4f} ms, device {ms[route]:.4f} ms, wall − device "
+              f"{wall - ms[route]:+.4f} ms | {card}", flush=True)
+    ms["host"] = host
+    ms["resources"] = _four_step_resources()
     ms["bounds"] = bounds
+    ms["split own bounds"] = {f"b{b} N{n}": _split_own_bound(b, n) for b, n in FOUR_STEP_MAIN}
     return ms
-
 
 
 # ---------------------------------------------------------------------------
@@ -4257,6 +4365,11 @@ def main() -> None:
         "plain_ms": fs_ms[f"{kind} b{b} N{nf} forward plain"],
         **fs_ms["bounds"][kind],
         "library_ms": fs_ms[f"fft b{b} N{nf} forward library"],
+        **({"own_bound_ms": fs_ms["split own bounds"][f"b{b} N{nf}"]["bound_ms"]}
+           if kind == "split" else {}),
+        "ms_1024x16384": fs_ms[f"{kind} b1024 N16384 forward kernel"],
+        "library_ms_1024x16384": fs_ms["fft b1024 N16384 forward library"],
+        "ptxas": fs_ms["resources"]["kernels"],
     } for name, kind, count, replaces in (
         ("four_step_fft fused (tml_four_step_fft mode 1)", "fused", "pallas_fft",
          "tpumathlib/fft/kernels.py:217"),

@@ -116,8 +116,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # fft_dif.cu: (xr, xi, yr, yi, scratch, twiddles, rows, log_n, log_l, bf16, stream)
     lib.tml_dif_fft.argtypes = [p, p, p, p, p, p, i64, i32, i32, i32, p]
     lib.tml_dif_fft.restype = i32
-    # fft_four_step.cu: (xr, xi, yr, yi, scratch, roots, rows, n1, n2, mode, stream)
-    lib.tml_four_step_fft.argtypes = [p, p, p, p, p, p, i64, i64, i64, i32, p]
+    # fft_four_step.cu: (xr, xi, yr, yi, scratch, roots, rows, n1, n2, mode, inverse,
+    # plan words, their count, stream)
+    lib.tml_four_step_fft.argtypes = [p, p, p, p, p, p, i64, i64, i64, i32, i32,
+                                      ctypes.POINTER(i32), i64, p]
     lib.tml_four_step_fft.restype = i32
     # bell_sparse.cu: (cols, a, b, y, mb, ellw, bs, m, n, k, alpha, a/b dtype codes, stream)
     lib.tml_bell_spmm.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, i64, f32, i32, i32, p]

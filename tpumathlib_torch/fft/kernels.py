@@ -15,11 +15,14 @@ Counterpart of ``tpumathlib/fft/kernels.py``:
   real rows in one complex row for even batches; ``fftn_planar``,
   ``rfftn_planar`` and ``irfftn_planar`` walk the trailing axes.
 
-- ``pallas_fft`` (kernel B5b), the same four-step in one launch of
+- ``pallas_fft`` (kernel B5b), the same transform in one launch of
   ``tml_four_step_fft`` (``csrc/fft_four_step.cu``, mode 1) on CUDA tensors,
-  with ``_four_step_plain`` beside it; ``fft/pallas_split.py::pallas_fft2``
-  (B5c) runs the kernel's mode 2. Both read one device table of the N roots
-  ω_N^j (``_roots_on``).
+  with ``_four_step_plain`` (the reference's DFT products) beside it;
+  ``fft/pallas_split.py::pallas_fft2`` (B5c) runs the kernel's mode 2, cut
+  at the reference's stage boundary. The kernel runs Stockham radix passes
+  in registers, exchanged through shared memory, on the plan of
+  ``_four_step_plan``; every twiddle comes from one device table of the N
+  roots ω_N^j (``_roots_on``).
 
 Every table reaches the device once, cached by (n, inverse, device)
 (``_dft_on``, ``_twiddle_on``, ``_roots_on``), so no call copies from the
@@ -29,8 +32,10 @@ host.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -192,45 +197,139 @@ def _four_step_plain(xr, xi, inverse: bool):
     return dr.reshape(xr.shape), di.reshape(xr.shape)
 
 
+# The kernel's two families (csrc/fft_four_step.cu): points a thread for a
+# power-of-two N >= 4 (radices 2, 4, 8, 16) and for any other N (also 3, 5,
+# direct passes and the copy that N = 1 and mode 2's n1 = 1 need).
+FOUR_STEP_POINTS_POW2 = 16
+FOUR_STEP_POINTS_MIXED = 64
+FOUR_STEP_BLOCK = 256              # rows share a block up to this many threads
+FOUR_STEP_SMEM = 232448            # shared memory a block may use on the H100
+REGISTER_RADICES = (2, 3, 4, 5, 8, 16)
+
+
+class FourStepLaunch(NamedTuple):
+    """One launch of the four-step kernel: ``lanes`` interleaved transforms
+    of ``length`` points a row (point p of lane v at p·lanes + v)."""
+    length: int
+    lanes: int
+    threads: int      # a row's threads
+    rows: int         # rows a block
+    points: int       # points a thread; picks the kernel family
+    radices: tuple    # the passes, in order; product == length
+
+
+class FourStepPlan(NamedTuple):
+    mode: int
+    n1: int
+    n2: int
+    launches: tuple            # FourStepLaunch, one a kernel launch
+    words: ctypes.Array        # the plan as the C entry point reads it (int32)
+
+
+def _radix_passes(length: int) -> tuple[int, ...]:
+    """Radices whose product is ``length``: as many 16s as divide it, the
+    power of two left (8, 4 or 2), then 3s and 5s (radix passes held in
+    registers), then each other prime factor once a pass (a direct pass:
+    one sum of that many terms an output)."""
+    out, m = [], length
+    while m % 16 == 0:
+        out.append(16)
+        m //= 16
+    for r in (8, 4, 2):
+        if m % r == 0:
+            out.append(r)
+            m //= r
+            break
+    for r in (3, 5):
+        while m % r == 0:
+            out.append(r)
+            m //= r
+    p = 7
+    while m > 1:
+        if p * p > m:
+            p = m
+        while m % p == 0:
+            out.append(p)
+            m //= p
+        p += 2
+    return tuple(out)
+
+
+def _four_step_plane_floats(n: int, lanes: int, to_scratch: bool) -> int:
+    """Floats of one plane of a row in the kernel's shared memory (as the C
+    side sizes it): the row with one float of padding after every 32, or
+    mode 2's first launch's Cᵀ with rows of n1 + 1; a multiple of 32."""
+    return -(-max(n + n // 32 + 1, n + (lanes if to_scratch else 0)) // 32) * 32
+
+
+def _four_step_launch(length: int, lanes: int, to_scratch: bool) -> FourStepLaunch:
+    n = length * lanes
+    points = FOUR_STEP_POINTS_POW2 if n >= 4 and n & (n - 1) == 0 else FOUR_STEP_POINTS_MIXED
+    threads = -(-n // points)
+    row_bytes = 4 * (2 * _four_step_plane_floats(n, lanes, to_scratch) + 1)
+    rows = max(1, min(FOUR_STEP_BLOCK // threads, FOUR_STEP_SMEM // row_bytes))
+    return FourStepLaunch(length, lanes, threads, rows, points, _radix_passes(length))
+
+
+@functools.lru_cache(maxsize=128)
+def _four_step_plan(n: int, mode: int) -> FourStepPlan:
+    """The kernel's plan for rows of n points. Mode 1: one launch, the whole
+    length-n transform. Mode 2: two launches cut at (n1, n2) =
+    ``_best_split(n)``: the length-n1 transforms of the n2 columns with the
+    twiddle ω_N^{k1·n2}, then the length-n2 transforms of the n1 rows."""
+    check(n >= 1 and mode in (1, 2), f"no four-step plan for n = {n}, mode {mode}")
+    n1, n2 = _best_split(n)
+    launches = ((_four_step_launch(n, 1, False),) if mode == 1 else
+                (_four_step_launch(n1, n2, True), _four_step_launch(n2, n1, False)))
+    words = [mode, n1, n2]
+    for lp in launches:
+        words += [lp.length, lp.lanes, lp.threads, lp.rows, lp.points, len(lp.radices),
+                  *lp.radices]
+    return FourStepPlan(mode, n1, n2, launches, (ctypes.c_int32 * len(words))(*words))
+
+
 def _four_step_cuda(xr, xi, inverse: bool, mode: int, counter):
-    """``tml_four_step_fft`` on CUDA planes: mode 1 is the fused kernel (one
-    launch), mode 2 the two stage kernels through a device scratch of 2·b·N
-    f32 (two launches). ``counter.launches`` grows by the launches made.
-    Raises for N above ``FOUR_STEP_MAX_N`` and on a failed launch."""
+    """``tml_four_step_fft`` on CUDA planes, on the plan of
+    ``_four_step_plan(N, mode)``: mode 1 is one launch, mode 2 two through a
+    device scratch of 2·b·N f32. The forward root table serves both
+    directions (the kernel conjugates in and out for the inverse).
+    ``counter.launches`` grows by the launches made. Raises for N above
+    ``FOUR_STEP_MAX_N`` and on a failed launch."""
     n = xr.shape[-1]
     check(xi.shape == xr.shape and xi.device == xr.device,
           "xr and xi must have one shape and one device")
     check(1 <= n <= FOUR_STEP_MAX_N,
           f"the four-step kernel takes 1 <= N <= {FOUR_STEP_MAX_N}, not N = {n}; "
           "fft_axis_planar transforms any N")
-    n1, n2 = _best_split(n)
     dev = xr.device
     xr32, xi32 = xr.to(F32).contiguous(), xi.to(F32).contiguous()
-    yr = torch.empty(xr.shape, dtype=F32, device=dev)
-    yi = torch.empty_like(yr)
-    rows = yr.numel() // n
+    y = torch.empty((2,) + tuple(xr.shape), dtype=F32, device=dev)
+    rows = y[0].numel() // n
     if rows:
+        plan = _four_step_plan(n, mode)
         scratch = torch.empty(2 * rows * n, dtype=F32, device=dev) if mode == 2 else None
-        tab = _roots_on(n, inverse, dev)
         lib = cuda_utils.load_kernels()
         with torch.cuda.device(dev):
             rc = lib.tml_four_step_fft(
-                xr32.data_ptr(), xi32.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-                None if scratch is None else scratch.data_ptr(), tab.data_ptr(), rows, n1, n2,
-                mode, torch.cuda.current_stream(dev).cuda_stream)
+                xr32.data_ptr(), xi32.data_ptr(), y[0].data_ptr(), y[1].data_ptr(),
+                None if scratch is None else scratch.data_ptr(),
+                _roots_on(n, False, dev).data_ptr(), rows, plan.n1, plan.n2, mode,
+                int(inverse), plan.words, len(plan.words),
+                torch.cuda.current_stream(dev).cuda_stream)
         cuda_utils.check_launch(lib, rc, "tml_four_step_fft")
         counter.launches += mode
-    return yr, yi
+    return y[0], y[1]
 
 
 def pallas_fft(xr, xi, inverse: bool = False, tile: int = 32):
-    """Fused planar-complex FFT over the last axis (kernel B5b), N = n1·n2
-    with ``n1, n2 = _best_split(N)`` (n1 = 1 for a prime N). Unnormalised
-    inverse; output index k = k2·n1 + k1, i.e. natural order. Planes are cast
-    to f32, any leading batch. On CUDA tensors one launch of
-    ``tml_four_step_fft`` for N ≤ 16384 (the reference's documented range;
-    larger N raises); CPU tensors take ``_four_step_plain`` at any N.
-    ``tile`` sizes the reference's VMEM block and changes nothing here."""
+    """Fused planar-complex FFT over the last axis (kernel B5b): the
+    unnormalised DFT (and inverse) in natural order. Planes are cast to f32,
+    any leading batch. On CUDA tensors one launch of ``tml_four_step_fft``
+    (the radix passes of ``_four_step_plan(N, 1)``) for N ≤ 16384 (the
+    reference's documented range; larger N raises); CPU tensors take
+    ``_four_step_plain``, the reference's four-step with N = n1·n2 =
+    ``_best_split(N)``, at any N. ``tile`` sizes the reference's VMEM block
+    and changes nothing here."""
     if not on_cuda(xr, xi):
         return _four_step_plain(xr, xi, inverse)
     return _four_step_cuda(xr, xi, inverse, 1, pallas_fft)

@@ -3,9 +3,10 @@ stage 2 with the digit reversal.
 
 Counterpart of ``tpumathlib/fft/pallas_split.py``. The reference runs two
 pallas_calls whose intermediate C (b, n2, k1) round-trips device memory; here
-the same two stages are the two kernels of ``tml_four_step_fft`` in mode 2
-(``csrc/fft_four_step.cu``), with C in a device scratch of 2·b·N f32. The
-tables and the plain version are those of ``fft/kernels.py``.
+the same two stages are the two launches of ``tml_four_step_fft`` in mode 2
+(``csrc/fft_four_step.cu``): the radix passes of n1 over the n2 columns with
+the twiddle, then those of n2, with Cᵀ in a device scratch of 2·b·N f32. The
+plan, the root table and the plain version are those of ``fft/kernels.py``.
 """
 
 from __future__ import annotations
