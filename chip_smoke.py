@@ -24,16 +24,22 @@ Phases; any failure raises and the exit code is non-zero:
 6. block kernels — the two 128x128 sweeps of csrc/dense_block.cu against
    their plain versions: Cholesky + inverse on SPD input, LU + both inverses
    on barely dominant and SPD input, and a non-SPD block that must give
-   info > 0.
+   info > 0; then each sweep's device time (back to back behind a spin)
+   against its plain version's, with its registers and spills from nvcc.log.
 7. solver main path — n=4096 f32 through xpotrf(a), xpotrf(a, "U"),
    potrf_onelaunch(a), xgetrf(a, pivot=False) and getrf_onelaunch(a): each
-   must grow its driver's count, its block kernel's count and the GEMM
-   kernel's; the factor is held against a float64 factor (potrf) or the
-   residual L·U − A (getrf), with info == 0, and against the plain version.
-8. solver times — CUDA events for the kernel route, the plain version and
-   the vendor route (torch.linalg) of each factorization, and for each
-   block kernel against its plain version; then each route of phase 7 on
-   the host clock.
+   must grow its driver's count by 1, its block kernel's and the GEMM
+   kernel's (printed: the launches of each call); the factor is held against
+   a float64 factor (potrf) or the residual L·U − A (getrf), with info == 0,
+   and against the plain version; a matrix that stops being SPD at row
+   2088 must give the same info through the kernel and the plain route.
+8. solver times — CUDA events around a call for the kernel route, the same
+   schedule with every block in order on one stream, the plain version and
+   the vendor route (torch.linalg) of each factorization, and for potrf the
+   left-looking order (the schedule not taken); then each kernel route's
+   device time with the host out of the way, its host enqueue time a call
+   and the device's idle share; then each route of phase 7 on the host
+   clock.
 9. QR block kernels — the Householder reconstruction and the upper-
    triangular inverse of csrc/qr_block.cu, and the whole block step
    _qr_block128 at j0 = 0 and 128, against their plain versions on a
@@ -45,8 +51,9 @@ Phases; any failure raises and the exit code is non-zero:
    drivers, and xormqr against Qᵀ·C. Prints the worst block's condition.
 11. QR times — CUDA events for the kernel route, the plain version and the
    vendor route (torch.linalg.qr, torch.geqrf) of geqrf, orgqr and both,
-   and for each new block kernel against its plain version; then each route
-   of phase 10 on the host clock.
+   geqrf's device time behind a spin and host enqueue, and each new block
+   kernel against its plain version; then each route of phase 10 on the
+   host clock.
 12. FFT kernel — dif_fft (csrc/fft_dif.cu) against its plain version and a
    float64 FFT at N = 256 .. 65536: forward and inverse, natural and raw
    order (collapse 1 and 2), f32 and bf16 planes, a strided (2, 3, N)
@@ -173,7 +180,8 @@ Phases; any failure raises and the exit code is non-zero:
    its plain version and the library call (torch.fft.fft / ifft on
    complex64, unnormalised; torch.linalg.cholesky), with the share of the
    bound (B5c also against its own, 32·b·N bytes); each four-step route's
-   host clock per call beside its device time (wall − device); the
+   host clock per call beside its device time (wall − device), and
+   potrf_blocked's device time behind a spin beside its host enqueue; the
    four-step kernels' registers, spills and blocks an SM from nvcc.log.
 36. ring kernels — matmul_ag_overlapped (B12a) and matmul_rs_overlapped
    (B12b) through tml_ring_gemm and tml_ring_accumulate
@@ -484,10 +492,45 @@ def _barely_dominant(gen, n, dev):
     return g + torch.diag(1.05 * g.abs().sum(dim=1))
 
 
-def phase_blocks(dev) -> None:
-    """Each block kernel against its plain version. Tolerance 1e-5
-    max-scaled: the same f32 steps in the same order, apart from the FMAs
-    nvcc contracts."""
+SPIN_HZ = 2.5e9   # cycles a second that torch.cuda._sleep is sized by: above the SM clock
+
+
+def _queued_ms(fn, reps: int) -> tuple[float, float, bool]:
+    """(device ms, host enqueue ms, covered) a call of ``fn``: the host clock
+    around ``reps`` calls without a synchronise, then CUDA events around
+    ``reps`` calls enqueued behind a spin kernel sized to outlast their
+    enqueue, so that the device runs them back to back with the host out of
+    the way. ``covered`` says the spin was still running when the last call
+    was enqueued (else the device time may hold host gaps)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(SPIN_HZ * (2 * host * reps + 2e-3)))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    covered = not start.query()
+    end.synchronize()
+    return start.elapsed_time(end) / reps, host * 1e3, covered
+
+
+# the block kernels' entry functions in nvcc.log, by their names in phases 6 and 8
+BLOCK_KERNELS = {"chol_inv_block": "chol_inv_kernel", "lu_inv_block": "lu_inv_kernel"}
+
+
+def phase_blocks(dev, card: str) -> dict:
+    """6. Each block kernel against its plain version. Tolerance 1e-5
+    max-scaled: the same factors and inverses by another order of
+    operations (inv(U) column by column as the LU runs; the Cholesky as LDLᵀ
+    scaled at the end), apart from the FMAs nvcc contracts. Then each
+    kernel's device time (back to back behind a spin, ``_queued_ms``)
+    against its plain version's, and its registers and spills."""
     gen = torch.Generator(device=dev).manual_seed(4321)
     spd, dom = _spd(gen, 128, dev), _barely_dominant(gen, 128, dev)
     cases = [("chol_inv_block", "SPD", blocked._chol_inv128, blocked._chol_inv128_plain, spd),
@@ -517,6 +560,24 @@ def phase_blocks(dev) -> None:
         failures.append("chol_inv_block non-SPD info")
     if failures:
         raise SystemExit(f"chip_smoke: block kernels failed: {failures}")
+
+    times = {}
+    for name, kernel, plain, x in (("chol_inv_block", blocked._chol_inv128,
+                                    blocked._chol_inv128_plain, spd),
+                                   ("lu_inv_block", onelaunch._lu_inv128,
+                                    onelaunch._lu_inv128_plain, dom)):
+        samples = [_queued_ms(lambda: kernel(x), 50) for _ in range(5)]
+        ms = float(np.median([t[0] for t in samples]))
+        plain_ms = _median_ms({"plain": lambda: plain(x)}, warmup=2, iters=10)["plain"]
+        (res,) = _ptxas_entries(BLOCK_KERNELS[name])
+        times[name] = {"ms": ms, "plain_ms": plain_ms, "ptxas": res}
+        print(f"[blocks] {name:15s} 128x128 f32: kernel {ms:.4f} ms (device, back to back; "
+              f"samples {', '.join(f'{t[0]:.4f}' for t in samples)}; host enqueue "
+              f"{samples[0][1]:.4f} ms a call, spin covered {all(t[2] for t in samples)}) vs "
+              f"plain {plain_ms:.4f} | {res.get('registers')} registers, {res.get('stack')} "
+              f"bytes stack, spill stores {res.get('spill_stores')} / loads "
+              f"{res.get('spill_loads')} bytes (nvcc.log) | {card}", flush=True)
+    return times
 
 
 _SOLVER_COUNTS = (pallas_matmul, blocked._chol_inv128, onelaunch._lu_inv128,
@@ -582,36 +643,102 @@ def phase_solver_main(dev) -> dict:
               f"max-abs {abs_err:.3e} (tol 1e-5) {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             failures.append(name)
+    bad = a.clone()
+    r = n // 2 + 40
+    bad[r, r] = -1.0   # not SPD from row r on: the block of row r fails
+    infos = [int(dense._finite_info(f(bad), diag_only=True))
+             for f in (onelaunch.potrf_onelaunch, onelaunch._potrf_onelaunch_plain)]
+    ok = 0 < infos[0] <= r + 1 and infos[0] == infos[1]
+    print(f"[solver] potrf not SPD from row {r}: info kernel {infos[0]} plain {infos[1]} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append("potrf non-SPD info")
     if failures:
         raise SystemExit(f"chip_smoke: solver main path failed: {failures}")
-    return {"launches": launches, "max_abs_err": max_abs, "a": a, "ag": ag, "routes": routes}
+    per_call = {"potrf": grew["potrf_onelaunch(a)"], "getrf": grew["getrf_onelaunch(a)"]}
+    return {"launches": launches, "max_abs_err": max_abs, "a": a, "ag": ag, "routes": routes,
+            "per_call": per_call}
+
+
+def _potrf_left_looking(a):
+    """The Cholesky in the reference's left-looking order, which
+    potrf_onelaunch does not take, on the same kernels: 256-wide panels,
+    each updated from all panels left of it by one B1 product (a narrow
+    (n − s, 256) output, K = s), then its two 128-blocks factored, their
+    trsm and the in-panel update. n³/3 flops against the right-looking
+    2n³/3; phase 8 times the two."""
+    n = a.shape[0]
+    out = a.to(F32).clone(memory_format=torch.contiguous_format)
+    with torch.cuda.device(a.device):
+        for s0 in range(0, n, 256):
+            p1 = s0 + 256
+            if s0:   # A[s0:, strip] -= L[s0:, :s0] · L[strip, :s0]^T
+                strip = out[s0:, s0:p1]
+                gemm._matmul_into(strip, out[s0:, :s0], out[s0:p1, :s0].mT, strip,
+                                  alpha=-1.0, beta=1.0)
+            for j0 in (s0, s0 + 128):
+                j1 = j0 + 128
+                l, w = blocked._chol_inv128(out[j0:j1, j0:j1])
+                out[j0:j1, j0:j1] = l
+                if j1 < n:   # trsm, through a fresh output: D may not overlap A
+                    out[j1:, j0:j1] = pallas_matmul(out[j1:, j0:j1], w.mT)
+                if j1 < p1:  # in-panel update of the strip's second block column
+                    out[j0:j1, j1:p1] = 0.0
+                    rest = out[j1:, j1:p1]
+                    gemm._matmul_into(rest, out[j1:, j0:j1], out[j1:p1, j0:j1].mT, rest,
+                                      alpha=-1.0, beta=1.0)
+            out[:s0, s0:p1] = 0.0
+    return out
 
 
 def phase_solver_times(solver: dict, card: str) -> dict:
+    """8. Each factorization's kernel route, plain version and vendor route:
+    CUDA events around one call after a synchronise (the time a caller
+    sees, the host's enqueue included); then each kernel route's device
+    time with the host out of the way (``_queued_ms``), its host enqueue
+    time a call (no synchronise), and the device's idle share of the call,
+    1 − device / events; the same schedules with every block in order on
+    one stream (no look-ahead); and the left-looking potrf, the schedule
+    not taken, against the plain version and timed the same ways."""
     n = SOLVER_N
     a, ag = solver["a"], solver["ag"]
+    left = _potrf_left_looking(a)
+    torch.cuda.synchronize()
+    err = max_scaled_err(left, onelaunch._potrf_onelaunch_plain(a))
+    print(f"[solver-times] left-looking potrf vs plain: max-scaled {err:.3e} (tol 1e-5) "
+          f"{'ok' if err <= 1e-5 else 'FAIL'}", flush=True)
+    if err > 1e-5:
+        raise SystemExit("chip_smoke: the left-looking potrf disagrees with the plain version")
     runs = {
         "potrf kernel": lambda: onelaunch.potrf_onelaunch(a),
+        "potrf in order": lambda: onelaunch._potrf(a, onelaunch._KernelOps(
+            a.device, "tml_chol_inv_block", blocked._chol_inv128, ahead=False)),
+        "potrf left-looking": lambda: _potrf_left_looking(a),
         "potrf plain": lambda: onelaunch._potrf_onelaunch_plain(a),
         "potrf vendor": lambda: torch.linalg.cholesky(a),
         "getrf kernel": lambda: onelaunch.getrf_onelaunch(ag),
+        "getrf in order": lambda: onelaunch._getrf(ag, onelaunch._KernelOps(
+            ag.device, "tml_lu_inv_block", onelaunch._lu_inv128, ahead=False)),
         "getrf plain": lambda: onelaunch._getrf_onelaunch_plain(ag),
         "getrf vendor": lambda: torch.linalg.lu_factor_ex(ag, pivot=False),
     }
     ms = _median_ms(runs, warmup=1, iters=5)
     for name, t in ms.items():
         flop = (n**3 / 3 if name.startswith("potrf") else 2 * n**3 / 3)
-        print(f"[solver-times] {name:13s} n={n} f32: {t:.4f} ms = {flop / t / 1e6:.1f} GFLOP/s "
-              f"| {card}", flush=True)
-    blk_spd, blk_dom = a[:128, :128].contiguous(), ag[:128, :128].contiguous()
-    blocks = {
-        "chol_inv_block kernel": lambda: blocked._chol_inv128(blk_spd),
-        "chol_inv_block plain": lambda: blocked._chol_inv128_plain(blk_spd),
-        "lu_inv_block kernel": lambda: onelaunch._lu_inv128(blk_dom),
-        "lu_inv_block plain": lambda: onelaunch._lu_inv128_plain(blk_dom),
-    }
-    for name, t in _median_ms(blocks, warmup=2, iters=10).items():
-        print(f"[solver-times] {name:22s} 128x128 f32: {t:.4f} ms | {card}", flush=True)
+        print(f"[solver-times] {name:18s} n={n} f32: {t:.4f} ms = {flop / t / 1e6:.1f} GFLOP/s "
+              f"(CUDA events around a call) | {card}", flush=True)
+    for name in ("potrf kernel", "potrf in order", "potrf left-looking", "getrf kernel",
+                 "getrf in order"):
+        samples = [_queued_ms(runs[name], 3) for _ in range(3)]
+        dev_ms = float(np.median([t[0] for t in samples]))
+        host_ms = float(np.median([t[1] for t in samples]))
+        ms[f"{name} device"], ms[f"{name} host"] = dev_ms, host_ms
+        ms[f"{name} idle"] = 1.0 - dev_ms / ms[name]
+        print(f"[solver-times] {name:18s} device {dev_ms:.4f} ms (back to back behind a spin; "
+              f"samples {', '.join(f'{t[0]:.4f}' for t in samples)}, spin covered "
+              f"{all(t[2] for t in samples)}) | host enqueue {host_ms:.4f} ms a call (no "
+              f"synchronise) | device idle share of a call {ms[f'{name} idle']:.3f} | {card}",
+              flush=True)
     for name, route in solver["routes"].items():
         print(f"[solver-times] wall {name:24s} {_wall_ms(route, 3):.4f} ms per call "
               f"(host clock, 3 calls) | {card}", flush=True)
@@ -767,6 +894,10 @@ def phase_qr_times(qrd: dict, card: str) -> dict:
         "orgqr plain": lambda: qr._orgqr_onelaunch_plain(vr, t),
     }
     ms = _median_ms(runs, warmup=1, iters=3)
+    dev_ms, host_ms, covered = _queued_ms(runs["geqrf kernel"], 2)
+    print(f"[qr-times] geqrf kernel device {dev_ms:.4f} ms (back to back behind a spin, spin "
+          f"covered {covered}) | host enqueue {host_ms:.4f} ms a call (no synchronise) | {card}",
+          flush=True)
     for name, tm in ms.items():
         flop = 8 * n**3 / 3 if name.startswith("qr") else 4 * n**3 / 3
         print(f"[qr-times] {name:12s} n={n} f32: {tm:.4f} ms = {flop / tm / 1e6:.1f} GFLOP/s "
@@ -3719,6 +3850,10 @@ def phase_four_step_times(run: dict, card: str) -> dict:
                        warmup=2, reps=3, samples=5))
     ms.update(_loop_ms({"blocked plain": lambda: blocked._potrf_blocked_plain(a, BLOCKED_PANEL)},
                        warmup=1, reps=1, samples=2))
+    dev_ms, host_ms, covered = _queued_ms(lambda: blocked.potrf_blocked(a, BLOCKED_PANEL), 3)
+    print(f"[four-step-times] blocked kernel device {dev_ms:.4f} ms (back to back behind a spin, "
+          f"spin covered {covered}) | host enqueue {host_ms:.4f} ms a call (no synchronise) | "
+          f"{card}", flush=True)
     bounds["blocked"] = _four_step_bound("blocked")
     for route, t in ms.items():
         own = ""
@@ -4140,7 +4275,7 @@ def main() -> None:
     phase_kernel(dev)
     main_run = phase_main_path(dev)
     ms = phase_times(main_run, card)
-    phase_blocks(dev)
+    block_ms = phase_blocks(dev, card)
     solver = phase_solver_main(dev)
     solver_ms = phase_solver_times(solver, card)
     phase_qr_blocks(dev)
@@ -4201,11 +4336,21 @@ def main() -> None:
         "plain_ms": solver_ms[f"{kind} plain"],
         **_bound(flop, PEAK_F32, solver_bytes),
         "library_ms": solver_ms[f"{kind} vendor"],
-    } for name, kind, block, replaces, flop in (
+        "gemm_launches": solver["per_call"][kind]["pallas_matmul"],
+        "device_ms": solver_ms[f"{kind} kernel device"],
+        "host_enqueue_ms": solver_ms[f"{kind} kernel host"],
+        "idle_share": solver_ms[f"{kind} kernel idle"],
+        **({"left_looking_ms": solver_ms["potrf left-looking"],
+            "left_looking_device_ms": solver_ms["potrf left-looking device"]}
+           if kind == "potrf" else {}),
+        "block_ms": block_ms[block_name]["ms"],
+        "block_plain_ms": block_ms[block_name]["plain_ms"],
+        "block_ptxas": block_ms[block_name]["ptxas"],
+    } for name, kind, block, block_name, replaces, flop in (
         ("potrf_onelaunch (chol_inv_block + gemm_epilogue)", "potrf", "_chol_inv128",
-         "tpumathlib/solver/onelaunch.py:231", ns**3 / 3),
+         "chol_inv_block", "tpumathlib/solver/onelaunch.py:231", ns**3 / 3),
         ("getrf_onelaunch (lu_inv_block + gemm_epilogue)", "getrf", "_lu_inv128",
-         "tpumathlib/solver/onelaunch.py:481", 2 * ns**3 / 3))] + [{
+         "lu_inv_block", "tpumathlib/solver/onelaunch.py:481", 2 * ns**3 / 3))] + [{
         "name": name,
         "route": "cuda",
         "source": source,

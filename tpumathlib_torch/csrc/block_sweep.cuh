@@ -1,4 +1,5 @@
-// Shared pieces of the 128x128 block sweeps (dense_block.cu, qr_block.cu).
+// Shared pieces of the 128x128 block sweeps of qr_block.cu (dense_block.cu
+// keeps its tile in registers instead).
 //
 // One thread block of 1024 threads holds 128x128 f32 tiles in shared memory,
 // each row padded to 129 floats so that a column walk hits every bank once.

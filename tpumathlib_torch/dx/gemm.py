@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Sequence
 
 import torch
@@ -113,6 +114,69 @@ def _pallas_matmul_plain(a, b, c=None, bias=None, *, out_dtype, epilogue: str = 
     d, aux = apply_epilogue(acc, epilogue, bb)
     d = d.to(out_dtype)
     return (d, aux) if return_aux else d
+
+
+def _matmul_into_plain(d, a, b, c=None, *, alpha: float = 1.0, beta: float = 0.0):
+    """``_matmul_into``'s plain version: the same f32 math by torch.matmul."""
+    return d.copy_(_pallas_matmul_plain(a, b, c, out_dtype=torch.float32, alpha=alpha,
+                                        beta=beta))
+
+
+@functools.lru_cache(maxsize=None)
+def _config_id(m: int, n: int, k: int) -> int:
+    return _CONFIGS.index(_pick_config(m, n, k))
+
+
+class _Into:
+    """Launches of the kernel with D = alpha·A@B + beta·C written in place,
+    all f32, the operands given as (address, row stride, column stride) in
+    elements: for host loops that issue many products into one matrix (the
+    blocked factorizations of ``solver.onelaunch``, some 120 a call), so a
+    launch allocates nothing and looks up the library, its stride array and
+    the tile config once. D needs unit column stride; C may be D itself,
+    since the thread that writes an element of D is the one that read it
+    from C; A and B must not overlap D."""
+
+    def __init__(self):
+        self.lib = cuda_utils.load_kernels()
+        self.strides = (ctypes.c_int64 * 11)()   # read by the entry point before it returns
+
+    def __call__(self, stream: int, m: int, n: int, k: int, d, a, b, c=None, *,
+                 alpha: float = 1.0, beta: float = 0.0):
+        st = self.strides
+        st[1], st[2], st[4], st[5], st[10] = a[1], a[2], b[1], b[2], d[1]
+        st[7], st[8] = (c[1], c[2]) if c is not None else (0, 0)
+        rc = self.lib.tml_gemm_epilogue(
+            a[0], b[0], None if c is None else c[0], None, d[0], None, 1, m, n, k, st,
+            alpha, beta, 0, 0, 0, 0, _config_id(m, n, k), stream)
+        cuda_utils.check_launch(self.lib, rc, "gemm_epilogue")
+        pallas_matmul.launches += 1
+
+
+def _operand(t):
+    return t.data_ptr(), t.stride(0), t.stride(1)
+
+
+def _matmul_into(d, a, b, c=None, *, alpha: float = 1.0, beta: float = 0.0):
+    """D = alpha·A@B + beta·C in f32, written into ``d`` (a 2-D f32 view
+    with unit column stride) by one launch of the kernel, with no allocation
+    and no copy; A, B and C are 2-D f32 tensors, and aliasing is as for
+    ``_Into``."""
+    if not on_cuda(d, a, b, c):
+        return _matmul_into_plain(d, a, b, c, alpha=alpha, beta=beta)
+    m, k = a.shape
+    n = b.shape[1]
+    f32 = torch.float32
+    check(d.dtype == a.dtype == b.dtype == f32 and (c is None or c.dtype == f32)
+          and b.shape[0] == k and d.shape == (m, n) and d.stride(1) == 1
+          and (c is None or c.shape == (m, n)),
+          f"f32 operands {tuple(a.shape)} @ {tuple(b.shape)} into {tuple(d.shape)} "
+          f"with unit column stride")
+    with torch.cuda.device(d.device):
+        _Into()(torch.cuda.current_stream(d.device).cuda_stream, m, n, k, _operand(d),
+                _operand(a), _operand(b), None if c is None else _operand(c),
+                alpha=alpha, beta=beta)
+    return d
 
 
 def pallas_matmul(

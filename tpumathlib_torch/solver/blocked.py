@@ -4,8 +4,9 @@ inverse sweep of the blocked factorizations.
 Counterpart of ``tpumathlib/solver/blocked.py``: ``_chol_inv128`` (``:96``)
 and ``potrf_blocked`` (``:203``, panel kernel ``_panel_kernel`` ``:128``).
 On CUDA tensors ``_chol_inv128`` launches ``tml_chol_inv_block``
-(``csrc/dense_block.cu``); on CPU tensors it takes ``_chol_inv128_plain``,
-the same sweep as a torch loop.
+(``csrc/dense_block.cu``, which reaches the same factors in its own order);
+on CPU tensors it takes ``_chol_inv128_plain``, the reference's sweep as a
+torch loop.
 
 The reference's panel kernel holds an (m, p) panel in VMEM and does, per
 128-column block, the sweep, the trsm ``L21 = A21·inv(L11)ᵀ`` and the
@@ -37,7 +38,7 @@ def _check_block(d) -> None:
 
 
 def _chol_inv128_plain(d):
-    """(L, W = inv(L)) of an SPD (128, 128) block: the kernel's sweep in torch.
+    """(L, W = inv(L)) of an SPD (128, 128) block: the reference's sweep in torch.
 
     Step j scales by rs = 1/sqrt(d[j, j]) (NaN for a negative pivot), updates
     the trailing block, and carries the inverse in ``r`` (W[i] = r[i]·rs_i).
@@ -75,7 +76,8 @@ def _launch_block(entry: str, a, outs: int, extra=()) -> list:
 
 def _chol_inv128(d):
     """Fused Cholesky + inverse of a (128, 128) f32 SPD block: (L, inv(L)),
-    L lower with its strict upper triangle exactly 0."""
+    L lower with its strict upper triangle exactly 0. ``d`` is symmetric:
+    the kernel reads its lower triangle, the plain version both."""
     _check_block(d)
     if not on_cuda(d):
         return _chol_inv128_plain(d)
