@@ -8,19 +8,37 @@ Run from the repository root, with no arguments:
 Phases; any failure raises and the exit code is non-zero:
 1. device — needs a CUDA card of compute capability 9.0; prints its name and
    power limit (nvidia-smi); f32 matmuls must not use TF32.
-2. build  — compiles tpumathlib_torch/csrc into build/tpumathlib_torch/.
-3. kernel — the GEMM kernel against its plain PyTorch version on the card:
-   every operand/output dtype pair under all ten epilogues, alpha/beta with
-   C, a batch with broadcast B and C, a transposed operand, ragged edges
-   under each compiled tile config, and the entry point at 256^3 against a
-   float64 host reference.
+2. build  — compiles tpumathlib_torch/csrc into build/tpumathlib_torch/,
+   and beside it, in parallel, csrc/gemm_wgmma.cu alone with its timer
+   stamps (-DTML_GEMM_STAMPS); both GEMM routes' compiled config tables
+   must equal dx/gemm.py's.
+3. kernel — B1's two kernels against their plain PyTorch version on the
+   card, each call checked for the route it must launch: every
+   operand/output dtype pair under all ten epilogues (bf16 and f16 operands
+   twice on fresh inputs through the tensor-core kernel, csrc/gemm_wgmma.cu,
+   and once through the SIMT kernel, csrc/gemm_epilogue.cu, by an explicit
+   config), alpha/beta with C, a batch with broadcast B and C, a transposed
+   operand; the tensor-core kernel at TMA's edges ((257, 264, 72) and
+   (4095, 4104, 4096), transposed A and B views, a broadcast-B batch, f32
+   and f16 D, aux, C in bf16, each epilogue), a misaligned view that must
+   take SIMT; ragged edges under each compiled tile config, and the entry
+   point at 256^3 against a float64 host reference.
 4. main path — 4096^3 bf16 with the bias+GELU epilogue through entry(),
-   lt.matmul(Algo("pallas")) and level3.gemm(backend="pallas"): the
-   kernel's launch count must grow on each; the default Algo("auto") route
-   (the vendor path) must agree too.
-5. times — CUDA events, 3 warm-ups, median of 20 runs (twice, in turns):
-   the kernel, its plain version and the vendor route at the main path's
-   shape; then each route of phase 4 on the host clock, end to end.
+   lt.matmul(Algo("pallas")) and level3.gemm(backend="pallas"): each must
+   launch the tensor-core kernel once (its own count, and no SIMT launch);
+   the default Algo("auto") route (the vendor path) must agree too.
+5. times — CUDA events, 3 warm-ups, twice in turns:
+   the kernel, the same call on the SIMT route, its plain version, the
+   vendor route and torch._addmm_activation (checked against the plain
+   version first) at the main path's shape, and the epilogue-free product
+   beside torch.matmul, each alone after a synchronise (20 calls: B1's
+   earlier measure, host launch included) and over 20 back-to-back calls
+   (5 samples); both tensor-core tile configs at (1024, 2048, 4096), where
+   128x256 tiles leave SMs idle; the stamped build's split of a tile's time
+   (prologue, main loop, epilogue, the gap between blocks on an SM) at the
+   main path's shape, with and without the epilogue; the tensor-core
+   kernels' registers, shared memory and spills from nvcc.log (none may
+   spill); then each route of phase 4 on the host clock, end to end.
 6. block kernels — the two 128x128 sweeps of csrc/dense_block.cu against
    their plain versions: Cholesky + inverse on SPD input, LU + both inverses
    on barely dominant and SPD input, and a non-SPD block that must give
@@ -29,7 +47,7 @@ Phases; any failure raises and the exit code is non-zero:
 7. solver main path — n=4096 f32 through xpotrf(a), xpotrf(a, "U"),
    potrf_onelaunch(a), xgetrf(a, pivot=False) and getrf_onelaunch(a): each
    must grow its driver's count by 1, its block kernel's and the GEMM
-   kernel's (printed: the launches of each call); the factor is held against
+   kernel's, all on B1's SIMT route (printed: the launches of each call); the factor is held against
    a float64 factor (potrf) or the residual L·U − A (getrf), with info == 0,
    and against the plain version; a matrix that stops being SPD at row
    2088 must give the same info through the kernel and the plain route.
@@ -210,6 +228,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import hashlib
 import importlib
 import itertools
 import json
@@ -220,6 +239,7 @@ import time
 import warnings
 
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -248,6 +268,12 @@ qr = importlib.import_module("tpumathlib_torch.solver.qr_onelaunch")  # the pack
 
 F32, BF16, F16, I8 = torch.float32, torch.bfloat16, torch.float16, torch.int8
 MAIN = (4096, 4096, 4096)  # (M, N, K) of the bench headline
+# B1's two kernels, each with its own launch count (pallas_matmul.launches is their sum)
+ROUTE_COUNTS = {"wgmma": gemm._gemm_wgmma, "simt": gemm._gemm_simt}
+TC_EDGES = ((257, 264, 72), (4095, 4104, 4096))   # (M, N, K): TMA's ragged edges, aligned rows
+TC_SMALL = (1024, 2048, 4096)   # (M, N, K): 64 tiles of 128x256 on 132 SMs, 128 of 128x128
+# csrc/gemm_wgmma.cu built alone with its timer stamps (phase 2), for phase 5
+STAMPED = {"lib": None}
 SOLVER_N = 4096            # the factorizations' bench size
 
 
@@ -272,17 +298,42 @@ def phase_device() -> tuple[torch.device, str]:
     return torch.device("cuda", 0), card
 
 
+def _start_stamped_build():
+    """nvcc of csrc/gemm_wgmma.cu alone with -DTML_GEMM_STAMPS into its own
+    library beside the main one; returns (process or None where built, path)."""
+    src = cuda_utils.CSRC / "gemm_wgmma.cu"
+    flags = (*cuda_utils.NVCC_FLAGS, "-DTML_GEMM_STAMPS", "-shared")
+    tag = hashlib.sha256(" ".join(flags).encode() + src.read_bytes()).hexdigest()[:16]
+    lib = cuda_utils.BUILD_ROOT / f"stamps-{tag}" / "libtml_gemm_stamps.so"
+    if lib.exists():
+        return None, lib
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    cmd = [cuda_utils._nvcc(), *flags, "-o", str(lib), str(src)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
+    stamped, stamped_lib = _start_stamped_build()
     lib = cuda_utils.load_kernels()
     secs = time.perf_counter() - t0
-    buf = (ctypes.c_int * 30)()
-    count = lib.tml_gemm_configs(buf, 10)
-    compiled = [gemm.MatmulConfig(*buf[3 * i:3 * i + 3]) for i in range(min(count, 10))]
-    if tuple(compiled) != tuple(gemm.default_configs()):
-        raise SystemExit(f"chip_smoke: compiled configs {compiled} differ from "
-                         f"dx/gemm.py's {gemm.default_configs()}")
-    print(f"[build] tpumathlib_torch/csrc -> {cuda_utils.build_kernels()} in {secs:.1f} s",
+    if stamped is not None:
+        out = stamped.communicate()[0]
+        if stamped.returncode != 0:
+            raise SystemExit(f"chip_smoke: the stamped build of gemm_wgmma.cu failed:\n{out}")
+    STAMPED["lib"] = stamped_lib
+    for what, table, fn, width in (
+            ("SIMT", gemm._CONFIGS, lib.tml_gemm_configs, 3),
+            ("tensor-core", gemm._TC_CONFIGS, lib.tml_gemm_wgmma_configs, 4)):
+        buf = (ctypes.c_int * (10 * width))()
+        count = fn(buf, 10)
+        compiled = [tuple(buf[width * i:width * i + width]) for i in range(min(count, 10))]
+        want = [(c.bm, c.bn, c.bk, c.stages)[:width] for c in table]
+        if compiled != want:
+            raise SystemExit(f"chip_smoke: compiled {what} configs {compiled} differ from "
+                             f"dx/gemm.py's {want}")
+    print(f"[build] tpumathlib_torch/csrc -> {cuda_utils.build_kernels()} in {secs:.1f} s; "
+          f"the stamped gemm_wgmma.cu beside it, {time.perf_counter() - t0:.1f} s in all",
           flush=True)
 
 
@@ -310,8 +361,14 @@ class Checker:
                                  f"(finite={finite}, shape {tuple(got.shape)} vs "
                                  f"{tuple(want.shape)})")
 
-    def run(self, group: str, case: str, args, kw, tol_d: float, tol_aux: float = 1e-5):
+    def run(self, group: str, case: str, args, kw, tol_d: float, tol_aux: float = 1e-5,
+            route: str | None = None):
+        """``route``: "wgmma" or "simt", the kernel the call must launch once."""
+        before = {f: f.launches for f in ROUTE_COUNTS.values()}
         got = pallas_matmul(*args, **kw)
+        grew = {name: f.launches - before[f] for name, f in ROUTE_COUNTS.items()}
+        if route is not None and grew != {name: int(name == route) for name in ROUTE_COUNTS}:
+            self.failures.append(f"{case}: launches {grew}, wanted one of {route}")
         plain_kw = {k: v for k, v in kw.items() if k != "config"}
         plain_kw.setdefault("out_dtype", args[0].dtype)
         want = _pallas_matmul_plain(*args, **plain_kw)
@@ -328,22 +385,32 @@ def phase_kernel(dev) -> Checker:
     core.check.allclose): f32 output 1e-5 (the same f32 products, summed in
     another order); bf16/f16 output 1e-2 (one output ulp apart where the two
     f32 sums round differently); int8 operands with f32 output and no GELU
-    exact, since integer sums below 2^24 are exact in f32."""
+    exact, since integer sums below 2^24 are exact in f32. bf16 and f16
+    operands run through the tensor-core route (csrc/gemm_wgmma.cu) twice,
+    on fresh inputs each time (a stage released early would show as an error
+    that depends on the data and the timing), and once through the SIMT
+    route by an explicit config; each call must launch its route's kernel
+    once."""
     gen = torch.Generator(device=dev).manual_seed(1234)
     chk = Checker()
+    simt_cfg = gemm._CONFIGS[0]
     m, n, k = 200, 136, 264
     for ab in (F32, BF16, F16, I8):
-        a, b = _operand(gen, (m, k), ab, dev), _operand(gen, (k, n), ab, dev)
-        bias = torch.randn((n,), generator=gen, device=dev)
+        tc = ab in (BF16, F16)
         for out in (F32, BF16, F16):
             group = f"{str(ab)[6:]}->{str(out)[6:]}"
             for epi in gemm._EPILOGUES:
                 exact = ab == I8 and out == F32 and "gelu" not in epi
                 tol = 0.0 if exact else (1e-5 if out == F32 else 1e-2)
-                kw = dict(bias=bias if "bias" in epi else None, epilogue=epi,
-                          out_dtype=out, return_aux="aux" in epi)
-                chk.run(group, f"{group} {epi} {m}x{n}x{k}", (a, b), kw, tol,
-                        tol_aux=0.0 if ab == I8 else 1e-5)
+                for rep, route in ((0, "wgmma"), (1, "wgmma"), (2, "simt")) if tc else ((0, "simt"),):
+                    a, b = _operand(gen, (m, k), ab, dev), _operand(gen, (k, n), ab, dev)
+                    bias = torch.randn((n,), generator=gen, device=dev)
+                    kw = dict(bias=bias if "bias" in epi else None, epilogue=epi,
+                              out_dtype=out, return_aux="aux" in epi)
+                    if route == "simt" and tc:
+                        kw["config"] = simt_cfg
+                    chk.run(f"{group} {route}", f"{group} {epi} {m}x{n}x{k} {route} #{rep}",
+                            (a, b), kw, tol, tol_aux=0.0 if ab == I8 else 1e-5, route=route)
 
     # alpha/beta with C, for C in f32 and bf16
     a, b = _operand(gen, (m, k), F32, dev), _operand(gen, (k, n), F32, dev)
@@ -352,28 +419,79 @@ def phase_kernel(dev) -> Checker:
         c = _operand(gen, (m, n), cdt, dev)
         chk.run("alpha/beta/C", f"alpha=1.5 beta=-0.5 C={cdt}", (a, b, c),
                 dict(bias=bias, epilogue="gelu_bias", alpha=1.5, beta=-0.5,
-                     out_dtype=F32), 1e-5)
+                     out_dtype=F32), 1e-5, route="simt")
 
-    # batch of 3 with B and C broadcast (stride 0), and a transposed A view
+    # batch of 3 with B and C broadcast (stride 0), and a transposed A view;
+    # 70-wide rows of B are not 16-byte multiples, so this batch takes SIMT
     a3 = _operand(gen, (3, 130, 96), BF16, dev)
     b1 = _operand(gen, (96, 70), BF16, dev)
     c1 = _operand(gen, (130, 70), F32, dev)
     chk.run("batched", "batch 3, broadcast B and C", (a3, b1.expand(3, 96, 70), c1),
-            dict(beta=0.25, epilogue="relu", out_dtype=BF16), 1e-2)
+            dict(beta=0.25, epilogue="relu", out_dtype=BF16), 1e-2, route="simt")
     at = _operand(gen, (k, m), F32, dev).mT
-    chk.run("strided", "transposed A view", (at, b), dict(out_dtype=F32), 1e-5)
+    chk.run("strided", "transposed A view", (at, b), dict(out_dtype=F32), 1e-5, route="simt")
 
-    # ragged (100, 50, 70) and (257, 129, 65) under each compiled config
-    for cfg in gemm.default_configs():
+    # the tensor-core route at TMA's edges: ragged M, N and K with 16-byte
+    # rows, transposed views of A and of B, a broadcast-B batch of 3, f32
+    # and f16 D, aux, C in bf16, each epilogue; twice each on fresh inputs
+    for (mm, nn, kk) in TC_EDGES:
+        for rep in range(2):
+            for ab, out, epi in ((BF16, BF16, "gelu_bias"), (F16, F32, "relu_aux_bias"),
+                                 (BF16, F16, "gelu_aux")):
+                a, b = _operand(gen, (mm, kk), ab, dev), _operand(gen, (kk, nn), ab, dev)
+                bias = torch.randn((nn,), generator=gen, device=dev)
+                chk.run("tc edges", f"{mm}x{nn}x{kk} {ab} {epi} -> {out} #{rep}", (a, b),
+                        dict(bias=bias, epilogue=epi, out_dtype=out, return_aux="aux" in epi),
+                        1e-5 if out == F32 else 1e-2, route="wgmma")
+    mm, nn, kk = 264, 136, 72   # a transposed view's leading dimension is M or N: 16-byte multiples
+    for epi in gemm._EPILOGUES:
+        for rep in range(2):
+            at = _operand(gen, (kk, mm), BF16, dev).mT        # A column-major
+            bt = _operand(gen, (nn, kk), BF16, dev).mT        # B column-major
+            c = _operand(gen, (mm, nn), BF16, dev)
+            bias = torch.randn((nn,), generator=gen, device=dev)
+            chk.run("tc views", f"A^T B^T C bf16 {epi} -> f32 #{rep}", (at, bt, c),
+                    dict(bias=bias if "bias" in epi else None, epilogue=epi, alpha=0.75,
+                         beta=-0.5, out_dtype=F32, return_aux="aux" in epi), 1e-5,
+                    route="wgmma")
+    for rep in range(2):
+        a3 = _operand(gen, (3, 130, 96), BF16, dev)
+        b1 = _operand(gen, (96, 72), BF16, dev)
+        c1 = _operand(gen, (130, 72), BF16, dev)
+        chk.run("tc batched", f"batch 3, broadcast B, C bf16 #{rep}",
+                (a3, b1.expand(3, 96, 72), c1), dict(beta=0.25, epilogue="gelu", out_dtype=F32),
+                1e-5, route="wgmma")
+        a = _operand(gen, (mm, kk), BF16, dev)
+        chk.run("tc views", f"A bf16, B^T, f16 D #{rep}",
+                (a, _operand(gen, (nn, kk), BF16, dev).mT), dict(out_dtype=F16), 1e-2,
+                route="wgmma")
+    # a misaligned view (its base 2 bytes past 16) must take the SIMT route
+    mm, nn, kk = TC_EDGES[0]
+    flat = _operand(gen, (mm * kk + 1,), BF16, dev)
+    chk.run("tc refused", "misaligned bf16 A view -> SIMT", (flat[1:].view(mm, kk),
+            _operand(gen, (kk, nn), BF16, dev)), dict(out_dtype=F32), 1e-5, route="simt")
+
+    # ragged (100, 50, 70) and (257, 129, 65) under each SIMT config, and
+    # TC_EDGES[0] and (100, 136, 64) under each tensor-core config
+    for cfg in gemm.default_configs(F32):
         for (mm, nn, kk) in ((100, 50, 70), (257, 129, 65)):
             for ab in (F32, BF16):
                 a, b = _operand(gen, (mm, kk), ab, dev), _operand(gen, (kk, nn), ab, dev)
                 chk.run("ragged/config", f"{cfg} {mm}x{nn}x{kk} {ab}", (a, b),
-                        dict(config=cfg, out_dtype=F32), 1e-5)
+                        dict(config=cfg, out_dtype=F32), 1e-5, route="simt")
+    for cfg in gemm.default_configs(BF16):
+        for (mm, nn, kk) in (TC_EDGES[0], (100, 136, 64)):
+            for ab in (BF16, F16):
+                a, b = _operand(gen, (mm, kk), ab, dev), _operand(gen, (kk, nn), ab, dev)
+                chk.run("ragged/config", f"{cfg} {mm}x{nn}x{kk} {ab}", (a, b),
+                        dict(config=cfg, out_dtype=F32), 1e-5, route="wgmma")
 
     # the entry point at 256^3 against a float64 host reference
     fn, args = entry(dev, 256, 256, 256)
+    before = gemm._gemm_wgmma.launches
     got = fn(*args)
+    if gemm._gemm_wgmma.launches != before + 1:
+        chk.failures.append("entry 256^3 did not launch the tensor-core kernel once")
     a64, b64, bias64 = (to_numpy(t).astype(np.float64) for t in args)
     pre = a64 @ b64 + bias64
     want = 0.5 * pre * (1 + np.tanh(np.sqrt(2 / np.pi) * (pre + 0.044715 * pre**3)))
@@ -381,7 +499,7 @@ def phase_kernel(dev) -> Checker:
                 torch.from_numpy(want), 1e-2)
 
     for group, err in chk.worst.items():
-        print(f"[kernel] {group:24s} worst max-scaled err {err:.3e}", flush=True)
+        print(f"[kernel] {group:28s} worst max-scaled err {err:.3e}", flush=True)
     for f in chk.failures:
         print(f"[kernel] FAIL {f}", flush=True)
     if chk.failures:
@@ -403,15 +521,18 @@ def phase_main_path(dev) -> dict:
         "level3.gemm(backend='pallas')": lambda: level3.gemm(1.0, a, b, backend="pallas"),
         "lt.matmul(Algo('auto'))": lambda: lt.matmul(desc, a, b, bias=bias, out_dtype=BF16),
     }
+    counts = (pallas_matmul, *ROUTE_COUNTS.values())
     torch.cuda.synchronize()
-    pallas_matmul.launches = 0
+    for f in counts:
+        f.launches = 0
     outs, grew = {}, {}
     for name, route in routes.items():
-        before = pallas_matmul.launches
+        before = {f.__name__: f.launches for f in counts}
         outs[name] = route()
-        grew[name] = pallas_matmul.launches - before
+        grew[name] = {f.__name__: f.launches - before[f.__name__] for f in counts}
     torch.cuda.synchronize()
-    launches = pallas_matmul.launches
+    launches = {f.__name__: f.launches for f in counts}
+    print(f"[main] launches in the main path: {launches}", flush=True)
 
     want_epi = _pallas_matmul_plain(a, b, None, bias, out_dtype=BF16, epilogue="gelu_bias")
     want_l3 = _pallas_matmul_plain(a, b, out_dtype=BF16)
@@ -423,15 +544,17 @@ def phase_main_path(dev) -> dict:
         abs_err = max_abs_rel(out, wants[name])[0]
         finite = bool(torch.isfinite(out.float()).all())
         ok = err <= 1e-2 and finite and out.shape == (m, n) and out.dtype == BF16
-        print(f"[main] {name:30s} launches +{grew[name]} | {tuple(out.shape)} {out.dtype} "
-              f"finite={finite} | vs plain: max-scaled {err:.3e} max-abs {abs_err:.3e} "
-              f"(tol 1e-2) {'ok' if ok else 'FAIL'}", flush=True)
+        g = grew[name]
+        print(f"[main] {name:30s} launches wgmma +{g['_gemm_wgmma']} simt +{g['_gemm_simt']} | "
+              f"{tuple(out.shape)} {out.dtype} finite={finite} | vs plain: max-scaled "
+              f"{err:.3e} max-abs {abs_err:.3e} (tol 1e-2) {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             failures.append(name)
         if name != "lt.matmul(Algo('auto'))":
             max_abs = max(max_abs, abs_err)
-            if grew[name] < 1:
-                failures.append(f"{name} did not launch the kernel")
+            # bf16 operands in their own layout: the tensor-core kernel, once
+            if (g["_gemm_wgmma"], g["_gemm_simt"], g["pallas_matmul"]) != (1, 0, 1):
+                failures.append(f"{name} did not launch the tensor-core kernel once: {g}")
     if failures:
         raise SystemExit(f"chip_smoke: main path failed: {failures}")
     return {"launches": launches, "max_abs_err": max_abs, "args": args, "desc": desc,
@@ -458,27 +581,213 @@ def _wall_ms(route, calls: int) -> float:
 
 
 def phase_times(main: dict, card: str) -> dict:
+    """B1 at the main path's shape, in turns: the kernel (the tensor-core
+    route), the same call forced onto the SIMT route, its plain version, the
+    vendor route (cuBLAS, then the epilogue as torch ops) and one library
+    call, torch._addmm_activation (cuBLASLt's GELU_BIAS epilogue) after it
+    agrees with the plain version; then the epilogue-free product of
+    level3.gemm(backend="pallas") beside torch.matmul. Each is timed by CUDA
+    events around one call after a synchronise (``ms``: the measure of B1's
+    earlier times, the host's launch included) and around 20 back-to-back
+    calls (``loop``: device time, the host's launch cost overlapping the
+    work, as in a caller's stream); both tensor-core configs at TC_SMALL;
+    the stamped build's split of a tile's time; the tensor-core kernels'
+    registers, shared memory and spills from nvcc.log; each user route end
+    to end on the host clock."""
     m, n, k = MAIN
     a, b, bias = main["args"]
     desc = main["desc"]
+    plain = _pallas_matmul_plain(a, b, None, bias, out_dtype=BF16, epilogue="gelu_bias")
+    library = torch._addmm_activation(bias.to(BF16), a, b, use_gelu=True)
+    lib_err = max_scaled_err(library, plain)
+    lib_ok = lib_err <= 1e-2 and bool(torch.isfinite(library.float()).all())
+    print(f"[times] torch._addmm_activation(bias, a, b, use_gelu=True) vs plain: max-scaled "
+          f"{lib_err:.3e} (tol 1e-2) {'agrees' if lib_ok else 'DISAGREES: not a yardstick'}",
+          flush=True)
     runs = {
         "kernel": lambda: pallas_matmul(a, b, bias=bias, epilogue="gelu_bias",
                                         out_dtype=BF16),
+        "simt": lambda: pallas_matmul(a, b, bias=bias, epilogue="gelu_bias",
+                                      out_dtype=BF16, config=gemm._CONFIGS[0]),
         "plain": lambda: _pallas_matmul_plain(a, b, None, bias, out_dtype=BF16,
                                               epilogue="gelu_bias"),
         "vendor": lambda: lt.matmul(desc, a, b, bias=bias, algo=lt.Algo("xla"),
                                     out_dtype=BF16),
+        "library": lambda: torch._addmm_activation(bias.to(BF16), a, b, use_gelu=True),
+        "kernel no epilogue": lambda: level3.gemm(1.0, a, b, backend="pallas"),
+        "torch.matmul": lambda: torch.matmul(a, b),
     }
+    simt = runs["simt"]()
+    simt_err = max_scaled_err(simt, plain)
+    print(f"[times] the main path's call on the SIMT route vs plain: max-scaled {simt_err:.3e} "
+          f"(tol 1e-2)", flush=True)
+    if simt_err > 1e-2:
+        raise SystemExit("chip_smoke: the SIMT route disagrees at the main path's shape")
+    spread: dict = {}
     ms = _median_ms(runs, warmup=3, iters=20)
+    loop = _loop_ms(runs, warmup=3, reps=20, samples=5, spread=spread)
     flop = 2.0 * m * n * k
+    bound = _bound(flop, PEAK_BF16, 2 * (m * k + k * n + m * n) + 4 * n)["bound_ms"]
     for name, t in ms.items():
-        print(f"[times] {name:7s} {m}x{n}x{k} bf16 gelu+bias: {t:.4f} ms = "
-              f"{flop / t / 1e9:.2f} TFLOP/s | {card}", flush=True)
+        what = "bf16, no epilogue" if name in ("kernel no epilogue", "torch.matmul") else \
+            "bf16 gelu+bias"
+        tl = loop[name]
+        print(f"[times] {name:18s} {m}x{n}x{k} {what}: one call {t:.4f} ms = "
+              f"{flop / t / 1e9:.2f} TFLOP/s, {bound / t:.1%} of the {bound:.4f} ms bound; "
+              f"back to back {tl:.4f} ms (samples {spread[name][0]:.4f}-{spread[name][1]:.4f}) = "
+              f"{flop / tl / 1e9:.2f} TFLOP/s, {bound / tl:.1%} | {card}", flush=True)
+    ms["loop"] = loop
+    # the host out of the way: device time behind a spin, and the host's enqueue a call
+    ms["queued"] = {}
+    for name in ("kernel", "kernel no epilogue", "library", "torch.matmul"):
+        dev_ms, host_ms, covered = _queued_ms(runs[name], 20)
+        ms["queued"][name] = {"device_ms": dev_ms, "host_ms": host_ms, "covered": covered}
+        print(f"[times] {name:18s} device {dev_ms:.4f} ms a call (20 back to back behind a "
+              f"spin, covered {covered}) | host enqueue {host_ms:.4f} ms a call | {card}",
+              flush=True)
+    ms["small"] = _tile_configs(a.device, card)
+    ms["split"] = _tile_split(a, b, bias, plain, card)
+    ms["simt_max_abs_err"] = max_abs_rel(simt, plain)[0]
+    ms["library_agrees"] = lib_ok
+    for e in _ptxas_entries("gemm_wgmma_kernel"):
+        # the template arguments (type, BN, stages, transposes) name the config
+        (cfg,) = [c for c in gemm._TC_CONFIGS if f"Li{c.bn}ELi{c.stages}E" in e["entry"]]
+        args = e["entry"].split("gemm_wgmma_kernelI")[1].split("EEEv")[0]
+        print(f"[times] ptxas gemm_wgmma_kernel<{args}>: {e['registers']} registers, "
+              f"{e['smem']} bytes static + {cfg.smem_bytes()} dynamic shared memory, "
+              f"{e['spill_stores']} / {e['spill_loads']} bytes spilled", flush=True)
+        if e["spill_stores"] or e["spill_loads"]:
+            raise SystemExit(f"chip_smoke: {e['entry']} spills")
     # each user route end to end: host clock over 10 back-to-back calls
     for name, route in main["routes"].items():
         print(f"[times] wall {name:30s} {_wall_ms(route, 10):.4f} ms per call "
               f"(host clock, 10 calls) | {card}", flush=True)
     return ms
+
+
+def _tile_configs(dev, card: str) -> dict:
+    """Both tensor-core configs at TC_SMALL (bf16 gelu+bias, bf16 out), where
+    the rule picks 128x128: each against the plain version, then timed in
+    turns, one call after a synchronise and by its device time behind a
+    spin (at this size the host's enqueue outlasts the kernel, so back to
+    back calls time the host)."""
+    m, n, k = TC_SMALL
+    gen = torch.Generator(device=dev).manual_seed(15)
+    a, b = _operand(gen, (m, k), BF16, dev), _operand(gen, (k, n), BF16, dev)
+    bias = torch.randn((n,), generator=gen, device=dev)
+    picked = gemm._pick(gemm._TC_CONFIGS, m, n, k, 1)
+    plain = _pallas_matmul_plain(a, b, None, bias, out_dtype=BF16, epilogue="gelu_bias")
+    runs = {f"{c.bm}x{c.bn}": (lambda c=c: pallas_matmul(a, b, bias=bias, epilogue="gelu_bias",
+                                                         out_dtype=BF16, config=c))
+            for c in gemm._TC_CONFIGS}
+    for name, run in runs.items():
+        err = max_scaled_err(run(), plain)
+        if err > 1e-2:
+            raise SystemExit(f"chip_smoke: tile config {name} disagrees at {TC_SMALL}: {err:.3e}")
+    ms = _median_ms(runs, warmup=3, iters=20)
+    queued: dict[str, list] = {name: [] for name in runs}
+    for name in list(runs) + list(reversed(runs)):
+        queued[name].append(_queued_ms(runs[name], 20))
+    device = {name: float(np.mean([q[0] for q in qs])) for name, qs in queued.items()}
+    flop = 2.0 * m * n * k
+    for name in runs:
+        tiles = math.ceil(m / 128) * math.ceil(n / int(name.split("x")[1]))
+        qs = queued[name]
+        print(f"[times] tile config {name}{' (picked)' if name == f'{picked.bm}x{picked.bn}' else ''}"
+              f" at {m}x{n}x{k} bf16 gelu+bias, {tiles} tiles on 132 SMs: device "
+              f"{device[name]:.4f} ms a call (behind a spin, turns {qs[0][0]:.4f}, {qs[1][0]:.4f}, "
+              f"covered {all(q[2] for q in qs)}) = {flop / device[name] / 1e9:.2f} TFLOP/s; host "
+              f"enqueue {qs[0][1]:.4f} ms; one call {ms[name]:.4f} ms | {card}", flush=True)
+    return {"picked": f"{picked.bm}x{picked.bn}", "ms": ms, "device_ms": device}
+
+
+@contextlib.contextmanager
+def _kernels_from(lib):
+    """dx.gemm launches from ``lib`` (the stamped build) instead of the main library."""
+    load = cuda_utils.load_kernels
+    cuda_utils.load_kernels = lambda: lib
+    try:
+        yield
+    finally:
+        cuda_utils.load_kernels = load
+
+
+def _tile_split(a, b, bias, plain, card: str) -> dict:
+    """The stamped build (phase 2) at the main path's shape, with gelu+bias
+    and with no epilogue: the medians over blocks of a tile's prologue (start
+    to first stage landed), main loop (to its last product) and epilogue (to
+    the first consumer thread's last store), the gap from a block's end to
+    the next block's start on its SM, tiles an SM; and the stamped call's
+    time back to back beside the kernel's, the stamps' own cost."""
+    main_lib = cuda_utils.load_kernels()
+    lib = ctypes.CDLL(str(STAMPED["lib"]))
+    lib.tml_gemm_wgmma.argtypes = main_lib.tml_gemm_wgmma.argtypes
+    lib.tml_gemm_wgmma.restype = ctypes.c_int
+    lib.tml_gemm_wgmma_stamps.argtypes = [ctypes.c_void_p]
+    lib.tml_gemm_wgmma_stamps.restype = ctypes.c_int
+    # the stamped kernel behind dx.gemm's wrapper; errors named by the main library
+    shim = SimpleNamespace(tml_gemm_wgmma=lib.tml_gemm_wgmma,
+                           tml_error_string=main_lib.tml_error_string)
+    m, k = a.shape
+    n = b.shape[1]
+    cfg = gemm._pick(gemm._TC_CONFIGS, m, n, k, 1)
+    blocks = math.ceil(m / cfg.bm) * math.ceil(n / cfg.bn)
+    buf = torch.zeros((blocks, 5), dtype=torch.int64, device=a.device)
+    out = {}
+    for label, kw in (("gelu+bias", {"bias": bias, "epilogue": "gelu_bias"}),
+                      ("no epilogue", {})):
+        def call(kw=kw):
+            return pallas_matmul(a, b, out_dtype=BF16, **kw)
+        with _kernels_from(shim):
+            cuda_utils.check_launch(main_lib, lib.tml_gemm_wgmma_stamps(buf.data_ptr()),
+                                    "tml_gemm_wgmma_stamps")
+            got = call()
+            if label == "gelu+bias" and max_scaled_err(got, plain) > 1e-2:
+                raise SystemExit("chip_smoke: the stamped gemm_wgmma disagrees with the plain "
+                                 "version")
+            buf.zero_()
+            call()
+            torch.cuda.synchronize()
+            st = buf.cpu().numpy()
+            stamped_ms = _loop_ms({"stamped": call}, warmup=3, reps=20, samples=5)["stamped"]
+            cuda_utils.check_launch(main_lib, lib.tml_gemm_wgmma_stamps(None),
+                                    "tml_gemm_wgmma_stamps")
+        if (st[:, :4] == 0).any():
+            raise SystemExit(f"chip_smoke: a block wrote no stamp ({label})")
+        split = {**_split(st), "stamped_ms": stamped_ms,
+                 "kernel_ms": _loop_ms({"kernel": call}, warmup=3, reps=20, samples=5)["kernel"]}
+        gap = "none" if split["gap_us"] is None else f"{split['gap_us']:.2f} us"
+        print(f"[times] tile split {m}x{n}x{k} bf16 {label}, {cfg.bm}x{cfg.bn} tiles "
+              f"(stamped build, medians over {blocks} blocks): prologue "
+              f"{split['prologue_us']:.2f} us, main loop {split['main_loop_us']:.2f} us, "
+              f"epilogue {split['epilogue_us']:.2f} us, gap between blocks on an SM {gap}, "
+              f"{split['tiles_per_sm'][0]}-{split['tiles_per_sm'][1]} tiles an SM, span "
+              f"{split['span_ms']:.4f} ms; back to back stamped {stamped_ms:.4f} ms, "
+              f"unstamped {split['kernel_ms']:.4f} ms | {card}", flush=True)
+        out[label] = split
+    return out
+
+
+def _split(st) -> dict:
+    """A tile's time from csrc/gemm_wgmma.cu's stamps, ``st`` (blocks, 5): the
+    times (ns) at a block's start, first stage landed, last product and
+    epilogue's end, and its SM. Medians over blocks of the prologue, main
+    loop and epilogue (µs); the median gap (µs) from a block's end to the
+    next block's start on the same SM (None with one block an SM); the
+    fewest and most blocks an SM ran; first start to last end (ms)."""
+    us = np.diff(st[:, :4], axis=1) / 1e3
+    gaps, per_sm = [], []
+    for sm in np.unique(st[:, 4]):
+        on = st[st[:, 4] == sm]
+        on = on[np.argsort(on[:, 0])]
+        per_sm.append(len(on))
+        gaps += list((on[1:, 0] - on[:-1, 3]) / 1e3)
+    return {"prologue_us": float(np.median(us[:, 0])),
+            "main_loop_us": float(np.median(us[:, 1])),
+            "epilogue_us": float(np.median(us[:, 2])),
+            "gap_us": float(np.median(gaps)) if gaps else None,
+            "tiles_per_sm": (min(per_sm), max(per_sm)),
+            "span_ms": float(st[:, 3].max() - st[:, 0].min()) / 1e6}
 
 
 def _spd(gen, n, dev):
@@ -580,7 +889,7 @@ def phase_blocks(dev, card: str) -> dict:
     return times
 
 
-_SOLVER_COUNTS = (pallas_matmul, blocked._chol_inv128, onelaunch._lu_inv128,
+_SOLVER_COUNTS = (pallas_matmul, gemm._gemm_simt, blocked._chol_inv128, onelaunch._lu_inv128,
                   onelaunch.potrf_onelaunch, onelaunch.getrf_onelaunch)
 
 
@@ -632,7 +941,9 @@ def phase_solver_main(dev) -> dict:
         g = grew[name]
         driver = g[f"{kind}_onelaunch"]
         block = g["_chol_inv128" if kind == "potrf" else "_lu_inv128"]
-        launched = g["pallas_matmul"] > 0 and block > 0 and driver == 1
+        # the trailing products are f32: B1's SIMT kernel, every one
+        launched = (g["pallas_matmul"] > 0 and g["_gemm_simt"] == g["pallas_matmul"]
+                    and block > 0 and driver == 1)
         finite = bool(torch.isfinite(f).all())
         ok = (rel < 5e-5 and upper_zero and info_ok and vs_plain <= 1e-5 and launched
               and finite and f.shape == (n, n) and f.dtype == F32)
@@ -3750,8 +4061,9 @@ def _host_ms(fn, reps: int = 20) -> tuple[float, float]:
 
 
 def _ptxas_entries(name: str) -> list[dict]:
-    """Registers, stack and spills of each compiled kernel whose mangled name
-    holds ``name``, from nvcc.log beside the built library."""
+    """Registers, stack, spills and static shared memory of each compiled
+    kernel whose mangled name holds ``name``, from nvcc.log beside the built
+    library."""
     log = (cuda_utils.build_kernels().parent / "nvcc.log").read_text()
     out, cur = [], None
     for line in log.splitlines():
@@ -3771,6 +4083,9 @@ def _ptxas_entries(name: str) -> list[dict]:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            cur["smem"] = int(m.group(1))
     return out
 
 
@@ -4314,17 +4629,49 @@ def main() -> None:
     ns = SOLVER_N
     solver_bytes = 2 * 4 * ns * ns   # the matrix in and its factor out, f32
     b, nf = FFT_MAIN
+    b1_bound = _bound(2.0 * m * n * k, PEAK_BF16, 2 * (m * k + k * n + m * n) + 4 * n)
+    b1_library = ({"library_ms": ms["library"], "library_loop_ms": ms["loop"]["library"]}
+                  if ms["library_agrees"] else {
+        "library_ms": None,
+        "library_ms_null_because": "torch._addmm_activation disagreed with the plain version"})
     record = {"kernels": [{
+        # B1's tensor-core route: bf16/f16 operands, the main path
+        "name": "gemm_wgmma",
+        "route": "cuda",
+        "source": "tpumathlib_torch/csrc/gemm_wgmma.cu",
+        "replaces": "tpumathlib/dx/gemm.py:193",
+        "launches": main_run["launches"]["_gemm_wgmma"],
+        "max_abs_err": main_run["max_abs_err"],
+        "ms": ms["kernel"],
+        "plain_ms": ms["plain"],
+        **b1_bound,
+        **b1_library,
+        # ms: one call after a synchronise, as B1 was timed before; loop_ms: back to back
+        "loop_ms": ms["loop"]["kernel"],
+        "plain_loop_ms": ms["loop"]["plain"],
+        "no_epilogue_ms": ms["kernel no epilogue"],
+        "no_epilogue_loop_ms": ms["loop"]["kernel no epilogue"],
+        "no_epilogue_library_ms": ms["torch.matmul"],
+        "no_epilogue_library_loop_ms": ms["loop"]["torch.matmul"],
+        "vendor_ms": ms["vendor"],
+        "vendor_loop_ms": ms["loop"]["vendor"],
+        "behind_spin": ms["queued"],
+        "small_shape": {"mnk": list(TC_SMALL), **ms["small"]},
+        "tile_split": ms["split"],
+    }, {
+        # B1's SIMT route: f32 and int8 operands (the solvers' trailing products,
+        # whose main path is phase 7's); its time is the main path's call forced onto it
         "name": "gemm_epilogue",
         "route": "cuda",
         "source": "tpumathlib_torch/csrc/gemm_epilogue.cu",
         "replaces": "tpumathlib/dx/gemm.py:193",
-        "launches": main_run["launches"],
-        "max_abs_err": main_run["max_abs_err"],
-        "ms": ms["kernel"],
+        "launches": solver["launches"]["_gemm_simt"],
+        "max_abs_err": ms["simt_max_abs_err"],
+        "ms": ms["simt"],
         "plain_ms": ms["plain"],
-        **_bound(2.0 * m * n * k, PEAK_BF16, 2 * (m * k + k * n + m * n) + 4 * n),
-        "library_ms": None,   # bias + GELU after the product is no single torch call
+        **b1_bound,
+        **b1_library,
+        "loop_ms": ms["loop"]["simt"],
     }] + [{
         "name": name,
         "route": "cuda",

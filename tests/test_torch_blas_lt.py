@@ -83,7 +83,12 @@ def test_heuristic_routing_matches_reference():
     cands = lt.matmul_algo_candidates(desc, lt.MatrixLayout(torch.float32, M, K),
                                       lt.MatrixLayout(torch.float32, K, N))
     assert [a.backend for a in cands[:2]] == ["xla", "pallas"]
-    assert [a.config for a in cands[2:]] == list(gemm.default_configs())
+    assert [a.config for a in cands[2:]] == list(gemm.default_configs(torch.float32))
+    # 16-bit operands are offered the tensor-core route's compiled configs
+    cands = lt.matmul_algo_candidates(desc, lt.MatrixLayout(torch.bfloat16, M, K),
+                                      lt.MatrixLayout(torch.bfloat16, K, N))
+    assert [a.config for a in cands[2:]] == list(gemm.default_configs(torch.bfloat16))
+    assert all(a.config.route == "wgmma" for a in cands[2:])
 
 
 @pytest.mark.parametrize("backend", ["auto", "xla", "pallas"])

@@ -1,0 +1,85 @@
+"""CPU tests of the card scripts' host-side parts: chip_smoke.py's split of a
+tile's time from csrc/gemm_wgmma.cu's stamps, and time_f32_paths.py's paths
+(run at a small n on the CPU, where every wrapper takes its plain version)."""
+
+import importlib.util
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _load(name):
+    spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _stamps(blocks):
+    """(blocks, 5) stamps from (sm, start ns, prologue, main loop, epilogue) rows."""
+    return np.array([[t0, t0 + p, t0 + p + ml, t0 + p + ml + e, sm]
+                     for sm, t0, p, ml, e in blocks], dtype=np.int64)
+
+
+@pytest.mark.parametrize("blocks, want", [
+    # two SMs, two blocks each: 300 ns between a block's end and the next start
+    ([(0, 1000, 1700, 41200, 8600), (0, 52800, 1700, 41200, 8600),
+      (1, 1100, 1800, 41000, 8700), (1, 52900, 1800, 41000, 8700)],
+     {"prologue_us": 1.75, "main_loop_us": 41.1, "epilogue_us": 8.65, "gap_us": 0.3,
+      "tiles_per_sm": (2, 2), "span_ms": (52900 + 1800 + 41000 + 8700 - 1000) / 1e6}),
+    # one block an SM: no gap to measure
+    ([(3, 0, 2000, 40000, 9000), (7, 500, 2000, 40000, 9000), (5, 250, 2000, 40000, 9000)],
+     {"prologue_us": 2.0, "main_loop_us": 40.0, "epilogue_us": 9.0, "gap_us": None,
+      "tiles_per_sm": (1, 1), "span_ms": 51500 / 1e6}),
+    # blocks out of order in the buffer, three on one SM and one on another
+    ([(2, 120000, 1500, 40000, 8000), (2, 0, 1500, 40000, 8000),
+      (4, 10, 1500, 40000, 8000), (2, 60000, 1500, 40000, 8000)],
+     {"prologue_us": 1.5, "main_loop_us": 40.0, "epilogue_us": 8.0, "gap_us": 10.5,
+      "tiles_per_sm": (1, 3), "span_ms": 169500 / 1e6}),
+])
+def test_tile_split_from_stamps(blocks, want):
+    got = _load("chip_smoke")._split(_stamps(blocks))
+    assert got["tiles_per_sm"] == want["tiles_per_sm"]
+    for key in ("prologue_us", "main_loop_us", "epilogue_us", "span_ms"):
+        assert got[key] == pytest.approx(want[key]), key
+    if want["gap_us"] is None:
+        assert got["gap_us"] is None
+    else:
+        assert got["gap_us"] == pytest.approx(want["gap_us"])
+
+
+def test_f32_paths_run_on_the_cpu(monkeypatch):
+    mod = _load("time_f32_paths")
+    monkeypatch.setattr(mod, "N", 256)
+    monkeypatch.setattr(mod, "PANEL", 128)
+    paths = mod._paths(torch.device("cpu"))
+    assert sorted(paths) == sorted(["potrf_onelaunch", "getrf_onelaunch", "geqrf_onelaunch",
+                                    "potrf_blocked", "dropout_matmul_kernel"])
+    for name, fn in paths.items():
+        out = fn()
+        for t in out if isinstance(out, tuple) else (out,):
+            assert torch.isfinite(t).all(), name
+    chol = paths["potrf_blocked"]()
+    assert torch.allclose(chol, paths["potrf_onelaunch"](), atol=1e-4)
+
+
+def test_f32_paths_imports_neither_jax_nor_reference():
+    code = ("import sys, runpy\n"
+            "sys.argv = ['time_f32_paths.py']\n"
+            "runpy.run_path('time_f32_paths.py', run_name='not_main')\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'tpumathlib'))\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")

@@ -8,8 +8,10 @@ another order); bf16 output 1e-2 (one output ulp); int8 exact.
 
 The CUDA branch of the dispatch is exercised here with the kernel library
 replaced: once by a loader that fails (the error must propagate), once by a
-CPU emulation of the C entry point that reads the operands through the
-pointers, strides and dtype codes the wrapper passes.
+CPU emulation of the C entry points (tml_gemm_epilogue, the SIMT route, and
+tml_gemm_wgmma, the tensor-core route) that reads the operands through the
+pointers, strides, dtype codes and config id the wrapper passes. The
+routing rule between the two kernels is pinned case by case.
 """
 
 import contextlib
@@ -170,14 +172,30 @@ def test_argument_checks(rng):
 
 
 def test_configs():
+    """One compiled table a route: the tensor-core route's for bf16 and f16,
+    the SIMT route's for f32 and int8, both with no dtype."""
     cfgs = gemm.default_configs(torch.bfloat16)
-    assert list(cfgs) == list(gemm._CONFIGS) and len(cfgs) == 3
-    assert all(c.smem_bytes() <= gemm.SMEM_LIMIT for c in cfgs)
-    assert gemm.MatmulConfig() in cfgs
+    assert list(cfgs) == list(gemm._TC_CONFIGS) and len(cfgs) == 2
+    assert list(gemm.default_configs(torch.float16)) == list(gemm._TC_CONFIGS)
+    assert all(c.route == "wgmma" and c.bk == 64 for c in cfgs)
+    simt = gemm.default_configs(torch.float32)
+    assert list(simt) == list(gemm._CONFIGS) and len(simt) == 3
+    assert list(gemm.default_configs(torch.int8)) == list(gemm._CONFIGS)
+    assert all(c.route == "simt" for c in simt)
+    assert list(gemm.default_configs()) == list(gemm._CONFIGS) + list(gemm._TC_CONFIGS)
+    assert all(c.smem_bytes() <= gemm.SMEM_LIMIT for c in gemm.default_configs())
+    # 4 stages of (128 + 256) x 64 16-bit values and the ring's alignment
+    assert gemm._TC_CONFIGS[0].smem_bytes() == 4 * 2 * 64 * 384 + 1024
+    assert gemm.MatmulConfig() in simt
     assert gemm._pick_config(4096, 4096, 4096) == gemm.MatmulConfig(128, 128, 16)
     assert gemm._pick_config(100, 50, 70) == gemm.MatmulConfig(64, 64, 16)
     # a batch fills the card as well as rows do
     assert gemm._pick_config(128, 128, 64, batch=256) == gemm.MatmulConfig(128, 128, 16)
+    # the tensor-core route: 128 x 256 tiles where they fill the card, else 128 x 128
+    assert gemm._pick_config(4096, 4096, 4096, torch.bfloat16) == gemm._TC_CONFIGS[0]
+    assert gemm._pick_config(1024, 2048, 4096, torch.bfloat16) == gemm._TC_CONFIGS[1]
+    assert gemm._pick_config(128, 256, 64, torch.float16, batch=132) == gemm._TC_CONFIGS[0]
+    assert gemm._pick_config(4096, 4096, 4096, torch.float32) == gemm.MatmulConfig(128, 128, 16)
 
 
 def test_cpu_takes_plain_version_without_launch(rng):
@@ -214,9 +232,24 @@ def _view(ptr, dtype, size, stride):
     return torch.as_strided(flat, size, stride)
 
 
+def _major(ptr, rows, cols, sb, sr, sc, batch):
+    """The tensor-core route's layout rule (csrc/gemm_wgmma.cu ``major_of``),
+    written out from its statement: 0 row-major, 1 column-major, None
+    refused."""
+    if ptr % 16:
+        return None
+    if sc == 1 and sr % 8 == 0 and sr >= max(cols, 1):
+        major, extent = 0, rows * sr
+    elif sr == 1 and sc % 8 == 0 and sc >= max(rows, 1):
+        major, extent = 1, cols * sc
+    else:
+        return None
+    return major if batch == 1 or sb == 0 or (sb % 8 == 0 and sb >= extent) else None
+
+
 class _EmulatedLib:
-    """tml_gemm_epilogue's contract, computed on the CPU from the raw
-    arguments: pointers, sizes, strides, codes."""
+    """tml_gemm_epilogue's and tml_gemm_wgmma's contracts, computed on the
+    CPU from the raw arguments: pointers, sizes, strides, codes, config."""
 
     def __init__(self):
         self.calls = []
@@ -224,8 +257,9 @@ class _EmulatedLib:
     def tml_gemm_epilogue(self, a, b, c, bias, d, aux, nb, m, n, k, strides, alpha, beta,
                           act, ab_code, c_code, d_code, config, stream):
         s = list(strides)
-        self.calls.append(dict(strides=s, act=act, ab=ab_code, c=c_code, d=d_code,
-                               config=config, shape=(nb, m, n, k)))
+        self.calls.append(dict(kernel="simt", strides=s, act=act, ab=ab_code, c=c_code,
+                               d=d_code, config=config, shape=(nb, m, n, k)))
+        assert 0 <= config < len(gemm._CONFIGS)
         abt = _CODE_DTYPE[ab_code]
         acc = alpha * (_view(a, abt, (nb, m, k), s[0:3]).float()
                        @ _view(b, abt, (nb, k, n), s[3:6]).float())
@@ -240,6 +274,23 @@ class _EmulatedLib:
         _view(d, _CODE_DTYPE[d_code], (nb, m, n), (s[9], s[10], 1)).copy_(acc)
         return 0
 
+    def tml_gemm_wgmma(self, a, b, c, bias, d, aux, nb, m, n, k, strides, alpha, beta,
+                       act, ab_code, c_code, d_code, config, stream):
+        """The same arguments; refuses (cudaErrorInvalidValue, 1) what the
+        tensor-core kernel does not take: other dtypes, configs or layouts."""
+        s = list(strides)
+        majors = (_major(a, m, k, *s[0:3], nb), _major(b, k, n, *s[3:6], nb))
+        if ab_code not in (1, 2) or not 0 <= config < len(gemm._TC_CONFIGS) or None in majors:
+            return 1
+        before = len(self.calls)
+        rc = self.tml_gemm_epilogue(a, b, c, bias, d, aux, nb, m, n, k, strides, alpha, beta,
+                                    act, ab_code, c_code, d_code, 0, stream)
+        self.calls[before].update(kernel="wgmma", config=config, majors=majors)
+        return rc
+
+    def tml_error_string(self, rc):
+        return b"invalid argument" if rc == 1 else b"emulated error"
+
 
 @pytest.fixture
 def emulated(monkeypatch):
@@ -252,7 +303,8 @@ def emulated(monkeypatch):
     return lib
 
 
-@pytest.mark.parametrize("case", ["plain", "transposed_a", "broadcast", "aux_bf16"])
+@pytest.mark.parametrize("case", ["plain", "transposed_a", "broadcast", "aux_bf16",
+                                  "tensor_core"])
 def test_cuda_branch_marshalling(emulated, case, rng):
     """The pointers, strides and codes the wrapper hands the C entry point
     describe its operands: an emulation reading only those gives the plain
@@ -267,13 +319,21 @@ def test_cuda_branch_marshalling(emulated, case, rng):
     elif case == "broadcast":
         a, b, c = t(3, 33, 20), t(20, 17).expand(3, 20, 17), t(33, 17).to(torch.bfloat16)
         kw = dict(alpha=1.5, beta=-0.5, epilogue="relu")
-    else:
+    elif case == "aux_bf16":
         a, b = t(2, 33, 20).to(torch.bfloat16), t(2, 20, 17).to(torch.bfloat16)
         kw = dict(bias=t(17), epilogue="relu_aux_bias", return_aux=True,
                   out_dtype=torch.bfloat16)
+    else:   # 16-byte rows: the tensor-core route, A transposed, C broadcast
+        a, b = t(2, 24, 40).to(torch.bfloat16).mT, t(2, 24, 48).to(torch.bfloat16)
+        c = t(40, 48).to(torch.float16)
+        kw = dict(bias=t(48), epilogue="gelu_aux_bias", return_aux=True, beta=2.0,
+                  out_dtype=torch.float32)
     before = gemm.pallas_matmul.launches
     got = gemm.pallas_matmul(a, b, c, **kw)
     assert gemm.pallas_matmul.launches == before + 1 and len(emulated.calls) == 1
+    # 20- and 17-element rows are not 16-byte multiples: only the last case
+    # lies as the tensor-core route takes it
+    assert emulated.calls[0]["kernel"] == ("wgmma" if case == "tensor_core" else "simt")
     want = gemm._pallas_matmul_plain(
         a, b, c, out_dtype=kw.pop("out_dtype", a.dtype), **kw)
     if kw.get("return_aux"):
@@ -288,6 +348,10 @@ def test_cuda_branch_marshalling(emulated, case, rng):
         assert call["strides"][3] == 0 and call["strides"][6] == 0 and call["c"] == 1
     if case == "aux_bf16":
         assert (call["ab"], call["d"], call["act"]) == (1, 1, 1)
+    if case == "tensor_core":    # A column-major, B row-major; C f16 read by stride 0
+        assert call["majors"] == (1, 0) and call["strides"][0:3] == [24 * 40, 1, 40]
+        assert (call["ab"], call["c"], call["d"], call["act"]) == (1, 2, 0, 2)
+        assert call["strides"][6] == 0 and call["shape"] == (2, 40, 48, 24)
 
 
 def test_cuda_branch_rejects_unsupported_dtypes(emulated):
@@ -296,3 +360,129 @@ def test_cuda_branch_rejects_unsupported_dtypes(emulated):
     with pytest.raises(NotSupportedError):
         gemm.pallas_matmul(torch.ones(4, 4), torch.ones(4, 4), out_dtype=torch.int32)
     assert emulated.calls == []
+
+
+def _bf16(rng, *shape, dtype=torch.bfloat16):
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dtype)
+
+
+def _routing_case(case, rng):
+    """(a, b, c, keyword arguments) of each routing case."""
+    t = lambda *shape: _bf16(rng, *shape)  # noqa: E731
+    if case == "bf16 row-major":
+        return t(40, 24), t(24, 32), None, dict(bias=t(32).float(), epilogue="gelu_bias")
+    if case == "f16 row-major":
+        return t(40, 24).half(), t(24, 32).half(), None, dict(out_dtype=torch.float32)
+    if case == "bf16 transposed A":
+        return t(24, 40).mT, t(24, 32), None, {}
+    if case == "bf16 transposed B":
+        return t(40, 24), t(32, 24).mT, None, dict(out_dtype=torch.float16)
+    if case == "bf16 both transposed, aux, C":
+        return (t(24, 40).mT, t(32, 24).mT, t(40, 32),
+                dict(epilogue="relu_aux", return_aux=True, beta=0.5))
+    if case == "bf16 batch 3, broadcast B":
+        return t(3, 40, 24), t(24, 32).expand(3, 24, 32), None, dict(out_dtype=torch.float32)
+    if case == "bf16 K=70":   # 140-byte rows
+        return t(40, 70), t(70, 32), None, {}
+    if case == "bf16 misaligned view":   # the base 2 bytes past a 16-byte boundary
+        return t(40 * 24 + 1)[1:].view(40, 24), t(24, 32), None, {}
+    if case == "bf16 row stride not covering":   # a view whose rows overlap
+        return torch.as_strided(t(40 * 8 + 24), (40, 24), (8, 1)), t(24, 32), None, {}
+    if case == "bf16 batch stride 4":
+        return torch.as_strided(t(3 * 4 + 40 * 24), (3, 40, 24), (4, 24, 1)), t(3, 24, 32), None, {}
+    if case == "f32":
+        return t(40, 24).float(), t(24, 32).float(), None, {}
+    if case == "int8":
+        i8 = lambda *shape: torch.from_numpy(rng.integers(-4, 5, size=shape).astype(np.int8))  # noqa: E731
+        return i8(40, 24), i8(24, 32), None, dict(out_dtype=torch.float32)
+    if case == "bf16 explicit SIMT config":
+        return t(40, 24), t(24, 32), None, dict(config=gemm._CONFIGS[1])
+    assert case == "bf16 explicit tensor-core config"
+    return t(40, 24), t(24, 32), None, dict(config=gemm._TC_CONFIGS[1])
+
+
+_ROUTES = {
+    "bf16 row-major": "wgmma", "f16 row-major": "wgmma", "bf16 transposed A": "wgmma",
+    "bf16 transposed B": "wgmma", "bf16 both transposed, aux, C": "wgmma",
+    "bf16 batch 3, broadcast B": "wgmma", "bf16 explicit tensor-core config": "wgmma",
+    "bf16 K=70": "simt", "bf16 misaligned view": "simt", "bf16 row stride not covering": "simt",
+    "bf16 batch stride 4": "simt", "f32": "simt", "int8": "simt",
+    "bf16 explicit SIMT config": "simt",
+}
+
+
+@pytest.mark.parametrize("case", list(_ROUTES))
+def test_cuda_branch_routing(emulated, case, rng):
+    """The routing rule: bf16/f16 operands whose layout the tensor-core
+    route takes go to tml_gemm_wgmma, everything else (other dtypes, 16-bit
+    rows that are not 16-byte multiples, misaligned or overlapping views, an
+    explicit SIMT config) to tml_gemm_epilogue. Exactly one launch, counted
+    in the total and in its route's counter; the emulation (which checks
+    the layout rule on the raw strides) gives the plain version's result."""
+    a, b, c, kw = _routing_case(case, rng)
+    route = _ROUTES[case]
+    counts = (gemm.pallas_matmul, gemm._gemm_wgmma, gemm._gemm_simt)
+    before = [f.launches for f in counts]
+    got = gemm.pallas_matmul(a, b, c, **kw)
+    grew = [f.launches - x for f, x in zip(counts, before)]
+    assert grew == [1, route == "wgmma", route == "simt"]
+    assert [call["kernel"] for call in emulated.calls] == [route]
+    kw.pop("config", None)
+    want = gemm._pallas_matmul_plain(a, b, c, out_dtype=kw.pop("out_dtype", a.dtype), **kw)
+    if kw.get("return_aux"):
+        assert torch.equal(got[1], want[1])
+        got, want = got[0], want[0]
+    assert got.dtype == want.dtype and got.shape == want.shape
+    _close(got, to_numpy(want), 1e-6 if got.dtype == torch.float32 else 1e-2)
+    if route == "wgmma" and case != "bf16 explicit tensor-core config":
+        # the config follows the table of the route: 128 x 128 for a small problem
+        assert emulated.calls[0]["config"] == 1
+
+
+@pytest.mark.parametrize("case", ["f32", "bf16 K=70", "bf16 misaligned view"])
+def test_cuda_branch_tensor_core_config_refuses(emulated, case, rng):
+    """A tensor-core config names its route: for operands that route does
+    not take it raises instead of launching another kernel."""
+    a, b, _, _ = _routing_case(case, rng)
+    with pytest.raises(NotSupportedError, match="tensor-core config"):
+        gemm.pallas_matmul(a, b, config=gemm._TC_CONFIGS[0])
+    assert emulated.calls == []
+
+
+@pytest.mark.parametrize("route", ["wgmma", "simt"])
+def test_cuda_branch_failure_raises_on_each_route(monkeypatch, route, rng):
+    """A loader that fails, and a launch that fails, reach the caller on
+    either route; no route gives way to the other or to the plain version."""
+    a, b, _, kw = _routing_case("bf16 row-major" if route == "wgmma" else "f32", rng)
+
+    def broken_loader():
+        raise ExecutionError("kernel build failed: nvcc exited 1")
+
+    monkeypatch.setattr(gemm, "on_cuda", lambda *t: True)
+    monkeypatch.setattr(cuda_utils, "load_kernels", broken_loader)
+    with pytest.raises(ExecutionError, match="nvcc exited 1"):
+        gemm.pallas_matmul(a, b, **kw)
+
+    lib = _EmulatedLib()
+    name = "tml_gemm_wgmma" if route == "wgmma" else "tml_gemm_epilogue"
+    monkeypatch.setattr(lib, name, lambda *args: 716)   # misaligned address
+    monkeypatch.setattr(cuda_utils, "load_kernels", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", contextlib.nullcontext)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    before = gemm.pallas_matmul.launches
+    with pytest.raises(ExecutionError, match=f"gemm_{'wgmma' if route == 'wgmma' else 'epilogue'}"):
+        gemm.pallas_matmul(a, b, **kw)
+    assert gemm.pallas_matmul.launches == before and lib.calls == []
+
+
+def test_emulated_layout_rule_matches_wrapper(rng):
+    """The wrapper's rule (``_tc_layout``) and the C side's, as the
+    emulation states it, agree on every case of the routing test."""
+    for case in _ROUTES:
+        a, b, _, _ = _routing_case(case, rng)
+        for t, rows, cols in ((a, a.shape[-2], a.shape[-1]), (b, b.shape[-2], b.shape[-1])):
+            t3 = t.reshape(-1, rows, cols)
+            got = gemm._tc_layout(t3)
+            want = _major(t3.data_ptr(), rows, cols, *t3.stride(), t3.shape[0]) is not None
+            assert got == want, case

@@ -51,9 +51,13 @@ def test_roofline_sanity():
 
 def test_get_configs(tmp_path, monkeypatch):
     monkeypatch.setattr(tuning, "_global_cache", tuning.AutotuneCache(str(tmp_path / "at.json")))
-    cfgs = heuristics.get_configs(4096, 4096, 4096, torch.bfloat16, count=5)
-    assert len(cfgs) == 3 and set(cfgs) == set(default_configs())
+    cfgs = heuristics.get_configs(4096, 4096, 4096, torch.float32, count=5)
+    assert len(cfgs) == 3 and set(cfgs) == set(default_configs(torch.float32))
     assert cfgs[0] == MatmulConfig(128, 128, 16)   # big square problems take big tiles
+    # bf16 ranks the tensor-core route's table, the 128 x 256 tile first
+    cfgs = heuristics.get_configs(4096, 4096, 4096, torch.bfloat16, count=5)
+    assert len(cfgs) == 2 and set(cfgs) == set(default_configs(torch.bfloat16))
+    assert cfgs[0] == MatmulConfig(128, 256, 64, "wgmma", 4)
 
 
 def test_discovery_buckets(tmp_path, monkeypatch):

@@ -1,0 +1,110 @@
+#!/usr/bin/env python3
+"""Times the port's f32 paths that run on B1's SIMT route, on one CUDA card.
+
+The paths, each through its public function at the bench's size:
+potrf_onelaunch and getrf_onelaunch (B2, B3) and geqrf_onelaunch (B4a) at
+n = 4096, solver.blocked.potrf_blocked (B4c, panel 256) at n = 4096, and
+dx.rng.dropout_matmul_kernel (B10b) at 4096^3, rate 0.1. Each is timed
+three ways: CUDA events around one call after a synchronise (median of 5,
+as chip_smoke.py's ``_median_ms``), CUDA events around 5 back-to-back calls
+(median of 3 samples, as its ``_loop_ms``), and the host clock around 5
+calls with no synchronise (the host's enqueue time a call).
+
+It imports ``tpumathlib_torch`` from ``PYTHONPATH`` (``-P``: not from the
+script's own directory), so that two checkouts can be compared on one card
+in one run, in turns (a, b, b, a):
+
+    PYTHONPATH=path/to/checkout python3 -P time_f32_paths.py --tree a
+
+Each run prints the card's name and power limit, then one JSON line
+{"tree": ..., "package": ..., "card": ..., "ms": {path: {"call", "loop",
+"enqueue"}}}. Build each checkout's kernels first (their build is not
+timed): ``python3 -c "from tpumathlib_torch.dx import cuda_utils;
+cuda_utils.build_kernels()"`` from its root.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import json
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+import tpumathlib_torch
+from tpumathlib_torch.dx import cuda_utils
+from tpumathlib_torch.dx import rng as dxr
+from tpumathlib_torch.solver import blocked, onelaunch
+
+qr = importlib.import_module("tpumathlib_torch.solver.qr_onelaunch")  # the package exports a function of this name
+
+N = 4096
+PANEL = 256
+
+
+def _paths(dev) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    g = torch.randn((N, N), generator=gen, device=dev)
+    spd = g @ g.T / N + 4.0 * torch.eye(N, device=dev)
+    g = torch.randn((N, N), generator=gen, device=dev)
+    dom = g + torch.diag(1.05 * g.abs().sum(dim=1))
+    q = torch.randn((N, N), generator=gen, device=dev)
+    a = torch.randn((N, N), generator=gen, device=dev)
+    b = torch.randn((N, N), generator=gen, device=dev)
+    return {
+        "potrf_onelaunch": lambda: onelaunch.potrf_onelaunch(spd),
+        "getrf_onelaunch": lambda: onelaunch.getrf_onelaunch(dom),
+        "geqrf_onelaunch": lambda: qr.geqrf_onelaunch(q),
+        "potrf_blocked": lambda: blocked.potrf_blocked(spd, PANEL),
+        "dropout_matmul_kernel": lambda: dxr.dropout_matmul_kernel(a, b, 20240601, 0.1),
+    }
+
+
+def _events(fn, calls: int) -> float:
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def _time(fn) -> dict:
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    call = [_events(fn, 1) for _ in range(5)]
+    loop = [_events(fn, 5) for _ in range(3)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        fn()
+    enqueue = (time.perf_counter() - t0) / 5 * 1e3
+    torch.cuda.synchronize()
+    return {"call": float(np.median(call)), "loop": float(np.median(loop)), "enqueue": enqueue}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", default=".", help="a label for the checkout, printed back")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("time_f32_paths: no CUDA device")
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SystemExit("time_f32_paths: torch.backends.cuda.matmul.allow_tf32 must be False")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    cuda_utils.load_kernels()
+    dev = torch.device("cuda", 0)
+    ms = {name: _time(fn) for name, fn in _paths(dev).items()}
+    print(card, flush=True)
+    print(json.dumps({"tree": args.tree, "package": tpumathlib_torch.__file__, "card": card,
+                      "ms": ms}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

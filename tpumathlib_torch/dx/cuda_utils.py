@@ -103,6 +103,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         p,                                      # stream
     ]
     lib.tml_gemm_epilogue.restype = i32
+    # gemm_wgmma.cu: the same arguments, bf16/f16 A and B
+    lib.tml_gemm_wgmma.argtypes = lib.tml_gemm_epilogue.argtypes
+    lib.tml_gemm_wgmma.restype = i32
     # dense_block.cu: (a, lda, out, ld, ..., stream), f32 blocks of 128 x 128
     lib.tml_chol_inv_block.argtypes = [p, i64, p, i64, p, i64, p]
     lib.tml_chol_inv_block.restype = i32
@@ -179,6 +182,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tml_ring_accumulate.restype = i32
     lib.tml_gemm_configs.argtypes = [ctypes.POINTER(i32), i32]
     lib.tml_gemm_configs.restype = i32
+    lib.tml_gemm_wgmma_configs.argtypes = [ctypes.POINTER(i32), i32]
+    lib.tml_gemm_wgmma_configs.restype = i32
     lib.tml_error_string.argtypes = [i32]
     lib.tml_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,9 +1,21 @@
 """Tiled GEMM with fused epilogues — the engine under blas.level3 / blas.lt.
 
 Counterpart of ``tpumathlib/dx/gemm.py``. The name ``pallas_matmul`` is
-kept so that every call site ports one for one; on this card it means the
-repository's own hand-written CUDA kernel, ``csrc/gemm_epilogue.cu``
-(SIMT f32 FMA, one thread block per output tile, K loop inside the block).
+kept so that every call site ports one for one; on this card it means one
+of the repository's two hand-written CUDA kernels:
+
+- ``csrc/gemm_wgmma.cu``, the tensor-core route (TMA loads into a ring of
+  stages, wgmma, the epilogue staged through shared memory), for bf16 and
+  f16 A and B whose layout ``_tc_layout`` takes;
+- ``csrc/gemm_epilogue.cu``, the SIMT route (f32 FMA, one thread block per
+  output tile, K loop inside the block), for f32 and int8 operands and any
+  layout the tensor-core route refuses.
+
+``_route`` is the one rule between them, as cuBLASLt's heuristic picks a
+kernel; a ``config=`` from ``default_configs`` chooses the route that
+compiled it. A failure of either kernel raises: no route gives way to the
+other. ``pallas_matmul.launches`` counts both; ``_gemm_wgmma.launches`` and
+``_gemm_simt.launches`` each its own.
 
 Shape convention is row-major math: ``D = epilogue(alpha * A @ B + beta * C +
 bias)`` with A (..., M, K), B (..., K, N); leading dims are batch. Every
@@ -42,10 +54,12 @@ _EPILOGUES = (
     "gelu_aux_bias",
 )
 
-# dtype codes of csrc/gemm_epilogue.cu
+# dtype codes of csrc/gemm_epilogue.cu and csrc/gemm_wgmma.cu
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.int8: 3}
 _OUT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _ACT_CODE = {"relu": 1, "gelu": 2}
+# operand dtypes the tensor-core route takes
+_TC_DTYPES = (torch.bfloat16, torch.float16)
 
 # shared memory a block may use on sm_90 (227 KB)
 SMEM_LIMIT = 232_448
@@ -55,14 +69,21 @@ _NUM_SMS = 132
 
 @dataclasses.dataclass(frozen=True)
 class MatmulConfig:
-    """One point in the Lt "algo" space: the kernel's (BM, BN, BK) tile.
+    """One point in the Lt "algo" space: a kernel's (BM, BN, BK) tile, the
+    route that compiled it ("simt": csrc/gemm_epilogue.cu, "wgmma":
+    csrc/gemm_wgmma.cu) and, for the tensor-core route, its ring's stages.
     Only the compiled configs (``default_configs()``) launch."""
 
     bm: int = 128
     bn: int = 128
     bk: int = 16
+    route: str = "simt"
+    stages: int = 1
 
     def smem_bytes(self) -> int:
+        if self.route == "wgmma":
+            # 16-bit A and B tiles a stage, and the ring's 1024-byte alignment
+            return self.stages * 2 * self.bk * (self.bm + self.bn) + 1024
         # A and B tiles, staged as f32 (csrc/simt_gemm.cuh)
         return 4 * self.bk * (self.bm + self.bn)
 
@@ -70,24 +91,73 @@ class MatmulConfig:
 # the configs compiled into csrc/gemm_epilogue.cu (kConfigs), in id order
 _CONFIGS = (MatmulConfig(128, 128, 16), MatmulConfig(128, 64, 16),
             MatmulConfig(64, 64, 16))
+# the configs compiled into csrc/gemm_wgmma.cu (kConfigs), in id order
+_TC_CONFIGS = (MatmulConfig(128, 256, 64, "wgmma", 4), MatmulConfig(128, 128, 64, "wgmma", 6))
 
 
 def default_configs(dtype=None) -> Sequence[MatmulConfig]:
     """Candidate sweep for the autotuner (≙ AlgoGetIds/CapGetAttribute sweep,
-    cuBLASLt/Common/LtMatmulCustomFind.h:189-274): exactly the compiled set.
-    The tiles are staged as f32 whatever the dtype, so it is one set for all."""
-    return _CONFIGS
+    cuBLASLt/Common/LtMatmulCustomFind.h:189-274): exactly the compiled set
+    of the route that ``dtype`` operands take, the tensor-core route's for
+    bf16 and f16 and the SIMT route's for the rest; with no dtype, every
+    compiled config."""
+    if dtype is None:
+        return _CONFIGS + _TC_CONFIGS
+    return _TC_CONFIGS if dtype in _TC_DTYPES else _CONFIGS
+
+
+def _pick(table, m, n, k, batch: int) -> MatmulConfig:
+    """The first config of ``table`` whose tile fits in shared memory and
+    still gives every SM a tile, else its last."""
+    for cfg in table:
+        if (cfg.smem_bytes() <= SMEM_LIMIT
+                and batch * cdiv(m, cfg.bm) * cdiv(n, cfg.bn) >= _NUM_SMS):
+            return cfg
+    return table[-1]
 
 
 def _pick_config(m, n, k, a_dtype=None, b_dtype=None, out_dtype=None,
                  batch: int = 1) -> MatmulConfig:
     """Heuristic default (≙ cublasLtMatmulAlgoGetHeuristic): the largest tile
+    of the route ``a_dtype`` operands take (the SIMT route's with no dtype)
     that fits in shared memory and still gives every SM a tile."""
-    for cfg in _CONFIGS:
-        if (cfg.smem_bytes() <= SMEM_LIMIT
-                and batch * cdiv(m, cfg.bm) * cdiv(n, cfg.bn) >= _NUM_SMS):
-            return cfg
-    return _CONFIGS[-1]
+    return _pick(_TC_CONFIGS if a_dtype in _TC_DTYPES else _CONFIGS, m, n, k, batch)
+
+
+def _tc_layout(t) -> bool:
+    """Whether the tensor-core route takes the (batch, rows, cols) operand
+    ``t`` as it lies: unit stride along rows or along cols, the other stride
+    a multiple of 8 elements (16 bytes) that covers its dimension, a batch
+    stride of 0 or a multiple of 8 past one matrix (any, for one matrix),
+    and a 16-byte aligned base. csrc/gemm_wgmma.cu (``major_of``) checks the
+    same: TMA reads the operand in place, so a transposed view needs no
+    copy."""
+    nb, rows, cols = t.shape
+    sb, sr, sc = t.stride()
+    if t.data_ptr() % 16:
+        return False
+    if sc == 1 and sr % 8 == 0 and sr >= max(cols, 1):
+        extent = rows * sr
+    elif sr == 1 and sc % 8 == 0 and sc >= max(rows, 1):
+        extent = cols * sc
+    else:
+        return False
+    return nb == 1 or sb == 0 or (sb % 8 == 0 and sb >= extent)
+
+
+def _route(a3, b3, config) -> str:
+    """The kernel a launch takes: the route of an explicit ``config``, else
+    "wgmma" for bf16/f16 operands that ``_tc_layout`` takes, else "simt". A
+    tensor-core config for operands that route does not take raises."""
+    takes = a3.dtype in _TC_DTYPES and _tc_layout(a3) and _tc_layout(b3)
+    if config is None:
+        return "wgmma" if takes else "simt"
+    if config.route == "wgmma" and not takes:
+        raise NotSupportedError(
+            f"{config} is a tensor-core config: it takes bf16/f16 operands with a unit "
+            f"stride, 16-byte strides and a 16-byte aligned base, not {a3.dtype} "
+            f"{tuple(a3.stride())} @ {tuple(b3.stride())}")
+    return config.route
 
 
 def apply_epilogue(acc, epilogue: str, bias=None):
@@ -150,6 +220,7 @@ class _Into:
             a[0], b[0], None if c is None else c[0], None, d[0], None, 1, m, n, k, st,
             alpha, beta, 0, 0, 0, 0, _config_id(m, n, k), stream)
         cuda_utils.check_launch(self.lib, rc, "gemm_epilogue")
+        _gemm_simt.launches += 1
         pallas_matmul.launches += 1
 
 
@@ -197,21 +268,27 @@ def pallas_matmul(
 
     Returns D, or (D, aux) when ``return_aux`` (aux = pre-activation, f32).
     On CUDA tensors, A and B of f32/bf16/f16/int8 and D of f32/bf16/f16 are
-    supported; anything else raises NotSupportedError.
+    supported; anything else raises NotSupportedError, as does a tensor-core
+    ``config`` for operands that route does not take.
     """
-    check(epilogue in _EPILOGUES, f"unknown epilogue {epilogue!r}")
+    # the messages are formatted only on failure: this is a launch's host path
+    if epilogue not in _EPILOGUES:
+        raise InvalidValueError(f"unknown epilogue {epilogue!r}")
     if out_dtype is None:
         out_dtype = a.dtype
     m, k = a.shape[-2], a.shape[-1]
     k2, n = b.shape[-2], b.shape[-1]
-    check(k == k2, f"inner dims differ: {tuple(a.shape)} @ {tuple(b.shape)}")
+    if k != k2:
+        raise InvalidValueError(f"inner dims differ: {tuple(a.shape)} @ {tuple(b.shape)}")
     batch_shape = tuple(a.shape[:-2])
-    check(tuple(b.shape[:-2]) == batch_shape,
-          f"batch dims differ: {tuple(a.shape)} @ {tuple(b.shape)}")
-    if config is not None and config not in _CONFIGS:
-        raise NotSupportedError(f"{config} is not a compiled config; have {_CONFIGS}")
-    common = torch.promote_types(a.dtype, b.dtype)
-    a, b = a.to(common), b.to(common)
+    if tuple(b.shape[:-2]) != batch_shape:
+        raise InvalidValueError(f"batch dims differ: {tuple(a.shape)} @ {tuple(b.shape)}")
+    if config is not None and config not in _CONFIGS + _TC_CONFIGS:
+        raise NotSupportedError(
+            f"{config} is not a compiled config; have {_CONFIGS + _TC_CONFIGS}")
+    if a.dtype != b.dtype:
+        common = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(common), b.to(common)
 
     kw = dict(out_dtype=out_dtype, epilogue=epilogue, alpha=alpha, beta=beta,
               return_aux=return_aux)
@@ -221,6 +298,25 @@ def pallas_matmul(
 
 
 pallas_matmul.launches = 0
+
+
+def _gemm_simt(lib, *args):
+    """One launch of the SIMT route, csrc/gemm_epilogue.cu."""
+    cuda_utils.check_launch(lib, lib.tml_gemm_epilogue(*args), "gemm_epilogue")
+    _gemm_simt.launches += 1
+    pallas_matmul.launches += 1
+
+
+def _gemm_wgmma(lib, *args):
+    """One launch of the tensor-core route, csrc/gemm_wgmma.cu (the same
+    arguments)."""
+    cuda_utils.check_launch(lib, lib.tml_gemm_wgmma(*args), "gemm_wgmma")
+    _gemm_wgmma.launches += 1
+    pallas_matmul.launches += 1
+
+
+_gemm_simt.launches = 0
+_gemm_wgmma.launches = 0
 
 
 def _pallas_matmul_cuda(a, b, c, bias, *, config, out_dtype, epilogue, alpha, beta,
@@ -240,8 +336,10 @@ def _pallas_matmul_cuda(a, b, c, bias, *, config, out_dtype, epilogue, alpha, be
     a3 = a.reshape(-1, m, k)
     b3 = b.reshape(-1, k, n)
     nb = a3.shape[0]
+    route = _route(a3, b3, config)
+    table = _TC_CONFIGS if route == "wgmma" else _CONFIGS
     if config is None:
-        config = _pick_config(m, n, k, a.dtype, b.dtype, out_dtype, batch=nb)
+        config = _pick(table, m, n, k, nb)
 
     d = torch.empty((nb, m, n), dtype=out_dtype, device=dev)
     aux = torch.empty((nb, m, n), dtype=torch.float32, device=dev) if return_aux else None
@@ -254,8 +352,11 @@ def _pallas_matmul_cuda(a, b, c, bias, *, config, out_dtype, epilogue, alpha, be
         c3, c_strides = None, (0, 0, 0)
     bias32 = None
     if bias is not None and "bias" in epilogue:
-        bias32 = bias.to(torch.float32).reshape(-1).contiguous()
-        check(bias32.numel() == n, f"bias has {bias32.numel()} values for N={n}")
+        bias32 = bias.reshape(-1)
+        if bias32.dtype != torch.float32 or not bias32.is_contiguous():
+            bias32 = bias32.to(torch.float32).contiguous()
+        if bias32.numel() != n:
+            raise InvalidValueError(f"bias has {bias32.numel()} values for N={n}")
 
     strides = (ctypes.c_int64 * 11)(*a3.stride(), *b3.stride(), *c_strides,
                                     d.stride(0), d.stride(1))
@@ -264,16 +365,14 @@ def _pallas_matmul_cuda(a, b, c, bias, *, config, out_dtype, epilogue, alpha, be
         return None if t is None else t.data_ptr()
 
     if nb and m and n:
+        launch = _gemm_wgmma if route == "wgmma" else _gemm_simt
         with torch.cuda.device(dev):
-            rc = lib.tml_gemm_epilogue(
-                ptr(a3), ptr(b3), ptr(c3), ptr(bias32), ptr(d), ptr(aux),
-                nb, m, n, k, strides, float(alpha), float(beta),
-                _ACT_CODE.get(epilogue.split("_")[0], 0), _DTYPE_CODE[a.dtype],
-                _DTYPE_CODE[c3.dtype] if c3 is not None else 0,
-                _DTYPE_CODE[out_dtype], _CONFIGS.index(config),
-                torch.cuda.current_stream(dev).cuda_stream)
-        cuda_utils.check_launch(lib, rc, "gemm_epilogue")
-        pallas_matmul.launches += 1
+            launch(lib, ptr(a3), ptr(b3), ptr(c3), ptr(bias32), ptr(d), ptr(aux),
+                   nb, m, n, k, strides, float(alpha), float(beta),
+                   _ACT_CODE.get(epilogue.split("_")[0], 0), _DTYPE_CODE[a.dtype],
+                   _DTYPE_CODE[c3.dtype] if c3 is not None else 0,
+                   _DTYPE_CODE[out_dtype], table.index(config),
+                   torch.cuda.current_stream(dev).cuda_stream)
 
     d = d.reshape(batch_shape + (m, n))
     if return_aux:

@@ -152,7 +152,7 @@ def run_discovery(problems: Sequence[tuple] | None = None,
     for (m, n, k) in problems:
         a = torch.ones((m, k), dtype=torch.bfloat16, device=device)
         b = torch.ones((k, n), dtype=torch.bfloat16, device=device)
-        cfg = _pick_config(m, n, k)
+        cfg = _pick_config(m, n, k, torch.bfloat16, torch.bfloat16)
         meas = benchmark(pallas_matmul, a, b, config=cfg, warmup=1, iters=3)["min"]
         pred = estimate_runtime(m, n, k, torch.bfloat16, cfg, hw)
         buckets.setdefault(_intensity_bucket(m, n, k), []).append(meas / pred)
