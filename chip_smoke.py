@@ -38,7 +38,10 @@ Phases; any failure raises and the exit code is non-zero:
    (prologue, main loop, epilogue, the gap between blocks on an SM) at the
    main path's shape, with and without the epilogue; the tensor-core
    kernels' registers, shared memory and spills from nvcc.log (none may
-   spill); then each route of phase 4 on the host clock, end to end.
+   spill); then each route of phase 4 on the host clock, end to end; then
+   grids past 65535 blocks (ROADMAP C21): a batch of 70 000 products and a
+   product of 65535 · 128 + 1000 rows, bf16 on the tensor-core route and
+   f32 on the SIMT one, each two launches, held against the plain version.
 6. block kernels — the two 128x128 sweeps of csrc/dense_block.cu against
    their plain versions: Cholesky + inverse on SPD input, LU + both inverses
    on barely dominant and SPD input, and a non-SPD block that must give
@@ -91,23 +94,30 @@ Phases; any failure raises and the exit code is non-zero:
    agree with float64 at their f32 bounds;
    each C16 site is also run with its pin lifted, to show what it keeps
    out. TF32 is off again after.
-15. sparse kernels — tml_bell_spmm (csrc/bell_sparse.cu) against its plain
-   version and float64: f32, bf16, f16 and bf16 A with f32 B, bs 128 and
-   256, k = 1 .. 4096, alpha 0.5, pad slots with zero and non-zero data, a
-   3-D batched B; tml_bell_spmv through SpmvPlan with rowform true and
-   false, a ragged n and pad slots.
+15. sparse kernels — B6a's two kernels, tml_bell_spmm_wgmma
+   (csrc/bell_wgmma.cu, bf16 and f16 pairs) and tml_bell_spmm
+   (csrc/bell_sparse.cu, f32 and mixed pairs), each call checked for the
+   kernel it must launch, against the plain version and float64: bs 128
+   and 256, k = 1, 200, 300 (ragged: B's rows padded), 1000 and 4096, alpha
+   0.5, pad slots with zero and non-zero data, a block row of pads only
+   (zeros), a block column whose rows run past n, a 3-D batched B;
+   tml_bell_spmv through SpmvPlan with rowform true and false, a ragged n
+   and pad slots.
 16. sparse main path — bench.py's four sparse lines through the public
    entry points: spmm on a bf16 Blocked-ELL (mb = nb = 128, ellw = 16,
-   bs = 128, k = 4096), SpmvPlan.execute (also 20 calls fed back) and spmv
-   on an f32 Blocked-ELL (ellw = 32, 268 MB), SpmvAutoPlan on the hidden-
-   block CSR (33.5 M nnz, engine "blockedell") and spmv on a CSR with
-   n = 100 000 and 32 entries a row (torch's route, no kernel); each kernel
-   route must grow its kernel's count and agree with the plain version and
-   float64.
+   bs = 128, k = 4096; the tensor-core kernel) and on the same shape in f32
+   (the SIMT kernel), SpmvPlan.execute (also 20 calls fed back) and spmv
+   on an f32 Blocked-ELL (ellw = 32, 268 MB; the SpMV kernel, no SpMM
+   launch), SpmvAutoPlan on the hidden-block CSR (33.5 M nnz, engine
+   "blockedell") and spmv on a CSR with n = 100 000 and 32 entries a row
+   (torch's route, no kernel); each route must grow exactly its kernels'
+   counts and agree with the plain version and float64.
 17. sparse times — CUDA events for each line's route, the plain version and
    the library call (torch.bmm on gathered blocks, or torch's sparse CSR
-   product), with TFLOP/s or GB/s and the share of the bound; then each
-   route of phase 16 on the host clock.
+   product), with TFLOP/s or GB/s and the share of the bound; the bf16
+   SpMM also one call after a synchronise and by its device time behind a
+   spin, with the tensor-core kernel's registers and spills from nvcc.log
+   (none may spill); then each route of phase 16 on the host clock.
 18. dx solver kernels — tml_potrf_batched, tml_getrf_batched (pivot on and
    off) and tml_geqrf_batched (csrc/dx_solver.cu) against their plain
    versions and float64 at n = 8 … 256 (256 works in place in device memory)
@@ -187,20 +197,23 @@ Phases; any failure raises and the exit code is non-zero:
    and a float64 FFT at N = 2, 16, 127 (prime), 243, 360, 625, 1000, 4096,
    8192, 12289 (prime), 16383 (3·43·127) and 16384 on a batch of 37, so
    that every radix and the direct pass run: forward, inverse, a strided
-   (2, 3, N) batch, bf16 planes and the round trip; solver.potrf_blocked at n = 256/panel 128, 384/256 and
+   (2, 3, N) batch, bf16 planes and the round trip; solver.potrf_blocked
+   (the right-looking schedule by panels) at n = 256/panel 128, 384/256 and
    512/384 against its plain version and a float64 factor, a non-SPD matrix
    (non-finite from its failing block on) and a panel of 192 (refused, C19).
 34. four-step and blocked main path — pallas_fft and pallas_fft2 at batch
    4096 x N 4096 and 1024 x 16384 f32 planes, both directions (+1 and +2
    launches a call), and potrf_blocked at n = 4096, panel 256 (+32 sweeps,
-   +62 B1 launches), against the plain versions and float64.
+   +105 B1 launches), against the plain versions and float64.
 35. four-step and blocked times — CUDA events for each route of phase 34,
    its plain version and the library call (torch.fft.fft / ifft on
    complex64, unnormalised; torch.linalg.cholesky), with the share of the
    bound (B5c also against its own, 32·b·N bytes); each four-step route's
-   host clock per call beside its device time (wall − device), and
-   potrf_blocked's device time behind a spin beside its host enqueue; the
-   four-step kernels' registers, spills and blocks an SM from nvcc.log.
+   host clock per call beside its device time (wall − device); and
+   potrf_blocked one call after a synchronise, its device time behind a
+   spin, its host enqueue and the device's idle share, beside
+   potrf_onelaunch (B2) timed the same ways in turns; the four-step
+   kernels' registers, spills and blocks an SM from nvcc.log.
 36. ring kernels — matmul_ag_overlapped (B12a) and matmul_rs_overlapped
    (B12b) through tml_ring_gemm and tml_ring_accumulate
    (csrc/mp_overlap.cu) against their plain versions (the same schedule with
@@ -303,7 +316,8 @@ def _start_stamped_build():
     library beside the main one; returns (process or None where built, path)."""
     src = cuda_utils.CSRC / "gemm_wgmma.cu"
     flags = (*cuda_utils.NVCC_FLAGS, "-DTML_GEMM_STAMPS", "-shared")
-    tag = hashlib.sha256(" ".join(flags).encode() + src.read_bytes()).hexdigest()[:16]
+    tag = hashlib.sha256(" ".join(flags).encode() + src.read_bytes()
+                         + (cuda_utils.CSRC / "hopper_ring.cuh").read_bytes()).hexdigest()[:16]
     lib = cuda_utils.BUILD_ROOT / f"stamps-{tag}" / "libtml_gemm_stamps.so"
     if lib.exists():
         return None, lib
@@ -662,7 +676,45 @@ def phase_times(main: dict, card: str) -> dict:
     for name, route in main["routes"].items():
         print(f"[times] wall {name:30s} {_wall_ms(route, 10):.4f} ms per call "
               f"(host clock, 10 calls) | {card}", flush=True)
+    ms["grid_split"] = _grid_split(a.device)
     return ms
+
+
+GRID_BATCH = 70_000               # C21: a batch past a grid's 65535 blocks
+GRID_ROWS = 65535 * 128 + 1000    # C21: rows past 65535 tiles of 128 (8 388 480)
+
+
+def _grid_split(dev) -> dict:
+    """ROADMAP C21 on the card: a batch of GRID_BATCH (16, 32) @ (32, 24)
+    products and one (GRID_ROWS, 64) @ (64, 64) product, bf16 through the
+    tensor-core route and f32 through the SIMT one. Each must take two
+    launches of its route and agree with the plain version (max-scaled
+    1e-2 bf16 output, 1e-5 f32)."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    out, failures = {}, []
+    for route, dt, tol in (("wgmma", BF16, 1e-2), ("simt", F32, 1e-5)):
+        count = getattr(gemm, f"_gemm_{route}")
+        for case, (a_shape, b_shape) in (("batch", ((GRID_BATCH, 16, 32), (GRID_BATCH, 32, 24))),
+                                         ("rows", ((GRID_ROWS, 64), (64, 64)))):
+            a = torch.randn(a_shape, generator=gen, device=dev).to(dt)
+            b = torch.randn(b_shape, generator=gen, device=dev).to(dt)
+            before = count.launches
+            got = pallas_matmul(a, b)
+            torch.cuda.synchronize()
+            launches = count.launches - before
+            err = max_scaled_err(got, _pallas_matmul_plain(a, b, out_dtype=dt))
+            ok = (err <= tol and launches == 2 and got.shape == a_shape[:-1] + b_shape[-1:]
+                  and bool(torch.isfinite(got.float()).all()))
+            out[f"{route} {case}"] = {"launches": launches, "max_scaled_err": err, "ok": ok}
+            print(f"[times] C21 {route} {case} {tuple(a_shape)} @ {tuple(b_shape)} {str(dt)[6:]}: "
+                  f"{launches} launches, vs plain max-scaled {err:.3e} (tol {tol:g}) "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failures.append(f"{route} {case}")
+            del a, b, got
+    if failures:
+        raise SystemExit(f"chip_smoke: grids past 65535 blocks failed: {failures}")
+    return out
 
 
 def _tile_configs(dev, card: str) -> dict:
@@ -1690,7 +1742,7 @@ SPMM_MAIN = (128, 128, 16, 128, 4096)   # (mb, nb, ellw, bs, k) of bench_spmm_be
 SPMV_MAIN = (128, 128, 32, 128)         # (mb, nb, ellw, bs) of bench_spmv_bell
 AUTOPLAN_MAIN = (64, 64, 32, 128)       # (mb, nb, ellw, bs) of bench_spmv_autoplan
 CSR_MAIN = (100_000, 32)                # (n, nnz per row) of bench_spmv
-SPARSE_COUNTS = (spk.bell_spmm_pallas, spk._bell_spmv)
+SPARSE_COUNTS = (spk.bell_spmm_pallas, spk._bell_spmm_wgmma, spk._bell_spmm_simt, spk._bell_spmv)
 
 
 def _bell_cols(rng, mb, nb, ellw):
@@ -1719,10 +1771,12 @@ def _spmm64(a, b):
 
 
 def phase_sparse_kernel(dev) -> None:
-    """tml_bell_spmm and tml_bell_spmv against their plain versions and
-    float64 (on the host) on the card. Tolerances, max-scaled: 1e-5 for f32
-    output (the same f32 products, summed in another order), 1e-2 for bf16
-    or f16 output (an output ulp where the two f32 sums round apart)."""
+    """15. B6a's two kernels (tml_bell_spmm_wgmma for bf16 and f16 pairs,
+    tml_bell_spmm for the rest; each call must grow its kernel's count) and
+    tml_bell_spmv against their plain versions and float64 (on the host) on
+    the card. Tolerances, max-scaled: 1e-5 for f32 output (the same f32
+    products, summed in another order), 1e-2 for bf16 or f16 output (an
+    output ulp where the two f32 sums round apart)."""
     gen = torch.Generator(device=dev).manual_seed(6161)
     rng = np.random.default_rng(6161)
     chk = Checker()
@@ -1731,30 +1785,51 @@ def phase_sparse_kernel(dev) -> None:
         chk.compare(group, case + " vs plain", got, plain, tol)
         chk.compare(group + " vs f64", case + " vs f64", got, f64, tol)
 
+    def spmm_case(group, case, a, b, tol):
+        count = (spk._bell_spmm_wgmma if spk._spmm_route(a.data.dtype, b.dtype) == "wgmma"
+                 else spk._bell_spmm_simt)
+        before = count.launches
+        got = spk.bell_spmm_pallas(a, b, alpha=0.5)
+        plain = spk._bell_spmm_plain(a, b, 0.5)
+        torch.cuda.synchronize()
+        if count.launches - before != 1:
+            chk.failures.append(f"{case}: not one launch of {count.__name__}")
+        want = 0.5 * _spmm64(sparse.BlockedELL(a.cols.cpu(), a.data.cpu(), a.shape, a.blocksize),
+                             b.cpu())
+        hold(group, case, got, plain, want, tol)
+        return got
+
     pairs = ((F32, F32), (BF16, BF16), (BF16, F32), (F16, F16))
     for adt, bdt in pairs:
         for bs in (128, 256):
-            for k in (1, 200, 1000, 4096):
-                if adt == F16 and (bs, k) != (128, 200):
+            for k in (1, 200, 300, 1000, 4096):
+                if adt == F16 and (bs, k) not in ((128, 200), (256, 300)):
                     continue
-                pads = "data" if k in (1, 1000) else "zero"
+                pads = "data" if k in (1, 300, 1000) else "zero"
                 a = _bell_random(rng, gen, 3, 5, 3, bs, adt, dev, pads=pads)
                 b = torch.randn((5 * bs, k), generator=gen, device=dev).to(bdt)
-                got = spk.bell_spmm_pallas(a, b, alpha=0.5)
-                plain = spk._bell_spmm_plain(a, b, 0.5)
-                torch.cuda.synchronize()
-                want = 0.5 * _spmm64(sparse.BlockedELL(a.cols.cpu(), a.data.cpu(), a.shape, bs),
-                                     b.cpu())
                 group = f"spmm {str(adt)[6:]}x{str(bdt)[6:]}"
-                hold(group, f"{group} bs={bs} k={k} pads={pads}", got, plain, want,
-                     1e-5 if bdt == F32 else 1e-2)
-    # a 3-D batched B: one launch for the batch
+                spmm_case(group, f"{group} bs={bs} k={k} pads={pads}", a, b,
+                          1e-5 if bdt == F32 else 1e-2)
+    # a block row of pads only (its data non-zero) writes zeros; a block column
+    # whose rows run past a ragged n reads them as zero; a ragged m
+    for dt in (BF16, F16, F32):
+        cols = torch.tensor([[1, -1, 4], [-1, -1, -1], [0, 2, 4]], dtype=torch.int32, device=dev)
+        data = torch.randn((3, 3, 128, 128), generator=gen, device=dev).to(dt)
+        a = sparse.BlockedELL(cols, data, (3 * 128 - 7, 5 * 128 - 50), 128)
+        b = torch.randn((5 * 128 - 50, 300), generator=gen, device=dev).to(dt)
+        group = f"spmm {str(dt)[6:]}x{str(dt)[6:]}"
+        got = spmm_case(group, f"{group} pad-only block row, block column past n=590, m=377",
+                        a, b, 1e-5 if dt == F32 else 1e-2)
+        if not bool((got[128:256] == 0).all()):
+            chk.failures.append(f"{group}: the pad-only block row is not zero")
+    # a 3-D batched B: one launch for the batch (its folded k, 300, is ragged)
     a = _bell_random(rng, gen, 3, 5, 3, 128, BF16, dev, pads="data")
     b3 = torch.randn((3, 640, 100), generator=gen, device=dev).to(BF16)
-    before = spk.bell_spmm_pallas.launches
+    before = spk._bell_spmm_wgmma.launches
     got = sparse.spmm(a, b3, alpha=0.5)
     torch.cuda.synchronize()
-    one = spk.bell_spmm_pallas.launches - before == 1
+    one = spk._bell_spmm_wgmma.launches - before == 1
     for i in range(3):
         want = 0.5 * _spmm64(sparse.BlockedELL(a.cols.cpu(), a.data.cpu(), a.shape, 128),
                              b3[i].cpu())
@@ -1846,6 +1921,8 @@ def phase_sparse_main(dev) -> dict:
                              .to(dev), torch.randn((mb, ellw, bs, bs), generator=gen, device=dev)
                              .to(BF16), (mb * bs, nb * bs), bs)
     b_mm = torch.randn((nb * bs, k), generator=gen, device=dev).to(BF16)
+    a_f32 = sparse.BlockedELL(a_mm.cols, a_mm.data.float(), a_mm.shape, bs)   # the SIMT kernel's
+    b_f32 = b_mm.float()
     mb, nb, ellw, bs = SPMV_MAIN
     a_mv = sparse.BlockedELL(torch.from_numpy(_bell_cols(np.random.default_rng(0), mb, nb, ellw))
                              .to(dev), torch.randn((mb, ellw, bs, bs), generator=gen, device=dev),
@@ -1865,18 +1942,23 @@ def phase_sparse_main(dev) -> dict:
     csr, x_csr = _random_csr(dev, *CSR_MAIN)
     routes = {
         "spmm(BlockedELL bf16, B bf16)": lambda: sparse.spmm(a_mm, b_mm),
+        "spmm(BlockedELL f32, B f32)": lambda: sparse.spmm(a_f32, b_f32),
         "SpmvPlan(BlockedELL f32).execute": lambda: plan.execute(x_mv),
         "SpmvPlan.execute x20 fed back": lambda: _chain(lambda v: plan.execute(v, shrink), x_mv, 20),
         "spmv(BlockedELL f32)": lambda: sparse.spmv(a_mv, x_mv),
         "SpmvAutoPlan(CSR).execute": lambda: auto.execute(x_ap),
         "spmv(CSR)": lambda: sparse.spmv(csr, x_csr),
     }
-    kernel_of = {"spmm(BlockedELL bf16, B bf16)": "bell_spmm_pallas",
-                 "SpmvPlan(BlockedELL f32).execute": "_bell_spmv",
-                 "SpmvPlan.execute x20 fed back": "_bell_spmv",
-                 "spmv(BlockedELL f32)": "bell_spmm_pallas",
-                 "SpmvAutoPlan(CSR).execute": "_bell_spmv",
-                 "spmv(CSR)": None}
+    # the launches each route must add, by count; every other count must stay
+    expect = {"spmm(BlockedELL bf16, B bf16)": {"bell_spmm_pallas": 1, "_bell_spmm_wgmma": 1},
+              "spmm(BlockedELL f32, B f32)": {"bell_spmm_pallas": 1, "_bell_spmm_simt": 1},
+              "SpmvPlan(BlockedELL f32).execute": {"_bell_spmv": 1},
+              "SpmvPlan.execute x20 fed back": {"_bell_spmv": 20},
+              "spmv(BlockedELL f32)": {"_bell_spmv": 1},
+              "SpmvAutoPlan(CSR).execute": {"_bell_spmv": 1},
+              "spmv(CSR)": {}}
+    kernel_of = {name: next((k for k in want if k != "bell_spmm_pallas"), None)
+                 for name, want in expect.items()}
     torch.cuda.synchronize()
     for f in SPARSE_COUNTS:
         f.launches = 0
@@ -1901,6 +1983,8 @@ def phase_sparse_main(dev) -> dict:
     checks = {   # name: (plain, float64 reference, the part of the output it covers, tol)
         "spmm(BlockedELL bf16, B bf16)": (lambda: spk._bell_spmm_plain(a_mm, b_mm),
                                           lambda: _spmm64(sub, b_mm), 4 * SPMM_MAIN[3], 1e-2),
+        "spmm(BlockedELL f32, B f32)": (lambda: spk._bell_spmm_plain(a_f32, b_f32),
+                                        lambda: _spmm64(sub, b_f32), 4 * SPMM_MAIN[3], 1e-5),
         "SpmvPlan(BlockedELL f32).execute": (
             lambda: spk._bell_spmv_plain(plan.cols, plan.data, x_mv, plan.shape),
             lambda: _spmm64(a_mv, x_mv[:, None])[:, 0], None, 1e-5),
@@ -1916,7 +2000,7 @@ def phase_sparse_main(dev) -> dict:
                                                             csr.data.double(), csr.shape),
                                                  x_csr.double()), None, 1e-5),
     }
-    max_abs = {"bell_spmm_pallas": 0.0, "_bell_spmv": 0.0}
+    max_abs = {"_bell_spmm_wgmma": 0.0, "_bell_spmm_simt": 0.0, "_bell_spmv": 0.0}
     failures = []
     for name, out in outs.items():
         plain_fn, f64_fn, rows, tol = checks[name]
@@ -1927,7 +2011,7 @@ def phase_sparse_main(dev) -> dict:
             del plain
         vs_f64 = max_scaled_err(out if rows is None else out[:rows], f64_fn())
         kernel = kernel_of[name]
-        launched = kernel is None or grew[name][kernel] >= 1
+        launched = grew[name] == {key: expect[name].get(key, 0) for key in grew[name]}
         if kernel is not None:
             max_abs[kernel] = max(max_abs[kernel], abs_err)
         finite = bool(torch.isfinite(out.float()).all())
@@ -1943,16 +2027,19 @@ def phase_sparse_main(dev) -> dict:
     if failures:
         raise SystemExit(f"chip_smoke: sparse main path failed: {failures}")
     return {"launches": launches, "max_abs_err": max_abs, "routes": routes,
-            "args": (a_mm, b_mm, a_mv, x_mv, plan, csr_ap, auto, x_ap, csr, x_csr)}
+            "args": (a_mm, b_mm, a_f32, b_f32, a_mv, x_mv, plan, csr_ap, auto, x_ap, csr, x_csr)}
 
 
 def phase_sparse_times(spd: dict, card: str) -> dict:
-    """CUDA-event times of each sparse line of bench.py: the route, its
+    """17. CUDA-event times of each sparse line of bench.py: the route, its
     plain version and the library call (torch.bmm of the (mb, bs, ellw·bs)
     block rows against the rows of B or x gathered beforehand, the gather
     timed apart; cuSPARSE through torch's sparse CSR tensor for the CSR
-    lines); then each route of phase 16 on the host clock."""
-    a_mm, b_mm, a_mv, x_mv, plan, csr_ap, auto, x_ap, csr, x_csr = spd["args"]
+    lines), back to back; the bf16 SpMM (the tensor-core kernel) and its
+    library call also one call after a synchronise and by device time
+    behind a spin, and the kernel's registers and spills; then each route
+    of phase 16 on the host clock."""
+    a_mm, b_mm, a_f32, b_f32, a_mv, x_mv, plan, csr_ap, auto, x_ap, csr, x_csr = spd["args"]
 
     def rows_and_gather(a, v):
         mb, ellw = a.cols.shape
@@ -1965,15 +2052,20 @@ def phase_sparse_times(spd: dict, card: str) -> dict:
         return rows, gather
 
     rows_mm, gather_mm = rows_and_gather(a_mm, b_mm)
+    rows_f32, gather_f32 = rows_and_gather(a_f32, b_f32)
     rows_mv, gather_mv = rows_and_gather(a_mv, x_mv[:, None])
-    g_mm, g_mv = gather_mm(), gather_mv()
+    g_mm, g_f32, g_mv = gather_mm(), gather_f32(), gather_mv()
     lib_ap, lib_csr = _library_csr(csr_ap), _library_csr(csr)
     bell_ap = auto._bell
     fast = {
         "spmm kernel": lambda: sparse.spmm(a_mm, b_mm),
         "spmm library": lambda: torch.bmm(rows_mm, g_mm),
         "spmm gather": gather_mm,
+        "spmm f32 kernel": lambda: sparse.spmm(a_f32, b_f32),
+        "spmm f32 library": lambda: torch.bmm(rows_f32, g_f32),
+        "spmm f32 gather": gather_f32,
         "spmv kernel": lambda: plan.execute(x_mv),
+        "spmv route": lambda: sparse.spmv(a_mv, x_mv),
         "spmv library": lambda: torch.bmm(rows_mv, g_mv),
         "spmv gather": gather_mv,
         "autoplan kernel": lambda: auto.execute(x_ap),
@@ -1983,12 +2075,33 @@ def phase_sparse_times(spd: dict, card: str) -> dict:
     }
     slow = {
         "spmm plain": lambda: spk._bell_spmm_plain(a_mm, b_mm),
+        "spmm f32 plain": lambda: spk._bell_spmm_plain(a_f32, b_f32),
         "spmv plain": lambda: spk._bell_spmv_plain(plan.cols, plan.data, x_mv, plan.shape),
         "autoplan plain": lambda: spk._bell_spmv_plain(bell_ap.cols, bell_ap.data, x_ap,
                                                        bell_ap.shape),
     }
     ms = _loop_ms(fast, warmup=3, reps=20, samples=5)
     ms.update(_loop_ms(slow, warmup=1, reps=2, samples=3))
+    # the bf16 SpMM as B1 is timed: one call after a synchronise, and the
+    # device time with the host out of the way
+    ms["spmm one call"] = _median_ms({"kernel": fast["spmm kernel"],
+                                      "library": fast["spmm library"]}, warmup=3, iters=20)
+    ms["spmm queued"] = {}
+    for route in ("kernel", "library"):
+        dev_ms, host_ms, covered = _queued_ms(fast[f"spmm {route}"], 20)
+        ms["spmm queued"][route] = {"device_ms": dev_ms, "host_ms": host_ms, "covered": covered}
+        print(f"[sparse-times] spmm {route:7s} one call {ms['spmm one call'][route]:.4f} ms "
+              f"(after a synchronise) | device {dev_ms:.4f} ms a call (20 back to back behind a "
+              f"spin, covered {covered}) | host enqueue {host_ms:.4f} ms a call | {card}",
+              flush=True)
+    ms["spmm ptxas"] = {}
+    for e in _ptxas_entries("bell_wgmma_kernel"):
+        args = e["entry"].split("bell_wgmma_kernelI")[1].split("EEEv")[0]
+        ms["spmm ptxas"][args] = e
+        print(f"[sparse-times] ptxas bell_wgmma_kernel<{args}>: {e['registers']} registers, "
+              f"{e['spill_stores']} / {e['spill_loads']} bytes spilled", flush=True)
+        if e["spill_stores"] or e["spill_loads"]:
+            raise SystemExit(f"chip_smoke: {e['entry']} spills")
 
     mb, nb, ellw, bs, k = SPMM_MAIN
     nnz_mm = mb * ellw * bs * bs
@@ -2001,6 +2114,8 @@ def phase_sparse_times(spd: dict, card: str) -> dict:
     lines = {   # line: (flop, bytes as bench.py counts them, the rate's unit, bound)
         "spmm": (2.0 * nnz_mm * k, spmm_bytes, "TFLOP/s", _bound(2.0 * nnz_mm * k, PEAK_BF16,
                                                                  spmm_bytes)),
+        "spmm f32": (2.0 * nnz_mm * k, 2 * spmm_bytes, "TFLOP/s",
+                     _bound(2.0 * nnz_mm * k, PEAK_F32, 2 * spmm_bytes)),
         "spmv": (2.0 * nnz_mv, nnz_mv * 4 + 2 * n_mv * 4, "GB/s",
                  _bound(2.0 * nnz_mv, PEAK_F32, nnz_mv * 4 + 2 * n_mv * 4)),
         "autoplan": (2.0 * nnz_ap, nnz_ap * 4 + 2 * mb * bs * 4, "GB/s",
@@ -3838,13 +3953,21 @@ BLOCKED_COUNTS = (blocked.potrf_blocked, blocked._chol_inv128, pallas_matmul)
 
 
 def _blocked_counts(n: int, panel: int) -> tuple[int, int]:
-    """(sweeps, B1 launches) of one potrf_blocked call: a sweep per 128-block;
-    a trsm under every block but the last; an in-panel update after every
-    block that is not its panel's last; a trailing syrk after every panel
-    but the last."""
-    widths = [min(panel, n - s) for s in range(0, n, panel)]
-    blocks = n // 128
-    return blocks, (blocks - 1) + sum(w // 128 - 1 for w in widths) + (len(widths) - 1)
+    """(sweeps, B1 launches) of one potrf_blocked call (solver/blocked.py's
+    _potrf): a sweep per 128-block; a trsm under every block but the last;
+    in a panel, after every block but its last, the next block column's
+    update and, where the panel has columns past that, their update; after
+    every panel but the last, the trailing syrk: the next panel's first
+    block column, the rest of the next panel (if it has more than one
+    block), then the columns past the next panel (if any) in a product of
+    the lower rows and, where at least two blocks remain, one of the
+    corner."""
+    ends = [min(s + panel, n) for s in range(0, n, panel)]
+    widths = [(e - s) // 128 for s, e in zip(range(0, n, panel), ends)]
+    in_panel = sum(w - 1 + max(w - 2, 0) for w in widths)
+    syrk = sum(1 + (widths[i + 1] > 1) + (ends[i + 1] < n) + (n - ends[i + 1] >= 256)
+               for i in range(len(widths) - 1))
+    return n // 128, (n // 128 - 1) + in_panel + syrk
 
 
 def _blocked_failure_ok(l, pivot: int) -> bool:
@@ -3965,7 +4088,7 @@ def phase_four_step_main(dev) -> dict:
     f32 planes (the bench FFT shape) and 1024 × 16384, both directions (+1
     launch a call for B5b, +2 for B5c), against the plain version (rel-L2 ≤
     FOUR_STEP_TOL) and float64 (< 1e-5); then solver.potrf_blocked at n =
-    4096, panel 256 (+32 sweeps, +62 B1), against its plain version
+    4096, panel 256 (+32 sweeps, +105 B1), against its plain version
     (max-scaled 1e-5) and a float64 factor (5e-5 max-relative), upper
     triangle exactly 0."""
     gen = torch.Generator(device=dev).manual_seed(3434)
@@ -4160,15 +4283,33 @@ def phase_four_step_times(run: dict, card: str) -> dict:
     ms = _loop_ms({**kernels, **library}, warmup=3, reps=10, samples=5)
     ms.update(_loop_ms(plains, warmup=1, reps=3, samples=3))
     a = x["a"]
-    ms.update(_loop_ms({"blocked kernel": lambda: blocked.potrf_blocked(a, BLOCKED_PANEL),
-                        "blocked library": lambda: torch.linalg.cholesky(a)},
-                       warmup=2, reps=3, samples=5))
+    blocked_runs = {"blocked kernel": lambda: blocked.potrf_blocked(a, BLOCKED_PANEL),
+                    "blocked potrf_onelaunch": lambda: onelaunch.potrf_onelaunch(a),
+                    "blocked library": lambda: torch.linalg.cholesky(a)}
+    ms.update(_loop_ms(blocked_runs, warmup=2, reps=3, samples=5))
     ms.update(_loop_ms({"blocked plain": lambda: blocked._potrf_blocked_plain(a, BLOCKED_PANEL)},
                        warmup=1, reps=1, samples=2))
-    dev_ms, host_ms, covered = _queued_ms(lambda: blocked.potrf_blocked(a, BLOCKED_PANEL), 3)
-    print(f"[four-step-times] blocked kernel device {dev_ms:.4f} ms (back to back behind a spin, "
-          f"spin covered {covered}) | host enqueue {host_ms:.4f} ms a call (no synchronise) | "
-          f"{card}", flush=True)
+    # as phase 8 times B2: one call after a synchronise (the time a caller
+    # sees), the device time with the host out of the way, the host's
+    # enqueue a call and the device's idle share, 1 − device / one call;
+    # potrf_blocked and potrf_onelaunch in turns
+    one = _median_ms(blocked_runs, warmup=1, iters=5)
+    solo = {"one call": one}
+    samples: dict[str, list] = {"blocked kernel": [], "blocked potrf_onelaunch": []}
+    for name in list(samples) + list(reversed(samples)) + list(samples):
+        samples[name].append(_queued_ms(blocked_runs[name], 3))
+    for name, got in samples.items():
+        dev_ms = float(np.median([t[0] for t in got]))
+        host_ms = float(np.median([t[1] for t in got]))
+        solo[name] = {"device_ms": dev_ms, "host_enqueue_ms": host_ms,
+                      "idle_share": 1.0 - dev_ms / one[name]}
+        print(f"[four-step-times] {name:24s} one call {one[name]:.4f} ms (after a synchronise) | "
+              f"device {dev_ms:.4f} ms (back to back behind a spin; samples "
+              f"{', '.join(f'{t[0]:.4f}' for t in got)}, spin covered {all(t[2] for t in got)}) | "
+              f"host enqueue {host_ms:.4f} ms a call (no synchronise) | device idle share of a "
+              f"call {solo[name]['idle_share']:.3f} | {card}", flush=True)
+    print(f"[four-step-times] blocked library          one call {one['blocked library']:.4f} ms "
+          f"(torch.linalg.cholesky) | {card}", flush=True)
     bounds["blocked"] = _four_step_bound("blocked")
     for route, t in ms.items():
         own = ""
@@ -4203,6 +4344,7 @@ def phase_four_step_times(run: dict, card: str) -> dict:
               f"{enqueue:.4f} ms a call, wall {wall:.4f} ms, device {ms[route]:.4f} ms, wall − device "
               f"{wall - ms[route]:+.4f} ms | {card}", flush=True)
     ms["host"] = host
+    ms["blocked solo"] = solo
     ms["resources"] = _four_step_resources()
     ms["bounds"] = bounds
     ms["split own bounds"] = {f"b{b} N{n}": _split_own_bound(b, n) for b, n in FOUR_STEP_MAIN}
@@ -4658,6 +4800,7 @@ def main() -> None:
         "behind_spin": ms["queued"],
         "small_shape": {"mnk": list(TC_SMALL), **ms["small"]},
         "tile_split": ms["split"],
+        "grid_split": ms["grid_split"],   # ROADMAP C21, both routes
     }, {
         # B1's SIMT route: f32 and int8 operands (the solvers' trailing products,
         # whose main path is phase 7's); its time is the main path's call forced onto it
@@ -4730,7 +4873,7 @@ def main() -> None:
     }] + [{
         "name": name,
         "route": "cuda",
-        "source": "tpumathlib_torch/csrc/bell_sparse.cu",
+        "source": f"tpumathlib_torch/csrc/{source}",
         "replaces": replaces,
         "launches": spd["launches"][count],
         "max_abs_err": spd["max_abs_err"][count],
@@ -4738,9 +4881,24 @@ def main() -> None:
         "plain_ms": sp_ms[f"{line} plain"],
         **sp_ms["bounds"][line],
         "library_ms": sp_ms[f"{line} library"],
-    } for name, count, line, replaces in (
-        ("bell_spmm", "bell_spmm_pallas", "spmm", "tpumathlib/sparse/pallas_kernels.py:123"),
-        ("bell_spmv", "_bell_spmv", "spmv", "tpumathlib/sparse/pallas_kernels.py:404 and :450"))] + [{
+        **extra,
+    } for name, count, line, source, replaces, extra in (
+        ("bell_spmm_wgmma (tml_bell_spmm_wgmma, bf16)", "_bell_spmm_wgmma", "spmm", "bell_wgmma.cu",
+         "tpumathlib/sparse/pallas_kernels.py:123", {
+             # ms and library_ms: back to back; here one call after a synchronise
+             # and the device time behind a spin; the library's operand gathered apart
+             "one_call_ms": sp_ms["spmm one call"]["kernel"],
+             "library_one_call_ms": sp_ms["spmm one call"]["library"],
+             "device_ms": sp_ms["spmm queued"]["kernel"]["device_ms"],
+             "library_device_ms": sp_ms["spmm queued"]["library"]["device_ms"],
+             "library_gather_ms": sp_ms["spmm gather"],
+             "ptxas": sp_ms["spmm ptxas"]}),
+        ("bell_spmm (tml_bell_spmm, f32 SIMT)", "_bell_spmm_simt", "spmm f32", "bell_sparse.cu",
+         "tpumathlib/sparse/pallas_kernels.py:123", {"library_gather_ms": sp_ms["spmm f32 gather"]}),
+        ("bell_spmv (tml_bell_spmv)", "_bell_spmv", "spmv", "bell_sparse.cu",
+         "tpumathlib/sparse/pallas_kernels.py:404 and :450", {
+             "spmv_blocked_ell_ms": sp_ms["spmv route"],   # sparse.spmv on the f32 Blocked-ELL
+             "library_gather_ms": sp_ms["spmv gather"]}))] + [{
         "name": name,
         "route": "cuda",
         "source": "tpumathlib_torch/csrc/dx_solver.cu",
@@ -4874,10 +5032,19 @@ def main() -> None:
         "launches": fs_run["launches"]["_chol_inv128"],
         "gemm_launches": fs_run["launches"]["pallas_matmul"],
         "max_abs_err": fs_run["max_abs_err"]["blocked"],
+        # ms and library_ms: 3 calls back to back; then one call after a
+        # synchronise, the device time behind a spin, the host's enqueue, the
+        # idle share, and potrf_onelaunch (B2) timed the same ways in turns
         "ms": fs_ms["blocked kernel"],
         "plain_ms": fs_ms["blocked plain"],
         **fs_ms["bounds"]["blocked"],
         "library_ms": fs_ms["blocked library"],
+        "one_call_ms": fs_ms["blocked solo"]["one call"]["blocked kernel"],
+        "library_one_call_ms": fs_ms["blocked solo"]["one call"]["blocked library"],
+        **fs_ms["blocked solo"]["blocked kernel"],
+        "potrf_onelaunch": {"one_call_ms": fs_ms["blocked solo"]["one call"]["blocked potrf_onelaunch"],
+                            "loop_ms": fs_ms["blocked potrf_onelaunch"],
+                            **fs_ms["blocked solo"]["blocked potrf_onelaunch"]},
     }] + [{
         "name": name,
         "route": "cuda",

@@ -1,5 +1,5 @@
 """CPU tests of the card scripts' host-side parts: chip_smoke.py's split of a
-tile's time from csrc/gemm_wgmma.cu's stamps, and time_f32_paths.py's paths
+tile's time from csrc/gemm_wgmma.cu's stamps, and time_paths.py's paths
 (run at a small n on the CPU, where every wrapper takes its plain version)."""
 
 import importlib.util
@@ -57,12 +57,16 @@ def test_tile_split_from_stamps(blocks, want):
 
 
 def test_f32_paths_run_on_the_cpu(monkeypatch):
-    mod = _load("time_f32_paths")
+    mod = _load("time_paths")
     monkeypatch.setattr(mod, "N", 256)
     monkeypatch.setattr(mod, "PANEL", 128)
+    monkeypatch.setattr(mod, "SPMM", (4, 4, 2, 128, 64))
+    monkeypatch.setattr(mod, "SPMV", (4, 4, 2, 128))
     paths = mod._paths(torch.device("cpu"))
     assert sorted(paths) == sorted(["potrf_onelaunch", "getrf_onelaunch", "geqrf_onelaunch",
-                                    "potrf_blocked", "dropout_matmul_kernel"])
+                                    "potrf_blocked", "dropout_matmul_kernel",
+                                    "pallas_matmul_bf16_gelu_bias", "spmm_bell_bf16",
+                                    "spmv_bell_f32"])
     for name, fn in paths.items():
         out = fn()
         for t in out if isinstance(out, tuple) else (out,):
@@ -73,8 +77,8 @@ def test_f32_paths_run_on_the_cpu(monkeypatch):
 
 def test_f32_paths_imports_neither_jax_nor_reference():
     code = ("import sys, runpy\n"
-            "sys.argv = ['time_f32_paths.py']\n"
-            "runpy.run_path('time_f32_paths.py', run_name='not_main')\n"
+            "sys.argv = ['time_paths.py']\n"
+            "runpy.run_path('time_paths.py', run_name='not_main')\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'tpumathlib'))\n"
             "assert not bad, bad\n"
             "print('ok')\n")

@@ -247,19 +247,33 @@ def _major(ptr, rows, cols, sb, sr, sc, batch):
     return major if batch == 1 or sb == 0 or (sb % 8 == 0 and sb >= extent) else None
 
 
+_INVALID_CONFIGURATION = 9   # cudaErrorInvalidConfiguration
+
+
+def _grid_refused(nb, m, config) -> bool:
+    """Both kernels' launch refuses a grid of more than 65535 blocks along
+    y (row tiles) or z (the batch)."""
+    return nb > 65535 or -(-m // config.bm) > 65535
+
+
 class _EmulatedLib:
     """tml_gemm_epilogue's and tml_gemm_wgmma's contracts, computed on the
-    CPU from the raw arguments: pointers, sizes, strides, codes, config."""
+    CPU from the raw arguments: pointers, sizes, strides, codes, config; a
+    grid past 65535 blocks along the batch or the row tiles is refused, as
+    the kernels' launches refuse it."""
 
     def __init__(self):
         self.calls = []
 
     def tml_gemm_epilogue(self, a, b, c, bias, d, aux, nb, m, n, k, strides, alpha, beta,
                           act, ab_code, c_code, d_code, config, stream):
+        assert 0 <= config < len(gemm._CONFIGS)
+        if _grid_refused(nb, m, gemm._CONFIGS[config]):
+            return _INVALID_CONFIGURATION
         s = list(strides)
         self.calls.append(dict(kernel="simt", strides=s, act=act, ab=ab_code, c=c_code,
-                               d=d_code, config=config, shape=(nb, m, n, k)))
-        assert 0 <= config < len(gemm._CONFIGS)
+                               d=d_code, config=config, shape=(nb, m, n, k),
+                               ptrs=dict(a=a, b=b, c=c, d=d, aux=aux)))
         abt = _CODE_DTYPE[ab_code]
         acc = alpha * (_view(a, abt, (nb, m, k), s[0:3]).float()
                        @ _view(b, abt, (nb, k, n), s[3:6]).float())
@@ -282,6 +296,8 @@ class _EmulatedLib:
         majors = (_major(a, m, k, *s[0:3], nb), _major(b, k, n, *s[3:6], nb))
         if ab_code not in (1, 2) or not 0 <= config < len(gemm._TC_CONFIGS) or None in majors:
             return 1
+        if _grid_refused(nb, m, gemm._TC_CONFIGS[config]):
+            return _INVALID_CONFIGURATION
         before = len(self.calls)
         rc = self.tml_gemm_epilogue(a, b, c, bias, d, aux, nb, m, n, k, strides, alpha, beta,
                                     act, ab_code, c_code, d_code, 0, stream)
@@ -486,3 +502,95 @@ def test_emulated_layout_rule_matches_wrapper(rng):
             got = gemm._tc_layout(t3)
             want = _major(t3.data_ptr(), rows, cols, *t3.stride(), t3.shape[0]) is not None
             assert got == want, case
+
+
+# ---------------------------------------------------------------------------
+# ROADMAP C21: grids past 65535 blocks go in pieces
+
+@pytest.mark.parametrize("route", ["wgmma", "simt"])
+def test_cuda_branch_splits_a_batch_past_the_grid_c21(emulated, route, rng):
+    """A batch of 70 000 products takes two launches, of 65535 and 4465
+    matrices; the second's A, B and D start 65535 batch strides on. The
+    emulation refuses a batch past 65535, as the kernels' launches do."""
+    nb, dt = 70_000, (torch.bfloat16 if route == "wgmma" else torch.float32)
+    a, b = _bf16(rng, nb, 8, 8, dtype=dt), _bf16(rng, nb, 8, 16, dtype=dt)
+    counts = (gemm.pallas_matmul, gemm._gemm_wgmma, gemm._gemm_simt)
+    before = [f.launches for f in counts]
+    got = gemm.pallas_matmul(a, b, out_dtype=torch.float32)
+    assert [f.launches - x for f, x in zip(counts, before)] == [2, 2 * (route == "wgmma"),
+                                                                  2 * (route == "simt")]
+    first, second = emulated.calls
+    assert [first["kernel"], second["kernel"]] == [route, route]
+    assert first["shape"] == (65535, 8, 16, 8) and second["shape"] == (4465, 8, 16, 8)
+    size = dt.itemsize
+    assert second["ptrs"]["a"] - first["ptrs"]["a"] == 65535 * 64 * size
+    assert second["ptrs"]["b"] - first["ptrs"]["b"] == 65535 * 128 * size
+    assert second["ptrs"]["d"] - first["ptrs"]["d"] == 65535 * 128 * 4
+    assert first["strides"] == second["strides"]
+    want = gemm._pallas_matmul_plain(a, b, out_dtype=torch.float32)
+    assert got.shape == want.shape == (nb, 8, 16)
+    _close(got, to_numpy(want), 1e-6)
+
+
+def _tall_case(route, rng):
+    """(a, b, c, keyword arguments, the config's rows a tile) of a product
+    one row tile past 65535: the tensor-core route at 128 rows a tile (A an
+    M-major view with K = 2, B (2, 1) with 16-byte rows), the SIMT route at
+    64 (config 2), with C and aux, whose pieces are offset too."""
+    if route == "wgmma":
+        m = 65535 * 128 + 72
+        a = _bf16(rng, 2, m + 8 - m % 8)[:, :m].mT
+        b = torch.as_strided(_bf16(rng, 16), (2, 1), (8, 1))
+        return a, b, None, dict(out_dtype=torch.bfloat16), 128
+    m = 65535 * 64 + 100
+    a, b = _bf16(rng, m, 1, dtype=torch.float32), _bf16(rng, 1, 1, dtype=torch.float32)
+    c = _bf16(rng, m, 1, dtype=torch.float32)
+    return a, b, c, dict(config=gemm._CONFIGS[2], beta=0.5, epilogue="relu_aux",
+                         return_aux=True), 64
+
+
+@pytest.mark.parametrize("route", ["wgmma", "simt"])
+def test_cuda_branch_splits_rows_past_the_grid_c21(emulated, route, rng):
+    """A product of more than 65535 row tiles takes two launches; the
+    second's A, C, D and aux start 65535 tiles of rows on, its B is the
+    first's, and together they give the plain version's result."""
+    a, b, c, kw, bm = _tall_case(route, rng)
+    m = a.shape[0]
+    before = gemm.pallas_matmul.launches
+    got = gemm.pallas_matmul(a, b, c, **kw)
+    assert gemm.pallas_matmul.launches == before + 2
+    first, second = emulated.calls
+    assert [first["kernel"], second["kernel"]] == [route, route]
+    k = a.shape[1]
+    assert first["shape"] == (1, 65535 * bm, 1, k) and second["shape"] == (1, m - 65535 * bm, 1, k)
+    rows = 65535 * bm
+    assert second["ptrs"]["a"] - first["ptrs"]["a"] == rows * a.stride(0) * a.element_size()
+    assert second["ptrs"]["b"] == first["ptrs"]["b"]
+    d_size = 2 if route == "wgmma" else 4
+    assert second["ptrs"]["d"] - first["ptrs"]["d"] == rows * d_size
+    if c is not None:
+        assert second["ptrs"]["c"] - first["ptrs"]["c"] == rows * 4
+        assert second["ptrs"]["aux"] - first["ptrs"]["aux"] == rows * 4
+    kw.pop("config", None)
+    want = gemm._pallas_matmul_plain(a, b, c, out_dtype=kw.pop("out_dtype", a.dtype), **kw)
+    if kw.get("return_aux"):
+        assert torch.equal(got[1], want[1])
+        got, want = got[0], want[0]
+    assert got.dtype == want.dtype and got.shape == want.shape == (m, 1)
+    _close(got, to_numpy(want), 1e-6 if got.dtype == torch.float32 else 1e-2)
+
+
+def test_grid_pieces_cover_each_block_once():
+    """The pieces are every pair of a batch range and a row range, the
+    ranges tiling the batch and the rows with no gap or overlap, each
+    within 65535 blocks."""
+    for nb, m, bm in ((1, 1, 128), (65535, 65535 * 64, 64), (65536, 1, 128),
+                      (2, 65535 * 128 + 1, 128), (131071, 3 * 65535 * 64, 64)):
+        pieces = [(range(nb)[bs], range(m)[ms]) for bs, ms in gemm._grid_pieces(nb, m, bm)]
+        batches = list(dict.fromkeys(b for b, _ in pieces))
+        rows = list(dict.fromkeys(r for _, r in pieces))
+        assert pieces == [(b, r) for b in batches for r in rows]
+        assert [i for b in batches for i in b] == list(range(nb))
+        assert [i for r in rows for i in r] == list(range(m))
+        assert all(len(b) <= 65535 for b in batches)
+        assert all(r.start % bm == 0 and -(-len(r) // bm) <= 65535 for r in rows)

@@ -15,9 +15,15 @@ reference and LAPACK.
 - A non-SPD matrix gives non-finite values from its failing block on.
 - The CUDA branch with the kernel library replaced by the CPU emulation of
   tests/test_torch_solver_onelaunch.py (B1 and the block sweeps from their
-  raw arguments): the launch counts of the blocked schedule (n = 4096 at
-  panel 256 gives 32 sweeps and 62 products), the plain version never
-  called, a failed sweep raising.
+  raw arguments): the launch counts of the right-looking schedule by panels
+  (n = 4096 at panel 256 gives 32 sweeps and 105 products; at panel 128,
+  potrf_onelaunch's 121), the sweeps on the look-ahead stream and the
+  products on the caller's, the plain version never called, a failed sweep
+  raising.
+- The schedule (its plain route) against the reference's own
+  ``potrf_blocked``, composed from its parts as its code composes them: its
+  panel kernel's body run eagerly on numpy-backed refs, its sweeps under
+  ``jax.disable_jit()``, its split syrk; at the three (n, panel) cases.
 - Gated by TPUMATHLIB_TEST_SLOW, as the reference's own test: the port
   against the reference's ``potrf_blocked`` in interpret mode at n = 256,
   panel 128 (minutes on one CPU core).
@@ -42,6 +48,7 @@ from tpumathlib_torch.core.errors import ExecutionError, InvalidValueError
 from tpumathlib_torch.dx import gemm
 from tpumathlib_torch.solver import blocked
 from test_torch_solver_onelaunch import _EmulatedLib as _EmulatedSolverLib
+from test_torch_solver_onelaunch import _Event, _Stream
 from test_torch_solver_onelaunch import emulated  # noqa: F401  (the emulated-library fixture)
 
 torch.set_num_threads(1)
@@ -67,10 +74,19 @@ def _max_rel(l, a):
 
 def _schedule(n, panel):
     """(sweeps, products) of one call: a sweep per 128-block; a trsm under
-    every block but the last; an in-panel update after every block that is
-    not its panel's last; a trailing syrk after every panel but the last."""
-    widths = [min(panel, n - s) for s in range(0, n, panel)]
-    return n // NB, (n // NB - 1) + sum(w // NB - 1 for w in widths) + (len(widths) - 1)
+    every block but the last; in a panel, after every block but its last,
+    the next block column's update and, where the panel has columns past
+    that, their update; after every panel but the last, the trailing syrk:
+    the next panel's first block column, the rest of the next panel's
+    columns (if it has more than one block), then the columns past the next
+    panel (if any) in a product of the lower rows and, where at least two
+    blocks remain, one of the corner."""
+    ends = [min(s + panel, n) for s in range(0, n, panel)]
+    widths = [(e - s) // NB for s, e in zip(range(0, n, panel), ends)]
+    in_panel = sum(w - 1 + max(w - 2, 0) for w in widths)
+    syrk = sum(1 + (widths[i + 1] > 1) + (ends[i + 1] < n) + (n - ends[i + 1] >= 2 * NB)
+               for i in range(len(widths) - 1))
+    return n // NB, (n // NB - 1) + in_panel + syrk
 
 
 @pytest.mark.parametrize("n, panel", CASES)
@@ -98,7 +114,7 @@ def test_sweeps_match_the_references(rng):
         seen.append((d.clone(), out))
         return out
 
-    l = blocked._potrf_blocked(a, 128, blocked._mm_f32, sweep)
+    l = blocked._potrf(a, blocked._PlainOps(sweep), 128)
     assert len(seen) == 2
     for d, (pl, pw) in seen:
         with jax.disable_jit():
@@ -106,6 +122,58 @@ def test_sweeps_match_the_references(rng):
         assert max_scaled_err(pl, np.asarray(rl)) <= 1e-5
         assert max_scaled_err(pw, np.asarray(rw)) <= 1e-5
     assert torch.equal(l[:128, :128], seen[0][1][0])
+
+
+class _NumpyRef:
+    """A stand-in for a Pallas ref over a numpy f32 array: the reference's
+    panel kernel body reads and writes it eagerly."""
+
+    def __init__(self, x):
+        self.x = np.array(x, np.float32)
+
+    def __getitem__(self, idx):
+        return jnp.asarray(self.x[idx])
+
+    def __setitem__(self, idx, value):
+        self.x[idx] = np.asarray(value, np.float32)
+
+
+def _reference_potrf_blocked(a, panel):
+    """The reference's ``potrf_blocked`` (tpumathlib/solver/blocked.py:203)
+    as its loop is written, with the ``pallas_call`` of its panel kernel
+    replaced by the kernel's body (``_panel_kernel``) on numpy-backed refs,
+    and its split syrk (``_syrk_split``), all run eagerly: its panel kernel
+    in interpret mode takes minutes on the CPU."""
+    n = a.shape[0]
+    a = np.array(a, np.float32)
+    out = np.zeros_like(a)
+    with jax.disable_jit():
+        for s in range(0, n, panel):
+            p = min(panel, n - s)
+            pan = _NumpyRef(np.zeros((n - s, p), np.float32))
+            ref_blocked._panel_kernel(n - s, p)(_NumpyRef(a[s:, s:s + p]), pan)
+            out[s:, s:s + p] = pan.x
+            if s + p < n:
+                a[s + p:, s + p:] = np.asarray(
+                    jnp.asarray(a[s + p:, s + p:]) - ref_blocked._syrk_split(jnp.asarray(pan.x[p:])))
+    return out
+
+
+@pytest.mark.parametrize("n, panel", CASES)
+def test_schedule_matches_the_references_potrf_blocked(rng, n, panel):
+    """The right-looking schedule (its plain route) against the reference's
+    own blocked Cholesky on the same f32 matrix: within 1e-6 max-relative
+    (the two sum the same f32 products in other orders and groupings; 1.0e-7
+    to 2.1e-7 at these sizes), and both within the reference test's 5e-5 of
+    LAPACK (tests/test_solver_dense.py:318)."""
+    a = _spd(rng, n)
+    ref = _reference_potrf_blocked(a.astype(np.float32), panel)
+    got = blocked._potrf(torch.from_numpy(a.astype(np.float32)),
+                         blocked._PlainOps(blocked._chol_inv128_plain), panel)
+    rel = np.abs(got.double().numpy() - ref).max() / np.abs(ref).max()
+    assert rel < 1e-6, rel
+    assert _max_rel(got, a) < 5e-5 and _max_rel(ref, a) < 5e-5
+    assert torch.all(torch.triu(got, 1) == 0) and np.all(np.triu(ref, 1) == 0)
 
 
 @pytest.mark.parametrize("panel", [192, 64, 0, -128])
@@ -143,10 +211,10 @@ class _FailingLib(_EmulatedSolverLib):
         return b"emulated failure"
 
 
-@pytest.mark.parametrize("n, panel", CASES + [(4096, 256)])
+@pytest.mark.parametrize("n, panel", CASES + [(4096, 256), (4096, 128)])
 def test_schedule(n, panel):
-    assert _schedule(n, panel) == {(256, 128): (2, 2), (384, 256): (3, 4), (512, 384): (4, 6),
-                                   (4096, 256): (32, 62)}[(n, panel)]
+    assert _schedule(n, panel) == {(256, 128): (2, 2), (384, 256): (3, 4), (512, 384): (4, 7),
+                                   (4096, 256): (32, 105), (4096, 128): (32, 121)}[(n, panel)]
 
 
 @pytest.mark.parametrize("n, panel", CASES)
@@ -166,6 +234,8 @@ def test_cuda_branch(emulated, monkeypatch, rng, n, panel):  # noqa: F811
             gemm.pallas_matmul.launches - before[2]) == (1, sweeps, products)
     assert len(emulated.block_calls) == sweeps and len(emulated.calls) == products
     assert all(kind == "chol" and ld == n for kind, ld in emulated.block_calls)
+    # the sweeps on the look-ahead stream, the products on the caller's
+    assert set(emulated.block_streams) == {1} and set(emulated.gemm_streams) == {0}
     assert max_scaled_err(got, want) <= 1e-6
     assert _max_rel(got, a.double().numpy()) < 5e-5
     assert torch.all(torch.triu(got, 1) == 0)
@@ -178,6 +248,8 @@ def test_cuda_branch_raises_on_a_failed_sweep(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device", contextlib.nullcontext)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "Stream", _Stream)   # the look-ahead stream
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
     before = blocked.potrf_blocked.launches
     with pytest.raises(ExecutionError, match="tml_chol_inv_block: CUDA error 7"):
         blocked.potrf_blocked(torch.eye(256) * 4.0)

@@ -20,8 +20,12 @@ B6b/B6c) with the reference's Pallas kernels, run in interpret mode.
 - C8, pinned: a pad slot with non-zero data contributes nothing in the
   port; the reference adds it at bs = 128.
 - The CUDA branch of each wrapper, with the kernel library replaced by a
-  CPU emulation of ``tml_bell_spmm`` and ``tml_bell_spmv`` that decodes
-  the dtypes, shapes, alpha and the cols pointer from the arguments.
+  CPU emulation of ``tml_bell_spmm``, ``tml_bell_spmm_wgmma`` and
+  ``tml_bell_spmv`` that decodes the dtypes, shapes, B's row stride, alpha
+  and the cols pointer from the arguments: the SpMM routing rule (bf16 and
+  f16 pairs to the tensor-core entry, B's rows padded to 16 bytes where k
+  is ragged, f32 and mixed pairs to the SIMT one), a block row of pad
+  slots only, and ``spmv`` on an f32 Blocked-ELL through the SpMV kernel.
 
 Inputs are explicit f32 (or bf16) on both sides: the suite turns on jax x64.
 """
@@ -58,8 +62,8 @@ def _host_arrays_on_the_cpu(monkeypatch):
     monkeypatch.setattr(core_device, "default_device", lambda: torch.device("cpu"))
 
 
-NP = {"f32": np.float32, "bf16": ml_dtypes.bfloat16}
-TORCH = {"f32": torch.float32, "bf16": torch.bfloat16}
+NP = {"f32": np.float32, "bf16": ml_dtypes.bfloat16, "f16": np.float16}
+TORCH = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
 MB, NB = 3, 5
 
 
@@ -226,6 +230,7 @@ class _EmulatedLib:
 
     def __init__(self, rc=0):
         self.calls = []
+        self.b_ptrs = []   # B's address at each tensor-core launch
         self.rc = rc
 
     def tml_bell_spmm(self, cols, a, b, y, mb, ellw, bs, m, n, k, alpha, a_dt, b_dt, stream):
@@ -239,6 +244,26 @@ class _EmulatedLib:
         at = _view(a, _CODE_DTYPE[a_dt], (mb, ellw, bs, bs), (ellw * bs * bs, bs * bs, bs, 1))
         bt = _view(b, _CODE_DTYPE[b_dt], (n, k), (k, 1))
         yt = _view(y, _CODE_DTYPE[b_dt], (m, k), (k, 1))
+        yt.copy_(pk._bell_spmm_plain(BlockedELL(c, at.clone(), (m, n), bs), bt.clone(), alpha))
+        return 0
+
+    def tml_bell_spmm_wgmma(self, cols, a, b, y, mb, ellw, bs, m, n, k, ldb, alpha, dt, stream):
+        """The tensor-core entry: A, B and Y in one 16-bit dtype, B's rows
+        ldb elements apart (a multiple of 8 and at least k), A and B 16-byte
+        aligned; refuses (cudaErrorInvalidValue, 1) anything else."""
+        if dt not in (1, 2) or bs % 128 or ldb < k or ldb % 8 or a % 16 or b % 16:
+            return 1
+        c = _view(cols, torch.int32, (mb, ellw), (ellw, 1)).clone()
+        self.calls.append(dict(kernel="spmm_wgmma", mb=mb, ellw=ellw, bs=bs, m=m, n=n, k=k,
+                               alpha=alpha, a=_CODE_DTYPE[dt], b=_CODE_DTYPE[dt],
+                               pads=int((c < 0).sum()), ldb=ldb))
+        self.b_ptrs.append(b)
+        if self.rc:
+            return self.rc
+        t = _CODE_DTYPE[dt]
+        at = _view(a, t, (mb, ellw, bs, bs), (ellw * bs * bs, bs * bs, bs, 1))
+        bt = _view(b, t, (n, k), (ldb, 1))
+        yt = _view(y, t, (m, k), (k, 1))
         yt.copy_(pk._bell_spmm_plain(BlockedELL(c, at.clone(), (m, n), bs), bt.clone(), alpha))
         return 0
 
@@ -278,9 +303,11 @@ def test_cuda_branch_spmm_marshalling(emulated, rng, pair, bs, k):
     got = pk.bell_spmm_pallas(port_a, bt, alpha=0.5)
     assert pk.bell_spmm_pallas.launches == before + 1
     (call,) = emulated.calls
-    assert call == dict(kernel="spmm", mb=2, ellw=port_a.cols.shape[1], bs=bs, m=2 * bs, n=3 * bs,
-                        k=k, alpha=0.5, a=TORCH[pair[0]], b=TORCH[pair[1]],
-                        pads=int((port_a.cols < 0).sum()))
+    tensor_core = pair == ("bf16", "bf16")   # 16-bit pairs: B's rows padded to 16 bytes
+    assert call == dict(kernel="spmm_wgmma" if tensor_core else "spmm", mb=2,
+                        ellw=port_a.cols.shape[1], bs=bs, m=2 * bs, n=3 * bs, k=k, alpha=0.5,
+                        a=TORCH[pair[0]], b=TORCH[pair[1]], pads=int((port_a.cols < 0).sum()),
+                        **({"ldb": -(-k // 8) * 8} if tensor_core else {}))
     want = pk._bell_spmm_plain(port_a, bt, 0.5)
     assert got.dtype == TORCH[pair[1]] and torch.equal(got, want)
 
@@ -397,3 +424,105 @@ def test_cpu_takes_plain_versions_without_launch(rng):
     assert torch.equal(spmm(port_a, b), pk._bell_spmm_plain(port_a, b))
     pk.SpmvPlan(port_a).execute(b[:, 0])
     assert (pk.bell_spmm_pallas.launches, pk._bell_spmv.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# B6a's routing rule, B's rows for TMA, pad-only block rows, and the SpMV route
+
+_SPMM_ROUTES = {("bf16", "bf16"): "wgmma", ("f16", "f16"): "wgmma", ("f32", "f32"): "simt",
+                ("bf16", "f32"): "simt", ("f32", "bf16"): "simt", ("f16", "bf16"): "simt"}
+
+
+@pytest.mark.parametrize("pair", list(_SPMM_ROUTES))
+def test_cuda_branch_spmm_routing(emulated, rng, pair):
+    """bf16 x bf16 and f16 x f16 go to tml_bell_spmm_wgmma, every other
+    pair to tml_bell_spmm: one launch, counted in the total and in its
+    route's count, with the plain version's result in B's dtype."""
+    route = _SPMM_ROUTES[pair]
+    _, _, port_a = _bell(rng, 128, pair[0], mb=2, nb=3)
+    _, _, bt = _dense_operand(rng, (3 * 128, 40), pair[1])
+    counts = (pk.bell_spmm_pallas, pk._bell_spmm_wgmma, pk._bell_spmm_simt)
+    before = [f.launches for f in counts]
+    got = pk.bell_spmm_pallas(port_a, bt, alpha=0.5)
+    assert [f.launches - x for f, x in zip(counts, before)] == [1, route == "wgmma",
+                                                                 route == "simt"]
+    assert [c["kernel"] for c in emulated.calls] == [
+        "spmm_wgmma" if route == "wgmma" else "spmm"]
+    want = pk._bell_spmm_plain(port_a, bt, 0.5)
+    assert got.dtype == TORCH[pair[1]] and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("k, view", [(1, False), (13, False), (300, False), (304, False),
+                                     (10, True)])
+def test_cuda_branch_tensor_core_pads_ragged_rows(emulated, rng, k, view):
+    """TMA reads B's rows at a pitch of 16 bytes: a ragged k (1, 13, 300)
+    reaches the kernel as a copy with rows of the next multiple of 8, a B
+    whose rows are 16-byte multiples apart (k = 304, or a column slice of a
+    (n, 16) B) is read in place with its own row stride."""
+    _, _, port_a = _bell(rng, 128, "bf16", mb=2, nb=3)
+    if view:
+        b = _dense_operand(rng, (3 * 128, 16), "bf16")[2][:, :k]
+    else:
+        b = _dense_operand(rng, (3 * 128, k), "bf16")[2]
+    got = pk.bell_spmm_pallas(port_a, b, alpha=2.0)
+    (call,) = emulated.calls
+    in_place = view or k % 8 == 0
+    assert call["ldb"] == (b.stride(0) if in_place else -(-k // 8) * 8)
+    assert (emulated.b_ptrs[0] == b.data_ptr()) == in_place
+    assert torch.equal(got, pk._bell_spmm_plain(port_a, b, 2.0))
+
+
+@pytest.mark.parametrize("dt", ["bf16", "f16", "f32"])
+def test_cuda_branch_pad_only_block_row_is_zero(emulated, rng, dt):
+    """A block row whose slots are all pads (its data non-zero) sums
+    nothing: its rows of Y are 0, on either kernel."""
+    cols = torch.tensor([[1, -1], [-1, -1], [0, 2]], dtype=torch.int32)
+    data = torch.from_numpy(rng.normal(size=(3, 2, 128, 128)).astype(np.float32)).to(TORCH[dt])
+    a = BlockedELL(cols, data, (3 * 128, 3 * 128), 128)
+    b = _dense_operand(rng, (3 * 128, 24), dt)[2]
+    got = pk.bell_spmm_pallas(a, b)
+    (call,) = emulated.calls
+    assert call["kernel"] == ("spmm" if dt == "f32" else "spmm_wgmma") and call["pads"] == 3
+    assert torch.equal(got[128:256], torch.zeros((128, 24), dtype=TORCH[dt]))
+    assert torch.equal(got, pk._bell_spmm_plain(a, b))
+
+
+@pytest.mark.parametrize("entry", ["spmv", "bell_spmv_pallas"])
+def test_cuda_branch_f32_spmv_takes_the_spmv_kernel(emulated, rng, entry):
+    """spmv and bell_spmv_pallas on an f32 Blocked-ELL and f32 x launch
+    tml_bell_spmv once and no SpMM kernel, in f32; a bf16 A keeps the SpMM
+    route with one column, in x's dtype."""
+    _, _, port_a = _bell(rng, 128)
+    _, _, xt = _dense_operand(rng, (NB * 128,), "f32")
+    _, _, yt = _dense_operand(rng, (MB * 128,), "f32")
+    counts = (pk._bell_spmv, pk.bell_spmm_pallas)
+    before = [f.launches for f in counts]
+    if entry == "spmv":
+        got = spmv(port_a, xt, yt, alpha=0.5, beta=2.0)
+        want = pk._bell_spmv_plain(port_a.cols, port_a.data, xt, port_a.shape, 0.5) + 2.0 * yt
+    else:
+        got = pk.bell_spmv_pallas(port_a, xt, alpha=0.5)
+        want = pk._bell_spmv_plain(port_a.cols, port_a.data, xt, port_a.shape, 0.5)
+    assert [f.launches - x for f, x in zip(counts, before)] == [1, 0]
+    assert [c["kernel"] for c in emulated.calls] == ["spmv"]
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+
+    _, _, bf_a = _bell(rng, 128, "bf16")
+    xb = xt.to(torch.bfloat16)
+    got = spmv(bf_a, xb) if entry == "spmv" else pk.bell_spmv_pallas(bf_a, xb)
+    assert [f.launches - x for f, x in zip(counts, before)] == [1, 1]
+    assert emulated.calls[-1]["kernel"] == "spmm_wgmma" and emulated.calls[-1]["k"] == 1
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, pk._bell_spmm_plain(bf_a, xb[:, None])[:, 0])
+
+
+def test_spmv_f32_blocked_ell_on_the_cpu_is_the_spmv_plain_version(rng):
+    """On CPU tensors the SpMV route takes its plain version, launching
+    nothing, and agrees with float64."""
+    a64, _, port_a = _bell(rng, 64)
+    x, x64, xt = _dense_operand(rng, (NB * 64,), "f32")
+    before = (pk._bell_spmv.launches, pk.bell_spmm_pallas.launches)
+    got = spmv(port_a, xt, alpha=0.5)
+    assert (pk._bell_spmv.launches, pk.bell_spmm_pallas.launches) == before
+    assert torch.equal(got, pk._bell_spmv_plain(port_a.cols, port_a.data, xt, port_a.shape, 0.5))
+    assert max_scaled_err(got, 0.5 * a64 @ x64) <= 1e-5

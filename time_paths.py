@@ -1,20 +1,27 @@
 #!/usr/bin/env python3
-"""Times the port's f32 paths that run on B1's SIMT route, on one CUDA card.
+"""Times the port's redesigned paths at the bench's sizes on one CUDA card.
 
-The paths, each through its public function at the bench's size:
-potrf_onelaunch and getrf_onelaunch (B2, B3) and geqrf_onelaunch (B4a) at
-n = 4096, solver.blocked.potrf_blocked (B4c, panel 256) at n = 4096, and
-dx.rng.dropout_matmul_kernel (B10b) at 4096^3, rate 0.1. Each is timed
-three ways: CUDA events around one call after a synchronise (median of 5,
-as chip_smoke.py's ``_median_ms``), CUDA events around 5 back-to-back calls
-(median of 3 samples, as its ``_loop_ms``), and the host clock around 5
-calls with no synchronise (the host's enqueue time a call).
+The paths, each through its public function:
+- on B1's f32 SIMT route: potrf_onelaunch and getrf_onelaunch (B2, B3) and
+  geqrf_onelaunch (B4a) at n = 4096, solver.blocked.potrf_blocked (B4c,
+  panel 256) at n = 4096, and dx.rng.dropout_matmul_kernel (B10b) at
+  4096^3, rate 0.1;
+- B1's tensor-core route: dx.gemm.pallas_matmul at 4096^3 bf16 with the
+  bias + GELU epilogue;
+- the Blocked-ELL lines of bench.py: sparse.spmm on a bf16 Blocked-ELL
+  (mb = nb = 128, ellw = 16, bs = 128, k = 4096; B6a) and sparse.spmv on an
+  f32 one (ellw = 32).
+Each is timed three ways: CUDA events around one call after a synchronise
+(median of 5, as chip_smoke.py's ``_median_ms``), CUDA events around 5
+back-to-back calls (median of 3 samples, as its ``_loop_ms``), and the
+host clock around 5 calls with no synchronise (the host's enqueue time a
+call).
 
 It imports ``tpumathlib_torch`` from ``PYTHONPATH`` (``-P``: not from the
 script's own directory), so that two checkouts can be compared on one card
 in one run, in turns (a, b, b, a):
 
-    PYTHONPATH=path/to/checkout python3 -P time_f32_paths.py --tree a
+    PYTHONPATH=path/to/checkout python3 -P time_paths.py --tree a
 
 Each run prints the card's name and power limit, then one JSON line
 {"tree": ..., "package": ..., "card": ..., "ms": {path: {"call", "loop",
@@ -35,7 +42,8 @@ import numpy as np
 import torch
 
 import tpumathlib_torch
-from tpumathlib_torch.dx import cuda_utils
+from tpumathlib_torch import sparse
+from tpumathlib_torch.dx import cuda_utils, gemm
 from tpumathlib_torch.dx import rng as dxr
 from tpumathlib_torch.solver import blocked, onelaunch
 
@@ -43,6 +51,18 @@ qr = importlib.import_module("tpumathlib_torch.solver.qr_onelaunch")  # the pack
 
 N = 4096
 PANEL = 256
+SPMM = (128, 128, 16, 128, 4096)   # (mb, nb, ellw, bs, k) of bench_spmm_bell
+SPMV = (128, 128, 32, 128)         # (mb, nb, ellw, bs) of bench_spmv_bell
+
+
+def _bell(gen, mb, nb, ellw, bs, dtype, dev):
+    """A Blocked-ELL with ellw distinct sorted block columns a block row,
+    drawn as the bench draws them, and normal blocks."""
+    rng = np.random.default_rng(0)
+    cols = np.sort(rng.permuted(np.tile(np.arange(nb), (mb, 1)), axis=1)[:, :ellw], axis=1)
+    data = torch.randn((mb, ellw, bs, bs), generator=gen, device=dev).to(dtype)
+    return sparse.BlockedELL(torch.from_numpy(cols.astype(np.int32)).to(dev), data,
+                             (mb * bs, nb * bs), bs)
 
 
 def _paths(dev) -> dict:
@@ -54,12 +74,24 @@ def _paths(dev) -> dict:
     q = torch.randn((N, N), generator=gen, device=dev)
     a = torch.randn((N, N), generator=gen, device=dev)
     b = torch.randn((N, N), generator=gen, device=dev)
+    ah, bh = a.bfloat16(), b.bfloat16()
+    bias = torch.randn((N,), generator=gen, device=dev)
+    mb, nb, ellw, bs, k = SPMM
+    a_mm = _bell(gen, mb, nb, ellw, bs, torch.bfloat16, dev)
+    b_mm = torch.randn((nb * bs, k), generator=gen, device=dev).bfloat16()
+    mb, nb, ellw, bs = SPMV
+    a_mv = _bell(gen, mb, nb, ellw, bs, torch.float32, dev)
+    x_mv = torch.randn((nb * bs,), generator=gen, device=dev)
     return {
         "potrf_onelaunch": lambda: onelaunch.potrf_onelaunch(spd),
         "getrf_onelaunch": lambda: onelaunch.getrf_onelaunch(dom),
         "geqrf_onelaunch": lambda: qr.geqrf_onelaunch(q),
         "potrf_blocked": lambda: blocked.potrf_blocked(spd, PANEL),
         "dropout_matmul_kernel": lambda: dxr.dropout_matmul_kernel(a, b, 20240601, 0.1),
+        "pallas_matmul_bf16_gelu_bias": lambda: gemm.pallas_matmul(ah, bh, bias=bias,
+                                                                   epilogue="gelu_bias"),
+        "spmm_bell_bf16": lambda: sparse.spmm(a_mm, b_mm),
+        "spmv_bell_f32": lambda: sparse.spmv(a_mv, x_mv),
     }
 
 
@@ -93,9 +125,9 @@ def main() -> None:
     ap.add_argument("--tree", default=".", help="a label for the checkout, printed back")
     args = ap.parse_args()
     if not torch.cuda.is_available():
-        raise SystemExit("time_f32_paths: no CUDA device")
+        raise SystemExit("time_paths: no CUDA device")
     if torch.backends.cuda.matmul.allow_tf32:
-        raise SystemExit("time_f32_paths: torch.backends.cuda.matmul.allow_tf32 must be False")
+        raise SystemExit("time_paths: torch.backends.cuda.matmul.allow_tf32 must be False")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     cuda_utils.load_kernels()

@@ -7,14 +7,16 @@
 //   tml_bell_spmv: y = alpha * A @ x, the same A in f32, x (n,), y (m,), f32.
 //
 // Replaces the TPU kernels of tpumathlib/sparse/pallas_kernels.py:
-// bell_spmm_pallas (:98, body _bell_kernel :35, pallas_call :123; also
-// bell_spmv_pallas :150 through it) and the two execute kernels of SpmvPlan,
-// execute (:378, _bell_split_kernel :163, pallas_call :404) and
-// _execute_rowform (:429, _bell_row_kernel :260, pallas_call :450). Those two
-// differ only in TPU workarounds (bf16 hi/lo planes in place of f32 MXU
-// products; transposed blocks and an 8-sublane interleave), so one f32 kernel
-// here computes what both compute. tpumathlib_torch/sparse/pallas_kernels.py
-// holds the wrappers and the plain PyTorch versions.
+// bell_spmm_pallas (:98, body _bell_kernel :35, pallas_call :123) for f32 and
+// mixed operand pairs (bell_wgmma.cu takes bf16 and f16 pairs), and the two
+// execute kernels of SpmvPlan, execute (:378, _bell_split_kernel :163,
+// pallas_call :404) and _execute_rowform (:429, _bell_row_kernel :260,
+// pallas_call :450), which also serves an f32 bell_spmv_pallas (:150). The
+// two execute kernels differ only in TPU workarounds (bf16 hi/lo planes in
+// place of f32 MXU products; transposed blocks and an 8-sublane
+// interleave), so one f32 kernel here computes what both compute.
+// tpumathlib_torch/sparse/pallas_kernels.py holds the wrappers and the plain
+// PyTorch versions.
 //
 // In both, element (r, t) of slot j of block row i multiplies row
 // cols[i, j] * bs + t of B (or x); rows at or past n read as zero, and a pad
@@ -22,19 +24,18 @@
 // pad ids to block 0 and relies on their data being zero).
 //
 // What bounds them, at the bench shapes:
-// - SpMM, mb = nb = 128, ellw = 16, bs = 128, k = 4096, bf16: 2.75e11 flop
-//   against 335 MB (A, B and Y once each), about 820 flop a byte, so it is
-//   bound by the tensor cores: 0.278 ms at 989 TFLOP/s (bytes 0.100 ms).
-//   Design: one block of 256 threads per 128 x 128 tile of Y (128 rows of one
-//   block row, 128 columns), looping over the block row's slots and, inside
-//   each, over K chunks of the slot's bs columns, which stands in for the TPU
-//   kernel's sequential ell axis. Each chunk stages the A rows and the B rows
-//   that the slot's column id names in shared memory. bf16 x bf16 and
-//   f16 x f16 run on the tensor cores through WMMA (16 x 16 x 16 fragments,
-//   f32 accumulators, eight warps of 64 x 32); every other operand pair
-//   (f32, or mixed) is converted to f32 on load and summed as f32 FMA, never
-//   TF32 (the reference runs f32 operands at HIGHEST). No cp.async or TMA
-//   pipeline yet: the simple kernel first.
+// - SpMM, mb = nb = 128, ellw = 16, bs = 128, k = 4096: 2.75e11 flop against
+//   A, B and Y once each, bound by the tensor cores in bf16 (0.278 ms at 989
+//   TFLOP/s) and by f32 FMA in f32 (4.1 ms at 67 TFLOP/s). bf16 x bf16 and
+//   f16 x f16 take the tensor-core kernel of bell_wgmma.cu; this file's
+//   spmm_simt takes every other pair (f32, or mixed), converted to f32 on
+//   load and summed as f32 FMA, never TF32 (the reference runs f32 operands
+//   at HIGHEST). Design: one block of 256 threads per 128 x 128 tile of Y
+//   (128 rows of one block row, 128 columns), looping over the block row's
+//   slots and, inside each, over K chunks of 16 of the slot's bs columns,
+//   which stands in for the TPU kernel's sequential ell axis; each chunk
+//   stages the A rows and the B rows that the slot's column id names in
+//   shared memory, and each thread sums 8 x 8 outputs.
 // - SpMV, mb = nb = 128, ellw = 32, bs = 128, f32: A is 268 MB, read once,
 //   against 2 flop per 4 bytes, so it is bound by device memory: 0.080 ms at
 //   3.35 TB/s. Design: one warp per output row, lanes along t reading A's
@@ -45,7 +46,6 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
 
@@ -55,7 +55,7 @@ namespace {
 enum DType : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
 constexpr int kTile = 128;      // rows and columns of Y per thread block
-constexpr int kThreads = 256;   // both SpMM kernels
+constexpr int kThreads = 256;   // the SpMM kernel
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -156,117 +156,6 @@ __global__ void __launch_bounds__(kThreads) spmm_simt(const SpmmArgs p) {
   }
 }
 
-// Tensor cores through WMMA, for bf16 x bf16 or f16 x f16 operands: eight
-// warps, 2 along the rows x 4 along the columns, each holding 4 x 2
-// accumulator fragments (64 x 32 of Y) in f32.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) spmm_wmma(const SpmmArgs p) {
-  using namespace nvcuda;
-  constexpr int BK = 32;
-  constexpr int LDA = BK + 8, LDB = kTile + 8;  // padded rows, multiples of 8 elements
-  // 16-bit words of T (no constructors in shared memory)
-  __shared__ __align__(128) uint16_t As[kTile * LDA];
-  __shared__ __align__(128) uint16_t Bs[BK * LDB];
-  __shared__ __align__(128) float stage[kThreads / 32][16 * 16];
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 4, wn = warp % 4;
-  int64_t i;
-  int r0;
-  tile_rows(p, &i, &r0);
-  const int64_t c0 = static_cast<int64_t>(blockIdx.y) * kTile;
-  const T* A = static_cast<const T*>(p.a);
-  const uint16_t* B16 = static_cast<const uint16_t*>(p.b);
-  const bool b_vec = p.k % 8 == 0;  // rows of B start 16-byte aligned (the wrapper aligns B)
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int u = 0; u < 4; ++u)
-#pragma unroll
-    for (int v = 0; v < 2; ++v) wmma::fill_fragment(acc[u][v], 0.f);
-
-  for (int j = 0; j < p.ellw; ++j) {
-    const int c = p.cols[i * p.ellw + j];
-    if (c < 0) continue;  // pad slot; c is the same for the whole block
-    const T* blk = A + ((i * p.ellw + j) * p.bs + r0) * static_cast<int64_t>(p.bs);
-    const int64_t brow = static_cast<int64_t>(c) * p.bs;
-    for (int t0 = 0; t0 < p.bs; t0 += BK) {
-      // A: 128 rows x 32 columns, two 16-byte vectors a thread
-#pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        const int e = tid + s * kThreads;
-        const int r = e / (BK / 8), col = (e % (BK / 8)) * 8;
-        *reinterpret_cast<uint4*>(&As[r * LDA + col]) =
-            *reinterpret_cast<const uint4*>(blk + static_cast<int64_t>(r) * p.bs + t0 + col);
-      }
-      // B: 32 rows x 128 columns, two vectors of 8 a thread, zero past n and k
-#pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        const int e = tid + s * kThreads;
-        const int r = e / (kTile / 8), col = (e % (kTile / 8)) * 8;
-        const int64_t gr = brow + t0 + r, gc = c0 + col;
-        union {
-          uint4 v;
-          uint16_t h[8];
-        } u;
-        u.v = make_uint4(0u, 0u, 0u, 0u);
-        if (gr < p.n) {
-          const uint16_t* src = B16 + gr * p.k + gc;
-          if (b_vec && gc + 8 <= p.k) {
-            u.v = *reinterpret_cast<const uint4*>(src);
-          } else {
-#pragma unroll
-            for (int q = 0; q < 8; ++q)
-              if (gc + q < p.k) u.h[q] = src[q];
-          }
-        }
-        *reinterpret_cast<uint4*>(&Bs[r * LDB + col]) = u.v;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> af[4];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> bf[2];
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          wmma::load_matrix_sync(af[u], reinterpret_cast<const T*>(As + (wm * 64 + u * 16) * LDA + kk),
-                                 LDA);
-#pragma unroll
-        for (int v = 0; v < 2; ++v)
-          wmma::load_matrix_sync(bf[v], reinterpret_cast<const T*>(Bs + kk * LDB + wn * 32 + v * 16),
-                                 LDB);
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-#pragma unroll
-          for (int v = 0; v < 2; ++v) wmma::mma_sync(acc[u][v], af[u], bf[v], acc[u][v]);
-      }
-      __syncthreads();
-    }
-  }
-
-  // each fragment through the warp's 16 x 16 staging tile, then alpha, the
-  // output cast and the ragged edges: lane l writes 8 values of row l / 2
-  T* Y = static_cast<T*>(p.y);
-  float* st = stage[warp];
-  const int rr = lane / 2, cc = (lane % 2) * 8;
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-#pragma unroll
-    for (int v = 0; v < 2; ++v) {
-      wmma::store_matrix_sync(st, acc[u][v], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int64_t gm = i * p.bs + r0 + wm * 64 + u * 16 + rr;
-      const int64_t gn0 = c0 + wn * 32 + v * 16 + cc;
-      if (gm < p.m) {
-#pragma unroll
-        for (int q = 0; q < 8; ++q)
-          if (gn0 + q < p.k) store(Y + gm * p.k + gn0 + q, p.alpha * st[rr * 16 + cc + q]);
-      }
-      __syncwarp();
-    }
-  }
-}
-
 template <typename TA, typename TB>
 cudaError_t launch_simt(const SpmmArgs& p, dim3 grid, cudaStream_t s) {
   spmm_simt<TA, TB><<<grid, kThreads, 0, s>>>(p);
@@ -343,8 +232,9 @@ extern "C" {
 
 // cols: (mb, ellw) int32, -1 = pad slot; a: (mb, ellw, bs, bs) contiguous in
 // a_dtype; b: (n, k) contiguous in b_dtype; y: (m, k) contiguous in b_dtype,
-// m <= mb * bs. bs % 128 == 0. a, b and y 16-byte aligned. Launches on
-// `stream` and returns cudaGetLastError() (0 on success).
+// m <= mb * bs. bs % 128 == 0. Every operand pair runs spmm_simt (the
+// wrapper sends bf16 x bf16 and f16 x f16 to tml_bell_spmm_wgmma instead).
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
 int tml_bell_spmm(const void* cols, const void* a, const void* b, void* y, int64_t mb,
                   int64_t ellw, int64_t bs, int64_t m, int64_t n, int64_t k, float alpha,
                   int a_dtype, int b_dtype, void* stream) {
@@ -363,14 +253,6 @@ int tml_bell_spmm(const void* cols, const void* a, const void* b, void* y, int64
   p.alpha = alpha;
   const dim3 grid(static_cast<unsigned>(row_tiles), static_cast<unsigned>(col_tiles));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a_dtype == b_dtype && a_dtype == kBF16) {
-    spmm_wmma<__nv_bfloat16><<<grid, kThreads, 0, s>>>(p);
-    return cudaGetLastError();
-  }
-  if (a_dtype == b_dtype && a_dtype == kF16) {
-    spmm_wmma<__half><<<grid, kThreads, 0, s>>>(p);
-    return cudaGetLastError();
-  }
   switch (a_dtype) {
     case kF32: return by_b<float>(b_dtype, p, grid, s);
     case kBF16: return by_b<__nv_bfloat16>(b_dtype, p, grid, s);

@@ -1,0 +1,318 @@
+// The TMA + wgmma ring shared by gemm_wgmma.cu (B1's tensor-core route) and
+// bell_wgmma.cu (B6a's): mbarriers, TMA loads, tensor-map encoding, wgmma's
+// shared-memory descriptors, fences and instructions, the consumers' main
+// loop, and the staging of a finished tile in shared memory.
+//
+// The ring. A block of 384 threads: warpgroup 0 is the producer, whose one
+// thread keeps TMA loads in flight into STAGES stages of (128 x 64 of A,
+// 64 x BN of B), each stage with a full and an empty mbarrier; warpgroups 1
+// and 2 are the consumers, each issuing wgmma m64nBNk16 over its 64 rows
+// into BN / 2 f32 accumulators a thread. Every box lands with the 128-byte
+// swizzle as rows of 64 16-bit values (128 bytes), in 1024-byte groups of
+// 8 rows, and the descriptors read the same layout: a K-major operand is
+// one box of 64 k x rows, a k16 step 32 bytes along its rows; an M- or
+// N-major one (wgmma's transpose bits) is boxes of 64 k rows x 64 columns
+// placed kBox bytes apart (the descriptor's leading byte offset), a k16 step
+// 16 rows, 2048 bytes. The stride byte offset is 1024 (8 rows) in both.
+
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes through the runtime
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
+
+namespace tml_ring {
+
+constexpr int kBM = 128;             // rows of a block tile: two consumer warpgroups of 64
+constexpr int kBK = 64;              // k of a stage: one 128-byte swizzle row of 16-bit values
+constexpr int kThreads = 384;        // the producer warpgroup and two consumers
+constexpr uint32_t kBox = 64 * 128;  // bytes of one 64 x 64 box
+constexpr uint32_t kABytes = kBM * kBK * 2;  // A's part of a stage
+
+// Bytes of one stage, and of the dynamic shared memory a block of STAGES
+// asks for (+ the ring's 1024-byte alignment).
+template <int BN>
+__host__ __device__ constexpr uint32_t stage_bytes() {
+  return kABytes + kBK * BN * 2;
+}
+template <int BN, int STAGES>
+__host__ __device__ constexpr int smem_bytes() {
+  return STAGES * static_cast<int>(stage_bytes<BN>()) + 1024;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Returns once the phase of the given parity has completed. A phase that
+// does not complete in 2^26 tries (seconds) is a fault of the kernel: trap,
+// so that the launch fails instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t tries = 0;; ++tries) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries == 1u << 26) __trap();
+  }
+}
+
+// Thread 0 initialises the ring's mbarriers: a full barrier completes on the
+// producer's expect_tx and the bytes, an empty one on one arrival from each
+// of the eight consumer warps.
+template <int STAGES>
+__device__ __forceinline__ void init_ring(uint64_t (&full)[STAGES], uint64_t (&empty)[STAGES]) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// One box of `map` at coordinates (c0, c1, c2) into shared memory at dst;
+// its bytes complete on the mbarrier `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// wgmma's shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (each >> 4) and the 128-byte swizzle (mode 1, bits 62-63).
+// The ring is 1024-byte aligned and every start lies less than 128 bytes
+// past a 1024-byte boundary, so the base offset (bits 49-51) is 0.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma (cute's warpgroup_fence_operand).
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define TML_ACC8(i)                                                                           \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define TML_ACC64(i)                                                                    \
+  TML_ACC8(i), TML_ACC8(i + 8), TML_ACC8(i + 16), TML_ACC8(i + 24), TML_ACC8(i + 32), \
+      TML_ACC8(i + 40), TML_ACC8(i + 48), TML_ACC8(i + 56)
+#define TML_REGS64                                                                   \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "           \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define TML_REGS128                                                                             \
+  TML_REGS64                                                                                    \
+  ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "          \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "            \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+// d = A B + (acc ? d : 0) over one k16 step, A and B 16-bit of type TY from
+// the descriptors; TA / TB are wgmma's transpose bits (1: M- or N-major).
+#define TML_WGMMA(N, TY, REGS, DA, DB, ACC, TA_, TB_)                                     \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %" #ACC ", 0;\n"                                      \
+  "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY " {" REGS "}, %" #DA ", %" #DB \
+  ", p, 1, 1, %" #TA_ ", %" #TB_ ";\n}\n"
+
+// Zeroing the accumulators through `acc` rather than by ordinary
+// instructions keeps ptxas from serializing the wgmma pipeline (C7515).
+template <typename T, int TA, int TB>
+__device__ __forceinline__ void wgmma(float (&d)[128], uint64_t da, uint64_t db, uint32_t acc) {
+  if constexpr (std::is_same_v<T, __half>)
+    asm volatile(TML_WGMMA(256, "f16", TML_REGS128, 128, 129, 130, 131, 132)
+                 : TML_ACC64(0), TML_ACC64(64)
+                 : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+  else
+    asm volatile(TML_WGMMA(256, "bf16", TML_REGS128, 128, 129, 130, 131, 132)
+                 : TML_ACC64(0), TML_ACC64(64)
+                 : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
+template <typename T, int TA, int TB>
+__device__ __forceinline__ void wgmma(float (&d)[64], uint64_t da, uint64_t db, uint32_t acc) {
+  if constexpr (std::is_same_v<T, __half>)
+    asm volatile(TML_WGMMA(128, "f16", TML_REGS64, 64, 65, 66, 67, 68)
+                 : TML_ACC64(0)
+                 : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+  else
+    asm volatile(TML_WGMMA(128, "bf16", TML_REGS64, 64, 65, 66, 67, 68)
+                 : TML_ACC64(0)
+                 : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
+// The consumer warpgroup cg's side of the ring: nk stages in order, each
+// four k16 steps into acc, with one commit group in flight; a stage is
+// released (one arrival a warp) once wgmma.wait_group shows that the
+// products reading it are done. The first step's products overwrite acc
+// (scale-d 0); with nk == 0 acc is left as it was. on_first() runs once the
+// first stage has landed.
+template <typename T, int BN, int STAGES, int TA, int TB, typename OnFirst>
+__device__ __forceinline__ void consume(float (&acc)[BN / 2], int nk, uint32_t ring,
+                                        uint64_t (&full)[STAGES], uint64_t (&empty)[STAGES],
+                                        int cg, OnFirst on_first) {
+  constexpr uint32_t kStageBytes = stage_bytes<BN>();
+  for (int kb = 0; kb < nk; ++kb) {
+    const int s = kb % STAGES;
+    mbar_wait(smem_u32(&full[s]), (kb / STAGES) & 1);
+    if (kb == 0) on_first();
+    const uint32_t sa = ring + s * kStageBytes + cg * kBox, sb = ring + s * kStageBytes + kABytes;
+    fence_acc(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint64_t da = TA ? make_desc(sa + kk * 2048, kBox, 1024) : make_desc(sa + kk * 32, 16, 1024);
+      const uint64_t db = TB ? make_desc(sb + kk * 2048, kBox, 1024) : make_desc(sb + kk * 32, 16, 1024);
+      wgmma<T, TA, TB>(acc, da, db, kb > 0 || kk > 0);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    fence_acc(acc);
+    if (kb > 0) {  // the group of step kb - 1 is done: its stage may be refilled
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      fence_acc(acc);
+      if (threadIdx.x % 32 == 0) mbar_arrive(smem_u32(&empty[(kb - 1) % STAGES]));
+    }
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_acc(acc);
+}
+
+// The (row, column) within its warpgroup's 64 x BN tile of accumulator
+// register i of this thread: wgmma's m64nNk16 f32 layout, which is
+// mma.sync's m16n8 layout in one 16-row band a warp, repeated every 8
+// columns. Registers i and i + 1 (i even) are neighbouring columns.
+__device__ __forceinline__ int2 frag_pos(int i) {
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  return make_int2(warp * 16 + lane / 4 + 8 * ((i >> 1) & 1), 8 * (i >> 2) + 2 * (lane % 4) + (i & 1));
+}
+
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Row stride, in floats, of a tile staged by stage_tile: padded by 8, so a
+// warp's fragment stores take two wavefronts.
+template <int BN>
+__host__ __device__ constexpr int staged_ld() {
+  return BN + 8;
+}
+
+// Writes consumer cg's fragment into the ring, free once both consumers'
+// products are done (every load was waited for), and returns its 64 rows,
+// staged_ld<BN>() floats apart, once the warpgroup has written them. The
+// epilogues read the tile from there with whole rows to a warp.
+template <int BN, int STAGES>
+__device__ __forceinline__ const float* stage_tile(const float (&acc)[BN / 2], uint8_t* smem_raw,
+                                                   uint32_t ring, int cg) {
+  constexpr int kLd = staged_ld<BN>();
+  static_assert(2 * 64 * kLd * 4 <= STAGES * stage_bytes<BN>(), "the staged tile fits in the ring");
+  named_barrier(1, 256);
+  float* tile = reinterpret_cast<float*>(smem_raw + (ring - smem_u32(smem_raw))) + cg * 64 * kLd;
+#pragma unroll
+  for (int i = 0; i < BN / 2; i += 2) {
+    const int2 rc = frag_pos(i);
+    *reinterpret_cast<float2*>(tile + rc.x * kLd + rc.y) = make_float2(acc[i], acc[i + 1]);
+  }
+  named_barrier(2 + cg, 128);
+  return tile;
+}
+
+// v0 to element i of d and, where `two`, v1 to element i + 1: one two-wide
+// store where `vec` (i even and d aligned to it).
+__device__ __forceinline__ void store2(__nv_bfloat16* q, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(q) = __floats2bfloat162_rn(v0, v1);
+}
+__device__ __forceinline__ void store2(__half* q, float v0, float v1) {
+  *reinterpret_cast<__half2*>(q) = __floats2half2_rn(v0, v1);
+}
+__device__ __forceinline__ void store2(float* q, float v0, float v1) {
+  *reinterpret_cast<float2*>(q) = make_float2(v0, v1);
+}
+__device__ __forceinline__ void store1(__nv_bfloat16* q, float v) { *q = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void store1(__half* q, float v) { *q = __float2half_rn(v); }
+__device__ __forceinline__ void store1(float* q, float v) { *q = v; }
+
+template <typename TD>
+__device__ __forceinline__ void store_pair(TD* d, int64_t i, float v0, float v1, bool two, bool vec) {
+  if (two && vec) {
+    store2(d + i, v0, v1);
+  } else {
+    store1(d + i, v0);
+    if (two) store1(d + i + 1, v1);
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, reached through the runtime so that
+// the library links no -lcuda; null where libcuda lacks it. This
+// and encode are static: each source keeps its own copy, called directly
+// rather than through the library's symbol table.
+static inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t rc = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return rc == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(f)
+                                                                    : nullptr;
+  }();
+  return fn;
+}
+
+// A 3-D map (inner, outer, batch) of a 16-bit operand whose inner dimension
+// has unit stride and whose outer one has stride ld; boxes of box_inner x
+// box_outer, 128-byte swizzle, zero fill out of bounds. An operand shared
+// by every batch gets a batch extent of 1 (coordinate 0).
+static inline CUresult encode(CUtensorMap* map, CUtensorMapDataType dt, const void* ptr, int64_t inner,
+                       int64_t outer, int64_t ld, int64_t batch, int64_t sb, bool batched,
+                       uint32_t box_inner, uint32_t box_outer) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer),
+                              static_cast<cuuint64_t>(batched ? batch : 1)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ld) * 2,
+                                 static_cast<cuuint64_t>(batched ? sb : outer * ld) * 2};
+  const cuuint32_t box[3] = {box_inner, box_outer, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode_tiled()(map, dt, 3, const_cast<void*>(ptr), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+}  // namespace tml_ring

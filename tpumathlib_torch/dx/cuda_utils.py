@@ -127,6 +127,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # bell_sparse.cu: (cols, a, b, y, mb, ellw, bs, m, n, k, alpha, a/b dtype codes, stream)
     lib.tml_bell_spmm.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, i64, f32, i32, i32, p]
     lib.tml_bell_spmm.restype = i32
+    # bell_wgmma.cu: (cols, a, b, y, mb, ellw, bs, m, n, k, ldb, alpha, dtype code, stream)
+    lib.tml_bell_spmm_wgmma.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, i64, i64, f32, i32,
+                                        p]
+    lib.tml_bell_spmm_wgmma.restype = i32
     # (cols, a, x, y, mb, ellw, bs, m, n, alpha, stream), f32
     lib.tml_bell_spmv.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, f32, p]
     lib.tml_bell_spmv.restype = i32

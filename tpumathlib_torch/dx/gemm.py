@@ -23,7 +23,9 @@ operand reaches the kernel with its own strides, so transposed views and
 broadcast (stride-0) batches need no copy.
 
 Dispatch: tensors on the CPU take ``_pallas_matmul_plain``; CUDA tensors
-launch the kernel or raise — there is no fallback.
+launch the kernel or raise — there is no fallback. A call whose batch or
+row tiles pass a grid's 65535 blocks is launched in pieces
+(``_grid_pieces``); every other call is one launch.
 """
 
 from __future__ import annotations
@@ -65,6 +67,8 @@ _TC_DTYPES = (torch.bfloat16, torch.float16)
 SMEM_LIMIT = 232_448
 # streaming multiprocessors of an H100 SXM: fewer tiles than this leave SMs idle
 _NUM_SMS = 132
+# blocks a launch's grid takes along y (row tiles) and z (batch)
+_GRID_MAX = 65535
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,11 +205,13 @@ class _Into:
     """Launches of the kernel with D = alpha·A@B + beta·C written in place,
     all f32, the operands given as (address, row stride, column stride) in
     elements: for host loops that issue many products into one matrix (the
-    blocked factorizations of ``solver.onelaunch``, some 120 a call), so a
-    launch allocates nothing and looks up the library, its stride array and
-    the tile config once. D needs unit column stride; C may be D itself,
-    since the thread that writes an element of D is the one that read it
-    from C; A and B must not overlap D."""
+    blocked factorizations of ``solver.blocked`` and ``solver.onelaunch``,
+    some 100 to 150 a call), so a launch allocates nothing and looks up the
+    library, its stride array and the tile config once. Always one launch:
+    its operands are single matrices, far inside a grid's limits. D needs
+    unit column stride; C may be D itself, since the thread that writes an
+    element of D is the one that read it from C; A and B must not overlap
+    D."""
 
     def __init__(self):
         self.lib = cuda_utils.load_kernels()
@@ -319,6 +325,18 @@ _gemm_simt.launches = 0
 _gemm_wgmma.launches = 0
 
 
+def _grid_pieces(nb: int, m: int, bm: int):
+    """(batch slice, row slice) of each launch of a call whose batch, or
+    whose row tiles of ``bm``, pass ``_GRID_MAX``: at most that many blocks
+    along each (ROADMAP C21). Row offsets are multiples of ``bm`` (itself a
+    multiple of 8) and batch offsets of 65535 batch strides, so a piece of
+    an operand that ``_tc_layout`` takes is one that it takes too."""
+    rows = _GRID_MAX * bm
+    for b0 in range(0, nb, _GRID_MAX):
+        for m0 in range(0, m, rows):
+            yield slice(b0, b0 + _GRID_MAX), slice(m0, m0 + rows)
+
+
 def _pallas_matmul_cuda(a, b, c, bias, *, config, out_dtype, epilogue, alpha, beta,
                         return_aux):
     lib = cuda_utils.load_kernels()
@@ -366,13 +384,23 @@ def _pallas_matmul_cuda(a, b, c, bias, *, config, out_dtype, epilogue, alpha, be
 
     if nb and m and n:
         launch = _gemm_wgmma if route == "wgmma" else _gemm_simt
+        codes = (float(alpha), float(beta), _ACT_CODE.get(epilogue.split("_")[0], 0),
+                 _DTYPE_CODE[a.dtype], _DTYPE_CODE[c3.dtype] if c3 is not None else 0,
+                 _DTYPE_CODE[out_dtype], table.index(config))
         with torch.cuda.device(dev):
-            launch(lib, ptr(a3), ptr(b3), ptr(c3), ptr(bias32), ptr(d), ptr(aux),
-                   nb, m, n, k, strides, float(alpha), float(beta),
-                   _ACT_CODE.get(epilogue.split("_")[0], 0), _DTYPE_CODE[a.dtype],
-                   _DTYPE_CODE[c3.dtype] if c3 is not None else 0,
-                   _DTYPE_CODE[out_dtype], table.index(config),
-                   torch.cuda.current_stream(dev).cuda_stream)
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            if nb <= _GRID_MAX and cdiv(m, config.bm) <= _GRID_MAX:
+                launch(lib, ptr(a3), ptr(b3), ptr(c3), ptr(bias32), ptr(d), ptr(aux),
+                       nb, m, n, k, strides, *codes, stream)
+            else:
+                # C21: a grid's y and z extents stop at 65535 blocks, so the
+                # batch and the rows go in pieces; each piece is the same
+                # operands' views, offset by their strides
+                for bs, ms in _grid_pieces(nb, m, config.bm):
+                    piece = (a3[bs, ms], b3[bs], None if c3 is None else c3[bs, ms], bias32,
+                             d[bs, ms], None if aux is None else aux[bs, ms])
+                    launch(lib, *map(ptr, piece), piece[4].shape[0], piece[4].shape[1], n, k,
+                           strides, *codes, stream)
 
     d = d.reshape(batch_shape + (m, n))
     if return_aux:

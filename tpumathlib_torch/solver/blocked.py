@@ -1,5 +1,6 @@
-"""The blocked-panel Cholesky (kernel B4c) and the fused 128×128 Cholesky +
-inverse sweep of the blocked factorizations.
+"""The blocked-panel Cholesky (kernel B4c), the fused 128×128 Cholesky +
+inverse sweep, and the right-looking schedule that the blocked
+factorizations share.
 
 Counterpart of ``tpumathlib/solver/blocked.py``: ``_chol_inv128`` (``:96``)
 and ``potrf_blocked`` (``:203``, panel kernel ``_panel_kernel`` ``:128``).
@@ -13,10 +14,14 @@ The reference's panel kernel holds an (m, p) panel in VMEM and does, per
 in-panel update; between panels an XLA syrk in a 3-pass bf16 split updates
 the trailing matrix. The panel is 4 MB at n = 4096 and does not fit in a
 block's 227 KB of shared memory, so here the panel stays in device memory
-and each step is a kernel of the repository: the sweep is
+and ``_potrf`` runs the same steps as a host loop of kernels: the sweep is
 ``tml_chol_inv_block`` and every product (trsm, in-panel update, trailing
-syrk) is B1, ``dx.gemm.pallas_matmul``, in f32 FMA. The bf16 split is a TPU
-workaround, not part of the contract; B1 reads no TF32 setting.
+syrk over the panel's K) is B1's f32 SIMT kernel launched on raw addresses
+(``dx.gemm._Into``), each written in place, the syrk on the lower part
+only; the next diagonal block's sweep runs on a second stream beside the
+products that do not need it (look-ahead). The bf16 split is a TPU
+workaround, not part of the contract; B1 reads no TF32 setting. With
+``panel`` = 128 the same schedule is ``potrf_onelaunch``'s (kernel B2).
 """
 
 from __future__ import annotations
@@ -26,8 +31,7 @@ import torch
 from tpumathlib_torch.core.errors import check
 from tpumathlib_torch.dx import cuda_utils
 from tpumathlib_torch.dx.cuda_utils import on_cuda
-from tpumathlib_torch.dx.gemm import _pallas_matmul_plain, pallas_matmul
-from tpumathlib_torch.fft.kernels import _f32_products
+from tpumathlib_torch.dx.gemm import _Into, _matmul_into_plain
 
 _NB = 128
 
@@ -89,39 +93,166 @@ def _chol_inv128(d):
 _chol_inv128.launches = 0
 
 
-def _potrf_blocked(a, panel: int, mm, chol_inv):
-    """Right-looking blocked Cholesky by panels of ``panel`` columns (the last
-    may be shorter), as the reference's ``potrf_blocked``; ``mm(a, b, c,
-    alpha=, beta=)`` is the product and ``chol_inv`` the 128×128 sweep. The
-    strict upper triangle still holds A until the last ``tril``."""
-    n = a.shape[0]
+# ---------------------------------------------------------------------------
+# The right-looking schedule of the blocked factorizations (this module's
+# Cholesky; solver.onelaunch's Cholesky and no-pivot LU).
+#
+# An operand of the schedule: (t, r, c, rows, cols, transposed), the
+# (rows, cols) block t[r:r + rows, c:c + cols] of a row-major f32 matrix t,
+# or with `transposed` the transpose of t[r:r + cols, c:c + rows].
+
+def _view(op):
+    t, r, c, rows, cols, transposed = op
+    return t[r:r + cols, c:c + rows].mT if transposed else t[r:r + rows, c:c + cols]
+
+
+class _PlainOps:
+    """The plain route: views, ``torch.matmul`` and the plain sweep, each
+    block where it stands in the schedule."""
+
+    def __init__(self, sweep):
+        self.sweep = sweep
+
+    def mm(self, d, a, b, c=None, *, alpha: float = 1.0, beta: float = 0.0):
+        _matmul_into_plain(_view(d), _view(a), _view(b), None if c is None else _view(c),
+                           alpha=alpha, beta=beta)
+
+    def block(self, src, outs):
+        for o, t in zip(outs, self.sweep(_view(src))):
+            _view(o).copy_(t)
+
+    def join(self):
+        pass
+
+
+class _KernelOps:
+    """The kernel route: B1 (``dx.gemm._Into``) on the caller's stream and
+    the block sweep ``entry`` (counted on ``wrapper``) on a second one, both
+    on raw addresses into the call's buffers: a call makes some 100 to 150
+    launches, and each view or stream lookup costs microseconds of host
+    time. ``block`` runs after everything enqueued so far, so a diagonal
+    block factors on one SM while the rest of the trailing update runs on
+    the others (look-ahead); ``join`` makes the caller's stream wait for
+    it. Without ``ahead`` the blocks run in order on the caller's stream.
+    """
+
+    def __init__(self, device, entry: str, wrapper, ahead: bool = True):
+        self.gemm = _Into()
+        self.sweep = getattr(self.gemm.lib, entry)
+        self.entry, self.wrapper = entry, wrapper
+        self.main = torch.cuda.current_stream(device)
+        self.side = torch.cuda.Stream(device) if ahead else self.main
+        self.main_h, self.side_h = self.main.cuda_stream, self.side.cuda_stream
+        self.ready, self.done = torch.cuda.Event(), torch.cuda.Event()
+
+    @staticmethod
+    def _operand(op):
+        t, r, c, _, _, transposed = op
+        ld = t.stride(0)
+        return t.data_ptr() + 4 * (r * ld + c), *((1, ld) if transposed else (ld, 1))
+
+    def mm(self, d, a, b, c=None, *, alpha: float = 1.0, beta: float = 0.0):
+        # m, n, k: A's rows, B's columns, A's columns
+        self.gemm(self.main_h, a[3], b[4], a[4], self._operand(d), self._operand(a),
+                  self._operand(b), None if c is None else self._operand(c),
+                  alpha=alpha, beta=beta)
+
+    def block(self, src, outs):
+        self.ready.record(self.main)
+        self.side.wait_event(self.ready)
+        args = [x for op in (src, *outs) for x in self._operand(op)[:2]]
+        rc = self.sweep(*args, self.side_h)
+        cuda_utils.check_launch(self.gemm.lib, rc, self.entry)
+        self.wrapper.launches += 1
+        self.done.record(self.side)
+
+    def join(self):
+        self.main.wait_event(self.done)
+
+
+def _buffers(a, blocks: int, zero: bool):
+    """The factorization's f32 copy of a (updated in place), the factor it
+    builds (zeroed where ``zero``), and ``blocks`` (128, 128) scratch blocks
+    for the inverses."""
     work = a.to(torch.float32).clone(memory_format=torch.contiguous_format)
+    out = torch.zeros_like(work) if zero else torch.empty_like(work)
+    return (work, out, *torch.empty((blocks, _NB, _NB), dtype=torch.float32, device=a.device))
+
+
+def _potrf(a, ops, panel: int = _NB):
+    """Right-looking blocked Cholesky on ``ops`` (``_PlainOps`` or
+    ``_KernelOps``) by panels of ``panel`` columns (a multiple of 128; the
+    last may be shorter), the factor built in ``out`` while the updates run
+    in ``work``, a copy of A. Block j of a panel: its sweep gives L11 and W =
+    inv(L11); L21 = A21 · Wᵀ; and, while the panel goes on, the next block
+    column -= L21 · L21[:128]ᵀ, that block's sweep, then the panel's other
+    columns. After a panel, the trailing syrk A22 -= L21 · L21ᵀ over the
+    panel's width, on the lower part only: the next panel's first block
+    column, its sweep (which runs beside what follows), the rest of the next
+    panel's columns, then the columns past it in two products (the lower
+    rows across their width, then the corner above them; the block right of
+    that corner is strictly upper and never read). A next panel of more than
+    one block takes the lower rows' product after its own second sweep, so
+    that sweep too runs beside a product. With ``panel`` = 128 this is
+    ``potrf_onelaunch``'s schedule, launch for launch. The factor's strict
+    upper triangle stays 0."""
+    n = a.shape[0]
+    work, out, w0, w1 = _buffers(a, 2, zero=True)
+    inv = (w0, w1)
+
+    def blk(t, r, c, rows, cols, tr=False):
+        return (t, r, c, rows, cols, tr)
+
+    def w(j):   # the inverse of diagonal block j's factor, in turns
+        return inv[j // _NB % 2]
+
+    def sweep(j):
+        ops.block(blk(work, j, j, _NB, _NB), (blk(out, j, j, _NB, _NB), blk(w(j), 0, 0, _NB, _NB)))
+
+    def update(r0, c0, rows, cols, k0, width):
+        """work[r0:r0 + rows, c0:c0 + cols] -= L[r0:, k0:k0 + width] · L[c0:, k0:k0 + width]ᵀ."""
+        if rows and cols:
+            d = blk(work, r0, c0, rows, cols)
+            ops.mm(d, blk(out, r0, k0, rows, width), blk(out, c0, k0, width, cols, True), d,
+                   alpha=-1.0, beta=1.0)
+
+    sweep(0)
+    deferred = None
     for s in range(0, n, panel):
-        p = min(panel, n - s)
-        pan = work[s:, s:s + p]                  # (m, p): the panel, factored in place
-        for j0 in range(0, p, _NB):
-            j1 = j0 + _NB
-            l, w = chol_inv(pan[j0:j1, j0:j1])
-            pan[j0:j1, j0:j1] = l
-            if j1 < pan.shape[0]:   # trsm: L21 = A21 · inv(L11)^T
-                pan[j1:, j0:j1] = mm(pan[j1:, j0:j1], w.mT)
-            if j1 < p:              # in-panel update: A[j1:, j1:p] -= L[j1:, blk] · L[j1:p, blk]^T
-                pan[j1:, j1:p] = mm(pan[j1:, j0:j1], pan[j1:p, j0:j1].mT, pan[j1:, j1:p],
-                                    alpha=-1.0, beta=1.0)
-        if s + p < n:               # trailing syrk: A22 -= L21 · L21^T
-            l21 = pan[p:]
-            work[s + p:, s + p:] = mm(l21, l21.mT, work[s + p:, s + p:], alpha=-1.0, beta=1.0)
-    return torch.tril(work)
-
-
-def _mm_f32(a, b, c=None, *, alpha: float = 1.0, beta: float = 0.0):
-    """B1's plain version, alpha·A@B + beta·C, with f32 products pinned."""
-    with _f32_products():
-        return _pallas_matmul_plain(a, b, c, out_dtype=torch.float32, alpha=alpha, beta=beta)
+        e = min(s + panel, n)                  # this panel's columns [s, e)
+        for j in range(s, e, _NB):
+            j1 = j + _NB
+            if j1 == n:
+                break
+            ops.join()
+            ops.mm(blk(out, j1, j, n - j1, _NB), blk(work, j1, j, n - j1, _NB),
+                   blk(w(j), 0, 0, _NB, _NB, True))          # L21 = A21 · inv(L11)ᵀ
+            if j1 < e:                         # in-panel update
+                update(j1, j1, n - j1, _NB, j, _NB)
+                sweep(j1)
+                update(j1 + _NB, j1 + _NB, n - j1 - _NB, e - j1 - _NB, j, _NB)
+                if deferred:
+                    update(*deferred)
+                    deferred = None
+        if e < n:                              # trailing syrk over the panel's width
+            e2 = min(e + panel, n)             # the next panel's columns [e, e2)
+            update(e, e, n - e, _NB, s, e - s)
+            sweep(e)
+            update(e + _NB, e + _NB, n - e - _NB, e2 - e - _NB, s, e - s)
+            t2 = n - e2
+            h = t2 // (2 * _NB) * _NB
+            lower = (e2 + h, e2, t2 - h, t2, s, e - s)
+            if e2 - e > _NB:
+                deferred = lower
+            else:
+                update(*lower)
+            update(e2, e2, h, h, s, e - s)
+    ops.join()
+    return out
 
 
 def _potrf_blocked_plain(a, panel: int = 256):
-    return _potrf_blocked(a, panel, _mm_f32, _chol_inv128_plain)
+    return _potrf(a, _PlainOps(_chol_inv128_plain), panel)
 
 
 def potrf_blocked(a, panel: int = 256):
@@ -133,9 +264,9 @@ def potrf_blocked(a, panel: int = 256):
     (ROADMAP C19), so the port refuses it. A non-SPD input gives non-finite
     values from the failing block on; there is no ``info``.
 
-    On CUDA tensors every 128-block sweep is one ``tml_chol_inv_block`` and
-    every product one B1 launch: at n = 4096, panel 256, 32 sweeps and 62
-    products (31 trsm, 16 in-panel updates, 15 trailing syrks)."""
+    On CUDA tensors (``_potrf`` on ``_KernelOps``) every 128-block sweep is
+    one ``tml_chol_inv_block`` and every product one B1 launch into its
+    place: at n = 4096, panel 256, 32 sweeps and 105 products."""
     n = a.shape[0]
     check(a.ndim == 2 and a.shape == (n, n) and n % _NB == 0,
           f"a square matrix with n % {_NB} == 0, not {tuple(a.shape)}")
@@ -143,7 +274,9 @@ def potrf_blocked(a, panel: int = 256):
           f"panel must be a positive multiple of {_NB}, not {panel}")
     if not on_cuda(a):
         return _potrf_blocked_plain(a, panel)
-    out = _potrf_blocked(a, panel, pallas_matmul, _chol_inv128)
+    ops = _KernelOps(a.device, "tml_chol_inv_block", _chol_inv128)
+    with torch.cuda.device(a.device):
+        out = _potrf(a, ops, panel)
     potrf_blocked.launches += 1
     return out
 

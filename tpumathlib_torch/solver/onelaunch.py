@@ -24,8 +24,12 @@ block A22:
   and only then the rest of A22 (potrf: the 3/4 of it that holds its lower
   triangle, in two products).
 - Look-ahead: the diagonal block of step j + 1 factors on a second stream
-  while the rest of step j's update runs (``_KernelOps``): the sweep is one
-  block on one SM and the product fills the others.
+  while the rest of step j's update runs (``blocked._KernelOps``): the
+  sweep is one block on one SM and the product fills the others.
+
+The Cholesky is ``blocked._potrf``, the blocked factorizations' shared
+schedule, at a panel of 128 (``potrf_blocked`` runs it at its own panel);
+the ops (``_PlainOps``, ``_KernelOps``) live there too.
 
 Every product writes straight into its place: the factor is built in
 ``out`` while the updates run in ``work``, a copy of A, so no product
@@ -51,11 +55,11 @@ import functools
 import torch
 
 from tpumathlib_torch.core.errors import check
-from tpumathlib_torch.dx import cuda_utils
 from tpumathlib_torch.dx.cuda_utils import on_cuda
-from tpumathlib_torch.dx.gemm import _Into, _matmul_into_plain, _pallas_matmul_plain
-from tpumathlib_torch.solver.blocked import (_check_block, _chol_inv128, _chol_inv128_plain,
-                                             _launch_block)
+from tpumathlib_torch.dx.gemm import _pallas_matmul_plain
+from tpumathlib_torch.solver.blocked import (_buffers, _check_block, _chol_inv128,
+                                             _chol_inv128_plain, _KernelOps, _launch_block,
+                                             _PlainOps, _potrf)
 
 _NB = 128     # diagonal block, and the width of a step
 _P = 256      # n must be a multiple of the reference's panel
@@ -69,127 +73,6 @@ def _check_square(a) -> int:
     check(a.shape == (n, n) and n % _P == 0,
           f"a square matrix with n % {_P} == 0, not {tuple(a.shape)}")
     return n
-
-
-# An operand of the drivers' schedule: (t, r, c, rows, cols, transposed),
-# the (rows, cols) block t[r:r + rows, c:c + cols] of a row-major f32
-# matrix t, or with `transposed` the transpose of t[r:r + cols, c:c + rows].
-
-def _view(op):
-    t, r, c, rows, cols, transposed = op
-    return t[r:r + cols, c:c + rows].mT if transposed else t[r:r + rows, c:c + cols]
-
-
-class _PlainOps:
-    """The plain route: views, ``torch.matmul`` and the plain sweep, each
-    block where it stands in the schedule."""
-
-    def __init__(self, sweep):
-        self.sweep = sweep
-
-    def mm(self, d, a, b, c=None, *, alpha: float = 1.0, beta: float = 0.0):
-        _matmul_into_plain(_view(d), _view(a), _view(b), None if c is None else _view(c),
-                           alpha=alpha, beta=beta)
-
-    def block(self, src, outs):
-        for o, t in zip(outs, self.sweep(_view(src))):
-            _view(o).copy_(t)
-
-    def join(self):
-        pass
-
-
-class _KernelOps:
-    """The kernel route: B1 (``dx.gemm._Into``) on the caller's stream and
-    the block sweep ``entry`` (counted on ``wrapper``) on a second one, both
-    on raw addresses into the call's buffers: a call makes some 125
-    launches, and each view or stream lookup costs microseconds of host
-    time. ``block`` runs after everything enqueued so far, so a diagonal
-    block factors on one SM while the rest of the trailing update runs on
-    the others (look-ahead); ``join`` makes the caller's stream wait for
-    it. Without ``ahead`` the blocks run in order on the caller's stream.
-    """
-
-    def __init__(self, device, entry: str, wrapper, ahead: bool = True):
-        self.gemm = _Into()
-        self.sweep = getattr(self.gemm.lib, entry)
-        self.entry, self.wrapper = entry, wrapper
-        self.main = torch.cuda.current_stream(device)
-        self.side = torch.cuda.Stream(device) if ahead else self.main
-        self.main_h, self.side_h = self.main.cuda_stream, self.side.cuda_stream
-        self.ready, self.done = torch.cuda.Event(), torch.cuda.Event()
-
-    @staticmethod
-    def _operand(op):
-        t, r, c, _, _, transposed = op
-        ld = t.stride(0)
-        return t.data_ptr() + 4 * (r * ld + c), *((1, ld) if transposed else (ld, 1))
-
-    def mm(self, d, a, b, c=None, *, alpha: float = 1.0, beta: float = 0.0):
-        # m, n, k: A's rows, B's columns, A's columns
-        self.gemm(self.main_h, a[3], b[4], a[4], self._operand(d), self._operand(a),
-                  self._operand(b), None if c is None else self._operand(c),
-                  alpha=alpha, beta=beta)
-
-    def block(self, src, outs):
-        self.ready.record(self.main)
-        self.side.wait_event(self.ready)
-        args = [x for op in (src, *outs) for x in self._operand(op)[:2]]
-        rc = self.sweep(*args, self.side_h)
-        cuda_utils.check_launch(self.gemm.lib, rc, self.entry)
-        self.wrapper.launches += 1
-        self.done.record(self.side)
-
-    def join(self):
-        self.main.wait_event(self.done)
-
-
-def _buffers(a, blocks: int, zero: bool):
-    """The factorization's f32 copy of a (updated in place), the factor it
-    builds (zeroed where ``zero``), and ``blocks`` (128, 128) scratch blocks
-    for the inverses."""
-    work = a.to(torch.float32).clone(memory_format=torch.contiguous_format)
-    out = torch.zeros_like(work) if zero else torch.empty_like(work)
-    return (work, out, *torch.empty((blocks, _NB, _NB), dtype=torch.float32, device=a.device))
-
-
-def _potrf(a, ops):
-    """Right-looking blocked Cholesky in 128-wide steps on ``ops``
-    (``_PlainOps`` or ``_KernelOps``). Step j forms L21 = A21 · inv(L11)^T,
-    updates block column j + 1 by L21 · L21[:128]^T, hands its diagonal
-    block to the sweep, and only then updates the rest of the trailing
-    matrix's lower part (3/4 of the square), so that the sweep can run
-    beside those products. The factor's strict upper triangle stays 0."""
-    n = a.shape[0]
-    work, out, w0, w1 = _buffers(a, 2, zero=True)
-    w = (w0, w1)
-
-    def blk(t, r, c, rows, cols, tr=False):
-        return (t, r, c, rows, cols, tr)
-
-    ops.block(blk(work, 0, 0, _NB, _NB), (blk(out, 0, 0, _NB, _NB), blk(w0, 0, 0, _NB, _NB)))
-    for step, j0 in enumerate(range(0, n - _NB, _NB)):
-        j1, j2, t = j0 + _NB, j0 + 2 * _NB, n - j0 - _NB
-        wj, wn = w[step % 2], w[(step + 1) % 2]
-        l21 = blk(out, j1, j0, t, _NB)
-        ops.join()
-        ops.mm(l21, blk(work, j1, j0, t, _NB), blk(wj, 0, 0, _NB, _NB, True))
-        ops.mm(blk(work, j1, j1, t, _NB), l21, blk(out, j1, j0, _NB, _NB, True),
-               blk(work, j1, j1, t, _NB), alpha=-1.0, beta=1.0)
-        ops.block(blk(work, j1, j1, _NB, _NB),
-                  (blk(out, j1, j1, _NB, _NB), blk(wn, 0, 0, _NB, _NB)))
-        # the rest of the trailing matrix's lower part, in two products: the
-        # lower rows across its width, then the corner above them (the
-        # block right of that corner is strictly upper and never read)
-        t2 = t - _NB
-        h = t2 // (2 * _NB) * _NB
-        for r0, rows, cols in ((j2 + h, t2 - h, t2), (j2, h, h)):
-            if rows:
-                rest = blk(work, r0, j2, rows, cols)
-                ops.mm(rest, blk(out, r0, j0, rows, _NB), blk(out, j2, j0, _NB, cols, True),
-                       rest, alpha=-1.0, beta=1.0)
-    ops.join()
-    return out
 
 
 def _potrf_onelaunch_plain(a):

@@ -12,7 +12,9 @@ with ``index_add_`` (the reference's is an XLA segment sum; its
 scatter-free cumsum-and-difference row sum is a TPU workaround and is not
 ported). SELL and BSR are gathers and dense row or block reductions.
 Blocked-ELL with bs % 128 == 0 goes to ``bell_spmm_pallas`` (kernel B6a on
-the card); any other block size to a masked einsum. ``sddmm_bsr`` pins
+the card); any other block size to a masked einsum. ``spmv`` on an f32
+Blocked-ELL and f32 x takes the SpMV kernel (``tml_bell_spmv``, as
+``SpmvPlan`` does) where bs % 8 == 0. ``sddmm_bsr`` pins
 f32 products (``fft.kernels._f32_products``), so a caller's TF32 setting
 does not reach them; ``_bsr_spmv``'s block products are matrix-vector
 products, which TF32 did not reach on the card (ROADMAP C16).
@@ -27,7 +29,8 @@ import torch
 from tpumathlib_torch.core.errors import check
 from tpumathlib_torch.fft.kernels import _f32_products
 from tpumathlib_torch.sparse.containers import BSR, COO, CSR, SELL, BlockedELL
-from tpumathlib_torch.sparse.pallas_kernels import _bell_product, bell_spmm_pallas
+from tpumathlib_torch.sparse.pallas_kernels import (_bell_product, _bell_spmv, _spmv_takes,
+                                                    bell_spmm_pallas)
 
 
 def _row_ids(a):
@@ -63,6 +66,8 @@ def spmv(a, x, y=None, alpha=1.0, beta=0.0, combine: Callable | None = None,
         return _with_y(_sell_spmv(a, x, alpha), y, beta)
     if isinstance(a, BlockedELL):
         check(not transpose, "blocked-ELL transpose not supported")
+        if _spmv_takes(a, x):   # f32: the SpMV kernel, not the SpMM one with one column
+            return _with_y(_bell_spmv(a.cols, a.data, x, a.shape, alpha), y, beta)
         return _with_y(_spmm_bell(a, x[:, None], alpha)[:, 0], y, beta)
     if isinstance(a, BSR):
         return _with_y(_bsr_spmv(a, x, alpha), y, beta)

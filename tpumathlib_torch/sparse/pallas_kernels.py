@@ -3,12 +3,19 @@
 Counterpart of ``tpumathlib/sparse/pallas_kernels.py``. The names
 ``bell_spmm_pallas``, ``bell_spmv_pallas`` and ``SpmvPlan`` are kept for
 parity, so that a reader finds the counterpart; the kernels themselves are
-CUDA C++ in ``csrc/bell_sparse.cu``, not Pallas:
+CUDA C++ in ``csrc/bell_sparse.cu`` and ``csrc/bell_wgmma.cu``, not Pallas:
 
-- ``tml_bell_spmm`` (B6a, for ``bell_spmm_pallas``): Y = alpha·A@B with A
-  Blocked-ELL (mb, ellw, bs, bs) and B dense (n, k), f32 accumulation,
-  output in B's dtype. Operands in f32, bf16 or f16; bs % 128 == 0.
-- ``tml_bell_spmv`` (B6b and B6c, for ``SpmvPlan.execute``): y = alpha·A@x
+- B6a, for ``bell_spmm_pallas``: Y = alpha·A@B with A Blocked-ELL (mb,
+  ellw, bs, bs) and B dense (n, k), f32 accumulation, output in B's dtype;
+  bs % 128 == 0. Two kernels, one rule between them (``_spmm_route``):
+  ``tml_bell_spmm_wgmma`` (``csrc/bell_wgmma.cu``, TMA + wgmma) for bf16 x
+  bf16 and f16 x f16, B read in place where its rows are 16-byte multiples
+  apart and from a copy with padded rows where they are not;
+  ``tml_bell_spmm`` (``csrc/bell_sparse.cu``, SIMT f32 FMA) for f32 and
+  mixed pairs. ``_bell_spmm_wgmma.launches`` and ``_bell_spmm_simt.launches``
+  count each, ``bell_spmm_pallas.launches`` both.
+- ``tml_bell_spmv`` (B6b and B6c, for ``SpmvPlan.execute``, and for
+  ``bell_spmv_pallas`` and ``sparse.spmv`` on f32 A and x): y = alpha·A@x
   in f32 throughout; bs % 8 == 0. The reference's two execute kernels
   differ only in TPU workarounds (bf16 hi/lo planes standing in for f32
   MXU products, and a transposed "row form" with an 8-sublane interleave),
@@ -23,8 +30,8 @@ zero.)
 On CPU tensors each wrapper takes its plain PyTorch version
 (``_bell_spmm_plain``, ``_bell_spmv_plain``: a gather of the B tiles or x
 blocks, a mask and an f32 einsum); on CUDA tensors it launches its kernel
-or raises. ``bell_spmm_pallas.launches`` and ``_bell_spmv.launches`` count
-the launches.
+or raises: no route gives way to another. ``_bell_spmv.launches`` counts
+the SpMV kernel's launches.
 """
 
 from __future__ import annotations
@@ -36,8 +43,10 @@ from tpumathlib_torch.dx import cuda_utils
 from tpumathlib_torch.dx.cuda_utils import on_cuda
 from tpumathlib_torch.sparse.containers import BlockedELL
 
-# operand dtype codes, as csrc/bell_sparse.cu reads them
+# operand dtype codes, as csrc/bell_sparse.cu and csrc/bell_wgmma.cu read them
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# operand pairs of the tensor-core SpMM: both bf16 or both f16
+_TC_DTYPES = (torch.bfloat16, torch.float16)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -77,14 +86,38 @@ def _bell_spmm_plain(a: BlockedELL, b, alpha=1.0):
     return (alpha * _bell_product(a.cols, a.data, b, a.shape, torch.float32)).to(b.dtype)
 
 
+def _spmm_route(a_dtype, b_dtype) -> str:
+    """The SpMM kernel a launch takes: "wgmma" (csrc/bell_wgmma.cu) for a
+    bf16 x bf16 or f16 x f16 pair, "simt" (csrc/bell_sparse.cu) for every
+    other pair the kernels take (f32 x f32, and mixed)."""
+    return "wgmma" if a_dtype == b_dtype and a_dtype in _TC_DTYPES else "simt"
+
+
+def _tma_rows(b):
+    """(B, its row stride in elements) as the tensor-core kernel reads it:
+    unit column stride, rows a multiple of 8 elements (16 bytes, TMA's row
+    pitch) apart, a 16-byte aligned base. B itself where it lies so; else
+    a copy whose rows are padded to a multiple of 8 (a ragged k, as a
+    batched spmm's folded B may have)."""
+    n, k = b.shape
+    ld = b.stride(0)
+    if b.stride(1) == 1 and ld % 8 == 0 and ld >= k and b.data_ptr() % 16 == 0:
+        return b, ld
+    ld = -(-k // 8) * 8
+    rows = torch.empty((n, ld), dtype=b.dtype, device=b.device)
+    rows[:, :k] = b
+    return rows, ld
+
+
 def bell_spmm_pallas(a: BlockedELL, b, alpha=1.0, tk: int = 256):
     """C = alpha·A@B with A Blocked-ELL, B dense (n, k), in B's dtype.
 
     ``tk`` is the reference's column-tile width; it is validated and only
-    tunes the TPU kernel: ``tml_bell_spmm`` tiles k by 128 whatever it
-    says, and the result does not depend on it. On CUDA the kernel takes
-    f32, bf16 and f16 operands and bs % 128 == 0 (the only block sizes
-    ``spmm`` routes here); anything else raises NotSupportedError."""
+    tunes the TPU kernel: the kernels tile k their own way, and the result
+    does not depend on it. On CUDA the kernels take f32, bf16 and f16
+    operands (``_spmm_route`` picks the kernel) and bs % 128 == 0 (the only
+    block sizes ``spmm`` routes here); anything else raises
+    NotSupportedError."""
     m, n = a.shape
     bs = a.blocksize
     check(b.ndim == 2 and b.shape[0] == n, f"B must be ({n}, k), not {tuple(b.shape)}")
@@ -94,34 +127,66 @@ def bell_spmm_pallas(a: BlockedELL, b, alpha=1.0, tk: int = 256):
         return _bell_spmm_plain(a, b, alpha)
     for what, t in (("A", a.data), ("B", b)):
         if t.dtype not in _DTYPE_CODE:
-            raise NotSupportedError(f"tml_bell_spmm takes f32, bf16 or f16 operands, not {what} "
-                                    f"in {t.dtype}")
-    check(bs % 128 == 0, f"tml_bell_spmm takes bs % 128 == 0, not {bs}", NotSupportedError)
+            raise NotSupportedError(f"the SpMM kernels take f32, bf16 or f16 operands, not "
+                                    f"{what} in {t.dtype}")
+    check(bs % 128 == 0, f"the SpMM kernels take bs % 128 == 0, not {bs}", NotSupportedError)
     check(a.cols.device == a.data.device == b.device, "A and B on one device")
     k = b.shape[1]
     y = torch.empty((m, k), dtype=b.dtype, device=b.device)
     if m == 0 or k == 0:
         return y
-    cols, data, bc = a.cols.to(torch.int32).contiguous(), _aligned(a.data), _aligned(b)
+    cols, data = a.cols.to(torch.int32).contiguous(), _aligned(a.data)
     lib = cuda_utils.load_kernels()
     with torch.cuda.device(b.device):
-        rc = lib.tml_bell_spmm(cols.data_ptr(), data.data_ptr(), bc.data_ptr(), y.data_ptr(),
-                               mb, ellw, bs, m, n, k, float(alpha),
-                               _DTYPE_CODE[data.dtype], _DTYPE_CODE[bc.dtype],
-                               torch.cuda.current_stream(b.device).cuda_stream)
-    cuda_utils.check_launch(lib, rc, "tml_bell_spmm")
-    bell_spmm_pallas.launches += 1
+        stream = torch.cuda.current_stream(b.device).cuda_stream
+        if _spmm_route(data.dtype, b.dtype) == "wgmma":
+            bc, ldb = _tma_rows(b)
+            _bell_spmm_wgmma(lib, cols.data_ptr(), data.data_ptr(), bc.data_ptr(), y.data_ptr(),
+                             mb, ellw, bs, m, n, k, ldb, float(alpha), _DTYPE_CODE[b.dtype],
+                             stream)
+        else:
+            bc = _aligned(b)
+            _bell_spmm_simt(lib, cols.data_ptr(), data.data_ptr(), bc.data_ptr(), y.data_ptr(),
+                            mb, ellw, bs, m, n, k, float(alpha), _DTYPE_CODE[data.dtype],
+                            _DTYPE_CODE[bc.dtype], stream)
     return y
 
 
 bell_spmm_pallas.launches = 0
 
 
+def _bell_spmm_wgmma(lib, *args):
+    """One launch of the tensor-core SpMM, csrc/bell_wgmma.cu."""
+    cuda_utils.check_launch(lib, lib.tml_bell_spmm_wgmma(*args), "tml_bell_spmm_wgmma")
+    _bell_spmm_wgmma.launches += 1
+    bell_spmm_pallas.launches += 1
+
+
+def _bell_spmm_simt(lib, *args):
+    """One launch of the SIMT SpMM, csrc/bell_sparse.cu."""
+    cuda_utils.check_launch(lib, lib.tml_bell_spmm(*args), "tml_bell_spmm")
+    _bell_spmm_simt.launches += 1
+    bell_spmm_pallas.launches += 1
+
+
+_bell_spmm_wgmma.launches = 0
+_bell_spmm_simt.launches = 0
+
+
+def _spmv_takes(a: BlockedELL, x) -> bool:
+    """Whether the SpMV kernel (``_bell_spmv``) computes alpha·A@x: f32 A
+    and x, bs % 8 == 0. Its result is f32, the dtype the SpMM route gives
+    such operands."""
+    return a.data.dtype == x.dtype == torch.float32 and a.blocksize % 8 == 0
+
+
 def bell_spmv_pallas(a: BlockedELL, x, alpha=1.0):
-    """y = alpha·A@x with A Blocked-ELL: the SpMM kernel with one column.
-    For repeated products use SpmvPlan, whose kernel is made for one
-    column."""
+    """y = alpha·A@x with A Blocked-ELL, in x's dtype: the SpMV kernel for
+    f32 A and x, the SpMM kernels with one column for other dtypes. For
+    repeated products use SpmvPlan, which keeps A as f32 blocks."""
     check(x.ndim == 1, f"x must be a vector, not {tuple(x.shape)}")
+    if _spmv_takes(a, x):
+        return _bell_spmv(a.cols, a.data, x, a.shape, alpha)
     return bell_spmm_pallas(a, x[:, None], alpha=alpha)[:, 0]
 
 
