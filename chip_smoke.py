@@ -1302,7 +1302,8 @@ def _bound(ops: float, peak: float, nbytes: float) -> dict:
     return {"bound_ms": t_bytes, "bound_by": "bytes"}
 
 
-FFT_KERNEL_NS = (256, 1024, 4096, 16384, 65536)   # phase 12's lengths
+FFT_KERNEL_NS = (256, 1024, 4096, 8192, 16384, 32768, 65536)   # phase 12's lengths (32768:
+                                                                 # two segments a row)
 FFT_MAIN = (4096, 4096)                           # (batch, N) of the bench's FFT lines
 
 
@@ -1353,6 +1354,7 @@ def phase_fft_kernel(dev) -> None:
         x64 = _c128(xr, xi)
         f64, i64 = torch.fft.fft(x64), torch.fft.ifft(x64) * n
         wide = torch.randn((2, 3, 2 * n), generator=gen, device=dev)[..., ::2]   # (2, 3, n), stride 2
+        three = torch.randn((2, 3, n), generator=gen, device=dev).bfloat16()       # (3, n) bf16 planes
         cases_n = [("fwd natural f32", (xr, xi), {}, f64),
                    ("inv natural f32", (xr, xi), {"inverse": True}, i64),
                    ("fwd raw c=1 f32", (xr, xi), {"reorder": False}, f64),
@@ -1363,7 +1365,9 @@ def phase_fft_kernel(dev) -> None:
                    ("inv raw c=1 bf16", (xr.bfloat16(), xi.bfloat16()),
                     {"halfplanes": True, "reorder": False, "inverse": True}, i64),
                    ("(2,3,N) strided f32", (wide, wide.flip(0)), {},
-                    torch.fft.fft(_c128(wide, wide.flip(0))))]
+                    torch.fft.fft(_c128(wide, wide.flip(0)))),
+                   ("(3,N) raw c=1 bf16", (three[0], three[1]), {"halfplanes": True, "reorder": False},
+                    torch.fft.fft(_c128(three[0], three[1])))]
         for what, (ar, ai), kw, want in cases_n:
             got = stockham.dif_fft(ar, ai, **kw)
             plain = stockham._dif_fft_plain(ar, ai, **kw)
@@ -1511,10 +1515,59 @@ def _plain(route):
     return run
 
 
+def _ptxas_report(name: str, tag: str, known: tuple = ()) -> dict:
+    """Registers and spills of each compiled kernel whose mangled name holds
+    ``name`` (``_ptxas_entries``), printed; fails the run where none is found
+    or any spills, but for the instantiations whose names hold one of
+    ``known`` (printed as known spills, recorded with ``"known": true``)."""
+    entries = _ptxas_entries(name)
+    out, failed = {}, []
+    for e in entries:
+        short = e["entry"][e["entry"].find(name):][:64]
+        spills = bool(e.get("spill_stores") or e.get("spill_loads"))
+        allowed = spills and any(k in e["entry"] for k in known)
+        out[short] = {k: e.get(k) for k in ("registers", "stack", "spill_stores", "spill_loads",
+                                            "smem")}
+        if allowed:
+            out[short]["known"] = True
+        elif spills:
+            failed.append(short)
+        print(f"[{tag}] {short}: {e.get('registers')} registers, {e.get('stack')} bytes stack, "
+              f"spill stores {e.get('spill_stores')} / loads {e.get('spill_loads')} bytes (nvcc.log)"
+              f"{' (known)' if allowed else ''}", flush=True)
+    if not entries or failed:
+        raise SystemExit(f"chip_smoke: {name}: no ptxas report, or kernels spill: {failed}")
+    return out
+
+
+def _device_ms(fn, names: tuple, reps: int = 5) -> float | None:
+    """Device ms a call of the kernels whose names hold one of ``names``,
+    over ``reps`` calls of ``fn``, from torch.profiler's CUDA activity (their
+    own device time); None where the trace holds none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    mine = 0.0
+    for e in prof.key_averages():
+        if any(nm in e.key for nm in names):
+            t = getattr(e, "self_device_time_total", None)
+            mine += getattr(e, "self_cuda_time_total", 0.0) if t is None else t
+    return mine / reps / 1e3 if mine > 0 else None
+
+
 def phase_fft_times(fftd: dict, card: str) -> dict:
     """CUDA-event times of the kernel route, the plain version and one
     torch.fft call (library) for each FFT line of bench.py, at batch 4096 x
-    N 4096; then each route of phase 13 on the host clock."""
+    N 4096; the kernels' registers and spills (none may spill); the share of
+    each R2C → C2R cycle that its two dif_fft launches take on the device
+    (torch.profiler's kernel times; beside it the two launches timed apart
+    at the cycle's shapes, (b/2, N) forward and inverse); then each route of
+    phase 13 on the host clock."""
     b, n = FFT_MAIN
     xr, xi, br, bi, x = fftd["args"]
     xc = torch.complex(xr, xi)
@@ -1524,6 +1577,8 @@ def phase_fft_times(fftd: dict, card: str) -> dict:
     lines = {
         "c2c natural": (lambda: stockham.dif_fft(xr, xi), lambda: torch.fft.fft(xc), 4),
         "c2c shuffled": (lambda: stockham.dif_fft(xr, xi, reorder=False), lambda: torch.fft.fft(xc), 4),
+        "c2c natural bf16": (lambda: stockham.dif_fft(br, bi, halfplanes=True),
+                             lambda: torch.fft.fft(xc), 2),
         "c2c shuffled bf16": (lambda: stockham.dif_fft(br, bi, reorder=False, halfplanes=True),
                               lambda: torch.fft.fft(xc), 2),
         "r2c/c2r cycle": (lambda: c2r(r2c(x, planar=True), fft.Direction.INVERSE) / n,
@@ -1536,6 +1591,12 @@ def phase_fft_times(fftd: dict, card: str) -> dict:
         fast[f"{line} kernel"] = kernel
         fast[f"{line} library"] = library
         slow[f"{line} plain"] = _plain(kernel)
+    half = (xr[: b // 2], xi[: b // 2], br[: b // 2], bi[: b // 2])
+    for tag, (pr, pi, hp) in (("", (half[0], half[1], False)), (" bf16", (half[2], half[3], True))):
+        fast[f"cycle{tag} forward apart"] = lambda pr=pr, pi=pi, hp=hp: stockham.dif_fft(
+            pr, pi, halfplanes=hp)
+        fast[f"cycle{tag} inverse apart"] = lambda pr=pr, pi=pi, hp=hp: stockham.dif_fft(
+            pr, pi, inverse=True, halfplanes=hp)
     ms = _loop_ms(fast, warmup=3, reps=20, samples=5)
     ms.update(_loop_ms(slow, warmup=1, reps=2, samples=3))
     logn = math.log2(n)
@@ -1552,6 +1613,24 @@ def phase_fft_times(fftd: dict, card: str) -> dict:
                   f"{2.0 * b * n * 8 / t / 1e6:.1f} GB/s (2·b·N·8/t) = "
                   f"{5.0 * b * n * logn / t / 1e9:.2f} TFLOP/s (5·N·log2 N) | bound {bound_ms:.4f} ms "
                   f"({by}), {bound_ms / t:.1%} of it | {card}", flush=True)
+    # known: the 16384-point rows' raw-order and bf16 instantiations, 1024 threads at 64
+    # registers (csrc/fft_dif.cu; ROADMAP C22)
+    ms["ptxas"] = {**_ptxas_report("dif_kernel", "fft-times", known=("ELi1024ELi1E",)),
+                   **_ptxas_report("global_pass", "fft-times")}
+    shares = {}
+    for tag in ("", " bf16"):
+        line = f"r2c/c2r cycle{tag}"
+        cycle = ms[f"{line} kernel"]
+        apart = ms[f"cycle{tag} forward apart"] + ms[f"cycle{tag} inverse apart"]
+        dif = _device_ms(lines[line][0], ("dif_kernel",))
+        shares[line] = {"cycle_ms": cycle, "dif_fft_device_ms": dif,
+                        "share": None if dif is None else dif / cycle,
+                        "dif_fft_apart_ms": apart, "share_apart": apart / cycle}
+        print(f"[fft-times] {line}: {cycle:.4f} ms back to back; its two dif_fft launches "
+              f"{'not traced' if dif is None else f'{dif:.4f} ms of device time ({dif / cycle:.1%})'}"
+              f"; timed apart at (b/2, N) {apart:.4f} ms ({apart / cycle:.1%}) | {card}",
+              flush=True)
+    ms["cycle shares"] = shares
     for name, route in fftd["routes"].items():
         print(f"[fft-times] wall {name:36s} {_wall_ms(route, 5):.4f} ms per call "
               f"(host clock, 5 calls) | {card}", flush=True)
@@ -2142,7 +2221,8 @@ def phase_sparse_times(spd: dict, card: str) -> dict:
     return ms
 
 
-DX_KERNEL_NS = (8, 16, 24, 32, 48, 64, 128, 256)   # phase 18's sizes (256 works in place)
+DX_KERNEL_NS = (8, 16, 24, 31, 32, 33, 48, 64, 96, 127, 128, 256)   # phase 18's sizes: potrf's
+# routes (dx.solver._potrf_route) are a warp to 32, panels to 224, in place at 256
 DX_KERNEL_BATCH = 37                                # a batch that is a multiple of nothing
 DX_MAIN = (8192, 32)   # (batch, n) of bench.py's batched lines (bench.py:366)
 DX_WIDE = (1024, 128)  # (batch, n) of the _run_batched route
@@ -2245,8 +2325,10 @@ def _dx_control(kind: str, m) -> float:
 
 def phase_dx_kernel(dev) -> None:
     """The three kernels of csrc/dx_solver.cu against their plain versions
-    and float64 on the host, at n = 8 … 256 (n = 256 takes the instantiation
-    that works in place in device memory) and a batch of 37. Against the
+    and float64 on the host, at n = 8 … 256 and a batch of 37: potrf's three
+    routes (``dx.solver._potrf_route``: a warp a matrix to n = 32, 32-column
+    panels to 224, in place at 256; posv also at n = 32 with k = 32), and
+    getrf's and geqrf's shared-memory and in-place instantiations. Against the
     plain version, max-scaled, DX_TOL on the factors of the matrices whose
     pivots agree (the kernels' FMAs and order of summation round otherwise,
     and a near-tie may pick another pivot: the count of matrices whose
@@ -2280,7 +2362,8 @@ def phase_dx_kernel(dev) -> None:
         l64 = torch.linalg.cholesky(spd.double().cpu())
         vs_p, vs_64 = max_scaled_err(l, l_p), max_scaled_err(l, l64)
         res = _chol_residual(spd.cpu(), l.cpu())
-        hold(f"potrf n={n} ({where})", vs_p <= DX_TOL["potrf"] and vs_64 < 5e-5 and res < 5e-5
+        hold(f"potrf n={n} ({dxs._potrf_route(n)})",
+             vs_p <= DX_TOL["potrf"] and vs_64 < 5e-5 and res < 5e-5
              and bool(torch.isfinite(l).all()) and bool((torch.triu(l, 1) == 0).all()),
              f"vs plain {vs_p:.3e} vs f64 {vs_64:.3e} LLᵀ−A {res:.3e}")
         for pivot, m in ((True, g), (False, dom)):
@@ -2308,11 +2391,13 @@ def phase_dx_kernel(dev) -> None:
                 hold(f"{kind} bf16 control n={n}", ctl > DX_TOL[kind],
                      f"{ctl:.3e} above the tolerance {DX_TOL[kind]:g}")
         piv_agree = _pivots_agree(dxs._getrf(g)[1], dxs._getrf_plain(g)[1])
-        for k in (1, DX_K):
+        for k in (1, DX_K) + ((32,) if n == 32 else ()):   # k = 32: the warp route's widest
             rhs = torch.randn((bsz, n, k), generator=gen, device=dev)
             for kind, m, run, plain in (("gesv", g, lambda m, b: dxs._getrf(m, True, b),
                                          dxs._gesv_plain),
                                         ("posv", spd, dxs._potrf, dxs._posv_plain)):
+                if kind == "gesv" and k == 32:
+                    continue
                 x, x_p = run(m, rhs), plain(m, rhs)
                 torch.cuda.synchronize()
                 sel = piv_agree if kind == "gesv" else torch.ones_like(piv_agree)
@@ -2321,7 +2406,8 @@ def phase_dx_kernel(dev) -> None:
                 fwd = float(((x[sel] - x_p[sel]).double().cpu().flatten(1).abs().amax(1)
                              / _amax(x_p[sel].double().cpu()).clamp(min=1) / cond).max())
                 res = _solve_residual(m.cpu(), x.cpu(), rhs.cpu())
-                hold(f"{kind} n={n} k={k} ({where})", fwd <= 5e-5 and res < 1e-5
+                route = dxs._potrf_route(n, k) if kind == "posv" else where
+                hold(f"{kind} n={n} k={k} ({route})", fwd <= 5e-5 and res < 1e-5
                      and bool(torch.isfinite(x).all()),
                      f"vs plain / cond {fwd:.3e} backward error {res:.3e}")
 
@@ -2332,16 +2418,19 @@ def phase_dx_kernel(dev) -> None:
         hold(f"tie n={n}", p0 == [7, 7, 7] == dxs._getrf_plain(m)[1][:, 0].tolist(),
              f"pivots {p0}")
     # C10: a non-SPD matrix among SPD ones: NaN from its failing column on,
-    # the neighbours equal to their standalone factors
-    spd = _dx_spd(gen, 8, 32, dev)
-    spd[2, 10, 10] = -1e4
-    l = dxs._potrf(spd)
-    low = torch.tril(torch.ones((32, 32), dtype=torch.bool, device=dev))
-    alone = all(torch.equal(l[i], dxs._potrf(spd[i:i + 1])[0]) for i in range(8) if i != 2)
-    pattern = bool(torch.isfinite(l[2][:, :10]).all() and l[2][10:, 10:][low[10:, 10:]].isnan().all())
-    same = torch.equal(l.isnan(), dxs._potrf_plain(spd).isnan())
-    hold("C10 non-SPD among SPD n=32", alone and pattern and same,
-         f"neighbours alone {alone}, NaN from column 10 on {pattern}, as plain {same}")
+    # the neighbours equal to their standalone factors (the warp route at 32,
+    # the panel route at 33)
+    for n in (32, 33):
+        spd = _dx_spd(gen, 8, n, dev)
+        spd[2, 10, 10] = -1e4
+        l = dxs._potrf(spd)
+        low = torch.tril(torch.ones((n, n), dtype=torch.bool, device=dev))
+        alone = all(torch.equal(l[i], dxs._potrf(spd[i:i + 1])[0]) for i in range(8) if i != 2)
+        pattern = bool(torch.isfinite(l[2][:, :10]).all()
+                       and l[2][10:, 10:][low[10:, 10:]].isnan().all())
+        same = torch.equal(l.isnan(), dxs._potrf_plain(spd).isnan())
+        hold(f"C10 non-SPD among SPD n={n}", alone and pattern and same,
+             f"neighbours alone {alone}, NaN from column 10 on {pattern}, as plain {same}")
     # C11: NaN in a pivot column: pivots in range, the first NaN row, NaN in LU
     for n in (32, 48):
         m = torch.randn((3, n, n), generator=gen, device=dev)
@@ -2503,6 +2592,11 @@ def phase_dx_main(dev) -> dict:
     return {"launches": launches, "grew": grew, "max_abs_err": max_abs, "routes": routes}
 
 
+def _dx_nk(name: str) -> tuple[int, int]:
+    """(n, k) of a line of phase 20: its matrices' order and right-hand sides."""
+    return (DX_WIDE if "n128" in name else DX_MAIN)[1], DX_K if name.startswith(("gesv", "posv")) else 0
+
+
 def _dx_bound(name: str) -> dict:
     """The bound of a line of phase 20: inputs read and outputs written
     once, f32 (of A only the lower triangle for potrf and posv, which read
@@ -2528,7 +2622,8 @@ def phase_dx_times(dxd: dict, card: str) -> dict:
     phase 19, its plain version and its library call (torch.linalg's
     cholesky_ex, lu_factor_ex with pivot on and off, torch.geqrf,
     torch.linalg.solve for gesv and posv, torch.linalg.cholesky for
-    potrf_blocked), each beside its bound."""
+    potrf_blocked), each beside its bound; and the registers and spills of
+    the three Cholesky routes' kernels (none may spill)."""
     fast, slow = {}, {}
     for name, (route, _, plain, library) in dxd["routes"].items():
         target = slow if name.startswith("potrf_blocked") else fast
@@ -2538,6 +2633,7 @@ def phase_dx_times(dxd: dict, card: str) -> dict:
             slow[f"{name} plain"] = plain
     ms = _loop_ms(fast, warmup=3, reps=20, samples=5)
     ms.update(_loop_ms(slow, warmup=1, reps=2, samples=3))
+    ms["ptxas"] = _ptxas_report("potrf_", "dx-times")
     bounds = {}
     for name in dxd["routes"]:
         bounds[name] = bound = _dx_bound(name)
@@ -4870,6 +4966,11 @@ def main() -> None:
         "plain_ms": fft_ms["c2c natural plain"],
         **_bound(5.0 * b * nf * math.log2(nf), PEAK_F32, 4 * 4 * b * nf),
         "library_ms": fft_ms["c2c natural library"],
+        "raw_order_ms": fft_ms["c2c shuffled kernel"],
+        "bf16_natural_ms": fft_ms["c2c natural bf16 kernel"],
+        "bf16_raw_order_ms": fft_ms["c2c shuffled bf16 kernel"],
+        "r2c_c2r_cycle_shares": fft_ms["cycle shares"],
+        "ptxas": fft_ms["ptxas"],
     }] + [{
         "name": name,
         "route": "cuda",
@@ -4909,6 +5010,8 @@ def main() -> None:
         "plain_ms": dx_ms[f"{line} plain"],
         **dx_ms["bounds"][line],
         "library_ms": dx_ms[f"{line} library"],
+        **({"potrf_route": dxs._potrf_route(*_dx_nk(line)), "ptxas": dx_ms["ptxas"]}
+           if count == "_potrf" else {}),
     } for name, line, count, site in (
         ("potrf_batched_packed (tml_potrf_batched)", "potrf_batched b8192 n32", "_potrf", "977"),
         ("getrf_batched_packed (tml_getrf_batched)", "getrf_batched b8192 n32", "_getrf", "480"),

@@ -62,11 +62,16 @@ def test_f32_paths_run_on_the_cpu(monkeypatch):
     monkeypatch.setattr(mod, "PANEL", 128)
     monkeypatch.setattr(mod, "SPMM", (4, 4, 2, 128, 64))
     monkeypatch.setattr(mod, "SPMV", (4, 4, 2, 128))
+    monkeypatch.setattr(mod, "FFT", (4, 256))
+    monkeypatch.setattr(mod, "BATCHED", ((8, 32), (2, 128)))
     paths = mod._paths(torch.device("cpu"))
     assert sorted(paths) == sorted(["potrf_onelaunch", "getrf_onelaunch", "geqrf_onelaunch",
                                     "potrf_blocked", "dropout_matmul_kernel",
                                     "pallas_matmul_bf16_gelu_bias", "spmm_bell_bf16",
-                                    "spmv_bell_f32"])
+                                    "spmv_bell_f32", "dif_fft_f32_natural", "dif_fft_bf16_raw",
+                                    "pallas_fft", "pallas_fft2", "potrf_batched_1024x128",
+                                    "potrf_batched_8192x32", "posv_batched_8192x32_k4",
+                                    "getrf_batched_8192x32", "geqrf_batched_8192x32"])
     for name, fn in paths.items():
         out = fn()
         for t in out if isinstance(out, tuple) else (out,):

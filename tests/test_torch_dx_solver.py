@@ -20,6 +20,16 @@ reference's Pallas kernels, run in interpret mode, and with SciPy/LAPACK.
   the optional right-hand side, the factor buffer and the launch counts.
 - The slice as a whole at batch 64 × n 32 and 48 through the public
   functions, against the reference.
+- tml_potrf_batched's three routes (a warp a matrix for n, k ≤ 32; 32-column
+  panels in shared memory; the in-place column steps), mirrored in numpy
+  step by step with the kernel's own order and layouts (the column layout
+  and its shuffles, the padding, the transposed rows below a panel, the
+  4 × 4 trailing tiles and their enumeration): without FMAs the models
+  equal ``_potrf_plain``'s and ``_posv_plain``'s steps in numpy bit for bit
+  (``_plain_steps``; torch's CPU ``1.0 / x`` rounds a few pivots' reciprocals
+  otherwise, so against the torch functions themselves they agree to 1e-6),
+  the non-positive pivot's NaN included; and the port against the reference
+  at the routes' boundaries (n = 31, 32, 33, 64, 127, 128).
 
 Inputs are explicit f32 on both sides: the suite turns on jax x64.
 """
@@ -235,7 +245,7 @@ def test_pivot_ties_take_the_lowest_row(rng, n):
     assert to_numpy(piv)[:, 0].tolist() == np.asarray(rpiv)[:, 0].tolist() == [7, 7]
 
 
-@pytest.mark.parametrize("n", [32, 48])
+@pytest.mark.parametrize("n", [32, 33, 48])
 def test_potrf_not_spd_gives_nan_from_the_failing_column(rng, n):
     a = _spd(rng, 3, n)
     f = 10
@@ -371,7 +381,7 @@ class _EmulatedLib(_EmulatedGemmLib):
 
     def tml_potrf_batched(self, a, l, b, x, batch, n, k, stream):
         self.solver_calls.append(dict(kernel="potrf", batch=batch, n=n, k=k, factor=bool(l)))
-        rc = self._refuse(l, n, k)
+        rc = self.rc or (1 if not l and port._potrf_route(n, k) == "in place" else 0)
         if rc:
             return rc
         at = _batch(a, batch, n, n).clone()
@@ -540,3 +550,199 @@ def test_cpu_takes_plain_versions_without_launch(rng):
     assert torch.equal(dx.posv_batched(a, a), port._posv_plain(a, a))
     dx.potrf_blocked(a[0], block=16)
     assert _grew(before) == [0, 0, 0, 0]
+
+
+# ---------------------------------------------------------------------------
+# tml_potrf_batched's routes, mirrored in numpy (csrc/dx_solver.cu)
+
+def _model_warp_potrf(d):
+    """warp_potrf on f32 (B, 32, 32) in the row layout, d[:, r, c] = A(r, c)
+    for c <= r (lane r's registers): step j takes lane j's pivot, every lane
+    scales its entry j (l_r) and subtracts l_r·l_c from entry c > j, l_c
+    lane c's entry j; the products above the diagonal are junk nothing
+    reads. Without the kernel's FMA. Returns each lane's 1/sqrt of its
+    pivot."""
+    inv = np.zeros(d.shape[:2], np.float32)
+    for j in range(32):
+        with np.errstate(invalid="ignore"):   # a non-positive pivot: NaN, as the kernel
+            ij = np.float32(1) / np.sqrt(d[:, j, j])
+        inv[:, j] = ij
+        d[:, :, j] = d[:, :, j] * ij[:, None]
+        for c in range(j + 1, 32):
+            d[:, :, c] = d[:, :, c] - d[:, :, j] * d[:, c, j, None]
+    return inv
+
+
+def _model_warp_route(a, b=None):
+    """potrf_warp_kernel: the identity past n, the warp's 32 steps, L with
+    zeros above the diagonal; with b (B, n, k ≤ 32), lane r's row of X
+    through L y = b on the rows and Lᵀ x = y on the columns, each step
+    dividing lane j's entry by the pivot and subtracting l·y from the lanes
+    below (above) it."""
+    bsz, n, _ = a.shape
+    d = np.broadcast_to(np.eye(32, dtype=np.float32), (bsz, 32, 32)).copy()
+    low = np.tril(np.ones((n, n), bool))
+    d[:, :n, :n] = np.where(low, a, 0)
+    _model_warp_potrf(d)
+    l32 = np.tril(d)
+    if b is None:
+        return l32[:, :n, :n]
+    x = np.zeros((bsz, 32, b.shape[-1]), np.float32)
+    x[:, :n] = b
+    for j in range(32):
+        y = x[:, j] / l32[:, j, j, None]
+        x[:, j] = y
+        x[:, j + 1:] = x[:, j + 1:] - l32[:, j + 1:, j, None] * y[:, None]
+    for j in reversed(range(32)):
+        y = x[:, j] / l32[:, j, j, None]
+        x[:, j] = y
+        x[:, :j] = x[:, :j] - l32[:, j, :j, None] * y[:, None]
+    return x[:, :n]
+
+
+def _tile_of(t):
+    """(row, column) of lower tile t in row-major order, as the kernel finds
+    it: a float square root, then integer corrections."""
+    i = int((np.sqrt(np.float32(8 * t + 1), dtype=np.float32) - np.float32(1)) * np.float32(0.5))
+    while i * (i + 1) // 2 > t:
+        i -= 1
+    while (i + 1) * (i + 2) // 2 <= t:
+        i += 1
+    return i, t - i * (i + 1) // 2
+
+
+def _model_panel_route(a):
+    """potrf_panel_kernel on f32 (B, n, n): the lower triangle in an (np, np
+    + 4) buffer, np = n rounded up to 32, identity past n; for each panel,
+    warp 0's steps on the diagonal block, then a row below at a time x_c =
+    (a_rc − Σ_{j<c} x_j·L(c, j))·inv_c, kept in its row and transposed above
+    the diagonal, then the lower 4 × 4 tiles with a row below n, each
+    summing the panel's 32 columns in order from the transposed rows."""
+    bsz, n, _ = a.shape
+    np_ = -(-n // 32) * 32
+    buf = np.zeros((bsz, np_, np_ + 4), np.float32)
+    low = np.tril(np.ones((n, n), bool))
+    buf[:, :n, :n] = np.where(low, a, 0)
+    buf[:, np.arange(n, np_), np.arange(n, np_)] = 1
+    for p0 in range(0, n, 32):
+        d = buf[:, p0:p0 + 32, p0:p0 + 32].copy()
+        inv = _model_warp_potrf(d)
+        buf[:, p0:p0 + 32, p0:p0 + 32] = d
+        rb = p0 + 32
+        if rb < n:
+            x = buf[:, rb:n, p0:p0 + 32].copy()
+            for c in range(32):
+                v = x[:, :, c]
+                for j in range(c):
+                    v = v - x[:, :, j] * buf[:, p0 + c, p0 + j, None]
+                x[:, :, c] = v * inv[:, c, None]
+            buf[:, rb:n, p0:p0 + 32] = x
+            buf[:, p0:p0 + 32, rb:n] = x.transpose(0, 2, 1)
+        t0, m = rb // 4, (n + 3) // 4 - rb // 4
+        for t in range(m * (m + 1) // 2 if m > 0 else 0):
+            i, jj = _tile_of(t)
+            r0, c0 = 4 * (t0 + i), 4 * (t0 + jj)
+            acc = buf[:, r0:r0 + 4, c0:c0 + 4].copy()
+            for j in range(32):
+                acc = acc - buf[:, p0 + j, r0:r0 + 4, None] * buf[:, p0 + j, None, c0:c0 + 4]
+            buf[:, r0:r0 + 4, c0:c0 + 4] = acc
+    return np.where(low, buf[:, :n, :n], 0).astype(np.float32)
+
+
+def _plain_steps(a, b=None):
+    """``_potrf_plain`` and ``_posv_plain``'s steps in numpy f32, with IEEE
+    reciprocals of the pivots' square roots."""
+    x = a.astype(np.float32).copy()
+    n = x.shape[-1]
+    for j in range(n):
+        with np.errstate(invalid="ignore"):
+            inv = np.float32(1) / np.sqrt(x[:, j, j])
+        l = x[:, j:, j] * inv[:, None]
+        x[:, j:, j] = l
+        x[:, j + 1:, j + 1:] -= l[:, 1:, None] * l[:, None, 1:]
+    l = np.tril(x)
+    if b is None:
+        return l
+    y = b.astype(np.float32).copy()
+    for j in range(n):
+        y[:, j] = y[:, j] / l[:, j, j, None]
+        y[:, j + 1:] -= l[:, j + 1:, j, None] * y[:, j, None]
+    for j in reversed(range(n)):
+        y[:, j] = y[:, j] / l[:, j, j, None]
+        y[:, :j] -= l[:, j, :j, None] * y[:, j, None]
+    return y
+
+
+def test_potrf_routes():
+    assert [port._potrf_route(n, k) for n, k in ((1, 0), (32, 32), (33, 0), (32, 33), (224, 0),
+                                                 (225, 0), (256, 0), (200, 4), (128, 512))] == [
+        "warp", "warp", "panel", "panel", "panel", "in place", "in place", "panel", "in place"]
+
+
+@pytest.mark.parametrize("n", [1, 5, 16, 31, 32])
+def test_warp_route_model_takes_the_plain_steps(rng, n):
+    a = _spd(rng, 4, n)
+    b = rng.normal(size=(4, n, 4)).astype(np.float32)
+    np.testing.assert_array_equal(_model_warp_route(a), _plain_steps(a))
+    np.testing.assert_array_equal(_model_warp_route(a, b), _plain_steps(a, b))
+    _close(_model_warp_route(a), port._potrf_plain(from_numpy(a)), 1e-6)
+    _close(_model_warp_route(a, b), port._posv_plain(from_numpy(a), from_numpy(b)), 1e-6)
+
+
+@pytest.mark.parametrize("n", [32, 33, 64, 96, 127, 128, 224])
+def test_panel_route_model_takes_the_plain_steps(rng, n):
+    a = _spd(rng, 3, n)
+    np.testing.assert_array_equal(_model_panel_route(a), _plain_steps(a))
+    _close(_model_panel_route(a), port._potrf_plain(from_numpy(a)), 1e-6)
+
+
+@pytest.mark.parametrize("n", [32, 33])
+def test_route_models_nan_from_the_failing_column(rng, n):
+    """C10 on the kernel's routes: a non-positive pivot at column 10 gives NaN
+    in its matrix's lower triangle from that column on, as the plain version,
+    and nowhere else."""
+    a = _spd(rng, 3, n)
+    a[1, 10, 10] = -1e4
+    plain = to_numpy(port._potrf_plain(from_numpy(a)))
+    models = [_model_panel_route(a)] + ([_model_warp_route(a)] if n <= 32 else [])
+    for got in models:
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(plain))
+        assert np.isnan(got[1][10:, 10:][np.tril(np.ones((n - 10, n - 10), bool))]).all()
+        assert np.isfinite(got[1][:, :10]).all() and np.isfinite(got[[0, 2]]).all()
+
+
+@pytest.mark.parametrize("n", [31, 32, 33, 64, 127, 128])
+def test_potrf_posv_at_route_boundaries(rng, n):
+    a = _spd(rng, 3, n)
+    b = rng.normal(size=(3, n, 4)).astype(np.float32)
+    got = dx.potrf_batched(from_numpy(a))
+    _close(got, ref.potrf_batched(jnp.asarray(a)))
+    _close(dx.posv_batched(from_numpy(a), from_numpy(b)),
+           ref.posv_batched(jnp.asarray(a), jnp.asarray(b)))
+    np.testing.assert_allclose(to_numpy(got)[0], scipy.linalg.cholesky(a[0], lower=True),
+                               rtol=2e-4, atol=2e-3)
+
+
+@pytest.mark.parametrize("n", [32, 33])
+def test_bad_matrix_stays_in_its_own_factor_at_route_edges(rng, n):
+    """C10 on the ports' routes: a NaN in one matrix stays there; its
+    neighbours equal their standalone factors and the reference's."""
+    a = _spd(rng, 6, n)
+    a[2, n - 1, 3] = np.nan
+    got = dx.potrf_batched(from_numpy(a))
+    bad = _nonfinite_per_matrix(to_numpy(got))
+    assert bad[2] > 0 and sum(bad) == bad[2]
+    for i in (0, 1, 3, 4, 5):
+        assert torch.equal(got[i], dx.potrf_batched(from_numpy(a[i:i + 1]))[0])
+        _close(got[i], ref.potrf_batched(jnp.asarray(a[i:i + 1]))[0])
+
+
+@pytest.mark.parametrize("n, k", [(32, 32), (33, 4), (200, 4), (225, 2)])
+def test_cuda_branch_posv_factor_buffer_follows_the_route(emulated, rng, n, k):
+    """The wrapper hands a factor buffer to a solve exactly where the kernel
+    works in place."""
+    a = from_numpy(_spd(rng, 1, n))
+    b = from_numpy(rng.normal(size=(1, n, k)).astype(np.float32))
+    x = dx.posv_batched(a, b)
+    assert emulated.solver_calls[-1]["factor"] is (port._potrf_route(n, k) == "in place")
+    assert max_scaled_err(torch.bmm(a, x), b) <= 1e-4

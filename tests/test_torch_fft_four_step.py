@@ -212,8 +212,22 @@ def _c16_site(name):
     return ops, lambda: sparse.sddmm_bsr(g[0], g[1], pattern)
 
 
+@pytest.fixture
+def tf32_restored():
+    """The TF32 flag and the float32 matmul precision as they were, both set
+    back after the test: a flag restored alone after the guard restored the
+    precision it had read ("high" while TF32 was on) leaves torch's two
+    precision settings disagreeing, and get_float32_matmul_precision raises
+    in every later test of the process."""
+    matmul = torch.backends.cuda.matmul
+    tf32, precision = matmul.allow_tf32, torch.get_float32_matmul_precision()
+    yield
+    matmul.allow_tf32 = tf32
+    torch.set_float32_matmul_precision(precision)
+
+
 @pytest.mark.parametrize("site", ["syevj", "gesvdj", "xormqr", "sddmm_bsr"])
-def test_c16_sites_keep_f32_products_under_tf32(site, monkeypatch):
+def test_c16_sites_keep_f32_products_under_tf32(site, tf32_restored, monkeypatch):
     """ROADMAP C16: with TF32 turned on by the caller, each site the card
     showed missing its f32 bound runs its products inside the guard, with
     TF32 off, and the caller's setting comes back after."""

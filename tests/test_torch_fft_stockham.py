@@ -15,6 +15,16 @@ reference.
 - The CUDA branch with the kernel library replaced by a CPU emulation of
   ``tml_dif_fft``, which decodes the direction, the order and the plane
   type from the pointers and sizes the wrapper passes.
+- The kernel's index arithmetic, mirrored in numpy: its raw-order store map
+  (output g·L + p reads spectrum p·G + bitrev_s(g)) and the positions a
+  long row's segment writes, against the reference's ``shuffle_perm`` for
+  N = 256 … 65536 and every collapse; the raw order's last pass (its thread
+  map, its stores, its reads' one wavefront a warp); and
+  ``_model_dif_fft``, a model of the whole kernel (the table's sign, the
+  conjugations of the inverse, the global decimation-in-frequency passes
+  with bitrev placement, the in-block Stockham passes on B5b's two-load
+  twiddles in each order's plan, the stores), against float64 numpy at
+  N = 256 … 2^17, both directions and orders.
 
 Inputs are explicit f32 on both sides (the suite turns on jax x64).
 """
@@ -33,6 +43,7 @@ from tpumathlib_torch.core.errors import ExecutionError, InvalidValueError
 from tpumathlib_torch.dx import cuda_utils
 from tpumathlib_torch.fft import stockham as st
 from test_torch_dx_gemm import _view
+from test_torch_fft_four_step import _dft_matrix, _twiddle
 
 torch.set_num_threads(1)
 
@@ -327,3 +338,203 @@ def test_cpu_takes_plain_version_without_launch(rng):
     assert st.dif_fft.launches == before
     want = st._dif_fft_plain(torch.from_numpy(xr), torch.from_numpy(xi), halfplanes=True)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# ---------------------------------------------------------------------------
+# The kernel's index arithmetic (csrc/fft_dif.cu), mirrored in numpy
+
+ROW_LOG = 14       # the longest row one block transforms (kMaxLogRow)
+SEGMENT_LOG = 13   # longer rows: segments of this many points (kLogSeg)
+
+
+def _brev(x, bits):
+    """bits-wide bit reversal of the integers in x (0 for bits == 0)."""
+    x = np.asarray(x, np.int64)
+    out = np.zeros_like(x)
+    for i in range(bits):
+        out |= ((x >> i) & 1) << (bits - 1 - i)
+    return out
+
+
+def _raw_store_map(n, log_l):
+    """The spectrum index each output position reads in the raw order of
+    groups of L = 2^log_l: output g·L + p ← spectrum p·G + bitrev_s(g)."""
+    log_g = int(np.log2(n)) - log_l
+    o = np.arange(n)
+    return ((o & ((1 << log_l) - 1)) << log_g) | _brev(o >> log_l, log_g)
+
+
+def _segment_positions(n, log_l, seg):
+    """The output positions segment ``seg`` of a long row writes, by its
+    natural index k: frequency f = k·2^e + bitrev_e(seg), placed in natural
+    order (log_l = log2 N) or at bitrev_s(f mod G)·L + f div G."""
+    log_n = int(np.log2(n))
+    log_e, log_g = log_n - SEGMENT_LOG, log_n - log_l
+    f = (np.arange(1 << SEGMENT_LOG) << log_e) | _brev(seg, log_e)
+    if log_g == 0:
+        return f
+    return (_brev(f & ((1 << log_g) - 1), log_g) << log_l) | (f >> log_g)
+
+
+@pytest.mark.parametrize("n", TABLE_SIZES)
+def test_raw_store_map_equals_shuffle_perm(n):
+    """natural = raw[perm]: the kernel's output o reads spectrum f(o), so
+    f(perm[f]) must be f for every frequency and every collapse."""
+    c = 1
+    while c <= n // 256:
+        perm = ref_st.shuffle_perm(n, c)
+        f_of = _raw_store_map(n, int(np.log2(128 * c)))
+        np.testing.assert_array_equal(f_of[perm], np.arange(n))
+        if n > 1 << ROW_LOG:   # a long row: each segment writes where perm puts its frequencies
+            log_e = int(np.log2(n)) - SEGMENT_LOG
+            written = np.zeros(n, bool)
+            for seg in range(1 << log_e):
+                pos = _segment_positions(n, int(np.log2(128 * c)), seg)
+                f = (np.arange(1 << SEGMENT_LOG) << log_e) | _brev(seg, log_e)
+                np.testing.assert_array_equal(pos, perm[f])
+                written[pos] = True
+            assert written.all()
+        c *= 2
+
+
+def _unit_plan(log_s, raw):
+    """The in-block radices: 16s and then the rest (8, 4 or 2), or, for the
+    raw order, whose last pass must be radix 16, the rest first."""
+    rest = [1 << (log_s % 4)] if log_s % 4 else []
+    return (rest if raw else []) + [16] * (log_s // 4) + ([] if raw else rest)
+
+
+def _unit_passes(x, log_s, log_n, tab, raw=False):
+    """The in-block Stockham passes (csrc/stockham_passes.cuh) on complex64
+    units x (units, 2^log_s) in ``_unit_plan``'s order; the twiddles from
+    the row's table of N/2 roots (stride N / (ns·R)), two loads a butterfly.
+    Returns the natural-order spectra."""
+    s = 1 << log_s
+    ns = 1
+    for r in _unit_plan(log_s, raw):
+        lr = r.bit_length() - 1
+        nb = s // r
+        u = np.arange(nb)
+        v = x[:, u[:, None] + np.arange(r)[None, :] * nb]
+        k = u % ns
+        if ns > 1:
+            v = _twiddle(v, tab, k * ((1 << (log_n - lr)) // ns), r)
+        v = v @ _dft_matrix(r)
+        pos = ((u - k) * r + k)[:, None] + np.arange(r)[None, :] * ns
+        assert np.array_equal(np.sort(pos.ravel()), np.arange(s))
+        y = np.empty_like(x)
+        y[:, pos] = v
+        x = y
+        ns *= r
+    return x
+
+
+def _raw_last_pass_map(n, log_l):
+    """raw_last_pass's thread map: a row's thread t (of T = N/16) takes
+    butterfly u = l·G + m + 8·G·h, l = t mod 8, the warp's four groups of 8
+    lanes on m = b, b + G/4, b + G/2, b + 3G/4 (G ≥ 4; G = 2: m = t div 8
+    mod 2); returns u (T,) and, for its outputs q, the frequency u + q·T and
+    the position it stores to, (T, 16) each."""
+    t = np.arange(n // 16)
+    log_g = int(np.log2(n)) - log_l
+    if log_g >= 2:
+        rest, quarter = t >> 5, log_g - 2
+        m, h = (rest & ((1 << quarter) - 1)) + (((t >> 3) & 3) << quarter), rest >> quarter
+    else:
+        m, h = (t >> 3) & 1, t >> 4
+    l = t & 7
+    u = (l << log_g) + m + (h << (3 + log_g))
+    q = np.arange(16)[None, :]
+    freq = u[:, None] + q * (n // 16)
+    pos = (_brev(m, log_g)[:, None] << log_l) + (l + 8 * h)[:, None] + q * (1 << (log_l - 4))
+    return u, freq, pos
+
+
+def _banks_per_access(index, ld):
+    """Wavefronts of each warp access: ``index`` the floats one row's threads
+    touch; where a row has fewer than 32 threads, the next rows' threads
+    fill the warp, their planes 2·ld + 1 floats on. The largest number of
+    distinct words on one bank."""
+    rows = max(1, 32 // len(index))
+    w = (index[None, :] + (2 * ld + 1) * np.arange(rows)[:, None]).reshape(-1, 32)
+    return max(np.bincount(np.unique(row) % 32).max() for row in w)
+
+
+@pytest.mark.parametrize("n", [256, 512, 1024, 2048, 4096, 8192, 16384])
+def test_raw_last_pass_map_and_banks(n):
+    """Every raw position written once with its frequency's value, each warp
+    store of 8 lanes one run of 8 positions, and the last pass's reads, with
+    the passes' pad (f + (f >> 5)), one wavefront a warp (two at N = 256,
+    whose warps hold two rows, as on every pass there)."""
+    ld = -(-(n + n // 32 + 1) // 32) * 32   # unit_launch's floats a plane
+    c = 1
+    while 128 * c <= n // 2:
+        log_l = int(np.log2(128 * c))
+        u, freq, pos = _raw_last_pass_map(n, log_l)
+        assert np.array_equal(np.sort(u), np.arange(n // 16))
+        perm = ref_st.shuffle_perm(n, c)
+        np.testing.assert_array_equal(pos, perm[freq])
+        assert (np.diff(pos.reshape(-1, 8, 16), axis=1) == 1).all()   # 8 lanes, 8 neighbours
+        for r in range(16):
+            f = u + r * (n // 16)
+            assert _banks_per_access(f + (f >> 5), ld) == (1 if n >= 512 else 2)
+        c *= 2
+
+
+def _model_dif_fft(x, inverse, log_l):
+    """tml_dif_fft on complex64 rows x (rows, N), step by step as the kernel
+    takes them: the direction from the table's sign at N/4; the inverse as
+    the conjugate of the forward transform of the conjugate, on the
+    conjugated table; above 2^14 the global DIF passes (a span's points
+    k0 + t·h, their DFT, output q times w^{k0·q·2^s0}, written at k0 +
+    bitrev(q)·h); then the unit passes and the epilogue of the order asked."""
+    rows, n = x.shape
+    log_n = int(np.log2(n))
+    table = st._kernel_twiddles.__wrapped__(n, inverse, torch.device("cpu")).numpy()
+    tab = (table[:, 0] + 1j * table[:, 1]).astype(np.complex64)
+    sign = 1.0 if table[n // 4, 1] < 0 else -1.0
+    assert (sign < 0) == inverse
+    tab = (tab.real + 1j * sign * tab.imag).astype(np.complex64)
+    z = (x.real + 1j * sign * x.imag).astype(np.complex64)
+    log_s = log_n if log_n <= ROW_LOG else SEGMENT_LOG
+    log_e = log_n - log_s
+    s0 = 0
+    while s0 < log_e:
+        lr = min(log_e - s0, 4)
+        r, log_h = 1 << lr, log_n - s0 - lr
+        gl = np.arange(n >> lr)
+        k0 = gl & ((1 << log_h) - 1)
+        k = ((gl >> log_h) << (log_h + lr)) + k0
+        v = z[:, k[:, None] + (np.arange(r)[None, :] << log_h)] @ _dft_matrix(r)
+        v = _twiddle(v, tab, k0 << s0, r)
+        out = np.empty_like(z)
+        out[:, k[:, None] + (_brev(np.arange(r), lr)[None, :] << log_h)] = v
+        z = out
+        s0 += lr
+    raw = log_e == 0 and log_l < log_n
+    units = _unit_passes(z.reshape(rows << log_e, 1 << log_s), log_s, log_n, tab, raw)
+    y = np.empty_like(z)
+    if log_e == 0 and log_l == log_n:
+        y[:] = units
+    elif raw:
+        _, freq, pos = _raw_last_pass_map(n, log_l)
+        y[:, pos.ravel()] = units[:, freq.ravel()]
+    else:
+        for seg in range(1 << log_e):
+            y[:, _segment_positions(n, log_l, seg)] = units.reshape(rows, 1 << log_e, -1)[:, seg]
+    return y.real + 1j * sign * y.imag
+
+
+@pytest.mark.parametrize("n", [256, 512, 2048, 4096, 16384, 32768, 1 << 17])
+def test_kernel_model_matches_float64(n, rng):
+    x, xr, xi = _planes(rng, (2, n))
+    x32 = (xr + 1j * xi).astype(np.complex64)
+    x64 = xr.astype(np.float64) + 1j * xi
+    tol = 1e-6 if n <= 4096 else 1e-5
+    for inverse in (False, True):
+        want = np.fft.ifft(x64) * n if inverse else np.fft.fft(x64)
+        got = _model_dif_fft(x32, inverse, int(np.log2(n)))
+        assert rel_l2(got, want) < tol
+        for c in (1, 2):
+            raw = _model_dif_fft(x32, inverse, int(np.log2(128 * c)))
+            assert rel_l2(raw[:, ref_st.shuffle_perm(n, c)], want) < tol

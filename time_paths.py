@@ -10,7 +10,13 @@ The paths, each through its public function:
   bias + GELU epilogue;
 - the Blocked-ELL lines of bench.py: sparse.spmm on a bf16 Blocked-ELL
   (mb = nb = 128, ellw = 16, bs = 128, k = 4096; B6a) and sparse.spmv on an
-  f32 one (ellw = 32).
+  f32 one (ellw = 32);
+- the FFTs at batch 4096 x N 4096: fft.stockham.dif_fft (B5) on f32 planes
+  in natural order and on bf16 planes in raw order, fft.kernels.pallas_fft
+  (B5b) and fft.pallas_split.pallas_fft2 (B5c);
+- the batched solvers of dx.solver (B7a): potrf_batched at 1024 x 128 and
+  8192 x 32, posv_batched at 8192 x 32 with 4 right-hand sides, and
+  getrf_batched and geqrf_batched at 8192 x 32.
 Each is timed three ways: CUDA events around one call after a synchronise
 (median of 5, as chip_smoke.py's ``_median_ms``), CUDA events around 5
 back-to-back calls (median of 3 samples, as its ``_loop_ms``), and the
@@ -42,9 +48,11 @@ import numpy as np
 import torch
 
 import tpumathlib_torch
-from tpumathlib_torch import sparse
+from tpumathlib_torch import dx, sparse
 from tpumathlib_torch.dx import cuda_utils, gemm
 from tpumathlib_torch.dx import rng as dxr
+from tpumathlib_torch.fft import kernels as fft_kernels
+from tpumathlib_torch.fft import pallas_split, stockham
 from tpumathlib_torch.solver import blocked, onelaunch
 
 qr = importlib.import_module("tpumathlib_torch.solver.qr_onelaunch")  # the package exports a function of this name
@@ -53,6 +61,8 @@ N = 4096
 PANEL = 256
 SPMM = (128, 128, 16, 128, 4096)   # (mb, nb, ellw, bs, k) of bench_spmm_bell
 SPMV = (128, 128, 32, 128)         # (mb, nb, ellw, bs) of bench_spmv_bell
+FFT = (4096, 4096)                 # (batch, N) of the bench's FFT lines
+BATCHED = ((8192, 32), (1024, 128))   # (batch, n) of the batched solvers' lines
 
 
 def _bell(gen, mb, nb, ellw, bs, dtype, dev):
@@ -82,6 +92,13 @@ def _paths(dev) -> dict:
     mb, nb, ellw, bs = SPMV
     a_mv = _bell(gen, mb, nb, ellw, bs, torch.float32, dev)
     x_mv = torch.randn((nb * bs,), generator=gen, device=dev)
+    fr, fi = (torch.randn(FFT, generator=gen, device=dev) for _ in range(2))
+    hr, hi = fr.bfloat16(), fi.bfloat16()
+    batched = {}   # n: (SPD matrices, Gaussian ones)
+    for bsz, order in BATCHED:
+        m = torch.randn((bsz, order, order), generator=gen, device=dev)
+        batched[order] = (m @ m.mT + order * torch.eye(order, device=dev), m)
+    rhs = torch.randn((BATCHED[0][0], BATCHED[0][1], 4), generator=gen, device=dev)
     return {
         "potrf_onelaunch": lambda: onelaunch.potrf_onelaunch(spd),
         "getrf_onelaunch": lambda: onelaunch.getrf_onelaunch(dom),
@@ -92,6 +109,15 @@ def _paths(dev) -> dict:
                                                                    epilogue="gelu_bias"),
         "spmm_bell_bf16": lambda: sparse.spmm(a_mm, b_mm),
         "spmv_bell_f32": lambda: sparse.spmv(a_mv, x_mv),
+        "dif_fft_f32_natural": lambda: stockham.dif_fft(fr, fi),
+        "dif_fft_bf16_raw": lambda: stockham.dif_fft(hr, hi, reorder=False, halfplanes=True),
+        "pallas_fft": lambda: fft_kernels.pallas_fft(fr, fi),
+        "pallas_fft2": lambda: pallas_split.pallas_fft2(fr, fi),
+        "potrf_batched_1024x128": lambda: dx.potrf_batched(batched[128][0]),
+        "potrf_batched_8192x32": lambda: dx.potrf_batched(batched[32][0]),
+        "posv_batched_8192x32_k4": lambda: dx.posv_batched(batched[32][0], rhs),
+        "getrf_batched_8192x32": lambda: dx.getrf_batched(batched[32][1]),
+        "geqrf_batched_8192x32": lambda: dx.geqrf_batched(batched[32][1]),
     }
 
 

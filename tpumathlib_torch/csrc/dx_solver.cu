@@ -30,19 +30,20 @@
 // factor is 67.1 MB, 0.020 ms at 3.35 TB/s (50.9 MB, 0.015 ms, for Cholesky,
 // which needs only A's lower triangle), while n^3/3 flop a matrix is
 // 2.7e8 in all, 0.004 ms at 67 TFLOP/s (n^3/3 x B at the FP32 peak: 1.3 us
-// for potrf, twice that for getrf): device memory bounds them. Design: a
-// block copies its matrix (and right-hand side) into shared memory once,
-// runs the n dependent steps there, each a read of column j, a reduction
-// where the step needs one and a masked rank-1 update, separated by
-// __syncthreads, and writes its result once. With 8192 blocks of 128 threads
-// and 4.6 KB of shared memory at n = 32, many blocks share an SM and hide
-// each other's barriers. A matrix larger than a block's 227 KB (about
-// n >= 240 without a right-hand side) is factored by a second instantiation
-// of the same kernels in place in the output, in device memory, so no n is
-// refused for its size. Warp per matrix with rows in registers, or several
-// matrices a block, are later work. unmqr and gels take the same layout with
-// m rows: at batch 8192 x m 64 x n 32, k 4, gels reads A and B and writes X,
-// 79.7 MB, 0.024 ms, against about 1 GFLOP (0.015 ms) of QR and Q^T B.
+// for potrf, twice that for getrf): device memory bounds them. Design of
+// getrf, geqrf, unmqr and gels: a block copies its matrix (and right-hand
+// side) into shared memory once, runs the n dependent steps there, each a
+// read of column j, a reduction where the step needs one and a masked rank-1
+// update, separated by __syncthreads, and writes its result once. A matrix
+// larger than a block's 227 KB (about n >= 240 without a right-hand side) is
+// factored by a second instantiation of the same kernels in place in the
+// output, in device memory, so no n is refused for its size. potrf (and
+// posv) take one of three routes, below "Cholesky": a warp a matrix for n <=
+// 32, with no barrier; 32-column panels in shared memory, a few barriers a
+// panel, up to n = 224; and the in-place column steps above. unmqr and gels
+// take getrf's layout with m rows: at batch 8192 x m 64 x n 32, k 4, gels
+// reads A and B and writes X, 79.7 MB, 0.024 ms, against about 1 GFLOP
+// (0.015 ms) of QR and Q^T B.
 //
 // Numerical conventions, shared with the plain versions:
 // - potrf: 1/sqrt of the pivot; L's column is the column times it; the
@@ -94,6 +95,8 @@ struct Args {
                    // (batch, m, k), worked in place; or null
   int m, n, k, xrows, pivot, trans;
 };
+
+using Kernel = void (*)(Args);
 
 int lead(int64_t n) { return static_cast<int>(n | 1); }  // odd: column reads spread over banks
 // s_v[m], s_w[max(n, k)], s_t[n] and the scalars
@@ -167,10 +170,282 @@ __device__ void unstage(const Args& p, const Block& s, bool lower) {
 }
 
 // ----------------------------- Cholesky -----------------------------
+//
+// Three routes by size (potrf_route; dx/solver.py::_potrf_route mirrors it):
+// - n <= 32 and k <= 32: a warp a matrix (potrf_warp_kernel), 4 matrices a
+//   block, the matrix in its lanes' registers, no block barrier.
+// - else, where the padded matrix fits in a block's shared memory
+//   (panel_bytes, n <= 224 without a right-hand side): right-looking in
+//   32-column panels (potrf_panel_kernel), a block a matrix.
+// - else: the column steps in place in the output, in device memory
+//   (potrf_inplace_kernel).
+// All three take _potrf_plain's column steps in its order: step j scales
+// column j by 1/sqrt of its pivot, then subtracts l_r l_c from A(r, c) for
+// j < c <= r, each element's updates in ascending j. The panel route only
+// groups them: a panel's diagonal block, then its rows below, then the
+// trailing update, whose tile sums the panel's 32 columns in order. What
+// bounds them (B x n^3/3 flop against the bytes of the lower triangle in and
+// the factor out) is in the file header; measured on an H100 (700 W), the
+// warp route factors 8192 matrices of 32 in 0.036 ms and the panel route 1024
+// of 128 in 0.165 ms, where torch.linalg.cholesky_ex takes 0.237 and 0.508.
 
-// One barrier a step: step j reads column j and the pivot, and updates the
-// trailing lower triangle; column j itself is scaled in step j + 1, when
-// nobody reads it (each thread keeps the previous step's 1/sqrt).
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarpN = 32;          // the warp route's largest n and k
+constexpr int kWarpMatrices = 4;    // matrices (warps) a block on the warp route
+constexpr int kPanel = 32;          // the panel route's panel width
+
+// The column steps of a 32 x 32 matrix in a warp, in the row layout: lane r
+// holds row r, a[c] = A(r, c) for c <= r (a[c] for c > r is never read, and
+// may hold anything). Step j takes its pivot from lane j by __shfl_sync;
+// every lane scales its a[j] (l_r) and subtracts l_r l_c from a[c], c > j,
+// l_c from lane c. No lane tests its index: the products that land above
+// the diagonal are never read. inv gets 1/sqrt of the lane's own pivot. A
+// matrix with n < 32 is padded with the identity, whose steps change no
+// entry of the matrix's own rows.
+__device__ __forceinline__ void warp_potrf(float (&a)[kWarpN], int lane, float& inv) {
+#pragma unroll
+  for (int j = 0; j < kWarpN; ++j) {
+    const float ij = 1.f / sqrtf(__shfl_sync(kFull, a[j], j));
+    if (lane == j) inv = ij;
+    a[j] *= ij;
+#pragma unroll
+    for (int c = j + 1; c < kWarpN; ++c) a[c] = fmaf(-a[j], __shfl_sync(kFull, a[j], c), a[c]);
+  }
+}
+
+// One step of a substitution on the KC right-hand sides x[c] (X's row in
+// each lane): y_c = x_c(lane j) / d, lane j keeps y and the lanes that
+// `take` subtract l y_c.
+template <int KC>
+__device__ __forceinline__ void warp_solve_step(float (&x)[KC], int j, float d, float l, bool own,
+                                                bool take) {
+#pragma unroll
+  for (int c = 0; c < KC; ++c) {
+    const float y = __shfl_sync(kFull, x[c], j) / d;
+    if (own) x[c] = y;
+    else if (take) x[c] = fmaf(-l, y, x[c]);
+  }
+}
+
+// A warp a matrix, n <= 32: the matrix goes through the warp's 32 x 33 tile
+// of shared memory both ways, so that device memory is read and written a
+// row at a time, coalesced (the lower triangle only is read; the identity
+// past n). SOLVE (k <= KC <= 32): lane r holds row r of B; L y = b in the
+// row layout, then L^T x = y with L turned into the column layout (lane r
+// holds column r, a[j] = L(j, r)) through the tile, both with posv_solves'
+// divisions and order. Columns of X past k are zeros and stay zeros.
+template <int KC>
+__global__ void __launch_bounds__(kWarpMatrices * 32) potrf_warp_kernel(const Args p, int64_t batch) {
+  __shared__ float tiles[kWarpMatrices][kWarpN][kWarpN + 1];
+  const int lane = threadIdx.x & 31;
+  float (*t)[kWarpN + 1] = tiles[threadIdx.x >> 5];
+  const int64_t bi = int64_t(blockIdx.x) * kWarpMatrices + (threadIdx.x >> 5);
+  if (bi >= batch) return;
+  const int n = p.n, k = p.k;
+  const float* A = p.a + bi * n * n;
+#pragma unroll
+  for (int r = 0; r < kWarpN; ++r)
+    t[r][lane] = lane <= r && r < n ? __ldg(A + r * n + lane) : (r == lane ? 1.f : 0.f);
+  __syncwarp();
+  float a[kWarpN];
+#pragma unroll
+  for (int c = 0; c < kWarpN; ++c) a[c] = t[lane][c];
+  float inv = 0.f;
+  warp_potrf(a, lane, inv);
+  float x[KC > 0 ? KC : 1];
+  if constexpr (KC > 0) {   // L y = b
+    const float* B = p.b + bi * n * k;
+#pragma unroll
+    for (int c = 0; c < KC; ++c) x[c] = lane < n && c < k ? __ldg(B + lane * k + c) : 0.f;
+#pragma unroll
+    for (int j = 0; j < kWarpN; ++j)
+      warp_solve_step<KC>(x, j, __shfl_sync(kFull, a[j], j), a[j], lane == j, lane > j);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int c = 0; c < kWarpN; ++c) t[lane][c] = c <= lane ? a[c] : 0.f;
+  __syncwarp();
+  if (p.out != nullptr) {
+    float* L = p.out + bi * n * n;
+#pragma unroll
+    for (int r = 0; r < kWarpN; ++r)
+      if (r < n && lane < n) L[r * n + lane] = t[r][lane];
+  }
+  if constexpr (KC > 0) {   // L^T x = y, on L's columns
+#pragma unroll
+    for (int j = 0; j < kWarpN; ++j) a[j] = t[j][lane];
+#pragma unroll
+    for (int j = kWarpN - 1; j >= 0; --j)
+      warp_solve_step<KC>(x, j, __shfl_sync(kFull, a[j], j), a[j], lane == j, lane < j);
+    float* X = p.x + bi * n * k;
+#pragma unroll
+    for (int c = 0; c < KC; ++c)
+      if (lane < n && c < k) X[lane * k + c] = x[c];
+  }
+}
+
+// The panel route's shared memory: the matrix padded to np = n rounded up to
+// 32 (the identity past n), row-major with ld = np + 4 (a multiple of 4, 4
+// mod 32: the rows' float4 reads across threads miss no bank), a panel's 32
+// pivots' 1/sqrt, and the right-hand side (n x k).
+__host__ __device__ inline int panel_np(int64_t n) { return static_cast<int>((n + kPanel - 1) / kPanel * kPanel); }
+int64_t panel_bytes(int64_t n, int64_t k) {
+  const int64_t np = panel_np(n);
+  return 4 * (np * (np + 4) + kPanel + n * k);
+}
+
+// Right-looking in 32-column panels, a block a matrix. A panel p0 takes three
+// barriers:
+// 1. warp 0 loads the diagonal block in the column layout, factors it
+//    (warp_potrf) and writes it back, with the pivots' 1/sqrt;
+// 2. a thread a row below the panel solves x L_pp^T = a_r, x_c = (a_rc -
+//    sum_{j < c} x_j L(c, j)) / sqrt(pivot_c), the same steps in the same order
+//    as the column loop; it writes x to its row and, transposed, to
+//    A(p0 + j, r) above the diagonal, where nothing else lives;
+// 3. the trailing lower triangle, in 4 x 4 tiles a thread (only lower tiles,
+//    each with a row below n): A(r, c) -= sum_j x_rj x_cj over the panel's 32
+//    columns in order, both operands read as float4 from the transposed rows.
+// SOLVE: a warp a column of X, after the factor: the two substitutions of
+// posv_solves with __syncwarp in place of barriers.
+template <bool SOLVE>
+__global__ void __launch_bounds__(256, 2) potrf_panel_kernel(const Args p) {
+  extern __shared__ __align__(16) float smem[];
+  const int n = p.n, k = p.k, np = panel_np(n), ld = np + 4;
+  float* A = smem;
+  float* s_inv = A + np * ld;
+  float* X = s_inv + kPanel;
+  const int64_t bi = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, warps = blockDim.x >> 5;
+  const float* a = p.a + bi * n * n;
+  for (int r = warp; r < np; r += warps)
+    for (int c = lane; c < np; c += 32)
+      A[r * ld + c] = r < n && c <= r ? __ldg(a + r * n + c) : (r == c ? 1.f : 0.f);
+  if constexpr (SOLVE) {
+    const float* b = p.b + bi * n * k;
+    for (int e = tid; e < n * k; e += blockDim.x) X[e] = __ldg(b + e);
+  }
+  __syncthreads();
+
+  for (int p0 = 0; p0 < n; p0 += kPanel) {
+    if (warp == 0) {   // the diagonal block, lane r its row p0 + r (identity past n)
+      float d[kWarpN];
+      float4* row = reinterpret_cast<float4*>(A + (p0 + lane) * ld + p0);
+#pragma unroll
+      for (int q = 0; q < kPanel / 4; ++q) {
+        const float4 v = row[q];
+        d[4 * q] = v.x;
+        d[4 * q + 1] = v.y;
+        d[4 * q + 2] = v.z;
+        d[4 * q + 3] = v.w;
+      }
+      float inv = 0.f;
+      warp_potrf(d, lane, inv);
+#pragma unroll
+      for (int q = 0; q < kPanel / 4; ++q)   // above the diagonal: the block's junk, never read
+        row[q] = make_float4(d[4 * q], d[4 * q + 1], d[4 * q + 2], d[4 * q + 3]);
+      s_inv[lane] = inv;
+    }
+    __syncthreads();
+
+    const int rb = p0 + kPanel;
+    for (int r = rb + tid; r < n; r += blockDim.x) {
+      float x[kPanel];
+      float4* row = reinterpret_cast<float4*>(A + r * ld + p0);
+#pragma unroll
+      for (int q = 0; q < kPanel / 4; ++q) {
+        const float4 v = row[q];
+        x[4 * q] = v.x;
+        x[4 * q + 1] = v.y;
+        x[4 * q + 2] = v.z;
+        x[4 * q + 3] = v.w;
+      }
+#pragma unroll
+      for (int c = 0; c < kPanel; ++c) {
+        const float4* lrow = reinterpret_cast<const float4*>(A + (p0 + c) * ld + p0);
+        float v = x[c];
+#pragma unroll
+        for (int q = 0; 4 * q < c; ++q) {
+          const float4 l = lrow[q];
+          const float lq[4] = {l.x, l.y, l.z, l.w};
+#pragma unroll
+          for (int e = 0; e < 4 && 4 * q + e < c; ++e) v = fmaf(-x[4 * q + e], lq[e], v);
+        }
+        x[c] = v * s_inv[c];
+      }
+#pragma unroll
+      for (int q = 0; q < kPanel / 4; ++q)
+        row[q] = make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
+#pragma unroll
+      for (int j = 0; j < kPanel; ++j) A[(p0 + j) * ld + r] = x[j];
+    }
+    __syncthreads();
+
+    const int t0 = rb / 4, m = (n + 3) / 4 - t0;   // trailing tiles along an edge
+    const int tiles = m > 0 ? m * (m + 1) / 2 : 0;
+    for (int t = tid; t < tiles; t += blockDim.x) {
+      int i = static_cast<int>((sqrtf(8.f * t + 1.f) - 1.f) * 0.5f);   // t's tile row
+      while (i * (i + 1) / 2 > t) --i;
+      while ((i + 1) * (i + 2) / 2 <= t) ++i;
+      const int r0 = 4 * (t0 + i), c0 = 4 * (t0 + t - i * (i + 1) / 2);
+      float acc[4][4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float4 v = *reinterpret_cast<const float4*>(A + (r0 + e) * ld + c0);
+        acc[e][0] = v.x;
+        acc[e][1] = v.y;
+        acc[e][2] = v.z;
+        acc[e][3] = v.w;
+      }
+#pragma unroll 8
+      for (int j = 0; j < kPanel; ++j) {
+        const float4 lr = *reinterpret_cast<const float4*>(A + (p0 + j) * ld + r0);
+        const float4 lc = *reinterpret_cast<const float4*>(A + (p0 + j) * ld + c0);
+        const float xr[4] = {lr.x, lr.y, lr.z, lr.w}, xc[4] = {lc.x, lc.y, lc.z, lc.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int f = 0; f < 4; ++f) acc[e][f] = fmaf(-xr[e], xc[f], acc[e][f]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        *reinterpret_cast<float4*>(A + (r0 + e) * ld + c0) =
+            make_float4(acc[e][0], acc[e][1], acc[e][2], acc[e][3]);
+    }
+    __syncthreads();
+  }
+
+  if constexpr (SOLVE) {
+    for (int c = warp; c < k; c += warps) {
+      for (int j = 0; j < n; ++j) {
+        const float y = X[j * k + c] / A[j * ld + j];
+        __syncwarp();
+        if (lane == 0) X[j * k + c] = y;
+        for (int r = j + 1 + lane; r < n; r += 32) X[r * k + c] = fmaf(-A[r * ld + j], y, X[r * k + c]);
+        __syncwarp();
+      }
+      for (int j = n - 1; j >= 0; --j) {
+        const float y = X[j * k + c] / A[j * ld + j];
+        __syncwarp();
+        if (lane == 0) X[j * k + c] = y;
+        for (int r = lane; r < j; r += 32) X[r * k + c] = fmaf(-A[j * ld + r], y, X[r * k + c]);
+        __syncwarp();
+      }
+    }
+    __syncthreads();
+    float* x = p.x + bi * n * k;
+    for (int e = tid; e < n * k; e += blockDim.x) x[e] = X[e];
+  }
+  if (p.out != nullptr) {
+    float* o = p.out + bi * n * n;
+    for (int r = warp; r < n; r += warps)
+      for (int c = lane; c < n; c += 32) o[r * n + c] = c <= r ? A[r * ld + c] : 0.f;
+  }
+}
+
+// The column steps in device memory, in place in the output: one barrier a
+// step; step j reads column j and the pivot, and updates the trailing lower
+// triangle; column j itself is scaled in step j + 1, when nobody reads it
+// (each thread keeps the previous step's 1/sqrt).
 __device__ void potrf_steps(const Mat& A, int n) {
   float inv_prev = 0.f;
   for (int j = 0; j < n; ++j) {
@@ -211,13 +486,53 @@ __device__ void posv_solves(const Mat& L, float* X, int n, int k) {
   }
 }
 
-template <bool kShared>
-__global__ void __launch_bounds__(kMaxThreads) potrf_kernel(const Args p) {
+__global__ void __launch_bounds__(kMaxThreads) potrf_inplace_kernel(const Args p) {
   extern __shared__ float smem[];
-  const Block s = stage<kShared>(p, smem);
+  const Block s = stage<false>(p, smem);
   potrf_steps(s.A, p.n);
   if (p.k) posv_solves(s.A, s.X, p.n, p.k);
-  unstage<kShared>(p, s, true);
+  unstage<false>(p, s, true);
+}
+
+enum PotrfRoute { kWarpRoute, kPanelRoute, kInPlaceRoute };
+
+PotrfRoute potrf_route(int64_t n, int64_t k) {
+  if (n <= kWarpN && k <= kWarpN) return kWarpRoute;
+  return panel_bytes(n, k) <= kSmemMax ? kPanelRoute : kInPlaceRoute;
+}
+
+cudaError_t launch_potrf(const Args& p, int64_t batch, cudaStream_t stream) {
+  const PotrfRoute route = potrf_route(p.n, p.k);
+  if (route == kWarpRoute) {
+    const unsigned blocks = static_cast<unsigned>((batch + kWarpMatrices - 1) / kWarpMatrices);
+    void (*kernel)(Args, int64_t) = p.k == 0   ? potrf_warp_kernel<0>
+                                    : p.k <= 4 ? potrf_warp_kernel<4>
+                                               : potrf_warp_kernel<kWarpN>;
+    kernel<<<blocks, kWarpMatrices * 32, 0, stream>>>(p, batch);
+    return cudaGetLastError();
+  }
+  if (route == kPanelRoute) {
+    const Kernel kernel = p.k ? potrf_panel_kernel<true> : potrf_panel_kernel<false>;
+    const int64_t bytes = panel_bytes(p.n, p.k);
+    if (bytes > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+      if (e != cudaSuccess) return e;
+    }
+    kernel<<<static_cast<unsigned>(batch), panel_np(p.n) <= 64 ? 128 : 256,
+             static_cast<size_t>(bytes), stream>>>(p);
+    return cudaGetLastError();
+  }
+  if (p.out == nullptr) return cudaErrorInvalidValue;
+  const int64_t bytes = small_bytes(p.n, p.n, p.k);
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        potrf_inplace_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (e != cudaSuccess) return e;
+  }
+  potrf_inplace_kernel<<<static_cast<unsigned>(batch), threads_for(p.n), static_cast<size_t>(bytes),
+                         stream>>>(p);
+  return cudaGetLastError();
 }
 
 // ----------------------------- LU -----------------------------
@@ -447,8 +762,6 @@ __global__ void __launch_bounds__(kMaxThreads) gels_kernel(const Args p) {
 
 // ----------------------------- launch -----------------------------
 
-using Kernel = void (*)(Args);
-
 cudaError_t launch(Kernel in_shared, Kernel in_place, const Args& p, int64_t batch, void* stream) {
   const bool shared = full_bytes(p.m, p.n, p.k) <= kSmemMax;
   if (!shared && p.out == nullptr) return cudaErrorInvalidValue;
@@ -500,8 +813,7 @@ int tml_potrf_batched(const void* a, void* l, const void* b, void* x, int64_t ba
   if (bad_sizes(a, batch, n, n, k, b, x) || (k == 0 && l == nullptr))
     return cudaErrorInvalidValue;
   if (batch == 0) return cudaSuccess;
-  return launch(potrf_kernel<true>, potrf_kernel<false>, make_args(a, l, b, x, n, n, k), batch,
-                stream);
+  return launch_potrf(make_args(a, l, b, x, n, n, k), batch, static_cast<cudaStream_t>(stream));
 }
 
 // As tml_potrf_batched, for LU: lu (batch, n, n) in the packed L\U layout and

@@ -11,8 +11,9 @@ reference's names, checks and return tuples.
 The reference runs three step loops (Cholesky, LU with or without partial
 pivoting, Householder QR) over VMEM tiles of a batch, or, for n ≤ 64 with
 128 % n == 0, over 128//n matrices packed into one lane row. Lane packing is
-a TPU layout; here one thread block factors one matrix, so the packed
-functions launch the same kernels as the others. Five kernels in
+a TPU layout; here one thread block factors one matrix (one warp, for a
+Cholesky of n ≤ 32), so the packed functions launch the same kernels as the
+others. Five kernels in
 ``csrc/dx_solver.cu`` serve seven sites:
 
 - ``tml_potrf_batched`` (B7a potrf, B7i; with a right-hand side B7c, posv),
@@ -351,23 +352,41 @@ def _operands(a, b=None):
     return a32, b32, (0 if b is None else b.shape[2])
 
 
-def _factor_out(a32, k):
-    """The factor's output: none for a solve whose matrix fits in shared
-    memory (the kernel keeps it there), else an f32 (B, n, n) buffer."""
-    n = a32.shape[-1]
-    if k and _smem_bytes(n, k) <= SMEM_MAX:
+def _factor_out(a32, k, in_place: bool):
+    """The factor's output: none for a solve whose kernel keeps the matrix
+    on the chip (``in_place`` False), else an f32 (B, n, n) buffer."""
+    if k and not in_place:
         return None
     return torch.empty_like(a32)
 
 
+def _potrf_route(n: int, k: int = 0) -> str:
+    """The route ``tml_potrf_batched`` takes (csrc/dx_solver.cu's
+    ``potrf_route``): "warp" (a warp a matrix, n and k ≤ 32), "panel" (32-column
+    panels in a block's shared memory: the matrix padded to a multiple of 32
+    rows, its rows 4 floats longer, 32 pivots and the n × k right-hand side,
+    under ``SMEM_MAX``) or "in place" (the column steps in device memory, in
+    the factor buffer)."""
+    if n <= 32 and k <= 32:
+        return "warp"
+    np_ = -(-n // 32) * 32
+    return "panel" if 4 * (np_ * (np_ + 4) + 32 + n * k) <= SMEM_MAX else "in place"
+
+
 def _potrf(a, b=None):
     """Batched Cholesky of f32 (B, n, n) through ``tml_potrf_batched``: the
-    lower factor L, or, with B (B, n, k), the solution X of A·X = B (posv)."""
+    lower factor L, or, with B (B, n, k), the solution X of A·X = B (posv).
+    The kernel's route (``_potrf_route``) takes ``_potrf_plain``'s column
+    steps in its order: a warp a matrix for n, k ≤ 32 (a row in each lane's
+    registers, exchanged by shuffles), 32-column panels in shared
+    memory up to n = 224 (a panel's diagonal block, its rows below, then the
+    rank-32 update of the trailing lower triangle), and beyond that the
+    column steps in place in the factor buffer."""
     if not on_cuda(a, b):
         return _potrf_plain(a) if b is None else _posv_plain(a, b)
     a32, b32, k = _operands(a, b)
     bsz, n = a32.shape[0], a32.shape[-1]
-    out = _factor_out(a32, k)
+    out = _factor_out(a32, k, _potrf_route(n, k) == "in place")
     x = None if b is None else torch.empty_like(b32)
     lib = cuda_utils.load_kernels()
     with torch.cuda.device(a.device):
@@ -389,7 +408,7 @@ def _getrf(a, pivot: bool = True, b=None):
         return _getrf_plain(a, pivot) if b is None else _gesv_plain(a, b)
     a32, b32, k = _operands(a, b)
     bsz, n = a32.shape[0], a32.shape[-1]
-    out = _factor_out(a32, k)
+    out = _factor_out(a32, k, _smem_bytes(n, k) > SMEM_MAX)
     piv = torch.empty((bsz, n), dtype=torch.int32, device=a.device) if b is None else None
     x = None if b is None else torch.empty_like(b32)
     lib = cuda_utils.load_kernels()

@@ -2,9 +2,12 @@
 
 Counterpart of ``tpumathlib/fft/stockham.py::dif_fft``, with its signature,
 output contract and tables. On CUDA tensors ``dif_fft`` launches
-``tml_dif_fft`` (``csrc/fft_dif.cu``: radix-2 decimation in frequency, one
-thread block per row in shared memory, the output written straight into the
-order asked for); on CPU tensors it takes ``_dif_fft_plain``, the reference's
+``tml_dif_fft`` (``csrc/fft_dif.cu``: B5b's in-block Stockham radix passes,
+``csrc/stockham_passes.cuh``, one thread block a row of up to 16384 points
+in shared memory, one launch; the last pass writes the natural order, or
+the raw order through its own thread map; longer rows take global
+decimation-in-frequency passes into a scratch first, then 8192-point
+segments); on CPU tensors it takes ``_dif_fft_plain``, the reference's
 arithmetic in torch. Unnormalised in both directions, as cuFFT is.
 
 The output orders:
@@ -34,7 +37,8 @@ from tpumathlib_torch.dx import cuda_utils
 from tpumathlib_torch.dx.cuda_utils import on_cuda
 
 _LANES = 128
-_SEGMENT = 16384   # the longest row the kernel transforms in one block's shared memory
+_ROW = 16384       # the longest row the kernel transforms in one block's shared memory
+_SEGMENT = 8192    # longer rows: one block a segment of this many points
 
 
 @functools.lru_cache(maxsize=32)
@@ -183,10 +187,11 @@ def dif_fft(xr, xi, inverse: bool = False, reorder: bool = True, tile: int = 128
     batch_shape = tuple(xr.shape[:-1])
     pr, pi = _planes(xr, xi, n, halfplanes)
     rows = pr.shape[0]
-    check(rows * max(1, n // _SEGMENT) < 2**31, f"{rows} rows of {n} exceed one launch's grid")
+    check(rows * (n // _SEGMENT if n > _ROW else 1) < 2**31,
+          f"{rows} rows of {n} exceed one launch's grid")
     yr, yi = torch.empty_like(pr), torch.empty_like(pi)
     scratch = (torch.empty((rows, n, 2), dtype=torch.float32, device=pr.device)
-               if n > _SEGMENT else None)
+               if n > _ROW else None)
     tw = _kernel_twiddles(n, inverse, pr.device)
     log_l = int(math.log2(n if reorder else _LANES * collapse))
     lib = cuda_utils.load_kernels()
