@@ -137,7 +137,8 @@ Phases; any failure raises and the exit code is non-zero:
 21. dx least squares and Jacobi — tml_unmqr_batched, tml_gels_batched
    (csrc/dx_solver.cu), tml_syevd_batched and tml_gesvd_batched
    (csrc/dx_jacobi.cu) through the public functions against their plain
-   versions and float64 at batch 37: syevd and gesvd at n = 2 … 64, unmqr at
+   versions and float64 at batch 37: syevd and gesvd at n = 1 … 64 on both
+   routes (a warp a matrix to n = 32, a block beyond), unmqr at
    m = n = 32 and m = 64 × n = 32 both ways, gels at (32, 32), (64, 32) and
    (48, 10) with 1 and 4 right-hand sides; circulant matrices and
    0.5·ones + 0.5·I, whose ties the reference never turns (ROADMAP C12),
@@ -145,12 +146,14 @@ Phases; any failure raises and the exit code is non-zero:
 22. dx lsq/eig main path — gels_batched at 8192 × 64 × 32 (k = 4),
    unmqr_batched both ways on geqrf_batched's 8192 × 32 factors, syevd and
    gesvd at 8192 × 32 and 2048 × 64: each must grow its kernel's count by
-   one and agree with its plain version and float64; then syevj_batched,
+   one (syevd and gesvd also their route's: warp at 32, block at 64) and
+   agree with its plain version and float64; then syevj_batched,
    gesvdj_batched (8192 × 32, float64), xsyevd (n = 2048) and xgesvd (4096²), which
    launch no kernel, against float64.
 23. dx lsq/eig times — CUDA events for each route of phase 22, the plain
    version and the library call (lstsq, ormqr, eigh, svd), with the share of
-   the bound.
+   the bound and the Jacobi route; the Jacobi warp kernels' registers and
+   spills (none may spill).
 24. codec and fused kernels — tml_cascaded_encode, tml_cascaded_decode,
    tml_cascaded_decode_dot (csrc/dx_comp.cu) and tml_gemm_fft
    (csrc/dx_fused.cu) against their plain versions and float64: the codec at
@@ -2647,7 +2650,7 @@ def phase_dx_times(dxd: dict, card: str) -> dict:
     return ms
 
 
-DXE_KERNEL_NS = (2, 7, 16, 31, 32, 63, 64)   # phase 21's Jacobi sizes
+DXE_KERNEL_NS = (1, 2, 7, 8, 16, 31, 32, 63, 64)   # phase 21's Jacobi sizes: both routes
 DXE_LSQ = ((32, 32), (64, 32), (48, 10))     # phase 21's (m, n) of gels and unmqr
 DXE_GELS = (8192, 64, 32, 4)   # (batch, m, n, k): 8192 fits of 32 coefficients to 64 samples
 DXE_SQ = (8192, 32)            # (batch, n) of unmqr (k = 4), syevd and gesvd
@@ -2655,6 +2658,7 @@ DXE_WIDE = (2048, 64)          # (batch, n) of syevd and gesvd at the reference'
 XSYEVD_N = 2048                # bench.py:354-362
 XGESVD_N = 4096
 DXE_COUNTS = (dxs._unmqr, dxs._gels, dxs._syevd, dxs._gesvd)
+JACOBI_ROUTES = ("warp", "block")   # dx.solver._jacobi_route's routes, each counted apart
 # Tolerances of each kernel against its plain version (kernels B7e-B7h): values
 # (w, s) max-scaled; vectors signed and scaled by their gap (_vec_err); X over
 # max|X| and A's condition (_x_err); Q·C max-scaled. Set from the card's
@@ -2686,13 +2690,17 @@ def _plain_of(route):
 def _vec_err(v, v_ref, values) -> float:
     """Worst column of v against v_ref, signs aligned, its largest difference
     times its value's gap to the neighbouring values over the largest value:
-    a vector is only as well defined as its gap."""
+    a vector is only as well defined as its gap. A lone value (n = 1) has no
+    neighbour: its gap is the largest value, so the measure is the plain
+    difference."""
     v, v_ref, values = v.double(), v_ref.double(), values.double()
     sign = torch.sign((v * v_ref).sum(-2, keepdim=True))
     err = (v * torch.where(sign == 0, 1.0, sign) - v_ref).abs().amax(-2)
     d = (values[:, 1:] - values[:, :-1]).abs()
     inf = torch.full_like(d[:, :1], math.inf)
     gap = torch.minimum(torch.cat([inf, d], 1), torch.cat([d, inf], 1))
+    if values.shape[1] == 1:
+        gap = values.abs()
     return float((err * gap / values.abs().amax(1, keepdim=True)).max())
 
 
@@ -2788,9 +2796,10 @@ def phase_dxe_kernel(dev) -> None:
     csrc/dx_solver.cu; tml_syevd_batched, tml_gesvd_batched in
     csrc/dx_jacobi.cu) against their plain versions and float64, batch 37,
     through the public functions (which sort the Jacobi results): syevd and
-    gesvd at n = 2 … 64, unmqr at (m, n) = (32, 32) and (64, 32) with both
-    trans, gels at (32, 32), (64, 32), (48, 10), k = 1 and 4. Against the
-    plain version DXE_TOL; against float64 the reference test's bounds
+    gesvd at n = 1 … 64 on both routes (each case prints its route), unmqr
+    at (m, n) = (32, 32) and (64, 32) with both trans, gels at (32, 32),
+    (64, 32), (48, 10), k = 1 and 4. Against the plain version DXE_TOL;
+    against float64 the reference test's bounds
     (tests/test_dx_solver.py:128-214): w and s within 2e-4 of the largest,
     AV − VΛ and U·S·Vᵀ − A below 5e-4·max|A|·n, VᵀV − I below 5e-4 (syevd)
     and 1e-3 (gesvd), gels within 5e-4·max|x| of float64 least squares,
@@ -2817,7 +2826,8 @@ def phase_dxe_kernel(dev) -> None:
         (w, v), (w_p, v_p) = dxs.syevd_batched(sym), _plain_of(lambda: dxs.syevd_batched(sym))()
         e_v, e_vec = max_scaled_err(w, w_p), _vec_err(v, v_p, w_p)
         e_w, res, orth = _eig_f64(sym, w, v)
-        hold(f"syevd n={n}", e_v <= tol["values"] and e_vec <= tol["vectors"] and e_w < 2e-4
+        route = dxs._jacobi_route(n)
+        hold(f"syevd n={n} {route}", e_v <= tol["values"] and e_vec <= tol["vectors"] and e_w < 2e-4
              and res < 5e-4 and orth < 5e-4,
              f"vs plain w {e_v:.3e} V {e_vec:.3e} | f64 w {e_w:.3e} AV−VΛ {res:.3e} VᵀV−I {orth:.3e}",
              values=e_v, vectors=e_vec)
@@ -2825,7 +2835,7 @@ def phase_dxe_kernel(dev) -> None:
         e_v = max_scaled_err(s, s_p)
         e_vec = max(_vec_err(u, u_p, s_p), _vec_err(vt.mT, vt_p.mT, s_p))
         e_s, rec, orth = _svd_f64(g, u, s, vt)
-        hold(f"gesvd n={n}", e_v <= tol["values"] and e_vec <= tol["vectors"] and e_s < 2e-4
+        hold(f"gesvd n={n} {route}", e_v <= tol["values"] and e_vec <= tol["vectors"] and e_s < 2e-4
              and rec < 5e-4 and orth < 1e-3,
              f"vs plain s {e_v:.3e} U,V {e_vec:.3e} | f64 s {e_s:.3e} USVᵀ−A {rec:.3e} orth {orth:.3e}",
              values=e_v, vectors=e_vec)
@@ -2916,12 +2926,28 @@ def _dxe_routes(x):
             for name, (route, count, library) in routes.items()}
 
 
+def _jacobi_line_route(name: str) -> str | None:
+    """The route of a syevd_batched or gesvd_batched line of phase 22 (None
+    for the other lines)."""
+    if not name.startswith(("syevd_batched", "gesvd_batched")):
+        return None
+    return dxs._jacobi_route(int(re.search(r" n(\d+)", name).group(1)))
+
+
+def _jacobi_counts() -> dict:
+    """Launches of each Jacobi wrapper on each route, as "_syevd.warp"."""
+    return {f"{f.__name__}.{r}": getattr(f, f"{r}_launches") for f in (dxs._syevd, dxs._gesvd)
+            for r in JACOBI_ROUTES}
+
+
 def phase_dxe_main(dev) -> dict:
     """The slice's main path through the public functions: gels_batched at
     batch 8192 × m 64 × n 32, k 4; unmqr_batched both ways on
     geqrf_batched's factors of 8192 × 32 × 32 and C (8192, 32, 4);
     syevd_batched and gesvd_batched at 8192 × 32 and 2048 × 64. Each must
-    grow its kernel's count by one and is held to its plain version
+    grow its kernel's count by one (syevd and gesvd: and the count of their
+    route, the warp route at n = 32 and the block route at 64, and no other)
+    and is held to its plain version
     (DXE_TOL) and to float64 (phase 21's bounds). Then the routes that
     launch no kernel, against float64: syevj_batched and gesvdj_batched at
     8192 × 32 (tol 1e-6, float64: in f32 the reference's stopping test,
@@ -2946,17 +2972,21 @@ def phase_dxe_main(dev) -> dict:
     torch.cuda.synchronize()
     for f in DXE_COUNTS:
         f.launches = 0
-    outs, grew, events = {}, {}, {}
+    for f in (dxs._syevd, dxs._gesvd):
+        for r in JACOBI_ROUTES:
+            setattr(f, f"{r}_launches", 0)
+    outs, grew, route_grew, events = {}, {}, {}, {}
     for name, (route, _, _, _) in routes.items():
-        before = {f.__name__: f.launches for f in DXE_COUNTS}
+        before, before_routes = {f.__name__: f.launches for f in DXE_COUNTS}, _jacobi_counts()
         events[name] = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         events[name][0].record()
         outs[name] = route()
         events[name][1].record()
         grew[name] = {f.__name__: f.launches - before[f.__name__] for f in DXE_COUNTS}
+        route_grew[name] = {k: t - before_routes[k] for k, t in _jacobi_counts().items()}
     torch.cuda.synchronize()
     once_ms = {name: start.elapsed_time(end) for name, (start, end) in events.items()}
-    launches = {f.__name__: f.launches for f in DXE_COUNTS}
+    launches = {f.__name__: f.launches for f in DXE_COUNTS} | _jacobi_counts()
     print(f"[dxe] launches in the main path: {launches}", flush=True)
 
     tol, max_abs, failures = DXE_TOL, {}, []
@@ -2966,6 +2996,10 @@ def phase_dxe_main(dev) -> dict:
             launched = sum(grew[name].values()) == 0
         else:
             launched = grew[name][count] == 1 and sum(grew[name].values()) == 1
+        want = _jacobi_line_route(name)
+        if want is not None:   # one launch, on the route of its n
+            launched = launched and all(
+                route_grew[name][f"{count}.{r}"] == (r == want) for r in JACOBI_ROUTES)
         if name.startswith("gels"):
             x_p = plain_fn()
             e_x, x64 = _x_err(x["a"], out, x_p), _lstsq64(x["a"], x["b"])
@@ -3038,7 +3072,9 @@ def phase_dxe_main(dev) -> dict:
                       f"torch's default driver: s {d_s:.3e} USVᵀ−A {d_rec:.3e} orth {d_orth:.3e}")
         ok = ok and launched and all(bool(torch.isfinite(t).all()) for t in
                                      (out if isinstance(out, tuple) else (out,)) if t is not None)
-        print(f"[dxe] {name:34s} launches {grew[name]} | {detail} {'ok' if ok else 'FAIL'}",
+        routes_seen = {k: t for k, t in route_grew[name].items() if t}
+        seen = f" routes {routes_seen}" if routes_seen else ""
+        print(f"[dxe] {name:34s} launches {grew[name]}{seen} | {detail} {'ok' if ok else 'FAIL'}",
               flush=True)
         if not ok:
             failures.append(name)
@@ -3077,10 +3113,12 @@ def phase_dxe_times(dxe: dict, card: str) -> dict:
     """CUDA events around back-to-back calls (``_loop_ms``) of each route of
     phase 22, its plain version (short loops) and its library call
     (torch.linalg.lstsq with driver gels, torch.ormqr, torch.linalg.eigh,
-    torch.linalg.svd), each beside its bound. A call that takes more than
-    100 ms (the Jacobi plain versions, torch.ormqr, which loops over the
-    batch, and eigh and svd at n = 64) is timed once in each turn; the
-    routes that launch no kernel keep their one call of phase 22."""
+    torch.linalg.svd), each beside its bound, the Jacobi kernels' with their
+    route; and the registers and spills of the Jacobi warp route's kernels
+    (none may spill). A call that takes more than 100 ms (the Jacobi plain
+    versions, torch.ormqr, which loops over the batch, and eigh and svd at
+    n = 64) is timed once in each turn; the routes that launch no kernel
+    keep their one call of phase 22."""
     fast, slow, slowest = {}, {}, {}
     for name, (route, count, plain, library) in dxe["routes"].items():
         if count is None:
@@ -3094,6 +3132,7 @@ def phase_dxe_times(dxe: dict, card: str) -> dict:
     ms.update(_loop_ms(slowest, warmup=0, reps=1, samples=1))
     ms.update({f"{name} route": t for name, t in dxe["once_ms"].items()
                if dxe["routes"][name][1] is None})
+    ms["ptxas"] = {k: _ptxas_report(f"{k}_warp_kernel", "dxe-times") for k in ("syevd", "gesvd")}
     bounds = {}
     for name, (_, count, _, _) in dxe["routes"].items():
         if count is None:
@@ -3101,11 +3140,13 @@ def phase_dxe_times(dxe: dict, card: str) -> dict:
                   f"22; no kernel of the repository) | {card}", flush=True)
             continue
         bounds[name] = bound = _dxe_bound(name)
+        jacobi = _jacobi_line_route(name)
         for route in ("kernel", "plain", "library"):
             t = ms[f"{name} {route}"]
-            print(f"[dxe-times] {name:34s} {route:7s} {t:.4f} ms | bound {bound['bound_ms']:.4f} "
-                  f"ms ({bound['bound_by']}), {bound['bound_ms'] / t:.1%} of it | {card}",
-                  flush=True)
+            on = f" ({jacobi} route)" if jacobi and route == "kernel" else ""
+            print(f"[dxe-times] {name:34s} {route:7s} {t:.4f} ms{on} | bound "
+                  f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), {bound['bound_ms'] / t:.1%} "
+                  f"of it | {card}", flush=True)
     ms["bounds"] = bounds
     return ms
 
@@ -5034,15 +5075,21 @@ def main() -> None:
         "plain_ms": dxe_ms[f"{line} plain"],
         **dxe_ms["bounds"][line],
         "library_ms": dxe_ms[f"{line} library"],
+        **({"jacobi_route": _jacobi_line_route(line)} if _jacobi_line_route(line) else {}),
+        **({"ptxas": dxe_ms["ptxas"][count[1:6]]} if count.endswith(".warp") else {}),
     } for name, line, count, source, site in (
         ("unmqr_batched (tml_unmqr_batched)", "unmqr_batched trans b8192 n32 k4", "_unmqr",
          "dx_solver.cu", "597"),
         ("gels_batched (tml_gels_batched)", "gels_batched b8192 m64 n32 k4", "_gels",
          "dx_solver.cu", "637"),
-        ("syevd_batched (tml_syevd_batched)", "syevd_batched b8192 n32", "_syevd",
-         "dx_jacobi.cu", "758"),
-        ("gesvd_batched (tml_gesvd_batched)", "gesvd_batched b8192 n32", "_gesvd",
-         "dx_jacobi.cu", "843"))] + [{
+        ("syevd_batched warp route (tml_syevd_batched: syevd_warp_kernel, n <= 32)",
+         "syevd_batched b8192 n32", "_syevd.warp", "dx_jacobi.cu", "758"),
+        ("syevd_batched block route (tml_syevd_batched: syevd_kernel, 33 <= n <= 64)",
+         "syevd_batched b2048 n64", "_syevd.block", "dx_jacobi.cu", "758"),
+        ("gesvd_batched warp route (tml_gesvd_batched: gesvd_warp_kernel, n <= 32)",
+         "gesvd_batched b8192 n32", "_gesvd.warp", "dx_jacobi.cu", "843"),
+        ("gesvd_batched block route (tml_gesvd_batched: gesvd_kernel, 33 <= n <= 64)",
+         "gesvd_batched b2048 n64", "_gesvd.block", "dx_jacobi.cu", "843"))] + [{
         "name": name,
         "route": "cuda",
         "source": f"tpumathlib_torch/csrc/{source}",

@@ -64,6 +64,7 @@ def test_f32_paths_run_on_the_cpu(monkeypatch):
     monkeypatch.setattr(mod, "SPMV", (4, 4, 2, 128))
     monkeypatch.setattr(mod, "FFT", (4, 256))
     monkeypatch.setattr(mod, "BATCHED", ((8, 32), (2, 128)))
+    monkeypatch.setattr(mod, "JACOBI", ((4, 32), (2, 64)))
     paths = mod._paths(torch.device("cpu"))
     assert sorted(paths) == sorted(["potrf_onelaunch", "getrf_onelaunch", "geqrf_onelaunch",
                                     "potrf_blocked", "dropout_matmul_kernel",
@@ -71,7 +72,9 @@ def test_f32_paths_run_on_the_cpu(monkeypatch):
                                     "spmv_bell_f32", "dif_fft_f32_natural", "dif_fft_bf16_raw",
                                     "pallas_fft", "pallas_fft2", "potrf_batched_1024x128",
                                     "potrf_batched_8192x32", "posv_batched_8192x32_k4",
-                                    "getrf_batched_8192x32", "geqrf_batched_8192x32"])
+                                    "getrf_batched_8192x32", "geqrf_batched_8192x32",
+                                    "syevd_batched_8192x32", "gesvd_batched_8192x32",
+                                    "syevd_batched_2048x64", "gesvd_batched_2048x64"])
     for name, fn in paths.items():
         out = fn()
         for t in out if isinstance(out, tuple) else (out,):

@@ -28,8 +28,9 @@ Pallas kernels, run in interpret mode, and with LAPACK in float64.
   tml_unmqr_batched, tml_gels_batched, tml_syevd_batched and
   tml_gesvd_batched that reads the tensors through their pointers and
   shapes: the trans flag, the work space of a block that does not fit in
-  shared memory, the schedule table, odd n, the sort after the kernel and
-  the launch counts.
+  shared memory, the schedule table, odd n, the Jacobi kernels' route
+  (csrc/dx_jacobi.cu's rule: a warp a matrix to n = 32, a block beyond),
+  the sort after the kernel and the launch counts, each route's too.
 - The slice as a whole at batch 16 × n 16 (syevd, gesvd) and batch 16 ×
   (24, 10) (gels, unmqr) through the public functions, against the
   reference.
@@ -398,8 +399,12 @@ class _EmulatedLib(_EmulatedSolverLib):
         assert np.array_equal(table.numpy(), port._roundrobin(npad))
         return table
 
+    def _route(self, n):
+        return "warp" if n <= 32 else "block"
+
     def tml_syevd_batched(self, a, pairs, w, v, batch, n, sweeps, stream):
-        self.solver_calls.append(dict(kernel="syevd", batch=batch, n=n, sweeps=sweeps))
+        self.solver_calls.append(dict(kernel="syevd", batch=batch, n=n, sweeps=sweeps,
+                                      route=self._route(n)))
         if self.rc or not 1 <= n <= 64:
             return self.rc or 1
         self._schedule(pairs, n)
@@ -409,7 +414,8 @@ class _EmulatedLib(_EmulatedSolverLib):
         return 0
 
     def tml_gesvd_batched(self, a, pairs, u, s, v, batch, n, sweeps, stream):
-        self.solver_calls.append(dict(kernel="gesvd", batch=batch, n=n, sweeps=sweeps))
+        self.solver_calls.append(dict(kernel="gesvd", batch=batch, n=n, sweeps=sweeps,
+                                      route=self._route(n)))
         if self.rc or not 1 <= n <= 64:
             return self.rc or 1
         self._schedule(pairs, n)
@@ -478,19 +484,25 @@ def test_cuda_branch_large_blocks_pass_a_work_space(emulated):
     assert emulated.solver_calls[-1]["work"] is True
 
 
-@pytest.mark.parametrize("n", [1, 2, 7, 16, 31, 64])
+@pytest.mark.parametrize("n", [1, 2, 7, 16, 31, 32, 33, 64])
 def test_cuda_branch_jacobi(emulated, n):
     """The schedule of n rounded up to even goes to the kernel (the emulation
-    checks it), and the wrapper sorts what comes back."""
+    checks it), the route's counter grows with the launch count, and the
+    wrapper sorts what comes back."""
     rng = _rng()
     g = rng.normal(size=(3, n, n)).astype(np.float32)
     sym = from_numpy((g + g.transpose(0, 2, 1)) / 2)
+    route = port._jacobi_route(n)
     before = [f.launches for f in _COUNTS]
+    routes = [(f.warp_launches, f.block_launches) for f in (port._syevd, port._gesvd)]
     w, v = port.syevd_batched(sym, sweeps=3)
     u, s, vt = port.gesvd_batched(from_numpy(g), sweeps=4)
     assert _grew(before) == [0, 0, 1, 1]
-    assert emulated.solver_calls == [dict(kernel="syevd", batch=3, n=n, sweeps=3),
-                                     dict(kernel="gesvd", batch=3, n=n, sweeps=4)]
+    grew = (1, 0) if route == "warp" else (0, 1)
+    assert [(f.warp_launches - w0, f.block_launches - b0) for f, (w0, b0)
+            in zip((port._syevd, port._gesvd), routes)] == [grew, grew]
+    assert emulated.solver_calls == [dict(kernel="syevd", batch=3, n=n, sweeps=3, route=route),
+                                     dict(kernel="gesvd", batch=3, n=n, sweeps=4, route=route)]
     w0, v0 = port._syevd_plain(sym, 3)
     order = torch.argsort(w0, dim=1, stable=True)
     assert torch.equal(w, torch.take_along_dim(w0, order, 1))
@@ -505,15 +517,19 @@ def test_cuda_branch_jacobi(emulated, n):
 
 def test_cuda_branch_raises_on_launch_failure(emulated):
     emulated.rc = 9   # cudaErrorInvalidConfiguration
-    a = torch.ones((2, 8, 8))
+    a, wide = torch.ones((2, 8, 8)), torch.ones((2, 40, 40))
     before = [f.launches for f in _COUNTS]
+    routes = [(f.warp_launches, f.block_launches) for f in (port._syevd, port._gesvd)]
     for run, name in ((lambda: port.unmqr_batched(a, a[:, 0], a), "tml_unmqr_batched"),
                       (lambda: port.gels_batched(a, a), "tml_gels_batched"),
                       (lambda: port.syevd_batched(a), "tml_syevd_batched"),
-                      (lambda: port.gesvd_batched(a), "tml_gesvd_batched")):
+                      (lambda: port.gesvd_batched(a), "tml_gesvd_batched"),
+                      (lambda: port.syevd_batched(wide), "tml_syevd_batched"),
+                      (lambda: port.gesvd_batched(wide), "tml_gesvd_batched")):
         with pytest.raises(ExecutionError, match=f"{name}: CUDA error 9"):
             run()
     assert _grew(before) == [0, 0, 0, 0]
+    assert [(f.warp_launches, f.block_launches) for f in (port._syevd, port._gesvd)] == routes
 
 
 def test_cuda_branch_propagates_loader_failure(monkeypatch):

@@ -16,7 +16,10 @@ The paths, each through its public function:
   (B5b) and fft.pallas_split.pallas_fft2 (B5c);
 - the batched solvers of dx.solver (B7a): potrf_batched at 1024 x 128 and
   8192 x 32, posv_batched at 8192 x 32 with 4 right-hand sides, and
-  getrf_batched and geqrf_batched at 8192 x 32.
+  getrf_batched and geqrf_batched at 8192 x 32;
+- the Jacobi kernels of dx.solver (B7g, B7h): syevd_batched and
+  gesvd_batched at 8192 x 32 (the warp route) and 2048 x 64 (the block
+  route).
 Each is timed three ways: CUDA events around one call after a synchronise
 (median of 5, as chip_smoke.py's ``_median_ms``), CUDA events around 5
 back-to-back calls (median of 3 samples, as its ``_loop_ms``), and the
@@ -51,6 +54,7 @@ import tpumathlib_torch
 from tpumathlib_torch import dx, sparse
 from tpumathlib_torch.dx import cuda_utils, gemm
 from tpumathlib_torch.dx import rng as dxr
+from tpumathlib_torch.dx import solver as dxs
 from tpumathlib_torch.fft import kernels as fft_kernels
 from tpumathlib_torch.fft import pallas_split, stockham
 from tpumathlib_torch.solver import blocked, onelaunch
@@ -63,6 +67,7 @@ SPMM = (128, 128, 16, 128, 4096)   # (mb, nb, ellw, bs, k) of bench_spmm_bell
 SPMV = (128, 128, 32, 128)         # (mb, nb, ellw, bs) of bench_spmv_bell
 FFT = (4096, 4096)                 # (batch, N) of the bench's FFT lines
 BATCHED = ((8192, 32), (1024, 128))   # (batch, n) of the batched solvers' lines
+JACOBI = ((8192, 32), (2048, 64))     # (batch, n) of syevd_batched and gesvd_batched
 
 
 def _bell(gen, mb, nb, ellw, bs, dtype, dev):
@@ -99,6 +104,10 @@ def _paths(dev) -> dict:
         m = torch.randn((bsz, order, order), generator=gen, device=dev)
         batched[order] = (m @ m.mT + order * torch.eye(order, device=dev), m)
     rhs = torch.randn((BATCHED[0][0], BATCHED[0][1], 4), generator=gen, device=dev)
+    jacobi = []   # (symmetric matrices, Gaussian ones) at each shape of JACOBI
+    for bsz, order in JACOBI:
+        m = torch.randn((bsz, order, order), generator=gen, device=dev)
+        jacobi.append(((m + m.mT) / 2, m))
     return {
         "potrf_onelaunch": lambda: onelaunch.potrf_onelaunch(spd),
         "getrf_onelaunch": lambda: onelaunch.getrf_onelaunch(dom),
@@ -118,6 +127,10 @@ def _paths(dev) -> dict:
         "posv_batched_8192x32_k4": lambda: dx.posv_batched(batched[32][0], rhs),
         "getrf_batched_8192x32": lambda: dx.getrf_batched(batched[32][1]),
         "geqrf_batched_8192x32": lambda: dx.geqrf_batched(batched[32][1]),
+        "syevd_batched_8192x32": lambda: dxs.syevd_batched(jacobi[0][0]),
+        "gesvd_batched_8192x32": lambda: dxs.gesvd_batched(jacobi[0][1]),
+        "syevd_batched_2048x64": lambda: dxs.syevd_batched(jacobi[1][0]),
+        "gesvd_batched_2048x64": lambda: dxs.gesvd_batched(jacobi[1][1]),
     }
 
 

@@ -10,20 +10,20 @@
 // Replaces the TPU kernels of tpumathlib/dx/solver.py: syevd_batched's
 // pallas_call (:758, kernel _syevd_kernel :685) and gesvd_batched's (:843,
 // kernel _gesvd_kernel :779). There each round is a few matmuls against 0/1
-// permutation matrices, because Mosaic cannot gather lanes; here one thread
-// block holds one matrix and V in shared memory and reads each pair's
-// entries directly. tpumathlib_torch/dx/solver.py holds the wrappers, the
+// permutation matrices, because Mosaic cannot gather lanes; here a warp (n <=
+// 32) or a thread block holds one matrix and V and reads each pair's entries
+// directly. tpumathlib_torch/dx/solver.py holds the wrappers, the
 // plain PyTorch versions (_syevd_plain, _gesvd_plain) and the schedule
-// (_roundrobin, passed in as an int table); the wrappers sort the results.
+// (_roundrobin, passed in as an int table, which the block route reads and
+// the warp route computes); the wrappers sort the results.
 //
 // Each sweep runs the rounds of the round-robin schedule, each round
 // rotating n/2 disjoint pairs (p, q) by [[c, s], [-s, c]]:
 //   syevd: (c, s) of each pair from A(p,p), A(q,q), A(p,q) as A stood
-//          before the round (one thread a pair); a barrier; A's columns of
-//          every pair and V's columns; a barrier; A's rows; a barrier.
-//   gesvd: (c, s) from alpha = |a_p|^2, beta = |a_q|^2, gamma = a_p . a_q
-//          (one warp a pair, shuffle sums); a barrier; A's and V's columns;
-//          a barrier.
+//          before the round; then A's columns of every pair and V's
+//          columns; then A's rows.
+//   gesvd: (c, s) from alpha = |a_p|^2, beta = |a_q|^2, gamma = a_p . a_q;
+//          then A's and V's columns.
 // With tau = (a_qq - a_pp) / (2 a_pq): t = sign(tau) / (|tau| +
 // sqrt(1 + tau^2)), t = 1 at tau = 0, no turn where |a_pq| <= 1e-30; c =
 // rsqrt(1 + t^2), s = t c. One (c, s) a pair: the reference takes t per lane,
@@ -35,16 +35,36 @@
 // is skipped each round (the reference's sentinel row and column, never
 // turned, gives the same result).
 //
+// Two routes by n (jacobi_route; dx/solver.py::_jacobi_route mirrors it):
+// - n <= 32: a warp a matrix (syevd_warp_kernel, gesvd_warp_kernel), 4
+//   matrices a block. Lane i holds row i of A and of V in registers, the
+//   columns in the order of the circle method's slots (Circle below), so
+//   that every pair's columns are registers fixed at compile time; between
+//   rounds the rotating slots move down by one register. No block barrier
+//   and no table load in the loop: each round's (c, s) go through a
+//   per-warp buffer in shared memory behind one __syncwarp.
+// - 33 <= n <= 64: a block a matrix with A and V in shared memory
+//   (syevd_kernel, gesvd_kernel), the pairs read from the table.
+//
 // What bounds them: at batch 8192 x n 32 f32, a sweep has 31 rounds of n/2
 // pairs. syevd needs 12 n flop a pair (A stays symmetric, so J^T A J needs
 // only one triangle of A's columns and rows, 6 n, and V's columns 6 n): 10
 // sweeps are 1.9 MFLOP a matrix, 15.6 GFLOP in all, 0.23 ms at 67 TFLOP/s.
 // gesvd needs 18 n (A's and V's columns and the three sums): 12 sweeps are
 // 0.42 ms. Their bytes (A read, V and w or U, s, V written) take 0.03-0.04 ms
-// at 3.35 TB/s. Operations bound them, and each
-// round's few operations a thread sit between barriers, so the time is the
-// latency of 3 (syevd) or 2 (gesvd) barriers and a handful of shared-memory
-// reads a round; many blocks share an SM (8.4 KB at n = 32) to hide it.
+// at 3.35 TB/s. Operations bound them, and on the warp route the instructions
+// each lane runs for its share of them: a round at n = 32 is 128 multiplies and FMAs of
+// A's and V's columns, then syevd's 64 of A's rows behind 32 shuffles and two
+// 31-select trees (a lane's own diagonal entry and coupling sit in a slot
+// known only at run time), or gesvd's 48 products and their sums (48
+// shuffles, each step halving the pairs a lane holds, with the selects that
+// pick what it keeps); then 62 register moves of the rotation, which syevd
+// pays once in two rounds (its loop is unrolled by 2). Measured through the
+// public calls on an H100 at 700 W (chip_smoke.py, time_paths.py) at 8192 x
+// 32: syevd 1.84 ms and gesvd 2.52, where the block route took 11.2 and 17.0
+// (its 3 or 2 barriers a round) and torch.linalg's eigh and svd take 4.7 and
+// 8.4. The block route keeps many blocks on an SM (33 KB at n = 64) to hide
+// its barriers.
 
 #include <cuda_runtime.h>
 
@@ -63,8 +83,6 @@ struct Args {
   float* v;               // (batch, n, n)
   int n, rounds, npairs, sweeps;
 };
-
-int threads_for(int n) { return n <= 8 ? 64 : n <= 16 ? 128 : n <= 32 ? 256 : kMaxThreads; }
 
 // Shared memory: A and V (n x (n + 1): column reads spread over banks), each
 // pair's c, s, p, q, and n floats for gesvd's norms.
@@ -235,8 +253,342 @@ __global__ void __launch_bounds__(kMaxThreads) gesvd_kernel(const Args a) {
   }
 }
 
-cudaError_t launch(void (*kernel)(Args), const void* a, const void* pairs, void* u, void* d,
-                   void* v, int64_t batch, int64_t n, int64_t sweeps, void* stream) {
+// ----------------------------- the warp route -----------------------------
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarpN = 32;          // the warp route's largest n
+constexpr int kWarpMatrices = 4;    // matrices (warps) a block on the warp route
+constexpr int kWarpBlocks = 4;      // blocks an SM the warp route asks for: 128 registers a lane
+
+__host__ __device__ constexpr int ceil_log2(int n) {
+  return n <= 1 ? 0 : 1 + ceil_log2((n + 1) / 2);
+}
+
+// _roundrobin(NPAD) as the circle method lays it out. Index 0 stays in slot
+// 0; in round r (0 <= r < kM) slot s >= 1 holds index 1 + (s - 1 + r) mod kM,
+// so between rounds slot s takes what slot s + 1 held and slot kM what slot
+// 1 held. Pair k takes slots (0, 1) for k = 0 and (1 + k, NPAD - k)
+// otherwise, its p first: round r's pairs in _roundrobin's order and roles.
+// For odd n (= kM) the spare index kM sits in slot kM - r.
+template <int NPAD>
+struct Circle {
+  static constexpr int kM = NPAD - 1;
+  static constexpr int kPairs = NPAD / 2;
+  __host__ __device__ static constexpr int p_slot(int k) { return k == 0 ? 0 : 1 + k; }
+  __host__ __device__ static constexpr int q_slot(int k) { return k == 0 ? 1 : NPAD - k; }
+  __device__ static int index_at(int s, int r) {
+    const int i = s - 1 + r;
+    return s == 0 ? 0 : 1 + (i >= kM ? i - kM : i);
+  }
+  __device__ static int slot_of(int i, int r) {
+    const int d = i - 1 - r;
+    return i == 0 ? 0 : 1 + (d < 0 ? d + kM : d);
+  }
+  __device__ static int partner_slot(int s) { return s == 0 ? 1 : s == 1 ? 0 : NPAD + 1 - s; }
+  __device__ static int pair_of(int s) { return s <= 1 ? 0 : s <= kPairs ? s - 1 : NPAD - s; }
+  __device__ static bool holds_p(int s) { return s == 0 || (s >= 2 && s <= kPairs); }
+};
+
+// x[i] for a runtime i < N by a tree of selects on i's bits: a register
+// array indexed by a runtime value would go to local memory.
+template <int N>
+__device__ __forceinline__ float pick(const float (&x)[N], int i) {
+  float t[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) t[j] = x[j];
+#pragma unroll
+  for (int level = 0; level < ceil_log2(N); ++level) {
+    const int bit = 1 << level;
+    const bool up = i & bit;
+#pragma unroll
+    for (int j = 0; j + bit < N; j += 2 * bit) t[j] = up ? t[j + bit] : t[j];
+  }
+  return t[0];
+}
+
+// Per warp: a 32 x 33 tile that carries a matrix between device memory and
+// the lanes' rows, coalesced both ways, and two buffers of a round's (c, s),
+// pair k's at cs[b][k / 2] (.x, .y for even k, .z, .w for odd).
+struct WarpSmem {
+  float tile[kWarpN][kWarpN + 1];
+  float4 cs[2][kWarpN / 4];
+};
+
+// Lane i's row i of the (n, n) matrix at src, in slot order (the natural
+// order at round 0), zeros past n.
+template <int NPAD>
+__device__ __forceinline__ void load_rows(float (&x)[NPAD], float (*t)[kWarpN + 1],
+                                          const float* src, int n, int lane) {
+#pragma unroll
+  for (int r = 0; r < NPAD; ++r) t[r][lane] = r < n && lane < n ? __ldg(src + r * n + lane) : 0.f;
+  __syncwarp();
+#pragma unroll
+  for (int c = 0; c < NPAD; ++c) x[c] = lane < NPAD ? t[lane][c] : 0.f;
+}
+
+// The first n entries of lanes 0 .. n - 1's rows to the (n, n) matrix at dst.
+template <int NPAD>
+__device__ __forceinline__ void store_rows(const float (&x)[NPAD], float (*t)[kWarpN + 1],
+                                           float* dst, int n, int lane) {
+  __syncwarp();
+  if (lane < NPAD) {
+#pragma unroll
+    for (int c = 0; c < NPAD; ++c) t[lane][c] = x[c];
+  }
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < NPAD; ++r)
+    if (r < n && lane < n) dst[r * n + lane] = t[r][lane];
+}
+
+__device__ __forceinline__ void turn(float& x, float& y, float c, float s) {
+  const float x0 = x, y0 = y;
+  x = c * x0 - s * y0;
+  y = s * x0 + c * y0;
+}
+
+// Columns p and q of A's and V's rows for every pair but `dead` (the spare
+// index's, for odd n; -1 for even n), with the round's (c, s) from cs.
+template <int NPAD>
+__device__ __forceinline__ void turn_columns(float (&a)[NPAD], float (&v)[NPAD], const float4* cs,
+                                             int dead) {
+  using C = Circle<NPAD>;
+#pragma unroll
+  for (int k = 0; k < C::kPairs; k += 2) {
+    const float4 q = cs[k / 2];
+    if (k != dead) {
+      turn(a[C::p_slot(k)], a[C::q_slot(k)], q.x, q.y);
+      turn(v[C::p_slot(k)], v[C::q_slot(k)], q.x, q.y);
+    }
+    if (k + 1 < C::kPairs && k + 1 != dead) {
+      constexpr int kLast = C::kPairs - 1;   // k + 1 past the pairs is never read
+      const int k1 = k + 1 < C::kPairs ? k + 1 : kLast;
+      turn(a[C::p_slot(k1)], a[C::q_slot(k1)], q.z, q.w);
+      turn(v[C::p_slot(k1)], v[C::q_slot(k1)], q.z, q.w);
+    }
+  }
+}
+
+// Slots 1 .. kM move down by one: slot s takes slot s + 1's column.
+template <int NPAD>
+__device__ __forceinline__ void rotate(float (&x)[NPAD]) {
+  const float first = x[1];
+#pragma unroll
+  for (int s = 1; s + 1 < NPAD; ++s) x[s] = x[s + 1];
+  x[NPAD - 1] = first;
+}
+
+// Two-sided Jacobi, a warp a matrix. Each round, every lane finds its
+// slot, its partner's index and its role; the pair's diagonal entries and
+// coupling A(p, q) come from the two lanes (a select tree for the lane's
+// own entries, one shuffle for each of the partner's), and both lanes
+// compute the same (c, s), which lane p puts in the round's buffer. Then
+// A's and V's columns turn in every lane's registers, and A's rows turn
+// with the partner's row, one shuffle an entry: lane p takes c a_p - s a_q,
+// lane q c a_q + s a_p. A lane past n, or paired with the spare index, turns
+// no row.
+template <int NPAD>
+__global__ void __launch_bounds__(kWarpMatrices * 32, kWarpBlocks)
+    syevd_warp_kernel(const Args p, int64_t batch) {
+  using C = Circle<NPAD>;
+  __shared__ WarpSmem smem[kWarpMatrices];
+  WarpSmem& ws = smem[threadIdx.x >> 5];
+  const int lane = threadIdx.x & 31;
+  const int64_t bi = int64_t(blockIdx.x) * kWarpMatrices + (threadIdx.x >> 5);
+  if (bi >= batch) return;
+  const int n = p.n;
+  float a[NPAD], v[NPAD];
+  load_rows<NPAD>(a, ws.tile, p.a + bi * n * n, n, lane);
+#pragma unroll
+  for (int c = 0; c < NPAD; ++c) v[c] = c == lane && lane < n ? 1.f : 0.f;
+  const bool odd = n < NPAD, paired = lane < NPAD;
+  int r = 0, buf = 0;   // r: the round in the sweep
+  // Unrolled by 2 so that the rotation's moves are made once in two rounds;
+  // a sweep's count of rounds need not be even.
+#pragma unroll 2
+  for (int64_t round = 0; round < int64_t(p.sweeps) * C::kM; ++round) {
+    const int slot = paired ? C::slot_of(lane, r) : 0;
+    const int pslot = C::partner_slot(slot);
+    const int partner = paired ? C::index_at(pslot, r) : lane;
+    const bool live = lane < n && partner < n, own_p = C::holds_p(slot);
+    const float diag = pick(a, slot), cpl = pick(a, pslot);   // A(i, i), A(i, partner)
+    const float diag2 = __shfl_sync(kFull, diag, partner);
+    const float cpl2 = __shfl_sync(kFull, cpl, partner);
+    float c, s;
+    rot_coeffs(own_p ? diag : diag2, own_p ? diag2 : diag, own_p ? cpl : cpl2, c, s);
+    if (live && own_p)
+      reinterpret_cast<float2*>(ws.cs[buf])[C::pair_of(slot)] = make_float2(c, s);
+    __syncwarp();
+    turn_columns<NPAD>(a, v, ws.cs[buf], odd ? C::pair_of(C::kM - r) : -1);
+    const float sr = own_p ? -s : s;
+#pragma unroll
+    for (int j = 0; j < NPAD; ++j) {
+      const float y = __shfl_sync(kFull, a[j], partner);
+      if (live) a[j] = c * a[j] + sr * y;
+    }
+    rotate<NPAD>(a);
+    rotate<NPAD>(v);
+    buf ^= 1;
+    r = r + 1 == C::kM ? 0 : r + 1;
+  }
+  if (lane < n) p.d[bi * n + lane] = pick(a, lane);
+  store_rows<NPAD>(v, ws.tile, p.v + bi * n * n, n, lane);
+}
+
+// The sums over the warp's lanes of alpha, beta and gamma of every pair,
+// formed in each lane from its row. At each step a lane keeps half of the
+// pairs it holds (the upper half where its lane bit `mask` is set) and adds
+// its xor partner's copy of them, one shuffle a value kept: the first step
+// (mask 16) as the products are formed, so that only half of them are ever
+// live; then butterflies on the one pair left. Lane l ends with pair
+// l >> (5 - log2 H)'s sums (H: the pairs rounded up to a power of two), the
+// same in every lane that holds it. The steps recurse on HALF so that every
+// index is known at compile time.
+__device__ __forceinline__ void halve(float& lo, float hi, bool up, int mask) {
+  const float keep = up ? hi : lo, send = up ? lo : hi;
+  lo = keep + __shfl_xor_sync(kFull, send, mask);
+}
+
+template <int HALF, int H, int MASK>
+__device__ __forceinline__ void halve_pairs(float (&al)[H], float (&be)[H], float (&ga)[H],
+                                            int lane) {
+  if constexpr (HALF >= 1) {
+    const bool up = lane & MASK;
+#pragma unroll
+    for (int i = 0; i < HALF; ++i) {
+      halve(al[i], al[i + HALF], up, MASK);
+      halve(be[i], be[i + HALF], up, MASK);
+      halve(ga[i], ga[i + HALF], up, MASK);
+    }
+    halve_pairs<HALF / 2, H, MASK / 2>(al, be, ga, lane);
+  }
+}
+
+// Pair k's products in this lane's row (zeros for k past the pairs).
+template <int NPAD>
+__device__ __forceinline__ void products(const float (&a)[NPAD], int k, float& al, float& be,
+                                         float& ga) {
+  using C = Circle<NPAD>;
+  const int kk = k < C::kPairs ? k : 0;
+  const float x = k < C::kPairs ? a[C::p_slot(kk)] : 0.f;
+  const float y = k < C::kPairs ? a[C::q_slot(kk)] : 0.f;
+  al = x * x;
+  be = y * y;
+  ga = x * y;
+}
+
+// H: the pairs rounded up to a power of two; al, be, ga get this lane's sums.
+template <int NPAD, int H>
+__device__ __forceinline__ void pair_sums(const float (&a)[NPAD], int lane, float& al, float& be,
+                                          float& ga) {
+  constexpr int kKept = H > 1 ? H / 2 : 1, kMask = H > 1 ? 8 : 16;
+  float sa[kKept], sb[kKept], sg[kKept];
+  if constexpr (H > 1) {
+    const bool up = lane & 16;
+#pragma unroll
+    for (int i = 0; i < kKept; ++i) {
+      float ha, hb, hg;
+      products<NPAD>(a, i, sa[i], sb[i], sg[i]);
+      products<NPAD>(a, i + kKept, ha, hb, hg);
+      halve(sa[i], ha, up, 16);
+      halve(sb[i], hb, up, 16);
+      halve(sg[i], hg, up, 16);
+    }
+  } else {
+    products<NPAD>(a, 0, sa[0], sb[0], sg[0]);
+  }
+  halve_pairs<kKept / 2, kKept, kMask>(sa, sb, sg, lane);
+#pragma unroll
+  for (int mask = kMask / kKept; mask > 0; mask >>= 1) {
+    sa[0] += __shfl_xor_sync(kFull, sa[0], mask);
+    sb[0] += __shfl_xor_sync(kFull, sb[0], mask);
+    sg[0] += __shfl_xor_sync(kFull, sg[0], mask);
+  }
+  al = sa[0];
+  be = sb[0];
+  ga = sg[0];
+}
+
+// One-sided Jacobi, a warp a matrix. Each round, pair_sums sums the three
+// products of every pair's columns over the rows together, the first lane
+// holding a pair's sums puts its (c, s) in the round's buffer, and A's and
+// V's columns turn in every lane's registers.
+// Then sigma_j = |a_j| by butterflies and U = A / sigma (sigma = 0: / 1).
+template <int NPAD>
+__global__ void __launch_bounds__(kWarpMatrices * 32, kWarpBlocks)
+    gesvd_warp_kernel(const Args p, int64_t batch) {
+  using C = Circle<NPAD>;
+  constexpr int kLevels = ceil_log2(C::kPairs), kHeld = 1 << kLevels;
+  __shared__ WarpSmem smem[kWarpMatrices];
+  WarpSmem& ws = smem[threadIdx.x >> 5];
+  const int lane = threadIdx.x & 31;
+  const int64_t bi = int64_t(blockIdx.x) * kWarpMatrices + (threadIdx.x >> 5);
+  if (bi >= batch) return;
+  const int n = p.n;
+  float a[NPAD], v[NPAD];
+  load_rows<NPAD>(a, ws.tile, p.a + bi * n * n, n, lane);
+#pragma unroll
+  for (int c = 0; c < NPAD; ++c) v[c] = c == lane && lane < n ? 1.f : 0.f;
+  const bool odd = n < NPAD;
+  const int held = lane >> (5 - kLevels);
+  const bool writer = (lane & ((32 >> kLevels) - 1)) == 0 && held < C::kPairs;
+  int r = 0, buf = 0;   // r: the round in the sweep
+  // Not unrolled: by 2, ptxas spills at n = 32 under the 128 registers of 4
+  // blocks an SM, and 3 blocks an SM (168 registers) ran slower than this.
+#pragma unroll 1
+  for (int64_t round = 0; round < int64_t(p.sweeps) * C::kM; ++round) {
+    float al, be, ga, c, s;
+    pair_sums<NPAD, kHeld>(a, lane, al, be, ga);
+    rot_coeffs(al, be, ga, c, s);
+    if (writer) reinterpret_cast<float2*>(ws.cs[buf])[held] = make_float2(c, s);
+    __syncwarp();
+    turn_columns<NPAD>(a, v, ws.cs[buf], odd ? C::pair_of(C::kM - r) : -1);
+    rotate<NPAD>(a);
+    rotate<NPAD>(v);
+    buf ^= 1;
+    r = r + 1 == C::kM ? 0 : r + 1;
+  }
+  float own = 0.f;   // sigma_lane
+#pragma unroll
+  for (int j = 0; j < NPAD; ++j) {
+    float ss = a[j] * a[j];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(kFull, ss, off);
+    const float sig = sqrtf(ss);
+    a[j] = a[j] / (sig > 0.f ? sig : 1.f);
+    if (lane == j) own = sig;
+  }
+  if (lane < n) p.d[bi * n + lane] = own;
+  store_rows<NPAD>(a, ws.tile, p.u + bi * n * n, n, lane);
+  store_rows<NPAD>(v, ws.tile, p.v + bi * n * n, n, lane);
+}
+
+template <int NPAD>
+cudaError_t launch_warp(bool svd, const Args& p, int64_t batch, cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>((batch + kWarpMatrices - 1) / kWarpMatrices);
+  if (svd)
+    gesvd_warp_kernel<NPAD><<<blocks, kWarpMatrices * 32, 0, stream>>>(p, batch);
+  else
+    syevd_warp_kernel<NPAD><<<blocks, kWarpMatrices * 32, 0, stream>>>(p, batch);
+  return cudaGetLastError();
+}
+
+// One instantiation for each even NPAD up to 32.
+template <int NPAD = 2>
+cudaError_t launch_warp_route(bool svd, const Args& p, int64_t batch, cudaStream_t stream) {
+  if (p.n + p.n % 2 == NPAD) return launch_warp<NPAD>(svd, p, batch, stream);
+  if constexpr (NPAD < kWarpN) return launch_warp_route<NPAD + 2>(svd, p, batch, stream);
+  return cudaErrorInvalidValue;
+}
+
+// ----------------------------- both routes -----------------------------
+
+enum JacobiRoute { kWarpRoute, kBlockRoute };
+
+JacobiRoute jacobi_route(int64_t n) { return n <= kWarpN ? kWarpRoute : kBlockRoute; }
+
+cudaError_t launch(bool svd, const void* a, const void* pairs, void* u, void* d, void* v,
+                   int64_t batch, int64_t n, int64_t sweeps, void* stream) {
   if (a == nullptr || pairs == nullptr || d == nullptr || v == nullptr || batch < 0 ||
       batch > 0x7fffffff || n < 1 || n > kMaxN || sweeps < 0 || sweeps > 0x7fffffff)
     return cudaErrorInvalidValue;
@@ -252,8 +604,11 @@ cudaError_t launch(void (*kernel)(Args), const void* a, const void* pairs, void*
   p.rounds = npad - 1;
   p.npairs = npad / 2;
   p.sweeps = static_cast<int>(sweeps);
-  kernel<<<static_cast<unsigned>(batch), threads_for(p.n),
-           static_cast<size_t>(smem_bytes(p.n, p.npairs)), static_cast<cudaStream_t>(stream)>>>(p);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (jacobi_route(n) == kWarpRoute) return launch_warp_route(svd, p, batch, s);
+  void (*kernel)(Args) = svd ? gesvd_kernel : syevd_kernel;
+  const size_t smem = static_cast<size_t>(smem_bytes(p.n, p.npairs));
+  kernel<<<static_cast<unsigned>(batch), kMaxThreads, smem, s>>>(p);
   return cudaGetLastError();
 }
 
@@ -262,13 +617,14 @@ cudaError_t launch(void (*kernel)(Args), const void* a, const void* pairs, void*
 extern "C" {
 
 // a: (batch, n, n) f32 contiguous, symmetric, n <= 64; pairs: int32
-// (npad - 1, npad / 2, 2), npad = n + n % 2, the round-robin schedule. Writes
+// (npad - 1, npad / 2, 2), npad = n + n % 2, the round-robin schedule (read
+// by the block route, n > 32; the warp route computes the same pairs). Writes
 // the unsorted eigenvalues w (batch, n) and eigenvectors v (batch, n, n) after
 // `sweeps` sweeps. Launches on `stream`; returns the CUDA status (0 on
 // success).
 int tml_syevd_batched(const void* a, const void* pairs, void* w, void* v, int64_t batch, int64_t n,
                       int64_t sweeps, void* stream) {
-  return launch(syevd_kernel, a, pairs, nullptr, w, v, batch, n, sweeps, stream);
+  return launch(false, a, pairs, nullptr, w, v, batch, n, sweeps, stream);
 }
 
 // As tml_syevd_batched, for the SVD of a (batch, n, n): u (batch, n, n), the
@@ -276,7 +632,7 @@ int tml_syevd_batched(const void* a, const void* pairs, void* w, void* v, int64_
 int tml_gesvd_batched(const void* a, const void* pairs, void* u, void* s, void* v, int64_t batch,
                       int64_t n, int64_t sweeps, void* stream) {
   if (u == nullptr) return cudaErrorInvalidValue;
-  return launch(gesvd_kernel, a, pairs, u, s, v, batch, n, sweeps, stream);
+  return launch(true, a, pairs, u, s, v, batch, n, sweeps, stream);
 }
 
 }  // extern "C"

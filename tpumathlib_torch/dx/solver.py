@@ -23,12 +23,17 @@ others. Five kernels in
 - ``tml_gels_batched`` (B7f: the QR steps on m ≥ n rows, Qᵀ·B, then the
   upper substitution);
 
-and two in ``csrc/dx_jacobi.cu``, one thread block a matrix with A and V in
-shared memory, over the round-robin schedule ``_roundrobin`` (a table here
-where the reference has permutation matrices, because Mosaic cannot gather):
+and two in ``csrc/dx_jacobi.cu``, over the round-robin schedule
+``_roundrobin`` (where the reference has permutation matrices, because
+Mosaic cannot gather):
 
 - ``tml_syevd_batched`` (B7g: cyclic two-sided Jacobi, 10 sweeps),
 - ``tml_gesvd_batched`` (B7h: one-sided Jacobi, 12 sweeps).
+
+Each takes one of two routes by n (``_jacobi_route``): for n ≤ 32 a warp a
+matrix, A's and V's rows in its lanes' registers, with the schedule's pairs
+computed in the kernel and no block barrier; for 33 ≤ n ≤ 64 a thread block
+a matrix, A and V in shared memory, the pairs read from the table.
 
 The sweep counts are fixed, with no early exit, as in the reference; the
 wrappers sort the results after the kernel (stable, as ``jnp.argsort``).
@@ -53,7 +58,9 @@ On CPU tensors each wrapper (``_potrf``, ``_getrf``, ``_geqrf``,
 ``_unmqr``, ``_gels``, ``_syevd``, ``_gesvd``) takes its plain PyTorch
 version: batched step loops with the reference's formulas. On CUDA tensors
 it launches its kernel or raises. Each wrapper's ``.launches`` counts its
-launches. The reference pads a batch to its tile; here nothing is padded.
+launches; ``_syevd`` and ``_gesvd`` also count each route's
+(``.warp_launches``, ``.block_launches``). The reference pads a batch to
+its tile; here nothing is padded.
 """
 
 from __future__ import annotations
@@ -506,6 +513,27 @@ def _jacobi_operands(a):
     return a32, a32.shape[0], n, _pair_table(n + n % 2, a.device)
 
 
+def _jacobi_route(n: int) -> str:
+    """The route ``tml_syevd_batched`` and ``tml_gesvd_batched`` take
+    (csrc/dx_jacobi.cu's ``jacobi_route``): "warp" for n ≤ 32 (a warp a
+    matrix, lane i holding row i of A and of V, the columns in the circle
+    method's slots, so that each round's pairs are registers fixed at
+    compile time; the spare index of odd n is skipped, never turned) and
+    "block" for 33 ≤ n ≤ 64 (a block a matrix, A and V in shared memory, the
+    pairs from ``_pair_table``). Both take ``_live_pairs(n)`` in its order
+    with its p/q roles, so ``_syevd_plain`` and ``_gesvd_plain`` are the
+    function of both."""
+    return "warp" if n <= 32 else "block"
+
+
+def _count_jacobi(wrapper, n: int) -> None:
+    wrapper.launches += 1
+    if _jacobi_route(n) == "warp":
+        wrapper.warp_launches += 1
+    else:
+        wrapper.block_launches += 1
+
+
 def _syevd(a, sweeps: int):
     """Jacobi eigensolver of f32 (B, n, n) through ``tml_syevd_batched``:
     (w, V) unsorted."""
@@ -519,11 +547,11 @@ def _syevd(a, sweeps: int):
         rc = lib.tml_syevd_batched(a32.data_ptr(), pairs.data_ptr(), w.data_ptr(), v.data_ptr(),
                                    bsz, n, sweeps, _stream(a.device))
     cuda_utils.check_launch(lib, rc, "tml_syevd_batched")
-    _syevd.launches += 1
+    _count_jacobi(_syevd, n)
     return w, v
 
 
-_syevd.launches = 0
+_syevd.launches = _syevd.warp_launches = _syevd.block_launches = 0
 
 
 def _gesvd(a, sweeps: int):
@@ -539,11 +567,11 @@ def _gesvd(a, sweeps: int):
         rc = lib.tml_gesvd_batched(a32.data_ptr(), pairs.data_ptr(), u.data_ptr(), s.data_ptr(),
                                    v.data_ptr(), bsz, n, sweeps, _stream(a.device))
     cuda_utils.check_launch(lib, rc, "tml_gesvd_batched")
-    _gesvd.launches += 1
+    _count_jacobi(_gesvd, n)
     return u, s, v
 
 
-_gesvd.launches = 0
+_gesvd.launches = _gesvd.warp_launches = _gesvd.block_launches = 0
 
 
 # ----------------------------- public API -----------------------------
