@@ -244,6 +244,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import importlib
 import itertools
@@ -1127,10 +1128,55 @@ def _half_diag_gram(v):
     return s
 
 
-def phase_qr_blocks(dev) -> None:
-    """The QR block kernels and the block step against their plain versions.
-    Tolerance 1e-5 max-scaled per output: the same f32 steps, apart from the
-    FMAs nvcc contracts and B1's order of summation."""
+GRAM_SHAPES = ((4096, 128, 128), (4096, 256, 3840), (128, 128, 128))   # phase 9's (K, m, n)
+# phase 11's: the first trailing update's, on the side stream (the kernels line's), and a
+# block's G = BᵀB at the first panel
+GRAM_TIMED = ((4096, 256, 3584), (4096, 128, 128))
+
+
+def _gram_cases(gen, dev) -> list:
+    """tml_gram_tn against its plain version (_gram_tn_plain: a batched
+    torch.matmul of the 128-row chunks, then their sum) at GRAM_SHAPES (X =
+    Y where m = n), through the wrapper; then through the driver's raw route
+    (qr._Gram) at K = 4096: X's top 128 rows from a second matrix, C with α
+    and β, and each flag; each launched twice, which must agree bit for bit
+    (the split-K partials are summed in slice order, whichever block ends
+    last). (name, what, got, want, repeat equal)."""
+    cases = []
+    for k, m, n in GRAM_SHAPES:
+        x = torch.randn((k, m), generator=gen, device=dev)
+        y = x if m == n else torch.randn((k, n), generator=gen, device=dev)
+        got, again = qr._gram_tn(x, y), qr._gram_tn(x, y)
+        cases.append(("gram_tn", f"K={k} {m}x{n}", (got,), (qr._gram_tn_plain(x, y),),
+                      torch.equal(got, again)))
+    x = torch.randn((4096, 128), generator=gen, device=dev)
+    top = torch.randn((128, 128), generator=gen, device=dev)
+    c = torch.randn((128, 128), generator=gen, device=dev)
+    full = torch.cat((top, x[128:]))
+    gram = qr._Gram(dev, torch.cuda.current_stream(dev).cuda_stream, 4)
+    xs = qr._split((top.data_ptr(), 128), (x.data_ptr(), 128), 128)
+    for flags, what in ((0, "split X, C, a=2 b=-1"), (qr._HALF_DIAG, "half diagonal"),
+                        (qr._ADD_RIDGE, "ridge")):
+        outs = []
+        for _ in range(2):
+            d = torch.empty((128, 128), device=dev)
+            gram((d.data_ptr(), 128), xs, xs, 4096, 128, 128, flags=flags, c=(c.data_ptr(), 128),
+                 alpha=2.0, beta=-1.0)
+            outs.append(d)
+        want = 2.0 * qr._gram_tn_plain(full, full) - c
+        if flags == qr._HALF_DIAG:
+            want.diagonal().mul_(0.5)
+        if flags == qr._ADD_RIDGE:
+            want.diagonal().add_(qr._RIDGE / 128 * want.diagonal().sum() + 1e-30)
+        cases.append(("gram_tn raw", what, outs[:1], (want,), torch.equal(*outs)))
+    return cases
+
+
+def phase_qr_blocks(dev) -> dict:
+    """The QR block kernels, the Gram kernel (``_gram_cases``) and the block
+    step against their plain versions. Tolerance 1e-5 max-scaled per output:
+    the same f32 steps, apart from the FMAs nvcc contracts and the order of
+    summation (B1's, and the Gram kernel's within a chunk)."""
     gen = torch.Generator(device=dev).manual_seed(8128)
     b = torch.randn((512, 128), generator=gen, device=dev)
     q = _cholqr2_plain(b)
@@ -1140,27 +1186,31 @@ def phase_qr_blocks(dev) -> None:
               qr._hh_recon128_plain(q[:128])),
              ("inv_upper_block", "T^-1 of a block", (onelaunch._inv_upper128(tinv),),
               (onelaunch._inv_upper128_plain(tinv),)),
-             ("_t_from_v", "B1 + inv_upper", (qr._t_from_v(vm),),
+             ("_t_from_v", "Gram + inv_upper", (qr._t_from_v(vm),),
               (qr._t_from_v(vm, qr._plain_ops()),))]
     cases += [("_qr_block128", f"j0={j0} (v, v1, rd)", qr._qr_block128(b, j0),
                qr._qr_block128_plain(b, j0)) for j0 in (0, 128)]
+    cases = [(*case, True) for case in cases] + _gram_cases(gen, dev)
     torch.cuda.synchronize()
     failures = []
-    for name, what, got, want in cases:
+    for name, what, got, want, repeat in cases:
         errs = [max_scaled_err(g, w) for g, w in zip(got, want)]
         finite = all(bool(torch.isfinite(g).all()) for g in got)
-        ok = max(errs) <= 1e-5 and finite
+        ok = max(errs) <= 1e-5 and finite and repeat
         print(f"[qr-blocks] {name:15s} {what:20s} max-scaled err per output "
-              f"{', '.join(f'{e:.3e}' for e in errs)} (tol 1e-5) {'ok' if ok else 'FAIL'}",
-              flush=True)
+              f"{', '.join(f'{e:.3e}' for e in errs)} (tol 1e-5)"
+              f"{f' repeat bit for bit {repeat}' if name.startswith('gram') else ''} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             failures.append(f"{name} {what}")
     if failures:
         raise SystemExit(f"chip_smoke: QR block kernels failed: {failures}")
+    return {"gram_max_abs_err": max(max_abs_rel(g, w)[0] for name, _, got, want, _ in cases
+                                    if name.startswith("gram") for g, w in zip(got, want))}
 
 
-_QR_COUNTS = (pallas_matmul, blocked._chol_inv128, qr._hh_recon128, onelaunch._inv_upper128,
-              qr.geqrf_onelaunch, qr.orgqr_onelaunch)
+_QR_COUNTS = (pallas_matmul, qr._gram_tn, blocked._chol_inv128, qr._hh_recon128,
+              onelaunch._inv_upper128, qr.geqrf_onelaunch, qr.orgqr_onelaunch)
 
 
 def _geqrf_then_orgqr(a):
@@ -1178,7 +1228,10 @@ def phase_qr_main(dev) -> dict:
     reference test (tests/test_solver_dense.py:377-381): rel(Q·R − A) and
     max|QᵀQ − I| < 5e-5, tril(R, −1) exactly 0. Against the plain drivers
     1e-4 max-scaled: summation-order differences pass through two Gram-matrix
-    Cholesky factorizations per block, which square its condition number."""
+    Cholesky factorizations per block, which square its condition number.
+    Each route must grow B1's, the Gram kernel's and the three sweeps'
+    counts; then one geqrf and one orgqr call apart print their launches by
+    kind."""
     n = SOLVER_N
     gen = torch.Generator(device=dev).manual_seed(2025)
     a = torch.randn((n, n), generator=gen, device=dev)
@@ -1218,14 +1271,15 @@ def phase_qr_main(dev) -> dict:
         max_abs["geqrf"] = max(max_abs["geqrf"], max_abs_rel(r, r_p)[0])
         g = grew[name]
         launched = (g["geqrf_onelaunch"] == 1 and g["orgqr_onelaunch"] == 1
-                    and min(g["pallas_matmul"], g["_chol_inv128"], g["_hh_recon128"],
-                            g["_inv_upper128"]) > 0)
+                    and min(g["pallas_matmul"], g["_gram_tn"], g["_chol_inv128"],
+                            g["_hh_recon128"], g["_inv_upper128"]) > 0)
         finite = bool(torch.isfinite(q).all() and torch.isfinite(r).all())
         info_ok = info is None or int(info) == 0
         ok = (rel < 5e-5 and orth < 5e-5 and lower_zero and info_ok and max(vs_q, vs_r) <= 1e-4
               and launched and finite and q.shape == r.shape == (n, n)
               and q.dtype == r.dtype == F32)
-        print(f"[qr] {name:32s} launches gemm +{g['pallas_matmul']} chol +{g['_chol_inv128']} "
+        print(f"[qr] {name:32s} launches gemm +{g['pallas_matmul']} gram +{g['_gram_tn']} "
+              f"chol +{g['_chol_inv128']} "
               f"recon +{g['_hh_recon128']} inv_upper +{g['_inv_upper128']} drivers "
               f"+{g['geqrf_onelaunch']}/+{g['orgqr_onelaunch']} | rel QR-A {rel:.3e} "
               f"orth {orth:.3e} (tol 5e-5) tril(R)=0 {lower_zero} info "
@@ -1242,10 +1296,26 @@ def phase_qr_main(dev) -> dict:
         failures.append("xormqr")
     if failures:
         raise SystemExit(f"chip_smoke: QR main path failed: {failures}")
-    return {"launches": launches, "max_abs_err": max_abs, "a": a, "routes": routes}
+    per_call = {}   # one call of each driver apart, by kind (outside the main path's counts)
+    for name, run in (("geqrf", lambda: qr.geqrf_onelaunch(a)),
+                      ("orgqr", lambda: qr.orgqr_onelaunch(*outs["vr, t"]))):
+        outs["vr, t"] = outs.get("vr, t") or qr.geqrf_onelaunch(a)
+        before = {f.__name__: f.launches for f in _QR_COUNTS}
+        run()
+        per_call[name] = {f.__name__: f.launches - before[f.__name__] for f in _QR_COUNTS[:5]}
+        print(f"[qr] launches a {name} call by kind: {per_call[name]}", flush=True)
+    torch.cuda.synchronize()
+    return {"launches": launches, "max_abs_err": max_abs, "a": a, "routes": routes,
+            "per_call": per_call}
 
 
 def phase_qr_times(qrd: dict, card: str) -> dict:
+    """11. One call of each QR route, its plain version and torch's (CUDA
+    events around a call after a synchronise); geqrf's and orgqr's device
+    time behind a spin (``_queued_ms``, with ``covered``), host enqueue and
+    the device's idle share of one call; the chain's two QR sweeps apart,
+    and the Gram kernel at GRAM_TIMED against its plain version and
+    ``torch.matmul(x.mT, y)``, back to back."""
     n = SOLVER_N
     a = qrd["a"]
     vr, t = qr.geqrf_onelaunch(a)
@@ -1260,11 +1330,31 @@ def phase_qr_times(qrd: dict, card: str) -> dict:
         "orgqr plain": lambda: qr._orgqr_onelaunch_plain(vr, t),
     }
     ms = _median_ms(runs, warmup=1, iters=3)
-    dev_ms, host_ms, covered = _queued_ms(runs["geqrf kernel"], 2)
-    print(f"[qr-times] geqrf kernel device {dev_ms:.4f} ms (back to back behind a spin, spin "
-          f"covered {covered}) | host enqueue {host_ms:.4f} ms a call (no synchronise) | {card}",
-          flush=True)
+    for name in ("geqrf kernel", "orgqr kernel"):
+        samples = [_queued_ms(runs[name], 3) for _ in range(3)]
+        dev_ms = float(np.median([t[0] for t in samples]))
+        ms[f"{name} device"] = dev_ms
+        ms[f"{name} host"] = float(np.median([t[1] for t in samples]))
+        ms[f"{name} covered"] = all(t[2] for t in samples)
+        ms[f"{name} idle"] = 1.0 - dev_ms / ms[name]
+        vendor = f" | torch.geqrf {ms['geqrf vendor']:.4f} ms" if name == "geqrf kernel" else ""
+        print(f"[qr-times] {name:12s} device {dev_ms:.4f} ms (back to back behind a spin; "
+              f"samples {', '.join(f'{t[0]:.4f}' for t in samples)}; spin covered "
+              f"{ms[f'{name} covered']}) | host enqueue {ms[f'{name} host']:.4f} ms a call (no "
+              f"synchronise) | idle share of a call {ms[f'{name} idle']:.3f} | one call "
+              f"{ms[name]:.4f} ms{vendor} | {card}", flush=True)
+    ms["geqrf chain alone device"] = float(np.median(
+        [_queued_ms(lambda: _ChainOnly(a).run(), 3)[0] for _ in range(3)]))
+    print(f"[qr-times] geqrf chain and aux alone (the side's launches dropped) device "
+          f"{ms['geqrf chain alone device']:.4f} ms: the side's work adds "
+          f"{ms['geqrf kernel device'] - ms['geqrf chain alone device']:.4f} | {card}", flush=True)
+    ms["geqrf kernels"] = _kernel_breakdown(runs["geqrf kernel"])
+    for name, (t, count) in ms["geqrf kernels"].items():
+        print(f"[qr-times] geqrf a call: {t:8.4f} ms in {count:5.0f} launches of {name} "
+              f"(torch.profiler) | {card}", flush=True)
     for name, tm in ms.items():
+        if not isinstance(tm, float) or name.endswith(("device", "host", "idle")):
+            continue
         flop = 8 * n**3 / 3 if name.startswith("qr") else 4 * n**3 / 3
         print(f"[qr-times] {name:12s} n={n} f32: {tm:.4f} ms = {flop / tm / 1e6:.1f} GFLOP/s "
               f"({'8' if name.startswith('qr') else '4'}n^3/3) | {card}", flush=True)
@@ -1281,7 +1371,35 @@ def phase_qr_times(qrd: dict, card: str) -> dict:
     }
     for name, tm in _median_ms(blocks, warmup=2, iters=10).items():
         shape = f"({n}, 128)" if name.startswith("_qr") else "128x128"
+        ms[name] = tm
         print(f"[qr-times] {name:23s} {shape} f32: {tm:.4f} ms | {card}", flush=True)
+    gen = torch.Generator(device=a.device).manual_seed(4099)
+    grams = {}
+    for k, m, n_ in GRAM_TIMED:
+        x = torch.randn((k, m), generator=gen, device=a.device)
+        y = x if m == n_ else torch.randn((k, n_), generator=gen, device=a.device)
+        # the kernel as the driver launches it: its work space allocated once
+        d = torch.empty((m, n_), device=a.device)
+        lane = qr._Gram(a.device, torch.cuda.current_stream(a.device).cuda_stream,
+                        (m // 64) * (n_ // 64))
+        line = f"gram K{k} {m}x{n_}"
+        grams[f"{line} kernel"] = functools.partial(
+            lane, (d.data_ptr(), n_), (x.data_ptr(), m), (y.data_ptr(), n_), k, m, n_)
+        grams[f"{line} plain"] = functools.partial(qr._gram_tn_plain, x, y)
+        grams[f"{line} library"] = functools.partial(torch.matmul, x.mT, y)
+    ms.update(_loop_ms(grams, warmup=2, reps=10, samples=3))
+    for name in grams:
+        k, m, n_ = (int(v) for v in re.findall(r"\d+", name))
+        bound = _bound(2.0 * k * m * n_, PEAK_F32, 4 * (k * m + k * n_ + m * n_))
+        ms[f"{name.rsplit(' ', 1)[0]} bound"] = bound
+        print(f"[qr-times] {name:30s} {ms[name]:.4f} ms (back to back) | bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), {bound['bound_ms'] / ms[name]:.1%}"
+              f" of it | {card}", flush=True)
+    for name in ("hh_recon_block kernel", "inv_upper_block kernel"):   # the chain's sweeps
+        ms[f"{name} device"] = float(np.median([_queued_ms(blocks[name], 50)[0]
+                                                for _ in range(3)]))
+        print(f"[qr-times] {name:23s} 128x128 f32: device {ms[f'{name} device']:.4f} ms "
+              f"(back to back behind a spin) | {card}", flush=True)
     for name, route in qrd["routes"].items():
         print(f"[qr-times] wall {name:32s} {_wall_ms(route, 3):.4f} ms per call "
               f"(host clock, 3 calls) | {card}", flush=True)
@@ -1561,6 +1679,42 @@ def _device_ms(fn, names: tuple, reps: int = 5) -> float | None:
             t = getattr(e, "self_device_time_total", None)
             mine += getattr(e, "self_cuda_time_total", 0.0) if t is None else t
     return mine / reps / 1e3 if mine > 0 else None
+
+
+def _kernel_breakdown(fn, reps: int = 2) -> dict:
+    """Each CUDA kernel's device ms and launches a call of ``fn``, by its
+    name (template arguments kept, parameters dropped), from torch.profiler;
+    empty where the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if "_kernel" not in e.key or e.key.startswith(("aten::", "cuda")):
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        t = getattr(e, "self_cuda_time_total", 0.0) if t is None else t
+        name = e.key.removeprefix("void ").replace("(anonymous namespace)::", "")
+        name = name.split("(")[0][:72]
+        if t > 0:
+            ms, count = out.get(name, (0.0, 0))
+            out[name] = (ms + t / 1e3 / reps, count + e.count / reps)
+    return dict(sorted(out.items(), key=lambda kv: -kv[1][0]))
+
+
+class _ChainOnly(qr._DeviceQr):
+    """geqrf's device route with the side stream's launches dropped (its
+    result is wrong): the chain's and the aux stream's device time alone,
+    the least this schedule could take while the sweeps stay as they are."""
+
+    def __init__(self, a):
+        super().__init__(a)
+        self.side.mm = self.side.gram = lambda *args, **kw: None
 
 
 def phase_fft_times(fftd: dict, card: str) -> dict:
@@ -2231,6 +2385,7 @@ DX_MAIN = (8192, 32)   # (batch, n) of bench.py's batched lines (bench.py:366)
 DX_WIDE = (1024, 128)  # (batch, n) of the _run_batched route
 DX_K = 4               # right-hand sides of gesv and posv
 DX_COUNTS = (dxs._potrf, dxs._getrf, dxs._geqrf, pallas_matmul)
+LU_ROUTES = ("warp", "block")   # dx.solver._getrf_route's routes, each counted apart
 # Max-scaled tolerance of each kernel's factors against its plain version, on
 # the matrices whose pivots agree. The kernels contract multiply-adds to FMAs
 # and sum in their own order, and elimination carries those roundings on, so
@@ -2326,6 +2481,17 @@ def _dx_control(kind: str, m) -> float:
     return max_scaled_err(lu_lo[agree], lu[agree])
 
 
+def _lu_route_label(n: int, k: int, where: str) -> str:
+    """The route tml_getrf_batched takes at (n, k): "warp", or "block" in
+    shared memory or in place."""
+    route = dxs._getrf_route(n, k)
+    return route if route == "warp" else f"block, {where}"
+
+
+def _lu_close(lu, lu_p) -> bool:
+    return max_scaled_err(lu, lu_p) <= DX_TOL["getrf"]
+
+
 def phase_dx_kernel(dev) -> None:
     """The three kernels of csrc/dx_solver.cu against their plain versions
     and float64 on the host, at n = 8 … 256 and a batch of 37: potrf's three
@@ -2343,7 +2509,12 @@ def phase_dx_kernel(dev) -> None:
     below 5e-5, |L| ≤ 1 with pivoting, and the solves' normwise backward
     error below 1e-5. At n = 32 and 128 the bf16 control (_dx_control) must
     exceed each tolerance. Then the cases of ROADMAP C10 and C11, ties and
-    a zero column."""
+    a zero column. getrf and gesv take a warp a matrix for n, k ≤ 32 and a
+    block above (``dx.solver._getrf_route``; each line names its route): the
+    ties and C11 also at n = 16, and a zero pivot column with a NaN matrix
+    among good ones (C10) at n = 16 (pad rows past n) and 32, whose pivots
+    and NaN must be the plain version's and whose good matrices must equal
+    their factors alone."""
     gen = torch.Generator(device=dev).manual_seed(7373)
     failures, cases = [], 0
 
@@ -2376,7 +2547,7 @@ def phase_dx_kernel(dev) -> None:
             vs_p = max_scaled_err(lu[agree], lu_p[agree]) if bool(agree.any()) else 0.0
             res, lmax = _lu_residual(m.cpu(), lu.cpu(), piv.cpu())
             in_range = bool(((piv >= 0) & (piv < n)).all())
-            hold(f"getrf pivot={pivot} n={n} ({where})",
+            hold(f"getrf pivot={pivot} n={n} ({_lu_route_label(n, 0, where)})",
                  vs_p <= DX_TOL["getrf"] and res < 5e-5 and (lmax <= 1 + 1e-6 or not pivot)
                  and in_range
                  and int((~agree).sum()) <= 3,
@@ -2409,12 +2580,12 @@ def phase_dx_kernel(dev) -> None:
                 fwd = float(((x[sel] - x_p[sel]).double().cpu().flatten(1).abs().amax(1)
                              / _amax(x_p[sel].double().cpu()).clamp(min=1) / cond).max())
                 res = _solve_residual(m.cpu(), x.cpu(), rhs.cpu())
-                route = dxs._potrf_route(n, k) if kind == "posv" else where
+                route = dxs._potrf_route(n, k) if kind == "posv" else _lu_route_label(n, k, where)
                 hold(f"{kind} n={n} k={k} ({route})", fwd <= 5e-5 and res < 1e-5
                      and bool(torch.isfinite(x).all()),
                      f"vs plain / cond {fwd:.3e} backward error {res:.3e}")
 
-    for n in (32, 48):   # ties: -5 at row 7 and 5 at row 12 give pivot 7
+    for n in (16, 32, 48):   # ties: -5 at row 7 and 5 at row 12 give pivot 7
         m = 0.01 * torch.randn((3, n, n), generator=gen, device=dev)
         m[:, 7, 0], m[:, 12, 0] = -5.0, 5.0
         p0 = dxs._getrf(m)[1][:, 0].tolist()
@@ -2435,7 +2606,7 @@ def phase_dx_kernel(dev) -> None:
         hold(f"C10 non-SPD among SPD n={n}", alone and pattern and same,
              f"neighbours alone {alone}, NaN from column 10 on {pattern}, as plain {same}")
     # C11: NaN in a pivot column: pivots in range, the first NaN row, NaN in LU
-    for n in (32, 48):
+    for n in (16, 32, 48):
         m = torch.randn((3, n, n), generator=gen, device=dev)
         m[0, 5, 0] = m[0, 9, 0] = float("nan")
         lu, piv = dxs._getrf(m)
@@ -2444,6 +2615,22 @@ def phase_dx_kernel(dev) -> None:
               and bool(lu[0].isnan().any()) and torch.equal(piv, piv_p))
         hold(f"C11 NaN in pivot column n={n}", ok,
              f"piv[0][:4] {piv[0, :4].tolist()}, NaN in LU {bool(lu[0].isnan().any())}")
+    # getrf's warp route: a zero pivot column (0/0 from there on; the pad rows
+    # past n = 16 are never pivots) and C10 (a NaN stays in its own matrix)
+    for n in (16, 32):
+        m = torch.randn((8, n, n), generator=gen, device=dev)
+        m[1, :, 3] = 0.0
+        m[2, n - 1, 4] = float("nan")
+        (lu, piv), (lu_p, piv_p) = dxs._getrf(m), dxs._getrf_plain(m)
+        good = (0, 3, 4, 5, 6, 7)
+        alone = all(torch.equal(lu[i], dxs._getrf(m[i:i + 1])[0][0]) for i in good)
+        finite = all(bool(torch.isfinite(lu[i]).all()) for i in good)
+        ok = (torch.equal(piv, piv_p) and torch.equal(lu.isnan(), lu_p.isnan()) and alone
+              and finite and bool(((piv >= 0) & (piv < n)).all()) and bool(lu[1].isnan().any())
+              and _lu_close(lu[list(good)], lu_p[list(good)]))
+        hold(f"getrf zero column, C10 n={n} ({dxs._getrf_route(n)})", ok,
+             f"pivots as plain {torch.equal(piv, piv_p)}, NaN where plain "
+             f"{torch.equal(lu.isnan(), lu_p.isnan())}, neighbours alone {alone}")
     m = torch.randn((2, 32, 32), generator=gen, device=dev)
     m[0, :, 5] = 0.0
     m[1, 0, 0] = 0.0
@@ -2506,7 +2693,8 @@ def phase_dx_main(dev) -> dict:
     batch 8192 × n 32 (potrf and getrf through the packed routes, geqrf,
     gesv and posv with 4 right-hand sides), potrf and getrf at batch 1024 ×
     n 128, and potrf_blocked at n = 4096. Each must grow its kernel's count
-    (potrf_blocked also B1's). Held against the plain version (DX_TOL on
+    (potrf_blocked also B1's; getrf and gesv by one on their route's count,
+    ``dx.solver._getrf_route``, and none on the other). Held against the plain version (DX_TOL on
     factors where the pivots agree, which at most 1 in 128 matrices may not;
     solutions over the matrix's condition, 5e-5) and the residuals of phase
     18; potrf_blocked against a float64 factor (5e-5)."""
@@ -2516,13 +2704,15 @@ def phase_dx_main(dev) -> dict:
     torch.cuda.synchronize()
     for f in DX_COUNTS:
         f.launches = 0
-    outs, grew = {}, {}
+    dxs._getrf.warp_launches = dxs._getrf.block_launches = 0
+    outs, grew, route_grew = {}, {}, {}
     for name, (route, _, _, _) in routes.items():
-        before = {f.__name__: f.launches for f in DX_COUNTS}
+        before, before_routes = {f.__name__: f.launches for f in DX_COUNTS}, _lu_counts()
         outs[name] = route()
         grew[name] = {f.__name__: f.launches - before[f.__name__] for f in DX_COUNTS}
+        route_grew[name] = {k: t - before_routes[k] for k, t in _lu_counts().items()}
     torch.cuda.synchronize()
-    launches = {f.__name__: f.launches for f in DX_COUNTS}
+    launches = {f.__name__: f.launches for f in DX_COUNTS} | _lu_counts()
     print(f"[dx] launches in the main path: {launches}", flush=True)
 
     piv_agree = None
@@ -2530,6 +2720,10 @@ def phase_dx_main(dev) -> dict:
     for name, (_, count, plain_fn, _) in routes.items():
         out = outs[name]
         launched = grew[name][count] >= 1
+        if count == "_getrf":   # one launch, on the route of its (n, k), and none on the other
+            want = dxs._getrf_route(*_dx_nk(name))
+            launched = launched and all(route_grew[name][f"_getrf.{r}"] == (r == want)
+                                        for r in LU_ROUTES)
         if name == "potrf_blocked n4096":
             launched = launched and grew[name]["pallas_matmul"] >= 1
             big = x["big"]
@@ -2586,13 +2780,20 @@ def phase_dx_main(dev) -> dict:
             del plain
             ok = ok and launched and all(bool(torch.isfinite(t).all()) for t in
                                          (out if isinstance(out, tuple) else (out,)))
-        print(f"[dx] {name:32s} launches {grew[name]} | {detail} {'ok' if ok else 'FAIL'}",
-              flush=True)
+        seen = {k: t for k, t in route_grew[name].items() if t}
+        print(f"[dx] {name:32s} launches {grew[name]}{f' routes {seen}' if seen else ''} | "
+              f"{detail} {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             failures.append(name)
     if failures:
         raise SystemExit(f"chip_smoke: dx solver main path failed: {failures}")
-    return {"launches": launches, "grew": grew, "max_abs_err": max_abs, "routes": routes}
+    return {"launches": launches, "grew": grew, "route_grew": route_grew, "max_abs_err": max_abs,
+            "routes": routes}
+
+
+def _lu_counts() -> dict:
+    """Launches of the batched LU on each route, as "_getrf.warp"."""
+    return {f"_getrf.{r}": getattr(dxs._getrf, f"{r}_launches") for r in LU_ROUTES}
 
 
 def _dx_nk(name: str) -> tuple[int, int]:
@@ -2626,7 +2827,8 @@ def phase_dx_times(dxd: dict, card: str) -> dict:
     cholesky_ex, lu_factor_ex with pivot on and off, torch.geqrf,
     torch.linalg.solve for gesv and posv, torch.linalg.cholesky for
     potrf_blocked), each beside its bound; and the registers and spills of
-    the three Cholesky routes' kernels (none may spill)."""
+    the three Cholesky routes' kernels and the LU's warp kernels (none may
+    spill)."""
     fast, slow = {}, {}
     for name, (route, _, plain, library) in dxd["routes"].items():
         target = slow if name.startswith("potrf_blocked") else fast
@@ -2637,13 +2839,16 @@ def phase_dx_times(dxd: dict, card: str) -> dict:
     ms = _loop_ms(fast, warmup=3, reps=20, samples=5)
     ms.update(_loop_ms(slow, warmup=1, reps=2, samples=3))
     ms["ptxas"] = _ptxas_report("potrf_", "dx-times")
+    ms["lu_ptxas"] = _ptxas_report("getrf_warp_kernel", "dx-times")
     bounds = {}
-    for name in dxd["routes"]:
+    for name, (_, count, _, _) in dxd["routes"].items():
         bounds[name] = bound = _dx_bound(name)
+        lu = f" ({dxs._getrf_route(*_dx_nk(name))} route)" if count == "_getrf" else ""
         for route in ("kernel", "plain", "library"):
             t = ms.get(f"{name} {route}")
             if t is not None:
-                print(f"[dx-times] {name:32s} {route:7s} {t:.4f} ms | bound {bound['bound_ms']:.4f} "
+                print(f"[dx-times] {name:32s} {route:7s} {t:.4f} ms{lu if route == 'kernel' else ''}"
+                      f" | bound {bound['bound_ms']:.4f} "
                       f"ms ({bound['bound_by']}), {bound['bound_ms'] / t:.1%} of it | {card}",
                       flush=True)
     ms["bounds"] = bounds
@@ -4872,7 +5077,7 @@ def main() -> None:
     block_ms = phase_blocks(dev, card)
     solver = phase_solver_main(dev)
     solver_ms = phase_solver_times(solver, card)
-    phase_qr_blocks(dev)
+    qrb = phase_qr_blocks(dev)
     qrd = phase_qr_main(dev)
     qr_ms = phase_qr_times(qrd, card)
     phase_fft_kernel(dev)
@@ -4988,15 +5193,42 @@ def main() -> None:
         "plain_ms": qr_ms[f"{kind} plain"],
         **_bound(4 * ns**3 / 3, PEAK_F32, nbytes),
         "library_ms": library,
+        # one call's launches by kind, its device time behind a spin, the host's
+        # enqueue and the device's idle share of one call
+        "launches_per_call": qrd["per_call"][kind],
+        "device_ms": qr_ms[f"{kind} kernel device"],
+        "device_ms_covered": qr_ms[f"{kind} kernel covered"],
+        "host_enqueue_ms": qr_ms[f"{kind} kernel host"],
+        "idle_share": qr_ms[f"{kind} kernel idle"],
+        **({"chain_alone_device_ms": qr_ms["geqrf chain alone device"],
+            "kernels_ms_per_call": {k: round(v[0], 4) for k, v in qr_ms["geqrf kernels"].items()}}
+           if kind == "geqrf" else {}),
     } for name, kind, count, source, replaces, nbytes, library in (
-        ("geqrf_onelaunch (chol_inv_block + hh_recon_block + inv_upper_block + gemm_epilogue)",
-         "geqrf", "_hh_recon128", "tpumathlib_torch/csrc/qr_block.cu",
+        ("geqrf_onelaunch (chol_inv_block + hh_recon_block + inv_upper_block + gram_tn + "
+         "gemm_epilogue)", "geqrf", "_hh_recon128", "tpumathlib_torch/csrc/qr_block.cu",
          "tpumathlib/solver/qr_onelaunch.py:318", solver_bytes + 4 * ns * 256,
          qr_ms["geqrf vendor"]),
         # torch's Householder product takes LAPACK's (a, tau), not (vr, t): no like call
-        ("orgqr_onelaunch (gemm_epilogue)", "orgqr", "orgqr_onelaunch",
-         "tpumathlib_torch/csrc/gemm_epilogue.cu", "tpumathlib/solver/qr_onelaunch.py:439",
+        ("orgqr_onelaunch (gram_tn + gemm_epilogue)", "orgqr", "orgqr_onelaunch",
+         "tpumathlib_torch/csrc/qr_gram.cu", "tpumathlib/solver/qr_onelaunch.py:439",
          solver_bytes + 4 * ns * 256, None))] + [{
+        # the Gram product of B4a and B4b; its time at the first trailing update's shape
+        "name": "gram_tn (tml_gram_tn)",
+        "route": "cuda",
+        "source": "tpumathlib_torch/csrc/qr_gram.cu",
+        "replaces": "tpumathlib/solver/qr_onelaunch.py:318 and :439 (the products over the rows)",
+        "launches": qrd["launches"]["_gram_tn"],
+        "max_abs_err": qrb["gram_max_abs_err"],
+        "ms": qr_ms[f"gram K{GRAM_TIMED[0][0]} {GRAM_TIMED[0][1]}x{GRAM_TIMED[0][2]} kernel"],
+        "plain_ms": qr_ms[f"gram K{GRAM_TIMED[0][0]} {GRAM_TIMED[0][1]}x{GRAM_TIMED[0][2]} plain"],
+        **qr_ms[f"gram K{GRAM_TIMED[0][0]} {GRAM_TIMED[0][1]}x{GRAM_TIMED[0][2]} bound"],
+        "library_ms": qr_ms[f"gram K{GRAM_TIMED[0][0]} {GRAM_TIMED[0][1]}x{GRAM_TIMED[0][2]} "
+                            f"library"],
+        "library_is": "torch.matmul(x.mT, y), one f32 accumulator along K",
+        "shape_kmn": list(GRAM_TIMED[0]),
+        "gram_128x128": {key: qr_ms[f"gram K{GRAM_TIMED[1][0]} 128x128 {key}"]
+                         for key in ("kernel", "plain", "library", "bound")},
+    }] + [{
         "name": "dif_fft",
         "route": "cuda",
         "source": "tpumathlib_torch/csrc/fft_dif.cu",
@@ -5053,18 +5285,24 @@ def main() -> None:
         "library_ms": dx_ms[f"{line} library"],
         **({"potrf_route": dxs._potrf_route(*_dx_nk(line)), "ptxas": dx_ms["ptxas"]}
            if count == "_potrf" else {}),
+        **({"getrf_route": dxs._getrf_route(*_dx_nk(line)),
+            "route_launches": dxd["route_grew"][line][f"_getrf.{dxs._getrf_route(*_dx_nk(line))}"],
+            **({"ptxas": dx_ms["lu_ptxas"]} if dxs._getrf_route(*_dx_nk(line)) == "warp" else {})}
+           if count == "_getrf" else {}),
     } for name, line, count, site in (
         ("potrf_batched_packed (tml_potrf_batched)", "potrf_batched b8192 n32", "_potrf", "977"),
-        ("getrf_batched_packed (tml_getrf_batched)", "getrf_batched b8192 n32", "_getrf", "480"),
-        ("getrf_batched_packed pivot=False (tml_getrf_batched)", "getrf_batched nopivot b8192 n32",
-         "_getrf", "480"),
+        ("getrf_batched_packed warp route (tml_getrf_batched: getrf_warp_kernel, n <= 32)",
+         "getrf_batched b8192 n32", "_getrf", "480"),
+        ("getrf_batched_packed pivot=False warp route (tml_getrf_batched: getrf_warp_kernel)",
+         "getrf_batched nopivot b8192 n32", "_getrf", "480"),
         ("geqrf_batched (tml_geqrf_batched)", "geqrf_batched b8192 n32", "_geqrf", "222"),
-        ("gesv_batched (tml_getrf_batched with a right-hand side)", "gesv_batched b8192 n32 k4",
-         "_getrf", "301"),
+        ("gesv_batched warp route (tml_getrf_batched: getrf_warp_kernel with a right-hand side)",
+         "gesv_batched b8192 n32 k4", "_getrf", "301"),
         ("posv_batched (tml_potrf_batched with a right-hand side)", "posv_batched b8192 n32 k4",
          "_potrf", "359"),
         ("potrf_batched n=128 (tml_potrf_batched)", "potrf_batched b1024 n128", "_potrf", "222"),
-        ("getrf_batched n=128 (tml_getrf_batched)", "getrf_batched b1024 n128", "_getrf", "222"))] + [{
+        ("getrf_batched n=128 block route (tml_getrf_batched: getrf_kernel, n >= 33)",
+         "getrf_batched b1024 n128", "_getrf", "222"))] + [{
         "name": name,
         "route": "cuda",
         "source": f"tpumathlib_torch/csrc/{source}",

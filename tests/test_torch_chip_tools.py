@@ -67,12 +67,14 @@ def test_f32_paths_run_on_the_cpu(monkeypatch):
     monkeypatch.setattr(mod, "JACOBI", ((4, 32), (2, 64)))
     paths = mod._paths(torch.device("cpu"))
     assert sorted(paths) == sorted(["potrf_onelaunch", "getrf_onelaunch", "geqrf_onelaunch",
-                                    "potrf_blocked", "dropout_matmul_kernel",
+                                    "orgqr_onelaunch", "potrf_blocked", "dropout_matmul_kernel",
                                     "pallas_matmul_bf16_gelu_bias", "spmm_bell_bf16",
                                     "spmv_bell_f32", "dif_fft_f32_natural", "dif_fft_bf16_raw",
                                     "pallas_fft", "pallas_fft2", "potrf_batched_1024x128",
                                     "potrf_batched_8192x32", "posv_batched_8192x32_k4",
-                                    "getrf_batched_8192x32", "geqrf_batched_8192x32",
+                                    "getrf_batched_8192x32", "getrf_batched_nopivot_8192x32",
+                                    "gesv_batched_8192x32_k4", "getrf_batched_1024x128",
+                                    "geqrf_batched_8192x32", "geqrf_batched_1024x128",
                                     "syevd_batched_8192x32", "gesvd_batched_8192x32",
                                     "syevd_batched_2048x64", "gesvd_batched_2048x64"])
     for name, fn in paths.items():

@@ -393,7 +393,7 @@ class _EmulatedLib(_EmulatedGemmLib):
 
     def tml_getrf_batched(self, a, lu, piv, b, x, batch, n, k, pivot, stream):
         self.solver_calls.append(dict(kernel="getrf", batch=batch, n=n, k=k, factor=bool(lu),
-                                      piv=bool(piv), pivot=pivot))
+                                      piv=bool(piv), pivot=pivot, route=port._getrf_route(n, k)))
         rc = self._refuse(lu, n, k) or (1 if k and not pivot else 0)
         if rc:
             return rc
@@ -436,13 +436,18 @@ def _grew(before):
     return [f.launches - b for f, b in zip(_COUNTS, before)]
 
 
+def _lu_routes():
+    """Launches of the batched LU on each route: (warp, block)."""
+    return port._getrf.warp_launches, port._getrf.block_launches
+
+
 @pytest.mark.parametrize("n", [32, 48])
 @pytest.mark.parametrize("kind", ["potrf", "getrf pivot", "getrf nopivot", "geqrf"])
 def test_cuda_branch_factor_marshalling(emulated, rng, kind, n):
     bsz = 5
     g = rng.normal(size=(bsz, n, n)).astype(np.float32) + n * np.eye(n, dtype=np.float32)
     a = from_numpy(_spd(rng, bsz, n) if kind == "potrf" else g)
-    before = [f.launches for f in _COUNTS]
+    before, routes = [f.launches for f in _COUNTS], _lu_routes()
     if kind == "potrf":
         got, want, counter = dx.potrf_batched(a), (port._potrf_plain(a),), [1, 0, 0, 0]
         got = (got,)
@@ -451,12 +456,16 @@ def test_cuda_branch_factor_marshalling(emulated, rng, kind, n):
         pivot = kind == "getrf pivot"
         got, want = dx.getrf_batched(a, pivot=pivot), port._getrf_plain(a, pivot)
         counter = [0, 1, 0, 0]
-        call = dict(kernel="getrf", batch=bsz, n=n, k=0, factor=True, piv=True, pivot=int(pivot))
+        call = dict(kernel="getrf", batch=bsz, n=n, k=0, factor=True, piv=True, pivot=int(pivot),
+                    route="warp" if n <= 32 else "block")
     else:
         got, want, counter = dx.geqrf_batched(a), port._geqrf_plain(a), [0, 0, 1, 0]
         call = dict(kernel="geqrf", batch=bsz, n=n)
     assert _grew(before) == counter
     assert emulated.solver_calls == [call]
+    lu_route = call.get("route")   # only that route's count grows
+    assert [r - r0 for r, r0 in zip(_lu_routes(), routes)] == [
+        int(lu_route == "warp"), int(lu_route == "block")]
     for g_, w in zip(got, want):
         assert g_.dtype == w.dtype and torch.equal(g_, w)
 
@@ -469,15 +478,17 @@ def test_cuda_branch_solve_marshalling(emulated, rng, kind, k):
     n, bsz = 32, 3
     a = from_numpy(_spd(rng, bsz, n))
     b = from_numpy(rng.normal(size=(bsz, n, k)).astype(np.float32))
-    before = [f.launches for f in _COUNTS]
+    before, routes = [f.launches for f in _COUNTS], _lu_routes()
     if kind == "gesv":
         got, want, counter = dx.gesv_batched(a, b), port._gesv_plain(a, b), [0, 1, 0, 0]
-        call = dict(kernel="getrf", batch=bsz, n=n, k=k, factor=False, piv=False, pivot=1)
+        call = dict(kernel="getrf", batch=bsz, n=n, k=k, factor=False, piv=False, pivot=1,
+                    route="warp")
     else:
         got, want, counter = dx.posv_batched(a, b), port._posv_plain(a, b), [1, 0, 0, 0]
         call = dict(kernel="potrf", batch=bsz, n=n, k=k, factor=False)
     assert _grew(before) == counter
     assert emulated.solver_calls == [call]
+    assert [r - r0 for r, r0 in zip(_lu_routes(), routes)] == [int(kind == "gesv"), 0]
     assert got.shape == (bsz, n, k) and torch.equal(got, want)
 
 
@@ -746,3 +757,137 @@ def test_cuda_branch_posv_factor_buffer_follows_the_route(emulated, rng, n, k):
     x = dx.posv_batched(a, b)
     assert emulated.solver_calls[-1]["factor"] is (port._potrf_route(n, k) == "in place")
     assert max_scaled_err(torch.bmm(a, x), b) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# tml_getrf_batched's warp route, mirrored in numpy (csrc/dx_solver.cu's
+# getrf_warp_kernel)
+
+def _before(v1, i1, v2, i2):
+    """csrc/dx_solver.cu's before(): (v1, i1) ahead of (v2, i2) as a pivot."""
+    n1, n2 = np.isnan(v1), np.isnan(v2)
+    return np.where(n1 | n2, n1 & (~n2 | (i1 < i2)), (v1 > v2) | ((v1 == v2) & (i1 < i2)))
+
+
+def _model_warp_getrf(a, pivot=True, b=None):
+    """getrf_warp_kernel on f32 (B, n, n), n ≤ 32, with 32 lanes: lane r holds
+    row r (the identity past n), ``pos`` its row's index after the swaps so
+    far, ``live`` whether it is not yet a pivot row (never for a pad row),
+    ``step`` the step at which it became one. Step j: the pivot by the
+    kernel's 5-step xor reduction of (|a[j]|, pos) over the live lanes in
+    before()'s order (the others carry (−1, 32)); the lane at pos j takes
+    the pivot's pos, the pivot lane takes j; the live lanes divide a[j] by
+    the pivot and subtract l·u_c from a[c], j < c < n. Then lane r's row goes
+    to row pos. With b (B, n, k ≤ 32): L·y = P·b, lane r carrying b's row r
+    and the lanes live at step j taking part in its step, then U·x = y,
+    the lanes that were pivots before step j taking part; x's row r goes to
+    row pos. Without the kernel's FMAs. Returns (LU, piv) or X."""
+    bsz, n, _ = a.shape
+    lanes, rows = np.arange(32), np.arange(bsz)
+    d = np.broadcast_to(np.eye(32, dtype=np.float32), (bsz, 32, 32)).copy()
+    d[:, :n, :n] = a
+    pos = np.tile(lanes, (bsz, 1))
+    live = np.tile(lanes < n, (bsz, 1))
+    step = np.full((bsz, 32), n)
+    piv = np.zeros((bsz, n), np.int32)
+    pl_of = np.zeros((bsz, n), np.int64)
+    for j in range(n):
+        if pivot:
+            bv = np.where(live, np.abs(d[:, :, j]), np.float32(-1))
+            bp = np.where(live, pos, 32)
+            for off in (16, 8, 4, 2, 1):
+                ov, op = bv[:, lanes ^ off], bp[:, lanes ^ off]
+                take = _before(ov, op, bv, bp)
+                bv, bp = np.where(take, ov, bv), np.where(take, op, bp)
+            assert (bp == bp[:, :1]).all()   # every lane holds the same pivot
+            p = bp[:, 0]
+            pl = np.argmax(live & (pos == p[:, None]), axis=1)
+            piv[:, j] = p
+            pos = np.where(pos == j, p[:, None], pos)
+            pos[rows, pl] = j
+        else:
+            pl = np.full(bsz, j)
+            piv[:, j] = j
+        pl_of[:, j] = pl
+        u = d[rows, pl].copy()                 # the pivot row, not live from here
+        live[rows, pl] = False
+        step[rows, pl] = j
+        with np.errstate(divide="ignore", invalid="ignore"):
+            l = d[:, :, j] / u[:, j, None]
+            for c in range(j + 1, n):
+                d[:, :, c] = np.where(live, d[:, :, c] - l * u[:, c, None], d[:, :, c])
+        d[:, :, j] = np.where(live, l, d[:, :, j])
+    placed = np.zeros_like(d)
+    placed[rows[:, None], pos] = d
+    if b is None:
+        return placed[:, :n, :n], piv
+    x = np.zeros((bsz, 32, 32), np.float32)
+    x[:, :n, :b.shape[-1]] = b
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        for j in range(n):
+            y = x[rows, pl_of[:, j]]
+            x = np.where((step > j)[:, :, None], x - d[:, :, j, None] * y[:, None, :], x)
+        for j in reversed(range(n)):
+            src = pl_of[:, j]
+            y = x[rows, src] / d[rows, src, j][:, None]
+            x[rows, src] = y
+            x = np.where((step < j)[:, :, None], x - d[:, :, j, None] * y[:, None, :], x)
+    out = np.zeros_like(x)
+    out[rows[:, None], pos] = x
+    return out[:, :n, :b.shape[-1]]
+
+
+def _lu_cases(rng, n):
+    """Gaussian matrices, and matrices with a tie, a NaN (C11) and an
+    all-zero column in the pivot columns."""
+    a = rng.normal(size=(5, n, n)).astype(np.float32)
+    lo, hi = min(1, n - 1), min(3, n - 1)
+    a[1, :, 0] = 0.01 * a[1, :, 0]
+    a[1, lo, 0], a[1, hi, 0] = -5.0, 5.0            # a tie: the lower row wins
+    if n > 1:
+        a[2, lo, 0] = a[2, hi, 0] = np.nan          # C11: the first NaN row
+    a[3, :, min(2, n - 1)] = 0.0                     # a zero pivot: 0 / 0 from there on
+    return a
+
+
+@pytest.mark.parametrize("n", [1, 5, 16, 31, 32])
+def test_getrf_warp_model_takes_the_plain_steps(rng, n):
+    """The warp route's model equals _getrf_plain bit for bit, LU and piv,
+    pivoted and not, also where a tie, a NaN or a zero column decides the
+    pivots (the pad rows never become pivots)."""
+    a = _lu_cases(rng, n)
+    for pivot in (True, False):
+        m = a if pivot else a + n * np.eye(n, dtype=np.float32)
+        lu, piv = _model_warp_getrf(m, pivot)
+        want_lu, want_piv = (to_numpy(t) for t in port._getrf_plain(from_numpy(m), pivot))
+        np.testing.assert_array_equal(piv, want_piv)
+        np.testing.assert_array_equal(lu, want_lu)
+        if pivot and n > 1:
+            assert piv[1, 0] == piv[2, 0] == 1 and np.isnan(lu[2]).any()
+
+
+@pytest.mark.parametrize("n", [1, 5, 16, 31, 32])
+@pytest.mark.parametrize("k", [1, 4, 32])
+def test_gesv_warp_model_takes_the_plain_steps(rng, n, k):
+    a = _lu_cases(rng, n)
+    b = rng.normal(size=(5, n, k)).astype(np.float32)
+    with np.errstate(invalid="ignore", over="ignore"):
+        want = to_numpy(port._gesv_plain(from_numpy(a), from_numpy(b)))
+    np.testing.assert_array_equal(_model_warp_getrf(a, True, b), want)
+
+
+def test_getrf_routes(emulated, rng):
+    """_getrf_route's rule, and each call counted on its own route."""
+    assert [port._getrf_route(n, k) for n, k in ((1, 0), (32, 0), (32, 32), (16, 4), (33, 0),
+                                                 (32, 33), (48, 4), (256, 0))] == [
+        "warp", "warp", "warp", "warp", "block", "block", "block", "block"]
+    for n, k in ((32, 0), (32, 32), (33, 0), (32, 33)):
+        a = from_numpy(rng.normal(size=(2, n, n)).astype(np.float32))
+        routes = _lu_routes()
+        if k:
+            dx.gesv_batched(a, from_numpy(rng.normal(size=(2, n, k)).astype(np.float32)))
+        else:
+            dx.getrf_batched(a)
+        warp = port._getrf_route(n, k) == "warp"
+        assert [r - r0 for r, r0 in zip(_lu_routes(), routes)] == [int(warp), int(not warp)]
+        assert emulated.solver_calls[-1]["route"] == ("warp" if warp else "block")

@@ -300,17 +300,22 @@ class _EmulatedLib(_EmulatedGemmLib):
 
 class _Stream:
     """A stand-in for torch.cuda.Stream: the first is the caller's (handle
-    0), each later one gets the next handle; waits are logged."""
+    0), each later one gets the next handle; waits are logged, as the
+    handle of the stream waited for."""
 
     made = 0
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, priority=0):
         self.cuda_stream = _Stream.made
         _Stream.made += 1
+        self.priority = priority
         self.waits = []
 
     def wait_event(self, event):
         self.waits.append(event.stream)
+
+    def wait_stream(self, stream):
+        self.waits.append(stream.cuda_stream)
 
 
 class _Event:

@@ -20,7 +20,6 @@ Inputs are explicit f32 on both sides (the suite turns on jax x64).
 
 import contextlib
 import importlib
-import types
 
 import jax
 import jax.numpy as jnp
@@ -35,7 +34,8 @@ from tpumathlib_torch.core.errors import ExecutionError, InvalidValueError
 from tpumathlib_torch.dx import cuda_utils, gemm
 from tpumathlib_torch.solver import blocked, onelaunch
 from test_torch_dx_gemm import _view
-from test_torch_solver_onelaunch import _EmulatedLib as _EmulatedSolverLib, _block
+from test_torch_solver_onelaunch import (_EmulatedLib as _EmulatedSolverLib, _Event, _Stream,
+                                         _block)
 
 # the packages export functions of the same names as these modules
 ref_qr = importlib.import_module("tpumathlib.solver.qr_onelaunch")
@@ -176,7 +176,7 @@ def test_argument_checks():
 
 
 _COUNTS = (gemm.pallas_matmul, blocked._chol_inv128, qr._hh_recon128, onelaunch._inv_upper128,
-           qr.geqrf_onelaunch, qr.orgqr_onelaunch)
+           qr.geqrf_onelaunch, qr.orgqr_onelaunch, qr._gram_tn)
 
 
 def test_cpu_takes_plain_versions_without_launch(rng):
@@ -188,11 +188,56 @@ def test_cpu_takes_plain_versions_without_launch(rng):
 # ---------------------------------------------------------------------------
 # The CUDA branch against an emulation of the C entry points
 
+def _gram_operand(ptr, ld, top, ldt, top_rows, k, cols):
+    """tml_gram_tn's operand: rows below top_rows from top, the rest from ptr."""
+    parts = [_view(top, torch.float32, (top_rows, cols), (ldt, 1))] if top_rows else []
+    if k > top_rows:
+        parts.append(_view(ptr + 4 * top_rows * ld, torch.float32, (k - top_rows, cols), (ld, 1)))
+    return torch.cat(parts).clone()
+
+
+def _gram_refused(k, m, n, flags, ncounters, ptrs, lds, tops):
+    """What tml_gram_tn's entry refuses (cudaErrorInvalidValue)."""
+    tiles = (m // 64) * (n // 64)
+    return (k < 128 or k % 128 or m < 64 or m % 64 or n < 64 or n % 64
+            or any(t < 0 or t > k or t % 128 for t in tops)
+            or any(p % 16 for p in ptrs) or any(ld % 4 for ld in lds)
+            or (flags & 2 and (m != n or ncounters < tiles + 1)))
+
+
 class _EmulatedLib(_EmulatedSolverLib):
-    """Adds the contracts of qr_block.cu's entry points."""
+    """Adds the contracts of qr_block.cu's and qr_gram.cu's entry points."""
+
+    def __init__(self):
+        super().__init__()
+        self.gram_calls = []
+
+    def tml_gram_tn(self, x, ldx, xt, ldxt, xtop, y, ldy, yt, ldyt, ytop, c, ldc, d, ldd, k, m,
+                    n, alpha, beta, ridge, flags, work, work_tiles, counters, ncounters, stream):
+        """D = alpha·XᵀY + beta·C with XᵀY the two-level chunk sum (the plain
+        version's), then the flags: 1 halves the diagonal, 2 adds ridge·tr
+        + 1e-30 to it."""
+        self.gram_calls.append(dict(k=k, m=m, n=n, flags=flags, tops=(xtop, ytop), c=bool(c),
+                                    stream=stream))
+        ptrs = [p for p in (x, y, d, c, xt if xtop else 0, yt if ytop else 0) if p]
+        lds = [ld for ld, p in ((ldx, x), (ldy, y), (ldd, d), (ldc, c), (ldxt, xtop),
+                                (ldyt, ytop)) if p]
+        if _gram_refused(k, m, n, flags, ncounters, ptrs, lds, (xtop, ytop)):
+            return 1
+        acc = alpha * qr._gram_tn_plain(_gram_operand(x, ldx, xt, ldxt, xtop, k, m),
+                                        _gram_operand(y, ldy, yt, ldyt, ytop, k, n))
+        if c:
+            acc = acc + beta * _view(c, torch.float32, (m, n), (ldc, 1))
+        if flags & 1:
+            acc.diagonal().mul_(0.5)
+        if flags & 2:
+            acc.diagonal().add_(ridge * acc.diagonal().sum() + 1e-30)
+        _view(d, torch.float32, (m, n), (ldd, 1)).copy_(acc)
+        return 0
 
     def tml_hh_recon_block(self, q, ldq, v1, ldv1, minv, ldm, d, stream):
         self.block_calls.append(("hh_recon", ldq))
+        self.block_streams.append(stream)
         gv1, gd, gminv = qr._hh_recon128_plain(_block(q, ldq).clone())
         _block(v1, ldv1).copy_(gv1)
         _block(minv, ldm).copy_(gminv)
@@ -201,6 +246,7 @@ class _EmulatedLib(_EmulatedSolverLib):
 
     def tml_inv_upper_block(self, a, lda, w, ldw, stream):
         self.block_calls.append(("inv_upper", lda))
+        self.block_streams.append(stream)
         _block(w, ldw).copy_(onelaunch._inv_upper128_plain(_block(a, lda).clone()))
         return 0
 
@@ -215,8 +261,13 @@ def emulated(monkeypatch):
         monkeypatch.setattr(mod, "on_cuda", lambda *t: True)
     monkeypatch.setattr(cuda_utils, "load_kernels", lambda: lib)
     monkeypatch.setattr(torch.cuda, "device", contextlib.nullcontext)
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(_Stream, "made", 0)
+    main = _Stream()
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: main)
+    monkeypatch.setattr(torch.cuda, "Stream", _Stream)
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    monkeypatch.setattr(torch.cuda, "stream", lambda stream: contextlib.nullcontext())
+    lib.caller = main
     return lib
 
 
@@ -245,27 +296,155 @@ def test_block_kernel_marshalling(emulated, kind, rng):
 def test_driver_cuda_route_marshalling(emulated, rng):
     """geqrf and orgqr on the CUDA route, with every product and sweep going
     through the emulated entry points, give the plain route's (vr, t) and Q;
-    the counts are those of the schedule at n=512 (two panels): per panel
-    7 products for each block, 3 for block 1's update and 3 for t01, and 3
-    for the trailing update of the first panel; 3 per panel in orgqr."""
+    the counts are those of the schedule at n=512 (two panels). Per panel:
+    each block 3 Gram products on the chain (G with the ridge, Q1ᵀQ1, VᵀV
+    with the halved diagonal), 4 B1 (Q1, Q, V, D·R over V1), 2 Cholesky
+    sweeps, the reconstruction and inv_upper; on the aux stream the Gram
+    products V0ᵀ·C (block 1's update), V0ᵀV1 and, but for the last panel,
+    Vᵀ·C of the next panel's columns; block 1's update 3 B1 (W, then V's top
+    and its rows below), t01 2; and the first panel's update of the next
+    panel 5 B1 (W, then the top and the rows below of each 128 columns, the
+    second on the aux stream). No columns lie past the next panel at n = 512.
+    orgqr: a Gram and 2 B1 a panel."""
     a = torch.from_numpy(rng.normal(size=(N, N)).astype(np.float32))
     before = [f.launches for f in _COUNTS]
     vr, t = qr.geqrf_onelaunch(a)
     grew = [f.launches - b for f, b in zip(_COUNTS, before)]
-    assert grew == [43, 8, 4, 4, 1, 0]
-    assert len(emulated.calls) == 43 and len(emulated.block_calls) == 16
-    # G = BᵀB of the first block reaches B1 as a batch of four 128-row chunks
-    assert emulated.calls[0]["shape"] == (4, NB, NB, NB)
+    assert grew == [31, 8, 4, 4, 1, 0, 17]
+    assert len(emulated.calls) == 31 and len(emulated.block_calls) == 16
+    # streams: the caller's 0, then the chain 1 and the aux 2 (high priority), the side 3
+    streams = [c["stream"] for c in emulated.gram_calls]
+    assert streams.count(2) == 5 and streams.count(1) == 12
+    assert emulated.gemm_streams.count(2) == 2 and set(emulated.gemm_streams) == {1, 2}
+    assert set(emulated.block_streams) == {1}
+    assert emulated.caller.waits == [1]
+    # G = BᵀB of the first block: K = 512 rows, the ridge added in the kernel
+    assert emulated.gram_calls[0] == dict(k=N, m=NB, n=NB, flags=2, tops=(0, 0), c=False,
+                                          stream=1)
+    assert emulated.gram_calls[3] == dict(k=N, m=NB, n=NB, flags=1, tops=(NB, NB), c=False,
+                                          stream=1)
     want_vr, want_t = qr._geqrf_onelaunch_plain(a)
     _close(vr, want_vr.numpy(), 1e-6)
     _close(t, want_t.numpy(), 1e-6)
     before = [f.launches for f in _COUNTS]
     q = qr.orgqr_onelaunch(want_vr, want_t)
-    assert [f.launches - b for f, b in zip(_COUNTS, before)] == [6, 0, 0, 0, 0, 1]
+    assert [f.launches - b for f, b in zip(_COUNTS, before)] == [4, 0, 0, 0, 0, 1, 2]
     _close(q, qr._orgqr_onelaunch_plain(want_vr, want_t).numpy(), 1e-6)
     before = [f.launches for f in _COUNTS]
     qr.qr_onelaunch(a)
-    assert [f.launches - b for f, b in zip(_COUNTS, before)] == [49, 8, 4, 4, 1, 1]
+    assert [f.launches - b for f, b in zip(_COUNTS, before)] == [35, 8, 4, 4, 1, 1, 19]
+
+
+@pytest.mark.parametrize("n", [256, 768, 1024])
+def test_driver_look_ahead_streams(emulated, rng, n):
+    """The columns past the next panel take their update on the side stream:
+    after each panel but the last two, a Gram and 3 B1 there (none at n =
+    256, one panel; one update at 768, two at 1024); the result is the plain
+    route's."""
+    a = torch.from_numpy(rng.normal(size=(n, n)).astype(np.float32))
+    vr, t = qr.geqrf_onelaunch(a)
+    side = [c for c in emulated.gram_calls if c["stream"] == 3]
+    assert [c["n"] for c in side] == list(range(n - 512, 0, -256))
+    assert emulated.gemm_streams.count(3) == 3 * len(side)
+    want_vr, want_t = qr._geqrf_onelaunch_plain(a)
+    _close(vr, want_vr.numpy(), 1e-6)
+    _close(t, want_t.numpy(), 1e-6)
+
+
+# ---------------------------------------------------------------------------
+# tml_gram_tn: its sum modelled in numpy, and its wrapper on the emulation
+
+def _model_gram(x, y, slices: int, finish=None):
+    """tml_gram_tn's sum of xᵀ·y in numpy f32, without its FMAs: slice s
+    (blockIdx.y) takes chunks [s·c/S, (s+1)·c/S) of the c 128-row chunks,
+    sums each chunk in a fresh accumulator, row by row, and the chunk sums
+    in order; its block writes the partial when it finishes, in the order
+    ``finish``; the tile's last block sums the partials in slice order."""
+    chunks = x.shape[0] // 128
+    parts = {}
+    for s in (finish if finish is not None else range(slices)):
+        tot = None
+        for c in range(s * chunks // slices, (s + 1) * chunks // slices):
+            acc = np.zeros((x.shape[1], y.shape[1]), np.float32)
+            for r in range(c * 128, (c + 1) * 128):
+                acc = acc + x[r, :, None] * y[r, None, :]
+            tot = acc if tot is None else tot + acc
+        parts[s] = tot
+    out = parts[0]
+    for s in range(1, slices):
+        out = out + parts[s]
+    return out
+
+
+@pytest.mark.parametrize("k", [128, 512, 4096])
+def test_gram_model_two_level_split_k_sum(rng, k):
+    """The kernel's sum equals the plain version's (a batched product of
+    128-row chunks, then their sum) to 1e-6 relative at any slice count, is
+    the same whichever block finishes last, and with one slice or one chunk
+    a slice is the chunk sums in chunk order exactly."""
+    x = rng.normal(size=(k, 64)).astype(np.float32)
+    y = rng.normal(size=(k, 64)).astype(np.float32)
+    want = qr._gram_tn_plain(torch.from_numpy(x), torch.from_numpy(y)).numpy()
+    got = {}
+    for slices in (1, 2, 4, 32):
+        if slices > k // 128:
+            continue
+        got[slices] = _model_gram(x, y, slices)
+        assert max_scaled_err(got[slices], want.astype(np.float64)) <= 1e-6
+        for finish in (range(slices - 1, -1, -1), rng.permutation(slices)):
+            np.testing.assert_array_equal(_model_gram(x, y, slices, finish), got[slices])
+    np.testing.assert_array_equal(got[1], _model_gram(x, y, k // 128))
+
+
+def test_gram_wrapper_marshalling(emulated, rng):
+    """_gram_tn hands a view to the entry point with its row stride, copies
+    an operand whose layout the kernel does not read, and counts one launch;
+    the raw route's options (a split operand, α, β, C, the halved diagonal
+    and the ridge) reach the entry point as the driver passes them."""
+    big = torch.from_numpy(rng.normal(size=(512, 300)).astype(np.float32))
+    x, y = big[:, :128], big[:, 8:264]
+    before = qr._gram_tn.launches
+    got = qr._gram_tn(x, y)
+    assert qr._gram_tn.launches == before + 1
+    assert torch.equal(got, qr._gram_tn_plain(x, y))
+    assert emulated.gram_calls[-1]["k"] == 512 and emulated.gram_calls[-1]["n"] == 256
+    odd = big[:, 1:129]   # a start 4 bytes past the alignment: copied
+    assert torch.equal(qr._gram_tn(odd, odd), qr._gram_tn_plain(odd, odd))
+    with pytest.raises(InvalidValueError):
+        qr._gram_tn(big[:200, :128], big[:200, :128])
+    # the raw route: rows < 128 of x from a second matrix, C, α and β, the flags
+    top = torch.from_numpy(rng.normal(size=(NB, NB)).astype(np.float32))
+    c = torch.from_numpy(rng.normal(size=(NB, NB)).astype(np.float32))
+    d = torch.empty((NB, NB))
+    gram = qr._Gram(torch.device("cpu"), 0, 4)
+    rest = (big.data_ptr(), big.stride(0))
+    xs = qr._split((top.data_ptr(), NB), rest, NB)
+    full = torch.cat((top, big[NB:, :NB]))
+    for flags in (0, 1, 2):
+        gram((d.data_ptr(), NB), xs, xs, 512, NB, NB, flags=flags, c=(c.data_ptr(), NB),
+             alpha=2.0, beta=-1.0)
+        want = 2.0 * qr._gram_tn_plain(full, full) + -1.0 * c
+        if flags == 1:
+            want.diagonal().mul_(0.5)
+        if flags == 2:
+            want.diagonal().add_(qr._RIDGE / NB * want.diagonal().sum() + 1e-30)
+        assert torch.equal(d, want)
+    assert emulated.gram_calls[-1]["tops"] == (NB, NB) and emulated.gram_calls[-1]["c"]
+
+
+def test_gram_entry_refusals(emulated):
+    """What the C entry refuses (cudaErrorInvalidValue) raises through the
+    wrapper's launch check: the ridge on a non-square output, and a top of
+    rows that is not a whole number of chunks."""
+    x = torch.zeros((256, 128))
+    d = torch.empty((128, 256))
+    gram = qr._Gram(torch.device("cpu"), 0, 8)
+    op = (x.data_ptr(), 128)
+    with pytest.raises(ExecutionError, match="tml_gram_tn"):
+        gram((d.data_ptr(), 256), op, (torch.zeros((256, 256)).data_ptr(), 256), 256, NB, 256,
+             flags=2)
+    with pytest.raises(ExecutionError, match="tml_gram_tn"):
+        gram((d.data_ptr(), 128), qr._split(op, op, 64), op, 256, NB, NB)
 
 
 def test_cuda_branch_propagates_loader_failure(monkeypatch):

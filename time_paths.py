@@ -2,10 +2,10 @@
 """Times the port's redesigned paths at the bench's sizes on one CUDA card.
 
 The paths, each through its public function:
-- on B1's f32 SIMT route: potrf_onelaunch and getrf_onelaunch (B2, B3) and
-  geqrf_onelaunch (B4a) at n = 4096, solver.blocked.potrf_blocked (B4c,
-  panel 256) at n = 4096, and dx.rng.dropout_matmul_kernel (B10b) at
-  4096^3, rate 0.1;
+- on B1's f32 SIMT route: potrf_onelaunch and getrf_onelaunch (B2, B3),
+  geqrf_onelaunch (B4a) and orgqr_onelaunch (B4b, on geqrf's output) at
+  n = 4096, solver.blocked.potrf_blocked (B4c, panel 256) at n = 4096, and
+  dx.rng.dropout_matmul_kernel (B10b) at 4096^3, rate 0.1;
 - B1's tensor-core route: dx.gemm.pallas_matmul at 4096^3 bf16 with the
   bias + GELU epilogue;
 - the Blocked-ELL lines of bench.py: sparse.spmm on a bf16 Blocked-ELL
@@ -14,9 +14,10 @@ The paths, each through its public function:
 - the FFTs at batch 4096 x N 4096: fft.stockham.dif_fft (B5) on f32 planes
   in natural order and on bf16 planes in raw order, fft.kernels.pallas_fft
   (B5b) and fft.pallas_split.pallas_fft2 (B5c);
-- the batched solvers of dx.solver (B7a): potrf_batched at 1024 x 128 and
-  8192 x 32, posv_batched at 8192 x 32 with 4 right-hand sides, and
-  getrf_batched and geqrf_batched at 8192 x 32;
+- the batched solvers of dx.solver (B7a, B7b, B7d): potrf_batched at
+  1024 x 128 and 8192 x 32, posv_batched and gesv_batched at 8192 x 32 with
+  4 right-hand sides, getrf_batched at 8192 x 32 (pivoted and not) and 1024
+  x 128, and geqrf_batched at both;
 - the Jacobi kernels of dx.solver (B7g, B7h): syevd_batched and
   gesvd_batched at 8192 x 32 (the warp route) and 2048 x 64 (the block
   route).
@@ -87,6 +88,7 @@ def _paths(dev) -> dict:
     g = torch.randn((N, N), generator=gen, device=dev)
     dom = g + torch.diag(1.05 * g.abs().sum(dim=1))
     q = torch.randn((N, N), generator=gen, device=dev)
+    vr, t = qr.geqrf_onelaunch(q)
     a = torch.randn((N, N), generator=gen, device=dev)
     b = torch.randn((N, N), generator=gen, device=dev)
     ah, bh = a.bfloat16(), b.bfloat16()
@@ -104,6 +106,7 @@ def _paths(dev) -> dict:
         m = torch.randn((bsz, order, order), generator=gen, device=dev)
         batched[order] = (m @ m.mT + order * torch.eye(order, device=dev), m)
     rhs = torch.randn((BATCHED[0][0], BATCHED[0][1], 4), generator=gen, device=dev)
+    dom32 = batched[32][1] + 32 * torch.eye(32, device=dev)   # no pivoting needed
     jacobi = []   # (symmetric matrices, Gaussian ones) at each shape of JACOBI
     for bsz, order in JACOBI:
         m = torch.randn((bsz, order, order), generator=gen, device=dev)
@@ -112,6 +115,7 @@ def _paths(dev) -> dict:
         "potrf_onelaunch": lambda: onelaunch.potrf_onelaunch(spd),
         "getrf_onelaunch": lambda: onelaunch.getrf_onelaunch(dom),
         "geqrf_onelaunch": lambda: qr.geqrf_onelaunch(q),
+        "orgqr_onelaunch": lambda: qr.orgqr_onelaunch(vr, t),
         "potrf_blocked": lambda: blocked.potrf_blocked(spd, PANEL),
         "dropout_matmul_kernel": lambda: dxr.dropout_matmul_kernel(a, b, 20240601, 0.1),
         "pallas_matmul_bf16_gelu_bias": lambda: gemm.pallas_matmul(ah, bh, bias=bias,
@@ -126,7 +130,11 @@ def _paths(dev) -> dict:
         "potrf_batched_8192x32": lambda: dx.potrf_batched(batched[32][0]),
         "posv_batched_8192x32_k4": lambda: dx.posv_batched(batched[32][0], rhs),
         "getrf_batched_8192x32": lambda: dx.getrf_batched(batched[32][1]),
+        "getrf_batched_nopivot_8192x32": lambda: dx.getrf_batched(dom32, pivot=False),
+        "gesv_batched_8192x32_k4": lambda: dx.gesv_batched(batched[32][1], rhs),
+        "getrf_batched_1024x128": lambda: dx.getrf_batched(batched[128][1]),
         "geqrf_batched_8192x32": lambda: dx.geqrf_batched(batched[32][1]),
+        "geqrf_batched_1024x128": lambda: dx.geqrf_batched(batched[128][1]),
         "syevd_batched_8192x32": lambda: dxs.syevd_batched(jacobi[0][0]),
         "gesvd_batched_8192x32": lambda: dxs.gesvd_batched(jacobi[0][1]),
         "syevd_batched_2048x64": lambda: dxs.syevd_batched(jacobi[1][0]),

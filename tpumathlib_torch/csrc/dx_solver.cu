@@ -40,7 +40,13 @@
 // output, in device memory, so no n is refused for its size. potrf (and
 // posv) take one of three routes, below "Cholesky": a warp a matrix for n <=
 // 32, with no barrier; 32-column panels in shared memory, a few barriers a
-// panel, up to n = 224; and the in-place column steps above. unmqr and gels
+// panel, up to n = 224; and the in-place column steps above. getrf (and gesv)
+// take a warp a matrix for n <= 32 and k <= 32 too (getrf_warp_kernel: the
+// rows in the lanes' registers, pivoted virtually, the pivot search a shuffle
+// reduction; below "LU, a warp a matrix"), else the block layout above; on an
+// H100 (700 W; chip_smoke.py phase 20) the warp route factors 8192 matrices
+// of 32 in 0.078 ms pivoted and 0.061 unpivoted, against 0.193 and 0.184
+// for torch.linalg.lu_factor_ex. unmqr and gels
 // take getrf's layout with m rows: at batch 8192 x m 64 x n 32, k 4, gels
 // reads A and B and writes X, 79.7 MB, 0.024 ms, against about 1 GFLOP
 // (0.015 ms) of QR and Q^T B.
@@ -214,14 +220,14 @@ __device__ __forceinline__ void warp_potrf(float (&a)[kWarpN], int lane, float& 
 }
 
 // One step of a substitution on the KC right-hand sides x[c] (X's row in
-// each lane): y_c = x_c(lane j) / d, lane j keeps y and the lanes that
+// each lane): y_c = x_c(lane src) / d, lane src keeps y and the lanes that
 // `take` subtract l y_c.
 template <int KC>
-__device__ __forceinline__ void warp_solve_step(float (&x)[KC], int j, float d, float l, bool own,
+__device__ __forceinline__ void warp_solve_step(float (&x)[KC], int src, float d, float l, bool own,
                                                 bool take) {
 #pragma unroll
   for (int c = 0; c < KC; ++c) {
-    const float y = __shfl_sync(kFull, x[c], j) / d;
+    const float y = __shfl_sync(kFull, x[c], src) / d;
     if (own) x[c] = y;
     else if (take) x[c] = fmaf(-l, y, x[c]);
   }
@@ -640,6 +646,129 @@ __global__ void __launch_bounds__(kMaxThreads) getrf_kernel(const Args p) {
   unstage<kShared>(p, s, false);
 }
 
+// ----------------------------- LU, a warp a matrix -----------------------------
+//
+// n <= 32 and k <= 32 (getrf_route; dx/solver.py::_getrf_route mirrors it),
+// 4 matrices a block, no block barrier:
+// lane r holds row r of A in registers, a[c] = A(r, c), loaded and stored
+// through the warp's 32 x 33 tile so that device memory moves a row at a
+// time, coalesced. Rows do not move (virtual pivoting): each lane keeps
+// `pos`, the index its row has after the swaps so far (initially r), and
+// `step`, the step at which its row became a pivot row; `live` says it has
+// not yet. Rows past n are the identity and never live, so that a pad row
+// (which 0 / 0 would turn to NaN after a zero pivot) is never picked. Step
+// j: the pivot is the live lane with the first (|a[j]|, pos) in before()'s
+// order (NaN first, then the larger magnitude, then the lower current row
+// index, never the lane number), found by a 5-step __shfl_xor_sync
+// reduction; ipiv[j] is its pos, the lane at pos j takes that pos and the
+// pivot lane takes j. Without pivoting the pivot of step j is lane j. The
+// live lanes then divide a[j] by the pivot (a true division: the
+// multiplier, kept in a[j]) and subtract l u_c from a[c], c > j, u_c from
+// the pivot lane by __shfl_sync: getrf_steps' updates, each row's in the
+// same order. At the end lane r writes its row to row pos. SOLVE (KC >= k):
+// B's row r travels with lane r, so the swaps cost nothing; with the pivot
+// lane of each step kept in shared memory, L y = P b and U x = y run as
+// shuffle steps in gesv_solves' order (a lane takes part in step j of the
+// first while its row was live at step j, of the second while it was a
+// pivot row before step j), and lane r writes its row of X to row pos.
+// Columns of X past k are zeros and stay zeros.
+template <int KC>
+__global__ void __launch_bounds__(kWarpMatrices * 32, KC == kWarpN ? 4 : 8)
+getrf_warp_kernel(const Args p, int64_t batch) {
+  __shared__ float tiles[kWarpMatrices][kWarpN][kWarpN + 1];
+  __shared__ int pivot_lanes[kWarpMatrices][kWarpN];
+  const int lane = threadIdx.x & 31;
+  float (*t)[kWarpN + 1] = tiles[threadIdx.x >> 5];
+  int* pl_of = pivot_lanes[threadIdx.x >> 5];
+  const int64_t bi = int64_t(blockIdx.x) * kWarpMatrices + (threadIdx.x >> 5);
+  if (bi >= batch) return;
+  const int n = p.n, k = p.k;
+  const bool pivot = p.pivot != 0;
+  const float* A = p.a + bi * n * n;
+#pragma unroll
+  for (int r = 0; r < kWarpN; ++r)
+    t[r][lane] = r < n && lane < n ? __ldg(A + r * n + lane) : (r == lane ? 1.f : 0.f);
+  __syncwarp();
+  float a[kWarpN];
+#pragma unroll
+  for (int c = 0; c < kWarpN; ++c) a[c] = t[lane][c];
+  int pos = lane, step = n, ipiv = 0;
+  bool live = lane < n;
+#pragma unroll
+  for (int j = 0; j < kWarpN; ++j) {
+    if (j >= n) break;
+    int pl = j;   // the pivot lane
+    if (pivot) {
+      float bv = live ? fabsf(a[j]) : -1.f;
+      int bp = live ? pos : kWarpN;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const float ov = __shfl_xor_sync(kFull, bv, off);
+        const int op = __shfl_xor_sync(kFull, bp, off);
+        if (before(ov, op, bv, bp)) { bv = ov; bp = op; }
+      }
+      pl = __ffs(__ballot_sync(kFull, live && pos == bp)) - 1;
+      if (lane == j) ipiv = bp;
+      if (pos == j) pos = bp;
+      if (lane == pl) pos = j;
+    } else if (lane == j) {
+      ipiv = j;
+    }
+    if (KC > 0 && lane == 0) pl_of[j] = pl;
+    const float d = __shfl_sync(kFull, a[j], pl);
+    if (lane == pl) {
+      live = false;
+      step = j;
+    }
+    const float l = a[j] / d;
+#pragma unroll
+    for (int c = j + 1; c < kWarpN; ++c) {
+      if (c >= n) break;
+      const float u = __shfl_sync(kFull, a[c], pl);
+      if (live) a[c] = fmaf(-l, u, a[c]);
+    }
+    if (live) a[j] = l;
+  }
+  if (p.piv != nullptr && lane < n) p.piv[bi * n + lane] = ipiv;
+  __syncwarp();
+  if (p.out != nullptr) {
+#pragma unroll
+    for (int c = 0; c < kWarpN; ++c) t[pos][c] = a[c];
+    __syncwarp();
+    float* LU = p.out + bi * n * n;
+#pragma unroll
+    for (int r = 0; r < kWarpN; ++r)
+      if (r < n && lane < n) LU[r * n + lane] = t[r][lane];
+  }
+  if constexpr (KC > 0) {
+    const float* B = p.b + bi * n * k;
+    float x[KC];
+#pragma unroll
+    for (int c = 0; c < KC; ++c) x[c] = lane < n && c < k ? __ldg(B + lane * k + c) : 0.f;
+#pragma unroll
+    for (int j = 0; j < kWarpN; ++j) {   // L y = P b, L unit lower
+      if (j >= n) break;
+      warp_solve_step<KC>(x, pl_of[j], 1.f, a[j], false, step > j);
+    }
+#pragma unroll
+    for (int j = kWarpN - 1; j >= 0; --j) {   // U x = y
+      if (j >= n) continue;
+      const int src = pl_of[j];
+      warp_solve_step<KC>(x, src, __shfl_sync(kFull, a[j], src), a[j], lane == src, step < j);
+    }
+    float* X = p.x + bi * n * k;
+#pragma unroll
+    for (int c = 0; c < KC; ++c)
+      if (lane < n && c < k) X[pos * k + c] = x[c];
+  }
+}
+
+enum GetrfRoute { kGetrfWarp, kGetrfBlock };
+
+GetrfRoute getrf_route(int64_t n, int64_t k) {
+  return n <= kWarpN && k <= kWarpN ? kGetrfWarp : kGetrfBlock;
+}
+
 // ----------------------------- QR -----------------------------
 
 // Three barriers a step: warp 0 builds the reflector's scalars from column
@@ -819,6 +948,9 @@ int tml_potrf_batched(const void* a, void* l, const void* b, void* x, int64_t ba
 // As tml_potrf_batched, for LU: lu (batch, n, n) in the packed L\U layout and
 // piv (batch, n) int32, the row swapped with j at step j (j itself when
 // pivot = 0). With a right-hand side (gesv; pivot must be 1) piv may be null.
+// n <= 32 and k <= 32 take a warp a matrix (getrf_warp_kernel), the rest a
+// block a matrix (getrf_kernel), in shared memory or, past 232448 bytes, in
+// place in lu.
 int tml_getrf_batched(const void* a, void* lu, void* piv, const void* b, void* x, int64_t batch,
                       int64_t n, int64_t k, int pivot, void* stream) {
   if (bad_sizes(a, batch, n, n, k, b, x) || (k == 0 && (lu == nullptr || piv == nullptr)) ||
@@ -828,6 +960,14 @@ int tml_getrf_batched(const void* a, void* lu, void* piv, const void* b, void* x
   Args p = make_args(a, lu, b, x, n, n, k);
   p.piv = static_cast<int32_t*>(piv);
   p.pivot = pivot;
+  if (getrf_route(n, k) == kGetrfWarp) {
+    const unsigned blocks = static_cast<unsigned>((batch + kWarpMatrices - 1) / kWarpMatrices);
+    void (*kernel)(Args, int64_t) = k == 0   ? getrf_warp_kernel<0>
+                                    : k <= 4 ? getrf_warp_kernel<4>
+                                             : getrf_warp_kernel<kWarpN>;
+    kernel<<<blocks, kWarpMatrices * 32, 0, static_cast<cudaStream_t>(stream)>>>(p, batch);
+    return cudaGetLastError();
+  }
   return launch(getrf_kernel<true>, getrf_kernel<false>, p, batch, stream);
 }
 

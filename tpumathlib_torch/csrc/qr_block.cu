@@ -16,9 +16,13 @@
 // the reconstruction loop of _qr_block128 (:137-153) with its inverse of M
 // (:152-153), and tpumathlib/solver/onelaunch.py::_inv_upper128 (:325) as
 // _t_from_v (:159-171) uses it for T = inv(strict_upper(S) + diag(S)/2). The
-// CholeskyQR2 sweeps are tml_chol_inv_block (dense_block.cu); every matrix
-// product goes through gemm_epilogue.cu; tpumathlib_torch/solver/
-// qr_onelaunch.py drives them.
+// CholeskyQR2 sweeps are tml_chol_inv_block (dense_block.cu); the products
+// over the rows are qr_gram.cu's split-K Gram kernel and every other product
+// goes through gemm_epilogue.cu; tpumathlib_torch/solver/qr_onelaunch.py
+// drives them, the sweeps on raw addresses (hh_recon writes V1 straight into
+// the panel's unit-lower V top). On the QR's critical path: 8 sweeps a
+// 256-wide panel, one block each, so these two set the pace of geqrf at
+// n = 4096 beside the Cholesky sweep (PERF.md section 5).
 //
 // What bounds it: 128 dependent steps on 64 KB tiles (about 2 MFLOP per
 // block), so the latency of one step (shared-memory loads, FMAs, one

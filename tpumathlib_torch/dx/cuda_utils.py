@@ -116,6 +116,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tml_hh_recon_block.restype = i32
     lib.tml_inv_upper_block.argtypes = [p, i64, p, i64, p]
     lib.tml_inv_upper_block.restype = i32
+    # qr_gram.cu: (x, ldx, xtop, ldxt, xtop_rows, the same for y, c, ldc, d, ldd, k, m, n,
+    # alpha, beta, ridge, flags, work, work_tiles, counters, ncounters, stream)
+    lib.tml_gram_tn.argtypes = [p, i64, p, i64, i64, p, i64, p, i64, i64, p, i64, p, i64,
+                                i64, i64, i64, f32, f32, f32, i32, p, i64, p, i64, p]
+    lib.tml_gram_tn.restype = i32
     # fft_dif.cu: (xr, xi, yr, yi, scratch, twiddles, rows, log_n, log_l, bf16, stream)
     lib.tml_dif_fft.argtypes = [p, p, p, p, p, p, i64, i32, i32, i32, p]
     lib.tml_dif_fft.restype = i32

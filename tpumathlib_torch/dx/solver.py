@@ -12,8 +12,8 @@ The reference runs three step loops (Cholesky, LU with or without partial
 pivoting, Householder QR) over VMEM tiles of a batch, or, for n ≤ 64 with
 128 % n == 0, over 128//n matrices packed into one lane row. Lane packing is
 a TPU layout; here one thread block factors one matrix (one warp, for a
-Cholesky of n ≤ 32), so the packed functions launch the same kernels as the
-others. Five kernels in
+Cholesky or an LU of n ≤ 32), so the packed functions launch the same
+kernels as the others. Five kernels in
 ``csrc/dx_solver.cu`` serve seven sites:
 
 - ``tml_potrf_batched`` (B7a potrf, B7i; with a right-hand side B7c, posv),
@@ -58,9 +58,10 @@ On CPU tensors each wrapper (``_potrf``, ``_getrf``, ``_geqrf``,
 ``_unmqr``, ``_gels``, ``_syevd``, ``_gesvd``) takes its plain PyTorch
 version: batched step loops with the reference's formulas. On CUDA tensors
 it launches its kernel or raises. Each wrapper's ``.launches`` counts its
-launches; ``_syevd`` and ``_gesvd`` also count each route's
-(``.warp_launches``, ``.block_launches``). The reference pads a batch to
-its tile; here nothing is padded.
+launches; ``_getrf``, ``_syevd`` and ``_gesvd`` also count each route's
+(``.warp_launches``, ``.block_launches``; the rules ``_getrf_route`` and
+``_jacobi_route``). The reference pads a batch to its tile; here nothing is
+padded.
 """
 
 from __future__ import annotations
@@ -367,6 +368,16 @@ def _factor_out(a32, k, in_place: bool):
     return torch.empty_like(a32)
 
 
+def _count_route(wrapper, route: str) -> None:
+    """One launch on ``wrapper.launches`` and on its route's count,
+    ``wrapper.warp_launches`` or ``wrapper.block_launches``."""
+    wrapper.launches += 1
+    if route == "warp":
+        wrapper.warp_launches += 1
+    else:
+        wrapper.block_launches += 1
+
+
 def _potrf_route(n: int, k: int = 0) -> str:
     """The route ``tml_potrf_batched`` takes (csrc/dx_solver.cu's
     ``potrf_route``): "warp" (a warp a matrix, n and k ≤ 32), "panel" (32-column
@@ -407,10 +418,23 @@ def _potrf(a, b=None):
 _potrf.launches = 0
 
 
+def _getrf_route(n: int, k: int = 0) -> str:
+    """The route ``tml_getrf_batched`` takes (csrc/dx_solver.cu's
+    ``getrf_route``): "warp" for n ≤ 32 and k ≤ 32 (a warp a matrix, lane r
+    holding row r in registers, the rows pivoted virtually: each lane keeps
+    the index its row has after the swaps, and the pivot search is a shuffle
+    reduction over the rows not yet taken), else "block" (a block a matrix
+    in shared memory, or in place in the factor buffer past ``SMEM_MAX``).
+    Both take ``_getrf_plain``'s steps in its order, and gesv's solves in
+    ``_gesv_plain``'s."""
+    return "warp" if n <= 32 and k <= 32 else "block"
+
+
 def _getrf(a, pivot: bool = True, b=None):
     """Batched LU of f32 (B, n, n) through ``tml_getrf_batched``: (LU, piv),
     or, with B (B, n, k), the solution X of A·X = B (gesv, always
-    pivoted)."""
+    pivoted). Counts each launch on ``.launches`` and on its route's
+    ``.warp_launches`` or ``.block_launches`` (``_getrf_route``)."""
     if not on_cuda(a, b):
         return _getrf_plain(a, pivot) if b is None else _gesv_plain(a, b)
     a32, b32, k = _operands(a, b)
@@ -423,11 +447,11 @@ def _getrf(a, pivot: bool = True, b=None):
         rc = lib.tml_getrf_batched(a32.data_ptr(), _ptr(out), _ptr(piv), _ptr(b32), _ptr(x),
                                    bsz, n, k, int(pivot), _stream(a.device))
     cuda_utils.check_launch(lib, rc, "tml_getrf_batched")
-    _getrf.launches += 1
+    _count_route(_getrf, _getrf_route(n, k))
     return (out, piv) if b is None else x
 
 
-_getrf.launches = 0
+_getrf.launches = _getrf.warp_launches = _getrf.block_launches = 0
 
 
 def _geqrf(a):
@@ -526,12 +550,6 @@ def _jacobi_route(n: int) -> str:
     return "warp" if n <= 32 else "block"
 
 
-def _count_jacobi(wrapper, n: int) -> None:
-    wrapper.launches += 1
-    if _jacobi_route(n) == "warp":
-        wrapper.warp_launches += 1
-    else:
-        wrapper.block_launches += 1
 
 
 def _syevd(a, sweeps: int):
@@ -547,7 +565,7 @@ def _syevd(a, sweeps: int):
         rc = lib.tml_syevd_batched(a32.data_ptr(), pairs.data_ptr(), w.data_ptr(), v.data_ptr(),
                                    bsz, n, sweeps, _stream(a.device))
     cuda_utils.check_launch(lib, rc, "tml_syevd_batched")
-    _count_jacobi(_syevd, n)
+    _count_route(_syevd, _jacobi_route(n))
     return w, v
 
 
@@ -567,7 +585,7 @@ def _gesvd(a, sweeps: int):
         rc = lib.tml_gesvd_batched(a32.data_ptr(), pairs.data_ptr(), u.data_ptr(), s.data_ptr(),
                                    v.data_ptr(), bsz, n, sweeps, _stream(a.device))
     cuda_utils.check_launch(lib, rc, "tml_gesvd_batched")
-    _count_jacobi(_gesvd, n)
+    _count_route(_gesvd, _jacobi_route(n))
     return u, s, v
 
 
