@@ -67,12 +67,14 @@ Phases; any failure raises and the exit code is non-zero:
    Gaussian (512, 128) block orthonormalised by the plain CholeskyQR2 steps.
 10. QR main path — n=4096 f32 through xgeqrf(a), qr_onelaunch(a) and
    geqrf_onelaunch(a) then orgqr_onelaunch(vr, t): each must grow both
-   driver counts by 1 and the counts of every sweep and of the GEMM kernel;
+   driver counts by 1 and the counts of every sweep, of the GEMM kernel and
+   (orgqr's device route) of the TF32 split and the 3xTF32 product;
    Q·R − A, QᵀQ − I, tril(R, −1) == 0, info == 0, Q and R against the plain
    drivers, and xormqr against Qᵀ·C. Prints the worst block's condition.
 11. QR times — CUDA events for the kernel route, the plain version and the
    vendor route (torch.linalg.qr, torch.geqrf) of geqrf, orgqr and both,
-   geqrf's device time behind a spin and host enqueue, and each new block
+   geqrf's and orgqr's device time behind a spin, host enqueue and idle
+   share, their kernels by name (torch.profiler), and each new block
    kernel against its plain version; then each route of phase 10 on the
    host clock.
 12. FFT kernel — dif_fft (csrc/fft_dif.cu) against its plain version and a
@@ -91,7 +93,8 @@ Phases; any failure raises and the exit code is non-zero:
    (phase_tf32), the matmul four-step FFT (N = 96 and 1000) and the f32
    product sites of ROADMAP C16 (syevj, gesvdj, spmv on a BSR matrix,
    sddmm_bsr, xormqr, and the Mp slice's torch.matmul sites) must still
-   agree with float64 at their f32 bounds;
+   agree with float64 at their f32 bounds, and so must the ring on the
+   3xTF32 kernel, which runs TF32 by design;
    each C16 site is also run with its pin lifted, to show what it keeps
    out. TF32 is off again after.
 15. sparse kernels — B6a's two kernels, tml_bell_spmm_wgmma
@@ -217,24 +220,33 @@ Phases; any failure raises and the exit code is non-zero:
    spin, its host enqueue and the device's idle share, beside
    potrf_onelaunch (B2) timed the same ways in turns; the four-step
    kernels' registers, spills and blocks an SM from nvcc.log.
-36. ring kernels — matmul_ag_overlapped (B12a) and matmul_rs_overlapped
-   (B12b) through tml_ring_gemm and tml_ring_accumulate
-   (csrc/mp_overlap.cu) against their plain versions (the same schedule with
-   torch ops) at P = 1, 2 and 4 ranks on this card, f32 and bf16, (1024,
-   512, 512), 20 calls each, every call checked and counted (P² GEMMs,
-   P(P − 1) accumulates); then once each at full width.
+36. ring kernels — first tml_split_tf32 bit for bit against its plain
+   version (plain, transposed, unit lower; wide exponents) and
+   tml_gemm_tf32x3 (csrc/gemm_tf32x3.cu) against float64 at TF32X3_TOL
+   (a ring step's shape and ragged ones, C = D in place; one TF32 product
+   must miss it); then matmul_ag_overlapped (B12a)
+   and matmul_rs_overlapped (B12b) — f32 on the 3xTF32 kernel, bf16 on B1's
+   bf16 kernel, and tml_ring_accumulate (csrc/mp_overlap.cu) — against
+   their plain versions (the same schedule with torch ops) at P = 1, 2 and
+   4 ranks on this card, f32 and bf16, (1024, 512, 512) and (1000, 300,
+   200), 20 calls each, every call checked and counted (P² GEMMs, P splits
+   in f32 and P² more where A's k is not a multiple of 4, P(P − 1)
+   accumulates); then twice each at full width.
 37. Mp main path — four ranks on the card: entry.dryrun_multichip over
    GPT-J-6B's MLP (8192 tokens, n_embd 4096, n_inner 16384; tp_matmul with
    B1 and GELU, then gemr2d; +4 B1 launches), the overlapped pair
    matmul_rs_overlapped(matmul_ag_overlapped(x, w1), w2) (+16, +16, +12),
    matmul_allreduce and the eight PBLAS ops at m = 4096, each against a
    single-device float64 result at rtol 1e-4.
-38. Mp times — CUDA events for each ring, its GEMMs alone, its copies alone,
-   the collective routes (B1 and torch.matmul), its plain version and one
-   torch.matmul of the whole product; the overlap share with its spread
+38. Mp times — CUDA events for each ring, its GEMMs alone, its split
+   passes alone, its copies alone, the collective routes (B1 and
+   torch.matmul), its plain version and one torch.matmul of the whole
+   product (TF32 off), the bf16 rings; the overlap share with its spread
    (unresolved where it leaves [0, 1] or its spread reaches 1) and the share
-   of the bound. Four ranks share one card: its copies are HBM to HBM, not
-   NVLink.
+   of the route's own bound (3xTF32: 3 · 2mkn at 495 TFLOP/s; bf16 at 989);
+   the 3xTF32 GEMM alone at a ring step beside torch.matmul of the step,
+   and the split of an A chunk and of a B piece.
+   Four ranks share one card: its copies are HBM to HBM, not NVLink.
 The line before the last is a JSON record of the kernels, each with its
 bound (the larger of its operations over the card's published peak and its
 bytes over 3.35 TB/s); the last line is {"ok": true, "device": {...}}.
@@ -268,7 +280,7 @@ from tpumathlib_torch.core.errors import InvalidValueError
 from tpumathlib_torch.core.interop import to_numpy
 from tpumathlib_torch.core.timer import benchmark
 from tpumathlib_torch.dx import comp as dxc
-from tpumathlib_torch.dx import cuda_utils, fused, gemm
+from tpumathlib_torch.dx import cuda_utils, fused, gemm, tf32x3
 from tpumathlib_torch.dx import rng as dxr
 from tpumathlib_torch.dx import vv10
 from tpumathlib_torch.dx import solver as dxs
@@ -1210,7 +1222,9 @@ def phase_qr_blocks(dev) -> dict:
 
 
 _QR_COUNTS = (pallas_matmul, qr._gram_tn, blocked._chol_inv128, qr._hh_recon128,
-              onelaunch._inv_upper128, qr.geqrf_onelaunch, qr.orgqr_onelaunch)
+              onelaunch._inv_upper128, tf32x3.split_tf32, tf32x3.gemm_tf32x3,
+              qr.geqrf_onelaunch, qr.orgqr_onelaunch)
+_QR_KERNELS = 7   # the first seven of _QR_COUNTS count kernel launches
 
 
 def _geqrf_then_orgqr(a):
@@ -1272,7 +1286,8 @@ def phase_qr_main(dev) -> dict:
         g = grew[name]
         launched = (g["geqrf_onelaunch"] == 1 and g["orgqr_onelaunch"] == 1
                     and min(g["pallas_matmul"], g["_gram_tn"], g["_chol_inv128"],
-                            g["_hh_recon128"], g["_inv_upper128"]) > 0)
+                            g["_hh_recon128"], g["_inv_upper128"], g["split_tf32"],
+                            g["gemm_tf32x3"]) > 0)
         finite = bool(torch.isfinite(q).all() and torch.isfinite(r).all())
         info_ok = info is None or int(info) == 0
         ok = (rel < 5e-5 and orth < 5e-5 and lower_zero and info_ok and max(vs_q, vs_r) <= 1e-4
@@ -1280,7 +1295,8 @@ def phase_qr_main(dev) -> dict:
               and q.dtype == r.dtype == F32)
         print(f"[qr] {name:32s} launches gemm +{g['pallas_matmul']} gram +{g['_gram_tn']} "
               f"chol +{g['_chol_inv128']} "
-              f"recon +{g['_hh_recon128']} inv_upper +{g['_inv_upper128']} drivers "
+              f"recon +{g['_hh_recon128']} inv_upper +{g['_inv_upper128']} tf32 split "
+              f"+{g['split_tf32']} 3xtf32 +{g['gemm_tf32x3']} drivers "
               f"+{g['geqrf_onelaunch']}/+{g['orgqr_onelaunch']} | rel QR-A {rel:.3e} "
               f"orth {orth:.3e} (tol 5e-5) tril(R)=0 {lower_zero} info "
               f"{'-' if info is None else int(info)} | vs plain max-scaled Q {vs_q:.3e} "
@@ -1302,7 +1318,8 @@ def phase_qr_main(dev) -> dict:
         outs["vr, t"] = outs.get("vr, t") or qr.geqrf_onelaunch(a)
         before = {f.__name__: f.launches for f in _QR_COUNTS}
         run()
-        per_call[name] = {f.__name__: f.launches - before[f.__name__] for f in _QR_COUNTS[:5]}
+        per_call[name] = {f.__name__: f.launches - before[f.__name__]
+                          for f in _QR_COUNTS[:_QR_KERNELS]}
         print(f"[qr] launches a {name} call by kind: {per_call[name]}", flush=True)
     torch.cuda.synchronize()
     return {"launches": launches, "max_abs_err": max_abs, "a": a, "routes": routes,
@@ -1348,10 +1365,11 @@ def phase_qr_times(qrd: dict, card: str) -> dict:
     print(f"[qr-times] geqrf chain and aux alone (the side's launches dropped) device "
           f"{ms['geqrf chain alone device']:.4f} ms: the side's work adds "
           f"{ms['geqrf kernel device'] - ms['geqrf chain alone device']:.4f} | {card}", flush=True)
-    ms["geqrf kernels"] = _kernel_breakdown(runs["geqrf kernel"])
-    for name, (t, count) in ms["geqrf kernels"].items():
-        print(f"[qr-times] geqrf a call: {t:8.4f} ms in {count:5.0f} launches of {name} "
-              f"(torch.profiler) | {card}", flush=True)
+    for kind in ("geqrf", "orgqr"):
+        ms[f"{kind} kernels"] = _kernel_breakdown(runs[f"{kind} kernel"])
+        for name, (k_ms, count) in ms[f"{kind} kernels"].items():
+            print(f"[qr-times] {kind} a call: {k_ms:8.4f} ms in {count:5.0f} launches of {name} "
+                  f"(torch.profiler) | {card}", flush=True)
     for name, tm in ms.items():
         if not isinstance(tm, float) or name.endswith(("device", "host", "idle")):
             continue
@@ -1410,6 +1428,7 @@ def phase_qr_times(qrd: dict, card: str) -> dict:
 # a function could take is the larger of its operations over the peak of their
 # type and its bytes (inputs read once, outputs written once) over HBM3's rate.
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12   # the tensor cores on TF32 operands (the 3xTF32 products run three)
 PEAK_F32 = 67e12
 HBM_BYTES_S = 3.35e12
 
@@ -1915,11 +1934,16 @@ def _tf32_mp_sites(gen, dev) -> dict:
             return {"ag": _mp64_err(overlap.matmul_ag_overlapped(a, b, grid), a64 @ b64),
                     "rs": _mp64_err(overlap.matmul_rs_overlapped(a, b, grid), a64 @ b64)}
 
+    def ring_kernel():   # TF32 by design: three products of split operands
+        return {"ag": _mp64_err(overlap.matmul_ag_overlapped(a, b, grid), a64 @ b64),
+                "rs": _mp64_err(overlap.matmul_rs_overlapped(a, b, grid), a64 @ b64)}
+
     return {"mp _local_gemm (mp/matmul.py)": local_gemm,
             "mp matmul_rs/_allreduce (mp/matmul.py)": reductions,
             "mp PBLAS products (mp/pblas.py)": pblas,
             "mp_trsm's update (mp/pblas.py)": trsm,
-            "mp _ring_gemm_plain (mp/overlap.py)": ring_plain}
+            "mp _ring_gemm_plain (mp/overlap.py)": ring_plain,
+            "mp ring 3xTF32 kernel (mp/overlap.py::_ring_gemm)": ring_kernel}
 
 
 def phase_tf32(dev) -> None:
@@ -4708,30 +4732,98 @@ MP_MAIN = (8192, 4096, 16384)
 MP_PBLAS = (4096, 512, 512)         # phase 37's PBLAS (m, k, n) over MP_RANKS ranks
 MP_TOL = {F32: 1e-5, BF16: 1e-2}    # kernel route against the plain version, max-scaled
 MP_F64_TOL = 1e-4                   # tests/test_mp_matmul.py's and test_mp_pblas.py's rtol
+# the 3xTF32 product against float64, max-scaled: the reference's f32 rtol
+# (core.dtypes.default_rtol); one TF32 product must miss it (the control)
+TF32X3_TOL = 1e-5
+# phase 36's 3xTF32 cases, (m, k, n): a ring step at MP_MAIN, B4b's largest
+# trailing update, a ragged one (k = 299: A split into planes, not in the
+# kernel) and a small one
+TF32X3_SHAPES = ((2048, 4096, 4096), (4096, 256, 4096), (1000, 299, 200), (256, 256, 256))
 MP_RING = {"ag": overlap.matmul_ag_overlapped, "rs": overlap.matmul_rs_overlapped}
 
 
 def _ring_counts() -> tuple:
-    return (overlap.matmul_ag_overlapped.launches, overlap.matmul_rs_overlapped.launches,
-            overlap.matmul_rs_overlapped.accumulates)
+    """(ring AG GEMMs, AG splits, ring RS GEMMs, RS splits, accumulates)."""
+    ag, rs = overlap.matmul_ag_overlapped, overlap.matmul_rs_overlapped
+    return ag.launches, ag.splits, rs.launches, rs.splits, rs.accumulates
 
 
-def _ring_expect(kind: str, nr: int) -> tuple:
-    """(ring AG GEMMs, ring RS GEMMs, accumulates) one call launches."""
-    return (nr * nr, 0, 0) if kind == "ag" else (0, nr * nr, nr * (nr - 1))
+def _ring_expect(kind: str, nr: int, k: int, dtype=F32) -> tuple:
+    """``_ring_counts``' growth in one call with A's chunks k wide: P²
+    GEMMs; in f32 P split passes (each rank's B once) and P² more where k is
+    not a multiple of 4 (the A chunks; else the kernel splits them in its
+    registers), none in bf16; P(P − 1) accumulates in B12b."""
+    splits = (nr + (nr * nr if k % 4 else 0)) if dtype == F32 else 0
+    if kind == "ag":
+        return nr * nr, splits, 0, 0, 0
+    return 0, 0, nr * nr, splits, nr * (nr - 1)
 
 
 @contextlib.contextmanager
 def _ring_plain():
-    """The rings with their two kernels' plain versions in the wrappers'
-    place: the same schedule, streams and events, torch ops on each stream."""
-    saved = overlap._ring_gemm, overlap._ring_accumulate
-    overlap._ring_gemm = lambda a, b, out, count: overlap._ring_gemm_plain(a, b, out)
+    """The rings with their kernels' plain versions in the wrappers' place
+    (and no operands prepared for the kernels): the same schedule, streams
+    and events, torch ops on each stream."""
+    saved = overlap._ring_gemm, overlap._ring_accumulate, overlap._RankOperands
+    overlap._ring_gemm = lambda a, ops, out: overlap._ring_gemm_plain(a, ops.b, out)
     overlap._ring_accumulate = overlap._ring_accumulate_plain
+    overlap._RankOperands = lambda b, rows, count: SimpleNamespace(b=b)
     try:
         yield
     finally:
-        overlap._ring_gemm, overlap._ring_accumulate = saved
+        overlap._ring_gemm, overlap._ring_accumulate, overlap._RankOperands = saved
+
+
+def _tf32x3_checks(gen, dev) -> list:
+    """Phase 36's first part: tml_split_tf32 bit for bit against its plain
+    version, and tml_gemm_tf32x3 against float64 at TF32X3_TOL; returns the
+    failures."""
+    failures = []
+    x = torch.randn((1000, 300), generator=gen, device=dev) * torch.exp2(
+        torch.randint(-60, 60, (1000, 300), generator=gen, device=dev).float())
+    for transpose, unit_lower in itertools.product((False, True), (False, True)):
+        got = tf32x3.split_tf32(x, transpose=transpose, unit_lower=unit_lower)
+        hi, lo = tf32x3._split_tf32_plain(x, transpose=transpose, unit_lower=unit_lower)
+        ok = torch.equal(got[0], hi) and torch.equal(got[1], lo)
+        print(f"[mp-kernel] tml_split_tf32 (1000, 300) transpose={transpose} "
+              f"unit_lower={unit_lower}: bit for bit vs plain {ok} {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            failures.append(f"split transpose={transpose} unit_lower={unit_lower}")
+    for m, k, n in TF32X3_SHAPES:
+        a = torch.randn((m, k), generator=gen, device=dev)
+        b = torch.randn((k, n), generator=gen, device=dev)
+        c = torch.randn((m, n), generator=gen, device=dev)
+        want = a.double() @ b.double()
+        route = "A split in registers" if tf32x3.tma_ready(a) else "A's planes"
+        errs = {f"D = AB ({route})": max_scaled_err(tf32x3.gemm_tf32x3(a, b), want)}
+        cd = c.clone()   # C = D, in place: D = C − A·B
+        pa, pb = tf32x3.split_tf32(a), tf32x3.split_tf32(b, transpose=True)
+        tf32x3.Tf32x3().gemm(torch.cuda.current_stream(dev).cuda_stream, m, n, k,
+                             (cd.data_ptr(), n), tf32x3.plane_pair(pa), tf32x3.plane_pair(pb),
+                             (cd.data_ptr(), n), alpha=-1.0, beta=1.0)
+        errs["C - AB in place"] = max_scaled_err(cd, c.double() - want)
+        with _tf32_on():
+            one_pass = max_scaled_err(torch.matmul(a, b), want)
+        ok = max(errs.values()) <= TF32X3_TOL and one_pass > TF32X3_TOL
+        print(f"[mp-kernel] tml_gemm_tf32x3 ({m}, {k}, {n}) vs f64 max-scaled "
+              f"{', '.join(f'{key} {v:.3e}' for key, v in errs.items())} (tol {TF32X3_TOL:g}); "
+              f"one TF32 product {one_pass:.3e} (must miss) {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            failures.append(f"gemm_tf32x3 {(m, k, n)}")
+    return failures
+
+
+@contextlib.contextmanager
+def _tf32_on():
+    """torch's f32 products in TF32 inside (cuBLAS's one-pass TF32)."""
+    matmul = torch.backends.cuda.matmul
+    matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        matmul.allow_tf32 = False
 
 
 def _ring_operands(grid, kind, a, b):
@@ -4742,24 +4834,31 @@ def _ring_operands(grid, kind, a, b):
 
 
 def phase_mp_kernel(dev) -> None:
-    """36. The two rings (csrc/mp_overlap.cu: tml_ring_gemm, and
+    """36. First the 3xTF32 kernels (``_tf32x3_checks``). Then the two rings
+    (f32 on csrc/gemm_tf32x3.cu, bf16 on csrc/gemm_wgmma.cu, and
     tml_ring_accumulate for B12b) against their plain versions (the same
     schedule with torch ops), P ranks on this one card: at P = 1, 2, 4, f32
     and bf16, each (m, k, n) of MP_KERNEL_SHAPES, MP_REPS calls each, every
-    call held to MP_TOL (max-scaled: 1e-5 f32, the same f32 products summed
-    in another order where cuBLAS splits k, bit for bit where it does not;
-    1e-2 bf16, an output ulp where the two sums round apart) and growing the
-    counts by exactly P² GEMMs (and P(P − 1) accumulates); then twice at
-    full width, 4 ranks, f32."""
+    call held to MP_TOL (max-scaled: 1e-5 f32, where the plain version is
+    cuBLAS's f32 product and the kernel's three TF32 products of split
+    operands sum to within about 2⁻²² of each operand, some 1e-6 of
+    float64; 1e-2 bf16, an output ulp where the two sums round apart) and
+    growing the counts by ``_ring_expect`` (P² GEMMs, the splits, P(P − 1)
+    accumulates); then twice at full width, 4 ranks, f32, each call also
+    against float64."""
     gen = torch.Generator(device=dev).manual_seed(3636)
-    failures, cases = [], 0
+    failures, cases = _tf32x3_checks(gen, dev), 0
 
-    def run(kind, grid, a, b, tol, reps, label):
+    def run(kind, grid, a, b, tol, reps, label, f64=False):
         """Calls alternate between A and −A: the ring's buffers come back
         from the allocator holding the last call's values, which are then
-        wrong, so a read that does not wait for its write shows."""
+        wrong, so a read that does not wait for its write shows. With
+        ``f64``, each call is also held to float64 at MP_F64_TOL."""
         nonlocal cases
         fn, nr = MP_RING[kind], grid.size
+        worst64 = 0.0
+        expect = _ring_expect(kind, nr, a.shape[1] if kind == "ag" else a.shape[1] // nr,
+                              a.dtype)
         operands = [_ring_operands(grid, kind, sign * a, b) for sign in (1, -1)]
         with _ring_plain():
             wants = [fn(*ops, grid).full() for ops in operands]
@@ -4772,15 +4871,21 @@ def phase_mp_kernel(dev) -> None:
             torch.cuda.synchronize()
             err = max_scaled_err(full, want)
             worst = max(worst, err)
-            ok = (err <= tol and grew == _ring_expect(kind, nr) and full.shape == want.shape
+            err64 = 0.0
+            if f64:
+                err64 = max_scaled_err(full, (-1) ** rep * (a.double() @ b.double()))
+                worst64 = max(worst64, err64)
+            ok = (err <= tol and err64 <= MP_F64_TOL and grew == expect
+                  and full.shape == want.shape
                   and full.dtype == a.dtype and bool(torch.isfinite(full.float()).all()))
             bad += not ok
             cases += 1
         if bad:
             failures.append(f"{label} ({bad} of {reps} calls)")
         print(f"[mp-kernel] {label}: {reps} calls, worst max-scaled err vs plain {worst:.3e} "
-              f"(tol {tol:g}), launches a call {_ring_expect(kind, nr)} "
-              f"{'ok' if not bad else 'FAIL'}", flush=True)
+              f"(tol {tol:g}){f', vs f64 {worst64:.3e} (tol {MP_F64_TOL:g})' if f64 else ''}, "
+              f"launches a call (ag, ag splits, rs, rs splits, acc) "
+              f"{expect} {'ok' if not bad else 'FAIL'}", flush=True)
         return worst
 
     for (m, k, n), nr, dtype in itertools.product(MP_KERNEL_SHAPES, MP_KERNEL_P, (F32, BF16)):
@@ -4794,11 +4899,11 @@ def phase_mp_kernel(dev) -> None:
     grid = mp.Grid.create([dev] * MP_RANKS)
     x = torch.randn((s, hd), generator=gen, device=dev)
     w = torch.randn((hd, f), generator=gen, device=dev) / math.sqrt(hd)
-    run("ag", grid, x, w, MP_TOL[F32], 2, f"ag P={MP_RANKS} float32 ({s}, {hd}, {f})")
+    run("ag", grid, x, w, MP_TOL[F32], 2, f"ag P={MP_RANKS} float32 ({s}, {hd}, {f})", True)
     del x, w
     hmid = torch.randn((s, f), generator=gen, device=dev)
     w = torch.randn((f, hd), generator=gen, device=dev) / math.sqrt(f)
-    run("rs", grid, hmid, w, MP_TOL[F32], 2, f"rs P={MP_RANKS} float32 ({s}, {f}, {hd})")
+    run("rs", grid, hmid, w, MP_TOL[F32], 2, f"rs P={MP_RANKS} float32 ({s}, {f}, {hd})", True)
     if failures:
         raise SystemExit(f"chip_smoke: ring kernels disagree with their plain versions: "
                          f"{failures}")
@@ -4849,18 +4954,21 @@ def phase_mp_main(dev) -> dict:
     set to 0 just before: entry.dryrun_multichip (tp_matmul with B1 and the
     GELU epilogue over GPT-J-6B's MLP, MP_MAIN, then gemr2d; +4 B1
     launches); the overlapped pair matmul_rs_overlapped(matmul_ag_overlapped(x,
-    w1), w2) (+16 and +16 ring GEMMs, +12 accumulates); matmul_allreduce; and
+    w1), w2) (+16 and +16 ring GEMMs on the 3xTF32 kernel, +4 and +4 split
+    passes, +12 accumulates); matmul_allreduce; and
     the eight PBLAS ops at MP_PBLAS. Each against a single-device float64
     result at MP_F64_TOL, max-scaled; the pair also against its plain
     version."""
     s, hd, f = MP_MAIN
     gen = torch.Generator(device=dev).manual_seed(3737)
     grid = mp.Grid.create([dev] * MP_RANKS)
-    counts = (overlap.matmul_ag_overlapped, overlap.matmul_rs_overlapped, pallas_matmul)
+    counts = (overlap.matmul_ag_overlapped, overlap.matmul_rs_overlapped, pallas_matmul,
+              tf32x3.split_tf32, tf32x3.gemm_tf32x3)
     torch.cuda.synchronize()
     for fn in counts:
         fn.launches = 0
     overlap.matmul_rs_overlapped.accumulates = 0
+    overlap.matmul_ag_overlapped.splits = overlap.matmul_rs_overlapped.splits = 0
     failures, grew, errs = [], {}, {}
 
     def step(name, call):
@@ -4884,8 +4992,12 @@ def phase_mp_main(dev) -> dict:
              in _pblas_steps(grid, gen, dev).items()}
     launches = {"matmul_ag_overlapped": overlap.matmul_ag_overlapped.launches,
                 "matmul_rs_overlapped": overlap.matmul_rs_overlapped.launches,
+                "ag splits": overlap.matmul_ag_overlapped.splits,
+                "rs splits": overlap.matmul_rs_overlapped.splits,
                 "accumulates": overlap.matmul_rs_overlapped.accumulates,
-                "pallas_matmul": pallas_matmul.launches}
+                "pallas_matmul": pallas_matmul.launches,
+                "split_tf32": tf32x3.split_tf32.launches,
+                "gemm_tf32x3": tf32x3.gemm_tf32x3.launches}
     print(f"[mp-main] launches in the main path: {launches}", flush=True)
 
     h64 = x.double() @ w1.double()
@@ -4905,20 +5017,21 @@ def phase_mp_main(dev) -> dict:
     del h_plain, out_plain
     for name, (got, want) in pblas.items():
         errs[name] = _mp64_err(got, want)
-    expect = {"dryrun_multichip": (0, 0, 0, MP_RANKS),
-              "matmul_ag_overlapped": (*_ring_expect("ag", MP_RANKS), 0),
-              "matmul_rs_overlapped": (*_ring_expect("rs", MP_RANKS), 0)}
+    expect = {"dryrun_multichip": (0, 0, 0, 0, 0, MP_RANKS),
+              "matmul_ag_overlapped": (*_ring_expect("ag", MP_RANKS, hd), 0),
+              "matmul_rs_overlapped": (*_ring_expect("rs", MP_RANKS, f // MP_RANKS), 0)}
     specs = {"dryrun_multichip": (dry["out"], ("x", None)),
              "matmul_ag_overlapped": (h, (None, "x")), "matmul_rs_overlapped": (out, ("x", None)),
              "matmul_allreduce": (allreduce, (None, None)),
              **{name: (got, ("x", None)) for name, (got, _) in pblas.items()}}
     for name, err in errs.items():
         got_spec = specs[name][0].spec
-        ok = (err <= MP_F64_TOL and grew[name] == expect.get(name, (0, 0, 0, 0))
+        ok = (err <= MP_F64_TOL and grew[name] == expect.get(name, (0,) * 6)
               and got_spec == specs[name][1] and vs_plain.get(name, 0.0) <= MP_TOL[F32])
         extra = (f" | vs plain max-scaled {vs_plain[name]:.3e} (tol {MP_TOL[F32]:g})"
                  if name in vs_plain else "")
-        print(f"[mp-main] {name:26s} launches (ag, rs, acc, B1) {grew[name]} | vs f64 max-scaled "
+        print(f"[mp-main] {name:26s} launches (ag, ag splits, rs, rs splits, acc, B1) "
+              f"{grew[name]} | vs f64 max-scaled "
               f"{err:.3e} (tol {MP_F64_TOL:g}) | spec {got_spec}{extra} {'ok' if ok else 'FAIL'}",
               flush=True)
         if not ok:
@@ -4931,43 +5044,41 @@ def phase_mp_main(dev) -> dict:
 
 def _ring_parts(kind: str, grid, a, b) -> dict:
     """The ring's P² GEMM launches alone (no copies; B12b's accumulates
-    alone too) and its copies alone (no GEMMs, each chunk's chain of sends
-    kept), each on the grid's own streams between the ring's entry and exit
-    waits, calling the kernel wrappers directly."""
+    alone too), its split passes alone (each rank's B, then its P A chunks)
+    and its copies alone (no GEMMs, each chunk's chain of sends kept), each
+    on the grid's own streams between the ring's entry and exit waits,
+    calling the kernel wrappers directly. The GEMMs alone read the planes
+    the splits wrote (the splits run once here first)."""
     ring, nr = overlap._Ring(grid), grid.size
     count = MP_RING[kind]
     dev = grid.devices
+    rows = a.shape[0] // nr
+    ops = [overlap._RankOperands(bp, rows, count) for bp in b.pieces]
     if kind == "ag":
-        mloc, k = a.shape[0] // nr, a.shape[1]
+        mloc, k = rows, a.shape[1]
         full = [a.full(d) for d in dev]
         outs = [torch.empty((a.shape[0], bp.shape[1]), device=d) for bp, d in zip(b.pieces, dev)]
         slots = [[torch.empty((mloc, k), device=d) for _ in range(nr)] for d in dev]
 
-        def gemms():
-            ring.enter()
-            for r in range(nr):
-                with ring.on(r, overlap.COMPUTE):
-                    for c in range(nr):
-                        overlap._ring_gemm(full[r][c * mloc:(c + 1) * mloc], b.pieces[r],
-                                           outs[r][c * mloc:(c + 1) * mloc], count)
-            ring.exit()
+        def a_chunk(r, c):
+            return full[r][c * mloc:(c + 1) * mloc]
+
+        def out(r, c):
+            return outs[r][c * mloc:(c + 1) * mloc]
 
         def chunk(r, step):
             c = (r - step) % nr
             return a.pieces[r] if step == 0 else slots[r][c], c
     else:
-        sp, h = a.shape[0] // nr, b.shape[1]
+        sp, h = rows, b.shape[1]
         slots = [torch.empty((nr, sp, h), device=d) for d in dev]
         mine = [torch.empty((sp, h), device=d) for d in dev]
 
-        def gemms():
-            ring.enter()
-            for r in range(nr):
-                with ring.on(r, overlap.COMPUTE):
-                    for c in range(nr):
-                        overlap._ring_gemm(a.pieces[r][c * sp:(c + 1) * sp], b.pieces[r],
-                                           slots[r][0] if c == 0 else mine[r], count)
-            ring.exit()
+        def a_chunk(r, c):
+            return a.pieces[r][c * sp:(c + 1) * sp]
+
+        def out(r, c):
+            return slots[r][0] if c == 0 else mine[r]
 
         def accumulates():
             ring.enter()
@@ -4979,6 +5090,23 @@ def _ring_parts(kind: str, grid, a, b) -> dict:
 
         def chunk(r, step):
             return slots[r][step], None
+
+    def splits():
+        ring.enter()
+        for r in range(nr):
+            with ring.on(r, overlap.COMPUTE):
+                ops[r].prepare()
+                for c in range(nr):
+                    ops[r].load_a(a_chunk(r, c))
+        ring.exit()
+
+    def gemms():
+        ring.enter()
+        for r in range(nr):
+            with ring.on(r, overlap.COMPUTE):
+                for c in range(nr):   # A's planes where the ring splits A, else A itself
+                    ops[r].gemm(a_chunk(r, c) if ops[r].at is None else ops[r].at, out(r, c))
+        ring.exit()
 
     def copies():
         ring.enter()
@@ -4996,25 +5124,80 @@ def _ring_parts(kind: str, grid, a, b) -> dict:
             arrived = landed
         ring.exit()
 
-    parts = {"gemms": gemms, "copies": copies}
+    splits()
+    parts = {"gemms": gemms, "splits": splits, "copies": copies}
     if kind == "rs":
         parts["accumulates"] = accumulates
     return parts
 
 
+def _tf32x3_alone(gen, dev, card: str) -> dict:
+    """The 3xTF32 GEMM alone at a ring step of MP_MAIN, (s / P, n_embd) @
+    (n_embd, n_inner / P), A split in its registers (the ring's route) and
+    from A's planes (B4b's), beside torch.matmul of the step (TF32 off) and
+    its plain version; the split of an A chunk and the transposed split of
+    a B piece beside their bytes. Back to back."""
+    s, hd, f = MP_MAIN
+    m, k, n = s // MP_RANKS, hd, f // MP_RANKS
+    a = torch.randn((m, k), generator=gen, device=dev)
+    b = torch.randn((k, n), generator=gen, device=dev)
+    pa, pb = tf32x3.split_tf32(a), tf32x3.split_tf32(b, transpose=True)
+    d = torch.empty((m, n), device=dev)
+    launcher, stream = tf32x3.Tf32x3(), torch.cuda.current_stream(dev).cuda_stream
+    runs = {"gemm_tf32x3": functools.partial(   # A split in registers: the ring's route
+        launcher.gemm, stream, m, n, k, (d.data_ptr(), n), tf32x3.plane_pair(a),
+        tf32x3.plane_pair(pb)),
+        "gemm_tf32x3 A planes": functools.partial(   # A's planes: B4b's route
+        launcher.gemm, stream, m, n, k, (d.data_ptr(), n), tf32x3.plane_pair(pa),
+        tf32x3.plane_pair(pb))}
+    runs["gemm_tf32x3 library"] = functools.partial(torch.matmul, a, b)
+    runs["gemm_tf32x3 plain"] = functools.partial(tf32x3._gemm_tf32x3_plain, pa[0], pa[1], pb[0],
+                                                  pb[1])
+    # the splits into the planes above, on raw addresses as the ring launches them
+    runs["split_tf32 A chunk"] = functools.partial(
+        launcher.split, stream, (a.data_ptr(), k), pa[0].data_ptr(), pa[1].data_ptr(),
+        pa.stride(1), m, k)
+    runs["split_tf32 A chunk plain"] = functools.partial(tf32x3._split_tf32_plain, a)
+    runs["split_tf32 B piece"] = functools.partial(
+        launcher.split, stream, (b.data_ptr(), n), pb[0].data_ptr(), pb[1].data_ptr(),
+        pb.stride(1), k, n, tf32x3.TRANSPOSE)
+    ms = _loop_ms(runs, warmup=2, reps=10, samples=3)
+    bounds = {"gemm_tf32x3": _bound(3 * 2.0 * m * n * k, PEAK_TF32, 4.0 * (2 * m * k + 2 * n * k + m * n)),
+              "split_tf32 A chunk": _bound(0.0, PEAK_TF32, 12.0 * m * k),
+              "split_tf32 B piece": _bound(0.0, PEAK_TF32, 12.0 * k * n)}
+    for name, t in ms.items():
+        bound = bounds[name.removesuffix(" plain") if name.startswith("split") else "gemm_tf32x3"]
+        share = f", {bound['bound_ms'] / t:.1%} of it" if "plain" not in name else ""
+        print(f"[mp-times] {name:36s} ({m}, {k}) @ ({k}, {n}) {t:.4f} ms | bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}){share} | {card}", flush=True)
+    launcher.gemm(stream, m, n, k, (d.data_ptr(), n), tf32x3.plane_pair(a),
+                  tf32x3.plane_pair(pb))
+    ms["max_abs_err"] = {
+        "gemm_tf32x3": max_abs_rel(d, tf32x3._gemm_tf32x3_plain(pa[0], pa[1], pb[0], pb[1]))[0],
+        "split_tf32": float((tf32x3.split_tf32(a) - torch.stack(tf32x3._split_tf32_plain(a)))
+                            .abs().max())}
+    ms["bounds"] = bounds
+    ms["shape_mkn"] = [m, k, n]
+    return ms
+
+
 def phase_mp_times(run: dict, card: str) -> dict:
     """38. CUDA events around back-to-back calls (``_loop_ms``) at MP_MAIN,
     4 ranks on the card, for each ring: the ring route; its P² GEMM launches
-    alone on the same streams (and B12b's accumulates alone); its copies
-    alone; the collective route (matmul_ag with use_pallas True, on B1, and
-    False, on torch.matmul; matmul_rs, whose product is torch.matmul either
-    way, as in the reference); the plain version (the ring with torch ops);
-    and one torch.matmul of the whole product. Prints the overlap share,
-    (kernels + copies − ring) / copies, with its spread (the half-ranges of
-    the samples of ring, kernels and copies, over copies), and each route's
-    share of the bound. The share is resolved only where it lies in [0, 1]
-    and its spread is under 1: else it is printed as unresolved and stored
-    as None. One card shows HBM copies, not NVLink (450 GB/s each way)."""
+    alone on the same streams (and B12b's accumulates alone); its split
+    passes alone; its copies alone; the collective route (matmul_ag
+    with use_pallas True, on B1, and False, on torch.matmul; matmul_rs,
+    whose product is torch.matmul either way, as in the reference); the
+    plain version (the ring with torch ops); one torch.matmul of the whole
+    product (TF32 off); and the ring on bf16 operands (B1's bf16 kernel).
+    Prints the overlap share, (kernels + copies − ring) / copies, with its
+    spread (the half-ranges of the samples of ring, kernels and copies, over
+    copies), each route's share of the route's own bound (3 · 2mkn at
+    PEAK_TF32 for the f32 ring, 2mkn at PEAK_BF16 for bf16) and the splits'
+    share of the GEMMs' time. The share is resolved only where it lies in
+    [0, 1] and its spread is under 1: else it is printed as unresolved and
+    stored as None. One card shows HBM copies, not NVLink (450 GB/s each
+    way). Then the 3xTF32 GEMM and the splits alone (``_tf32x3_alone``)."""
     grid = run["grid"]
     nr = grid.size
     s, hd, f = MP_MAIN
@@ -5023,8 +5206,10 @@ def phase_mp_times(run: dict, card: str) -> dict:
     for kind, (a, b) in run["operands"].items():
         fn = MP_RING[kind]
         a_full, b_full = a.full(), b.full()
+        a16, b16 = grid.shard(a_full.bfloat16(), a.spec), grid.shard(b_full.bfloat16(), b.spec)
         routes = {f"{kind} ring": lambda fn=fn, a=a, b=b: fn(a, b, grid),
-                  f"{kind} library": lambda a=a_full, b=b_full: torch.matmul(a, b)}
+                  f"{kind} library": lambda a=a_full, b=b_full: torch.matmul(a, b),
+                  f"{kind} ring bf16": lambda fn=fn, a=a16, b=b16: fn(a, b, grid)}
         for part, call in _ring_parts(kind, grid, a, b).items():
             routes[f"{kind} {part}"] = call
         if kind == "ag":
@@ -5038,25 +5223,35 @@ def phase_mp_times(run: dict, card: str) -> dict:
             with _ring_plain():
                 return fn(a, b, grid)
         ms[f"{kind} plain"] = _loop_ms({"p": plain}, warmup=1, reps=3, samples=3)["p"]
-        del a_full, b_full
+        del a_full, b_full, a16, b16
         # P(P − 1) chunks of (s / P, n_embd) f32 a call, each read and written once
         copy_bytes = 2 * nr * (nr - 1) * 4.0 * (s // nr) * hd
         in_out = 4.0 * (s * hd + hd * f + s * f)
-        bounds[kind] = _bound(flop, PEAK_F32, in_out)
+        bounds[kind] = _bound(3 * flop, PEAK_TF32, in_out)
+        bounds[f"{kind} ring bf16"] = _bound(flop, PEAK_BF16, in_out / 2)
         bounds[f"{kind} copies"] = _bound(0.0, PEAK_F32, copy_bytes)
+        # each rank's B piece read once, two planes written; and its P A chunks
+        # where the ring splits them (k not a multiple of 4; else the kernel does)
+        k_piece = hd if kind == "ag" else f // nr
+        a_chunks = nr * s * k_piece if k_piece % 4 else 0
+        bounds[f"{kind} splits"] = _bound(0.0, PEAK_F32, 12.0 * (b.shape[0] * b.shape[1] + a_chunks))
         if kind == "rs":   # P(P − 1) accumulates: partial and slot read, slot or D written
             bounds["rs accumulates"] = _bound(0.0, PEAK_F32, nr * (nr - 1) * 3 * 4.0 * (s // nr) * hd)
-        kernels = ms[f"{kind} gemms"] + ms.get(f"{kind} accumulates", 0.0)
+        kernels = (ms[f"{kind} gemms"] + ms[f"{kind} splits"]
+                   + ms.get(f"{kind} accumulates", 0.0))
         copies = ms[f"{kind} copies"]
         share = (kernels + copies - ms[f"{kind} ring"]) / copies
-        parts = [f"{kind} {p}" for p in ("ring", "gemms", "accumulates", "copies")]
+        parts = [f"{kind} {p}" for p in ("ring", "gemms", "splits", "accumulates", "copies")]
         share_spread = sum((spread[p][1] - spread[p][0]) / 2 for p in parts if p in spread) / copies
         resolved = 0.0 <= share <= 1.0 and share_spread < 1.0
         ms[f"{kind} overlap share"] = share if resolved else None
+        ms[f"{kind} splits share of gemms"] = ms[f"{kind} splits"] / ms[f"{kind} gemms"]
+        fma = _bound(flop, PEAK_F32, in_out)   # the f32 routes: cuBLAS, B1's SIMT kernel
         for route, t in ms.items():
-            if not route.startswith(kind + " ") or route.endswith("share"):
+            if not route.startswith(kind + " ") or "share" in route:
                 continue
-            bound = bounds.get(route, bounds[kind])
+            own = route in (f"{kind} ring", f"{kind} gemms")
+            bound = bounds.get(route, bounds[kind] if own else fma)
             print(f"[mp-times] {route:22s} {t:.4f} ms | {flop / t / 1e9:.2f} TFLOP/s of the "
                   f"function | bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
                   f"{bound['bound_ms'] / t:.1%} of it | {card}", flush=True)
@@ -5064,7 +5259,11 @@ def phase_mp_times(run: dict, card: str) -> dict:
               f"{copies:.4f} - ring {ms[f'{kind} ring']:.4f}) / copies = {share:.3f} "
               f"± {share_spread:.3f}{'' if resolved else ', unresolved'} | {nr} ranks on one "
               f"card: the copies are HBM to HBM, not NVLink | {card}", flush=True)
+        print(f"[mp-times] {kind} splits alone / GEMMs alone = "
+              f"{ms[f'{kind} splits share of gemms']:.3f} | {card}", flush=True)
     ms["bounds"] = bounds
+    ms["tf32x3"] = _tf32x3_alone(torch.Generator(device=grid.devices[0]).manual_seed(3838),
+                                 grid.devices[0], card)
     return ms
 
 
@@ -5200,18 +5399,18 @@ def main() -> None:
         "device_ms_covered": qr_ms[f"{kind} kernel covered"],
         "host_enqueue_ms": qr_ms[f"{kind} kernel host"],
         "idle_share": qr_ms[f"{kind} kernel idle"],
-        **({"chain_alone_device_ms": qr_ms["geqrf chain alone device"],
-            "kernels_ms_per_call": {k: round(v[0], 4) for k, v in qr_ms["geqrf kernels"].items()}}
-           if kind == "geqrf" else {}),
+        **({"chain_alone_device_ms": qr_ms["geqrf chain alone device"]} if kind == "geqrf"
+           else {}),
+        "kernels_ms_per_call": {k: round(v[0], 4) for k, v in qr_ms[f"{kind} kernels"].items()},
     } for name, kind, count, source, replaces, nbytes, library in (
         ("geqrf_onelaunch (chol_inv_block + hh_recon_block + inv_upper_block + gram_tn + "
          "gemm_epilogue)", "geqrf", "_hh_recon128", "tpumathlib_torch/csrc/qr_block.cu",
          "tpumathlib/solver/qr_onelaunch.py:318", solver_bytes + 4 * ns * 256,
          qr_ms["geqrf vendor"]),
         # torch's Householder product takes LAPACK's (a, tau), not (vr, t): no like call
-        ("orgqr_onelaunch (gram_tn + gemm_epilogue)", "orgqr", "orgqr_onelaunch",
-         "tpumathlib_torch/csrc/qr_gram.cu", "tpumathlib/solver/qr_onelaunch.py:439",
-         solver_bytes + 4 * ns * 256, None))] + [{
+        ("orgqr_onelaunch (gram_tn + gemm_epilogue + split_tf32 + gemm_tf32x3)", "orgqr",
+         "orgqr_onelaunch", "tpumathlib_torch/csrc/gemm_tf32x3.cu",
+         "tpumathlib/solver/qr_onelaunch.py:439", solver_bytes + 4 * ns * 256, None))] + [{
         # the Gram product of B4a and B4b; its time at the first trailing update's shape
         "name": "gram_tn (tml_gram_tn)",
         "route": "cuda",
@@ -5436,23 +5635,52 @@ def main() -> None:
     }] + [{
         "name": name,
         "route": "cuda",
-        "source": "tpumathlib_torch/csrc/mp_overlap.cu",
+        "source": "tpumathlib_torch/csrc/gemm_tf32x3.cu",
         "replaces": replaces,
         "launches": mp_run["launches"][count],
-        **({"accumulate_launches": mp_run["launches"]["accumulates"]} if kind == "rs" else {}),
+        "split_launches": mp_run["launches"][f"{kind} splits"],
+        **({"accumulate_launches": mp_run["launches"]["accumulates"],
+            "accumulate_source": "tpumathlib_torch/csrc/mp_overlap.cu"} if kind == "rs" else {}),
         "max_abs_err": mp_run["max_abs_err"][kind],
         "ms": mp_ms[f"{kind} ring"],
         "plain_ms": mp_ms[f"{kind} plain"],
         **mp_ms["bounds"][kind],
         "library_ms": mp_ms[f"{kind} library"],
-        "library_is": "one torch.matmul of the whole f32 product on the card",
+        "library_is": "one torch.matmul of the whole f32 product on the card, TF32 off",
+        "gemms_ms": mp_ms[f"{kind} gemms"],
+        "splits_ms": mp_ms[f"{kind} splits"],
+        "copies_ms": mp_ms[f"{kind} copies"],
         "overlap_share": mp_ms[f"{kind} overlap share"],   # None where unresolved
+        "bf16_ms": mp_ms[f"{kind} ring bf16"],
+        "bf16_bound_ms": mp_ms["bounds"][f"{kind} ring bf16"]["bound_ms"],
         "ranks": f"{MP_RANKS} on one card",
     } for name, kind, count, replaces in (
-        ("ring_ag_gemm (tml_ring_gemm)", "ag", "matmul_ag_overlapped",
-         "tpumathlib/mp/overlap.py:112"),
-        ("ring_rs_gemm (tml_ring_gemm + tml_ring_accumulate)", "rs", "matmul_rs_overlapped",
-         "tpumathlib/mp/overlap.py:190"))]}
+        ("ring_ag_gemm (tml_split_tf32 + tml_gemm_tf32x3; bf16: tml_gemm_wgmma)", "ag",
+         "matmul_ag_overlapped", "tpumathlib/mp/overlap.py:112"),
+        ("ring_rs_gemm (tml_split_tf32 + tml_gemm_tf32x3 + tml_ring_accumulate; bf16: "
+         "tml_gemm_wgmma)", "rs", "matmul_rs_overlapped", "tpumathlib/mp/overlap.py:190"))] + [{
+        # the two kernels of the 3xTF32 product alone, at a ring step of MP_MAIN
+        "name": name,
+        "route": "cuda",
+        "source": "tpumathlib_torch/csrc/gemm_tf32x3.cu",
+        "replaces": "tpumathlib/mp/overlap.py:112 and :190 (the ring GEMMs' f32 products, B12a, "
+                    "B12b); tpumathlib/solver/qr_onelaunch.py:439 (B4b's trailing product)",
+        "launches": mp_run["launches"][count],
+        "max_abs_err": mp_ms["tf32x3"]["max_abs_err"][count],
+        "ms": mp_ms["tf32x3"][line],
+        "plain_ms": mp_ms["tf32x3"][f"{plain} plain"],
+        **mp_ms["tf32x3"]["bounds"][plain],
+        **extra,
+        "shape_mkn": mp_ms["tf32x3"]["shape_mkn"],
+    } for name, count, line, plain, extra in (
+        ("gemm_tf32x3 (tml_gemm_tf32x3)", "gemm_tf32x3", "gemm_tf32x3", "gemm_tf32x3", {
+            "library_ms": mp_ms["tf32x3"]["gemm_tf32x3 library"],
+            "library_is": "torch.matmul of the step, f32, TF32 off",
+            "a_planes_ms": mp_ms["tf32x3"]["gemm_tf32x3 A planes"]}),
+        ("split_tf32 (tml_split_tf32)", "split_tf32", "split_tf32 A chunk", "split_tf32 A chunk", {
+            "library_ms": None,
+            "library_ms_null_because": "no torch call rounds to TF32 planes",
+            "b_piece_transposed_ms": mp_ms["tf32x3"]["split_tf32 B piece"]}))]}
     print(card_line(), flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -65,7 +65,11 @@ def test_f32_paths_run_on_the_cpu(monkeypatch):
     monkeypatch.setattr(mod, "FFT", (4, 256))
     monkeypatch.setattr(mod, "BATCHED", ((8, 32), (2, 128)))
     monkeypatch.setattr(mod, "JACOBI", ((4, 32), (2, 64)))
+    monkeypatch.setattr(mod, "MP", (64, 32, 128))
     paths = mod._paths(torch.device("cpu"))
+    mp_paths = mod._mp_paths(torch.device("cpu"))
+    assert not set(paths) & set(mp_paths)   # the rings' inputs are made apart, timed last
+    paths |= mp_paths
     assert sorted(paths) == sorted(["potrf_onelaunch", "getrf_onelaunch", "geqrf_onelaunch",
                                     "orgqr_onelaunch", "potrf_blocked", "dropout_matmul_kernel",
                                     "pallas_matmul_bf16_gelu_bias", "spmm_bell_bf16",
@@ -76,7 +80,8 @@ def test_f32_paths_run_on_the_cpu(monkeypatch):
                                     "gesv_batched_8192x32_k4", "getrf_batched_1024x128",
                                     "geqrf_batched_8192x32", "geqrf_batched_1024x128",
                                     "syevd_batched_8192x32", "gesvd_batched_8192x32",
-                                    "syevd_batched_2048x64", "gesvd_batched_2048x64"])
+                                    "syevd_batched_2048x64", "gesvd_batched_2048x64",
+                                    "matmul_ag_overlapped", "matmul_rs_overlapped"])
     for name, fn in paths.items():
         out = fn()
         for t in out if isinstance(out, tuple) else (out,):

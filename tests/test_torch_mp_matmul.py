@@ -13,15 +13,18 @@ exact.
 Ring-specific: P ∈ {1, 2, 3, 8}; a "chunk identity" input whose result
 shows any misplaced slot exactly; a split dimension not divisible by P
 raises. The CUDA branch of both rings runs against ``_EmulatedLib`` (the GEMM
-test's emulation plus tml_ring_gemm and tml_ring_accumulate) under
+test's emulation, with B1's bf16 kernel, plus the 3xTF32 split and product
+of tests/test_torch_tf32x3.py and tml_ring_accumulate) under
 ``_DeferredCuda``, a CPU stand-in for streams and events that holds every
 launch, copy, record and wait in its stream's queue and runs the queues in a
 random interleaving that keeps only stream order and event waits: the
 results equal the plain versions under every interleaving tried, every
 waited event was recorded first, the caller's stream waits for every side
-stream last, and the counts grow by P² ring GEMMs and P(P − 1) accumulates
-a call. With the waits dropped the same harness sees wrong results, so it
-can see a race.
+stream last, and the counts grow by P² ring GEMMs, the split passes (f32:
+B once a rank, transposed, and each A chunk where k is not a multiple of 4;
+else the kernel splits A in its registers) and P(P − 1) accumulates a
+call. With the waits dropped the same harness sees wrong results, so it can
+see a race.
 """
 
 import contextlib
@@ -48,13 +51,14 @@ from tpumathlib.mp.overlap import matmul_rs_overlapped as ref_rs_overlapped
 from tpumathlib_torch import mp
 from tpumathlib_torch.core.check import assert_allclose
 from tpumathlib_torch.core.errors import ExecutionError, InvalidValueError, NotSupportedError
-from tpumathlib_torch.dx import cuda_utils
+from tpumathlib_torch.dx import cuda_utils, gemm, tf32x3
 from tpumathlib_torch.entry import dryrun_multichip
 from tpumathlib_torch.mp import grid as port_grid
 from tpumathlib_torch.mp import overlap
 from tpumathlib_torch.mp.matmul import gemr2d
 from test_torch_dx_gemm import _EmulatedLib as _EmulatedGemmLib
 from test_torch_dx_gemm import _view
+from test_torch_tf32x3 import Tf32x3Emulation
 
 torch.set_num_threads(1)
 
@@ -350,17 +354,10 @@ def test_dryrun_multichip_on_cpu_ranks():
 _CODE_DTYPE = {v: k for k, v in overlap._CODE.items()}
 
 
-class _EmulatedLib(_EmulatedGemmLib):
-    """tml_ring_gemm and tml_ring_accumulate computed on the CPU from their
-    raw arguments, beside the GEMM's emulation."""
-
-    def tml_ring_gemm(self, a, b, d, m, n, k, lda, ldb, ldd, ab_code, d_code, stream):
-        self.calls.append(dict(kind="ring_gemm", shape=(m, n, k), ld=(lda, ldb, ldd),
-                               codes=(ab_code, d_code), stream=stream))
-        abt = _CODE_DTYPE[ab_code]
-        acc = _view(a, abt, (m, k), (lda, 1)).float() @ _view(b, abt, (k, n), (ldb, 1)).float()
-        _view(d, _CODE_DTYPE[d_code], (m, n), (ldd, 1)).copy_(acc)
-        return 0
+class _EmulatedLib(Tf32x3Emulation, _EmulatedGemmLib):
+    """tml_ring_accumulate computed on the CPU from its raw arguments,
+    beside the GEMM's emulation (B1's bf16 kernel) and the 3xTF32 split and
+    product's."""
 
     def tml_ring_accumulate(self, partial, slot, d, count, d_code, stream):
         self.calls.append(dict(kind="ring_accumulate", count=count, d=bool(d), stream=stream))
@@ -451,21 +448,31 @@ class _DeferredCuda:
 
 
 class _DeferredLib(_EmulatedLib):
-    """The emulation, deferred to the queue of the stream each launch names."""
+    """The emulation, deferred to the queue of the stream each launch names;
+    a launch the emulation refuses when it runs is an error."""
 
     def __init__(self, cuda):
         super().__init__()
         self.cuda = cuda
 
-    def tml_ring_gemm(self, *args):
-        self.cuda.streams[args[-1]].queue.append(
-            ("op", lambda: _EmulatedLib.tml_ring_gemm(self, *args)))
+    def _defer(self, entry, args):
+        def run():
+            if entry(self, *args):
+                self.cuda.errors.append(f"{entry.__name__} refused its arguments")
+        self.cuda.streams[args[-1]].queue.append(("op", run))
         return 0
 
+    def tml_split_tf32(self, *args):
+        return self._defer(_EmulatedLib.tml_split_tf32, args)
+
+    def tml_gemm_tf32x3(self, *args):
+        return self._defer(_EmulatedLib.tml_gemm_tf32x3, args)
+
+    def tml_gemm_wgmma(self, *args):
+        return self._defer(_EmulatedLib.tml_gemm_wgmma, args)
+
     def tml_ring_accumulate(self, *args):
-        self.cuda.streams[args[-1]].queue.append(
-            ("op", lambda: _EmulatedLib.tml_ring_accumulate(self, *args)))
-        return 0
+        return self._defer(_EmulatedLib.tml_ring_accumulate, args)
 
 
 @pytest.fixture
@@ -477,6 +484,7 @@ def deferred(monkeypatch):
         monkeypatch.setattr(overlap, "on_cuda", lambda *t: True)
         monkeypatch.setattr(overlap, "_on_card", lambda dev: True)
         monkeypatch.setattr(overlap, "_send", lambda dst, src: cuda.defer(lambda: dst.copy_(src)))
+        monkeypatch.setattr(overlap, "_stage", lambda dst, src: cuda.defer(lambda: dst.copy_(src)))
         monkeypatch.setattr(cuda_utils, "load_kernels", lambda: lib)
         monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
         monkeypatch.setattr(torch.cuda, "Stream", lambda device=None: _Stream(cuda, "side"))
@@ -516,32 +524,78 @@ def _run_deferred(make, nr, kind, seed):
         a = gen.normal(size=(3 * nr, 2 * nr)).astype(np.float32)
         b = gen.normal(size=(2 * nr, 4)).astype(np.float32)
         specs, fn = ((None, "x"), ("x", None)), overlap.matmul_rs_overlapped
-    counts = (overlap.matmul_ag_overlapped, overlap.matmul_rs_overlapped)
-    before = [c.launches for c in counts] + [overlap.matmul_rs_overlapped.accumulates]
+    before = _ring_counts()
     got = fn(*_deferred_inputs(g, cuda, a, b, specs), g)
     cuda.drain()
-    after = [c.launches for c in counts] + [overlap.matmul_rs_overlapped.accumulates]
-    return got, a.astype(np.float64) @ b, cuda, lib, [y - x for x, y in zip(before, after)]
+    return got, a.astype(np.float64) @ b, cuda, lib, [y - x for x, y in zip(before,
+                                                                          _ring_counts())]
+
+
+def _ring_counts():
+    """(AG GEMMs, AG splits, RS GEMMs, RS splits, accumulates)."""
+    ag, rs = overlap.matmul_ag_overlapped, overlap.matmul_rs_overlapped
+    return [ag.launches, ag.splits, rs.launches, rs.splits, rs.accumulates]
+
+
+def _tf32(lib, kind):
+    return [c for c in lib.__dict__.get("tf32_calls", []) if c["kind"] == kind]
 
 
 @pytest.mark.parametrize("nr", [1, 2, 3, 8])
 @pytest.mark.parametrize("kind", ["ag", "rs"])
 def test_cuda_branch_counts_and_marshalling(deferred, nr, kind):
     """Through the real CUDA wrappers on the emulated library: P² ring GEMMs
-    a call and P(P − 1) accumulates (B12b), each launch on a side stream,
-    the result equal to float64 at RTOL."""
+    a call on the 3xTF32 kernel, P² + P split passes (each rank's B once,
+    transposed into Bᵀ's planes, and every A chunk: k = 5 and 2 a rank are
+    not TMA's row strides), P(P − 1) accumulates (B12b), each launch on a
+    side stream, the result equal to float64 at RTOL."""
     got, want, cuda, lib, grew = _run_deferred(deferred, nr, kind, seed=0)
     assert cuda.errors == []
     assert_allclose(got.full(), want, rtol=RTOL)
-    gemms = [c for c in lib.calls if c["kind"] == "ring_gemm"]
-    accs = [c for c in lib.calls if c["kind"] == "ring_accumulate"]
-    assert len(gemms) == nr * nr
+    gemms, splits = _tf32(lib, "gemm"), _tf32(lib, "split")
+    accs = [c for c in lib.calls if c.get("kind") == "ring_accumulate"]
+    assert len(gemms) == nr * nr and len(splits) == nr * nr + nr
+    assert sum(c["flags"] == tf32x3.TRANSPOSE for c in splits) == nr
+    assert all(c["ld"][0] % 4 == 0 and c["ld"][1] % 4 == 0 and c["c"] is None for c in gemms)
     if kind == "ag":
-        assert grew == [nr * nr, 0, 0] and accs == []
+        assert grew == [nr * nr, nr * nr + nr, 0, 0, 0] and accs == []
     else:
-        assert grew == [0, nr * nr, nr * (nr - 1)] and len(accs) == nr * (nr - 1)
+        assert grew == [0, 0, nr * nr, nr * nr + nr, nr * (nr - 1)]
+        assert len(accs) == nr * (nr - 1)
         assert sum(c["d"] for c in accs) == (nr if nr > 1 else 0)   # the last step writes D
-    assert all(cuda.streams[c["stream"]].name == "side" for c in lib.calls)
+    assert not [c for c in lib.calls if c.get("kernel")]   # no B1 launch for f32 operands
+    assert all(cuda.streams[c["stream"]].name == "side" for c in lib.calls + lib.tf32_calls)
+
+
+@pytest.mark.parametrize("kind", ["ag", "rs"])
+def test_cuda_branch_splits_a_in_the_kernel_where_tma_reads_it(deferred, kind):
+    """k = 8 a rank, a multiple of 4: the A chunks go to the 3xTF32 kernel
+    as they lie (split in its registers), so a call's split passes are the
+    P of B alone, transposed; the result equals float64 at RTOL under a
+    seeded interleaving."""
+    nr = 4
+    cuda, lib = deferred(1)
+    g = mp.Grid.create([CPU] * nr)
+    gen = np.random.default_rng(11)
+    if kind == "ag":
+        a = gen.normal(size=(3 * nr, 8)).astype(np.float32)
+        b = gen.normal(size=(8, 2 * nr)).astype(np.float32)
+        specs, fn = (("x", None), (None, "x")), overlap.matmul_ag_overlapped
+        want_grew = [nr * nr, nr, 0, 0, 0]
+    else:
+        a = gen.normal(size=(3 * nr, 8 * nr)).astype(np.float32)
+        b = gen.normal(size=(8 * nr, 4)).astype(np.float32)
+        specs, fn = ((None, "x"), ("x", None)), overlap.matmul_rs_overlapped
+        want_grew = [0, 0, nr * nr, nr, nr * (nr - 1)]
+    before = _ring_counts()
+    got = fn(*_deferred_inputs(g, cuda, a, b, specs), g)
+    cuda.drain()
+    assert cuda.errors == []
+    assert_allclose(got.full(), a.astype(np.float64) @ b, rtol=RTOL)
+    gemms, splits = _tf32(lib, "gemm"), _tf32(lib, "split")
+    assert len(gemms) == nr * nr and all(c["split_a"] and c["ld"][0] == 8 for c in gemms)
+    assert [c["flags"] for c in splits] == [tf32x3.TRANSPOSE] * nr
+    assert [y - x for x, y in zip(before, _ring_counts())] == want_grew
 
 
 @pytest.mark.parametrize("nr", [2, 3, 4])
@@ -585,11 +639,16 @@ def test_streams_are_made_once_per_grid(deferred):
 
 
 def test_cuda_branch_rejects_unsupported_dtypes(deferred):
+    """float64 operands, and f32 operands into a bf16 output (the 3xTF32
+    kernel writes f32 alone), raise before any launch."""
     cuda, lib = deferred(0)
     g = mp.Grid.create([CPU] * 2)
     with pytest.raises(NotSupportedError, match="ring GEMM"):
         overlap.matmul_ag_overlapped(np.ones((4, 4)), np.ones((4, 4)), g)   # float64
-    assert [c for c in lib.calls if c["kind"] == "ring_gemm"] == []
+    ops = overlap._RankOperands(torch.ones((4, 4)), 4, overlap.matmul_ag_overlapped)
+    with pytest.raises(NotSupportedError, match="ring GEMM"):
+        overlap._ring_gemm(torch.ones((4, 4)), ops, torch.empty((4, 4), dtype=torch.bfloat16))
+    assert lib.calls == [] and _tf32(lib, "gemm") == _tf32(lib, "split") == []
 
 
 def test_cuda_accumulate_rejects_strided_operands(deferred):
@@ -618,19 +677,34 @@ def test_cuda_branch_propagates_loader_failure(monkeypatch):
         overlap._ring_accumulate(torch.ones(4), torch.ones(4))
 
 
-def test_bf16_ring_marshalling(deferred):
-    """bf16 operands: B12a's GEMMs write bf16 rows of D, B12b's write f32
-    slots and its last accumulate writes bf16 D; both within the bf16
-    rtol 1e-2 of float64."""
+@pytest.mark.parametrize("width", [4, 8])
+def test_bf16_ring_marshalling(deferred, width):
+    """bf16 operands take B1's bf16 wgmma kernel, B N-major (its transpose
+    bit) and no split: B12a's GEMMs write bf16 rows of D, B12b's write f32
+    slots and its last accumulate writes bf16 D; both within the bf16 rtol
+    1e-2 of float64. The emulated kernel refuses a row stride that is not a
+    multiple of 8, as TMA does: B's pieces (2 or 4 columns) are copied once
+    a call into buffers whose stride is, and at width 4 each A chunk (k = 4)
+    before its GEMM; at width 8 the chunks are read in place. The launches
+    are B1's (dx.gemm._Into.wgmma): its counts grow by the ring's 4."""
     for kind, codes in (("ag", {(1, 1)}), ("rs", {(1, 0)})):
         cuda, lib = deferred(3)
         g = mp.Grid.create([CPU] * 2)
         gen = np.random.default_rng(5)
-        a = torch.from_numpy(gen.normal(size=(8, 8)).astype(np.float32)).bfloat16()
-        b = torch.from_numpy(gen.normal(size=(8, 4)).astype(np.float32)).bfloat16()
+        k = width if kind == "ag" else 2 * width   # k a rank: width
+        a = torch.from_numpy(gen.normal(size=(8, k)).astype(np.float32)).bfloat16()
+        b = torch.from_numpy(gen.normal(size=(k, 4)).astype(np.float32)).bfloat16()
         fn = overlap.matmul_ag_overlapped if kind == "ag" else overlap.matmul_rs_overlapped
+        before = _ring_counts()
+        b1_before = (gemm._gemm_wgmma.launches, gemm.pallas_matmul.launches)
         got = fn(a, b, g)
         cuda.drain()
-        assert got.dtype == torch.bfloat16
-        assert {c["codes"] for c in lib.calls if c["kind"] == "ring_gemm"} == codes
+        assert cuda.errors == [] and got.dtype == torch.bfloat16
+        assert (gemm._gemm_wgmma.launches, gemm.pallas_matmul.launches) == (
+            b1_before[0] + 4, b1_before[1] + 4)
+        wgmma = [c for c in lib.calls if c.get("kernel") == "wgmma"]
+        assert len(wgmma) == 4 and {(c["ab"], c["d"]) for c in wgmma} == codes
+        assert all(c["majors"][1] == 0 for c in wgmma)   # B row-major: N-major in the kernel
+        assert _tf32(lib, "split") == [] and [y - x for x, y in zip(before, _ring_counts())] == (
+            [4, 0, 0, 0, 0] if kind == "ag" else [0, 0, 4, 0, 2])
         assert_allclose(got.full(), a.double() @ b.double(), rtol=1e-2)

@@ -31,11 +31,12 @@ from tpumathlib.solver import dense as ref_dense
 from tpumathlib.solver import onelaunch as ref_onelaunch
 from tpumathlib_torch.core.check import max_scaled_err
 from tpumathlib_torch.core.errors import ExecutionError, InvalidValueError
-from tpumathlib_torch.dx import cuda_utils, gemm
+from tpumathlib_torch.dx import cuda_utils, gemm, tf32x3
 from tpumathlib_torch.solver import blocked, onelaunch
 from test_torch_dx_gemm import _view
 from test_torch_solver_onelaunch import (_EmulatedLib as _EmulatedSolverLib, _Event, _Stream,
                                          _block)
+from test_torch_tf32x3 import Tf32x3Emulation
 
 # the packages export functions of the same names as these modules
 ref_qr = importlib.import_module("tpumathlib.solver.qr_onelaunch")
@@ -176,7 +177,8 @@ def test_argument_checks():
 
 
 _COUNTS = (gemm.pallas_matmul, blocked._chol_inv128, qr._hh_recon128, onelaunch._inv_upper128,
-           qr.geqrf_onelaunch, qr.orgqr_onelaunch, qr._gram_tn)
+           qr.geqrf_onelaunch, qr.orgqr_onelaunch, qr._gram_tn, tf32x3.split_tf32,
+           tf32x3.gemm_tf32x3)
 
 
 def test_cpu_takes_plain_versions_without_launch(rng):
@@ -205,8 +207,9 @@ def _gram_refused(k, m, n, flags, ncounters, ptrs, lds, tops):
             or (flags & 2 and (m != n or ncounters < tiles + 1)))
 
 
-class _EmulatedLib(_EmulatedSolverLib):
-    """Adds the contracts of qr_block.cu's and qr_gram.cu's entry points."""
+class _EmulatedLib(Tf32x3Emulation, _EmulatedSolverLib):
+    """Adds the contracts of qr_block.cu's and qr_gram.cu's entry points, and
+    gemm_tf32x3.cu's (tests/test_torch_tf32x3.py)."""
 
     def __init__(self):
         super().__init__()
@@ -305,12 +308,13 @@ def test_driver_cuda_route_marshalling(emulated, rng):
     and its rows below), t01 2; and the first panel's update of the next
     panel 5 B1 (W, then the top and the rows below of each 128 columns, the
     second on the aux stream). No columns lie past the next panel at n = 512.
-    orgqr: a Gram and 2 B1 a panel."""
+    orgqr (its device route): one split a call, then a Gram, a B1, a split
+    and a 3xTF32 product a panel."""
     a = torch.from_numpy(rng.normal(size=(N, N)).astype(np.float32))
     before = [f.launches for f in _COUNTS]
     vr, t = qr.geqrf_onelaunch(a)
     grew = [f.launches - b for f, b in zip(_COUNTS, before)]
-    assert grew == [31, 8, 4, 4, 1, 0, 17]
+    assert grew == [31, 8, 4, 4, 1, 0, 17, 0, 0]
     assert len(emulated.calls) == 31 and len(emulated.block_calls) == 16
     # streams: the caller's 0, then the chain 1 and the aux 2 (high priority), the side 3
     streams = [c["stream"] for c in emulated.gram_calls]
@@ -328,11 +332,11 @@ def test_driver_cuda_route_marshalling(emulated, rng):
     _close(t, want_t.numpy(), 1e-6)
     before = [f.launches for f in _COUNTS]
     q = qr.orgqr_onelaunch(want_vr, want_t)
-    assert [f.launches - b for f, b in zip(_COUNTS, before)] == [4, 0, 0, 0, 0, 1, 2]
+    assert [f.launches - b for f, b in zip(_COUNTS, before)] == [2, 0, 0, 0, 0, 1, 2, 3, 2]
     _close(q, qr._orgqr_onelaunch_plain(want_vr, want_t).numpy(), 1e-6)
     before = [f.launches for f in _COUNTS]
     qr.qr_onelaunch(a)
-    assert [f.launches - b for f, b in zip(_COUNTS, before)] == [35, 8, 4, 4, 1, 1, 19]
+    assert [f.launches - b for f, b in zip(_COUNTS, before)] == [33, 8, 4, 4, 1, 1, 19, 3, 2]
 
 
 @pytest.mark.parametrize("n", [256, 768, 1024])
@@ -349,6 +353,70 @@ def test_driver_look_ahead_streams(emulated, rng, n):
     want_vr, want_t = qr._geqrf_onelaunch_plain(a)
     _close(vr, want_vr.numpy(), 1e-6)
     _close(t, want_t.numpy(), 1e-6)
+
+
+@pytest.mark.parametrize("n", [512, 1024])
+def test_orgqr_device_route(emulated, rng, n):
+    """orgqr_onelaunch's device route (``_DeviceOrgqr``) on the emulated
+    library equals ``_orgqr``'s plain route at 1e-6 and keeps Q
+    orthogonal; on the caller's stream it splits all of vr once (unit
+    lower), then per panel, from the last down, launches G = Vpᵀ·C (the
+    Gram kernel, Vp's unit-lower top from scratch as the split operand), W
+    = T·G (B1), the planes of Wᵀ (transposed), and C −= Vp·W in place
+    (3xTF32 on vr's planes at row and column k0, α = −1, β = 1, C = D, Q's
+    own rows)."""
+    a = torch.from_numpy(rng.normal(size=(n, n)).astype(np.float32))
+    vr, t = qr._geqrf_onelaunch_plain(a)
+    for lst in (emulated.calls, emulated.gram_calls, emulated.gemm_streams):
+        lst.clear()
+    emulated.tf32_calls = []
+    before = [f.launches for f in _COUNTS]
+    q = qr.orgqr_onelaunch(vr, t)
+    panels = n // 256
+    assert [f.launches - b for f, b in zip(_COUNTS, before)] == [
+        panels, 0, 0, 0, 0, 1, panels, panels + 1, panels]
+    _close(q, qr._orgqr_onelaunch_plain(vr, t).numpy(), 1e-6)
+    assert float((q.double().mT @ q.double() - torch.eye(n, dtype=torch.float64)).abs().max()) < 1e-5
+    main = emulated.caller.cuda_stream
+    assert {c["stream"] for c in emulated.gram_calls + emulated.tf32_calls} == {main}
+    assert set(emulated.gemm_streams) == {main}
+    assert [c["k"] for c in emulated.gram_calls] == [n - k0 for k0 in range(n - 256, -1, -256)]
+    assert all(c["tops"] == (256, 0) for c in emulated.gram_calls)
+    splits = [c for c in emulated.tf32_calls if c["kind"] == "split"]
+    assert [c["flags"] for c in splits] == [tf32x3.UNIT_LOWER] + [tf32x3.TRANSPOSE] * panels
+    assert splits[0]["shape"] == (n, n) and all(c["ld"][0] == n for c in splits)   # in place
+    prods = [c for c in emulated.tf32_calls if c["kind"] == "gemm"]
+    for k0, c in zip(range(n - 256, -1, -256), prods):
+        assert c["shape"] == (n - k0, n - k0, 256) and c["c"] == c["d"] and c["ld"][0] == n
+        assert c["d"] == q.data_ptr() + 4 * (k0 * n + k0) and (c["alpha"], c["beta"]) == (-1, 1)
+
+
+@pytest.mark.parametrize("layout", ["transposed", "strided", "float64"])
+def test_orgqr_device_route_takes_views(emulated, rng, layout):
+    """The device route takes vr and t as any view or dtype the plain route
+    takes: it reads a contiguous f32 copy (a transposed vr, vr and t as
+    column slices of wider matrices, or both in float64), so Q equals the
+    plain route's on the same values at 1e-6 with the same launches, and
+    the split reads vr with its own row stride n."""
+    n = 512
+    a = torch.from_numpy(rng.normal(size=(n, n)).astype(np.float32))
+    vr, t = qr._geqrf_onelaunch_plain(a)
+    if layout == "transposed":
+        vr_in, t_in = vr.mT.contiguous().mT, t
+    elif layout == "strided":
+        vr_in = torch.zeros((n, n + 40))[:, 8:n + 8].copy_(vr)
+        t_in = torch.zeros((n, 300))[:, 20:276].copy_(t)
+    else:
+        vr_in, t_in = vr.double(), t.double()
+    assert not (vr_in.is_contiguous() and vr_in.dtype == torch.float32)
+    emulated.tf32_calls = []
+    before = [f.launches for f in _COUNTS]
+    q = qr.orgqr_onelaunch(vr_in, t_in)
+    assert [f.launches - b for f, b in zip(_COUNTS, before)] == [2, 0, 0, 0, 0, 1, 2, 3, 2]
+    assert q.dtype == torch.float32
+    _close(q, qr._orgqr_onelaunch_plain(vr, t).numpy(), 1e-6)
+    splits = [c for c in emulated.tf32_calls if c["kind"] == "split"]
+    assert splits[0]["ld"][0] == n
 
 
 # ---------------------------------------------------------------------------

@@ -20,7 +20,11 @@ The paths, each through its public function:
   x 128, and geqrf_batched at both;
 - the Jacobi kernels of dx.solver (B7g, B7h): syevd_batched and
   gesvd_batched at 8192 x 32 (the warp route) and 2048 x 64 (the block
-  route).
+  route);
+- the Mp rings (B12a, B12b): mp.overlap.matmul_ag_overlapped and
+  matmul_rs_overlapped at GPT-J-6B's MLP, 8192 tokens, (8192, 4096) @ (4096,
+  16384) and (8192, 16384) @ (16384, 4096) f32, on 4 ranks of the one card,
+  timed last: their inputs are made once the other paths' are freed.
 Each is timed three ways: CUDA events around one call after a synchronise
 (median of 5, as chip_smoke.py's ``_median_ms``), CUDA events around 5
 back-to-back calls (median of 3 samples, as its ``_loop_ms``), and the
@@ -34,8 +38,10 @@ in one run, in turns (a, b, b, a):
     PYTHONPATH=path/to/checkout python3 -P time_paths.py --tree a
 
 Each run prints the card's name and power limit, then one JSON line
-{"tree": ..., "package": ..., "card": ..., "ms": {path: {"call", "loop",
-"enqueue"}}}. Build each checkout's kernels first (their build is not
+{"tree": ..., "package": ..., "card": ..., "smi": {"before", "after"}, "ms":
+{path: {"call", "loop", "enqueue"}}}, "smi" holding the card's SM and
+memory clocks, temperature and power draw before the first path and after
+the last. Build each checkout's kernels first (their build is not
 timed): ``python3 -c "from tpumathlib_torch.dx import cuda_utils;
 cuda_utils.build_kernels()"`` from its root.
 """
@@ -52,12 +58,13 @@ import numpy as np
 import torch
 
 import tpumathlib_torch
-from tpumathlib_torch import dx, sparse
+from tpumathlib_torch import dx, mp, sparse
 from tpumathlib_torch.dx import cuda_utils, gemm
 from tpumathlib_torch.dx import rng as dxr
 from tpumathlib_torch.dx import solver as dxs
 from tpumathlib_torch.fft import kernels as fft_kernels
 from tpumathlib_torch.fft import pallas_split, stockham
+from tpumathlib_torch.mp import overlap
 from tpumathlib_torch.solver import blocked, onelaunch
 
 qr = importlib.import_module("tpumathlib_torch.solver.qr_onelaunch")  # the package exports a function of this name
@@ -69,6 +76,8 @@ SPMV = (128, 128, 32, 128)         # (mb, nb, ellw, bs) of bench_spmv_bell
 FFT = (4096, 4096)                 # (batch, N) of the bench's FFT lines
 BATCHED = ((8192, 32), (1024, 128))   # (batch, n) of the batched solvers' lines
 JACOBI = ((8192, 32), (2048, 64))     # (batch, n) of syevd_batched and gesvd_batched
+MP = (8192, 4096, 16384)              # (tokens, n_embd, n_inner): chip_smoke.py's MP_MAIN
+RANKS = 4                             # the rings' ranks, all on the one card
 
 
 def _bell(gen, mb, nb, ellw, bs, dtype, dev):
@@ -142,6 +151,23 @@ def _paths(dev) -> dict:
     }
 
 
+def _mp_paths(dev) -> dict:
+    """The rings' paths. Their inputs (1.5 GB) and the grid's streams are
+    made only after ``_paths``' inputs are freed, so no other path is timed
+    beside them."""
+    gen = torch.Generator(device=dev).manual_seed(2025)
+    s, hd, f = MP
+    grid = mp.Grid.create([dev] * RANKS)
+    xs = grid.shard(torch.randn((s, hd), generator=gen, device=dev), ("x", None))
+    w1 = grid.shard(torch.randn((hd, f), generator=gen, device=dev) / hd ** 0.5, (None, "x"))
+    hs = grid.shard(torch.randn((s, f), generator=gen, device=dev), (None, "x"))
+    w2 = grid.shard(torch.randn((f, hd), generator=gen, device=dev) / f ** 0.5, ("x", None))
+    return {
+        "matmul_ag_overlapped": lambda: overlap.matmul_ag_overlapped(xs, w1, grid).pieces[0],
+        "matmul_rs_overlapped": lambda: overlap.matmul_rs_overlapped(hs, w2, grid).pieces[0],
+    }
+
+
 def _events(fn, calls: int) -> float:
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -167,6 +193,14 @@ def _time(fn) -> dict:
     return {"call": float(np.median(call)), "loop": float(np.median(loop)), "enqueue": enqueue}
 
 
+def _clocks() -> str:
+    """The card's SM and memory clocks (MHz), temperature (C) and power
+    draw (W) now, as nvidia-smi reads them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,temperature.gpu,"
+                           "power.draw", "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60, check=True).stdout.strip()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=".", help="a label for the checkout, printed back")
@@ -179,10 +213,13 @@ def main() -> None:
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     cuda_utils.load_kernels()
     dev = torch.device("cuda", 0)
+    smi = {"before": _clocks()}
     ms = {name: _time(fn) for name, fn in _paths(dev).items()}
+    ms |= {name: _time(fn) for name, fn in _mp_paths(dev).items()}
+    smi["after"] = _clocks()
     print(card, flush=True)
     print(json.dumps({"tree": args.tree, "package": tpumathlib_torch.__file__, "card": card,
-                      "ms": ms}), flush=True)
+                      "smi": smi, "ms": ms}), flush=True)
 
 
 if __name__ == "__main__":

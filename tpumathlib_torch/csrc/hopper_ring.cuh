@@ -1,19 +1,24 @@
-// The TMA + wgmma ring shared by gemm_wgmma.cu (B1's tensor-core route) and
-// bell_wgmma.cu (B6a's): mbarriers, TMA loads, tensor-map encoding, wgmma's
+// The TMA + wgmma ring shared by gemm_wgmma.cu (B1's tensor-core route),
+// bell_wgmma.cu (B6a's) and gemm_tf32x3.cu (the 3xTF32 product of f32
+// operands): mbarriers, TMA loads, tensor-map encoding, wgmma's
 // shared-memory descriptors, fences and instructions, the consumers' main
-// loop, and the staging of a finished tile in shared memory.
+// loops, and the staging of a finished tile in shared memory.
 //
 // The ring. A block of 384 threads: warpgroup 0 is the producer, whose one
-// thread keeps TMA loads in flight into STAGES stages of (128 x 64 of A,
-// 64 x BN of B), each stage with a full and an empty mbarrier; warpgroups 1
-// and 2 are the consumers, each issuing wgmma m64nBNk16 over its 64 rows
-// into BN / 2 f32 accumulators a thread. Every box lands with the 128-byte
-// swizzle as rows of 64 16-bit values (128 bytes), in 1024-byte groups of
-// 8 rows, and the descriptors read the same layout: a K-major operand is
-// one box of 64 k x rows, a k16 step 32 bytes along its rows; an M- or
-// N-major one (wgmma's transpose bits) is boxes of 64 k rows x 64 columns
-// placed kBox bytes apart (the descriptor's leading byte offset), a k16 step
-// 16 rows, 2048 bytes. The stride byte offset is 1024 (8 rows) in both.
+// thread keeps TMA loads in flight into STAGES stages of (128 rows of A, BN
+// rows of B) by one 128-byte swizzle row of k each (64 16-bit values, or 32
+// f32 ones), PLANES such pairs a stage (2 for 3xTF32: the hi and lo planes),
+// each stage with a full and an empty mbarrier; warpgroups 1 and 2 are the
+// consumers, each issuing wgmma over its 64 rows into BN / 2 f32
+// accumulators a thread (m64nBNk16 for 16-bit operands, m64nBNk8 for
+// TF32). Every box lands with the 128-byte swizzle as rows of 128 bytes, in
+// 1024-byte groups of 8 rows, and the descriptors read the same layout: a
+// K-major operand is one box of (a row of k) x rows, a k step (k16 of 16-bit
+// values, k8 of TF32) 32 bytes along its rows; an M- or N-major one
+// (wgmma's transpose bits, 16-bit types only) is boxes of 64 k rows x 64
+// columns placed kBox bytes apart (the descriptor's leading byte offset), a
+// k16 step 16 rows, 2048 bytes. The stride byte offset is 1024 (8 rows) in
+// both.
 
 #pragma once
 
@@ -28,20 +33,22 @@
 namespace tml_ring {
 
 constexpr int kBM = 128;             // rows of a block tile: two consumer warpgroups of 64
-constexpr int kBK = 64;              // k of a stage: one 128-byte swizzle row of 16-bit values
+constexpr uint32_t kRowBytes = 128;  // k of a stage: one 128-byte swizzle row
+constexpr int kBK = 64;              // ... of 16-bit values
+constexpr int kBK32 = 32;            // ... of f32 (TF32) values
 constexpr int kThreads = 384;        // the producer warpgroup and two consumers
-constexpr uint32_t kBox = 64 * 128;  // bytes of one 64 x 64 box
-constexpr uint32_t kABytes = kBM * kBK * 2;  // A's part of a stage
+constexpr uint32_t kBox = 64 * 128;  // bytes of one 64 x 64 box of 16-bit values (64 rows)
+constexpr uint32_t kABytes = kBM * kRowBytes;  // A's part of a stage, one plane
 
-// Bytes of one stage, and of the dynamic shared memory a block of STAGES
-// asks for (+ the ring's 1024-byte alignment).
-template <int BN>
+// Bytes of one stage of PLANES (A, B) pairs, and of the dynamic shared
+// memory a block of STAGES asks for (+ the ring's 1024-byte alignment).
+template <int BN, int PLANES = 1>
 __host__ __device__ constexpr uint32_t stage_bytes() {
-  return kABytes + kBK * BN * 2;
+  return PLANES * (kABytes + BN * kRowBytes);
 }
-template <int BN, int STAGES>
+template <int BN, int STAGES, int PLANES = 1>
 __host__ __device__ constexpr int smem_bytes() {
-  return STAGES * static_cast<int>(stage_bytes<BN>()) + 1024;
+  return STAGES * static_cast<int>(stage_bytes<BN, PLANES>()) + 1024;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -171,6 +178,69 @@ __device__ __forceinline__ void wgmma(float (&d)[64], uint64_t da, uint64_t db, 
                  : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
 }
 
+// d = A B + (acc ? d : 0) over one k8 step of TF32 operands (f32 values
+// whose low 13 mantissa bits the tensor cores do not read), both K-major:
+// wgmma has no transpose bits for TF32.
+#define TML_WGMMA_TF32(N, REGS, DA, DB, ACC)                                                     \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %" #ACC ", 0;\n"                                             \
+  "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 {" REGS "}, %" #DA ", %" #DB ", p, 1, " \
+  "1;\n}\n"
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[128], uint64_t da, uint64_t db, uint32_t acc) {
+  asm volatile(TML_WGMMA_TF32(256, TML_REGS128, 128, 129, 130)
+               : TML_ACC64(0), TML_ACC64(64)
+               : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t da, uint64_t db, uint32_t acc) {
+  asm volatile(TML_WGMMA_TF32(128, TML_REGS64, 64, 65, 66) : TML_ACC64(0) : "l"(da), "l"(db), "r"(acc));
+}
+
+// The same, m64n128k8, with A from registers: this thread's four TF32 words
+// of the warpgroup's 64 x 8 A (split_fragment's layout).
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                           uint32_t acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {" TML_REGS64
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : TML_ACC64(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// x rounded to TF32 (10 mantissa bits), to nearest, ties away from zero:
+// an f32 word whose low 13 bits are 0.
+__device__ __forceinline__ uint32_t rna_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// Byte offset of f32 element (r, c) in a K-major tile of 32-value rows as
+// TMA's 128-byte swizzle lays it out: the 16-byte chunk index XOR the row
+// within its 8-row group.
+__device__ __forceinline__ uint32_t swizzled(int r, int c) {
+  return r * kRowBytes + (((c >> 2) ^ (r & 7)) << 4) + ((c & 3) << 2);
+}
+
+// This thread's part of consumer cg's 64 x 8 A fragment at k8 step kk of an
+// f32 A tile at shared address a, split: hi = rna(x), lo = rna(x - hi).
+// The layout is mma.sync's m16n8k8 tf32 A in one 16-row band a warp: rows
+// g and g + 8, columns t and t + 4 (g = lane / 4, t = lane % 4).
+__device__ __forceinline__ void split_fragment(uint32_t a, int cg, int kk, uint32_t (&hi)[4],
+                                               uint32_t (&lo)[4]) {
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int r = cg * 64 + warp * 16 + lane / 4, c = kk * 8 + lane % 4;
+  const int rc[4][2] = {{r, c}, {r + 8, c}, {r, c + 4}, {r + 8, c + 4}};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float x;
+    asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(x) : "r"(a + swizzled(rc[j][0], rc[j][1])));
+    hi[j] = rna_tf32(x);
+    lo[j] = rna_tf32(x - __uint_as_float(hi[j]));
+  }
+}
+
 // The consumer warpgroup cg's side of the ring: nk stages in order, each
 // four k16 steps into acc, with one commit group in flight; a stage is
 // released (one arrival a warp) once wgmma.wait_group shows that the
@@ -207,6 +277,105 @@ __device__ __forceinline__ void consume(float (&acc)[BN / 2], int nk, uint32_t r
   fence_acc(acc);
 }
 
+// The twelve products of stage s of a 3xTF32 ring into `part`, overwriting
+// it: the stage holds the hi and lo planes of A's 128 x 32 (hi, then lo)
+// and then of B's BN x 32 (both K-major); each of its four k8 steps issues
+// lo·hi, hi·lo, then hi·hi (the small terms first; lo·lo is dropped). One
+// commit group.
+template <int BN>
+__device__ __forceinline__ void stage_tf32x3(float (&part)[BN / 2], uint32_t stage, int cg) {
+  const uint32_t a_hi = stage + cg * kBox, a_lo = a_hi + kABytes;
+  const uint32_t b_hi = stage + 2 * kABytes, b_lo = b_hi + BN * kRowBytes;
+  fence_acc(part);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int kk = 0; kk < kBK32 / 8; ++kk) {
+    const uint64_t dah = make_desc(a_hi + kk * 32, 16, 1024), dal = make_desc(a_lo + kk * 32, 16, 1024);
+    const uint64_t dbh = make_desc(b_hi + kk * 32, 16, 1024), dbl = make_desc(b_lo + kk * 32, 16, 1024);
+    wgmma_tf32(part, dal, dbh, kk > 0);
+    wgmma_tf32(part, dah, dbl, 1);
+    wgmma_tf32(part, dah, dbh, 1);
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  fence_acc(part);
+}
+
+// The same with A split in registers: the stage holds A's 128 x 32 in f32,
+// then the hi and lo planes of B's BN x 32 (BN = 128). Each k8 step loads
+// and splits this thread's part of A's fragment and commits its three
+// products as a group; two register sets alternate, so a step's loads wait
+// for the group of two steps before, which read that set.
+template <int BN>
+__device__ __forceinline__ void stage_tf32x3_split_a(float (&part)[BN / 2], uint32_t stage, int cg) {
+  static_assert(BN == 128, "register A: m64n128k8");
+  const uint32_t b_hi = stage + kABytes, b_lo = b_hi + BN * kRowBytes;
+  uint32_t h0[4], l0[4], h1[4], l1[4];
+  fence_acc(part);
+#pragma unroll
+  for (int kk = 0; kk < kBK32 / 8; ++kk) {
+    uint32_t(&hi)[4] = kk % 2 ? h1 : h0;
+    uint32_t(&lo)[4] = kk % 2 ? l1 : l0;
+    if (kk >= 2) asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    split_fragment(stage, cg, kk, hi, lo);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    const uint64_t dbh = make_desc(b_hi + kk * 32, 16, 1024), dbl = make_desc(b_lo + kk * 32, 16, 1024);
+    wgmma_tf32(part, lo, dbh, kk > 0);
+    wgmma_tf32(part, hi, dbl, 1);
+    wgmma_tf32(part, hi, dbh, 1);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  }
+  fence_acc(part);
+}
+
+// Bytes of a 3xTF32 stage: A's two planes and B's, or (SPLIT_A) A in f32
+// and B's two planes.
+template <int BN, bool SPLIT_A>
+__host__ __device__ constexpr uint32_t tf32x3_stage_bytes() {
+  return SPLIT_A ? kABytes + 2 * BN * kRowBytes : stage_bytes<BN, 2>();
+}
+
+// acc += part, in f32 (round to nearest), once part's group is done.
+template <int N>
+__device__ __forceinline__ void fold(float (&acc)[N], float (&part)[N]) {
+  fence_acc(part);
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] += part[i];
+}
+
+// The consumer warpgroup cg's side of a 3xTF32 ring: nk stages in order.
+// The tensor cores do not round their f32 additions to nearest, so a chain
+// of 3 · k / 8 additions into one accumulator drifts with k (some 3e-5 of
+// the result at k = 4096, ten times an f32 product's error). So each
+// stage's twelve products go into a fresh partial (their chain stays 12
+// long), which is summed in f32 into acc once they are done; then the
+// stage is released (one arrival a warp). acc starts at 0. One partial: a
+// second, to keep the next stage's products running during the sum, takes
+// more registers than a thread has (ptxas gives each thread of a block
+// with a producer warpgroup 168); the other consumer warpgroup's products
+// run meanwhile. SPLIT_A: A's stage is f32, split in registers
+// (stage_tf32x3_split_a).
+template <int BN, int STAGES, bool SPLIT_A>
+__device__ __forceinline__ void consume_tf32x3(float (&acc)[BN / 2], int nk, uint32_t ring,
+                                               uint64_t (&full)[STAGES], uint64_t (&empty)[STAGES],
+                                               int cg) {
+  constexpr uint32_t kStageBytes = tf32x3_stage_bytes<BN, SPLIT_A>();
+  float part[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  for (int kb = 0; kb < nk; ++kb) {
+    const int s = kb % STAGES;
+    mbar_wait(smem_u32(&full[s]), (kb / STAGES) & 1);
+    if constexpr (SPLIT_A) {
+      stage_tf32x3_split_a<BN>(part, ring + s * kStageBytes, cg);
+    } else {
+      stage_tf32x3<BN>(part, ring + s * kStageBytes, cg);
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fold(acc, part);
+    if (threadIdx.x % 32 == 0) mbar_arrive(smem_u32(&empty[s]));
+  }
+}
+
 // The (row, column) within its warpgroup's 64 x BN tile of accumulator
 // register i of this thread: wgmma's m64nNk16 f32 layout, which is
 // mma.sync's m16n8 layout in one 16-row band a warp, repeated every 8
@@ -231,11 +400,12 @@ __host__ __device__ constexpr int staged_ld() {
 // products are done (every load was waited for), and returns its 64 rows,
 // staged_ld<BN>() floats apart, once the warpgroup has written them. The
 // epilogues read the tile from there with whole rows to a warp.
-template <int BN, int STAGES>
+template <int BN, int STAGES, int PLANES = 1>
 __device__ __forceinline__ const float* stage_tile(const float (&acc)[BN / 2], uint8_t* smem_raw,
                                                    uint32_t ring, int cg) {
   constexpr int kLd = staged_ld<BN>();
-  static_assert(2 * 64 * kLd * 4 <= STAGES * stage_bytes<BN>(), "the staged tile fits in the ring");
+  static_assert(2 * 64 * kLd * 4 <= STAGES * stage_bytes<BN, PLANES>(),
+                "the staged tile fits in the ring");
   named_barrier(1, 256);
   float* tile = reinterpret_cast<float*>(smem_raw + (ring - smem_u32(smem_raw))) + cg * 64 * kLd;
 #pragma unroll
@@ -297,17 +467,18 @@ static inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 3-D map (inner, outer, batch) of a 16-bit operand whose inner dimension
-// has unit stride and whose outer one has stride ld; boxes of box_inner x
-// box_outer, 128-byte swizzle, zero fill out of bounds. An operand shared
-// by every batch gets a batch extent of 1 (coordinate 0).
+// A 3-D map (inner, outer, batch) of an operand of `esize`-byte elements
+// (16-bit unless given) whose inner dimension has unit stride and whose
+// outer one has stride ld; boxes of box_inner x box_outer, 128-byte swizzle,
+// zero fill out of bounds. An operand shared by every batch gets a batch
+// extent of 1 (coordinate 0).
 static inline CUresult encode(CUtensorMap* map, CUtensorMapDataType dt, const void* ptr, int64_t inner,
                        int64_t outer, int64_t ld, int64_t batch, int64_t sb, bool batched,
-                       uint32_t box_inner, uint32_t box_outer) {
+                       uint32_t box_inner, uint32_t box_outer, int esize = 2) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer),
                               static_cast<cuuint64_t>(batched ? batch : 1)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ld) * 2,
-                                 static_cast<cuuint64_t>(batched ? sb : outer * ld) * 2};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ld) * esize,
+                                 static_cast<cuuint64_t>(batched ? sb : outer * ld) * esize};
   const cuuint32_t box[3] = {box_inner, box_outer, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   return encode_tiled()(map, dt, 3, const_cast<void*>(ptr), dims, strides, box, unit,

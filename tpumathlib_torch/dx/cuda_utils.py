@@ -183,12 +183,16 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tml_vv10_fwd.restype = i32
     lib.tml_vv10_bwd.argtypes = [p, p, p, p, p, i64, p]
     lib.tml_vv10_bwd.restype = i32
-    # mp_overlap.cu: (a, b, d, m, n, k, lda, ldb, ldd, ab/d dtype codes, stream);
-    # (partial, slot, d or null, count, d dtype code, stream)
-    lib.tml_ring_gemm.argtypes = [p, p, p, i64, i64, i64, i64, i64, i64, i32, i32, p]
-    lib.tml_ring_gemm.restype = i32
+    # mp_overlap.cu: (partial, slot, d or null, count, d dtype code, stream)
     lib.tml_ring_accumulate.argtypes = [p, p, p, i64, i32, p]
     lib.tml_ring_accumulate.restype = i32
+    # gemm_tf32x3.cu: split (x, ldx, hi, lo, ldo, rows, cols, flags, stream); the product
+    # (a_hi, a_lo, lda, b_hi, b_lo, ldb, c, ldc, d, ldd, m, n, k, alpha, beta, stream)
+    lib.tml_split_tf32.argtypes = [p, i64, p, p, i64, i64, i64, i32, p]
+    lib.tml_split_tf32.restype = i32
+    lib.tml_gemm_tf32x3.argtypes = [p, p, i64, p, p, i64, p, i64, p, i64, i64, i64, i64, f32, f32,
+                                    p]
+    lib.tml_gemm_tf32x3.restype = i32
     lib.tml_gemm_configs.argtypes = [ctypes.POINTER(i32), i32]
     lib.tml_gemm_configs.restype = i32
     lib.tml_gemm_wgmma_configs.argtypes = [ctypes.POINTER(i32), i32]

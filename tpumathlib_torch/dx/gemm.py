@@ -201,6 +201,17 @@ def _config_id(m: int, n: int, k: int) -> int:
     return _CONFIGS.index(_pick_config(m, n, k))
 
 
+@functools.lru_cache(maxsize=None)
+def _tc_config_id(m: int, n: int, k: int) -> int:
+    return _TC_CONFIGS.index(_pick(_TC_CONFIGS, m, n, k, 1))
+
+
+def _tc_reads(t) -> bool:
+    """Whether the tensor-core route reads the 2-D operand ``t`` in place
+    (``_tc_layout``)."""
+    return _tc_layout(t[None])
+
+
 class _Into:
     """Launches of the kernel with D = alpha·A@B + beta·C written in place,
     all f32, the operands given as (address, row stride, column stride) in
@@ -211,7 +222,7 @@ class _Into:
     its operands are single matrices, far inside a grid's limits. D needs
     unit column stride; C may be D itself, since the thread that writes an
     element of D is the one that read it from C; A and B must not overlap
-    D."""
+    D. ``wgmma`` launches the tensor-core route the same way."""
 
     def __init__(self):
         self.lib = cuda_utils.load_kernels()
@@ -227,6 +238,21 @@ class _Into:
             alpha, beta, 0, 0, 0, 0, _config_id(m, n, k), stream)
         cuda_utils.check_launch(self.lib, rc, "gemm_epilogue")
         _gemm_simt.launches += 1
+        pallas_matmul.launches += 1
+
+    def wgmma(self, stream: int, m: int, n: int, k: int, d, a, b, *, out_dtype) -> None:
+        """D = A@B on the tensor-core route: bf16 A and B that ``_tc_reads``
+        takes, D of ``out_dtype`` (f32 or bf16) with unit column stride,
+        the tile config ``_pick`` gives one matrix."""
+        st = self.strides
+        st[1], st[2], st[4], st[5], st[10] = a[1], a[2], b[1], b[2], d[1]
+        st[7] = st[8] = 0
+        bf16 = _DTYPE_CODE[torch.bfloat16]
+        rc = self.lib.tml_gemm_wgmma(
+            a[0], b[0], None, None, d[0], None, 1, m, n, k, st, 1.0, 0.0, 0, bf16, 0,
+            _DTYPE_CODE[out_dtype], _tc_config_id(m, n, k), stream)
+        cuda_utils.check_launch(self.lib, rc, "gemm_wgmma")
+        _gemm_wgmma.launches += 1
         pallas_matmul.launches += 1
 
 

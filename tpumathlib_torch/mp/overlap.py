@@ -5,8 +5,7 @@ Counterpart of ``tpumathlib/mp/overlap.py``, whose Pallas kernels copy the
 ring's chunks between TPUs from inside the kernel, by remote DMA and
 semaphores, while the MXU multiplies. On this card the copies run outside
 the kernels, as stream-ordered copies between the ranks' buffers, and the
-products and the accumulate stay in the repository's CUDA
-(``csrc/mp_overlap.cu``):
+products and the accumulate stay in the repository's CUDA:
 - each rank has a compute stream and a comm stream on its device, made
   once per ``Grid`` and kept;
 - a chunk's copy to the right neighbour runs on the sender's comm stream;
@@ -18,7 +17,8 @@ products and the accumulate stay in the repository's CUDA
 - on entry every side stream waits for the caller's current stream, and
   on exit the caller's stream waits for every side stream. Every buffer is
   allocated on the caller's stream before the ring starts and held until
-  that exit wait, so the caching allocator cannot hand it out early.
+  that exit wait, so the caching allocator cannot hand it out early: the
+  slots, and each rank's operands of its GEMMs (``_RankOperands``).
 
 Race-freedom is the reference's slot map, kept as it is: every slot
 receives one remote write over the whole call (one slot per originating
@@ -27,15 +27,32 @@ neighbour running ahead never clobbers a slot still being read. Ranks
 synchronise only through events; no kernel waits on another launch, so
 ranks that share a card cannot hang it.
 
-``_ring_gemm`` (``tml_ring_gemm``: a chunk times B, summed in f32, written
-in the slot's dtype) and ``_ring_accumulate`` (``tml_ring_accumulate``:
-slot += partial in f32, or, at the last step, D = slot + partial in D's
-dtype) launch on the current stream. On CPU tensors they take the plain
-versions, ``_ring_gemm_plain`` and ``_ring_accumulate_plain``, and the
-schedule runs in the same order with no streams or events: every rank's
-send, then every rank's product, step by step. Counts:
-``matmul_ag_overlapped.launches`` and ``matmul_rs_overlapped.launches`` grow
-by P² ring GEMMs a call, ``matmul_rs_overlapped.accumulates`` by P(P − 1).
+``_ring_gemm`` (a chunk times the rank's B, summed in f32, written in the
+slot's dtype) and ``_ring_accumulate`` (``tml_ring_accumulate``, in
+``csrc/mp_overlap.cu``: slot += partial in f32, or, at the last step, D =
+slot + partial in D's dtype) launch on the current stream. The ring GEMM
+runs on the tensor cores:
+- f32 operands on the 3xTF32 kernel (``dx/tf32x3.py``,
+  ``csrc/gemm_tf32x3.cu``): each rank's B piece is split into the TF32
+  planes of Bᵀ once a call, on its compute stream before its first GEMM
+  (``tml_split_tf32``); the kernel splits each A chunk in its registers,
+  or, where k is not a multiple of 4, the chunk is split into planes just
+  before its GEMM;
+- bf16 operands on B1's bf16 TMA + wgmma kernel (``csrc/gemm_wgmma.cu``,
+  launched by ``dx.gemm._Into.wgmma``, counted as B1's), B read N-major
+  through wgmma's transpose bit, no split; an operand that route does not
+  read in place (``dx.gemm._tc_reads``: a row stride of a multiple of 8
+  elements) is copied once into a buffer whose row stride is.
+The f32 ring writes f32 (its outputs and slots); the bf16 ring writes bf16
+outputs and f32 slots.
+On CPU tensors they take the plain versions, ``_ring_gemm_plain`` and
+``_ring_accumulate_plain``, and the schedule runs in the same order with no
+streams or events: every rank's send, then every rank's product, step by
+step. Counts: ``matmul_ag_overlapped.launches`` and
+``matmul_rs_overlapped.launches`` grow by P² ring GEMMs a call,
+``.splits`` by the split passes of an f32 call (P, and P² more where k is
+not a multiple of 4; none in bf16), and
+``matmul_rs_overlapped.accumulates`` by P(P − 1).
 """
 
 from __future__ import annotations
@@ -45,14 +62,15 @@ import weakref
 
 import torch
 
+from tpumathlib_torch.core.dtypes import cdiv
 from tpumathlib_torch.core.errors import NotSupportedError, check
-from tpumathlib_torch.dx import cuda_utils
+from tpumathlib_torch.dx import cuda_utils, gemm, tf32x3
 from tpumathlib_torch.dx.cuda_utils import on_cuda
 from tpumathlib_torch.fft.kernels import _f32_products  # noqa: F401  (C16: patched by name)
 from tpumathlib_torch.mp.grid import Grid, Sharded
 
 F32, BF16 = torch.float32, torch.bfloat16
-# dtype codes of csrc/mp_overlap.cu, for operands and outputs
+# dtype codes of csrc/mp_overlap.cu's outputs
 _CODE = {F32: 0, BF16: 1}
 COMPUTE, COMM = 0, 1
 # each grid's (compute, comm) streams a rank, made at the grid's first ring
@@ -69,35 +87,121 @@ def _ring_gemm_plain(a, b, out) -> None:
         out.copy_(torch.matmul(a.to(F32), b.to(F32)))
 
 
-def _ring_gemm(a, b, out, count) -> None:
-    """``out`` (a row block of a slot or of D, unit column stride) = a @ b,
-    summed in f32, through ``tml_ring_gemm`` on the current stream;
-    ``count.launches`` grows by one a launch."""
-    if not on_cuda(a, b, out):
-        _ring_gemm_plain(a, b, out)
+def _padded(rows: int, cols: int, dtype, device):
+    """A (rows, cols) buffer whose row stride is a multiple of 8 elements."""
+    return torch.empty((rows, cdiv(max(cols, 1), 8) * 8), dtype=dtype, device=device)[:, :cols]
+
+
+class _RankOperands:
+    """One rank's operands of its P ring GEMMs in a call, allocated on the
+    caller's stream before the ring starts and held until its exit wait:
+    B as the kernel reads it, prepared once (``prepare``, on the rank's
+    compute stream before its first GEMM), and the buffer each GEMM
+    prepares its A chunk in (``load_a``). f32: the TF32 planes of Bᵀ (n, k),
+    row stride padded to 16 bytes; the A chunks (row stride k) go to the
+    kernel as they are, split in its registers, or, where TMA cannot read
+    them (k not a multiple of 4), are split into planes of (rows, k). bf16: B
+    itself where B1's kernel reads it in place, else a copy with a row
+    stride of a multiple of 8; the same for the A chunks, whose row stride
+    is k. On CPU tensors: B alone. ``count`` is the ring function whose
+    ``.launches`` and ``.splits`` grow."""
+
+    def __init__(self, b, rows: int, count):
+        self.b, self.count, self.ready = b, count, False
+        self.card = on_cuda(b)
+        if not self.card:
+            return
+        if b.dtype not in (F32, BF16):
+            raise NotSupportedError(f"ring GEMM of {b.dtype} operands; f32 or bf16 operands")
+        self.b = b if b.stride(1) == 1 else b.contiguous()
+        (k, n), dev = b.shape, b.device
+        if b.dtype == F32:   # the launchers load the kernels: a failed build raises here
+            self.tf32 = tf32x3.Tf32x3()
+            self.bt = tf32x3.planes(n, k, dev)
+            self.at = tf32x3.planes(rows, k, dev) if k % 4 else None
+        else:
+            self.wgmma = gemm._Into().wgmma
+            self.bt = self.b if gemm._tc_reads(self.b) else _padded(k, n, BF16, dev)
+            self.at = _padded(rows, k, BF16, dev) if k % 8 else None
+
+    def stream(self) -> int:
+        return torch.cuda.current_stream(self.b.device).cuda_stream
+
+    def prepare(self) -> None:
+        """B's planes (f32: one split pass, transposed) or its copy, on the
+        current stream."""
+        self.ready = True
+        b = self.b
+        if b.dtype == F32:
+            self.tf32.split(self.stream(), (b.data_ptr(), b.stride(0)),
+                            *tf32x3.plane_pair(self.bt), *b.shape, tf32x3.TRANSPOSE)
+            self.count.splits += 1
+        elif self.bt is not b:
+            _stage(self.bt, b)
+
+    def load_a(self, a):
+        """A chunk as the kernel reads it: the chunk itself, its planes (f32,
+        one split pass), or its copy (bf16)."""
+        if a.dtype == F32 and tf32x3.tma_ready(a):
+            return a
+        if a.dtype == F32:
+            check(self.at is not None, "an f32 ring chunk whose row stride TMA cannot take")
+            at = self.at[:, :a.shape[0]]
+            self.tf32.split(self.stream(), (a.data_ptr(), a.stride(0)), *tf32x3.plane_pair(at),
+                            *a.shape)
+            self.count.splits += 1
+            return at
+        if gemm._tc_reads(a):
+            return a
+        check(self.at is not None, "a bf16 ring chunk whose row stride TMA cannot take")
+        at = self.at[:a.shape[0]]
+        _stage(at, a)
+        return at
+
+    def gemm(self, a, out) -> None:
+        """out = A·B, ``a`` from ``load_a``: one launch on the current
+        stream."""
+        (m, n), k = out.shape, self.b.shape[0]
+        d = (out.data_ptr(), out.stride(0))
+        if self.b.dtype == F32:
+            self.tf32.gemm(self.stream(), m, n, k, d, tf32x3.plane_pair(a),
+                           tf32x3.plane_pair(self.bt))
+        else:
+            self.wgmma(self.stream(), m, n, k, (*d, 1), (a.data_ptr(), a.stride(0), 1),
+                       (self.bt.data_ptr(), self.bt.stride(0), 1), out_dtype=out.dtype)
+        self.count.launches += 1
+
+
+def _ring_gemm(a, ops: _RankOperands, out) -> None:
+    """``out`` (a row block of a slot or of D, unit column stride) = a @ B,
+    B the rank's (``ops``), summed in f32, on the current stream: B prepared
+    at the rank's first GEMM of the call, then A's chunk, then the product."""
+    if not ops.card:
+        _ring_gemm_plain(a, ops.b, out)
         return
-    if not (a.dtype == b.dtype and a.dtype in _CODE and out.dtype in _CODE):
-        raise NotSupportedError(f"ring GEMM of {a.dtype} @ {b.dtype} -> {out.dtype}; "
-                                f"operands and output of {list(_CODE)}")
-    check(a.device == b.device == out.device and out.stride(1) == 1,
-          "ring GEMM operands on one device, the output with unit column stride")
-    a = a if a.stride(1) == 1 else a.contiguous()
-    b = b if b.stride(1) == 1 else b.contiguous()
-    (m, k), n = a.shape, b.shape[1]
-    if not (m and n):
+    if not (a.dtype == ops.b.dtype and out.dtype in (F32, a.dtype)):
+        raise NotSupportedError(f"ring GEMM of {a.dtype} @ {ops.b.dtype} -> {out.dtype}; "
+                                f"f32 operands into f32, bf16 into f32 or bf16")
+    check(a.device == ops.b.device == out.device and a.stride(1) == out.stride(1) == 1
+          and a.shape[1] == ops.b.shape[0] and out.shape == (a.shape[0], ops.b.shape[1]),
+          "ring GEMM operands on one device, the chunk and the output with unit column stride")
+    if not out.numel():
         return
-    lib = cuda_utils.load_kernels()
     with torch.cuda.device(out.device):
-        rc = lib.tml_ring_gemm(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
-                               a.stride(0), b.stride(0), out.stride(0), _CODE[a.dtype],
-                               _CODE[out.dtype], torch.cuda.current_stream(out.device).cuda_stream)
-    cuda_utils.check_launch(lib, rc, "tml_ring_gemm")
-    count.launches += 1
+        if not ops.ready:
+            ops.prepare()
+        ops.gemm(ops.load_a(a), out)
 
 
 def _send(dst, src) -> None:
     """The ring's copy of a chunk or slot into the right neighbour's slot, on
     the current stream (the sender's comm stream)."""
+    dst.copy_(src, non_blocking=True)
+
+
+def _stage(dst, src) -> None:
+    """A bf16 operand's copy into a buffer B1's kernel reads, on the current
+    stream (the rank's compute stream)."""
     dst.copy_(src, non_blocking=True)
 
 
@@ -197,6 +301,7 @@ def matmul_ag_overlapped(a, b, grid: Grid, axis: str | None = None) -> Sharded:
               for c in range(nr)] for r, dev in enumerate(grid.devices)]
     outs = [torch.empty((m, bp.shape[1]), dtype=a.dtype, device=dev)
             for bp, dev in zip(b.pieces, grid.devices)]
+    ops = [_RankOperands(bp, mloc, matmul_ag_overlapped) for bp in b.pieces]
     arrived = [None] * nr   # the event after which the chunk in hand is in its slot
     ring.enter()
     for step in range(nr):
@@ -213,14 +318,14 @@ def matmul_ag_overlapped(a, b, grid: Grid, axis: str | None = None) -> Sharded:
             c = held[r]
             with ring.on(r, COMPUTE):
                 ring.wait(r, COMPUTE, arrived[r])
-                _ring_gemm(slots[r][c], b.pieces[r], outs[r][c * mloc:(c + 1) * mloc],
-                           matmul_ag_overlapped)
+                _ring_gemm(slots[r][c], ops[r], outs[r][c * mloc:(c + 1) * mloc])
         arrived = landed
     ring.exit()
     return Sharded(grid, outs, (None, axis), (m, b.shape[1]))
 
 
 matmul_ag_overlapped.launches = 0
+matmul_ag_overlapped.splits = 0
 
 
 def matmul_rs_overlapped(a, b, grid: Grid, axis: str | None = None) -> Sharded:
@@ -246,6 +351,7 @@ def matmul_rs_overlapped(a, b, grid: Grid, axis: str | None = None) -> Sharded:
              for dev in grid.devices]
     mine = [torch.empty((sp, h), dtype=F32, device=dev) if nr > 1 else None
             for dev in grid.devices]
+    ops = [_RankOperands(bp, sp, matmul_rs_overlapped) for bp in b.pieces]
 
     def rows(r: int, c: int):
         return a.pieces[r][c * sp:(c + 1) * sp]
@@ -254,8 +360,7 @@ def matmul_rs_overlapped(a, b, grid: Grid, axis: str | None = None) -> Sharded:
     filled = [None] * nr   # the event after which slot `step` of rank r is whole
     for r in range(nr):
         with ring.on(r, COMPUTE):
-            _ring_gemm(rows(r, (r - 1) % nr), b.pieces[r], slots[r][0] if nr > 1 else outs[r],
-                       matmul_rs_overlapped)
+            _ring_gemm(rows(r, (r - 1) % nr), ops[r], slots[r][0] if nr > 1 else outs[r])
             filled[r] = ring.record(r, COMPUTE)
     for step in range(nr - 1):
         landed = [None] * nr
@@ -267,8 +372,7 @@ def matmul_rs_overlapped(a, b, grid: Grid, axis: str | None = None) -> Sharded:
                 landed[right] = ring.record(r, COMM)
         for r in range(nr):
             with ring.on(r, COMPUTE):
-                _ring_gemm(rows(r, (r - step - 2) % nr), b.pieces[r], mine[r],
-                           matmul_rs_overlapped)
+                _ring_gemm(rows(r, (r - step - 2) % nr), ops[r], mine[r])
                 ring.wait(r, COMPUTE, landed[r])
                 last = step == nr - 2
                 _ring_accumulate(mine[r], slots[r][step + 1], outs[r] if last else None)
@@ -278,4 +382,5 @@ def matmul_rs_overlapped(a, b, grid: Grid, axis: str | None = None) -> Sharded:
 
 
 matmul_rs_overlapped.launches = 0
+matmul_rs_overlapped.splits = 0
 matmul_rs_overlapped.accumulates = 0

@@ -32,6 +32,9 @@ only the sums run in another order. The kernels:
   n=4096 near the reference test's bound of 5e-5; its plain version
   (``_gram_tn_plain``) is a batched ``torch.matmul`` of the chunks and the
   sum of the partial products;
+- orgqr's trailing product C −= V·W is the 3xTF32 tensor-core kernel
+  (``csrc/gemm_tf32x3.cu``, ``dx/tf32x3.py``: V and Wᵀ split into TF32
+  planes by ``tml_split_tf32``);
 - every other product is B1's f32 SIMT kernel (``csrc/gemm_epilogue.cu``);
 - the 128-step sweeps are ``tml_chol_inv_block`` (``blocked._chol_inv128``),
   ``tml_hh_recon_block`` (``_hh_recon128``: reconstruction and inv(M)) and
@@ -44,9 +47,12 @@ options of the Gram kernel; the unit-lower tops of V sit in scratch while
 the rows below them are read from the output. The chain of sweeps and the
 products they wait for run on one stream; the products that can wait run
 on two others, started beside the sweeps (a sweep holds one SM, and they
-run on the others). The block API (``_qr_block128``, ``_t_from_v``) and
-``orgqr_onelaunch`` take the same kernels through allocating wrappers
-(``dx.gemm.pallas_matmul``, ``_gram_tn``).
+run on the others). ``orgqr_onelaunch`` on CUDA tensors runs
+``_DeviceOrgqr``: Q allocated once as the identity, one scratch allocation,
+one split pass a call, four launches a panel on raw addresses and no eager
+op in a panel. The
+block API (``_qr_block128``, ``_t_from_v``) takes the same kernels through
+allocating wrappers (``dx.gemm.pallas_matmul``, ``_gram_tn``).
 
 CPU tensors take the plain versions (``_geqrf_onelaunch_plain``,
 ``_orgqr_onelaunch_plain``): the same steps, with the sweeps as torch loops
@@ -67,7 +73,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from tpumathlib_torch.core.errors import check
-from tpumathlib_torch.dx import cuda_utils
+from tpumathlib_torch.dx import cuda_utils, tf32x3
 from tpumathlib_torch.dx.cuda_utils import on_cuda
 from tpumathlib_torch.dx.gemm import _Into, pallas_matmul
 from tpumathlib_torch.solver.blocked import (_NB, _check_block, _chol_inv128,
@@ -129,10 +135,12 @@ class _Gram:
     Gram products never share them. Operands are (address, row stride), or
     ``_split`` ones; ``d`` is written, never read unless it is ``c``."""
 
-    def __init__(self, device, stream: int, tiles: int):
+    def __init__(self, device, stream: int, tiles: int, work=None, counters=None):
         self.lib = cuda_utils.load_kernels()
-        self.work = torch.empty((_WORK_TILES, _TILE, _TILE), dtype=F32, device=device)
-        self.counters = torch.zeros(tiles + 1, dtype=torch.int32, device=device)
+        self.work = (torch.empty((_WORK_TILES, _TILE, _TILE), dtype=F32, device=device)
+                     if work is None else work)
+        self.counters = (torch.zeros(tiles + 1, dtype=torch.int32, device=device)
+                         if counters is None else counters)
         self.args = (self.work.data_ptr(), _WORK_TILES, self.counters.data_ptr(), tiles + 1,
                      stream)
 
@@ -594,6 +602,75 @@ class _DeviceQr:
                     "1 recon": [(side, partial(self.update_below, side, s0, c0, cols, ws))]}
 
 
+class _DeviceOrgqr:
+    """``orgqr_onelaunch``'s kernel route: ``_orgqr``'s steps on the
+    caller's stream, device-paced: every launch on raw addresses into Q
+    (allocated once, as the identity) and one scratch allocation a call.
+    First, per call, one split pass writes the TF32 planes of all of vr read
+    as unit lower triangular (``tml_split_tf32``): for the panel at k0 the
+    planes' rows k0: of its 256 columns are Vp's, its top unit lower, with
+    no copy; and two ops write every panel's unit-lower 256 × 256 top in f32
+    into scratch (vr's diagonal blocks below their diagonal, then a unit
+    diagonal). Then a panel k0 (from the last down), C = Q[k0:, k0:], is
+    four launches and no eager op:
+    - G = Vpᵀ·C (``tml_gram_tn``: Vp's top from scratch, its rows below from
+      vr, the split operand);
+    - W = T·G (B1, ``_Into``);
+    - the TF32 planes of Wᵀ (``tml_split_tf32``, transposed);
+    - C −= Vp·W in place (``tml_gemm_tf32x3``, α = −1, β = 1, C = D).
+    Each panel reads the last one's C, so the chain runs in order on one
+    stream; its products span the trailing matrix and fill the card but in
+    the first, small panels, where the host's launches set the pace."""
+
+    def __init__(self, vr, t):
+        self.gemm = _Into()   # loads the kernels first: a failed build raises here
+        self.tf32 = tf32x3.Tf32x3()
+        n = self.n = vr.shape[0]
+        dev = vr.device
+        # the launches read both as contiguous f32, as geqrf_onelaunch writes them
+        self.vr = vr.to(F32).contiguous()
+        self.t = t.to(F32).contiguous()
+        self.q = torch.eye(n, dtype=F32, device=dev)
+        tiles = (_P // _TILE) * (n // _TILE)
+        sizes = {"v": (2, n, n), "tops": (n // _P, _P, _P), "g": (_P, n), "w": (_P, n),
+                 "wt": (2, n, _P), "work": (_WORK_TILES, _TILE, _TILE), "counters": (tiles + 1,)}
+        # every piece is written before it is read but the Gram's counters,
+        # which start at zero
+        flat = torch.empty(sum(torch.Size(v).numel() for v in sizes.values()), dtype=F32,
+                           device=dev)
+        self.s = dict(zip(sizes, (piece.view(shape) for piece, shape in zip(
+            flat.split([torch.Size(v).numel() for v in sizes.values()]), sizes.values()))))
+        self.s["counters"].zero_()
+        self.stream = torch.cuda.current_stream(dev).cuda_stream
+        self.gram = _Gram(dev, self.stream, tiles, work=self.s["work"],
+                          counters=self.s["counters"].view(torch.int32))
+
+    def run(self):
+        n, s, stream = self.n, self.s, self.stream
+        q, vr, t = _Mat(self.q), _Mat(self.vr), _Mat(self.t)
+        v, wt = s["v"], s["wt"]
+        vh, vl = _Mat(v[0]), _Mat(v[1])
+        self.tf32.split(stream, vr.at(), vh.ptr, vl.ptr, n, n, n, tf32x3.UNIT_LOWER)
+        # every panel's diagonal block of vr, made unit lower triangular
+        blocks = self.vr.as_strided((n // _P, _P, _P), (_P * (n + 1), n, 1))
+        torch.tril(blocks, -1, out=s["tops"])
+        s["tops"].diagonal(dim1=1, dim2=2).fill_(1.0)
+        g, w = _Mat(s["g"]), _Mat(s["w"])
+        wt_planes = (wt[0].data_ptr(), wt[1].data_ptr(), _P)
+        for kb in range(n // _P - 1, -1, -1):
+            k0 = kb * _P
+            rows = n - k0
+            c = q.at(k0, k0)
+            vps = _split(_Mat(s["tops"][kb]).at(), vr.at(k0, k0), _P)
+            self.gram(g.at(), vps, c, rows, _P, rows)                          # G = Vpᵀ·C
+            self.gemm(stream, _P, rows, _P, _n(w.at()), _n(t.at(k0)), _n(g.at()))   # W = T·G
+            self.tf32.split(stream, w.at(), *wt_planes, _P, rows, tf32x3.TRANSPOSE)
+            vp_planes = (vh.at(k0, k0)[0], vl.at(k0, k0)[0], n)
+            self.tf32.gemm(stream, rows, rows, _P, c, vp_planes, wt_planes, c, alpha=-1.0,
+                           beta=1.0)                                           # C −= Vp·W
+        return self.q
+
+
 def _geqrf_onelaunch_plain(a):
     return _geqrf(a, _plain_ops())
 
@@ -626,7 +703,10 @@ def orgqr_onelaunch(vr, t):
     check(tuple(t.shape) == (n, _P), f"t of shape ({n}, {_P}), not {tuple(t.shape)}")
     if not on_cuda(vr):
         return _orgqr_onelaunch_plain(vr, t)
-    q = _orgqr(vr, t, _ops(vr))
+    check(t.device == vr.device, f"t on {t.device}, vr on {vr.device}")
+    route = _DeviceOrgqr(vr, t)
+    with torch.cuda.device(vr.device):
+        q = route.run()
     orgqr_onelaunch.launches += 1
     return q
 
