@@ -12,13 +12,16 @@ Phases; any failure raises and the exit code is non-zero:
    and beside it, in parallel, csrc/gemm_wgmma.cu alone with its timer
    stamps (-DTML_GEMM_STAMPS); both GEMM routes' compiled config tables
    must equal dx/gemm.py's.
-3. kernel — B1's two kernels against their plain PyTorch version on the
+3. kernel — B1's three kernels against their plain PyTorch version on the
    card, each call checked for the route it must launch: every
    operand/output dtype pair under all ten epilogues (bf16 and f16 operands
    twice on fresh inputs through the tensor-core kernel, csrc/gemm_wgmma.cu,
-   and once through the SIMT kernel, csrc/gemm_epilogue.cu, by an explicit
-   config), alpha/beta with C, a batch with broadcast B and C, a transposed
-   operand; the tensor-core kernel at TMA's edges ((257, 264, 72) and
+   f32 ones twice through the 3xTF32 kernel, csrc/gemm_tf32x3.cu, and each
+   once through the SIMT kernel, csrc/gemm_epilogue.cu, by an explicit
+   config), alpha/beta with C in f32 and bf16, a batch with broadcast B and
+   C, a transposed operand; the 3xTF32 kernel on a broadcast-B batch with
+   aux, a batch of distinct B, A^T and B^T views with f16 D, and ragged M,
+   N and K; the tensor-core kernel at TMA's edges ((257, 264, 72) and
    (4095, 4104, 4096), transposed A and B views, a broadcast-B batch, f32
    and f16 D, aux, C in bf16, each epilogue), a misaligned view that must
    take SIMT; ragged edges under each compiled tile config, and the entry
@@ -41,7 +44,12 @@ Phases; any failure raises and the exit code is non-zero:
    spill); then each route of phase 4 on the host clock, end to end; then
    grids past 65535 blocks (ROADMAP C21): a batch of 70 000 products and a
    product of 65535 · 128 + 1000 rows, bf16 on the tensor-core route and
-   f32 on the SIMT one, each two launches, held against the plain version.
+   f32 on the 3xTF32 and the SIMT ones, each two launches, held against the
+   plain version; then f32 4096^3 gelu+bias on the 3xTF32 route beside its
+   plain version, the SIMT route, torch.matmul and torch._addmm_activation
+   (TF32 off), one call, back to back and by device time behind a spin,
+   against float64 and its 0.833 ms bound, and every 3xTF32 instantiation's
+   registers and spills (none may spill).
 6. block kernels — the two 128x128 sweeps of csrc/dense_block.cu against
    their plain versions: Cholesky + inverse on SPD input, LU + both inverses
    on barely dominant and SPD input, and a non-SPD block that must give
@@ -50,7 +58,10 @@ Phases; any failure raises and the exit code is non-zero:
 7. solver main path — n=4096 f32 through xpotrf(a), xpotrf(a, "U"),
    potrf_onelaunch(a), xgetrf(a, pivot=False) and getrf_onelaunch(a): each
    must grow its driver's count by 1, its block kernel's and the GEMM
-   kernel's, all on B1's SIMT route (printed: the launches of each call); the factor is held against
+   kernel's, each product on the route that B1's size rule for the host
+   loops gives it (dx/gemm.py::_into_route: 3xTF32, SIMT at K <= 256 and
+   one wave of tiles; printed: the launches of each call by route, and the
+   TF32 splits); the factor is held against
    a float64 factor (potrf) or the residual L·U − A (getrf), with info == 0,
    and against the plain version; a matrix that stops being SPD at row
    2088 must give the same info through the kernel and the plain route.
@@ -60,15 +71,18 @@ Phases; any failure raises and the exit code is non-zero:
    left-looking order (the schedule not taken); then each kernel route's
    device time with the host out of the way, its host enqueue time a call
    and the device's idle share; then each route of phase 7 on the host
-   clock.
+   clock; then the times behind B1's size rule for the host loops: at
+   their shapes, a product on each route and the split of its B, device
+   time behind a spin.
 9. QR block kernels — the Householder reconstruction and the upper-
    triangular inverse of csrc/qr_block.cu, and the whole block step
    _qr_block128 at j0 = 0 and 128, against their plain versions on a
    Gaussian (512, 128) block orthonormalised by the plain CholeskyQR2 steps.
 10. QR main path — n=4096 f32 through xgeqrf(a), qr_onelaunch(a) and
    geqrf_onelaunch(a) then orgqr_onelaunch(vr, t): each must grow both
-   driver counts by 1 and the counts of every sweep, of the GEMM kernel and
-   (orgqr's device route) of the TF32 split and the 3xTF32 product;
+   driver counts by 1 and the counts of every sweep, of the GEMM kernel
+   (each product on its route, printed by route) and (orgqr's device
+   route) of the TF32 split and the 3xTF32 product;
    Q·R − A, QᵀQ − I, tril(R, −1) == 0, info == 0, Q and R against the plain
    drivers, and xormqr against Qᵀ·C. Prints the worst block's condition.
 11. QR times — CUDA events for the kernel route, the plain version and the
@@ -93,8 +107,8 @@ Phases; any failure raises and the exit code is non-zero:
    (phase_tf32), the matmul four-step FFT (N = 96 and 1000) and the f32
    product sites of ROADMAP C16 (syevj, gesvdj, spmv on a BSR matrix,
    sddmm_bsr, xormqr, and the Mp slice's torch.matmul sites) must still
-   agree with float64 at their f32 bounds, and so must the ring on the
-   3xTF32 kernel, which runs TF32 by design;
+   agree with float64 at their f32 bounds, and so must the ring, B1's f32
+   route and B10b on the 3xTF32 kernel, which runs TF32 by design;
    each C16 site is also run with its pin lifted, to show what it keeps
    out. TF32 is off again after.
 15. sparse kernels — B6a's two kernels, tml_bell_spmm_wgmma
@@ -132,7 +146,8 @@ Phases; any failure raises and the exit code is non-zero:
    getrf_batched (pivot on and off; the packed routes), geqrf_batched,
    gesv_batched and posv_batched (4 right-hand sides), potrf and getrf at
    batch 1024 × n 128, and potrf_blocked at n = 4096: each must grow its
-   kernel's count (potrf_blocked also B1's), and is held against its plain
+   kernel's count (potrf_blocked also B1's, every product on its 3xTF32
+   route), and is held against its plain
    version (pivot mismatches counted) and its residuals.
 20. dx times — CUDA events over back-to-back calls for each route of phase
    19, its plain version and its torch.linalg call, with the share of the
@@ -176,20 +191,24 @@ Phases; any failure raises and the exit code is non-zero:
 26. codec and fused times — CUDA events for each kernel route of phase 25
    and its plain version (decode and encode also in GB/s), with the share of
    the bound, and the compositions that stand in for a library call.
-27. RNG kernels — tml_random_uniform and tml_dropout_matmul (csrc/dx_rng.cu)
-   against their plain versions: the uniforms bit for bit at five shapes up
+27. RNG kernels — tml_random_uniform (csrc/dx_rng.cu) and tml_dropout_matmul
+   (the dropout epilogue of the 3xTF32 kernel, csrc/gemm_tf32x3.cu; both
+   draw from csrc/philox.cuh) against their plain versions: the uniforms bit
+   for bit at five shapes up
    to 8192 x 8192 and four seeds, the Random123 known answers through
    rand.philox4x32_10 on the card, the dropout's mask bit for bit against
    the uniforms > rate and its kept values within 1e-5, f32 and bf16
    operands, rates 0 .. 0.9, a ragged (300, 96, 77).
 28. RNG main path — random_uniform_kernel(seed, (8192, 8192)) and
    dropout_matmul_kernel at 4096^3 f32, rate 0.1: each grows its count by
-   one; mean, variance and KS of the uniforms, the dropout's zero share and
+   one (and B10b the TF32 split's, B's planes); mean, variance and KS of
+   the uniforms, the dropout's zero share and
    mask; PhiloxGenerator's 64 Mi words equal to B10a's bits, and every rand
    family on the card equal to its CPU words and its known answers.
 29. RNG times — CUDA events for both kernels, their plain versions and the
    yardsticks (torch.rand; F.dropout(torch.matmul(a, b))), with GB/s and the
-   share of the bound (B10a's integer bound from its SASS).
+   share of the bound (B10a's integer bound from its SASS; B10b's 3 · 2mkn
+   at the TF32 rate, 0.833 ms).
 30. VV10 kernels — tml_vv10_fwd and tml_vv10_bwd (csrc/dx_vv10.cu) against
    their plain versions and float64 at G = 7, 1500 and 5000.
 31. VV10 main path — vv10_pair_energy_pallas at G = 40960 and its four
@@ -210,7 +229,8 @@ Phases; any failure raises and the exit code is non-zero:
 34. four-step and blocked main path — pallas_fft and pallas_fft2 at batch
    4096 x N 4096 and 1024 x 16384 f32 planes, both directions (+1 and +2
    launches a call), and potrf_blocked at n = 4096, panel 256 (+32 sweeps,
-   +105 B1 launches), against the plain versions and float64.
+   +105 B1 launches, each on its route by the size rule, printed with the
+   TF32 splits), against the plain versions and float64.
 35. four-step and blocked times — CUDA events for each route of phase 34,
    its plain version and the library call (torch.fft.fft / ifft on
    complex64, unnormalised; torch.linalg.cholesky), with the share of the
@@ -297,8 +317,8 @@ qr = importlib.import_module("tpumathlib_torch.solver.qr_onelaunch")  # the pack
 
 F32, BF16, F16, I8 = torch.float32, torch.bfloat16, torch.float16, torch.int8
 MAIN = (4096, 4096, 4096)  # (M, N, K) of the bench headline
-# B1's two kernels, each with its own launch count (pallas_matmul.launches is their sum)
-ROUTE_COUNTS = {"wgmma": gemm._gemm_wgmma, "simt": gemm._gemm_simt}
+# B1's three kernels, each with its own launch count (pallas_matmul.launches is their sum)
+ROUTE_COUNTS = {"wgmma": gemm._gemm_wgmma, "tf32x3": gemm._gemm_tf32x3, "simt": gemm._gemm_simt}
 TC_EDGES = ((257, 264, 72), (4095, 4104, 4096))   # (M, N, K): TMA's ragged edges, aligned rows
 TC_SMALL = (1024, 2048, 4096)   # (M, N, K): 64 tiles of 128x256 on 132 SMs, 128 of 128x128
 # csrc/gemm_wgmma.cu built alone with its timer stamps (phase 2), for phase 5
@@ -393,7 +413,8 @@ class Checker:
 
     def run(self, group: str, case: str, args, kw, tol_d: float, tol_aux: float = 1e-5,
             route: str | None = None):
-        """``route``: "wgmma" or "simt", the kernel the call must launch once."""
+        """``route``: "wgmma", "tf32x3" or "simt", the kernel the call must
+        launch once."""
         before = {f: f.launches for f in ROUTE_COUNTS.values()}
         got = pallas_matmul(*args, **kw)
         grew = {name: f.launches - before[f] for name, f in ROUTE_COUNTS.items()}
@@ -419,47 +440,72 @@ def phase_kernel(dev) -> Checker:
     operands run through the tensor-core route (csrc/gemm_wgmma.cu) twice,
     on fresh inputs each time (a stage released early would show as an error
     that depends on the data and the timing), and once through the SIMT
-    route by an explicit config; each call must launch its route's kernel
-    once."""
+    route by an explicit config; f32 operands likewise through the 3xTF32
+    route (csrc/gemm_tf32x3.cu, tml_gemm_tf32x3_epilogue) twice and the
+    SIMT route once; each call must launch its route's kernel once."""
     gen = torch.Generator(device=dev).manual_seed(1234)
     chk = Checker()
     simt_cfg = gemm._CONFIGS[0]
     m, n, k = 200, 136, 264
     for ab in (F32, BF16, F16, I8):
-        tc = ab in (BF16, F16)
+        fast = {BF16: "wgmma", F16: "wgmma", F32: "tf32x3"}.get(ab)
         for out in (F32, BF16, F16):
             group = f"{str(ab)[6:]}->{str(out)[6:]}"
             for epi in gemm._EPILOGUES:
                 exact = ab == I8 and out == F32 and "gelu" not in epi
                 tol = 0.0 if exact else (1e-5 if out == F32 else 1e-2)
-                for rep, route in ((0, "wgmma"), (1, "wgmma"), (2, "simt")) if tc else ((0, "simt"),):
+                for rep, route in (((0, fast), (1, fast), (2, "simt")) if fast
+                                   else ((0, "simt"),)):
                     a, b = _operand(gen, (m, k), ab, dev), _operand(gen, (k, n), ab, dev)
                     bias = torch.randn((n,), generator=gen, device=dev)
                     kw = dict(bias=bias if "bias" in epi else None, epilogue=epi,
                               out_dtype=out, return_aux="aux" in epi)
-                    if route == "simt" and tc:
+                    if route == "simt" and fast:
                         kw["config"] = simt_cfg
                     chk.run(f"{group} {route}", f"{group} {epi} {m}x{n}x{k} {route} #{rep}",
                             (a, b), kw, tol, tol_aux=0.0 if ab == I8 else 1e-5, route=route)
 
-    # alpha/beta with C, for C in f32 and bf16
+    # alpha/beta with C, for C in f32 and bf16 (the 3xTF32 route), and C = D's
+    # layout read through _matmul_into, C aliasing D
     a, b = _operand(gen, (m, k), F32, dev), _operand(gen, (k, n), F32, dev)
     bias = torch.randn((n,), generator=gen, device=dev)
     for cdt in (F32, BF16):
         c = _operand(gen, (m, n), cdt, dev)
         chk.run("alpha/beta/C", f"alpha=1.5 beta=-0.5 C={cdt}", (a, b, c),
                 dict(bias=bias, epilogue="gelu_bias", alpha=1.5, beta=-0.5,
-                     out_dtype=F32), 1e-5, route="simt")
+                     out_dtype=F32), 1e-5, route="tf32x3")
 
     # batch of 3 with B and C broadcast (stride 0), and a transposed A view;
-    # 70-wide rows of B are not 16-byte multiples, so this batch takes SIMT
+    # 70-wide rows of B are not 16-byte multiples, so the bf16 batch takes SIMT
     a3 = _operand(gen, (3, 130, 96), BF16, dev)
     b1 = _operand(gen, (96, 70), BF16, dev)
     c1 = _operand(gen, (130, 70), F32, dev)
     chk.run("batched", "batch 3, broadcast B and C", (a3, b1.expand(3, 96, 70), c1),
             dict(beta=0.25, epilogue="relu", out_dtype=BF16), 1e-2, route="simt")
     at = _operand(gen, (k, m), F32, dev).mT
-    chk.run("strided", "transposed A view", (at, b), dict(out_dtype=F32), 1e-5, route="simt")
+    chk.run("strided", "transposed A view", (at, b), dict(out_dtype=F32), 1e-5, route="tf32x3")
+    # the 3xTF32 route: a broadcast-B batch (B split once) with C bf16 and aux,
+    # a batch of distinct B, transposed A and B views, ragged M, N and K
+    # (A of rows TMA cannot read: split) and TMA's edges at K = 4096
+    for rep in range(2):
+        a3, b1 = _operand(gen, (3, 130, 96), F32, dev), _operand(gen, (96, 70), F32, dev)
+        c1 = _operand(gen, (130, 70), BF16, dev)
+        chk.run("f32 batched", f"batch 3, broadcast B, C bf16, aux #{rep}",
+                (a3, b1.expand(3, 96, 70), c1),
+                dict(beta=0.25, epilogue="gelu_aux", return_aux=True, out_dtype=BF16), 1e-2,
+                route="tf32x3")
+        chk.run("f32 batched", f"batch 3, distinct B #{rep}",
+                (_operand(gen, (3, 130, 96), F32, dev), _operand(gen, (3, 96, 72), F32, dev)),
+                dict(epilogue="relu", out_dtype=F32), 1e-5, route="tf32x3")
+        chk.run("f32 views", f"A^T B^T, f16 D #{rep}",
+                (_operand(gen, (k, m), F32, dev).mT, _operand(gen, (n, k), F32, dev).mT),
+                dict(out_dtype=F16), 1e-2, route="tf32x3")
+    for (mm, nn, kk) in ((257, 129, 65), (100, 50, 70), (1, 1, 1)) + TC_EDGES:
+        a, b = _operand(gen, (mm, kk), F32, dev), _operand(gen, (kk, nn), F32, dev)
+        bias = torch.randn((nn,), generator=gen, device=dev)
+        chk.run("f32 ragged", f"{mm}x{nn}x{kk} gelu_aux_bias", (a, b),
+                dict(bias=bias, epilogue="gelu_aux_bias", return_aux=True, out_dtype=F32),
+                1e-5, route="tf32x3")
 
     # the tensor-core route at TMA's edges: ragged M, N and K with 16-byte
     # rows, transposed views of A and of B, a broadcast-B batch of 3, f32
@@ -503,7 +549,7 @@ def phase_kernel(dev) -> Checker:
 
     # ragged (100, 50, 70) and (257, 129, 65) under each SIMT config, and
     # TC_EDGES[0] and (100, 136, 64) under each tensor-core config
-    for cfg in gemm.default_configs(F32):
+    for cfg in gemm.default_configs(I8):
         for (mm, nn, kk) in ((100, 50, 70), (257, 129, 65)):
             for ab in (F32, BF16):
                 a, b = _operand(gen, (mm, kk), ab, dev), _operand(gen, (kk, nn), ab, dev)
@@ -693,7 +739,69 @@ def phase_times(main: dict, card: str) -> dict:
         print(f"[times] wall {name:30s} {_wall_ms(route, 10):.4f} ms per call "
               f"(host clock, 10 calls) | {card}", flush=True)
     ms["grid_split"] = _grid_split(a.device)
+    ms["f32"] = _f32_times(a.device, card)
     return ms
+
+
+def _f32_times(dev, card: str) -> dict:
+    """B1's f32 route at the main path's shape, 4096^3 gelu+bias, f32 out:
+    the 3xTF32 kernel (csrc/gemm_tf32x3.cu, tml_gemm_tf32x3_epilogue, B's
+    split included) against its plain version, torch.matmul and
+    torch._addmm_activation in f32 with TF32 off (checked against the plain
+    version first), and the SIMT route by an explicit config: one call
+    after a synchronise, back to back, and the device time behind a spin;
+    the bound is 3 · 2mnk at the TF32 rate (0.833 ms), the kernel against
+    float64 at 4096^3; then the registers and spills of every
+    gemm_tf32x3_kernel instantiation (none may spill)."""
+    m, n, k = MAIN
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SystemExit("chip_smoke: the f32 yardsticks need TF32 off")
+    gen = torch.Generator(device=dev).manual_seed(2121)
+    a, b = _operand(gen, (m, k), F32, dev), _operand(gen, (k, n), F32, dev)
+    bias = torch.randn((n,), generator=gen, device=dev)
+    kw = dict(bias=bias, epilogue="gelu_bias", out_dtype=F32)
+    plain = _pallas_matmul_plain(a, b, None, **kw)
+    got = pallas_matmul(a, b, **kw)
+    library = torch._addmm_activation(bias, a, b, use_gelu=True)
+    pre64 = a.double() @ b.double() + bias.double()
+    want64 = 0.5 * pre64 * (1 + torch.tanh(math.sqrt(2 / math.pi) * (pre64 + 0.044715 * pre64**3)))
+    del pre64
+    errs = {"kernel vs plain": max_scaled_err(got, plain), "kernel vs f64": max_scaled_err(got, want64),
+            "plain vs f64": max_scaled_err(plain, want64),
+            "library vs plain": max_scaled_err(library, plain)}
+    del want64
+    lib_ok = errs["library vs plain"] <= 1e-5
+    print(f"[times] f32 {m}x{n}x{k} gelu+bias: " + ", ".join(f"{k_} {v:.3e}" for k_, v in errs.items())
+          + f" (tol 1e-5){'' if lib_ok else ': the library call is not a yardstick'}", flush=True)
+    if errs["kernel vs plain"] > 1e-5 or errs["kernel vs f64"] > 1e-5:
+        raise SystemExit("chip_smoke: B1's f32 route disagrees at the main path's shape")
+    runs = {
+        "f32 kernel": lambda: pallas_matmul(a, b, **kw),
+        "f32 simt": lambda: pallas_matmul(a, b, config=gemm._CONFIGS[0], **kw),
+        "f32 plain": lambda: _pallas_matmul_plain(a, b, None, **kw),
+        "f32 library": lambda: torch._addmm_activation(bias, a, b, use_gelu=True),
+        "f32 torch.matmul": lambda: torch.matmul(a, b),
+    }
+    ms = _median_ms(runs, warmup=2, iters=5)
+    spread: dict = {}
+    loop = _loop_ms({x: runs[x] for x in runs if x != "f32 simt"}, warmup=2, reps=10, samples=3,
+                    spread=spread)
+    bound = _bound(3 * 2.0 * m * n * k, PEAK_TF32, 4 * (m * k + k * n + m * n + n))
+    out = {"ms": ms, "loop_ms": loop, "bound": bound, "errs": errs, "library_agrees": lib_ok,
+           "max_abs_err": max_abs_rel(got, plain)[0], "queued": {}}
+    for name in ("f32 kernel", "f32 library", "f32 torch.matmul"):
+        dev_ms, host_ms, covered = _queued_ms(runs[name], 10)
+        out["queued"][name] = {"device_ms": dev_ms, "host_ms": host_ms, "covered": covered}
+    bms = bound["bound_ms"]
+    for name, t in ms.items():
+        q = out["queued"].get(name)
+        print(f"[times] {name:18s} {m}x{n}x{k} f32 gelu+bias: one call {t:.4f} ms, "
+              f"{bms / t:.1%} of the {bms:.4f} ms bound (3 x 2mnk at 495 TFLOP/s)"
+              + (f"; back to back {loop[name]:.4f} ms" if name in loop else "")
+              + (f"; device {q['device_ms']:.4f} ms (behind a spin, covered {q['covered']}), "
+                 f"host enqueue {q['host_ms']:.4f} ms" if q else "") + f" | {card}", flush=True)
+    out["ptxas"] = _ptxas_report("gemm_tf32x3_kernel", "times")
+    return out
 
 
 GRID_BATCH = 70_000               # C21: a batch past a grid's 65535 blocks
@@ -703,19 +811,20 @@ GRID_ROWS = 65535 * 128 + 1000    # C21: rows past 65535 tiles of 128 (8 388 480
 def _grid_split(dev) -> dict:
     """ROADMAP C21 on the card: a batch of GRID_BATCH (16, 32) @ (32, 24)
     products and one (GRID_ROWS, 64) @ (64, 64) product, bf16 through the
-    tensor-core route and f32 through the SIMT one. Each must take two
-    launches of its route and agree with the plain version (max-scaled
-    1e-2 bf16 output, 1e-5 f32)."""
+    tensor-core route, f32 through the 3xTF32 route and through the SIMT
+    one by an explicit config. Each must take two launches of its route and
+    agree with the plain version (max-scaled 1e-2 bf16 output, 1e-5 f32)."""
     gen = torch.Generator(device=dev).manual_seed(21)
     out, failures = {}, []
-    for route, dt, tol in (("wgmma", BF16, 1e-2), ("simt", F32, 1e-5)):
-        count = getattr(gemm, f"_gemm_{route}")
+    for route, dt, tol in (("wgmma", BF16, 1e-2), ("tf32x3", F32, 1e-5), ("simt", F32, 1e-5)):
+        count = ROUTE_COUNTS[route]
+        kw = dict(config=gemm._CONFIGS[0]) if route == "simt" else {}
         for case, (a_shape, b_shape) in (("batch", ((GRID_BATCH, 16, 32), (GRID_BATCH, 32, 24))),
                                          ("rows", ((GRID_ROWS, 64), (64, 64)))):
             a = torch.randn(a_shape, generator=gen, device=dev).to(dt)
             b = torch.randn(b_shape, generator=gen, device=dev).to(dt)
             before = count.launches
-            got = pallas_matmul(a, b)
+            got = pallas_matmul(a, b, **kw)
             torch.cuda.synchronize()
             launches = count.launches - before
             err = max_scaled_err(got, _pallas_matmul_plain(a, b, out_dtype=dt))
@@ -957,8 +1066,35 @@ def phase_blocks(dev, card: str) -> dict:
     return times
 
 
-_SOLVER_COUNTS = (pallas_matmul, gemm._gemm_simt, blocked._chol_inv128, onelaunch._lu_inv128,
-                  onelaunch.potrf_onelaunch, onelaunch.getrf_onelaunch)
+_SOLVER_COUNTS = (pallas_matmul, gemm._gemm_tf32x3, gemm._gemm_simt, tf32x3.split_tf32,
+                  blocked._chol_inv128, onelaunch._lu_inv128, onelaunch.potrf_onelaunch,
+                  onelaunch.getrf_onelaunch)
+
+
+@contextlib.contextmanager
+def _into_routes():
+    """The routes that ``gemm._into_route`` gives the host loops' B1
+    launches while the block runs, in order: a list of "tf32x3" and
+    "simt"."""
+    rule, taken = gemm._into_route, []
+
+    def record(m, n, k):
+        taken.append(rule(m, n, k))
+        return taken[-1]
+
+    gemm._into_route = record
+    try:
+        yield taken
+    finally:
+        gemm._into_route = rule
+
+
+def _routes_kept(g: dict, taken: list) -> bool:
+    """Whether a call's B1 launches (its counts ``g``) took the routes that
+    ``gemm._route`` and the host loops' size rule give f32 products: SIMT
+    exactly where the rule said so (``taken``), 3xTF32 for every other."""
+    return (g["_gemm_simt"] == taken.count("simt")
+            and g["_gemm_tf32x3"] + g["_gemm_simt"] == g["pallas_matmul"])
 
 
 def phase_solver_main(dev) -> dict:
@@ -976,10 +1112,11 @@ def phase_solver_main(dev) -> dict:
     torch.cuda.synchronize()
     for f in _SOLVER_COUNTS:
         f.launches = 0
-    outs, grew = {}, {}
+    outs, grew, taken = {}, {}, {}
     for name, route in routes.items():
         before = {f.__name__: f.launches for f in _SOLVER_COUNTS}
-        outs[name] = route()
+        with _into_routes() as taken[name]:
+            outs[name] = route()
         grew[name] = {f.__name__: f.launches - before[f.__name__] for f in _SOLVER_COUNTS}
     torch.cuda.synchronize()
     launches = {f.__name__: f.launches for f in _SOLVER_COUNTS}
@@ -1009,13 +1146,16 @@ def phase_solver_main(dev) -> dict:
         g = grew[name]
         driver = g[f"{kind}_onelaunch"]
         block = g["_chol_inv128" if kind == "potrf" else "_lu_inv128"]
-        # the trailing products are f32: B1's SIMT kernel, every one
-        launched = (g["pallas_matmul"] > 0 and g["_gemm_simt"] == g["pallas_matmul"]
-                    and block > 0 and driver == 1)
+        # the products are f32: each on the route the size rule gives it
+        # (gemm._into_route: 3xTF32, or SIMT at K <= 256 and one wave of tiles)
+        launched = (g["pallas_matmul"] > 0 and _routes_kept(g, taken[name])
+                    and g["_gemm_tf32x3"] > 0 and block > 0 and driver == 1)
         finite = bool(torch.isfinite(f).all())
         ok = (rel < 5e-5 and upper_zero and info_ok and vs_plain <= 1e-5 and launched
               and finite and f.shape == (n, n) and f.dtype == F32)
-        print(f"[solver] {name:24s} launches gemm +{g['pallas_matmul']} block +{block} "
+        print(f"[solver] {name:24s} launches gemm +{g['pallas_matmul']} (3xTF32 "
+              f"+{g['_gemm_tf32x3']}, SIMT +{g['_gemm_simt']}, TF32 splits "
+              f"+{g['split_tf32']}) block +{block} "
               f"driver +{driver} | rel {'vs f64' if kind == 'potrf' else 'LU-A'} "
               f"{rel:.3e} (tol 5e-5) upper=0 {upper_zero} info "
               f"{'-' if info is None else int(info)} | vs plain max-scaled {vs_plain:.3e} "
@@ -1121,7 +1261,69 @@ def phase_solver_times(solver: dict, card: str) -> dict:
     for name, route in solver["routes"].items():
         print(f"[solver-times] wall {name:24s} {_wall_ms(route, 3):.4f} ms per call "
               f"(host clock, 3 calls) | {card}", flush=True)
+    ms["rule"] = _rule_times(a.device, card)
     return ms
+
+
+# (m, n, k) of the host loops' products, for the size rule: the tall and wide
+# ones at K = 128 (L21, U12, a block column's update: 31 tiles), one tile, a
+# full wave (132 tiles), the first trailing update (961); at K = 256 one tile
+# of 256, one wave of SIMT's 64 x 64 tiles (32 of 128), and 60 tiles
+RULE_SHAPES = ((3968, 128, 128), (128, 3968, 128), (128, 128, 128), (1536, 1408, 128),
+               (3968, 3968, 128), (256, 256, 256), (1024, 512, 256), (3840, 256, 256))
+
+
+def _rule_times(dev, card: str) -> dict:
+    """The times behind the size rule of B1's f32 launches in the host loops
+    (``gemm._into_route``): at each of RULE_SHAPES, D −= A·B in place (C =
+    D, B a transposed view as the solvers' L21ᵀ) through ``_Into`` on the
+    3xTF32 route, B's planes split beforehand (as a panel's L21 is), and on
+    the SIMT route, and the split of B alone; each the device time of 50
+    launches behind a spin and the host's enqueue, the result of both
+    routes checked against the plain version first (1e-5)."""
+    gen = torch.Generator(device=dev).manual_seed(128)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rule, out = gemm._into_route, {}
+    try:
+        for (m, n, k) in RULE_SHAPES:
+            a, bt, c = (_operand(gen, shape, F32, dev) for shape in ((m, k), (n, k), (m, n)))
+            d = c.clone()
+            into = gemm._Into(dev)
+            p = tf32x3.planes(n, k, dev)
+            planes = (p[0].data_ptr(), p[1].data_ptr(), p.stride(1))
+            into.split_bt(stream, k, n, (bt.data_ptr(), 1, k), *planes)
+
+            def launch(route):
+                gemm._into_route = lambda *shape: route
+                into(stream, m, n, k, (d.data_ptr(), n, 1), (a.data_ptr(), k, 1),
+                     (bt.data_ptr(), 1, k), (d.data_ptr(), n, 1), alpha=-1.0, beta=1.0,
+                     bt=planes)
+
+            want = _pallas_matmul_plain(a, bt.mT, c, out_dtype=F32, alpha=-1.0, beta=1.0)
+            times = {}
+            for route in ("tf32x3", "simt"):
+                d.copy_(c)
+                launch(route)
+                err = max_scaled_err(d, want)
+                if err > 1e-5:
+                    raise SystemExit(f"chip_smoke: {route} at {(m, n, k)} disagrees: {err:.3e}")
+                times[route] = _queued_ms(lambda: launch(route), 50)
+            gemm._into_route = rule
+            times["split"] = _queued_ms(
+                lambda: into.split_bt(stream, k, n, (bt.data_ptr(), 1, k), *planes), 50)
+            picked = rule(m, n, k)
+            out[f"{m}x{n}x{k}"] = {"rule": picked, **{
+                name: {"device_us": t[0] * 1e3, "host_us": t[1] * 1e3, "covered": t[2]}
+                for name, t in times.items()}}
+            print(f"[solver-times] size rule at {m}x{n}x{k} ({math.ceil(m / 128) * math.ceil(n / 128)} "
+                  f"tiles): takes {picked}; device " + ", ".join(
+                      f"{name} {t[0] * 1e3:.1f} us (host {t[1] * 1e3:.1f})"
+                      for name, t in times.items())
+                  + f" a launch (50 behind a spin, covered {all(t[2] for t in times.values())}) "
+                  f"| {card}", flush=True)
+    finally:
+        gemm._into_route = rule
+    return out
 
 
 def _cholqr2_plain(b):
@@ -1221,10 +1423,10 @@ def phase_qr_blocks(dev) -> dict:
                                     if name.startswith("gram") for g, w in zip(got, want))}
 
 
-_QR_COUNTS = (pallas_matmul, qr._gram_tn, blocked._chol_inv128, qr._hh_recon128,
-              onelaunch._inv_upper128, tf32x3.split_tf32, tf32x3.gemm_tf32x3,
-              qr.geqrf_onelaunch, qr.orgqr_onelaunch)
-_QR_KERNELS = 7   # the first seven of _QR_COUNTS count kernel launches
+_QR_COUNTS = (pallas_matmul, gemm._gemm_tf32x3, gemm._gemm_simt, qr._gram_tn,
+              blocked._chol_inv128, qr._hh_recon128, onelaunch._inv_upper128, tf32x3.split_tf32,
+              tf32x3.gemm_tf32x3, qr.geqrf_onelaunch, qr.orgqr_onelaunch)
+_QR_KERNELS = 9   # the first nine of _QR_COUNTS count kernel launches (B1's by route too)
 
 
 def _geqrf_then_orgqr(a):
@@ -1257,10 +1459,11 @@ def phase_qr_main(dev) -> dict:
     torch.cuda.synchronize()
     for f in _QR_COUNTS:
         f.launches = 0
-    outs, grew = {}, {}
+    outs, grew, taken = {}, {}, {}
     for name, route in routes.items():
         before = {f.__name__: f.launches for f in _QR_COUNTS}
-        outs[name] = route()
+        with _into_routes() as taken[name]:
+            outs[name] = route()
         grew[name] = {f.__name__: f.launches - before[f.__name__] for f in _QR_COUNTS}
     torch.cuda.synchronize()
     launches = {f.__name__: f.launches for f in _QR_COUNTS}
@@ -1285,15 +1488,17 @@ def phase_qr_main(dev) -> dict:
         max_abs["geqrf"] = max(max_abs["geqrf"], max_abs_rel(r, r_p)[0])
         g = grew[name]
         launched = (g["geqrf_onelaunch"] == 1 and g["orgqr_onelaunch"] == 1
-                    and min(g["pallas_matmul"], g["_gram_tn"], g["_chol_inv128"],
-                            g["_hh_recon128"], g["_inv_upper128"], g["split_tf32"],
-                            g["gemm_tf32x3"]) > 0)
+                    and min(g["pallas_matmul"], g["_gemm_tf32x3"], g["_gram_tn"],
+                            g["_chol_inv128"], g["_hh_recon128"], g["_inv_upper128"],
+                            g["split_tf32"], g["gemm_tf32x3"]) > 0
+                    and _routes_kept(g, taken[name]))
         finite = bool(torch.isfinite(q).all() and torch.isfinite(r).all())
         info_ok = info is None or int(info) == 0
         ok = (rel < 5e-5 and orth < 5e-5 and lower_zero and info_ok and max(vs_q, vs_r) <= 1e-4
               and launched and finite and q.shape == r.shape == (n, n)
               and q.dtype == r.dtype == F32)
-        print(f"[qr] {name:32s} launches gemm +{g['pallas_matmul']} gram +{g['_gram_tn']} "
+        print(f"[qr] {name:32s} launches gemm +{g['pallas_matmul']} (3xTF32 "
+              f"+{g['_gemm_tf32x3']}, SIMT +{g['_gemm_simt']}) gram +{g['_gram_tn']} "
               f"chol +{g['_chol_inv128']} "
               f"recon +{g['_hh_recon128']} inv_upper +{g['_inv_upper128']} tf32 split "
               f"+{g['split_tf32']} 3xtf32 +{g['gemm_tf32x3']} drivers "
@@ -1946,6 +2151,38 @@ def _tf32_mp_sites(gen, dev) -> dict:
             "mp ring 3xTF32 kernel (mp/overlap.py::_ring_gemm)": ring_kernel}
 
 
+def _tf32_b1_sites(gen, dev) -> dict:
+    """B1's f32 route and B10b on the 3xTF32 kernel, which runs TF32 by
+    design and reads no torch setting: pallas_matmul (gelu+bias, 1000-deep),
+    _matmul_into at K = 256 (the host loops' launcher, C = D), and the
+    dropout's kept values, each against float64 at TF32_TOL."""
+    a, b = (torch.randn(shape, generator=gen, device=dev) for shape in ((384, 1000), (1000, 520)))
+    bias = torch.randn((520,), generator=gen, device=dev)
+    a64, b64 = a.double(), b.double()
+
+    def fused():
+        pre = a64 @ b64 + bias.double()
+        want = 0.5 * pre * (1 + torch.tanh(math.sqrt(2 / math.pi) * (pre + 0.044715 * pre**3)))
+        got = pallas_matmul(a, b, bias=bias, epilogue="gelu_bias")
+        return {"D": max_scaled_err(got, want)}
+
+    def into():
+        c = torch.randn((384, 520), generator=gen, device=dev)
+        want = c.double() - a64[:, :256] @ b64[:256]
+        gemm._matmul_into(c, a[:, :256], b[:256], c, alpha=-1.0, beta=1.0)
+        return {"C - A B": max_scaled_err(c, want)}
+
+    def dropout():
+        d = dxr.dropout_matmul_kernel(a, b, 5, 0.25)
+        want = (a64 @ b64) / 0.75
+        keep = d != 0
+        return {"kept": float((d.double() - want)[keep].abs().max() / want.abs().max())}
+
+    return {"B1 f32 route, 3xTF32 (dx/gemm.py)": fused,
+            "B1 _matmul_into, 3xTF32 (dx/gemm.py)": into,
+            "B10b dropout, 3xTF32 (dx/rng.py)": dropout}
+
+
 def phase_tf32(dev) -> None:
     """With TF32 turned on by the caller, the f32 products the port pins must
     stay f32. First the matmul four-step FFT (_fft_planar, N = 96 and 1000):
@@ -1953,7 +2190,8 @@ def phase_tf32(dev) -> None:
     caller's setting back after, and a bare torch.matmul of one DFT stage
     beside it. Then the C16 sites (syevj, gesvdj, spmv on a BSR matrix,
     sddmm_bsr, xormqr) through their public functions against float64 at
-    TF32_TOL, and the Mp slice's sites (``_tf32_mp_sites``) at MP_F64_TOL;
+    TF32_TOL, B1's f32 route and B10b (``_tf32_b1_sites``) at TF32_TOL, and
+    the Mp slice's sites (``_tf32_mp_sites``) at MP_F64_TOL;
     each is also run with its pin lifted (``_unpinned``), to show what the
     pin keeps out. TF32 is turned off again at the end."""
     gen = torch.Generator(device=dev).manual_seed(9632)
@@ -1977,6 +2215,7 @@ def phase_tf32(dev) -> None:
             if not ok:
                 failures.append(f"_fft_planar N={n}")
         sites = [(name, site, TF32_TOL) for name, site in _tf32_sites(gen, dev).items()]
+        sites += [(name, site, TF32_TOL) for name, site in _tf32_b1_sites(gen, dev).items()]
         sites += [(name, site, MP_F64_TOL) for name, site in _tf32_mp_sites(gen, dev).items()]
         for name, site, tol in sites:
             errs = site()
@@ -2408,7 +2647,8 @@ DX_KERNEL_BATCH = 37                                # a batch that is a multiple
 DX_MAIN = (8192, 32)   # (batch, n) of bench.py's batched lines (bench.py:366)
 DX_WIDE = (1024, 128)  # (batch, n) of the _run_batched route
 DX_K = 4               # right-hand sides of gesv and posv
-DX_COUNTS = (dxs._potrf, dxs._getrf, dxs._geqrf, pallas_matmul)
+DX_COUNTS = (dxs._potrf, dxs._getrf, dxs._geqrf, pallas_matmul, gemm._gemm_tf32x3,
+             gemm._gemm_simt)
 LU_ROUTES = ("warp", "block")   # dx.solver._getrf_route's routes, each counted apart
 # Max-scaled tolerance of each kernel's factors against its plain version, on
 # the matrices whose pivots agree. The kernels contract multiply-adds to FMAs
@@ -2748,8 +2988,9 @@ def phase_dx_main(dev) -> dict:
             want = dxs._getrf_route(*_dx_nk(name))
             launched = launched and all(route_grew[name][f"_getrf.{r}"] == (r == want)
                                         for r in LU_ROUTES)
-        if name == "potrf_blocked n4096":
-            launched = launched and grew[name]["pallas_matmul"] >= 1
+        if name == "potrf_blocked n4096":   # its products f32: B1's 3xTF32 route, every one
+            launched = (launched and grew[name]["pallas_matmul"] >= 1
+                        and grew[name]["_gemm_tf32x3"] == grew[name]["pallas_matmul"])
             big = x["big"]
             rel = float((out.double() - torch.linalg.cholesky(big.double())).abs().max()
                         / big.double().abs().max())
@@ -3826,7 +4067,7 @@ RNG_MAIN = (8192, 8192)             # B10a's full-size call: 64 Mi f32
 DROPOUT_MAIN = (4096, 4096, 4096)   # (m, k, n) of B10b, f32: the bench GEMM's shape
 DROPOUT_RATE = 0.1
 RNG_SEED = 20240601
-RNG_COUNTS = (dxr._random_uniform, dxr._dropout_matmul)
+RNG_COUNTS = (dxr._random_uniform, dxr._dropout_matmul, tf32x3.split_tf32)
 # B10b's kept values against its plain version, max-scaled: the same f32
 # products summed in another order, as DXC_TOL["dot"].
 DROPOUT_TOL = 1e-5
@@ -3878,9 +4119,9 @@ def _rng_bound(name: str, sass: dict | None = None) -> dict:
     uniform written; or its integer work, one thread a Philox block running
     the SASS counted by _sass_counts, at INT_PER_CLK for the ALU and the IMAD
     pipes, MUFU_PER_CLK for conversions and DISPATCH_PER_CLK for all of it, at
-    the card's highest clock: the larger. B10b: 2mkn flop at the f32 peak
-    (the epilogue's Philox blocks are under 1 % of it); A and B read, the
-    output written."""
+    the card's highest clock: the larger. B10b: the 3xTF32 product's 3 ·
+    2mkn at the TF32 peak (the epilogue's Philox blocks are some 1 % of
+    it); A and B read, the output written."""
     if name == "uniform":
         n = RNG_MAIN[0] * RNG_MAIN[1]
         threads = -(-n // 4)
@@ -3892,7 +4133,7 @@ def _rng_bound(name: str, sass: dict | None = None) -> dict:
             return {"bound_ms": t_int, "bound_by": "operations"}
         return {"bound_ms": t_bytes, "bound_by": "bytes"}
     m, k, n = DROPOUT_MAIN
-    return _bound(2.0 * m * k * n, PEAK_F32, 4 * (m * k + k * n + m * n))
+    return _bound(3 * 2.0 * m * k * n, PEAK_TF32, 4 * (m * k + k * n + m * n))
 
 
 def _check_dropout(d, a, b, seed, rate, keep) -> tuple[float, float, bool]:
@@ -3908,8 +4149,8 @@ def _check_dropout(d, a, b, seed, rate, keep) -> tuple[float, float, bool]:
 
 
 def phase_rng_kernel(dev) -> None:
-    """Kernels B10a (tml_random_uniform) and B10b (tml_dropout_matmul,
-    csrc/dx_rng.cu) against their plain versions. B10a bit for bit at shapes
+    """Kernels B10a (tml_random_uniform, csrc/dx_rng.cu) and B10b
+    (tml_dropout_matmul, csrc/gemm_tf32x3.cu) against their plain versions. B10a bit for bit at shapes
     (1,), (3, 5), (64, 128), (1000, 7), (8192, 8192) and seeds 0, 42, −1,
     2³¹ − 1; the Random123 known answers through rand.philox4x32_10 on the
     card (tests/test_rand.py:23-34). B10b's mask bit for bit against
@@ -4039,7 +4280,10 @@ def phase_rng_main(dev) -> dict:
     torch.cuda.synchronize()
     launches = {f.__name__: f.launches for f in RNG_COUNTS}
     print(f"[rng] launches in the main path: {launches}", flush=True)
-    failures = [] if launches == {"_random_uniform": 1, "_dropout_matmul": 1} else ["launches"]
+    # B10b: the 3xTF32 kernel with the dropout epilogue, once; A read in
+    # place, B split once into Bᵀ's planes
+    failures = [] if launches == {"_random_uniform": 1, "_dropout_matmul": 1,
+                                  "split_tf32": 1} else ["launches"]
 
     exact = torch.equal(u, dxr._random_uniform_plain(RNG_SEED, RNG_MAIN, dev))
     mean, var = float(u.double().mean()), float(u.double().var())
@@ -4316,6 +4560,8 @@ BLOCKED_PANEL = 256                                 # potrf_blocked's default pa
 FOUR_STEP_TOL = 5e-6    # rel-L2 against the plain version: the same f32 sums in another order
 FOUR_STEP_ROUTES = {"fused": fft_kernels.pallas_fft, "split": pallas_split.pallas_fft2}
 BLOCKED_COUNTS = (blocked.potrf_blocked, blocked._chol_inv128, pallas_matmul)
+# B1's launches by route and the TF32 splits: printed, and held to the size rule
+BLOCKED_ROUTE_COUNTS = (gemm._gemm_tf32x3, gemm._gemm_simt, tf32x3.split_tf32)
 
 
 def _blocked_counts(n: int, panel: int) -> tuple[int, int]:
@@ -4463,14 +4709,16 @@ def phase_four_step_main(dev) -> dict:
                     for b, n in FOUR_STEP_MAIN},
          "a": _spd(gen, SOLVER_N, dev)}
     steps = _four_step_steps(x)
-    counts = tuple(FOUR_STEP_ROUTES.values()) + BLOCKED_COUNTS
+    base = tuple(FOUR_STEP_ROUTES.values()) + BLOCKED_COUNTS
+    counts = base + BLOCKED_ROUTE_COUNTS
     torch.cuda.synchronize()
     for f in counts:
         f.launches = 0
-    outs, grew = {}, {}
+    outs, grew, taken = {}, {}, {}
     for name, (step, _) in steps.items():
         before = {f.__name__: f.launches for f in counts}
-        outs[name] = step()
+        with _into_routes() as taken[name]:
+            outs[name] = step()
         grew[name] = {f.__name__: f.launches - before[f.__name__] for f in counts}
     torch.cuda.synchronize()
     launches = {f.__name__: f.launches for f in counts}
@@ -4479,7 +4727,8 @@ def phase_four_step_main(dev) -> dict:
     failures, max_abs = [], {"fused": 0.0, "split": 0.0, "blocked": 0.0}
     for name, (_, want) in steps.items():
         out = outs.pop(name)
-        launched = grew[name] == {key: want.get(key, 0) for key in grew[name]}
+        launched = (all(grew[name][f.__name__] == want.get(f.__name__, 0) for f in base)
+                    and _routes_kept(grew[name], taken[name]))
         if name.startswith("potrf_blocked"):
             a = x["a"]
             l64 = torch.linalg.cholesky(a.double())
@@ -5343,8 +5592,32 @@ def main() -> None:
         "tile_split": ms["split"],
         "grid_split": ms["grid_split"],   # ROADMAP C21, both routes
     }, {
-        # B1's SIMT route: f32 and int8 operands (the solvers' trailing products,
-        # whose main path is phase 7's); its time is the main path's call forced onto it
+        # B1's f32 route, the 3xTF32 kernel under B1's epilogue: its main path is
+        # the solvers' products (phase 7); its time is f32 4096^3 gelu+bias (phase 5)
+        "name": "gemm_tf32x3_epilogue (B1's f32 route)",
+        "route": "cuda",
+        "source": "tpumathlib_torch/csrc/gemm_tf32x3.cu",
+        "replaces": "tpumathlib/dx/gemm.py:193",
+        "launches": solver["launches"]["_gemm_tf32x3"],
+        "split_launches": solver["launches"]["split_tf32"],
+        "max_abs_err": ms["f32"]["max_abs_err"],
+        "ms": ms["f32"]["ms"]["f32 kernel"],
+        "plain_ms": ms["f32"]["ms"]["f32 plain"],
+        **ms["f32"]["bound"],
+        "library_ms": ms["f32"]["ms"]["f32 library"] if ms["f32"]["library_agrees"] else None,
+        "library_is": "torch._addmm_activation(bias, a, b, use_gelu=True) in f32, TF32 off",
+        "loop_ms": ms["f32"]["loop_ms"]["f32 kernel"],
+        "library_loop_ms": ms["f32"]["loop_ms"]["f32 library"],
+        "behind_spin": ms["f32"]["queued"],
+        "torch_matmul_ms": ms["f32"]["ms"]["f32 torch.matmul"],
+        "simt_ms": ms["f32"]["ms"]["f32 simt"],
+        "vs_f64": ms["f32"]["errs"]["kernel vs f64"],
+        "ptxas": ms["f32"]["ptxas"],
+        "size_rule": solver_ms["rule"],
+    }, {
+        # B1's SIMT route: int8 operands, 16-bit ones in layouts the tensor-core
+        # route refuses, and the solvers' small products at K <= 256 (the size
+        # rule, phase 7's main path); its time is the main path's call forced onto it
         "name": "gemm_epilogue",
         "route": "cuda",
         "source": "tpumathlib_torch/csrc/gemm_epilogue.cu",
@@ -5368,6 +5641,9 @@ def main() -> None:
         **_bound(flop, PEAK_F32, solver_bytes),
         "library_ms": solver_ms[f"{kind} vendor"],
         "gemm_launches": solver["per_call"][kind]["pallas_matmul"],
+        "gemm_launches_by_route": {"tf32x3": solver["per_call"][kind]["_gemm_tf32x3"],
+                                   "simt": solver["per_call"][kind]["_gemm_simt"]},
+        "split_launches": solver["per_call"][kind]["split_tf32"],
         "device_ms": solver_ms[f"{kind} kernel device"],
         "host_enqueue_ms": solver_ms[f"{kind} kernel host"],
         "idle_share": solver_ms[f"{kind} kernel idle"],
@@ -5378,9 +5654,9 @@ def main() -> None:
         "block_plain_ms": block_ms[block_name]["plain_ms"],
         "block_ptxas": block_ms[block_name]["ptxas"],
     } for name, kind, block, block_name, replaces, flop in (
-        ("potrf_onelaunch (chol_inv_block + gemm_epilogue)", "potrf", "_chol_inv128",
+        ("potrf_onelaunch (chol_inv_block + gemm_tf32x3 + gemm_epilogue)", "potrf", "_chol_inv128",
          "chol_inv_block", "tpumathlib/solver/onelaunch.py:231", ns**3 / 3),
-        ("getrf_onelaunch (lu_inv_block + gemm_epilogue)", "getrf", "_lu_inv128",
+        ("getrf_onelaunch (lu_inv_block + gemm_tf32x3 + gemm_epilogue)", "getrf", "_lu_inv128",
          "lu_inv_block", "tpumathlib/solver/onelaunch.py:481", 2 * ns**3 / 3))] + [{
         "name": name,
         "route": "cuda",
@@ -5404,11 +5680,11 @@ def main() -> None:
         "kernels_ms_per_call": {k: round(v[0], 4) for k, v in qr_ms[f"{kind} kernels"].items()},
     } for name, kind, count, source, replaces, nbytes, library in (
         ("geqrf_onelaunch (chol_inv_block + hh_recon_block + inv_upper_block + gram_tn + "
-         "gemm_epilogue)", "geqrf", "_hh_recon128", "tpumathlib_torch/csrc/qr_block.cu",
+         "gemm_tf32x3 + gemm_epilogue)", "geqrf", "_hh_recon128", "tpumathlib_torch/csrc/qr_block.cu",
          "tpumathlib/solver/qr_onelaunch.py:318", solver_bytes + 4 * ns * 256,
          qr_ms["geqrf vendor"]),
         # torch's Householder product takes LAPACK's (a, tau), not (vr, t): no like call
-        ("orgqr_onelaunch (gram_tn + gemm_epilogue + split_tf32 + gemm_tf32x3)", "orgqr",
+        ("orgqr_onelaunch (gram_tn + split_tf32 + gemm_tf32x3)", "orgqr",
          "orgqr_onelaunch", "tpumathlib_torch/csrc/gemm_tf32x3.cu",
          "tpumathlib/solver/qr_onelaunch.py:439", solver_bytes + 4 * ns * 256, None))] + [{
         # the Gram product of B4a and B4b; its time at the first trailing update's shape
@@ -5569,8 +5845,10 @@ def main() -> None:
              "library_ms": rng_ms["uniform library"],
              "library_is": "torch.rand with a CUDA generator (torch's Philox: the same "
                            "distribution, other bits)"}),
-        ("dropout_matmul (tml_dropout_matmul)", "dropout", "_dropout_matmul",
-         "tpumathlib/dx/rng.py:70", {
+        ("dropout_matmul (tml_dropout_matmul: the 3xTF32 kernel's dropout epilogue)", "dropout",
+         "_dropout_matmul", "tpumathlib/dx/rng.py:70", {
+             "source": "tpumathlib_torch/csrc/gemm_tf32x3.cu",
+             "split_launches": rng_run["launches"]["split_tf32"],
              "library_ms": None,
              "library_ms_null_because": "no torch call fuses dropout into a product; "
                                         "composed_ms times F.dropout(torch.matmul(a, b), 0.1) "
@@ -5612,7 +5890,7 @@ def main() -> None:
          "tpumathlib/fft/kernels.py:217"),
         ("four_step_fft split (tml_four_step_fft mode 2)", "split", "pallas_fft2",
          "tpumathlib/fft/pallas_split.py:95"))] + [{
-        "name": "potrf_blocked (chol_inv_block + gemm_epilogue)",
+        "name": "potrf_blocked (chol_inv_block + gemm_tf32x3 + gemm_epilogue)",
         "route": "cuda",
         "source": "tpumathlib_torch/csrc/dense_block.cu",
         "replaces": "tpumathlib/solver/blocked.py:172",

@@ -72,7 +72,8 @@ def test_f32_paths_run_on_the_cpu(monkeypatch):
     paths |= mp_paths
     assert sorted(paths) == sorted(["potrf_onelaunch", "getrf_onelaunch", "geqrf_onelaunch",
                                     "orgqr_onelaunch", "potrf_blocked", "dropout_matmul_kernel",
-                                    "pallas_matmul_bf16_gelu_bias", "spmm_bell_bf16",
+                                    "dropout_matmul_kernel_bf16", "pallas_matmul_bf16_gelu_bias",
+                                    "pallas_matmul_f32_gelu_bias", "spmm_bell_bf16",
                                     "spmv_bell_f32", "dif_fft_f32_natural", "dif_fft_bf16_raw",
                                     "pallas_fft", "pallas_fft2", "potrf_batched_1024x128",
                                     "potrf_batched_8192x32", "posv_batched_8192x32_k4",

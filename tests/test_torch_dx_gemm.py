@@ -30,9 +30,11 @@ from tpumathlib_torch.core.check import max_scaled_err
 from tpumathlib_torch.core.errors import (
     ExecutionError, InvalidValueError, NotSupportedError)
 from tpumathlib_torch.core.interop import from_numpy, from_reference, to_numpy
-from tpumathlib_torch.dx import cuda_utils, gemm
+from tpumathlib_torch.dx import cuda_utils, gemm, tf32x3
 
 torch.set_num_threads(1)
+
+F32 = torch.float32
 
 
 @pytest.fixture(autouse=True)
@@ -56,6 +58,16 @@ def _pair(x, dt):
 def _close(got, want, tol):
     err = max_scaled_err(got, np.asarray(want).astype(np.float64))
     assert err <= tol, f"max-scaled err {err:.3e} > {tol:g}"
+
+
+def _aux_close(got, want, dtype):
+    """aux on the 3xTF32 route (f32 operands) within 1e-6 of the plain
+    version's f32 product; on the others, whose emulation sums as the plain
+    version does, bit for bit."""
+    if dtype == torch.float32:
+        _close(got, to_numpy(want), 1e-6)
+    else:
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
@@ -173,19 +185,27 @@ def test_argument_checks(rng):
 
 def test_configs():
     """One compiled table a route: the tensor-core route's for bf16 and f16,
-    the SIMT route's for f32 and int8, both with no dtype."""
+    the 3xTF32 route's for f32, the SIMT route's for int8 (and f32 only by
+    an explicit config), all three with no dtype."""
     cfgs = gemm.default_configs(torch.bfloat16)
     assert list(cfgs) == list(gemm._TC_CONFIGS) and len(cfgs) == 2
     assert list(gemm.default_configs(torch.float16)) == list(gemm._TC_CONFIGS)
     assert all(c.route == "wgmma" and c.bk == 64 for c in cfgs)
-    simt = gemm.default_configs(torch.float32)
+    f32 = gemm.default_configs(torch.float32)
+    assert list(f32) == list(gemm._TF32X3_CONFIGS) and len(f32) == 1
+    assert f32[0] == gemm.MatmulConfig(128, 128, 32, "tf32x3", 3)
+    simt = gemm.default_configs(torch.int8)
     assert list(simt) == list(gemm._CONFIGS) and len(simt) == 3
-    assert list(gemm.default_configs(torch.int8)) == list(gemm._CONFIGS)
     assert all(c.route == "simt" for c in simt)
-    assert list(gemm.default_configs()) == list(gemm._CONFIGS) + list(gemm._TC_CONFIGS)
+    assert list(gemm.default_configs()) == (list(gemm._CONFIGS) + list(gemm._TC_CONFIGS)
+                                            + list(gemm._TF32X3_CONFIGS))
     assert all(c.smem_bytes() <= gemm.SMEM_LIMIT for c in gemm.default_configs())
     # 4 stages of (128 + 256) x 64 16-bit values and the ring's alignment
     assert gemm._TC_CONFIGS[0].smem_bytes() == 4 * 2 * 64 * 384 + 1024
+    # 3 stages of two f32 planes of (128 + 128) x 32 (or 4 of A in f32 and
+    # B's planes: the same bytes), and the alignment
+    assert gemm._TF32X3_CONFIGS[0].smem_bytes() == 3 * 2 * 4 * 32 * 256 + 1024 == \
+        4 * 4 * 32 * (128 + 2 * 128) + 1024
     assert gemm.MatmulConfig() in simt
     assert gemm._pick_config(4096, 4096, 4096) == gemm.MatmulConfig(128, 128, 16)
     assert gemm._pick_config(100, 50, 70) == gemm.MatmulConfig(64, 64, 16)
@@ -195,7 +215,8 @@ def test_configs():
     assert gemm._pick_config(4096, 4096, 4096, torch.bfloat16) == gemm._TC_CONFIGS[0]
     assert gemm._pick_config(1024, 2048, 4096, torch.bfloat16) == gemm._TC_CONFIGS[1]
     assert gemm._pick_config(128, 256, 64, torch.float16, batch=132) == gemm._TC_CONFIGS[0]
-    assert gemm._pick_config(4096, 4096, 4096, torch.float32) == gemm.MatmulConfig(128, 128, 16)
+    assert gemm._pick_config(4096, 4096, 4096, torch.float32) == gemm._TF32X3_CONFIGS[0]
+    assert gemm._pick_config(4096, 4096, 4096, torch.int8) == gemm.MatmulConfig(128, 128, 16)
 
 
 def test_cpu_takes_plain_version_without_launch(rng):
@@ -256,7 +277,106 @@ def _grid_refused(nb, m, config) -> bool:
     return nb > 65535 or -(-m // config.bm) > 65535
 
 
-class _EmulatedLib:
+def _tensor_core_read(p):
+    """A plane as the tensor cores read it: TF32, the low 13 bits dropped."""
+    return (p.contiguous().view(torch.int32) & -0x2000).view(F32)
+
+
+class Tf32x3Emulation:
+    """``tml_split_tf32``'s and ``tml_gemm_tf32x3``'s contracts on the CPU,
+    from the raw arguments; 1 (cudaErrorInvalidValue) for what the C
+    entries refuse. Calls are recorded in ``tf32_calls``."""
+
+    def _record(self, **kw):
+        self.__dict__.setdefault("tf32_calls", []).append(kw)
+
+    def tml_split_tf32(self, x, ldx, hi, lo, ldo, rows, cols, flags, stream):
+        transpose = bool(flags & tf32x3.TRANSPOSE)
+        self._record(kind="split", shape=(rows, cols), ld=(ldx, ldo), flags=flags, stream=stream)
+        if (not (x and hi and lo) or rows < 0 or cols < 0 or not 0 <= flags <= 3 or ldx < cols
+                or ldo < (rows if transpose else cols)):
+            return 1
+        if not (rows and cols):
+            return 0
+        src = _view(x, F32, (rows, cols), (ldx, 1)).clone()
+        h, l = tf32x3._split_tf32_plain(src, transpose=transpose,
+                                        unit_lower=bool(flags & tf32x3.UNIT_LOWER))
+        _view(hi, F32, tuple(h.shape), (ldo, 1)).copy_(h)
+        _view(lo, F32, tuple(l.shape), (ldo, 1)).copy_(l)
+        return 0
+
+    def tml_gemm_tf32x3(self, ah, al, lda, bh, bl, ldb, c, ldc, d, ldd, m, n, k, alpha, beta,
+                        stream):
+        split_a = not al   # A itself in f32, split in the kernel's registers
+        self._record(kind="gemm", shape=(m, n, k), ld=(lda, ldb, ldc, ldd), c=c, d=d,
+                     alpha=alpha, beta=beta, split_a=split_a, stream=stream)
+        if not d or m < 0 or n < 0 or k < 0 or ldd < n or (c and ldc < n):
+            return 1
+        if not (m and n):
+            return 0
+        if k and (any(not p or p % 16 for p in (ah, ah if split_a else al, bh, bl)) or lda < k
+                  or ldb < k or lda % 4 or ldb % 4):
+            return 1
+        if split_a:
+            a = tf32x3._split_tf32_plain(_view(ah, F32, (m, k), (lda, 1)).clone())
+        else:
+            a = [_tensor_core_read(_view(p, F32, (m, k), (lda, 1))) for p in (ah, al)]
+        b = [_tensor_core_read(_view(p, F32, (n, k), (ldb, 1))) for p in (bh, bl)]
+        cc = _view(c, F32, (m, n), (ldc, 1)).clone() if c else None
+        acc = tf32x3._gemm_tf32x3_plain(*a, *b, cc, alpha=alpha, beta=beta)
+        _view(d, F32, (m, n), (ldd, 1)).copy_(acc)
+        return 0
+
+    def tml_gemm_tf32x3_epilogue(self, ah, al, bh, bl, c, bias, d, aux, nb, m, n, k, strides,
+                                 alpha, beta, act, c_code, d_code, stream):
+        """B1's f32 route: the 3xTF32 product of A (its planes, or A in f32
+        where ``al`` is null) and of Bᵀ's planes, each (batch, rows, k) at
+        the strides given (a batch stride of 0 or one matrix: shared), under
+        tml_gemm_epilogue's epilogue; refuses (1) what the C entry refuses,
+        and a grid past 65535 blocks along the batch or the row tiles."""
+        s = list(strides[:9])
+        split_a = not al
+        self.__dict__.setdefault("calls", []).append(dict(
+            kernel="tf32x3", strides=s, act=act, c=c_code, d=d_code, shape=(nb, m, n, k),
+            split_a=split_a, stream=stream, alpha=alpha, beta=beta,
+            ptrs=dict(a=ah, a_lo=al, b=bh, b_lo=bl, c=c, d=d, aux=aux)))
+        if (not d or min(nb, m, n, k) < 0 or not 0 <= act <= 2 or not 0 <= c_code <= 3
+                or not 0 <= d_code <= 2):
+            return 1
+        if not (nb and m and n):
+            return 0
+        if s[8] < n:
+            return 1
+        if nb > 65535 or -(-m // 128) > 65535:
+            return _INVALID_CONFIGURATION
+        a_batch, b_batch = nb > 1 and s[0] != 0, nb > 1 and s[2] != 0
+        if k and (any(not p or p % 16 for p in (ah, ah if split_a else al, bh, bl))
+                  or s[1] < k or s[3] < k or s[1] % 4 or s[3] % 4
+                  or (a_batch and s[0] % 4) or (b_batch and s[2] % 4)):
+            return 1
+        acc = torch.zeros((nb, m, n))
+        if k:
+            a_view = lambda p: _view(p, F32, (nb if a_batch else 1, m, k),  # noqa: E731
+                                     (s[0] if a_batch else 0, s[1], 1))
+            a = (tf32x3._split_tf32_plain(a_view(ah).clone()) if split_a
+                 else [_tensor_core_read(a_view(p)) for p in (ah, al)])
+            b = [_tensor_core_read(_view(p, F32, (nb if b_batch else 1, n, k),
+                                         (s[2] if b_batch else 0, s[3], 1))) for p in (bh, bl)]
+            acc = tf32x3._gemm_tf32x3_plain(*a, *b).expand(nb, m, n)
+        acc = alpha * acc
+        if c:
+            acc = acc + beta * _view(c, _CODE_DTYPE[c_code], (nb, m, n), s[4:7]).float()
+        if bias:
+            acc = acc + _view(bias, F32, (n,), (1,))
+        if aux:
+            _view(aux, F32, (nb, m, n), (s[7], s[8], 1)).copy_(acc)
+        if act:
+            acc = gemm.apply_epilogue(acc, {1: "relu", 2: "gelu"}[act])[0]
+        _view(d, _CODE_DTYPE[d_code], (nb, m, n), (s[7], s[8], 1)).copy_(acc)
+        return 0
+
+
+class _EmulatedLib(Tf32x3Emulation):
     """tml_gemm_epilogue's and tml_gemm_wgmma's contracts, computed on the
     CPU from the raw arguments: pointers, sizes, strides, codes, config; a
     grid past 65535 blocks along the batch or the row tiles is refused, as
@@ -324,7 +444,9 @@ def emulated(monkeypatch):
 def test_cuda_branch_marshalling(emulated, case, rng):
     """The pointers, strides and codes the wrapper hands the C entry point
     describe its operands: an emulation reading only those gives the plain
-    version's result, and the launch is counted once."""
+    version's result, and the launch is counted once. f32 operands (also
+    bf16 @ f32, promoted) take the 3xTF32 route: A in place where TMA reads
+    it, else its planes; Bᵀ's planes, split once."""
     t = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(np.float32))  # noqa: E731
     kw, c = {}, None
     if case == "plain":
@@ -347,21 +469,28 @@ def test_cuda_branch_marshalling(emulated, case, rng):
     before = gemm.pallas_matmul.launches
     got = gemm.pallas_matmul(a, b, c, **kw)
     assert gemm.pallas_matmul.launches == before + 1 and len(emulated.calls) == 1
-    # 20- and 17-element rows are not 16-byte multiples: only the last case
-    # lies as the tensor-core route takes it
-    assert emulated.calls[0]["kernel"] == ("wgmma" if case == "tensor_core" else "simt")
+    # 20-element bf16 rows are not 16-byte multiples: aux_bf16 takes SIMT
+    route = {"tensor_core": "wgmma", "aux_bf16": "simt"}.get(case, "tf32x3")
+    assert emulated.calls[0]["kernel"] == route
     want = gemm._pallas_matmul_plain(
         a, b, c, out_dtype=kw.pop("out_dtype", a.dtype), **kw)
     if kw.get("return_aux"):
-        assert torch.equal(got[1], want[1])
+        _aux_close(got[1], want[1], a.dtype)
         got, want = got[0], want[0]
     assert got.dtype == want.dtype and got.shape == want.shape
     _close(got, to_numpy(want), 1e-6 if got.dtype == torch.float32 else 1e-2)
     call = emulated.calls[0]
-    if case == "transposed_a":   # promoted to f32; the view is read in place
-        assert call["ab"] == 0 and call["strides"][1:3] == [1, 33] and call["act"] == 2
-    if case == "broadcast":      # B and C broadcast by stride 0, C read as bf16
-        assert call["strides"][3] == 0 and call["strides"][6] == 0 and call["c"] == 1
+    splits = [(x["shape"], x["flags"]) for x in emulated.__dict__.get("tf32_calls", [])]
+    if case == "plain":          # A in place (80-byte rows); Bᵀ by the transposed split
+        assert call["split_a"] and splits == [((20, 17), tf32x3.TRANSPOSE)]
+        assert call["strides"][:4] == [0, 20, 0, 20] and call["act"] == 0
+    if case == "transposed_a":   # promoted to f32; A's planes by the transposed split
+        assert not call["split_a"] and call["act"] == 2
+        assert splits == [((20, 33), tf32x3.TRANSPOSE), ((20, 17), tf32x3.TRANSPOSE)]
+    if case == "broadcast":      # A's batch in place, B split once (stride 0), C read as bf16
+        assert call["split_a"] and splits == [((20, 17), tf32x3.TRANSPOSE)]
+        assert call["strides"][:3] == [660, 20, 0] and call["strides"][4] == 0
+        assert call["c"] == 1 and call["shape"] == (3, 33, 17, 20)
     if case == "aux_bf16":
         assert (call["ab"], call["d"], call["act"]) == (1, 1, 1)
     if case == "tensor_core":    # A column-major, B row-major; C f16 read by stride 0
@@ -408,6 +537,15 @@ def _routing_case(case, rng):
         return torch.as_strided(t(3 * 4 + 40 * 24), (3, 40, 24), (4, 24, 1)), t(3, 24, 32), None, {}
     if case == "f32":
         return t(40, 24).float(), t(24, 32).float(), None, {}
+    if case == "f32 transposed A and B, C":
+        return (t(24, 40).float().mT, t(32, 24).float().mT, t(40, 32).float(),
+                dict(beta=-1.0, epilogue="gelu_aux_bias", bias=t(32).float(), return_aux=True))
+    if case == "f32 K=70, f16 D":   # 280-byte rows: A split
+        return t(40, 70).float(), t(70, 32).float(), None, dict(out_dtype=torch.float16)
+    if case == "f32 batch 3, distinct B":
+        return t(3, 40, 24).float(), t(3, 24, 32).float(), None, dict(epilogue="relu")
+    if case == "f32 explicit SIMT config":
+        return t(40, 24).float(), t(24, 32).float(), None, dict(config=gemm._CONFIGS[0])
     if case == "int8":
         i8 = lambda *shape: torch.from_numpy(rng.integers(-4, 5, size=shape).astype(np.int8))  # noqa: E731
         return i8(40, 24), i8(24, 32), None, dict(out_dtype=torch.float32)
@@ -422,31 +560,33 @@ _ROUTES = {
     "bf16 transposed B": "wgmma", "bf16 both transposed, aux, C": "wgmma",
     "bf16 batch 3, broadcast B": "wgmma", "bf16 explicit tensor-core config": "wgmma",
     "bf16 K=70": "simt", "bf16 misaligned view": "simt", "bf16 row stride not covering": "simt",
-    "bf16 batch stride 4": "simt", "f32": "simt", "int8": "simt",
-    "bf16 explicit SIMT config": "simt",
+    "bf16 batch stride 4": "simt", "f32": "tf32x3", "f32 transposed A and B, C": "tf32x3",
+    "f32 K=70, f16 D": "tf32x3", "f32 batch 3, distinct B": "tf32x3",
+    "f32 explicit SIMT config": "simt", "int8": "simt", "bf16 explicit SIMT config": "simt",
 }
+_COUNTS = (gemm.pallas_matmul, gemm._gemm_wgmma, gemm._gemm_tf32x3, gemm._gemm_simt)
 
 
 @pytest.mark.parametrize("case", list(_ROUTES))
 def test_cuda_branch_routing(emulated, case, rng):
     """The routing rule: bf16/f16 operands whose layout the tensor-core
-    route takes go to tml_gemm_wgmma, everything else (other dtypes, 16-bit
-    rows that are not 16-byte multiples, misaligned or overlapping views, an
-    explicit SIMT config) to tml_gemm_epilogue. Exactly one launch, counted
-    in the total and in its route's counter; the emulation (which checks
-    the layout rule on the raw strides) gives the plain version's result."""
+    route takes go to tml_gemm_wgmma, f32 operands to
+    tml_gemm_tf32x3_epilogue, everything else (int8, 16-bit rows that are
+    not 16-byte multiples, misaligned or overlapping views, an explicit
+    SIMT config) to tml_gemm_epilogue. Exactly one launch, counted in the
+    total and in its route's counter; the emulation (which checks the
+    layout rules on the raw strides) gives the plain version's result."""
     a, b, c, kw = _routing_case(case, rng)
     route = _ROUTES[case]
-    counts = (gemm.pallas_matmul, gemm._gemm_wgmma, gemm._gemm_simt)
-    before = [f.launches for f in counts]
+    before = [f.launches for f in _COUNTS]
     got = gemm.pallas_matmul(a, b, c, **kw)
-    grew = [f.launches - x for f, x in zip(counts, before)]
-    assert grew == [1, route == "wgmma", route == "simt"]
+    grew = [f.launches - x for f, x in zip(_COUNTS, before)]
+    assert grew == [1, route == "wgmma", route == "tf32x3", route == "simt"]
     assert [call["kernel"] for call in emulated.calls] == [route]
     kw.pop("config", None)
     want = gemm._pallas_matmul_plain(a, b, c, out_dtype=kw.pop("out_dtype", a.dtype), **kw)
     if kw.get("return_aux"):
-        assert torch.equal(got[1], want[1])
+        _aux_close(got[1], want[1], a.dtype)
         got, want = got[0], want[0]
     assert got.dtype == want.dtype and got.shape == want.shape
     _close(got, to_numpy(want), 1e-6 if got.dtype == torch.float32 else 1e-2)
@@ -465,11 +605,19 @@ def test_cuda_branch_tensor_core_config_refuses(emulated, case, rng):
     assert emulated.calls == []
 
 
-@pytest.mark.parametrize("route", ["wgmma", "simt"])
+_FAILING_CASE = {"wgmma": ("bf16 row-major", "tml_gemm_wgmma", "gemm_wgmma"),
+                 "tf32x3": ("f32", "tml_gemm_tf32x3_epilogue", "gemm_tf32x3_epilogue"),
+                 "tf32x3 split": ("f32", "tml_split_tf32", "tml_split_tf32"),
+                 "simt": ("int8", "tml_gemm_epilogue", "gemm_epilogue")}
+
+
+@pytest.mark.parametrize("route", list(_FAILING_CASE))
 def test_cuda_branch_failure_raises_on_each_route(monkeypatch, route, rng):
-    """A loader that fails, and a launch that fails, reach the caller on
-    either route; no route gives way to the other or to the plain version."""
-    a, b, _, kw = _routing_case("bf16 row-major" if route == "wgmma" else "f32", rng)
+    """A loader that fails, and a launch that fails (on the 3xTF32 route
+    also its split), reach the caller on every route; no route gives way to
+    another or to the plain version."""
+    case, name, what = _FAILING_CASE[route]
+    a, b, _, kw = _routing_case(case, rng)
 
     def broken_loader():
         raise ExecutionError("kernel build failed: nvcc exited 1")
@@ -480,16 +628,56 @@ def test_cuda_branch_failure_raises_on_each_route(monkeypatch, route, rng):
         gemm.pallas_matmul(a, b, **kw)
 
     lib = _EmulatedLib()
-    name = "tml_gemm_wgmma" if route == "wgmma" else "tml_gemm_epilogue"
     monkeypatch.setattr(lib, name, lambda *args: 716)   # misaligned address
     monkeypatch.setattr(cuda_utils, "load_kernels", lambda: lib)
     monkeypatch.setattr(torch.cuda, "device", contextlib.nullcontext)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda dev=None: types.SimpleNamespace(cuda_stream=0))
     before = gemm.pallas_matmul.launches
-    with pytest.raises(ExecutionError, match=f"gemm_{'wgmma' if route == 'wgmma' else 'epilogue'}"):
+    with pytest.raises(ExecutionError, match=what):
         gemm.pallas_matmul(a, b, **kw)
     assert gemm.pallas_matmul.launches == before and lib.calls == []
+
+
+_OUT = {"f32": (torch.float32, jnp.float32, 1e-5), "bf16": (torch.bfloat16, jnp.bfloat16, 1e-2),
+        "f16": (torch.float16, jnp.float16, 1e-2)}
+
+
+@pytest.mark.parametrize("out", list(_OUT))
+@pytest.mark.parametrize("epi", gemm._EPILOGUES)
+def test_tf32x3_route_against_reference(emulated, epi, out, rng):
+    """B1's f32 route as the 3xTF32 kernel computes it (the emulation: A
+    split, Bᵀ's planes, lo·hi + hi·lo + hi·hi, then the epilogue) against
+    the reference's pallas_matmul in interpret mode on the same inputs, C
+    in the sum with beta: 1e-5 max-scaled for f32 D, 1e-2 for bf16 and f16
+    (an output ulp); aux, the f32 value before the activation, at 1e-5."""
+    m, n, k = 70, 136, 200
+    ja, ta = _pair(rng.normal(size=(m, k)), "f32")
+    jb, tb = _pair(rng.normal(size=(k, n)), "f32")
+    jc, tc = _pair(rng.normal(size=(m, n)), "f32")
+    jbias, tbias = _pair(rng.normal(size=(n,)), "f32")
+    tdt, jdt, tol = _OUT[out]
+    aux = "aux" in epi
+    kw = dict(epilogue=epi, alpha=0.75, beta=-0.5, return_aux=aux)
+    want = ref_gemm.pallas_matmul(ja, jb, jc, jbias, out_dtype=jdt, **kw)
+    got = gemm.pallas_matmul(ta, tb, tc, tbias, out_dtype=tdt, **kw)
+    assert [call["kernel"] for call in emulated.calls] == ["tf32x3"]
+    if aux:
+        _close(got[1], want[1], 1e-5)
+        got, want = got[0], want[0]
+    assert got.dtype == tdt
+    _close(got.float(), np.asarray(want).astype(np.float32), tol)
+
+
+@pytest.mark.parametrize("m, n, k, route", [
+    (3968, 128, 128, "simt"), (128, 3968, 128, "simt"), (128, 128, 128, "simt"),
+    (256, 256, 256, "simt"), (1024, 512, 256, "simt"), (1536, 1408, 128, "tf32x3"),
+    (3968, 3968, 128, "tf32x3"), (3840, 256, 256, "tf32x3"), (128, 128, 257, "tf32x3"),
+    (4224, 128, 64, "simt"), (4288, 128, 64, "tf32x3")])
+def test_into_size_rule(m, n, k, route):
+    """The host loops' size rule: SIMT for K ≤ 256 where its 64 × 64 tiles
+    make one wave (≤ 132), the 3xTF32 route for every other product."""
+    assert gemm._into_route(m, n, k) == route
 
 
 def test_emulated_layout_rule_matches_wrapper(rng):
@@ -507,18 +695,19 @@ def test_emulated_layout_rule_matches_wrapper(rng):
 # ---------------------------------------------------------------------------
 # ROADMAP C21: grids past 65535 blocks go in pieces
 
-@pytest.mark.parametrize("route", ["wgmma", "simt"])
+@pytest.mark.parametrize("route", ["wgmma", "tf32x3", "simt"])
 def test_cuda_branch_splits_a_batch_past_the_grid_c21(emulated, route, rng):
     """A batch of 70 000 products takes two launches, of 65535 and 4465
-    matrices; the second's A, B and D start 65535 batch strides on. The
-    emulation refuses a batch past 65535, as the kernels' launches do."""
+    matrices; the second's A, B and D start 65535 batch strides on (on the
+    3xTF32 route B's are the batch strides of Bᵀ's planes, 16 rows of 8).
+    The emulation refuses a batch past 65535, as the kernels' launches do."""
     nb, dt = 70_000, (torch.bfloat16 if route == "wgmma" else torch.float32)
     a, b = _bf16(rng, nb, 8, 8, dtype=dt), _bf16(rng, nb, 8, 16, dtype=dt)
-    counts = (gemm.pallas_matmul, gemm._gemm_wgmma, gemm._gemm_simt)
-    before = [f.launches for f in counts]
-    got = gemm.pallas_matmul(a, b, out_dtype=torch.float32)
-    assert [f.launches - x for f, x in zip(counts, before)] == [2, 2 * (route == "wgmma"),
-                                                                  2 * (route == "simt")]
+    before = [f.launches for f in _COUNTS]
+    kw = dict(config=gemm._CONFIGS[0]) if route == "simt" else {}
+    got = gemm.pallas_matmul(a, b, out_dtype=torch.float32, **kw)
+    assert [f.launches - x for f, x in zip(_COUNTS, before)] == [
+        2, 2 * (route == "wgmma"), 2 * (route == "tf32x3"), 2 * (route == "simt")]
     first, second = emulated.calls
     assert [first["kernel"], second["kernel"]] == [route, route]
     assert first["shape"] == (65535, 8, 16, 8) and second["shape"] == (4465, 8, 16, 8)
@@ -535,13 +724,19 @@ def test_cuda_branch_splits_a_batch_past_the_grid_c21(emulated, route, rng):
 def _tall_case(route, rng):
     """(a, b, c, keyword arguments, the config's rows a tile) of a product
     one row tile past 65535: the tensor-core route at 128 rows a tile (A an
-    M-major view with K = 2, B (2, 1) with 16-byte rows), the SIMT route at
-    64 (config 2), with C and aux, whose pieces are offset too."""
+    M-major view with K = 2, B (2, 1) with 16-byte rows), the 3xTF32 route
+    at 128 (A of 16-byte rows, read in place), the SIMT route at 64 (config
+    2), the last two with C and aux, whose pieces are offset too."""
     if route == "wgmma":
         m = 65535 * 128 + 72
         a = _bf16(rng, 2, m + 8 - m % 8)[:, :m].mT
         b = torch.as_strided(_bf16(rng, 16), (2, 1), (8, 1))
         return a, b, None, dict(out_dtype=torch.bfloat16), 128
+    if route == "tf32x3":
+        m = 65535 * 128 + 100
+        a, b = _bf16(rng, m, 4, dtype=torch.float32), _bf16(rng, 4, 1, dtype=torch.float32)
+        c = _bf16(rng, m, 1, dtype=torch.float32)
+        return a, b, c, dict(beta=0.5, epilogue="relu_aux", return_aux=True), 128
     m = 65535 * 64 + 100
     a, b = _bf16(rng, m, 1, dtype=torch.float32), _bf16(rng, 1, 1, dtype=torch.float32)
     c = _bf16(rng, m, 1, dtype=torch.float32)
@@ -549,7 +744,7 @@ def _tall_case(route, rng):
                          return_aux=True), 64
 
 
-@pytest.mark.parametrize("route", ["wgmma", "simt"])
+@pytest.mark.parametrize("route", ["wgmma", "tf32x3", "simt"])
 def test_cuda_branch_splits_rows_past_the_grid_c21(emulated, route, rng):
     """A product of more than 65535 row tiles takes two launches; the
     second's A, C, D and aux start 65535 tiles of rows on, its B is the
@@ -574,7 +769,7 @@ def test_cuda_branch_splits_rows_past_the_grid_c21(emulated, route, rng):
     kw.pop("config", None)
     want = gemm._pallas_matmul_plain(a, b, c, out_dtype=kw.pop("out_dtype", a.dtype), **kw)
     if kw.get("return_aux"):
-        assert torch.equal(got[1], want[1])
+        _aux_close(got[1], want[1], a.dtype)
         got, want = got[0], want[0]
     assert got.dtype == want.dtype and got.shape == want.shape == (m, 1)
     _close(got, to_numpy(want), 1e-6 if got.dtype == torch.float32 else 1e-2)

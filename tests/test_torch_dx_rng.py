@@ -33,10 +33,10 @@ from tpumathlib.dx import rng as ref
 from tpumathlib.rand import PhiloxGenerator as RefPhilox
 from tpumathlib_torch.core.errors import ExecutionError, InvalidValueError
 from tpumathlib_torch.core.interop import from_numpy
-from tpumathlib_torch.dx import cuda_utils
+from tpumathlib_torch.dx import cuda_utils, tf32x3
 from tpumathlib_torch.dx import rng as port
 from test_torch_dx_fused import _EmulatedLib as _EmulatedFusedLib
-from test_torch_dx_gemm import _view
+from test_torch_dx_gemm import _tensor_core_read, _view
 
 torch.set_num_threads(1)
 
@@ -159,9 +159,11 @@ def test_reference_dropout_shape_and_rate_zero(rng):
 # The CUDA branch against an emulation of the C entry points
 
 class _EmulatedLib(_EmulatedFusedLib):
-    """Adds dx_rng.cu's contracts, computed on the CPU from the raw
+    """Adds the contracts of dx_rng.cu's tml_random_uniform and
+    gemm_tf32x3.cu's tml_dropout_matmul, computed on the CPU from the raw
     arguments: the seed from its two key words, the output's 16-byte
-    alignment, the operands through their dtype code, 1 − rate as passed."""
+    alignment, the operands' planes through their pointers and row strides
+    (read as the tensor cores read them), 1 − rate as passed."""
 
     def __init__(self, rc=0):
         super().__init__(rc)
@@ -175,15 +177,40 @@ class _EmulatedLib(_EmulatedFusedLib):
         _view(out, F32, (n,), (1,)).copy_(port._random_uniform_plain(seed, (n,), "cpu"))
         return 0
 
-    def tml_dropout_matmul(self, a, b, out, m, k, n, key0, key1, rate, den, dtype, stream):
+    def tml_dropout_matmul(self, ah, al, lda, bh, bl, ldb, out, ldd, m, n, k, key0, key1, rate,
+                           den, exact, stream):
+        """The 3xTF32 product (one product of hi planes with ``exact``) of A
+        (its planes, or A in f32 where ``al`` is null) and Bᵀ's planes,
+        then the mask of the uniforms of (key0, key1) over the flat (m, n)
+        output, the kept values divided by ``den`` in f32."""
+        split_a = not al
         self.rng_calls.append(dict(kind="dropout", shape=(m, k, n), key=(key0, key1),
-                                   rate=rate, den=den, dtype=dtype))
-        if self.rc or dtype not in (0, 1):
-            return self.rc or 1
-        t = (F32, BF16)[dtype]
-        av, bv = _view(a, t, (m, k), (k, 1)).clone(), _view(b, t, (k, n), (n, 1)).clone()
-        got = port._dropout_matmul_plain(av, bv, key0 | (key1 << 32), rate)
-        _view(out, F32, (m, n), (n, 1)).copy_(got)
+                                   rate=rate, den=den, exact=exact, split_a=split_a,
+                                   ld=(lda, ldb, ldd)))
+        if self.rc:
+            return self.rc
+        if not out or min(m, n, k) < 0 or ldd < n or exact not in (0, 1) or (exact and al):
+            return 1
+        if not (m and n):
+            return 0
+        if k and (any(not p or p % 16 for p in (ah, ah if split_a else al, bh,
+                                                 bh if exact else bl))
+                  or lda < k or ldb < k or lda % 4 or ldb % 4):
+            return 1
+        acc = torch.zeros((m, n))
+        if k:
+            av = lambda p: _view(p, F32, (m, k), (lda, 1))  # noqa: E731
+            bv = lambda p: _tensor_core_read(_view(p, F32, (n, k), (ldb, 1)))  # noqa: E731
+            a_hi, a_lo = (tf32x3._split_tf32_plain(av(ah).clone()) if split_a
+                          else [_tensor_core_read(av(p)) for p in (ah, al)])
+            if exact:
+                acc = tf32x3._gemm_tf32x3_plain(a_hi, torch.zeros_like(a_hi), bv(bh),
+                                                torch.zeros((n, k)))
+            else:
+                acc = tf32x3._gemm_tf32x3_plain(a_hi, a_lo, bv(bh), bv(bl))
+        u = port._random_uniform_plain(key0 | (key1 << 32), (m, n), "cpu")
+        got = torch.where(u > rate, acc / torch.tensor(den, dtype=F32), 0.0)
+        _view(out, F32, (m, n), (ldd, 1)).copy_(got)
         return 0
 
 
@@ -211,15 +238,54 @@ def test_cuda_branch_uniform(emulated, seed):
 
 @pytest.mark.parametrize("dtype, code", [(F32, 0), (BF16, 1), (torch.float16, 0)])
 def test_cuda_branch_dropout(emulated, rng, dtype, code):
+    """f32 operands (and f16 ones, cast to f32) take the 3xTF32 product
+    (code 0), A a column-major view and so split; bf16 ones the exact
+    route (code 1), widened into rows padded to 16 bytes. The mask is the
+    uniforms' bit for bit and the kept values within TOL of the plain
+    version's."""
     _, _, ta, tb = _dropout_case(rng, 30, 17, 11, dtype)
-    before = port._dropout_matmul.launches
+    before = (port._dropout_matmul.launches, tf32x3.split_tf32.launches)
     got = port.dropout_matmul_kernel(ta.t().contiguous().t(), tb, -1, 0.3)   # a strided view
-    assert port._dropout_matmul.launches == before + 1
+    assert port._dropout_matmul.launches == before[0] + 1
+    # f32: A's planes (transposed split) and Bᵀ's; bf16: no split
+    assert tf32x3.split_tf32.launches == before[1] + (0 if code else 2)
     (call,) = emulated.rng_calls
     assert call["shape"] == (30, 17, 11) and call["key"] == (0xFFFFFFFF, 0xFFFFFFFF)
-    assert call["dtype"] == code and call["rate"] == pytest.approx(0.3)
-    assert call["den"] == pytest.approx(0.7)
-    assert torch.equal(got, port._dropout_matmul_plain(ta, tb, -1, 0.3))
+    assert call["exact"] == code and call["split_a"] == bool(code)
+    assert call["ld"] == (20, 20, 11)   # 17 values padded to 16 bytes, D's rows
+    assert call["rate"] == pytest.approx(0.3) and call["den"] == pytest.approx(0.7)
+    want = port._dropout_matmul_plain(ta, tb, -1, 0.3)
+    keep = port._random_uniform_plain(-1, (30, 11), "cpu") > 0.3
+    assert torch.equal(got != 0, keep & (want != 0))
+    assert (got - want).abs().max() <= TOL * want.abs().max()
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_cuda_branch_dropout_against_reference(emulated, rng, dtype):
+    """The 3xTF32 route's dropout (the emulation of tml_dropout_matmul) at
+    (64, 48, 80), rate 0.25: the mask is the port's own uniforms > rate bit
+    for bit, the kept values are the reference's product (interpret mode,
+    f32 sums) / (1 − rate) within TOL of its largest; against the
+    reference's jax.random stream only in distribution (ROADMAP C4): both
+    drop a share within 5 binomial sigmas of the rate."""
+    m, k, n, seed, rate = 64, 48, 80, 77, 0.25
+    a, b, ta, tb = _dropout_case(rng, m, k, n, dtype)
+    got = port.dropout_matmul_kernel(ta, tb, seed, rate)
+    (call,) = emulated.rng_calls
+    assert call["exact"] == (dtype == BF16)
+    ja, jb = jnp.asarray(ta.float().numpy()), jnp.asarray(tb.float().numpy())
+    prod = np.asarray(jax.jit(lambda x, y: jnp.matmul(x, y, preferred_element_type=jnp.float32,
+                                                      precision="highest"))(ja, jb))
+    want = prod / np.float32(1 - rate)
+    u = port._random_uniform_plain(seed, (m, n), "cpu").numpy()
+    keep = u > np.float32(rate)
+    d = got.numpy()
+    np.testing.assert_array_equal(d != 0, keep & (want != 0))
+    assert np.abs(d[keep] - want[keep]).max() <= TOL * np.abs(want).max()
+    theirs = np.asarray(ref.dropout_matmul_kernel(ja, jb, seed, rate=rate))
+    sigma = (rate * (1 - rate) / (m * n)) ** 0.5
+    for out in (d, theirs):
+        assert abs(float((out == 0).mean()) - rate) <= 5 * sigma
 
 
 def test_cuda_branch_raises_on_launch_failure(emulated):

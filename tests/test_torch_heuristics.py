@@ -51,9 +51,14 @@ def test_roofline_sanity():
 
 def test_get_configs(tmp_path, monkeypatch):
     monkeypatch.setattr(tuning, "_global_cache", tuning.AutotuneCache(str(tmp_path / "at.json")))
+    # f32 ranks the 3xTF32 route's one tile
     cfgs = heuristics.get_configs(4096, 4096, 4096, torch.float32, count=5)
-    assert len(cfgs) == 3 and set(cfgs) == set(default_configs(torch.float32))
-    assert cfgs[0] == MatmulConfig(128, 128, 16)   # big square problems take big tiles
+    assert cfgs == list(default_configs(torch.float32)) == [
+        MatmulConfig(128, 128, 32, "tf32x3", 3)]
+    # int8 ranks the SIMT route's table: big square problems take big tiles
+    cfgs = heuristics.get_configs(4096, 4096, 4096, torch.int8, count=5)
+    assert len(cfgs) == 3 and set(cfgs) == set(default_configs(torch.int8))
+    assert cfgs[0] == MatmulConfig(128, 128, 16)
     # bf16 ranks the tensor-core route's table, the 128 x 256 tile first
     cfgs = heuristics.get_configs(4096, 4096, 4096, torch.bfloat16, count=5)
     assert len(cfgs) == 2 and set(cfgs) == set(default_configs(torch.bfloat16))

@@ -58,7 +58,6 @@ from tpumathlib_torch.mp import overlap
 from tpumathlib_torch.mp.matmul import gemr2d
 from test_torch_dx_gemm import _EmulatedLib as _EmulatedGemmLib
 from test_torch_dx_gemm import _view
-from test_torch_tf32x3 import Tf32x3Emulation
 
 torch.set_num_threads(1)
 
@@ -354,7 +353,7 @@ def test_dryrun_multichip_on_cpu_ranks():
 _CODE_DTYPE = {v: k for k, v in overlap._CODE.items()}
 
 
-class _EmulatedLib(Tf32x3Emulation, _EmulatedGemmLib):
+class _EmulatedLib(_EmulatedGemmLib):
     """tml_ring_accumulate computed on the CPU from its raw arguments,
     beside the GEMM's emulation (B1's bf16 kernel) and the 3xTF32 split and
     product's."""

@@ -45,7 +45,7 @@ from tpumathlib.solver import blocked as ref_blocked
 from tpumathlib_torch import solver
 from tpumathlib_torch.core.check import max_scaled_err
 from tpumathlib_torch.core.errors import ExecutionError, InvalidValueError
-from tpumathlib_torch.dx import gemm
+from tpumathlib_torch.dx import gemm, tf32x3
 from tpumathlib_torch.solver import blocked
 from test_torch_solver_onelaunch import _EmulatedLib as _EmulatedSolverLib
 from test_torch_solver_onelaunch import _Event, _Stream
@@ -217,8 +217,16 @@ def test_schedule(n, panel):
                                    (4096, 256): (32, 105), (4096, 128): (32, 121)}[(n, panel)]
 
 
+@pytest.mark.parametrize("rule", ["size rule", "all 3xTF32"])
 @pytest.mark.parametrize("n, panel", CASES)
-def test_cuda_branch(emulated, monkeypatch, rng, n, panel):  # noqa: F811
+def test_cuda_branch(emulated, monkeypatch, rng, n, panel, rule):  # noqa: F811
+    """The kernel route on the emulated library: the schedule's sweeps and
+    products, the plain route's factor. By the size rule these products (K
+    = 128, few tiles) are SIMT's; with all on the 3xTF32 route each block
+    column's L21 is split once, when the first update reads it (the panel's
+    trailing update reads two at once), and each inverse at its trsm."""
+    if rule == "all 3xTF32":
+        monkeypatch.setattr(gemm, "_into_route", lambda m, n, k: "tf32x3")
     a = torch.from_numpy(_spd(rng, n).astype(np.float32))
     want = blocked._potrf_blocked_plain(a, panel)
 
@@ -226,12 +234,21 @@ def test_cuda_branch(emulated, monkeypatch, rng, n, panel):  # noqa: F811
         raise AssertionError("the plain version ran on the CUDA branch")
 
     monkeypatch.setattr(blocked, "_potrf_blocked_plain", no_plain)
-    before = (blocked.potrf_blocked.launches, blocked._chol_inv128.launches,
-              gemm.pallas_matmul.launches)
+    counts = (blocked.potrf_blocked, blocked._chol_inv128, gemm.pallas_matmul,
+              gemm._gemm_tf32x3, tf32x3.split_tf32)
+    before = [f.launches for f in counts]
     got = blocked.potrf_blocked(a, panel)
     sweeps, products = _schedule(n, panel)
-    assert (blocked.potrf_blocked.launches - before[0], blocked._chol_inv128.launches - before[1],
-            gemm.pallas_matmul.launches - before[2]) == (1, sweeps, products)
+    # by the size rule only the trailing update over a panel of 384 columns
+    # (K > 256) takes 3xTF32, splitting the panel's 3 L21 blocks
+    tc_products, splits = ((products, 2 * (sweeps - 1)) if rule == "all 3xTF32"
+                           else {(256, 128): (0, 0), (384, 256): (0, 0),
+                                 (512, 384): (1, 3)}[(n, panel)])
+    assert [f.launches - x for f, x in zip(counts, before)] == [
+        1, sweeps, products, tc_products, splits]
+    for call in emulated.calls:
+        _, m, n_, k = call["shape"]
+        assert call["kernel"] == ("tf32x3" if rule == "all 3xTF32" else gemm._into_route(m, n_, k))
     assert len(emulated.block_calls) == sweeps and len(emulated.calls) == products
     assert all(kind == "chol" and ld == n for kind, ld in emulated.block_calls)
     # the sweeps on the look-ahead stream, the products on the caller's

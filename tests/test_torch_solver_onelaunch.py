@@ -34,7 +34,7 @@ from tpumathlib.solver import dense as ref_dense
 from tpumathlib.solver import onelaunch as ref_onelaunch
 from tpumathlib_torch.core.check import max_scaled_err
 from tpumathlib_torch.core.errors import ExecutionError, InvalidValueError
-from tpumathlib_torch.dx import cuda_utils, gemm
+from tpumathlib_torch.dx import cuda_utils, gemm, tf32x3
 from tpumathlib_torch.solver import blocked, dense, onelaunch
 from test_torch_dx_gemm import _EmulatedLib as _EmulatedGemmLib, _view
 
@@ -268,7 +268,8 @@ def _block(ptr, ld):
 
 class _EmulatedLib(_EmulatedGemmLib):
     """The C entry points' contracts, computed on the CPU from the raw
-    arguments: the GEMM's from tests/test_torch_dx_gemm.py, and the block
+    arguments: the GEMM's (B1's routes and the TF32 split) from
+    tests/test_torch_dx_gemm.py, each launch's stream logged, and the block
     sweeps' from their pointers and leading dimensions."""
 
     def __init__(self):
@@ -276,10 +277,19 @@ class _EmulatedLib(_EmulatedGemmLib):
         self.block_calls = []
         self.block_streams = []
         self.gemm_streams = []
+        self.split_streams = []
 
     def tml_gemm_epilogue(self, *args):
         self.gemm_streams.append(args[-1])
         return super().tml_gemm_epilogue(*args)
+
+    def tml_gemm_tf32x3_epilogue(self, *args):
+        self.gemm_streams.append(args[-1])
+        return super().tml_gemm_tf32x3_epilogue(*args)
+
+    def tml_split_tf32(self, *args):
+        self.split_streams.append(args[-1])
+        return super().tml_split_tf32(*args)
 
     def tml_chol_inv_block(self, a, lda, l, ldl, w, ldw, stream):
         self.block_calls.append(("chol", lda))
@@ -357,42 +367,63 @@ def test_block_kernel_marshalling(emulated, kind, rng):
         assert g.shape == (NB, NB) and torch.equal(g, w)
 
 
+@pytest.fixture
+def all_3xtf32(monkeypatch):
+    """Every f32 ``_Into`` product on the 3xTF32 route: at these sizes the
+    size rule (``gemm._into_route``) sends them all to SIMT."""
+    monkeypatch.setattr(gemm, "_into_route", lambda m, n, k: "tf32x3")
+
+
+@pytest.mark.parametrize("rule", ["size rule", "all 3xTF32"])
 @pytest.mark.parametrize("kind", ["potrf", "getrf"])
-def test_driver_cuda_route_marshalling(emulated, kind, rng):
+def test_driver_cuda_route_marshalling(emulated, monkeypatch, kind, rule, rng):
     """The drivers' CUDA route, with every product and sweep going through
     the emulated entry points, gives the plain route's factor; the counts
     are those of the right-looking schedule at n=512 (four steps: per step
     L21, getrf's U12, block column j + 1 and the rest of the trailing
-    matrix, potrf's in two products while two block rows remain)."""
+    matrix, potrf's in two products while two block rows remain). By the
+    size rule every product here (K = 128, at most 16 tiles) is SIMT's;
+    with all on B1's 3xTF32 route, the TF32 splits are one a step of the
+    block the updates read (potrf's L21, getrf's U12) and one of each
+    other B when its product is launched (the inverses, getrf's A12)."""
+    if rule == "all 3xTF32":
+        monkeypatch.setattr(gemm, "_into_route", lambda m, n, k: "tf32x3")
     n = 512
     x = _spd(rng, n) if kind == "potrf" else _barely_dominant(rng, n)
     a = torch.from_numpy(x.astype(np.float32))
-    driver, block, plain, gemms = (
-        (onelaunch.potrf_onelaunch, blocked._chol_inv128, onelaunch._potrf_onelaunch_plain, 9)
-        if kind == "potrf" else
-        (onelaunch.getrf_onelaunch, onelaunch._lu_inv128, onelaunch._getrf_onelaunch_plain, 11))
-    before = (driver.launches, block.launches, gemm.pallas_matmul.launches)
+    driver, block, plain, gemms, splits = (
+        (onelaunch.potrf_onelaunch, blocked._chol_inv128, onelaunch._potrf_onelaunch_plain, 9,
+         6) if kind == "potrf" else
+        (onelaunch.getrf_onelaunch, onelaunch._lu_inv128, onelaunch._getrf_onelaunch_plain, 11,
+         9))
+    counts = (driver, block, gemm.pallas_matmul, gemm._gemm_tf32x3, tf32x3.split_tf32,
+              gemm._gemm_simt)
+    before = [f.launches for f in counts]
     got = driver(a)
-    assert (driver.launches - before[0], block.launches - before[1],
-            gemm.pallas_matmul.launches - before[2]) == (1, n // NB, gemms)
+    tc = rule == "all 3xTF32"
+    assert [f.launches - x for f, x in zip(counts, before)] == [
+        1, n // NB, gemms, gemms * tc, splits * tc, gemms * (not tc)]
     assert len(emulated.calls) == gemms and len(emulated.block_calls) == n // NB
+    assert {call["kernel"] for call in emulated.calls} == {"tf32x3" if tc else "simt"}
+    # every A is read in place; every B from planes split before its product
+    assert all(call.get("split_a", True) for call in emulated.calls)
     _close(got, plain(a), 1e-6)
     if kind == "potrf":
         assert torch.all(torch.triu(got, 1) == 0)
 
 
 @pytest.mark.parametrize("ahead", [True, False])
-def test_driver_streams(emulated, ahead, rng):
+def test_driver_streams(emulated, all_3xtf32, ahead, rng):
     """With look-ahead every sweep goes to the second stream after waiting
     for the caller's, and the caller's waits for each sweep before it uses
-    it; every product stays on the caller's stream. Without, all is on the
-    caller's."""
+    it; every product and TF32 split stays on the caller's stream. Without,
+    all is on the caller's."""
     a = torch.from_numpy(_barely_dominant(rng, 512).astype(np.float32))
     ops = onelaunch._KernelOps(a.device, "tml_lu_inv_block", onelaunch._lu_inv128, ahead=ahead)
     got = onelaunch._getrf(a, ops)
     side = 1 if ahead else 0
     assert emulated.block_streams == [side] * 4
-    assert set(emulated.gemm_streams) == {0}
+    assert set(emulated.gemm_streams) == set(emulated.split_streams) == {0}
     if ahead:
         assert ops.side.waits == [0] * 4 and ops.main.waits == [1] * 4
     else:
@@ -400,10 +431,35 @@ def test_driver_streams(emulated, ahead, rng):
     _close(got, onelaunch._getrf_onelaunch_plain(a), 1e-6)
 
 
+def test_kernel_ops_split_a_declared_block_once(emulated, all_3xtf32, rng):
+    """A declared block is split when the first 3xTF32 product reads it,
+    once, and its planes serve a later product that reads part of it; a B
+    in that matrix outside the declared blocks raises instead of reading
+    planes never written."""
+    x = torch.from_numpy(rng.normal(size=(384, 384)).astype(np.float32))
+    d = torch.zeros((384, 384))
+    ops = blocked._KernelOps(x.device, "tml_chol_inv_block", blocked._chol_inv128)
+    ops.split((x, 128, 0, 128, 256, True))      # x[128:384, 0:128]ᵀ, as the updates read it
+    before = tf32x3.split_tf32.launches
+    for rows in (256, 128):                     # B = x[128:128 + rows, 0:128]ᵀ
+        ops.mm((d, 0, 0, 384, rows, False), (x, 0, 0, 384, 128, False),
+               (x, 128, 0, 128, rows, True))
+        want = x[:, :128] @ x[128:128 + rows, :128].mT
+        assert max_scaled_err(d[:, :rows], want) <= 1e-6
+    assert tf32x3.split_tf32.launches == before + 1
+    with pytest.raises(InvalidValueError, match="declared"):
+        ops.mm((d, 0, 0, 384, 128, False), (x, 0, 0, 384, 128, False),
+               (x, 0, 0, 128, 128, True))
+
+
+@pytest.mark.parametrize("route", ["simt", "tf32x3"])
 @pytest.mark.parametrize("transposed_b", [False, True])
-def test_matmul_into_aliases_c(emulated, transposed_b, rng):
+def test_matmul_into_aliases_c(emulated, monkeypatch, transposed_b, route, rng):
     """The in-place helper writes D = alpha·A@B + beta·C into a strided view
-    of a wider matrix that is C itself, from views of another."""
+    of a wider matrix that is C itself, from views of another: on the SIMT
+    route, which the size rule gives this small product, and on the 3xTF32
+    route (A's planes: its base is not 16-byte aligned)."""
+    monkeypatch.setattr(gemm, "_into_route", lambda m, n, k: route)
     big = torch.from_numpy(rng.normal(size=(300, 260)).astype(np.float32))
     src = torch.from_numpy(rng.normal(size=(200, 200)).astype(np.float32))
     d = big[10:110, 30:94]                      # row stride 260
@@ -414,7 +470,12 @@ def test_matmul_into_aliases_c(emulated, transposed_b, rng):
     before = gemm.pallas_matmul.launches
     out = gemm._matmul_into(d, a, b, d, alpha=-1.0, beta=0.5)
     assert out is d and gemm.pallas_matmul.launches == before + 1
-    assert emulated.calls[-1]["strides"][9:] == [0, 260]
+    call = emulated.calls[-1]   # D and C are the one view
+    assert call["kernel"] == route and call["ptrs"]["c"] == call["ptrs"]["d"] == d.data_ptr()
+    if route == "simt":
+        assert call["strides"][6:] == [0, 260, 1, 0, 260]
+    else:
+        assert call["strides"][4:] == [0, 260, 1, 0, 260] and not call["split_a"]
     _close(big[10:110, 30:94], want.numpy(), 1e-6)
     rest = big.clone()
     rest[10:110, 30:94] = 0

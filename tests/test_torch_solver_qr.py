@@ -36,7 +36,6 @@ from tpumathlib_torch.solver import blocked, onelaunch
 from test_torch_dx_gemm import _view
 from test_torch_solver_onelaunch import (_EmulatedLib as _EmulatedSolverLib, _Event, _Stream,
                                          _block)
-from test_torch_tf32x3 import Tf32x3Emulation
 
 # the packages export functions of the same names as these modules
 ref_qr = importlib.import_module("tpumathlib.solver.qr_onelaunch")
@@ -51,6 +50,27 @@ N = 512   # the reference test's size
 def _close(got, want, tol):
     err = max_scaled_err(got, np.asarray(want).astype(np.float64))
     assert err <= tol, f"max-scaled err {err:.3e} > {tol:g}"
+
+
+def _mm_b1(a, b, c=None, *, alpha: float = 1.0, beta: float = 0.0):
+    """B1's f32 products as the emulation computes them on the route that
+    ``gemm._into_route`` gives: the SIMT kernel's f32 product, or the
+    3xTF32 plain model of A's planes and Bᵀ's."""
+    (m, k), n = a.shape, b.shape[1]
+    if gemm._into_route(m, n, k) == "simt":
+        return onelaunch._mm_plain(a, b, c, alpha=alpha, beta=beta)
+    return tf32x3._gemm_tf32x3_plain(*tf32x3._split_tf32_plain(a),
+                                     *tf32x3._split_tf32_plain(b, transpose=True), c,
+                                     alpha=alpha, beta=beta)
+
+
+def _geqrf_b1(a):
+    """geqrf_onelaunch's schedule on the plain sweeps and Gram products with
+    B1's products on their routes: the device route's arithmetic, so that
+    the emulated device route stays within 1e-6 of it (the QR's
+    conditioning carries the 3xTF32 rounding to some 1e-5 of an
+    all-f32 route's)."""
+    return qr._geqrf(a, qr._plain_ops()._replace(mm=_mm_b1))
 
 
 def _block_input(rng, j0):
@@ -176,6 +196,9 @@ def test_argument_checks():
         onelaunch._inv_upper128(torch.eye(NB, dtype=torch.float64))
 
 
+# geqrf_onelaunch's TF32 splits at n = 512 with every B1 product on the 3xTF32
+# route: the B of each of its 31 products and the A of its 7 with a transposed A
+SPLITS_N = 38
 _COUNTS = (gemm.pallas_matmul, blocked._chol_inv128, qr._hh_recon128, onelaunch._inv_upper128,
            qr.geqrf_onelaunch, qr.orgqr_onelaunch, qr._gram_tn, tf32x3.split_tf32,
            tf32x3.gemm_tf32x3)
@@ -207,9 +230,9 @@ def _gram_refused(k, m, n, flags, ncounters, ptrs, lds, tops):
             or (flags & 2 and (m != n or ncounters < tiles + 1)))
 
 
-class _EmulatedLib(Tf32x3Emulation, _EmulatedSolverLib):
-    """Adds the contracts of qr_block.cu's and qr_gram.cu's entry points, and
-    gemm_tf32x3.cu's (tests/test_torch_tf32x3.py)."""
+class _EmulatedLib(_EmulatedSolverLib):
+    """Adds the contracts of qr_block.cu's and qr_gram.cu's entry points
+    (gemm_tf32x3.cu's come with B1's emulation, tests/test_torch_dx_gemm.py)."""
 
     def __init__(self):
         super().__init__()
@@ -296,7 +319,8 @@ def test_block_kernel_marshalling(emulated, kind, rng):
         assert g.shape == w.shape and torch.equal(g, w)
 
 
-def test_driver_cuda_route_marshalling(emulated, rng):
+@pytest.mark.parametrize("rule", ["size rule", "all 3xTF32"])
+def test_driver_cuda_route_marshalling(emulated, monkeypatch, rule, rng):
     """geqrf and orgqr on the CUDA route, with every product and sweep going
     through the emulated entry points, give the plain route's (vr, t) and Q;
     the counts are those of the schedule at n=512 (two panels). Per panel:
@@ -309,12 +333,19 @@ def test_driver_cuda_route_marshalling(emulated, rng):
     panel 5 B1 (W, then the top and the rows below of each 128 columns, the
     second on the aux stream). No columns lie past the next panel at n = 512.
     orgqr (its device route): one split a call, then a Gram, a B1, a split
-    and a 3xTF32 product a panel."""
+    and a 3xTF32 product a panel. By the size rule every B1 product here is
+    SIMT's (K ≤ 256, one wave of tiles); with all on B1's 3xTF32 route each
+    splits its B, and A where A is a transposed view (SPLITS_N in geqrf, one
+    more a panel in orgqr). The result is held to the plain schedule with
+    B1's products on those routes (``_geqrf_b1``)."""
+    tc = rule == "all 3xTF32"
+    if tc:
+        monkeypatch.setattr(gemm, "_into_route", lambda m, n, k: "tf32x3")
     a = torch.from_numpy(rng.normal(size=(N, N)).astype(np.float32))
     before = [f.launches for f in _COUNTS]
     vr, t = qr.geqrf_onelaunch(a)
     grew = [f.launches - b for f, b in zip(_COUNTS, before)]
-    assert grew == [31, 8, 4, 4, 1, 0, 17, 0, 0]
+    assert grew == [31, 8, 4, 4, 1, 0, 17, SPLITS_N * tc, 0]
     assert len(emulated.calls) == 31 and len(emulated.block_calls) == 16
     # streams: the caller's 0, then the chain 1 and the aux 2 (high priority), the side 3
     streams = [c["stream"] for c in emulated.gram_calls]
@@ -327,30 +358,35 @@ def test_driver_cuda_route_marshalling(emulated, rng):
                                           stream=1)
     assert emulated.gram_calls[3] == dict(k=N, m=NB, n=NB, flags=1, tops=(NB, NB), c=False,
                                           stream=1)
-    want_vr, want_t = qr._geqrf_onelaunch_plain(a)
+    want_vr, want_t = _geqrf_b1(a)
     _close(vr, want_vr.numpy(), 1e-6)
     _close(t, want_t.numpy(), 1e-6)
     before = [f.launches for f in _COUNTS]
     q = qr.orgqr_onelaunch(want_vr, want_t)
-    assert [f.launches - b for f, b in zip(_COUNTS, before)] == [2, 0, 0, 0, 0, 1, 2, 3, 2]
+    assert [f.launches - b for f, b in zip(_COUNTS, before)] == [2, 0, 0, 0, 0, 1, 2,
+                                                                 3 + 2 * tc, 2]
     _close(q, qr._orgqr_onelaunch_plain(want_vr, want_t).numpy(), 1e-6)
     before = [f.launches for f in _COUNTS]
     qr.qr_onelaunch(a)
-    assert [f.launches - b for f, b in zip(_COUNTS, before)] == [33, 8, 4, 4, 1, 1, 19, 3, 2]
+    assert [f.launches - b for f, b in zip(_COUNTS, before)] == [33, 8, 4, 4, 1, 1, 19,
+                                                                 (SPLITS_N + 2) * tc + 3, 2]
 
 
 @pytest.mark.parametrize("n", [256, 768, 1024])
-def test_driver_look_ahead_streams(emulated, rng, n):
+def test_driver_look_ahead_streams(emulated, monkeypatch, rng, n):
     """The columns past the next panel take their update on the side stream:
     after each panel but the last two, a Gram and 3 B1 there (none at n =
     256, one panel; one update at 768, two at 1024); the result is the plain
-    route's."""
+    route's. Every B1 product on the 3xTF32 route: the side's pieces fall
+    on either side of the size rule where the plain schedule's whole
+    products do not."""
+    monkeypatch.setattr(gemm, "_into_route", lambda m, n, k: "tf32x3")
     a = torch.from_numpy(rng.normal(size=(n, n)).astype(np.float32))
     vr, t = qr.geqrf_onelaunch(a)
     side = [c for c in emulated.gram_calls if c["stream"] == 3]
     assert [c["n"] for c in side] == list(range(n - 512, 0, -256))
     assert emulated.gemm_streams.count(3) == 3 * len(side)
-    want_vr, want_t = qr._geqrf_onelaunch_plain(a)
+    want_vr, want_t = _geqrf_b1(a)
     _close(vr, want_vr.numpy(), 1e-6)
     _close(t, want_t.numpy(), 1e-6)
 
@@ -373,8 +409,10 @@ def test_orgqr_device_route(emulated, rng, n):
     before = [f.launches for f in _COUNTS]
     q = qr.orgqr_onelaunch(vr, t)
     panels = n // 256
+    # W = T·G of a panel of rows n − k0 on the 3xTF32 route splits its B, G
+    w_tc = [gemm._into_route(256, n - k0, 256) == "tf32x3" for k0 in range(n - 256, -1, -256)]
     assert [f.launches - b for f, b in zip(_COUNTS, before)] == [
-        panels, 0, 0, 0, 0, 1, panels, panels + 1, panels]
+        panels, 0, 0, 0, 0, 1, panels, panels + 1 + sum(w_tc), panels]
     _close(q, qr._orgqr_onelaunch_plain(vr, t).numpy(), 1e-6)
     assert float((q.double().mT @ q.double() - torch.eye(n, dtype=torch.float64)).abs().max()) < 1e-5
     main = emulated.caller.cuda_stream
@@ -383,7 +421,9 @@ def test_orgqr_device_route(emulated, rng, n):
     assert [c["k"] for c in emulated.gram_calls] == [n - k0 for k0 in range(n - 256, -1, -256)]
     assert all(c["tops"] == (256, 0) for c in emulated.gram_calls)
     splits = [c for c in emulated.tf32_calls if c["kind"] == "split"]
-    assert [c["flags"] for c in splits] == [tf32x3.UNIT_LOWER] + [tf32x3.TRANSPOSE] * panels
+    # vr once; then a panel's Wᵀ (and G, W = T·G's B, where W takes 3xTF32), transposed
+    assert [c["flags"] for c in splits] == [tf32x3.UNIT_LOWER] + [tf32x3.TRANSPOSE] * (
+        panels + sum(w_tc))
     assert splits[0]["shape"] == (n, n) and all(c["ld"][0] == n for c in splits)   # in place
     prods = [c for c in emulated.tf32_calls if c["kind"] == "gemm"]
     for k0, c in zip(range(n - 256, -1, -256), prods):

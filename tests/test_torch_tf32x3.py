@@ -18,8 +18,10 @@ on the CPU.
   C entries refuse, and reads each plane as the tensor cores do (its low
   13 bits dropped), so that planes that were not split show.
 
-``Tf32x3Emulation`` is the mixin that the ring's and orgqr's emulations
-(tests/test_torch_mp_matmul.py, tests/test_torch_solver_qr.py) add.
+``Tf32x3Emulation`` (tests/test_torch_dx_gemm.py, whose emulation of B1
+includes it: B1's f32 route is the 3xTF32 kernel) is the mixin that the
+ring's and orgqr's emulations (tests/test_torch_mp_matmul.py,
+tests/test_torch_solver_qr.py) add.
 """
 
 import contextlib
@@ -35,7 +37,6 @@ from tpumathlib_torch.core.check import max_scaled_err
 from tpumathlib_torch.core.errors import ExecutionError, InvalidValueError
 from tpumathlib_torch.dx import cuda_utils, tf32x3
 from test_torch_dx_gemm import _EmulatedLib as _EmulatedGemmLib
-from test_torch_dx_gemm import _view
 
 torch.set_num_threads(1)
 
@@ -43,59 +44,8 @@ F32 = torch.float32
 RING_SHAPES = ((1024, 512, 512), (1000, 300, 200), (64, 4096, 64))   # (m, k, n); K = 4096 last
 
 
-def _tensor_core_read(p):
-    """A plane as the tensor cores read it: TF32, the low 13 bits dropped."""
-    return (p.contiguous().view(torch.int32) & -0x2000).view(F32)
-
-
-class Tf32x3Emulation:
-    """``tml_split_tf32``'s and ``tml_gemm_tf32x3``'s contracts on the CPU,
-    from the raw arguments; 1 (cudaErrorInvalidValue) for what the C
-    entries refuse. Calls are recorded in ``tf32_calls``."""
-
-    def _record(self, **kw):
-        self.__dict__.setdefault("tf32_calls", []).append(kw)
-
-    def tml_split_tf32(self, x, ldx, hi, lo, ldo, rows, cols, flags, stream):
-        transpose = bool(flags & tf32x3.TRANSPOSE)
-        self._record(kind="split", shape=(rows, cols), ld=(ldx, ldo), flags=flags, stream=stream)
-        if (not (x and hi and lo) or rows < 0 or cols < 0 or not 0 <= flags <= 3 or ldx < cols
-                or ldo < (rows if transpose else cols)):
-            return 1
-        if not (rows and cols):
-            return 0
-        src = _view(x, F32, (rows, cols), (ldx, 1)).clone()
-        h, l = tf32x3._split_tf32_plain(src, transpose=transpose,
-                                        unit_lower=bool(flags & tf32x3.UNIT_LOWER))
-        _view(hi, F32, tuple(h.shape), (ldo, 1)).copy_(h)
-        _view(lo, F32, tuple(l.shape), (ldo, 1)).copy_(l)
-        return 0
-
-    def tml_gemm_tf32x3(self, ah, al, lda, bh, bl, ldb, c, ldc, d, ldd, m, n, k, alpha, beta,
-                        stream):
-        split_a = not al   # A itself in f32, split in the kernel's registers
-        self._record(kind="gemm", shape=(m, n, k), ld=(lda, ldb, ldc, ldd), c=c, d=d,
-                     alpha=alpha, beta=beta, split_a=split_a, stream=stream)
-        if not d or m < 0 or n < 0 or k < 0 or ldd < n or (c and ldc < n):
-            return 1
-        if not (m and n):
-            return 0
-        if k and (any(not p or p % 16 for p in (ah, ah if split_a else al, bh, bl)) or lda < k
-                  or ldb < k or lda % 4 or ldb % 4):
-            return 1
-        if split_a:
-            a = tf32x3._split_tf32_plain(_view(ah, F32, (m, k), (lda, 1)).clone())
-        else:
-            a = [_tensor_core_read(_view(p, F32, (m, k), (lda, 1))) for p in (ah, al)]
-        b = [_tensor_core_read(_view(p, F32, (n, k), (ldb, 1))) for p in (bh, bl)]
-        cc = _view(c, F32, (m, n), (ldc, 1)).clone() if c else None
-        acc = tf32x3._gemm_tf32x3_plain(*a, *b, cc, alpha=alpha, beta=beta)
-        _view(d, F32, (m, n), (ldd, 1)).copy_(acc)
-        return 0
-
-
-class _EmulatedLib(Tf32x3Emulation, _EmulatedGemmLib):
-    pass
+class _EmulatedLib(_EmulatedGemmLib):
+    """B1's emulation, which holds ``Tf32x3Emulation``."""
 
 
 @pytest.fixture
@@ -240,6 +190,21 @@ def test_accumulation_model_per_stage_partials(rng, k):
     assert max_scaled_err(total, want) <= 2e-6
     if k == 4096:
         assert max_scaled_err(chain, want) > 1e-5
+
+
+def test_bf16_values_are_exact_in_tf32(rng):
+    """The premise of B10b's one-product instantiation: a bf16 value widened
+    to f32 is its own TF32 hi plane (8 mantissa bits of TF32's 10) and its
+    lo plane is 0, bit for bit, so hi·hi is the whole product's sum."""
+    x = torch.from_numpy(rng.normal(size=(64, 96)).astype(np.float32) * 1e3).to(torch.bfloat16)
+    w = x.to(F32)
+    hi, lo = tf32x3._split_tf32_plain(w)
+    assert torch.equal(hi, w) and torch.equal(lo, torch.zeros_like(w))
+    y = torch.from_numpy(rng.normal(size=(96, 40)).astype(np.float32)).to(torch.bfloat16).to(F32)
+    bt_hi, bt_lo = tf32x3._split_tf32_plain(y, transpose=True)
+    assert torch.equal(tf32x3._gemm_tf32x3_plain(hi, lo, bt_hi, bt_lo),
+                       tf32x3._gemm_tf32x3_plain(hi, torch.zeros_like(hi), bt_hi,
+                                                 torch.zeros_like(bt_hi)))
 
 
 def test_planes_pad_the_row_stride():

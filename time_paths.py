@@ -2,12 +2,13 @@
 """Times the port's redesigned paths at the bench's sizes on one CUDA card.
 
 The paths, each through its public function:
-- on B1's f32 SIMT route: potrf_onelaunch and getrf_onelaunch (B2, B3),
-  geqrf_onelaunch (B4a) and orgqr_onelaunch (B4b, on geqrf's output) at
-  n = 4096, solver.blocked.potrf_blocked (B4c, panel 256) at n = 4096, and
-  dx.rng.dropout_matmul_kernel (B10b) at 4096^3, rate 0.1;
-- B1's tensor-core route: dx.gemm.pallas_matmul at 4096^3 bf16 with the
-  bias + GELU epilogue;
+- with their products on B1's f32 routes: potrf_onelaunch and
+  getrf_onelaunch (B2, B3), geqrf_onelaunch (B4a) and orgqr_onelaunch (B4b,
+  on geqrf's output) at n = 4096, solver.blocked.potrf_blocked (B4c, panel
+  256) at n = 4096, and dx.rng.dropout_matmul_kernel (B10b) at 4096^3, rate
+  0.1, f32 and bf16;
+- B1: dx.gemm.pallas_matmul at 4096^3 with the bias + GELU epilogue, bf16
+  (the tensor-core route) and f32;
 - the Blocked-ELL lines of bench.py: sparse.spmm on a bf16 Blocked-ELL
   (mb = nb = 128, ellw = 16, bs = 128, k = 4096; B6a) and sparse.spmv on an
   f32 one (ellw = 32);
@@ -127,8 +128,11 @@ def _paths(dev) -> dict:
         "orgqr_onelaunch": lambda: qr.orgqr_onelaunch(vr, t),
         "potrf_blocked": lambda: blocked.potrf_blocked(spd, PANEL),
         "dropout_matmul_kernel": lambda: dxr.dropout_matmul_kernel(a, b, 20240601, 0.1),
+        "dropout_matmul_kernel_bf16": lambda: dxr.dropout_matmul_kernel(ah, bh, 20240601, 0.1),
         "pallas_matmul_bf16_gelu_bias": lambda: gemm.pallas_matmul(ah, bh, bias=bias,
                                                                    epilogue="gelu_bias"),
+        "pallas_matmul_f32_gelu_bias": lambda: gemm.pallas_matmul(a, b, bias=bias,
+                                                                  epilogue="gelu_bias"),
         "spmm_bell_bf16": lambda: sparse.spmm(a_mm, b_mm),
         "spmv_bell_f32": lambda: sparse.spmv(a_mv, x_mv),
         "dif_fft_f32_natural": lambda: stockham.dif_fft(fr, fi),

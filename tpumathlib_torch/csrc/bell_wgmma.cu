@@ -50,8 +50,8 @@ namespace {
 
 using namespace tml_ring;
 
-// operand dtype codes, as tpumathlib_torch/sparse/pallas_kernels.py passes them
-enum DType : int { kBF16 = 1, kF16 = 2 };
+// operand dtype codes (kBF16 = 1, kF16 = 2), as tpumathlib_torch/sparse/pallas_kernels.py
+// passes them: hopper_ring.cuh's DType
 
 constexpr int kSMs = 132;                // an H100 SXM's: fewer tiles than this leave SMs idle
 constexpr int64_t kL2Budget = 24 << 20;  // bytes of B's columns a group of column tiles reads

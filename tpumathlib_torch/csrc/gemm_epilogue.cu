@@ -3,7 +3,10 @@
 //   D = epilogue(alpha * A @ B + beta * C + bias)   [+ aux = pre-activation]
 //
 // Replaces the TPU kernel tpumathlib/dx/gemm.py::pallas_matmul (kernel body
-// at :193). A is (batch, M, K), B is (batch, K, N); C is broadcast to
+// at :193) on B1's SIMT route: int8 operands, 16-bit ones in layouts the
+// tensor-core route refuses, the host loops' small f32 products (the size
+// rule of dx/gemm.py::_into_route) and explicit SIMT configs; f32 operands
+// otherwise take gemm_tf32x3.cu. A is (batch, M, K), B is (batch, K, N); C is broadcast to
 // (batch, M, N) by its strides; bias is (N,) f32. Epilogues: none, relu,
 // gelu (tanh approximation), each with an optional bias add and an optional
 // f32 store of the pre-activation (aux).
@@ -13,7 +16,7 @@
 // over 1000 flop per byte, so the work is compute-bound on this card.
 //
 // Design. One thread block computes one (BM, BN) tile of D with the SIMT
-// main loop of simt_gemm.cuh (shared with dx_rng.cu's dropout product): its
+// main loop of simt_gemm.cuh: its
 // loop over K in steps of BK takes the place of the TPU kernel's sequential
 // ("arbitrary") K grid axis, whose f32 VMEM accumulator becomes TM x TN f32
 // registers per thread. Operands are converted to f32 on load; products

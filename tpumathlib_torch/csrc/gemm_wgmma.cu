@@ -4,9 +4,9 @@
 //   D = epilogue(alpha * A @ B + beta * C + bias)   [+ aux = pre-activation]
 //
 // Replaces the TPU kernel tpumathlib/dx/gemm.py::pallas_matmul (kernel body
-// at :193) for bf16 and f16 A and B; f32 and int8 operands, and layouts
-// this route refuses, take gemm_epilogue.cu (dx/gemm.py routes between
-// them). The contract is that file's: A (batch, M, K), B (batch, K, N), C
+// at :193) for bf16 and f16 A and B; f32 operands take gemm_tf32x3.cu, int8
+// ones and layouts this route refuses gemm_epilogue.cu (dx/gemm.py routes
+// between them). The contract is that file's: A (batch, M, K), B (batch, K, N), C
 // broadcast by its strides and read in its own dtype, bias (N,) f32, D
 // f32/bf16/f16 and aux f32 with unit column stride; epilogues none, relu and
 // tanh-GELU, each with or without bias and aux.
@@ -38,6 +38,8 @@
 // their chains overlap. Unrolled over the fragment in registers (some
 // 15000 instructions a kernel) the epilogue took longer than the products.
 // frag_pos maps a register to its (row, column), and nothing else does.
+// The epilogue (fused_epilogue) is in hopper_ring.cuh, shared with the
+// 3xTF32 kernel's f32 route of B1.
 //
 // Built with -DTML_GEMM_STAMPS (chip_smoke.py phase 5 builds this source
 // alone so), the kernel also writes, for every block, %globaltimer at its
@@ -57,11 +59,6 @@
 namespace {
 
 using namespace tml_ring;
-
-// dtype codes, as tpumathlib_torch/dx/gemm.py passes them
-enum DType : int { kF32 = 0, kBF16 = 1, kF16 = 2, kI8 = 3 };
-// activation codes
-enum Act : int { kNone = 0, kRelu = 1, kGelu = 2 };
 
 // The compiled tile configs: (BM, BN, BK, stages). Config ids index this
 // table; dx/gemm.py's _TC_CONFIGS lists the same in order.
@@ -106,47 +103,6 @@ __device__ __forceinline__ void stamp(int j) {
   do {            \
   } while (0)
 #endif
-
-__device__ __forceinline__ float load_c(const void* c, int dtype, int64_t i) {
-  switch (dtype) {
-    case kBF16: return __bfloat162float(static_cast<const __nv_bfloat16*>(c)[i]);
-    case kF16: return __half2float(static_cast<const __half*>(c)[i]);
-    case kI8: return static_cast<float>(static_cast<const int8_t*>(c)[i]);
-    default: return static_cast<const float*>(c)[i];
-  }
-}
-
-__device__ __forceinline__ float relu(float v) {
-  return v < 0.f ? 0.f : v;  // NaN passes through, as in the plain version
-}
-
-__device__ __forceinline__ float gelu(float v) {
-  return 0.5f * v * (1.f + tanhf(0.7978845608028654f * (v + 0.044715f * v * v * v)));
-}
-
-// D's rows gm[0 .. R) at columns gn and gn + 1 (where `two`), rows past M
-// skipped; the dtype's branch holds all R stores.
-template <int R, typename TD>
-__device__ __forceinline__ void store_rows_as(const Params& p, int64_t bz, const int64_t (&gm)[R],
-                                              int64_t gn, const float (&v0)[R], const float (&v1)[R],
-                                              bool two, bool vec) {
-#pragma unroll
-  for (int j = 0; j < R; ++j)
-    if (gm[j] < p.m) store_pair(static_cast<TD*>(p.d), bz * p.d_sb + gm[j] * p.d_sm + gn, v0[j], v1[j], two, vec);
-}
-
-template <int R>
-__device__ __forceinline__ void store_rows(const Params& p, int64_t bz, const int64_t (&gm)[R],
-                                           int64_t gn, const float (&v0)[R], const float (&v1)[R],
-                                           bool two, bool vec) {
-  if (p.d_dtype == kBF16) {
-    store_rows_as<R, __nv_bfloat16>(p, bz, gm, gn, v0, v1, two, vec);
-  } else if (p.d_dtype == kF16) {
-    store_rows_as<R, __half>(p, bz, gm, gn, v0, v1, two, vec);
-  } else {
-    store_rows_as<R, float>(p, bz, gm, gn, v0, v1, two, vec);
-  }
-}
 
 template <typename T, int BN, int STAGES, int TA, int TB>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -203,58 +159,8 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   // The tile goes through shared memory, so that the epilogue is one short
   // loop with whole rows to a warp (coalesced loads of C and stores of D
   // and aux) instead of BN / 2 unrolled copies.
-  constexpr int kLd = staged_ld<BN>();
   const float* tile = stage_tile<BN, STAGES>(acc, smem_raw, ring, cg);
-
-  // the fused epilogue: each thread takes two neighbouring columns of
-  // 256 / BN rows a step, kRows steps a pass; every uniform branch (C,
-  // aux, activation, dtype) holds all the pass's rows, so their loads, math
-  // and stores are independent chains within one basic block
-  constexpr int kPairs = BN / 2, kStep = 128 / kPairs, kRows = 4;
-  static_assert(64 % (kRows * kStep) == 0, "whole passes");
-  const int t = threadIdx.x % 128, col = 2 * (t % kPairs);
-  const int64_t gn = n0 + col;
-  if (gn >= p.n) return;  // never thread 0 (column n0 < N), whose stamp follows
-  const bool two = gn + 1 < p.n, vec = p.d_sm % 2 == 0 && p.d_sb % 2 == 0;
-  const float b0 = p.bias ? p.bias[gn] : 0.f, b1 = p.bias && two ? p.bias[gn + 1] : 0.f;
-  for (int r = t / kPairs; r < 64; r += kRows * kStep) {
-    float v0[kRows], v1[kRows];
-    int64_t gm[kRows];
-#pragma unroll
-    for (int j = 0; j < kRows; ++j) {
-      const float2 a2 = *reinterpret_cast<const float2*>(tile + (r + j * kStep) * kLd + col);
-      gm[j] = m0 + cg * 64 + r + j * kStep;
-      v0[j] = p.alpha * a2.x;
-      v1[j] = p.alpha * a2.y;
-    }
-    if (p.c) {
-#pragma unroll
-      for (int j = 0; j < kRows; ++j) {
-        if (gm[j] >= p.m) continue;
-        const int64_t ci = bz * p.c_sb + gm[j] * p.c_sm + gn * p.c_sn;
-        v0[j] += p.beta * load_c(p.c, p.c_dtype, ci);
-        if (two) v1[j] += p.beta * load_c(p.c, p.c_dtype, ci + p.c_sn);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kRows; ++j) {
-      v0[j] += b0;
-      v1[j] += b1;
-    }
-    if (p.aux) {
-#pragma unroll
-      for (int j = 0; j < kRows; ++j)
-        if (gm[j] < p.m) store_pair(p.aux, bz * p.d_sb + gm[j] * p.d_sm + gn, v0[j], v1[j], two, vec);
-    }
-    if (p.act == kRelu) {
-#pragma unroll
-      for (int j = 0; j < kRows; ++j) v0[j] = relu(v0[j]), v1[j] = relu(v1[j]);
-    } else if (p.act == kGelu) {
-#pragma unroll
-      for (int j = 0; j < kRows; ++j) v0[j] = gelu(v0[j]), v1[j] = gelu(v1[j]);
-    }
-    store_rows<kRows>(p, bz, gm, gn, v0, v1, two, vec);
-  }
+  fused_epilogue<BN>(p, tile, m0, n0, bz, cg);   // the stamping thread (column n0 < N) passes it all
   TML_STAMP(3);
 }
 

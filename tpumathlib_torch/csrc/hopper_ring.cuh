@@ -2,7 +2,8 @@
 // bell_wgmma.cu (B6a's) and gemm_tf32x3.cu (the 3xTF32 product of f32
 // operands): mbarriers, TMA loads, tensor-map encoding, wgmma's
 // shared-memory descriptors, fences and instructions, the consumers' main
-// loops, and the staging of a finished tile in shared memory.
+// loops, the staging of a finished tile in shared memory, and B1's fused
+// epilogue over it (gemm_wgmma.cu's and gemm_tf32x3.cu's).
 //
 // The ring. A block of 384 threads: warpgroup 0 is the producer, whose one
 // thread keeps TMA loads in flight into STAGES stages of (128 rows of A, BN
@@ -304,10 +305,13 @@ __device__ __forceinline__ void stage_tf32x3(float (&part)[BN / 2], uint32_t sta
 // then the hi and lo planes of B's BN x 32 (BN = 128). Each k8 step loads
 // and splits this thread's part of A's fragment and commits its three
 // products as a group; two register sets alternate, so a step's loads wait
-// for the group of two steps before, which read that set.
-template <int BN>
+// for the group of two steps before, which read that set. PRODUCTS = 1:
+// operands exact in TF32 (bf16 values widened to f32, whose lo planes are
+// 0), so the stage holds B's hi plane alone and a k8 step issues hi·hi.
+template <int BN, int PRODUCTS = 3>
 __device__ __forceinline__ void stage_tf32x3_split_a(float (&part)[BN / 2], uint32_t stage, int cg) {
   static_assert(BN == 128, "register A: m64n128k8");
+  static_assert(PRODUCTS == 3 || PRODUCTS == 1, "3xTF32, or one product of exact operands");
   const uint32_t b_hi = stage + kABytes, b_lo = b_hi + BN * kRowBytes;
   uint32_t h0[4], l0[4], h1[4], l1[4];
   fence_acc(part);
@@ -318,20 +322,25 @@ __device__ __forceinline__ void stage_tf32x3_split_a(float (&part)[BN / 2], uint
     if (kk >= 2) asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
     split_fragment(stage, cg, kk, hi, lo);
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-    const uint64_t dbh = make_desc(b_hi + kk * 32, 16, 1024), dbl = make_desc(b_lo + kk * 32, 16, 1024);
-    wgmma_tf32(part, lo, dbh, kk > 0);
-    wgmma_tf32(part, hi, dbl, 1);
-    wgmma_tf32(part, hi, dbh, 1);
+    const uint64_t dbh = make_desc(b_hi + kk * 32, 16, 1024);
+    if constexpr (PRODUCTS == 3) {
+      const uint64_t dbl = make_desc(b_lo + kk * 32, 16, 1024);
+      wgmma_tf32(part, lo, dbh, kk > 0);
+      wgmma_tf32(part, hi, dbl, 1);
+      wgmma_tf32(part, hi, dbh, 1);
+    } else {
+      wgmma_tf32(part, hi, dbh, kk > 0);
+    }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
   }
   fence_acc(part);
 }
 
 // Bytes of a 3xTF32 stage: A's two planes and B's, or (SPLIT_A) A in f32
-// and B's two planes.
-template <int BN, bool SPLIT_A>
+// and B's two planes, or B's hi plane alone where PRODUCTS = 1.
+template <int BN, bool SPLIT_A, int PRODUCTS = 3>
 __host__ __device__ constexpr uint32_t tf32x3_stage_bytes() {
-  return SPLIT_A ? kABytes + 2 * BN * kRowBytes : stage_bytes<BN, 2>();
+  return SPLIT_A ? kABytes + (PRODUCTS == 3 ? 2 : 1) * BN * kRowBytes : stage_bytes<BN, 2>();
 }
 
 // acc += part, in f32 (round to nearest), once part's group is done.
@@ -353,12 +362,13 @@ __device__ __forceinline__ void fold(float (&acc)[N], float (&part)[N]) {
 // more registers than a thread has (ptxas gives each thread of a block
 // with a producer warpgroup 168); the other consumer warpgroup's products
 // run meanwhile. SPLIT_A: A's stage is f32, split in registers
-// (stage_tf32x3_split_a).
-template <int BN, int STAGES, bool SPLIT_A>
+// (stage_tf32x3_split_a; PRODUCTS = 1 for operands exact in TF32).
+template <int BN, int STAGES, bool SPLIT_A, int PRODUCTS = 3>
 __device__ __forceinline__ void consume_tf32x3(float (&acc)[BN / 2], int nk, uint32_t ring,
                                                uint64_t (&full)[STAGES], uint64_t (&empty)[STAGES],
                                                int cg) {
-  constexpr uint32_t kStageBytes = tf32x3_stage_bytes<BN, SPLIT_A>();
+  static_assert(SPLIT_A || PRODUCTS == 3, "one product: A in f32");
+  constexpr uint32_t kStageBytes = tf32x3_stage_bytes<BN, SPLIT_A, PRODUCTS>();
   float part[BN / 2];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
@@ -366,7 +376,7 @@ __device__ __forceinline__ void consume_tf32x3(float (&acc)[BN / 2], int nk, uin
     const int s = kb % STAGES;
     mbar_wait(smem_u32(&full[s]), (kb / STAGES) & 1);
     if constexpr (SPLIT_A) {
-      stage_tf32x3_split_a<BN>(part, ring + s * kStageBytes, cg);
+      stage_tf32x3_split_a<BN, PRODUCTS>(part, ring + s * kStageBytes, cg);
     } else {
       stage_tf32x3<BN>(part, ring + s * kStageBytes, cg);
     }
@@ -439,6 +449,116 @@ __device__ __forceinline__ void store_pair(TD* d, int64_t i, float v0, float v1,
   } else {
     store1(d + i, v0);
     if (two) store1(d + i + 1, v1);
+  }
+}
+
+// dtype codes, as tpumathlib_torch/dx/gemm.py passes them
+enum DType : int { kF32 = 0, kBF16 = 1, kF16 = 2, kI8 = 3 };
+// activation codes
+enum Act : int { kNone = 0, kRelu = 1, kGelu = 2 };
+
+__device__ __forceinline__ float load_c(const void* c, int dtype, int64_t i) {
+  switch (dtype) {
+    case kBF16: return __bfloat162float(static_cast<const __nv_bfloat16*>(c)[i]);
+    case kF16: return __half2float(static_cast<const __half*>(c)[i]);
+    case kI8: return static_cast<float>(static_cast<const int8_t*>(c)[i]);
+    default: return static_cast<const float*>(c)[i];
+  }
+}
+
+__device__ __forceinline__ float relu(float v) {
+  return v < 0.f ? 0.f : v;  // NaN passes through, as in the plain version
+}
+
+__device__ __forceinline__ float gelu(float v) {
+  return 0.5f * v * (1.f + tanhf(0.7978845608028654f * (v + 0.044715f * v * v * v)));
+}
+
+// D's rows gm[0 .. R) at columns gn and gn + 1 (where `two`), rows past M
+// skipped; the dtype's branch holds all R stores.
+template <int R, typename TD, typename P>
+__device__ __forceinline__ void store_rows_as(const P& p, int64_t bz, const int64_t (&gm)[R],
+                                              int64_t gn, const float (&v0)[R], const float (&v1)[R],
+                                              bool two, bool vec) {
+#pragma unroll
+  for (int j = 0; j < R; ++j)
+    if (gm[j] < p.m) store_pair(static_cast<TD*>(p.d), bz * p.d_sb + gm[j] * p.d_sm + gn, v0[j], v1[j], two, vec);
+}
+
+template <int R, typename P>
+__device__ __forceinline__ void store_rows(const P& p, int64_t bz, const int64_t (&gm)[R],
+                                           int64_t gn, const float (&v0)[R], const float (&v1)[R],
+                                           bool two, bool vec) {
+  if (p.d_dtype == kBF16) {
+    store_rows_as<R, __nv_bfloat16>(p, bz, gm, gn, v0, v1, two, vec);
+  } else if (p.d_dtype == kF16) {
+    store_rows_as<R, __half>(p, bz, gm, gn, v0, v1, two, vec);
+  } else {
+    store_rows_as<R, float>(p, bz, gm, gn, v0, v1, two, vec);
+  }
+}
+
+// B1's fused epilogue over consumer cg's staged 64 x BN rows (stage_tile)
+// of the tile at (m0, n0) of batch bz: D = epilogue(alpha * acc + beta * C
+// + bias) [+ aux = its input], with p's C (any of the dtype codes, with
+// batch, row and column strides; it may be D), bias (N,) f32, D (f32, bf16
+// or f16) and aux (f32) sharing one layout with unit column stride, act
+// none, relu or tanh-GELU. Each thread takes two neighbouring columns of
+// 256 / BN rows a step, kRows steps a pass; every uniform branch (C, aux,
+// activation, dtype) holds all the pass's rows, so their loads, math and
+// stores are independent chains within one basic block. The thread that
+// writes an element of D is the one that read it from C.
+template <int BN, typename P>
+__device__ __forceinline__ void fused_epilogue(const P& p, const float* tile, int64_t m0, int64_t n0,
+                                               int64_t bz, int cg) {
+  constexpr int kLd = staged_ld<BN>();
+  constexpr int kPairs = BN / 2, kStep = 128 / kPairs, kRows = 4;
+  static_assert(64 % (kRows * kStep) == 0, "whole passes");
+  const int t = threadIdx.x % 128, col = 2 * (t % kPairs);
+  const int64_t gn = n0 + col;
+  if (gn >= p.n) return;
+  // two-wide stores where every pair starts on 8 bytes (D and aux may be views)
+  const bool two = gn + 1 < p.n;
+  const bool vec = p.d_sm % 2 == 0 && p.d_sb % 2 == 0 && reinterpret_cast<uintptr_t>(p.d) % 8 == 0 &&
+                   reinterpret_cast<uintptr_t>(p.aux) % 8 == 0;
+  const float b0 = p.bias ? p.bias[gn] : 0.f, b1 = p.bias && two ? p.bias[gn + 1] : 0.f;
+  for (int r = t / kPairs; r < 64; r += kRows * kStep) {
+    float v0[kRows], v1[kRows];
+    int64_t gm[kRows];
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      const float2 a2 = *reinterpret_cast<const float2*>(tile + (r + j * kStep) * kLd + col);
+      gm[j] = m0 + cg * 64 + r + j * kStep;
+      v0[j] = p.alpha * a2.x;
+      v1[j] = p.alpha * a2.y;
+    }
+    if (p.c) {
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) {
+        if (gm[j] >= p.m) continue;
+        const int64_t ci = bz * p.c_sb + gm[j] * p.c_sm + gn * p.c_sn;
+        v0[j] += p.beta * load_c(p.c, p.c_dtype, ci);
+        if (two) v1[j] += p.beta * load_c(p.c, p.c_dtype, ci + p.c_sn);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      v0[j] += b0;
+      v1[j] += b1;
+    }
+    if (p.aux) {
+#pragma unroll
+      for (int j = 0; j < kRows; ++j)
+        if (gm[j] < p.m) store_pair(p.aux, bz * p.d_sb + gm[j] * p.d_sm + gn, v0[j], v1[j], two, vec);
+    }
+    if (p.act == kRelu) {
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) v0[j] = relu(v0[j]), v1[j] = relu(v1[j]);
+    } else if (p.act == kGelu) {
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) v0[j] = gelu(v0[j]), v1[j] = gelu(v1[j]);
+    }
+    store_rows<kRows>(p, bz, gm, gn, v0, v1, two, vec);
   }
 }
 

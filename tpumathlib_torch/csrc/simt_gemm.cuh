@@ -1,5 +1,6 @@
-// The SIMT f32 GEMM main loop shared by gemm_epilogue.cu (B1) and dx_rng.cu
-// (the product of B10b's dropout matmul).
+// The SIMT f32 GEMM main loop of gemm_epilogue.cu, B1's SIMT route (int8
+// operands, 16-bit ones in layouts the tensor-core route refuses, the host
+// loops' small f32 products, explicit SIMT configs).
 //
 // One thread block of (BM / TM) * (BN / TN) threads sums one (BM, BN) tile of
 // A B over k in steps of BK; that loop takes the place of the TPU kernels'

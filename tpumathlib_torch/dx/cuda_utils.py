@@ -171,13 +171,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # dx_fused.cu: (a, b, wr, wi, yr, yi, m, k, n, epilogue code, stream), f32
     lib.tml_gemm_fft.argtypes = [p, p, p, p, p, p, i64, i64, i64, i32, p]
     lib.tml_gemm_fft.restype = i32
-    # dx_rng.cu: uniform (out, n, key0, key1, stream); dropout matmul (a, b,
-    # out, m, k, n, key0, key1, rate, 1 - rate, a/b dtype code, stream)
+    # dx_rng.cu: uniform (out, n, key0, key1, stream)
     u32 = ctypes.c_uint32
     lib.tml_random_uniform.argtypes = [p, i64, u32, u32, p]
     lib.tml_random_uniform.restype = i32
-    lib.tml_dropout_matmul.argtypes = [p, p, p, i64, i64, i64, u32, u32, f32, f32, i32, p]
-    lib.tml_dropout_matmul.restype = i32
     # dx_vv10.cu, f32: (wr, w0, kappa, pts, inner (G,) or sums (5, G), G, stream)
     lib.tml_vv10_fwd.argtypes = [p, p, p, p, p, i64, p]
     lib.tml_vv10_fwd.restype = i32
@@ -193,6 +190,16 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tml_gemm_tf32x3.argtypes = [p, p, i64, p, p, i64, p, i64, p, i64, i64, i64, i64, f32, f32,
                                     p]
     lib.tml_gemm_tf32x3.restype = i32
+    # B1's f32 route: (a_hi, a_lo, b_hi, b_lo, c, bias, d, aux, batch, m, n, k, strides[9],
+    # alpha, beta, act, c/d dtype codes, stream)
+    lib.tml_gemm_tf32x3_epilogue.argtypes = [p, p, p, p, p, p, p, p, i64, i64, i64, i64,
+                                             ctypes.POINTER(i64), f32, f32, i32, i32, i32, p]
+    lib.tml_gemm_tf32x3_epilogue.restype = i32
+    # B10b: (a_hi, a_lo, lda, b_hi, b_lo, ldb, d, ldd, m, n, k, key0, key1, rate, 1 - rate,
+    # exact, stream)
+    lib.tml_dropout_matmul.argtypes = [p, p, i64, p, p, i64, p, i64, i64, i64, i64, u32, u32,
+                                       f32, f32, i32, p]
+    lib.tml_dropout_matmul.restype = i32
     lib.tml_gemm_configs.argtypes = [ctypes.POINTER(i32), i32]
     lib.tml_gemm_configs.restype = i32
     lib.tml_gemm_wgmma_configs.argtypes = [ctypes.POINTER(i32), i32]

@@ -14,11 +14,18 @@ same seed and shape draw the same bits): for any a, b, seed and rate, the
 mask of ``dropout_matmul_kernel(a, b, seed, rate)`` is exactly
 ``random_uniform_kernel(seed, (m, n)) > rate``.
 
-Both kernels are in ``csrc/dx_rng.cu``. On CPU tensors (or ``device="cpu"``)
-the wrappers take the plain versions, ``_random_uniform_plain`` and
-``_dropout_matmul_plain``; on the card they launch the kernels or raise.
-``_random_uniform.launches`` and ``_dropout_matmul.launches`` count the
-launches.
+B10a is ``csrc/dx_rng.cu``; B10b is the dropout epilogue of the 3xTF32
+tensor-core product (``csrc/gemm_tf32x3.cu``, ``tml_dropout_matmul``), both
+drawing from ``csrc/philox.cuh``. B10b's f32 operands go as B1's f32 route
+takes them (``dx.gemm._tf32x3_operands``: A in place where TMA reads it,
+else its TF32 planes; Bᵀ's planes, split once a call); bf16 operands are
+widened to f32, which holds them exactly in TF32 (lo = 0), A into rows
+padded to 16 bytes and Bᵀ transposed, for the kernel's one-product
+instantiation. On CPU tensors (or ``device="cpu"``) the wrappers take the
+plain versions, ``_random_uniform_plain`` and ``_dropout_matmul_plain``; on
+the card they launch the kernels or raise. ``_random_uniform.launches`` and
+``_dropout_matmul.launches`` count the launches (the splits count on
+``tf32x3.split_tf32.launches``).
 """
 
 from __future__ import annotations
@@ -31,14 +38,13 @@ from tpumathlib_torch.core import device as _device
 from tpumathlib_torch.core.errors import check
 from tpumathlib_torch.dx import cuda_utils
 from tpumathlib_torch.dx.cuda_utils import on_cuda
+from tpumathlib_torch.dx.gemm import _tf32x3_operands
+from tpumathlib_torch.dx.tf32x3 import planes
 from tpumathlib_torch.fft.kernels import _mm
 from tpumathlib_torch.rand.generators import philox_words
 
 F32 = torch.float32
 _MASK = 0xFFFFFFFF
-# operand dtype codes of tml_dropout_matmul; other dtypes are cast to f32,
-# which holds their values exactly
-_AB_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _uniform_from_words(w: torch.Tensor) -> torch.Tensor:
@@ -92,23 +98,40 @@ def _dropout_matmul_plain(a, b, seed: int, rate: float) -> torch.Tensor:
     return torch.where(u > rate, acc / (1.0 - rate), 0.0)
 
 
+def _exact_operands(a, b):
+    """bf16 A and B widened to f32, exact in TF32: A in rows padded to 16
+    bytes (TMA reads it in place), and Bᵀ (n, k) likewise, which is its own
+    TF32 hi plane (its lo plane is 0)."""
+    (m, k), n = a.shape, b.shape[1]
+    aw, bt = planes(m, k, a.device)[0], planes(n, k, a.device)[0]
+    return aw.copy_(a), bt.copy_(b.mT)
+
+
 def _dropout_matmul(a, b, seed: int, rate: float) -> torch.Tensor:
-    """B10b through ``tml_dropout_matmul``: (m, n) f32."""
+    """B10b through ``tml_dropout_matmul``: (m, n) f32. Operands of other
+    dtypes than f32 and bf16 are cast to f32, which holds them exactly."""
     if not on_cuda(a, b):
         return _dropout_matmul_plain(a, b, seed, rate)
     check(a.device == b.device, "A and B on one device")
-    if not (a.dtype == b.dtype and a.dtype in _AB_CODE):
+    exact = a.dtype == b.dtype == torch.bfloat16
+    if not (exact or a.dtype == b.dtype == F32):
         a, b = a.to(F32), b.to(F32)
-    a, b = a.contiguous(), b.contiguous()
     (m, k), n = a.shape, b.shape[1]
     out = torch.empty((m, n), dtype=F32, device=a.device)
     if m and n:
         lib = cuda_utils.load_kernels()
         with torch.cuda.device(a.device):
-            rc = lib.tml_dropout_matmul(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, n,
-                                        seed & _MASK, (seed >> 32) & _MASK, rate, 1.0 - rate,
-                                        _AB_CODE[a.dtype],
-                                        torch.cuda.current_stream(a.device).cuda_stream)
+            stream = torch.cuda.current_stream(a.device).cuda_stream
+            if exact:
+                aw, bt = _exact_operands(a, b)
+                (ah, al), (bh, bl) = (aw[None], None), (bt[None], None)
+            else:
+                (ah, al), (bh, bl) = _tf32x3_operands(a[None], b[None], stream)
+            rc = lib.tml_dropout_matmul(
+                ah.data_ptr(), None if al is None else al.data_ptr(), ah.stride(1),
+                bh.data_ptr(), None if bl is None else bl.data_ptr(), bh.stride(1),
+                out.data_ptr(), n, m, n, k, seed & _MASK, (seed >> 32) & _MASK, rate,
+                1.0 - rate, int(exact), stream)
         cuda_utils.check_launch(lib, rc, "tml_dropout_matmul")
         _dropout_matmul.launches += 1
     return out

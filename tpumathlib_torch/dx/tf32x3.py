@@ -36,7 +36,6 @@ from tpumathlib_torch.core.dtypes import cdiv
 from tpumathlib_torch.core.errors import check
 from tpumathlib_torch.dx import cuda_utils
 from tpumathlib_torch.dx.cuda_utils import on_cuda
-from tpumathlib_torch.fft.kernels import _f32_products
 
 F32 = torch.float32
 TRANSPOSE, UNIT_LOWER = 1, 2   # tml_split_tf32's flags
@@ -79,6 +78,8 @@ def _gemm_tf32x3_plain(a_hi, a_lo, bt_hi, bt_lo, c=None, *, alpha: float = 1.0,
                        beta: float = 0.0):
     """The kernel's sum by torch.matmul in f32 (TF32 off): α·(lo·hi + hi·lo +
     hi·hi) + β·C, A's planes (m, k), Bᵀ's (n, k)."""
+    from tpumathlib_torch.fft.kernels import _f32_products   # fft imports dx, and dx.gemm this
+
     with _f32_products():
         acc = a_lo @ bt_hi.mT + a_hi @ bt_lo.mT + a_hi @ bt_hi.mT
     acc = alpha * acc
@@ -88,8 +89,10 @@ def _gemm_tf32x3_plain(a_hi, a_lo, bt_hi, bt_lo, c=None, *, alpha: float = 1.0,
 def tma_ready(t) -> bool:
     """Whether the kernel reads the f32 matrix ``t`` (rows, cols) in place
     as A, splitting it in registers: unit column stride, a row stride of a
-    multiple of 4 (16 bytes) and a 16-byte aligned base."""
-    return t.stride(1) == 1 and t.stride(0) % 4 == 0 and t.data_ptr() % 16 == 0
+    multiple of 4 (16 bytes) that covers a row, and a 16-byte aligned
+    base."""
+    return (t.stride(1) == 1 and t.stride(0) % 4 == 0 and t.stride(0) >= t.shape[1]
+            and t.data_ptr() % 16 == 0)
 
 
 def planes(rows: int, cols: int, device):
@@ -135,22 +138,30 @@ def split_tf32(x, *, transpose: bool = False, unit_lower: bool = False):
     """The TF32 planes of f32 ``x`` (rows, cols) as a (2, rows, cols) tensor
     (``planes``), hi then lo ((2, cols, rows) with ``transpose``); one
     launch of ``tml_split_tf32``."""
-    rows, cols = x.shape
     if not on_cuda(x):
         return torch.stack(_split_tf32_plain(x, transpose=transpose, unit_lower=unit_lower))
-    check(x.dtype == F32, f"split_tf32 of f32, not {x.dtype}")
     launcher = Tf32x3()   # a failed build raises before any device lookup
-    x = x if x.stride(1) == 1 or cols <= 1 else x.contiguous()
-    out = planes(cols, rows, x.device) if transpose else planes(rows, cols, x.device)
-    flags = (TRANSPOSE if transpose else 0) | (UNIT_LOWER if unit_lower else 0)
     with torch.cuda.device(x.device):
-        launcher.split(torch.cuda.current_stream(x.device).cuda_stream,
-                       (x.data_ptr(), x.stride(0)), out[0].data_ptr(), out[1].data_ptr(),
-                       out.stride(1), rows, cols, flags)
-    return out
+        return _split_launch(launcher, torch.cuda.current_stream(x.device).cuda_stream, x,
+                             transpose=transpose, unit_lower=unit_lower)
 
 
 split_tf32.launches = 0
+
+
+def _split_launch(launcher: "Tf32x3", stream: int, x, *, transpose: bool = False,
+                  unit_lower: bool = False):
+    """``split_tf32``'s CUDA branch on ``stream`` of x's device, for routes
+    that have chosen the card (``dx.gemm``'s f32 route, B10b): planes with
+    row strides TMA reads."""
+    rows, cols = x.shape
+    check(x.dtype == F32, "split_tf32 takes f32")
+    x = x if x.stride(1) == 1 or cols <= 1 else x.contiguous()
+    out = planes(cols, rows, x.device) if transpose else planes(rows, cols, x.device)
+    flags = (TRANSPOSE if transpose else 0) | (UNIT_LOWER if unit_lower else 0)
+    launcher.split(stream, (x.data_ptr(), x.stride(0)), out[0].data_ptr(), out[1].data_ptr(),
+                   out.stride(1), rows, cols, flags)
+    return out
 
 
 def gemm_tf32x3(a, b, c=None, *, alpha: float = 1.0, beta: float = 0.0):

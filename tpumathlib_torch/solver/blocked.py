@@ -16,11 +16,15 @@ the trailing matrix. The panel is 4 MB at n = 4096 and does not fit in a
 block's 227 KB of shared memory, so here the panel stays in device memory
 and ``_potrf`` runs the same steps as a host loop of kernels: the sweep is
 ``tml_chol_inv_block`` and every product (trsm, in-panel update, trailing
-syrk over the panel's K) is B1's f32 SIMT kernel launched on raw addresses
-(``dx.gemm._Into``), each written in place, the syrk on the lower part
-only; the next diagonal block's sweep runs on a second stream beside the
-products that do not need it (look-ahead). The bf16 split is a TPU
-workaround, not part of the contract; B1 reads no TF32 setting. With
+syrk over the panel's K) is B1's f32 route launched on raw addresses
+(``dx.gemm._Into``: the 3xTF32 tensor-core kernel, or SIMT for the small
+ones), each written in place, the syrk on the lower part only; a block
+column of L21 is split into its TF32 planes once, when the first 3xTF32
+product reads it, and every later one takes those planes
+(``_KernelOps.split``); the next diagonal block's sweep runs on a second
+stream beside the products that do not need it (look-ahead). The bf16 split is a TPU
+workaround, not part of the contract; B1 reads no TF32 setting (its 3xTF32
+sum is the f32 product within f32's error whatever torch's flag says). With
 ``panel`` = 128 the same schedule is ``potrf_onelaunch``'s (kernel B2).
 """
 
@@ -32,6 +36,7 @@ from tpumathlib_torch.core.errors import check
 from tpumathlib_torch.dx import cuda_utils
 from tpumathlib_torch.dx.cuda_utils import on_cuda
 from tpumathlib_torch.dx.gemm import _Into, _matmul_into_plain
+from tpumathlib_torch.dx.tf32x3 import planes
 
 _NB = 128
 
@@ -117,6 +122,9 @@ class _PlainOps:
         _matmul_into_plain(_view(d), _view(a), _view(b), None if c is None else _view(c),
                            alpha=alpha, beta=beta)
 
+    def split(self, op):
+        pass
+
     def block(self, src, outs):
         for o, t in zip(outs, self.sweep(_view(src))):
             _view(o).copy_(t)
@@ -126,36 +134,96 @@ class _PlainOps:
 
 
 class _KernelOps:
-    """The kernel route: B1 (``dx.gemm._Into``) on the caller's stream and
-    the block sweep ``entry`` (counted on ``wrapper``) on a second one, both
-    on raw addresses into the call's buffers: a call makes some 100 to 150
-    launches, and each view or stream lookup costs microseconds of host
-    time. ``block`` runs after everything enqueued so far, so a diagonal
-    block factors on one SM while the rest of the trailing update runs on
-    the others (look-ahead); ``join`` makes the caller's stream wait for
-    it. Without ``ahead`` the blocks run in order on the caller's stream.
+    """The kernel route: B1 (``dx.gemm._Into``, the 3xTF32 kernel) on the
+    caller's stream and the block sweep ``entry`` (counted on ``wrapper``)
+    on a second one, both on raw addresses into the call's buffers: a call
+    makes some 150 to 250 launches, and each view or stream lookup costs
+    microseconds of host time. ``block`` runs after everything enqueued so
+    far, so a diagonal block factors on one SM while the rest of the
+    trailing update runs on the others (look-ahead); ``join`` makes the
+    caller's stream wait for it. Without ``ahead`` the blocks run in order
+    on the caller's stream.
+
+    ``split`` declares a block that later products read as B: its TF32
+    planes (the planes of their Bᵀ) go into planes of its whole matrix,
+    made at the matrix's first split and kept for the call, when the first
+    product on the 3xTF32 route reads it (the small ones take the SIMT
+    route, ``dx.gemm._into_route``, and read B as it lies), once; a product
+    whose B lies in a matrix with planes reads them there (the declared
+    blocks must cover it, each starting where the one before ends, as the
+    schedules' block columns do), any other B is split by ``_Into`` at its
+    launch.
     """
 
     def __init__(self, device, entry: str, wrapper, ahead: bool = True):
-        self.gemm = _Into()
+        self.gemm = _Into(device)
         self.sweep = getattr(self.gemm.lib, entry)
         self.entry, self.wrapper = entry, wrapper
         self.main = torch.cuda.current_stream(device)
         self.side = torch.cuda.Stream(device) if ahead else self.main
         self.main_h, self.side_h = self.main.cuda_stream, self.side.cuda_stream
         self.ready, self.done = torch.cuda.Event(), torch.cuda.Event()
+        self.bases = {}   # id of a matrix -> (address, row stride, the matrix kept alive)
+        # (matrix address, transposed) -> (its planes, the declared blocks by
+        # the first column of Bᵀ they hold in the planes: [first row, end row,
+        # end column, the op, whether split])
+        self.planes = {}
+
+    def _operand(self, op):
+        t, r, c, _, _, transposed = op
+        base = self.bases.get(id(t))
+        if base is None:   # the call's few matrices, looked up once
+            base = self.bases[id(t)] = (t.data_ptr(), t.stride(0), t)
+        ptr, ld, _ = base
+        return ptr + 4 * (r * ld + c), *((1, ld) if transposed else (ld, 1))
 
     @staticmethod
-    def _operand(op):
-        t, r, c, _, _, transposed = op
-        ld = t.stride(0)
-        return t.data_ptr() + 4 * (r * ld + c), *((1, ld) if transposed else (ld, 1))
+    def _bt_region(op):
+        """Bᵀ's (row, column, rows, columns) in the planes of op's matrix:
+        the matrix's own coordinates for a transposed op (Bᵀ is a block of
+        it), else its transpose's."""
+        _, r, c, rows, cols, transposed = op
+        return (r, c, cols, rows) if transposed else (c, r, cols, rows)
+
+    def split(self, op):
+        t = op[0]
+        key = (t.data_ptr(), op[5])
+        if key not in self.planes:
+            shape = t.shape if op[5] else t.shape[::-1]
+            self.planes[key] = (planes(*shape, t.device), {})
+        r, c, rows, cols = self._bt_region(op)
+        self.planes[key][1][c] = [r, r + rows, c + cols, op, False]
+
+    def _bt(self, op):
+        """Bᵀ's planes (hi, lo, row stride) where op's matrix has them, after
+        splitting the declared blocks they lie in that are not split yet;
+        else None."""
+        found = self.planes.get((op[0].data_ptr(), op[5]))
+        if found is None:
+            return None
+        p, blocks = found
+        ld = p.stride(1)
+        r, c, rows, cols = self._bt_region(op)
+        col = c
+        while col < c + cols:   # the declared blocks cover Bᵀ, one after another
+            blk = blocks.get(col)
+            check(blk is not None and blk[0] <= r and r + rows <= blk[1],
+                  "B must lie in blocks declared by split")
+            if not blk[4]:
+                hi = p[0].data_ptr() + 4 * (blk[0] * ld + col)
+                src = blk[3]
+                self.gemm.split_bt(self.main_h, src[3], src[4], self._operand(src), hi,
+                                   hi + 4 * p.stride(0), ld)
+                blk[4] = True
+            col = blk[2]
+        hi = p[0].data_ptr() + 4 * (r * ld + c)
+        return hi, hi + 4 * p.stride(0), ld
 
     def mm(self, d, a, b, c=None, *, alpha: float = 1.0, beta: float = 0.0):
         # m, n, k: A's rows, B's columns, A's columns
         self.gemm(self.main_h, a[3], b[4], a[4], self._operand(d), self._operand(a),
                   self._operand(b), None if c is None else self._operand(c),
-                  alpha=alpha, beta=beta)
+                  alpha=alpha, beta=beta, bt=lambda: self._bt(b))
 
     def block(self, src, outs):
         self.ready.record(self.main)
@@ -227,6 +295,7 @@ def _potrf(a, ops, panel: int = _NB):
             ops.join()
             ops.mm(blk(out, j1, j, n - j1, _NB), blk(work, j1, j, n - j1, _NB),
                    blk(w(j), 0, 0, _NB, _NB, True))          # L21 = A21 · inv(L11)ᵀ
+            ops.split(blk(out, j1, j, _NB, n - j1, True))     # L21ᵀ, as the updates read it
             if j1 < e:                         # in-panel update
                 update(j1, j1, n - j1, _NB, j, _NB)
                 sweep(j1)

@@ -18,11 +18,14 @@ block A22:
 - one launch of ``csrc/dense_block.cu`` factors A11 and inverts its
   factors: ``tml_lu_inv_block`` ((L\\U, inv(L), inv(U)), ``_lu_inv128``) or
   ``tml_chol_inv_block`` ((L, inv(L)), ``blocked._chol_inv128``);
-- B1 (``csrc/gemm_epilogue.cu``, launched by ``dx.gemm._Into``) forms
-  L21 = A21·inv(U11) (getrf) or A21·inv(L11)ᵀ (potrf), getrf's
-  U12 = inv(L11)·A12, then block column j + 1 of A22 -= L21·U12 (L21·L21ᵀ),
-  and only then the rest of A22 (potrf: the 3/4 of it that holds its lower
-  triangle, in two products).
+- B1 (its f32 route launched by ``dx.gemm._Into``: the 3xTF32 kernel of
+  ``csrc/gemm_tf32x3.cu``, or SIMT for the small products) forms L21 =
+  A21·inv(U11) (getrf) or A21·inv(L11)ᵀ (potrf), getrf's U12 =
+  inv(L11)·A12, then block column j + 1 of A22 -= L21·U12 (L21·L21ᵀ), and
+  only then the rest of A22 (potrf: the 3/4 of it that holds its lower
+  triangle, in two products). The block that the updates read as B
+  (potrf's L21, getrf's U12) is split into its TF32 planes once, when the
+  first 3xTF32 product reads it (``blocked._KernelOps.split``).
 - Look-ahead: the diagonal block of step j + 1 factors on a second stream
   while the rest of step j's update runs (``blocked._KernelOps``): the
   sweep is one block on one SM and the product fills the others.
@@ -34,9 +37,10 @@ the ops (``_PlainOps``, ``_KernelOps``) live there too.
 Every product writes straight into its place: the factor is built in
 ``out`` while the updates run in ``work``, a copy of A, so no product
 reads the block it writes apart from the update's own C. At n = 4096 that
-is 32 sweeps and 123 (getrf) or 121 (potrf) B1 launches a call, with no
-allocation or copy between them, all on raw addresses so that the host
-keeps ahead of the card. The potrf's right-looking order beats the
+is 32 sweeps, 123 (getrf) or 121 (potrf) B1 launches (25 / 41 of them on
+3xTF32) and 25 / 22 TF32 splits a call, with no copy between them and the
+planes allocated once a call, all on raw addresses so that the host keeps
+up with the card. The potrf's right-looking order beats the
 left-looking one on the card (PERF.md §6).
 
 ``_inv_upper128`` (``tml_inv_upper_block``, ``csrc/qr_block.cu``) is the
@@ -188,6 +192,7 @@ def _getrf(a, ops):
         ops.join()
         ops.mm(l21, blk(work, j1, j0, t, _NB), sq(wu))
         ops.mm(u12, sq(wl), blk(work, j0, j1, _NB, t))
+        ops.split(u12)                         # U12, as the updates read it
         nxt = blk(work, j1, j1, t, _NB)
         ops.mm(nxt, l21, blk(out, j0, j1, _NB, _NB), nxt, alpha=-1.0, beta=1.0)
         ops.block(blk(work, j1, j1, _NB, _NB), (blk(out, j1, j1, _NB, _NB), sq(wl_n), sq(wu_n)))

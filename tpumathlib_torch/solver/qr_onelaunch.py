@@ -49,8 +49,9 @@ products they wait for run on one stream; the products that can wait run
 on two others, started beside the sweeps (a sweep holds one SM, and they
 run on the others). ``orgqr_onelaunch`` on CUDA tensors runs
 ``_DeviceOrgqr``: Q allocated once as the identity, one scratch allocation,
-one split pass a call, four launches a panel on raw addresses and no eager
-op in a panel. The
+one split pass a call, four launches a panel on raw addresses (five where
+W = T·G takes B1's 3xTF32 route and splits G) and no eager op in a panel.
+The
 block API (``_qr_block128``, ``_t_from_v``) takes the same kernels through
 allocating wrappers (``dx.gemm.pallas_matmul``, ``_gram_tn``).
 
@@ -382,10 +383,10 @@ class _Lane:
     and Gram (``gram``) launches on it, and ``done``, an event re-recorded
     each time another lane waits for it."""
 
-    def __init__(self, gemm: _Into, device, priority: int, tiles: int):
+    def __init__(self, device, priority: int, tiles: int, scratch: int):
         self.stream = torch.cuda.Stream(device, priority=priority)
         self.h = self.stream.cuda_stream
-        self.gemm = gemm
+        self.gemm = _Into(device, scratch)   # its own: B1's splits use its scratch
         self.gram = _Gram(device, self.h, tiles)
         self.done = torch.cuda.Event()
 
@@ -428,8 +429,7 @@ class _DeviceQr:
     the sweep, the product runs on the SMs the sweep leaves idle."""
 
     def __init__(self, a):
-        self.gemm = _Into()   # loads the kernels first: a failed build raises here
-        lib = self.lib = self.gemm.lib
+        lib = self.lib = cuda_utils.load_kernels()   # first: a failed build raises here
         n = self.n = a.shape[0]
         dev = a.device
         self.out = a.to(F32).clone(memory_format=torch.contiguous_format)
@@ -449,9 +449,11 @@ class _DeviceQr:
         self.vp = [_Mat(s["vptop"][i]) for i in range(2)]
         self.o, self.tm = _Mat(self.out), _Mat(self.t)
         self.caller = torch.cuda.current_stream(dev)
-        self.chain = _Lane(self.gemm, dev, -1, (_P // _TILE) ** 2)
-        self.aux = _Lane(self.gemm, dev, -1, (_P // _TILE) ** 2)
-        self.side = _Lane(self.gemm, dev, 0, (_P // _TILE) * (n // _TILE))
+        # B1's largest split a lane: the planes of a (_P, n) B and of a 128 x 128 A
+        scratch = 2 * (n + _NB) * _P
+        self.chain = _Lane(dev, -1, (_P // _TILE) ** 2, scratch)
+        self.aux = _Lane(dev, -1, (_P // _TILE) ** 2, scratch)
+        self.side = _Lane(dev, 0, (_P // _TILE) * (n // _TILE), scratch)
         self.sweeps = {name: (getattr(lib, f"tml_{name}_block"), wrapper) for name, wrapper in (
             ("chol_inv", _chol_inv128), ("hh_recon", _hh_recon128), ("inv_upper", _inv_upper128))}
 
@@ -612,10 +614,11 @@ class _DeviceOrgqr:
     no copy; and two ops write every panel's unit-lower 256 × 256 top in f32
     into scratch (vr's diagonal blocks below their diagonal, then a unit
     diagonal). Then a panel k0 (from the last down), C = Q[k0:, k0:], is
-    four launches and no eager op:
+    four launches (five with G's split) and no eager op:
     - G = Vpᵀ·C (``tml_gram_tn``: Vp's top from scratch, its rows below from
       vr, the split operand);
-    - W = T·G (B1, ``_Into``);
+    - W = T·G (B1, ``_Into``: SIMT for the small panels by its size rule,
+      else 3xTF32 after a split of G into its scratch);
     - the TF32 planes of Wᵀ (``tml_split_tf32``, transposed);
     - C −= Vp·W in place (``tml_gemm_tf32x3``, α = −1, β = 1, C = D).
     Each panel reads the last one's C, so the chain runs in order on one
@@ -623,10 +626,12 @@ class _DeviceOrgqr:
     the first, small panels, where the host's launches set the pace."""
 
     def __init__(self, vr, t):
-        self.gemm = _Into()   # loads the kernels first: a failed build raises here
-        self.tf32 = tf32x3.Tf32x3()
         n = self.n = vr.shape[0]
         dev = vr.device
+        # loads the kernels first: a failed build raises here; its scratch
+        # holds the planes of W = T·G's B, G (_P, n)
+        self.gemm = _Into(dev, 2 * n * _P)
+        self.tf32 = tf32x3.Tf32x3()
         # the launches read both as contiguous f32, as geqrf_onelaunch writes them
         self.vr = vr.to(F32).contiguous()
         self.t = t.to(F32).contiguous()
