@@ -111,19 +111,23 @@ Phases; any failure raises and the exit code is non-zero:
    route and B10b on the 3xTF32 kernel, which runs TF32 by design;
    each C16 site is also run with its pin lifted, to show what it keeps
    out. TF32 is off again after.
-15. sparse kernels — B6a's two kernels, tml_bell_spmm_wgmma
-   (csrc/bell_wgmma.cu, bf16 and f16 pairs) and tml_bell_spmm
-   (csrc/bell_sparse.cu, f32 and mixed pairs), each call checked for the
-   kernel it must launch, against the plain version and float64: bs 128
-   and 256, k = 1, 200, 300 (ragged: B's rows padded), 1000 and 4096, alpha
-   0.5, pad slots with zero and non-zero data, a block row of pads only
-   (zeros), a block column whose rows run past n, a 3-D batched B;
+15. sparse kernels — B6a's two kernels in csrc/bell_wgmma.cu,
+   tml_bell_spmm_wgmma (bf16 and f16 pairs) and tml_bell_spmm_tf32x3
+   (3xTF32: f32 and mixed pairs, each of its six instantiations: three
+   products a k8 step for f32 x f32, two where one operand is 16-bit (A
+   read in its own dtype), one for bf16 x f16; B^T split once a call), each call
+   checked for the kernel (and split) it must launch, against the plain
+   version and float64: bs 128 and 256, k = 1, 200, 300 (ragged: B's rows
+   padded), 1000 and 4096, alpha 0.5, pad slots with zero and non-zero
+   data, a block row of pads only (zeros), a block column whose rows run
+   past n, a 3-D batched B in bf16 and in f32;
    tml_bell_spmv through SpmvPlan with rowform true and false, a ragged n
    and pad slots.
 16. sparse main path — bench.py's four sparse lines through the public
    entry points: spmm on a bf16 Blocked-ELL (mb = nb = 128, ellw = 16,
-   bs = 128, k = 4096; the tensor-core kernel) and on the same shape in f32
-   (the SIMT kernel), SpmvPlan.execute (also 20 calls fed back) and spmv
+   bs = 128, k = 4096; the 16-bit kernel), on the same shape in f32 and on
+   the bf16 Blocked-ELL with an f32 B (the 3xTF32 kernel and one split of
+   B^T each), SpmvPlan.execute (also 20 calls fed back) and spmv
    on an f32 Blocked-ELL (ellw = 32, 268 MB; the SpMV kernel, no SpMM
    launch), SpmvAutoPlan on the hidden-block CSR (33.5 M nnz, engine
    "blockedell") and spmv on a CSR with n = 100 000 and 32 entries a row
@@ -131,10 +135,12 @@ Phases; any failure raises and the exit code is non-zero:
    counts and agree with the plain version and float64.
 17. sparse times — CUDA events for each line's route, the plain version and
    the library call (torch.bmm on gathered blocks, or torch's sparse CSR
-   product), with TFLOP/s or GB/s and the share of the bound; the bf16
-   SpMM also one call after a synchronise and by its device time behind a
-   spin, with the tensor-core kernel's registers and spills from nvcc.log
-   (none may spill); then each route of phase 16 on the host clock.
+   product), with TFLOP/s or GB/s and the share of the bound (the f32
+   SpMM's 3 · 2·nnz·k at the TF32 rate, 1.666 ms; the mixed pair's two
+   products, 1.111 ms); the bf16, f32 and mixed
+   SpMMs also one call after a synchronise and by their device time behind a
+   spin, with both SpMM kernels' registers and spills from nvcc.log (none
+   may spill); then each route of phase 16 on the host clock.
 18. dx solver kernels — tml_potrf_batched, tml_getrf_batched (pivot on and
    off) and tml_geqrf_batched (csrc/dx_solver.cu) against their plain
    versions and float64 at n = 8 … 256 (256 works in place in device memory)
@@ -210,7 +216,11 @@ Phases; any failure raises and the exit code is non-zero:
    share of the bound (B10a's integer bound from its SASS; B10b's 3 · 2mkn
    at the TF32 rate, 0.833 ms).
 30. VV10 kernels — tml_vv10_fwd and tml_vv10_bwd (csrc/dx_vv10.cu) against
-   their plain versions and float64 at G = 7, 1500 and 5000.
+   their plain versions and float64 at G = 7, 1500 and 5000, and at 1500
+   with one tile of far points (_vv10_far: their pairs' denominators lie
+   past 2^126, where the lean reciprocal flushes to 0, so that tile must
+   take the IEEE one while the block's other tiles take the lean one);
+   each kernel's registers and spills from nvcc.log (none may spill).
 31. VV10 main path — vv10_pair_energy_pallas at G = 40960 and its four
    gradients through torch.autograd.grad: each kernel's count grows by one;
    the energy and gradients against the f32 plain route and float64.
@@ -2152,10 +2162,11 @@ def _tf32_mp_sites(gen, dev) -> dict:
 
 
 def _tf32_b1_sites(gen, dev) -> dict:
-    """B1's f32 route and B10b on the 3xTF32 kernel, which runs TF32 by
-    design and reads no torch setting: pallas_matmul (gelu+bias, 1000-deep),
-    _matmul_into at K = 256 (the host loops' launcher, C = D), and the
-    dropout's kept values, each against float64 at TF32_TOL."""
+    """B1's f32 route, B10b and B6a's f32 SpMM on the 3xTF32 kernels, which
+    run TF32 by design and read no torch setting: pallas_matmul (gelu+bias,
+    1000-deep), _matmul_into at K = 256 (the host loops' launcher, C = D),
+    the dropout's kept values, and sparse.spmm on an f32 Blocked-ELL (K =
+    ellw·bs = 384, a pad slot, ragged k), each against float64 at TF32_TOL."""
     a, b = (torch.randn(shape, generator=gen, device=dev) for shape in ((384, 1000), (1000, 520)))
     bias = torch.randn((520,), generator=gen, device=dev)
     a64, b64 = a.double(), b.double()
@@ -2178,9 +2189,16 @@ def _tf32_b1_sites(gen, dev) -> dict:
         keep = d != 0
         return {"kept": float((d.double() - want)[keep].abs().max() / want.abs().max())}
 
+    bell = _bell_random(np.random.default_rng(77), gen, 3, 5, 3, 128, F32, dev, pads="data")
+    bb = torch.randn((5 * 128, 300), generator=gen, device=dev)
+
+    def spmm():
+        return {"Y": max_scaled_err(sparse.spmm(bell, bb, alpha=0.5), 0.5 * _spmm64(bell, bb))}
+
     return {"B1 f32 route, 3xTF32 (dx/gemm.py)": fused,
             "B1 _matmul_into, 3xTF32 (dx/gemm.py)": into,
-            "B10b dropout, 3xTF32 (dx/rng.py)": dropout}
+            "B10b dropout, 3xTF32 (dx/rng.py)": dropout,
+            "B6a f32 SpMM, 3xTF32 (sparse/pallas_kernels.py)": spmm}
 
 
 def phase_tf32(dev) -> None:
@@ -2241,7 +2259,8 @@ SPMM_MAIN = (128, 128, 16, 128, 4096)   # (mb, nb, ellw, bs, k) of bench_spmm_be
 SPMV_MAIN = (128, 128, 32, 128)         # (mb, nb, ellw, bs) of bench_spmv_bell
 AUTOPLAN_MAIN = (64, 64, 32, 128)       # (mb, nb, ellw, bs) of bench_spmv_autoplan
 CSR_MAIN = (100_000, 32)                # (n, nnz per row) of bench_spmv
-SPARSE_COUNTS = (spk.bell_spmm_pallas, spk._bell_spmm_wgmma, spk._bell_spmm_simt, spk._bell_spmv)
+SPARSE_COUNTS = (spk.bell_spmm_pallas, spk._bell_spmm_wgmma, spk._bell_spmm_tf32x3, spk._bell_spmv,
+                 tf32x3.split_tf32)
 
 
 def _bell_cols(rng, mb, nb, ellw):
@@ -2271,11 +2290,13 @@ def _spmm64(a, b):
 
 def phase_sparse_kernel(dev) -> None:
     """15. B6a's two kernels (tml_bell_spmm_wgmma for bf16 and f16 pairs,
-    tml_bell_spmm for the rest; each call must grow its kernel's count) and
+    tml_bell_spmm_tf32x3 for the rest, with one split of B^T; each call must
+    grow its kernel's count, and the split's by one on the 3xTF32 route) and
     tml_bell_spmv against their plain versions and float64 (on the host) on
-    the card. Tolerances, max-scaled: 1e-5 for f32 output (the same f32
-    products, summed in another order), 1e-2 for bf16 or f16 output (an
-    output ulp where the two f32 sums round apart)."""
+    the card. Tolerances, max-scaled: 1e-5 for f32 output (the f32 products,
+    or 3xTF32 within f32's error of them, summed in another order), 1e-2
+    for bf16 or f16 output (an output ulp where the two f32 sums round
+    apart)."""
     gen = torch.Generator(device=dev).manual_seed(6161)
     rng = np.random.default_rng(6161)
     chk = Checker()
@@ -2285,24 +2306,31 @@ def phase_sparse_kernel(dev) -> None:
         chk.compare(group + " vs f64", case + " vs f64", got, f64, tol)
 
     def spmm_case(group, case, a, b, tol):
-        count = (spk._bell_spmm_wgmma if spk._spmm_route(a.data.dtype, b.dtype) == "wgmma"
-                 else spk._bell_spmm_simt)
-        before = count.launches
+        tc = spk._spmm_route(a.data.dtype, b.dtype) == "tf32x3"
+        count = spk._bell_spmm_tf32x3 if tc else spk._bell_spmm_wgmma
+        before = count.launches, tf32x3.split_tf32.launches
         got = spk.bell_spmm_pallas(a, b, alpha=0.5)
         plain = spk._bell_spmm_plain(a, b, 0.5)
         torch.cuda.synchronize()
-        if count.launches - before != 1:
-            chk.failures.append(f"{case}: not one launch of {count.__name__}")
+        if (count.launches - before[0], tf32x3.split_tf32.launches - before[1]) != (1, int(tc)):
+            chk.failures.append(f"{case}: not one launch of {count.__name__} "
+                                f"(and {int(tc)} split)")
         want = 0.5 * _spmm64(sparse.BlockedELL(a.cols.cpu(), a.data.cpu(), a.shape, a.blocksize),
                              b.cpu())
         hold(group, case, got, plain, want, tol)
         return got
 
-    pairs = ((F32, F32), (BF16, BF16), (BF16, F32), (F16, F16))
+    # every pair: the 16-bit kernel's two, and the 3xTF32 kernel's six
+    # instantiations (f32 x f32: three products; f32 x 16-bit and 16-bit x
+    # f32, A read in its own dtype: two; bf16 x f16 and f16 x bf16: one),
+    # its output in f32, bf16 and f16
+    pairs = ((F32, F32), (BF16, BF16), (BF16, F32), (F32, BF16), (F16, F16), (F32, F16),
+             (BF16, F16), (F16, BF16), (F16, F32))
+    full = ((F32, F32), (BF16, BF16), (BF16, F32), (F32, BF16))
     for adt, bdt in pairs:
         for bs in (128, 256):
             for k in (1, 200, 300, 1000, 4096):
-                if adt == F16 and (bs, k) not in ((128, 200), (256, 300)):
+                if (adt, bdt) not in full and (bs, k) not in ((128, 200), (256, 300)):
                     continue
                 pads = "data" if k in (1, 300, 1000) else "zero"
                 a = _bell_random(rng, gen, 3, 5, 3, bs, adt, dev, pads=pads)
@@ -2322,20 +2350,23 @@ def phase_sparse_kernel(dev) -> None:
                         a, b, 1e-5 if dt == F32 else 1e-2)
         if not bool((got[128:256] == 0).all()):
             chk.failures.append(f"{group}: the pad-only block row is not zero")
-    # a 3-D batched B: one launch for the batch (its folded k, 300, is ragged)
-    a = _bell_random(rng, gen, 3, 5, 3, 128, BF16, dev, pads="data")
-    b3 = torch.randn((3, 640, 100), generator=gen, device=dev).to(BF16)
-    before = spk._bell_spmm_wgmma.launches
-    got = sparse.spmm(a, b3, alpha=0.5)
-    torch.cuda.synchronize()
-    one = spk._bell_spmm_wgmma.launches - before == 1
-    for i in range(3):
-        want = 0.5 * _spmm64(sparse.BlockedELL(a.cols.cpu(), a.data.cpu(), a.shape, 128),
-                             b3[i].cpu())
-        hold("spmm batched", f"spmm batched B[{i}]", got[i], spk._bell_spmm_plain(a, b3[i], 0.5),
-             want, 1e-2)
-    if not one:
-        chk.failures.append("spmm with a 3-D B did not take exactly one launch")
+    # a 3-D batched B: one launch for the batch (its folded k, 300, is
+    # ragged), and on the 3xTF32 route one split
+    for dt, count, tol in ((BF16, spk._bell_spmm_wgmma, 1e-2), (F32, spk._bell_spmm_tf32x3, 1e-5)):
+        a = _bell_random(rng, gen, 3, 5, 3, 128, dt, dev, pads="data")
+        b3 = torch.randn((3, 640, 100), generator=gen, device=dev).to(dt)
+        before = count.launches, tf32x3.split_tf32.launches
+        got = sparse.spmm(a, b3, alpha=0.5)
+        torch.cuda.synchronize()
+        one = (count.launches - before[0], tf32x3.split_tf32.launches - before[1]) == (
+            1, int(dt == F32))
+        for i in range(3):
+            want = 0.5 * _spmm64(sparse.BlockedELL(a.cols.cpu(), a.data.cpu(), a.shape, 128),
+                                 b3[i].cpu())
+            hold(f"spmm batched {str(dt)[6:]}", f"spmm batched {str(dt)[6:]} B[{i}]", got[i],
+                 spk._bell_spmm_plain(a, b3[i], 0.5), want, tol)
+        if not one:
+            chk.failures.append(f"spmm with a 3-D {dt} B did not take exactly one launch")
 
     # tml_bell_spmv through SpmvPlan: rowform true and false, ragged n, pads
     for what, bs, pads, ragged in (("rowform bs=128", 128, None, 0),
@@ -2420,7 +2451,7 @@ def phase_sparse_main(dev) -> dict:
                              .to(dev), torch.randn((mb, ellw, bs, bs), generator=gen, device=dev)
                              .to(BF16), (mb * bs, nb * bs), bs)
     b_mm = torch.randn((nb * bs, k), generator=gen, device=dev).to(BF16)
-    a_f32 = sparse.BlockedELL(a_mm.cols, a_mm.data.float(), a_mm.shape, bs)   # the SIMT kernel's
+    a_f32 = sparse.BlockedELL(a_mm.cols, a_mm.data.float(), a_mm.shape, bs)   # the 3xTF32 kernel's
     b_f32 = b_mm.float()
     mb, nb, ellw, bs = SPMV_MAIN
     a_mv = sparse.BlockedELL(torch.from_numpy(_bell_cols(np.random.default_rng(0), mb, nb, ellw))
@@ -2442,6 +2473,7 @@ def phase_sparse_main(dev) -> dict:
     routes = {
         "spmm(BlockedELL bf16, B bf16)": lambda: sparse.spmm(a_mm, b_mm),
         "spmm(BlockedELL f32, B f32)": lambda: sparse.spmm(a_f32, b_f32),
+        "spmm(BlockedELL bf16, B f32)": lambda: sparse.spmm(a_mm, b_f32),
         "SpmvPlan(BlockedELL f32).execute": lambda: plan.execute(x_mv),
         "SpmvPlan.execute x20 fed back": lambda: _chain(lambda v: plan.execute(v, shrink), x_mv, 20),
         "spmv(BlockedELL f32)": lambda: sparse.spmv(a_mv, x_mv),
@@ -2450,14 +2482,17 @@ def phase_sparse_main(dev) -> dict:
     }
     # the launches each route must add, by count; every other count must stay
     expect = {"spmm(BlockedELL bf16, B bf16)": {"bell_spmm_pallas": 1, "_bell_spmm_wgmma": 1},
-              "spmm(BlockedELL f32, B f32)": {"bell_spmm_pallas": 1, "_bell_spmm_simt": 1},
+              "spmm(BlockedELL f32, B f32)": {"_bell_spmm_tf32x3": 1, "bell_spmm_pallas": 1,
+                                              "split_tf32": 1},
+              "spmm(BlockedELL bf16, B f32)": {"_bell_spmm_tf32x3": 1, "bell_spmm_pallas": 1,
+                                               "split_tf32": 1},
               "SpmvPlan(BlockedELL f32).execute": {"_bell_spmv": 1},
               "SpmvPlan.execute x20 fed back": {"_bell_spmv": 20},
               "spmv(BlockedELL f32)": {"_bell_spmv": 1},
               "SpmvAutoPlan(CSR).execute": {"_bell_spmv": 1},
               "spmv(CSR)": {}}
     kernel_of = {name: next((k for k in want if k != "bell_spmm_pallas"), None)
-                 for name, want in expect.items()}
+                 for name, want in expect.items()}   # the first count named: the route's kernel
     torch.cuda.synchronize()
     for f in SPARSE_COUNTS:
         f.launches = 0
@@ -2484,6 +2519,8 @@ def phase_sparse_main(dev) -> dict:
                                           lambda: _spmm64(sub, b_mm), 4 * SPMM_MAIN[3], 1e-2),
         "spmm(BlockedELL f32, B f32)": (lambda: spk._bell_spmm_plain(a_f32, b_f32),
                                         lambda: _spmm64(sub, b_f32), 4 * SPMM_MAIN[3], 1e-5),
+        "spmm(BlockedELL bf16, B f32)": (lambda: spk._bell_spmm_plain(a_mm, b_f32),
+                                         lambda: _spmm64(sub, b_f32), 4 * SPMM_MAIN[3], 1e-5),
         "SpmvPlan(BlockedELL f32).execute": (
             lambda: spk._bell_spmv_plain(plan.cols, plan.data, x_mv, plan.shape),
             lambda: _spmm64(a_mv, x_mv[:, None])[:, 0], None, 1e-5),
@@ -2499,7 +2536,7 @@ def phase_sparse_main(dev) -> dict:
                                                             csr.data.double(), csr.shape),
                                                  x_csr.double()), None, 1e-5),
     }
-    max_abs = {"_bell_spmm_wgmma": 0.0, "_bell_spmm_simt": 0.0, "_bell_spmv": 0.0}
+    max_abs = {"_bell_spmm_wgmma": 0.0, "_bell_spmm_tf32x3": 0.0, "_bell_spmv": 0.0}
     failures = []
     for name, out in outs.items():
         plain_fn, f64_fn, rows, tol = checks[name]
@@ -2534,10 +2571,11 @@ def phase_sparse_times(spd: dict, card: str) -> dict:
     plain version and the library call (torch.bmm of the (mb, bs, ellw·bs)
     block rows against the rows of B or x gathered beforehand, the gather
     timed apart; cuSPARSE through torch's sparse CSR tensor for the CSR
-    lines), back to back; the bf16 SpMM (the tensor-core kernel) and its
-    library call also one call after a synchronise and by device time
-    behind a spin, and the kernel's registers and spills; then each route
-    of phase 16 on the host clock."""
+    lines), back to back; the bf16, f32 and mixed (bf16 A, f32 B) SpMMs and
+    their library call also one call after a synchronise and by device time
+    behind a spin (the f32 library call, TF32 off, is the mixed pair's too:
+    the same f32 values), and both SpMM kernels' registers and spills; then
+    each route of phase 16 on the host clock."""
     a_mm, b_mm, a_f32, b_f32, a_mv, x_mv, plan, csr_ap, auto, x_ap, csr, x_csr = spd["args"]
 
     def rows_and_gather(a, v):
@@ -2563,6 +2601,9 @@ def phase_sparse_times(spd: dict, card: str) -> dict:
         "spmm f32 kernel": lambda: sparse.spmm(a_f32, b_f32),
         "spmm f32 library": lambda: torch.bmm(rows_f32, g_f32),
         "spmm f32 gather": gather_f32,
+        "spmm mixed kernel": lambda: sparse.spmm(a_mm, b_f32),
+        "spmm mixed library": lambda: torch.bmm(rows_f32, g_f32),
+        "spmm mixed gather": gather_f32,
         "spmv kernel": lambda: plan.execute(x_mv),
         "spmv route": lambda: sparse.spmv(a_mv, x_mv),
         "spmv library": lambda: torch.bmm(rows_mv, g_mv),
@@ -2575,36 +2616,42 @@ def phase_sparse_times(spd: dict, card: str) -> dict:
     slow = {
         "spmm plain": lambda: spk._bell_spmm_plain(a_mm, b_mm),
         "spmm f32 plain": lambda: spk._bell_spmm_plain(a_f32, b_f32),
+        "spmm mixed plain": lambda: spk._bell_spmm_plain(a_mm, b_f32),
         "spmv plain": lambda: spk._bell_spmv_plain(plan.cols, plan.data, x_mv, plan.shape),
         "autoplan plain": lambda: spk._bell_spmv_plain(bell_ap.cols, bell_ap.data, x_ap,
                                                        bell_ap.shape),
     }
     ms = _loop_ms(fast, warmup=3, reps=20, samples=5)
     ms.update(_loop_ms(slow, warmup=1, reps=2, samples=3))
-    # the bf16 SpMM as B1 is timed: one call after a synchronise, and the
-    # device time with the host out of the way
-    ms["spmm one call"] = _median_ms({"kernel": fast["spmm kernel"],
-                                      "library": fast["spmm library"]}, warmup=3, iters=20)
-    ms["spmm queued"] = {}
-    for route in ("kernel", "library"):
-        dev_ms, host_ms, covered = _queued_ms(fast[f"spmm {route}"], 20)
-        ms["spmm queued"][route] = {"device_ms": dev_ms, "host_ms": host_ms, "covered": covered}
-        print(f"[sparse-times] spmm {route:7s} one call {ms['spmm one call'][route]:.4f} ms "
-              f"(after a synchronise) | device {dev_ms:.4f} ms a call (20 back to back behind a "
-              f"spin, covered {covered}) | host enqueue {host_ms:.4f} ms a call | {card}",
-              flush=True)
+    # the SpMMs as B1 is timed: one call after a synchronise, and the device
+    # time with the host out of the way
+    for line in ("spmm", "spmm f32", "spmm mixed"):
+        ms[f"{line} one call"] = _median_ms({"kernel": fast[f"{line} kernel"],
+                                             "library": fast[f"{line} library"]},
+                                            warmup=3, iters=20)
+        ms[f"{line} queued"] = {}
+        for route in ("kernel", "library"):
+            dev_ms, host_ms, covered = _queued_ms(fast[f"{line} {route}"], 20)
+            ms[f"{line} queued"][route] = {"device_ms": dev_ms, "host_ms": host_ms,
+                                           "covered": covered}
+            print(f"[sparse-times] {line:10s} {route:7s} one call "
+                  f"{ms[f'{line} one call'][route]:.4f} ms (after a synchronise) | device "
+                  f"{dev_ms:.4f} ms a call (20 back to back behind a spin, covered {covered}) | "
+                  f"host enqueue {host_ms:.4f} ms a call | {card}", flush=True)
     ms["spmm ptxas"] = {}
-    for e in _ptxas_entries("bell_wgmma_kernel"):
-        args = e["entry"].split("bell_wgmma_kernelI")[1].split("EEEv")[0]
-        ms["spmm ptxas"][args] = e
-        print(f"[sparse-times] ptxas bell_wgmma_kernel<{args}>: {e['registers']} registers, "
-              f"{e['spill_stores']} / {e['spill_loads']} bytes spilled", flush=True)
-        if e["spill_stores"] or e["spill_loads"]:
-            raise SystemExit(f"chip_smoke: {e['entry']} spills")
+    for kernel, end in (("bell_wgmma_kernel", "EEEv"), ("bell_tf32x3_kernel", "EEEv")):
+        for e in _ptxas_entries(kernel):
+            args = e["entry"].split(kernel + "I")[1].split(end)[0]
+            ms["spmm ptxas"][f"{kernel}<{args}>"] = e
+            print(f"[sparse-times] ptxas {kernel}<{args}>: {e['registers']} registers, "
+                  f"{e['spill_stores']} / {e['spill_loads']} bytes spilled", flush=True)
+            if e["spill_stores"] or e["spill_loads"]:
+                raise SystemExit(f"chip_smoke: {e['entry']} spills")
 
     mb, nb, ellw, bs, k = SPMM_MAIN
     nnz_mm = mb * ellw * bs * bs
     spmm_bytes = 2 * (nnz_mm + 2 * nb * bs * k)          # A, B and Y in bf16
+    mixed_bytes = 2 * nnz_mm + 4 * 2 * nb * bs * k       # A in bf16, B and Y in f32
     mb, nb, ellw, bs = SPMV_MAIN
     nnz_mv, n_mv = mb * ellw * bs * bs, nb * bs
     mb, nb, ellw, bs = AUTOPLAN_MAIN
@@ -2613,8 +2660,12 @@ def phase_sparse_times(spd: dict, card: str) -> dict:
     lines = {   # line: (flop, bytes as bench.py counts them, the rate's unit, bound)
         "spmm": (2.0 * nnz_mm * k, spmm_bytes, "TFLOP/s", _bound(2.0 * nnz_mm * k, PEAK_BF16,
                                                                  spmm_bytes)),
+        # three TF32 products (the 3xTF32 kernel; f32 FMA would be 4.103 ms)
         "spmm f32": (2.0 * nnz_mm * k, 2 * spmm_bytes, "TFLOP/s",
-                     _bound(2.0 * nnz_mm * k, PEAK_F32, 2 * spmm_bytes)),
+                     _bound(3 * 2.0 * nnz_mm * k, PEAK_TF32, 2 * spmm_bytes)),
+        # two TF32 products: bf16 A is exact in TF32, so hi·lo_B + hi·hi_B
+        "spmm mixed": (2.0 * nnz_mm * k, mixed_bytes, "TFLOP/s",
+                       _bound(2 * 2.0 * nnz_mm * k, PEAK_TF32, mixed_bytes)),
         "spmv": (2.0 * nnz_mv, nnz_mv * 4 + 2 * n_mv * 4, "GB/s",
                  _bound(2.0 * nnz_mv, PEAK_F32, nnz_mv * 4 + 2 * n_mv * 4)),
         "autoplan": (2.0 * nnz_ap, nnz_ap * 4 + 2 * mb * bs * 4, "GB/s",
@@ -4361,6 +4412,7 @@ def phase_rng_times(run: dict, card: str) -> dict:
 
 
 VV10_KERNEL_GS = (7, 1500, 5000)   # phase 30's G: ragged against the 64-row block and 256-j tile
+VV10_FAR = (512, 768)              # phase 30's far points (_vv10_far): the kernels' third j tile
 VV10_MAIN = 40960                  # G at which the reference's notes say XLA's value_and_grad ran
                                    # out of memory (tpumathlib/apps/vv10.py:69-73)
 VV10_B, VV10_C = 5.9, 0.0093
@@ -4411,16 +4463,45 @@ def _vv10_plain():
         vv10._vv10_fwd, vv10._vv10_bwd = saved
 
 
+def _vv10_far(dev):
+    """Phase 30's range case, G = 1500: (wr, w0, κ, pts) whose j in
+    VV10_FAR, one whole tile of the kernels' 256, are far: κ = 1.1e19 and
+    wr = 8e37. Every other point has κ in 0.9 .. 1.1, w0 in 90 .. 110 and wr
+    in 0.5 .. 1.5, and all lie in a cube of side 0.056 (r² ≤ 0.0094), so
+    g_i is in 0.9 .. 2.2 and a far pair's d = g_i g_j (g_i + g_j) in 1.09e38
+    .. 2.66e38: past 2^126, where rcp.approx.ftz flushes 1/d to 0, yet
+    below f32's largest, and every term and factor of such a pair (wr_j / d
+    some 0.45, pgi w0_i some 6e-37) is a normal f32 number, so the plain
+    versions stay an oracle at VV10_TOL. The far pairs carry some a quarter
+    of each near i's sums. The near i's blocks must run the far tile on the
+    IEEE reciprocal and their other tiles on the lean one (the far i's
+    blocks take the IEEE one throughout): a kernel without the range test,
+    or with a tile's decision applied to another tile, loses that quarter."""
+    rs = np.random.default_rng(11)
+    g = 1500
+    wr, w0, kappa = rs.uniform(0.5, 1.5, g), rs.uniform(90.0, 110.0, g), rs.uniform(0.9, 1.1, g)
+    far = slice(*VV10_FAR)
+    kappa[far], wr[far] = 1.1e19, 8e37
+    pts = rs.uniform(-0.028, 0.028, (g, 3))
+    return [torch.tensor(np.asarray(c, np.float32), device=dev) for c in (wr, w0, kappa, pts)]
+
+
 def phase_vv10_kernel(dev) -> None:
     """Kernel B11 (tml_vv10_fwd, tml_vv10_bwd, csrc/dx_vv10.cu) against its
     plain versions at G = 7, 1500 and 5000 (ragged against the tiles), with
-    masked points: inner and the five backward sums each within
-    VV10_TOL["sums"] of their largest; the plain versions in float64 as the
-    oracle, at the same bound."""
+    masked points, and on _vv10_far's points at G = 1500, whose far tile
+    the kernels' range test must send to the IEEE reciprocal and no other:
+    inner and the five backward sums each within VV10_TOL["sums"] of their
+    largest, and finite; the plain versions in float64 as the oracle, at
+    the same bound. Then each kernel's registers and spills (none may
+    spill)."""
     failures = []
-    for g in VV10_KERNEL_GS:
-        rho, s2, pts, w = _vv10_inputs(g, dev)
-        ch = _vv10_channels(rho, s2, w, F32)
+    for g, far in [(g, False) for g in VV10_KERNEL_GS] + [(1500, True)]:
+        if far:
+            *ch, pts = _vv10_far(dev)
+        else:
+            rho, s2, pts, w = _vv10_inputs(g, dev)
+            ch = _vv10_channels(rho, s2, w, F32)
         ch64 = [t.double() for t in ch] + [pts.double()]
         for kind, kern, plain in (("fwd", vv10._vv10_fwd, vv10._vv10_fwd_plain),
                                   ("bwd", vv10._vv10_bwd, vv10._vv10_bwd_plain)):
@@ -4429,10 +4510,16 @@ def phase_vv10_kernel(dev) -> None:
             e_64 = _sums_err(got, plain(*ch64))
             ok = (e_p <= VV10_TOL["sums"] and e_64 <= VV10_TOL["sums"]
                   and bool(torch.isfinite(got).all()))
-            print(f"[vv10-kernel] G={g:5d} {kind}: vs plain {e_p:.3e} | vs f64 {e_64:.3e} "
-                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            print(f"[vv10-kernel] G={g:5d}{' far tile j 512..767' if far else ''} {kind}: "
+                  f"vs plain {e_p:.3e} | vs f64 {e_64:.3e} {'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
-                failures.append(f"{kind} G={g}")
+                failures.append(f"{kind} G={g}{' far tile' if far else ''}")
+    for kind in ("fwd", "bwd"):
+        for e in _ptxas_entries(f"vv10_{kind}_kernel"):
+            print(f"[vv10-kernel] ptxas vv10_{kind}_kernel: {e['registers']} registers, "
+                  f"{e['spill_stores']} / {e['spill_loads']} bytes spilled", flush=True)
+            if e["spill_stores"] or e["spill_loads"]:
+                failures.append(f"vv10_{kind}_kernel spills")
     if failures:
         raise SystemExit(f"chip_smoke: VV10 kernel checks failed: {failures}")
 
@@ -5742,8 +5829,20 @@ def main() -> None:
              "library_device_ms": sp_ms["spmm queued"]["library"]["device_ms"],
              "library_gather_ms": sp_ms["spmm gather"],
              "ptxas": sp_ms["spmm ptxas"]}),
-        ("bell_spmm (tml_bell_spmm, f32 SIMT)", "_bell_spmm_simt", "spmm f32", "bell_sparse.cu",
-         "tpumathlib/sparse/pallas_kernels.py:123", {"library_gather_ms": sp_ms["spmm f32 gather"]}),
+        ("bell_spmm_tf32x3 (tml_bell_spmm_tf32x3, f32 and mixed)", "_bell_spmm_tf32x3", "spmm f32",
+         "bell_wgmma.cu", "tpumathlib/sparse/pallas_kernels.py:123", {
+             # as the bf16 kernel's, for f32 operands; then a bf16 A with an f32 B
+             "one_call_ms": sp_ms["spmm f32 one call"]["kernel"],
+             "library_one_call_ms": sp_ms["spmm f32 one call"]["library"],
+             "device_ms": sp_ms["spmm f32 queued"]["kernel"]["device_ms"],
+             "library_device_ms": sp_ms["spmm f32 queued"]["library"]["device_ms"],
+             "library_gather_ms": sp_ms["spmm f32 gather"],
+             "split_launches": spd["launches"]["split_tf32"],
+             "mixed_ms": sp_ms["spmm mixed kernel"],
+             "mixed_one_call_ms": sp_ms["spmm mixed one call"]["kernel"],
+             "mixed_device_ms": sp_ms["spmm mixed queued"]["kernel"]["device_ms"],
+             "mixed_plain_ms": sp_ms["spmm mixed plain"],
+             "mixed_bound_ms": sp_ms["bounds"]["spmm mixed"]["bound_ms"]}),
         ("bell_spmv (tml_bell_spmv)", "_bell_spmv", "spmv", "bell_sparse.cu",
          "tpumathlib/sparse/pallas_kernels.py:404 and :450", {
              "spmv_blocked_ell_ms": sp_ms["spmv route"],   # sparse.spmv on the f32 Blocked-ELL

@@ -66,6 +66,7 @@ def test_f32_paths_run_on_the_cpu(monkeypatch):
     monkeypatch.setattr(mod, "BATCHED", ((8, 32), (2, 128)))
     monkeypatch.setattr(mod, "JACOBI", ((4, 32), (2, 64)))
     monkeypatch.setattr(mod, "MP", (64, 32, 128))
+    monkeypatch.setattr(mod, "VV10", 300)
     paths = mod._paths(torch.device("cpu"))
     mp_paths = mod._mp_paths(torch.device("cpu"))
     assert not set(paths) & set(mp_paths)   # the rings' inputs are made apart, timed last
@@ -74,7 +75,9 @@ def test_f32_paths_run_on_the_cpu(monkeypatch):
                                     "orgqr_onelaunch", "potrf_blocked", "dropout_matmul_kernel",
                                     "dropout_matmul_kernel_bf16", "pallas_matmul_bf16_gelu_bias",
                                     "pallas_matmul_f32_gelu_bias", "spmm_bell_bf16",
-                                    "spmv_bell_f32", "dif_fft_f32_natural", "dif_fft_bf16_raw",
+                                    "spmm_bell_f32", "spmm_bell_bf16_f32", "spmv_bell_f32",
+                                    "spmv_bell_bf16_f32", "vv10_energy", "vv10_value_and_grad",
+                                    "dif_fft_f32_natural", "dif_fft_bf16_raw",
                                     "pallas_fft", "pallas_fft2", "potrf_batched_1024x128",
                                     "potrf_batched_8192x32", "posv_batched_8192x32_k4",
                                     "getrf_batched_8192x32", "getrf_batched_nopivot_8192x32",

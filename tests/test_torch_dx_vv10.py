@@ -16,10 +16,23 @@ the reference's energy. ``torch.autograd.gradcheck`` of ``_PairCore``'s plain
 route in float64 at G = 40, the kernels' plain versions against a float64
 numpy loop over pairs, and the CUDA branch of both wrappers against
 ``_EmulatedLib``, an emulation of tml_vv10_fwd and tml_vv10_bwd.
+
+The kernels' arithmetic, modelled in numpy: their one-reciprocal
+factorization of a pair in f32 against float64 over g_i, g_j from 1e-20 to
+1e20 (no overflow or underflow where the float64 terms are normal f32
+numbers), the range their lean reciprocal takes (g in [2^-41, 2^41) puts
+the denominator and its reciprocal among f32's normal numbers, so ftz
+flushes nothing), and their tile test (a bound on g from the block's and
+the tile's |p|², w0 and κ), which admits no pair outside that range. And
+chip_smoke.py's far-tile case through a model of the forward kernel's
+tiles: right with the kernel's own decisions, a tenth off or worse with
+the lean reciprocal everywhere or a tile's decision on its neighbour.
 """
 
 import contextlib
+import importlib.util
 import math
+import os
 import types
 
 import jax
@@ -31,6 +44,7 @@ import torch
 from tpumathlib.apps.vv10 import vv10_beta as ref_beta
 from tpumathlib.apps.vv10 import vv10_pair_energy as ref_xla
 from tpumathlib.dx.vv10 import vv10_pair_energy_pallas as ref_kernel
+from tpumathlib_torch.core.check import max_scaled_err
 from tpumathlib_torch.core.errors import ExecutionError, InvalidValueError
 from tpumathlib_torch.dx import cuda_utils
 from tpumathlib_torch.dx import vv10 as port
@@ -275,3 +289,163 @@ def test_slice_potential_direction(rng):
     ad_scaled = float((grads[0].double() * torch.from_numpy(z * rho).double()).sum())
     assert abs(fd - ad_scaled) < 5e-3 * max(abs(fd), 1e-6), (fd, ad_scaled, ad)
     assert math.isfinite(float(e.detach()))
+
+
+# ---------------------------------------------------------------------------
+# The kernels' per-pair arithmetic, modelled in numpy
+
+LOW, HIGH = 2.0 ** -41, 2.0 ** 41   # csrc/dx_vv10.cu's kLow, kHigh: the lean reciprocal's g
+F32_TINY, F32_MAX = float(np.finfo(np.float32).tiny), float(np.finfo(np.float32).max)
+
+
+def _factorized_f32(gi, gj):
+    """The kernels' terms of a pair with wr_j = 1, in f32 with IEEE
+    arithmetic: r = 1 / (g_i g_j (g_i + g_j)) (φ / −1.5), and the two
+    weights (r g_j)(r (g_i + g_ij)) and (r g_i)(r (g_j + g_ij)) (pgi and pgj
+    / 1.5)."""
+    gi, gj = gi.astype(np.float32), gj.astype(np.float32)
+    with np.errstate(all="ignore"):
+        gij = gi + gj
+        r = np.float32(1) / (gi * gj * gij)
+        return r, (r * gj) * (r * (gi + gij)), (r * gi) * (r * (gj + gij))
+
+
+def test_pair_factorization_in_f32_against_float64():
+    """Over g_i, g_j from 1e-20 to 1e20 (log-spaced, every pair): wherever a
+    float64 term (r, wr pgi / 1.5 = r (1/g_i + 1/g_ij), wr pgj / 1.5) is a
+    normal f32 number with a factor 4 of room, the f32 factorization gives
+    it finite and within 1e-5 relative: no factor overflows or underflows
+    where the term does not. And every pair whose g_i and g_j lie in
+    [2^-41, 2^41), the range the kernels' lean reciprocal takes, has a
+    denominator and reciprocal among f32's normal numbers (rcp.approx.ftz
+    flushes neither)."""
+    g = np.logspace(-20, 20, 161).astype(np.float32).astype(np.float64)
+    gi, gj = np.meshgrid(g, g, indexing="ij")
+    r64 = 1.0 / (gi * gj * (gi + gj))
+    want = (r64, r64 * (1 / gi + 1 / (gi + gj)), r64 * (1 / gj + 1 / (gi + gj)))
+    for got, w in zip(_factorized_f32(gi, gj), want):
+        normal = (w >= 4 * F32_TINY) & (w <= F32_MAX / 4)
+        assert normal.sum() > 1000
+        got64 = got.astype(np.float64)[normal]
+        assert np.isfinite(got64).all() and (got64 > 0).all()
+        assert np.max(np.abs(got64 - w[normal]) / w[normal]) <= 1e-5
+    lean = (gi >= LOW) & (gi < HIGH) & (gj >= LOW) & (gj < HIGH)
+    f32 = [t.astype(np.float32) for t in (gi, gj)]
+    with np.errstate(over="ignore"):   # pairs past 2^41, outside the lean range
+        d = (f32[0] * f32[1] * (f32[0] + f32[1])).astype(np.float64)[lean]
+    assert lean.sum() > 1000
+    assert (d >= F32_TINY).all() and (d < 2.0 ** 126).all() and (1 / d >= F32_TINY).all()
+
+
+def _tile_takes_lean(pi, w0i, ki, pj, w0j, kj):
+    """csrc/dx_vv10.cu's tile test in numpy f32: the block's largest |p_i|²,
+    w0_i and κ_i, each staged j's bound on g_i and g_j with r² ≤ 2 (|p_i|² +
+    |p_j|²), all in [kLow, kHigh) with w0 ≥ 0; NaN fails every comparison."""
+    f = np.float32
+    p2i = (pi.astype(f) ** 2).sum(axis=1, dtype=f)
+    ok = bool(np.all(p2i < HIGH) and np.all(w0i >= 0) and np.all(ki >= LOW))
+    q, a, k = p2i.max(), f(np.maximum(w0i, 0).max()), f(np.maximum(ki, 0).max())
+    r2 = f(2) * (q + (pj.astype(f) ** 2).sum(axis=1, dtype=f))
+    gi, gj = a * r2 + k, w0j.astype(f) * r2 + kj.astype(f)
+    return ok and bool(np.all((w0j >= 0) & (kj >= LOW) & (gi < HIGH) & (gj < HIGH)))
+
+
+@pytest.mark.parametrize("spread", [1.0, 1e3, 1e6])
+def test_tile_test_admits_only_the_lean_range(rng, spread):
+    """Random blocks of 64 i and tiles of 256 j, w0 and κ log-uniform over
+    ±spread decades and points over ±spread: wherever the tile test admits
+    the lean reciprocal, every pair's g_i and g_j (in f32, as the kernels
+    compute them) lies in [2^-41, 2^41); and the bench's inputs are
+    admitted."""
+    f = np.float32
+    taken = 0
+    for _ in range(40):
+        e = np.log10(spread)
+        pi, pj = (rng.uniform(-spread, spread, (n, 3)).astype(f) for n in (64, 256))
+        w0i, ki, w0j, kj = (f(10.0) ** rng.uniform(-3 * e - 1, 3 * e + 1, n).astype(f)
+                            for n in (64, 64, 256, 256))
+        if not _tile_takes_lean(pi, w0i, ki, pj, w0j, kj):
+            continue
+        taken += 1
+        d = pi[:, None, :] - pj[None, :, :]
+        r2 = (d * d).sum(axis=2, dtype=f)
+        g = np.concatenate([(w0i[:, None] * r2 + ki[:, None]).ravel(),
+                            (w0j[None, :] * r2 + kj[None, :]).ravel()])
+        assert (g >= LOW).all() and (g < HIGH).all()
+    if spread == 1.0:
+        assert taken == 40
+    rho, s2, pts, w = _inputs(np.random.default_rng(5), 1500)
+    wr, w0, kappa = (np.asarray(t).astype(f) for t in _channels64(rho, s2, w))
+    assert _tile_takes_lean(pts[:64].astype(f), w0[:64], kappa[:64], pts[:256].astype(f),
+                            w0[:256], kappa[:256])
+
+
+def _load_chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                   "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _fwd_model(wr, w0, kappa, pts, decide):
+    """The forward kernel's inner in numpy f32 by its blocks of 64 i and
+    tiles of 256 j (j ≥ G padded as the kernel pads them): a tile takes the
+    lean reciprocal where ``decide(block, tile, fast)`` says so, given the
+    kernel's own test ``fast`` (``_tile_takes_lean``). The lean one is
+    rcp.approx.ftz and a Newton step: 1/d, but 0 for d ≥ 2^126 (the result
+    flushed) and NaN for a subnormal d (read as 0: inf, then inf − inf)."""
+    f = np.float32
+    g = len(wr)
+    tiles = -(-g // 256)
+    pad = tiles * 256 - g
+    wrj = np.concatenate([wr, np.zeros(pad, f)])
+    w0j, kj = (np.concatenate([x, np.ones(pad, f)]) for x in (w0, kappa))
+    pj = np.concatenate([pts, np.zeros((pad, 3), f)])
+    inner = np.zeros(g, f)
+    for blk in range(-(-g // 64)):
+        rows = slice(64 * blk, min(64 * blk + 64, g))
+        for t in range(tiles):
+            js = slice(256 * t, 256 * t + 256)
+            fast = _tile_takes_lean(pts[rows], w0[rows], kappa[rows], pj[js], w0j[js], kj[js])
+            d = pts[rows, None, :] - pj[None, js, :]
+            r2 = (d * d).sum(axis=2, dtype=f)
+            gi, gj = w0[rows, None] * r2 + kappa[rows, None], w0j[None, js] * r2 + kj[None, js]
+            with np.errstate(all="ignore"):
+                den = gi * gj * (gi + gj)
+                r = f(1) / den
+                if decide(blk, t, fast):
+                    r = np.where(den >= f(2.0 ** 126), f(0), np.where(den < F32_TINY, f(np.nan), r))
+            inner[rows] += (wrj[None, js] * r).sum(axis=1, dtype=f)
+    return f(-1.5) * inner
+
+
+def test_far_tile_case_fails_a_misplaced_lean_reciprocal():
+    """chip_smoke.py's far-tile case (``_vv10_far``), through a numpy model
+    of the forward kernel's tiles: with the kernel's own per-tile decision
+    it is within 1e-5 of float64 (max-scaled) and finite, and its far tile
+    is the only IEEE one in the near i's blocks; with the lean reciprocal
+    everywhere, or with each tile taking its neighbour's decision, it is
+    off by more than a tenth. So the card's check of that case fails a
+    kernel without the range test or with the test on the wrong tile."""
+    cs = _load_chip_smoke()
+    wr, w0, kappa, pts = (t.numpy() for t in cs._vv10_far(torch.device("cpu")))
+    want = port._vv10_fwd_plain(*(torch.from_numpy(x).double() for x in (wr, w0, kappa, pts)))
+    far0, far1 = cs.VV10_FAR
+    assert (far1 - far0, far0 % 256) == (256, 0)
+    ieee = set()
+
+    def own(blk, t, fast):
+        if not fast:
+            ieee.add((blk, t))
+        return fast
+
+    got = _fwd_model(wr, w0, kappa, pts, own)
+    assert np.isfinite(got).all() and max_scaled_err(got, want.numpy()) <= 1e-5
+    near_blocks = [b for b in range(24) if not far0 <= 64 * b < far1]
+    assert ieee >= {(b, far0 // 256) for b in near_blocks}
+    assert not any((b, t) in ieee for b in near_blocks for t in range(6) if t != far0 // 256)
+    for wrong in (lambda blk, t, fast: True,
+                  lambda blk, t, fast: (blk, (t + 1) % 6) not in ieee):
+        assert not max_scaled_err(_fwd_model(wr, w0, kappa, pts, wrong), want.numpy()) <= 0.1

@@ -20,12 +20,21 @@ B6b/B6c) with the reference's Pallas kernels, run in interpret mode.
 - C8, pinned: a pad slot with non-zero data contributes nothing in the
   port; the reference adds it at bs = 128.
 - The CUDA branch of each wrapper, with the kernel library replaced by a
-  CPU emulation of ``tml_bell_spmm``, ``tml_bell_spmm_wgmma`` and
-  ``tml_bell_spmv`` that decodes the dtypes, shapes, B's row stride, alpha
-  and the cols pointer from the arguments: the SpMM routing rule (bf16 and
-  f16 pairs to the tensor-core entry, B's rows padded to 16 bytes where k
-  is ragged, f32 and mixed pairs to the SIMT one), a block row of pad
-  slots only, and ``spmv`` on an f32 Blocked-ELL through the SpMV kernel.
+  CPU emulation of ``tml_bell_spmm_wgmma``, ``tml_bell_spmm_tf32x3``,
+  ``tml_split_tf32`` and ``tml_bell_spmv`` that decodes the dtypes, shapes,
+  row strides, alpha and the cols pointer from the arguments: the SpMM
+  routing rule (bf16 and f16 pairs to the 16-bit entry, B's rows padded to
+  16 bytes where k is ragged; f32 and mixed pairs to the 3xTF32 entry, with
+  A in its own dtype and one transposed split of B a call, its lo plane
+  left out where B is 16-bit), a block row of pad slots only, a refusal, and
+  ``spmv`` on an f32 Blocked-ELL through the SpMV kernel. The 3xTF32
+  emulation computes what the kernel does from the planes it is given
+  (``_tf32x3_bell``), so a result equal to that model of the caller's
+  operands shows the planes right.
+- A numpy model of the 3xTF32 kernel's slot walk (each 32-deep stage of a
+  valid slot into a fresh partial, its k8 steps' products added rounding
+  toward zero as the tensor cores add, the partials summed in f32) within
+  1e-5 of float64 and of the reference's kernel.
 
 Inputs are explicit f32 (or bf16) on both sides: the suite turns on jax x64.
 """
@@ -47,10 +56,11 @@ from tpumathlib_torch.core import device as core_device
 from tpumathlib_torch.core.check import max_scaled_err
 from tpumathlib_torch.core.errors import ExecutionError, NotSupportedError
 from tpumathlib_torch.core.interop import from_numpy, from_reference, to_numpy
-from tpumathlib_torch.dx import cuda_utils
+from tpumathlib_torch.dx import cuda_utils, tf32x3
 from tpumathlib_torch.sparse import BlockedELL, SpmvAutoPlan, dense_to_csr, spmm, spmv
 from tpumathlib_torch.sparse import pallas_kernels as pk
-from test_torch_dx_gemm import _view
+from test_torch_dx_gemm import Tf32x3Emulation, _tensor_core_read, _view
+from test_torch_tf32x3 import _rz
 
 torch.set_num_threads(1)
 
@@ -223,28 +233,62 @@ def test_ragged_n_reads_zero_past_the_end(rng):
 _CODE_DTYPE = {0: torch.float32, 1: torch.bfloat16, 2: torch.float16}
 
 
-class _EmulatedLib:
-    """tml_bell_spmm's and tml_bell_spmv's contracts, computed on the CPU
-    from the raw arguments: the tensors through their pointers, shapes and
-    dtype codes, and the plain versions for the arithmetic."""
+def _tf32x3_bell(cols, a_planes, b_planes, shape, alpha, out_dtype):
+    """What ``tml_bell_spmm_tf32x3`` computes from A's TF32 planes (as its
+    consumers split or widen A) and B's (n, k): alpha·(lo·hi + hi·lo +
+    hi·hi), each product a masked f32 einsum over the slots, in
+    ``out_dtype``. A product of a zero lo plane, which the kernel leaves
+    out, adds 0."""
+    (ah, al), (bh, bl) = a_planes, b_planes
+    acc = sum(pk._bell_product(cols, x, y, shape, torch.float32)
+              for x, y in ((al, bh), (ah, bl), (ah, bh)))
+    return (alpha * acc).to(out_dtype)
+
+
+def _tf32x3_expected(a: BlockedELL, b, alpha):
+    """``_tf32x3_bell`` of the caller's operands: A widened to f32 and split,
+    B widened and split."""
+    return _tf32x3_bell(a.cols, tf32x3._split_tf32_plain(a.data.float()),
+                        tf32x3._split_tf32_plain(b.float()), a.shape, alpha, b.dtype)
+
+
+class _EmulatedLib(Tf32x3Emulation):
+    """The SpMM and SpMV entries' contracts, computed on the CPU from the raw
+    arguments: the tensors through their pointers, shapes and dtype codes,
+    and the plain versions for the arithmetic; ``tml_split_tf32`` from
+    ``Tf32x3Emulation``."""
 
     def __init__(self, rc=0):
         self.calls = []
         self.b_ptrs = []   # B's address at each tensor-core launch
+        self.a_ptrs = []   # A's address at each 3xTF32 launch
         self.rc = rc
 
-    def tml_bell_spmm(self, cols, a, b, y, mb, ellw, bs, m, n, k, alpha, a_dt, b_dt, stream):
+    def tml_bell_spmm_tf32x3(self, cols, a, bt_hi, bt_lo, ldb, y, mb, ellw, bs, m, n, k, alpha,
+                             a_dt, y_dt, stream):
+        """The 3xTF32 entry: A (mb, ellw, bs, bs) in a_dt, Bᵀ's planes (k, n)
+        at row stride ldb (bt_lo null: B exact, its lo plane 0), Y in y_dt;
+        refuses (cudaErrorInvalidValue, 1) what the C entry refuses. A is
+        widened and split as the consumers do it, each plane read as the
+        tensor cores read it."""
+        if (y_dt not in (0, 1, 2) or a_dt not in (0, 1, 2) or bs % 128 or ldb < n or ldb % 4
+                or any(p % 16 for p in (a, bt_hi, bt_lo or 0))):
+            return 1
         c = _view(cols, torch.int32, (mb, ellw), (ellw, 1)).clone()
-        self.calls.append(dict(kernel="spmm", mb=mb, ellw=ellw, bs=bs, m=m, n=n, k=k, alpha=alpha,
-                               a=_CODE_DTYPE[a_dt], b=_CODE_DTYPE[b_dt], pads=int((c < 0).sum())))
+        self.calls.append(dict(kernel="spmm_tf32x3", mb=mb, ellw=ellw, bs=bs, m=m, n=n, k=k,
+                               alpha=alpha, a=_CODE_DTYPE[a_dt], b_exact=not bt_lo,
+                               y=_CODE_DTYPE[y_dt], pads=int((c < 0).sum()), ldb=ldb))
+        self.a_ptrs.append(a)
         if self.rc:
             return self.rc
-        for ptr in (a, b, y):
-            assert ptr % 16 == 0
-        at = _view(a, _CODE_DTYPE[a_dt], (mb, ellw, bs, bs), (ellw * bs * bs, bs * bs, bs, 1))
-        bt = _view(b, _CODE_DTYPE[b_dt], (n, k), (k, 1))
-        yt = _view(y, _CODE_DTYPE[b_dt], (m, k), (k, 1))
-        yt.copy_(pk._bell_spmm_plain(BlockedELL(c, at.clone(), (m, n), bs), bt.clone(), alpha))
+        at = _view(a, _CODE_DTYPE[a_dt], (mb, ellw, bs, bs),
+                   (ellw * bs * bs, bs * bs, bs, 1)).float()
+        bh = _tensor_core_read(_view(bt_hi, torch.float32, (k, n), (ldb, 1)).mT)
+        bl = (_tensor_core_read(_view(bt_lo, torch.float32, (k, n), (ldb, 1)).mT) if bt_lo
+              else torch.zeros_like(bh))
+        _view(y, _CODE_DTYPE[y_dt], (m, k), (k, 1)).copy_(
+            _tf32x3_bell(c, tf32x3._split_tf32_plain(at), (bh, bl), (m, n), alpha,
+                         _CODE_DTYPE[y_dt]))
         return 0
 
     def tml_bell_spmm_wgmma(self, cols, a, b, y, mb, ellw, bs, m, n, k, ldb, alpha, dt, stream):
@@ -286,6 +330,7 @@ class _EmulatedLib:
 @pytest.fixture
 def emulated(monkeypatch):
     lib = _EmulatedLib()
+    lib.tf32_calls = []
     monkeypatch.setattr(pk, "on_cuda", lambda *t: True)
     monkeypatch.setattr(cuda_utils, "load_kernels", lambda: lib)
     monkeypatch.setattr(torch.cuda, "device", contextlib.nullcontext)
@@ -303,13 +348,22 @@ def test_cuda_branch_spmm_marshalling(emulated, rng, pair, bs, k):
     got = pk.bell_spmm_pallas(port_a, bt, alpha=0.5)
     assert pk.bell_spmm_pallas.launches == before + 1
     (call,) = emulated.calls
-    tensor_core = pair == ("bf16", "bf16")   # 16-bit pairs: B's rows padded to 16 bytes
-    assert call == dict(kernel="spmm_wgmma" if tensor_core else "spmm", mb=2,
-                        ellw=port_a.cols.shape[1], bs=bs, m=2 * bs, n=3 * bs, k=k, alpha=0.5,
-                        a=TORCH[pair[0]], b=TORCH[pair[1]], pads=int((port_a.cols < 0).sum()),
-                        **({"ldb": -(-k // 8) * 8} if tensor_core else {}))
-    want = pk._bell_spmm_plain(port_a, bt, 0.5)
-    assert got.dtype == TORCH[pair[1]] and torch.equal(got, want)
+    common = dict(mb=2, ellw=port_a.cols.shape[1], bs=bs, m=2 * bs, n=3 * bs, k=k, alpha=0.5,
+                  pads=int((port_a.cols < 0).sum()))
+    plain = pk._bell_spmm_plain(port_a, bt, 0.5)
+    if pair == ("bf16", "bf16"):   # 16-bit pairs: B's rows padded to 16 bytes
+        assert call == dict(kernel="spmm_wgmma", a=TORCH["bf16"], b=TORCH["bf16"],
+                            ldb=-(-k // 8) * 8, **common)
+        assert got.dtype == TORCH["bf16"] and torch.equal(got, plain)
+        return
+    # the 3xTF32 entry: A in f32, Bᵀ's planes from one transposed split
+    assert call == dict(kernel="spmm_tf32x3", a=TORCH[pair[0]],
+                        b_exact=pair[1] != "f32", y=TORCH[pair[1]], ldb=-(-3 * bs // 4) * 4,
+                        **common)
+    (split,) = emulated.tf32_calls
+    assert split["shape"] == (3 * bs, k) and split["flags"] == tf32x3.TRANSPOSE
+    assert got.dtype == TORCH[pair[1]] and torch.equal(got, _tf32x3_expected(port_a, bt, 0.5))
+    assert max_scaled_err(got, plain) <= 1e-5
 
 
 def test_cuda_branch_passes_pad_slots_through(emulated, rng):
@@ -321,18 +375,21 @@ def test_cuda_branch_passes_pad_slots_through(emulated, rng):
     x = b[:, 0].contiguous()
     got_v = pk.SpmvPlan(a).execute(x)
     assert [c["pads"] for c in emulated.calls] == [3, 3]
-    assert torch.equal(got, pk._bell_spmm_plain(a, b))
+    assert torch.equal(got, _tf32x3_expected(a, b, 1.0))
+    assert max_scaled_err(got, pk._bell_spmm_plain(a, b)) <= 1e-6
     assert max_scaled_err(got_v, got[:, 0]) <= 1e-6
 
 
 def test_cuda_branch_batched_b_is_one_launch(emulated, rng):
     _, _, port_a = _bell(rng, 128, mb=2, nb=3)
     bb = torch.from_numpy(rng.normal(size=(4, 384, 6)).astype(np.float32))
-    before = pk.bell_spmm_pallas.launches
+    before = pk.bell_spmm_pallas.launches, tf32x3.split_tf32.launches
     got = spmm(port_a, bb, alpha=2.0)
-    assert pk.bell_spmm_pallas.launches == before + 1
+    assert (pk.bell_spmm_pallas.launches, tf32x3.split_tf32.launches) == (before[0] + 1,
+                                                                          before[1] + 1)
     (call,) = emulated.calls
-    assert call["k"] == 4 * 6 and call["n"] == 384
+    assert call["kernel"] == "spmm_tf32x3" and call["k"] == 4 * 6 and call["n"] == 384
+    assert [c["shape"] for c in emulated.tf32_calls] == [(384, 24)]
     assert got.shape == (4, 256, 6)
     for i in range(4):
         assert max_scaled_err(got[i], pk._bell_spmm_plain(port_a, bb[i], 2.0)) <= 1e-6
@@ -351,6 +408,7 @@ def test_cuda_branch_refuses_instead_of_falling_back(emulated, rng, what):
     with pytest.raises(NotSupportedError):
         pk.bell_spmm_pallas(port_a, b)
     assert pk.bell_spmm_pallas.launches == before and not emulated.calls
+    assert not emulated.tf32_calls
 
 
 @pytest.mark.parametrize("bs", [128, 64])
@@ -385,7 +443,7 @@ def test_cuda_branch_raises_on_launch_failure(emulated, rng):
     _, _, port_a = _bell(rng, 128, mb=2, nb=2)
     b = torch.zeros((256, 3))
     before = (pk.bell_spmm_pallas.launches, pk._bell_spmv.launches)
-    with pytest.raises(ExecutionError, match="tml_bell_spmm: CUDA error 9"):
+    with pytest.raises(ExecutionError, match="tml_bell_spmm_tf32x3: CUDA error 9"):
         pk.bell_spmm_pallas(port_a, b)
     with pytest.raises(ExecutionError, match="tml_bell_spmv: CUDA error 9"):
         pk.SpmvPlan(port_a).execute(b[:, 0])
@@ -413,8 +471,9 @@ def test_cuda_branch_aligns_operands(emulated, rng):
     wide = torch.from_numpy(rng.normal(size=(256 * 3 + 1,)).astype(np.float32))
     b = wide[1:].reshape(256, 3)
     assert b.data_ptr() % 16 != 0
-    got = pk.bell_spmm_pallas(port_a, b)
-    assert torch.equal(got, pk._bell_spmm_plain(port_a, b))
+    got = pk.bell_spmm_pallas(port_a, b)   # the emulation refuses a misaligned A or plane
+    assert torch.equal(got, _tf32x3_expected(port_a, b, 1.0))
+    assert max_scaled_err(got, pk._bell_spmm_plain(port_a, b)) <= 1e-6
 
 
 def test_cpu_takes_plain_versions_without_launch(rng):
@@ -429,27 +488,36 @@ def test_cpu_takes_plain_versions_without_launch(rng):
 # ---------------------------------------------------------------------------
 # B6a's routing rule, B's rows for TMA, pad-only block rows, and the SpMV route
 
-_SPMM_ROUTES = {("bf16", "bf16"): "wgmma", ("f16", "f16"): "wgmma", ("f32", "f32"): "simt",
-                ("bf16", "f32"): "simt", ("f32", "bf16"): "simt", ("f16", "bf16"): "simt"}
+_SPMM_ROUTES = {("bf16", "bf16"): "wgmma", ("f16", "f16"): "wgmma", ("f32", "f32"): "tf32x3",
+                ("bf16", "f32"): "tf32x3", ("f32", "bf16"): "tf32x3", ("f16", "bf16"): "tf32x3"}
 
 
 @pytest.mark.parametrize("pair", list(_SPMM_ROUTES))
 def test_cuda_branch_spmm_routing(emulated, rng, pair):
     """bf16 x bf16 and f16 x f16 go to tml_bell_spmm_wgmma, every other
-    pair to tml_bell_spmm: one launch, counted in the total and in its
-    route's count, with the plain version's result in B's dtype."""
+    pair to tml_bell_spmm_tf32x3 after one split of Bᵀ: one launch, counted
+    in the total and in its route's count (the split in split_tf32's), with
+    the kernel's result in B's dtype: the plain version's on the 16-bit
+    route, the 3xTF32 model's (within 1e-5 of the plain version) on the
+    other."""
     route = _SPMM_ROUTES[pair]
+    assert pk._spmm_route(TORCH[pair[0]], TORCH[pair[1]]) == route
     _, _, port_a = _bell(rng, 128, pair[0], mb=2, nb=3)
     _, _, bt = _dense_operand(rng, (3 * 128, 40), pair[1])
-    counts = (pk.bell_spmm_pallas, pk._bell_spmm_wgmma, pk._bell_spmm_simt)
+    counts = (pk.bell_spmm_pallas, pk._bell_spmm_wgmma, pk._bell_spmm_tf32x3,
+              tf32x3.split_tf32)
     before = [f.launches for f in counts]
     got = pk.bell_spmm_pallas(port_a, bt, alpha=0.5)
-    assert [f.launches - x for f, x in zip(counts, before)] == [1, route == "wgmma",
-                                                                 route == "simt"]
-    assert [c["kernel"] for c in emulated.calls] == [
-        "spmm_wgmma" if route == "wgmma" else "spmm"]
-    want = pk._bell_spmm_plain(port_a, bt, 0.5)
-    assert got.dtype == TORCH[pair[1]] and torch.equal(got, want)
+    tc = route == "tf32x3"
+    assert [f.launches - x for f, x in zip(counts, before)] == [1, not tc, tc, tc]
+    assert [c["kernel"] for c in emulated.calls] == ["spmm_tf32x3" if tc else "spmm_wgmma"]
+    plain = pk._bell_spmm_plain(port_a, bt, 0.5)
+    assert got.dtype == TORCH[pair[1]]
+    if tc:
+        assert torch.equal(got, _tf32x3_expected(port_a, bt, 0.5))
+        assert max_scaled_err(got, plain) <= (1e-5 if pair[1] == "f32" else 1e-2)
+    else:
+        assert torch.equal(got, plain)
 
 
 @pytest.mark.parametrize("k, view", [(1, False), (13, False), (300, False), (304, False),
@@ -482,9 +550,13 @@ def test_cuda_branch_pad_only_block_row_is_zero(emulated, rng, dt):
     b = _dense_operand(rng, (3 * 128, 24), dt)[2]
     got = pk.bell_spmm_pallas(a, b)
     (call,) = emulated.calls
-    assert call["kernel"] == ("spmm" if dt == "f32" else "spmm_wgmma") and call["pads"] == 3
+    assert call["kernel"] == ("spmm_tf32x3" if dt == "f32" else "spmm_wgmma") and call["pads"] == 3
     assert torch.equal(got[128:256], torch.zeros((128, 24), dtype=TORCH[dt]))
-    assert torch.equal(got, pk._bell_spmm_plain(a, b))
+    if dt == "f32":
+        assert torch.equal(got, _tf32x3_expected(a, b, 1.0))
+        assert max_scaled_err(got, pk._bell_spmm_plain(a, b)) <= 1e-6
+    else:
+        assert torch.equal(got, pk._bell_spmm_plain(a, b))
 
 
 @pytest.mark.parametrize("entry", ["spmv", "bell_spmv_pallas"])
@@ -526,3 +598,114 @@ def test_spmv_f32_blocked_ell_on_the_cpu_is_the_spmv_plain_version(rng):
     assert (pk._bell_spmv.launches, pk.bell_spmm_pallas.launches) == before
     assert torch.equal(got, pk._bell_spmv_plain(port_a.cols, port_a.data, xt, port_a.shape, 0.5))
     assert max_scaled_err(got, 0.5 * a64 @ x64) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# B6a's 3xTF32 route: mixed pairs, ragged shapes, refusals, and a model of its sum
+
+@pytest.mark.parametrize("pair", [("f32", "bf16"), ("f32", "f16"), ("bf16", "f32"),
+                                  ("f16", "f32"), ("bf16", "f16"), ("f16", "bf16")])
+def test_cuda_branch_mixed_pairs_take_the_3xtf32_kernel(emulated, rng, pair):
+    """A mixed pair reaches tml_bell_spmm_tf32x3 with A's blocks as they
+    lie, in their own dtype (no widened copy: the kernel widens a 16-bit A
+    in registers), and Bᵀ's planes from one transposed split of B widened
+    to f32, its lo plane left out where B is 16-bit (two products where one
+    operand is 16-bit, one where both are); Y in B's dtype."""
+    _, _, port_a = _bell(rng, 128, pair[0], mb=2, nb=3)
+    _, _, bt = _dense_operand(rng, (3 * 128, 24), pair[1])
+    got = pk.bell_spmm_pallas(port_a, bt, alpha=0.5)
+    (call,) = emulated.calls
+    assert (call["kernel"], call["a"], call["b_exact"], call["y"]) == (
+        "spmm_tf32x3", TORCH[pair[0]], pair[1] != "f32", TORCH[pair[1]])
+    assert emulated.a_ptrs == [port_a.data.data_ptr()]
+    (split,) = emulated.tf32_calls
+    assert split["shape"] == (3 * 128, 24) and split["flags"] == tf32x3.TRANSPOSE
+    if call["b_exact"]:   # the premise of leaving B's lo plane out
+        assert torch.equal(tf32x3._split_tf32_plain(bt.float())[1], torch.zeros((384, 24)))
+    assert got.dtype == TORCH[pair[1]] and torch.equal(got, _tf32x3_expected(port_a, bt, 0.5))
+    want = 0.5 * pk._bell_product(port_a.cols, port_a.data, bt, port_a.shape, torch.float64)
+    assert max_scaled_err(got, want) <= (1e-5 if pair[1] == "f32" else 1e-2)
+
+
+@pytest.mark.parametrize("n, m, k", [(3 * 128 - 50, 2 * 128 - 7, 37), (3 * 128, 2 * 128, 1),
+                                     (3 * 128 - 1, 2 * 128, 130)])
+def test_cuda_branch_tf32x3_ragged_n_and_k(emulated, rng, n, m, k):
+    """A ragged n (a block column whose rows run past it read as zero), a
+    ragged m and a ragged k: Bᵀ's planes (k, n) at a row stride of n
+    rounded up to 4, Y (m, k); the result is the model's and within 1e-5
+    of float64."""
+    cols = torch.tensor([[2, -1, 0], [1, 2, -1]], dtype=torch.int32)
+    data = torch.from_numpy(rng.normal(size=(2, 3, 128, 128)).astype(np.float32))
+    a = BlockedELL(cols, data, (m, n), 128)
+    b = torch.from_numpy(rng.normal(size=(n, k)).astype(np.float32))
+    got = pk.bell_spmm_pallas(a, b, alpha=0.5)
+    (call,) = emulated.calls
+    assert (call["m"], call["n"], call["k"], call["ldb"]) == (m, n, k, -(-n // 4) * 4)
+    assert got.shape == (m, k) and torch.equal(got, _tf32x3_expected(a, b, 0.5))
+    assert max_scaled_err(got, 0.5 * pk._bell_product(cols, data, b, (m, n), torch.float64)) <= 1e-5
+
+
+def test_cuda_branch_tf32x3_refusal_raises_without_a_launch(emulated, rng, monkeypatch):
+    """Where the 3xTF32 entry refuses its arguments (cudaErrorInvalidValue),
+    the wrapper raises and counts no SpMM launch; nothing gives way to
+    another kernel."""
+    monkeypatch.setattr(emulated, "tml_bell_spmm_tf32x3", lambda *args: 1)
+    _, _, port_a = _bell(rng, 128, mb=2, nb=2)
+    b = torch.zeros((256, 3))
+    before = pk.bell_spmm_pallas.launches, pk._bell_spmm_tf32x3.launches
+    with pytest.raises(ExecutionError, match="tml_bell_spmm_tf32x3: CUDA error 1"):
+        pk.bell_spmm_pallas(port_a, b)
+    assert (pk.bell_spmm_pallas.launches, pk._bell_spmm_tf32x3.launches) == before
+    assert not emulated.calls
+
+
+def _slot_walk_model(cols, data, b, shape, alpha):
+    """tml_bell_spmm_tf32x3's sum in numpy: for each block row, the valid
+    slots in order and the 32-deep stages of each, a stage's k8 steps'
+    products (lo·hi, hi·lo, hi·hi: exact in float64) added into a fresh
+    partial rounding toward zero, as the tensor cores add, the partials
+    summed into the accumulator in f32 to nearest; then alpha."""
+    m, n = shape
+    mb, ellw = cols.shape
+    bs, k = data.shape[-1], b.shape[1]
+    bpad = np.zeros((-(-n // bs) * bs + bs, k), np.float32)
+    bpad[:n] = b
+    ah, al = (t.numpy().astype(np.float64) for t in tf32x3._split_tf32_plain(torch.from_numpy(data)))
+    bh, bl = (t.numpy().astype(np.float64) for t in tf32x3._split_tf32_plain(torch.from_numpy(bpad)))
+    y = np.zeros((mb * bs, k), np.float32)
+    for i in range(mb):
+        acc = np.zeros((bs, k), np.float32)
+        for j in range(ellw):
+            c = int(cols[i, j])
+            if c < 0:
+                continue
+            rows = slice(c * bs, (c + 1) * bs) if c * bs < n else slice(len(bpad) - bs, len(bpad))
+            for t0 in range(0, bs, 32):
+                part = np.zeros((bs, k), np.float32)
+                for s in range(t0, t0 + 32, 8):
+                    for x, w in ((al, bh), (ah, bl), (ah, bh)):
+                        part = _rz(part + x[i, j][:, s:s + 8] @ w[rows][s:s + 8])
+                acc = acc + part
+        y[i * bs:(i + 1) * bs] = acc
+    return np.float32(alpha) * y[:m]
+
+
+def test_slot_walk_3xtf32_model_against_float64_and_the_reference(rng):
+    """The model of the 3xTF32 kernel's slot walk (``_slot_walk_model``) on
+    a Blocked-ELL with pad slots (one with non-zero data: skipped) and a
+    block column past a ragged n: within 1e-5 of float64, max-scaled, and
+    of the reference's bell_spmm_pallas in interpret mode (its f32 dot at
+    HIGHEST)."""
+    a64, ref_a, port_a = _bell(rng, 128, "f32", mb=2, nb=3)
+    b, b64, _ = _dense_operand(rng, (3 * 128, 40), "f32")
+    got = _slot_walk_model(port_a.cols.numpy(), port_a.data.numpy(), b, port_a.shape, 0.5)
+    assert max_scaled_err(got, 0.5 * a64 @ b64) <= 1e-5
+    want = ref_pk.bell_spmm_pallas(ref_a, jnp.asarray(b), alpha=0.5)
+    assert max_scaled_err(got, np.asarray(want, np.float64)) <= 1e-5
+    cols = np.array([[2, -1, 0], [1, -1, -1]], np.int32)
+    data = rng.normal(size=(2, 3, 128, 128)).astype(np.float32)
+    bb = rng.normal(size=(3 * 128 - 50, 40)).astype(np.float32)
+    got = _slot_walk_model(cols, data, bb, (256, 3 * 128 - 50), 0.5)
+    want = 0.5 * pk._bell_product(torch.from_numpy(cols), torch.from_numpy(data),
+                                  torch.from_numpy(bb), (256, 3 * 128 - 50), torch.float64)
+    assert max_scaled_err(got, want) <= 1e-5

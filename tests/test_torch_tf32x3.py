@@ -207,6 +207,35 @@ def test_bf16_values_are_exact_in_tf32(rng):
                                                  torch.zeros_like(bt_hi)))
 
 
+@pytest.mark.parametrize("exact", ["a", "b"])
+def test_two_products_when_one_operand_is_exact(rng, exact):
+    """The premise of B6a's two-product instantiations (f32 with a 16-bit
+    operand): a bf16 or f16 operand widened to f32 has a zero lo plane, so
+    the two products that do not read it (hi·lo + hi·hi of a 16-bit A with
+    B's two planes, lo·hi + hi·hi of A's planes with a 16-bit B's hi plane)
+    are the three products' sum, bit for bit, and within 1e-6 of float64;
+    the f32 operand's lo plane carries what one TF32 product would lose
+    (some 1e-4 of it at K = 1000)."""
+    for dt in (torch.bfloat16, torch.float16):
+        a, b = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                for shape in ((48, 1000), (1000, 40)))
+        if exact == "a":
+            a = a.to(dt).to(F32)
+        else:
+            b = b.to(dt).to(F32)
+        (ah, al), (bh, bl) = tf32x3._split_tf32_plain(a), tf32x3._split_tf32_plain(b, transpose=True)
+        zero_lo = al if exact == "a" else bl
+        assert torch.equal(zero_lo, torch.zeros_like(zero_lo))
+        three = tf32x3._gemm_tf32x3_plain(ah, al, bh, bl)
+        two = (tf32x3._gemm_tf32x3_plain(ah, torch.zeros_like(al), bh, bl) if exact == "a"
+               else tf32x3._gemm_tf32x3_plain(ah, al, bh, torch.zeros_like(bl)))
+        assert torch.equal(two, three)
+        want = a.double() @ b.double()
+        assert max_scaled_err(two, want) <= 1e-6
+        one = tf32x3._gemm_tf32x3_plain(ah, torch.zeros_like(al), bh, torch.zeros_like(bl))
+        assert max_scaled_err(one, want) > 1e-5
+
+
 def test_planes_pad_the_row_stride():
     p = tf32x3.planes(5, 7, torch.device("cpu"))
     assert p.shape == (2, 5, 7) and p.stride() == (40, 8, 1)

@@ -10,8 +10,10 @@ The paths, each through its public function:
 - B1: dx.gemm.pallas_matmul at 4096^3 with the bias + GELU epilogue, bf16
   (the tensor-core route) and f32;
 - the Blocked-ELL lines of bench.py: sparse.spmm on a bf16 Blocked-ELL
-  (mb = nb = 128, ellw = 16, bs = 128, k = 4096; B6a) and sparse.spmv on an
-  f32 one (ellw = 32);
+  (mb = nb = 128, ellw = 16, bs = 128, k = 4096; B6a) with a bf16 B, with
+  an f32 B (a mixed pair), and on the same blocks in f32 with an f32 B;
+  sparse.spmv on an f32 one (ellw = 32), and on its blocks in bf16 with an
+  f32 x (the SpMM route with one column);
 - the FFTs at batch 4096 x N 4096: fft.stockham.dif_fft (B5) on f32 planes
   in natural order and on bf16 planes in raw order, fft.kernels.pallas_fft
   (B5b) and fft.pallas_split.pallas_fft2 (B5c);
@@ -22,6 +24,9 @@ The paths, each through its public function:
 - the Jacobi kernels of dx.solver (B7g, B7h): syevd_batched and
   gesvd_batched at 8192 x 32 (the warp route) and 2048 x 64 (the block
   route);
+- VV10 (B11) at G = 40960 (chip_smoke.py's inputs): the energy alone
+  (dx.vv10.vv10_pair_energy_pallas, the forward sweep) and value plus
+  gradient through torch.autograd.grad (both sweeps);
 - the Mp rings (B12a, B12b): mp.overlap.matmul_ag_overlapped and
   matmul_rs_overlapped at GPT-J-6B's MLP, 8192 tokens, (8192, 4096) @ (4096,
   16384) and (8192, 16384) @ (16384, 4096) f32, on 4 ranks of the one card,
@@ -63,6 +68,7 @@ from tpumathlib_torch import dx, mp, sparse
 from tpumathlib_torch.dx import cuda_utils, gemm
 from tpumathlib_torch.dx import rng as dxr
 from tpumathlib_torch.dx import solver as dxs
+from tpumathlib_torch.dx import vv10
 from tpumathlib_torch.fft import kernels as fft_kernels
 from tpumathlib_torch.fft import pallas_split, stockham
 from tpumathlib_torch.mp import overlap
@@ -77,6 +83,7 @@ SPMV = (128, 128, 32, 128)         # (mb, nb, ellw, bs) of bench_spmv_bell
 FFT = (4096, 4096)                 # (batch, N) of the bench's FFT lines
 BATCHED = ((8192, 32), (1024, 128))   # (batch, n) of the batched solvers' lines
 JACOBI = ((8192, 32), (2048, 64))     # (batch, n) of syevd_batched and gesvd_batched
+VV10 = 40960                          # G: chip_smoke.py's VV10_MAIN
 MP = (8192, 4096, 16384)              # (tokens, n_embd, n_inner): chip_smoke.py's MP_MAIN
 RANKS = 4                             # the rings' ranks, all on the one card
 
@@ -89,6 +96,28 @@ def _bell(gen, mb, nb, ellw, bs, dtype, dev):
     data = torch.randn((mb, ellw, bs, bs), generator=gen, device=dev).to(dtype)
     return sparse.BlockedELL(torch.from_numpy(cols.astype(np.int32)).to(dev), data,
                              (mb * bs, nb * bs), bs)
+
+
+def _vv10_inputs(dev):
+    """chip_smoke.py's ``_vv10_inputs(VV10, dev)``: (rho, s2, pts, w) f32."""
+    rs = np.random.default_rng(5)
+    rho = rs.uniform(0.01, 0.5, VV10).astype(np.float32)
+    rho[::17] = 1e-12
+    cols = (rho, rs.uniform(0, 0.1, VV10), rs.normal(size=(VV10, 3)) * 3,
+            rs.uniform(0.001, 0.02, VV10))
+    return [torch.tensor(np.asarray(c, np.float32), device=dev) for c in cols]
+
+
+def _vv10_value_and_grad(rho, s2, pts, w):
+    """The energy and its four gradients, as one tuple."""
+    ts = [t.detach().clone().requires_grad_() for t in (rho, s2, pts, w)]
+    e = vv10.vv10_pair_energy_pallas(*ts, 5.9, 0.0093)
+    return (e, *torch.autograd.grad(e, ts))
+
+
+def _vv10_energy(rho, s2, pts, w):
+    with torch.no_grad():
+        return vv10.vv10_pair_energy_pallas(rho, s2, pts, w, 5.9, 0.0093)
 
 
 def _paths(dev) -> dict:
@@ -106,9 +135,13 @@ def _paths(dev) -> dict:
     mb, nb, ellw, bs, k = SPMM
     a_mm = _bell(gen, mb, nb, ellw, bs, torch.bfloat16, dev)
     b_mm = torch.randn((nb * bs, k), generator=gen, device=dev).bfloat16()
+    b_f32 = b_mm.float()
+    a_f32 = sparse.BlockedELL(a_mm.cols, a_mm.data.float(), a_mm.shape, bs)
     mb, nb, ellw, bs = SPMV
     a_mv = _bell(gen, mb, nb, ellw, bs, torch.float32, dev)
+    a_mv_bf16 = sparse.BlockedELL(a_mv.cols, a_mv.data.bfloat16(), a_mv.shape, bs)
     x_mv = torch.randn((nb * bs,), generator=gen, device=dev)
+    vv = _vv10_inputs(dev)
     fr, fi = (torch.randn(FFT, generator=gen, device=dev) for _ in range(2))
     hr, hi = fr.bfloat16(), fi.bfloat16()
     batched = {}   # n: (SPD matrices, Gaussian ones)
@@ -134,7 +167,12 @@ def _paths(dev) -> dict:
         "pallas_matmul_f32_gelu_bias": lambda: gemm.pallas_matmul(a, b, bias=bias,
                                                                   epilogue="gelu_bias"),
         "spmm_bell_bf16": lambda: sparse.spmm(a_mm, b_mm),
+        "spmm_bell_f32": lambda: sparse.spmm(a_f32, b_f32),
+        "spmm_bell_bf16_f32": lambda: sparse.spmm(a_mm, b_f32),
         "spmv_bell_f32": lambda: sparse.spmv(a_mv, x_mv),
+        "spmv_bell_bf16_f32": lambda: sparse.spmv(a_mv_bf16, x_mv),
+        "vv10_energy": lambda: _vv10_energy(*vv),
+        "vv10_value_and_grad": lambda: _vv10_value_and_grad(*vv),
         "dif_fft_f32_natural": lambda: stockham.dif_fft(fr, fi),
         "dif_fft_bf16_raw": lambda: stockham.dif_fft(hr, hi, reorder=False, halfplanes=True),
         "pallas_fft": lambda: fft_kernels.pallas_fft(fr, fi),

@@ -268,19 +268,10 @@ cudaError_t launch_gemm(const CUtensorMap (&maps)[4], const Epilogue& p, int64_t
   constexpr int kStages = PRODUCTS == 1 ? kStagesExact : SPLIT_A ? kStagesSplitA : kStagesPlanes;
   constexpr int kSmem = kStages * static_cast<int>(tf32x3_stage_bytes<kBN, SPLIT_A, PRODUCTS>()) + 1024;
   auto* kernel = gemm_tf32x3_kernel<kBN, kStages, SPLIT_A, PRODUCTS, Epilogue>;
-  // the limit is a per-device attribute of the function: set it once a
-  // device (the host loops launch some 100 products a call; the bit of a
-  // device set twice by two threads is harmless)
-  static uint64_t raised = 0;
-  int device = 0;
-  const cudaError_t got = cudaGetDevice(&device);
-  if (got != cudaSuccess) return got;
-  if (device >= 64 || !(raised >> device & 1)) {
-    const cudaError_t attr =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (attr != cudaSuccess) return attr;
-    if (device < 64) raised |= uint64_t(1) << device;
-  }
+  // once a device: the host loops launch some 100 products a call
+  static std::atomic<uint64_t> raised{0};
+  const cudaError_t attr = raise_smem_once(reinterpret_cast<const void*>(kernel), kSmem, raised);
+  if (attr != cudaSuccess) return attr;
   const int64_t gx = (p.n + kBN - 1) / kBN, gy = (p.m + kBM - 1) / kBM;
   if (gx > 2147483647LL || gy > 65535 || batch > 65535) return cudaErrorInvalidConfiguration;
   const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy), static_cast<unsigned>(batch));

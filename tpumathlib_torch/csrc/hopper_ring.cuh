@@ -1,6 +1,6 @@
 // The TMA + wgmma ring shared by gemm_wgmma.cu (B1's tensor-core route),
-// bell_wgmma.cu (B6a's) and gemm_tf32x3.cu (the 3xTF32 product of f32
-// operands): mbarriers, TMA loads, tensor-map encoding, wgmma's
+// bell_wgmma.cu (B6a's, both kernels) and gemm_tf32x3.cu (the 3xTF32 product
+// of f32 operands): mbarriers, TMA loads, tensor-map encoding, wgmma's
 // shared-memory descriptors, fences and instructions, the consumers' main
 // loops, the staging of a finished tile in shared memory, and B1's fused
 // epilogue over it (gemm_wgmma.cu's and gemm_tf32x3.cu's).
@@ -28,6 +28,7 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 #include <type_traits>
 
@@ -242,6 +243,31 @@ __device__ __forceinline__ void split_fragment(uint32_t a, int cg, int kk, uint3
   }
 }
 
+// The same for a 16-bit A tile (bf16 or f16, TA): a box of 128 rows of 32
+// values, 64 bytes a row, as TMA's 64-byte swizzle lays it out (the 16-byte
+// chunk index XOR bits 1-2 of the row). A 16-bit value widened to f32 is
+// exact in TF32 (bf16's 8 and f16's 11 significant bits, within f32's
+// exponent range), so hi is the widened value and there is no lo.
+template <typename TA>
+__device__ __forceinline__ void widen_fragment(uint32_t a, int cg, int kk, uint32_t (&hi)[4]) {
+  static_assert(std::is_same_v<TA, __nv_bfloat16> || std::is_same_v<TA, __half>, "16-bit A");
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int r = cg * 64 + warp * 16 + lane / 4, c = kk * 8 + lane % 4;
+  const int rc[4][2] = {{r, c}, {r + 8, c}, {r, c + 4}, {r + 8, c + 4}};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int rr = rc[j][0], cc = rc[j][1];
+    const uint32_t at = a + rr * 64 + ((((cc >> 3) ^ ((rr >> 1) & 3)) << 4) | ((cc & 7) << 1));
+    uint16_t v;
+    asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(at));
+    if constexpr (std::is_same_v<TA, __nv_bfloat16>) {
+      hi[j] = static_cast<uint32_t>(v) << 16;
+    } else {
+      hi[j] = __float_as_uint(__half2float(__ushort_as_half(v)));
+    }
+  }
+}
+
 // The consumer warpgroup cg's side of the ring: nk stages in order, each
 // four k16 steps into acc, with one commit group in flight; a stage is
 // released (one arrival a warp) once wgmma.wait_group shows that the
@@ -301,18 +327,36 @@ __device__ __forceinline__ void stage_tf32x3(float (&part)[BN / 2], uint32_t sta
   fence_acc(part);
 }
 
-// The same with A split in registers: the stage holds A's 128 x 32 in f32,
-// then the hi and lo planes of B's BN x 32 (BN = 128). Each k8 step loads
-// and splits this thread's part of A's fragment and commits its three
-// products as a group; two register sets alternate, so a step's loads wait
-// for the group of two steps before, which read that set. PRODUCTS = 1:
-// operands exact in TF32 (bf16 values widened to f32, whose lo planes are
-// 0), so the stage holds B's hi plane alone and a k8 step issues hi·hi.
-template <int BN, int PRODUCTS = 3>
+// Bytes of a 128 x 32 A box in f32 or 16-bit values.
+template <typename TA>
+__host__ __device__ constexpr uint32_t a_box_bytes() {
+  return kBM * kBK32 * static_cast<uint32_t>(sizeof(TA));
+}
+
+// Whether a split-A stage holds B's lo plane: the products of an A in f32
+// (TA float) are lo·hi, hi·lo and hi·hi (3), or lo·hi and hi·hi where B is
+// exact (2), or hi·hi where both are (1); those of a 16-bit A (exact) are
+// hi·lo and hi·hi (2), or hi·hi where B is exact too (1).
+template <typename TA, int PRODUCTS>
+__host__ __device__ constexpr bool stages_b_lo() {
+  return PRODUCTS == 3 || (PRODUCTS == 2 && !std::is_same_v<TA, float>);
+}
+
+// The same with A split in registers: the stage holds A's 128 x 32 in f32
+// (or 16-bit, TA), then the hi and, where stages_b_lo, the lo plane of B's
+// BN x 32 (BN = 128). Each k8 step loads and splits (or widens) this
+// thread's part of A's fragment and commits its products as a group; two
+// register sets alternate, so a step's loads wait for the group of two
+// steps before, which read that set. An exact operand (bf16 or f16 values,
+// widened to f32 by the caller or here) has a lo plane of 0, and the
+// products that read it are left out (stages_b_lo).
+template <int BN, int PRODUCTS = 3, typename TA = float>
 __device__ __forceinline__ void stage_tf32x3_split_a(float (&part)[BN / 2], uint32_t stage, int cg) {
+  constexpr bool kAExact = !std::is_same_v<TA, float>;
   static_assert(BN == 128, "register A: m64n128k8");
-  static_assert(PRODUCTS == 3 || PRODUCTS == 1, "3xTF32, or one product of exact operands");
-  const uint32_t b_hi = stage + kABytes, b_lo = b_hi + BN * kRowBytes;
+  static_assert(PRODUCTS >= 1 && PRODUCTS <= (kAExact ? 2 : 3),
+                "3xTF32, or fewer products of exact operands");
+  const uint32_t b_hi = stage + a_box_bytes<TA>(), b_lo = b_hi + BN * kRowBytes;
   uint32_t h0[4], l0[4], h1[4], l1[4];
   fence_acc(part);
 #pragma unroll
@@ -320,13 +364,23 @@ __device__ __forceinline__ void stage_tf32x3_split_a(float (&part)[BN / 2], uint
     uint32_t(&hi)[4] = kk % 2 ? h1 : h0;
     uint32_t(&lo)[4] = kk % 2 ? l1 : l0;
     if (kk >= 2) asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-    split_fragment(stage, cg, kk, hi, lo);
+    if constexpr (kAExact) {
+      widen_fragment<TA>(stage, cg, kk, hi);
+    } else {
+      split_fragment(stage, cg, kk, hi, lo);
+    }
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
     const uint64_t dbh = make_desc(b_hi + kk * 32, 16, 1024);
+    const uint64_t dbl = make_desc(b_lo + kk * 32, 16, 1024);
     if constexpr (PRODUCTS == 3) {
-      const uint64_t dbl = make_desc(b_lo + kk * 32, 16, 1024);
       wgmma_tf32(part, lo, dbh, kk > 0);
       wgmma_tf32(part, hi, dbl, 1);
+      wgmma_tf32(part, hi, dbh, 1);
+    } else if constexpr (PRODUCTS == 2 && kAExact) {
+      wgmma_tf32(part, hi, dbl, kk > 0);
+      wgmma_tf32(part, hi, dbh, 1);
+    } else if constexpr (PRODUCTS == 2) {
+      wgmma_tf32(part, lo, dbh, kk > 0);
       wgmma_tf32(part, hi, dbh, 1);
     } else {
       wgmma_tf32(part, hi, dbh, kk > 0);
@@ -336,11 +390,12 @@ __device__ __forceinline__ void stage_tf32x3_split_a(float (&part)[BN / 2], uint
   fence_acc(part);
 }
 
-// Bytes of a 3xTF32 stage: A's two planes and B's, or (SPLIT_A) A in f32
-// and B's two planes, or B's hi plane alone where PRODUCTS = 1.
-template <int BN, bool SPLIT_A, int PRODUCTS = 3>
+// Bytes of a 3xTF32 stage: A's two planes and B's, or (SPLIT_A) A in f32 or
+// 16-bit (TA) and B's planes that stages_b_lo says.
+template <int BN, bool SPLIT_A, int PRODUCTS = 3, typename TA = float>
 __host__ __device__ constexpr uint32_t tf32x3_stage_bytes() {
-  return SPLIT_A ? kABytes + (PRODUCTS == 3 ? 2 : 1) * BN * kRowBytes : stage_bytes<BN, 2>();
+  return SPLIT_A ? a_box_bytes<TA>() + (stages_b_lo<TA, PRODUCTS>() ? 2 : 1) * BN * kRowBytes
+                 : stage_bytes<BN, 2>();
 }
 
 // acc += part, in f32 (round to nearest), once part's group is done.
@@ -361,14 +416,14 @@ __device__ __forceinline__ void fold(float (&acc)[N], float (&part)[N]) {
 // second, to keep the next stage's products running during the sum, takes
 // more registers than a thread has (ptxas gives each thread of a block
 // with a producer warpgroup 168); the other consumer warpgroup's products
-// run meanwhile. SPLIT_A: A's stage is f32, split in registers
-// (stage_tf32x3_split_a; PRODUCTS = 1 for operands exact in TF32).
-template <int BN, int STAGES, bool SPLIT_A, int PRODUCTS = 3>
+// run meanwhile. SPLIT_A: A's stage is f32 (or 16-bit, TA), split (or
+// widened) in registers (stage_tf32x3_split_a, which says which PRODUCTS).
+template <int BN, int STAGES, bool SPLIT_A, int PRODUCTS = 3, typename TA = float>
 __device__ __forceinline__ void consume_tf32x3(float (&acc)[BN / 2], int nk, uint32_t ring,
                                                uint64_t (&full)[STAGES], uint64_t (&empty)[STAGES],
                                                int cg) {
-  static_assert(SPLIT_A || PRODUCTS == 3, "one product: A in f32");
-  constexpr uint32_t kStageBytes = tf32x3_stage_bytes<BN, SPLIT_A, PRODUCTS>();
+  static_assert(SPLIT_A || (PRODUCTS == 3 && std::is_same_v<TA, float>), "A's planes: 3xTF32");
+  constexpr uint32_t kStageBytes = tf32x3_stage_bytes<BN, SPLIT_A, PRODUCTS, TA>();
   float part[BN / 2];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
@@ -376,7 +431,7 @@ __device__ __forceinline__ void consume_tf32x3(float (&acc)[BN / 2], int nk, uin
     const int s = kb % STAGES;
     mbar_wait(smem_u32(&full[s]), (kb / STAGES) & 1);
     if constexpr (SPLIT_A) {
-      stage_tf32x3_split_a<BN, PRODUCTS>(part, ring + s * kStageBytes, cg);
+      stage_tf32x3_split_a<BN, PRODUCTS, TA>(part, ring + s * kStageBytes, cg);
     } else {
       stage_tf32x3<BN>(part, ring + s * kStageBytes, cg);
     }
@@ -589,12 +644,13 @@ static inline EncodeTiled encode_tiled() {
 
 // A 3-D map (inner, outer, batch) of an operand of `esize`-byte elements
 // (16-bit unless given) whose inner dimension has unit stride and whose
-// outer one has stride ld; boxes of box_inner x box_outer, 128-byte swizzle,
-// zero fill out of bounds. An operand shared by every batch gets a batch
-// extent of 1 (coordinate 0).
+// outer one has stride ld; boxes of box_inner x box_outer, 128-byte swizzle
+// unless given, zero fill out of bounds. An operand shared by every batch
+// gets a batch extent of 1 (coordinate 0).
 static inline CUresult encode(CUtensorMap* map, CUtensorMapDataType dt, const void* ptr, int64_t inner,
                        int64_t outer, int64_t ld, int64_t batch, int64_t sb, bool batched,
-                       uint32_t box_inner, uint32_t box_outer, int esize = 2) {
+                       uint32_t box_inner, uint32_t box_outer, int esize = 2,
+                       CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer),
                               static_cast<cuuint64_t>(batched ? batch : 1)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ld) * esize,
@@ -602,8 +658,24 @@ static inline CUresult encode(CUtensorMap* map, CUtensorMapDataType dt, const vo
   const cuuint32_t box[3] = {box_inner, box_outer, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   return encode_tiled()(map, dt, 3, const_cast<void*>(ptr), dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// Raises `kernel`'s dynamic shared-memory limit to `bytes` on the current
+// device, once a device: the limit is a per-device attribute of the
+// function, and setting it on every launch costs host time that small calls
+// feel. `raised` is the caller's set of devices done, one a kernel (a
+// static of its launcher); a device past 63 sets it on every launch.
+inline cudaError_t raise_smem_once(const void* kernel, int bytes, std::atomic<uint64_t>& raised) {
+  int device = 0;
+  const cudaError_t got = cudaGetDevice(&device);
+  if (got != cudaSuccess) return got;
+  const uint64_t bit = device < 64 ? uint64_t(1) << device : 0;
+  if (raised.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  const cudaError_t attr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr == cudaSuccess) raised.fetch_or(bit, std::memory_order_relaxed);
+  return attr;
 }
 
 }  // namespace tml_ring

@@ -129,14 +129,16 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tml_four_step_fft.argtypes = [p, p, p, p, p, p, i64, i64, i64, i32, i32,
                                       ctypes.POINTER(i32), i64, p]
     lib.tml_four_step_fft.restype = i32
-    # bell_sparse.cu: (cols, a, b, y, mb, ellw, bs, m, n, k, alpha, a/b dtype codes, stream)
-    lib.tml_bell_spmm.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, i64, f32, i32, i32, p]
-    lib.tml_bell_spmm.restype = i32
     # bell_wgmma.cu: (cols, a, b, y, mb, ellw, bs, m, n, k, ldb, alpha, dtype code, stream)
     lib.tml_bell_spmm_wgmma.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, i64, i64, f32, i32,
                                         p]
     lib.tml_bell_spmm_wgmma.restype = i32
-    # (cols, a, x, y, mb, ellw, bs, m, n, alpha, stream), f32
+    # (cols, a, bt_hi, bt_lo, ldb, y, mb, ellw, bs, m, n, k, alpha, a and y dtype codes,
+    # stream)
+    lib.tml_bell_spmm_tf32x3.argtypes = [p, p, p, p, i64, p, i64, i64, i64, i64, i64, i64, f32,
+                                         i32, i32, p]
+    lib.tml_bell_spmm_tf32x3.restype = i32
+    # bell_sparse.cu: (cols, a, x, y, mb, ellw, bs, m, n, alpha, stream), f32
     lib.tml_bell_spmv.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, f32, p]
     lib.tml_bell_spmv.restype = i32
     # dx_solver.cu, f32: (a, factor, [piv,] b, x, batch, n, k, [pivot,] stream);

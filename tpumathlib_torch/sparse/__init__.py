@@ -4,8 +4,9 @@ Counterpart of ``tpumathlib/sparse``, the part of it that is ported:
 - containers: CSR / COO / BSR / Blocked-ELL / SELL with **static nnz
   capacity** (padding entries carry zero values and clamped indices)
 - ops:      SpMV, SpMM (+batched), SDDMM, axpby/gather/scatter/rot/spvv
-- pallas_kernels: the Blocked-ELL SpMM (kernel B6a) and ``SpmvPlan``, whose
-  execute runs the Blocked-ELL SpMV (kernel B6b/B6c), in ``csrc/bell_sparse.cu``
+- pallas_kernels: the Blocked-ELL SpMM (kernel B6a, ``csrc/bell_wgmma.cu``)
+  and ``SpmvPlan``, whose execute runs the Blocked-ELL SpMV (kernel B6b/B6c,
+  ``csrc/bell_sparse.cu``)
 - autoplan: ``SpmvAutoPlan``, the CSR pattern analysis that repacks into
   Blocked-ELL or SELL
 - spsv:     level-scheduled sparse triangular solve + SpSM

@@ -7,12 +7,17 @@ CUDA C++ in ``csrc/bell_sparse.cu`` and ``csrc/bell_wgmma.cu``, not Pallas:
 
 - B6a, for ``bell_spmm_pallas``: Y = alpha·A@B with A Blocked-ELL (mb,
   ellw, bs, bs) and B dense (n, k), f32 accumulation, output in B's dtype;
-  bs % 128 == 0. Two kernels, one rule between them (``_spmm_route``):
-  ``tml_bell_spmm_wgmma`` (``csrc/bell_wgmma.cu``, TMA + wgmma) for bf16 x
-  bf16 and f16 x f16, B read in place where its rows are 16-byte multiples
-  apart and from a copy with padded rows where they are not;
-  ``tml_bell_spmm`` (``csrc/bell_sparse.cu``, SIMT f32 FMA) for f32 and
-  mixed pairs. ``_bell_spmm_wgmma.launches`` and ``_bell_spmm_simt.launches``
+  bs % 128 == 0. Two tensor-core kernels in ``csrc/bell_wgmma.cu``, one
+  rule between them (``_spmm_route``): ``tml_bell_spmm_wgmma`` (TMA +
+  wgmma) for bf16 x bf16 and f16 x f16, B read in place where its rows are
+  16-byte multiples apart and from a copy with padded rows where they are
+  not; ``tml_bell_spmm_tf32x3`` (3xTF32 on the ring of
+  ``csrc/gemm_tf32x3.cu``) for f32 and mixed pairs, with Bᵀ split into its
+  TF32 planes once a call (``dx.tf32x3``'s split, counted on
+  ``tf32x3.split_tf32.launches``) and A passed in its own dtype (the
+  kernel widens a 16-bit A in registers); two TF32 products a k8 step where
+  one operand is 16-bit (its lo plane is 0), one where both are. The result agrees with float64 to f32's 1e-5 whatever torch's TF32
+  setting. ``_bell_spmm_wgmma.launches`` and ``_bell_spmm_tf32x3.launches``
   count each, ``bell_spmm_pallas.launches`` both.
 - ``tml_bell_spmv`` (B6b and B6c, for ``SpmvPlan.execute``, and for
   ``bell_spmv_pallas`` and ``sparse.spmv`` on f32 A and x): y = alpha·A@x
@@ -39,13 +44,15 @@ from __future__ import annotations
 import torch
 
 from tpumathlib_torch.core.errors import NotSupportedError, check
-from tpumathlib_torch.dx import cuda_utils
+from tpumathlib_torch.dx import cuda_utils, tf32x3
 from tpumathlib_torch.dx.cuda_utils import on_cuda
 from tpumathlib_torch.sparse.containers import BlockedELL
 
-# operand dtype codes, as csrc/bell_sparse.cu and csrc/bell_wgmma.cu read them
+F32 = torch.float32
+
+# operand dtype codes, as csrc/bell_wgmma.cu reads them
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# operand pairs of the tensor-core SpMM: both bf16 or both f16
+# operand pairs of the 16-bit SpMM: both bf16 or both f16
 _TC_DTYPES = (torch.bfloat16, torch.float16)
 
 
@@ -87,10 +94,10 @@ def _bell_spmm_plain(a: BlockedELL, b, alpha=1.0):
 
 
 def _spmm_route(a_dtype, b_dtype) -> str:
-    """The SpMM kernel a launch takes: "wgmma" (csrc/bell_wgmma.cu) for a
-    bf16 x bf16 or f16 x f16 pair, "simt" (csrc/bell_sparse.cu) for every
-    other pair the kernels take (f32 x f32, and mixed)."""
-    return "wgmma" if a_dtype == b_dtype and a_dtype in _TC_DTYPES else "simt"
+    """The SpMM kernel a launch takes, both in csrc/bell_wgmma.cu: "wgmma"
+    for a bf16 x bf16 or f16 x f16 pair, "tf32x3" for every other pair the
+    kernels take (f32 x f32, and mixed: one operand f32, or bf16 with f16)."""
+    return "wgmma" if a_dtype == b_dtype and a_dtype in _TC_DTYPES else "tf32x3"
 
 
 def _tma_rows(b):
@@ -145,32 +152,42 @@ def bell_spmm_pallas(a: BlockedELL, b, alpha=1.0, tk: int = 256):
                              mb, ellw, bs, m, n, k, ldb, float(alpha), _DTYPE_CODE[b.dtype],
                              stream)
         else:
-            bc = _aligned(b)
-            _bell_spmm_simt(lib, cols.data_ptr(), data.data_ptr(), bc.data_ptr(), y.data_ptr(),
-                            mb, ellw, bs, m, n, k, float(alpha), _DTYPE_CODE[data.dtype],
-                            _DTYPE_CODE[bc.dtype], stream)
+            bt, b_exact = _tf32x3_planes(b, stream)
+            _bell_spmm_tf32x3(lib, cols.data_ptr(), data.data_ptr(), bt[0].data_ptr(),
+                              None if b_exact else bt[1].data_ptr(), bt.stride(1), y.data_ptr(),
+                              mb, ellw, bs, m, n, k, float(alpha), _DTYPE_CODE[data.dtype],
+                              _DTYPE_CODE[b.dtype], stream)
     return y
 
 
 bell_spmm_pallas.launches = 0
 
 
+def _tf32x3_planes(b, stream: int):
+    """B as ``tml_bell_spmm_tf32x3`` reads it: Bᵀ's TF32 planes (2, k, n)
+    from one split of B (a 16-bit B widened first), with whether B is exact
+    in TF32 (its lo plane 0, not read). A goes as it lies, in its own dtype:
+    the kernel widens a 16-bit A in registers."""
+    bt = tf32x3._split_launch(tf32x3.Tf32x3(), stream, b.to(F32), transpose=True)
+    return bt, b.dtype != F32
+
+
 def _bell_spmm_wgmma(lib, *args):
-    """One launch of the tensor-core SpMM, csrc/bell_wgmma.cu."""
+    """One launch of the 16-bit SpMM, csrc/bell_wgmma.cu."""
     cuda_utils.check_launch(lib, lib.tml_bell_spmm_wgmma(*args), "tml_bell_spmm_wgmma")
     _bell_spmm_wgmma.launches += 1
     bell_spmm_pallas.launches += 1
 
 
-def _bell_spmm_simt(lib, *args):
-    """One launch of the SIMT SpMM, csrc/bell_sparse.cu."""
-    cuda_utils.check_launch(lib, lib.tml_bell_spmm(*args), "tml_bell_spmm")
-    _bell_spmm_simt.launches += 1
+def _bell_spmm_tf32x3(lib, *args):
+    """One launch of the 3xTF32 SpMM of f32 and mixed pairs, csrc/bell_wgmma.cu."""
+    cuda_utils.check_launch(lib, lib.tml_bell_spmm_tf32x3(*args), "tml_bell_spmm_tf32x3")
+    _bell_spmm_tf32x3.launches += 1
     bell_spmm_pallas.launches += 1
 
 
 _bell_spmm_wgmma.launches = 0
-_bell_spmm_simt.launches = 0
+_bell_spmm_tf32x3.launches = 0
 
 
 def _spmv_takes(a: BlockedELL, x) -> bool:
