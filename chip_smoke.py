@@ -143,11 +143,14 @@ Phases; any failure raises and the exit code is non-zero:
    may spill); then each route of phase 16 on the host clock.
 18. dx solver kernels — tml_potrf_batched, tml_getrf_batched (pivot on and
    off) and tml_geqrf_batched (csrc/dx_solver.cu) against their plain
-   versions and float64 at n = 8 … 256 (256 works in place in device memory)
-   on a batch of 37, gesv and posv with 1 and 4 right-hand sides, with the
+   versions and float64 at n = 8 … 256 on a batch of 37 (potrf's and getrf's
+   routes: a warp a matrix to n = 32, 32-column panels to 224, in place at
+   225 and 256), gesv and posv with 1, 4 and 33 right-hand sides, with the
    residuals L·Lᵀ − A, P·A − L·U (|L| ≤ 1), Q·R − A, QᵀQ − I and A·X − B,
-   and a bf16 control that each tolerance must stay under; pivot ties, a non-SPD matrix among SPD ones (C10) and a NaN in a pivot
-   column (C11), and a zero column for geqrf.
+   and a bf16 control that each tolerance must stay under; pivot ties, a
+   non-SPD matrix among SPD ones (C10), a NaN in a pivot column (C11) and a
+   zero pivot column beside a NaN matrix (pad rows past n on the panel
+   route), and a zero column for geqrf.
 19. dx main path — bench.py's batch 8192 × n 32 through potrf_batched and
    getrf_batched (pivot on and off; the packed routes), geqrf_batched,
    gesv_batched and posv_batched (4 right-hand sides), potrf and getrf at
@@ -157,26 +160,30 @@ Phases; any failure raises and the exit code is non-zero:
    version (pivot mismatches counted) and its residuals.
 20. dx times — CUDA events over back-to-back calls for each route of phase
    19, its plain version and its torch.linalg call, with the share of the
-   bound.
+   bound; the Cholesky's and the LU's kernels' registers and spills (none
+   may spill).
 21. dx least squares and Jacobi — tml_unmqr_batched, tml_gels_batched
    (csrc/dx_solver.cu), tml_syevd_batched and tml_gesvd_batched
    (csrc/dx_jacobi.cu) through the public functions against their plain
    versions and float64 at batch 37: syevd and gesvd at n = 1 … 64 on both
    routes (a warp a matrix to n = 32, a block beyond), unmqr at
-   m = n = 32 and m = 64 × n = 32 both ways, gels at (32, 32), (64, 32) and
-   (48, 10) with 1 and 4 right-hand sides; circulant matrices and
+   m = n = 32 and m = 64 × n = 32 both ways, gels on its warp route (m ≤
+   64, n ≤ 32, k ≤ 32) at (32, 32), (64, 32), (48, 10), (33, 1) and (64, 1)
+   with 1, 4 and 32 right-hand sides and on its block route at (65, 32) and
+   k = 33; circulant matrices and
    0.5·ones + 0.5·I, whose ties the reference never turns (ROADMAP C12),
    against eigvalsh and svdvals; a bf16 control above every tolerance.
 22. dx lsq/eig main path — gels_batched at 8192 × 64 × 32 (k = 4),
    unmqr_batched both ways on geqrf_batched's 8192 × 32 factors, syevd and
    gesvd at 8192 × 32 and 2048 × 64: each must grow its kernel's count by
-   one (syevd and gesvd also their route's: warp at 32, block at 64) and
+   one (gels also its warp route's; syevd and gesvd their route's: warp at
+   32, block at 64) and
    agree with its plain version and float64; then syevj_batched,
    gesvdj_batched (8192 × 32, float64), xsyevd (n = 2048) and xgesvd (4096²), which
    launch no kernel, against float64.
 23. dx lsq/eig times — CUDA events for each route of phase 22, the plain
    version and the library call (lstsq, ormqr, eigh, svd), with the share of
-   the bound and the Jacobi route; the Jacobi warp kernels' registers and
+   the bound and the route; the gels and Jacobi warp kernels' registers and
    spills (none may spill).
 24. codec and fused kernels — tml_cascaded_encode, tml_cascaded_decode,
    tml_cascaded_decode_dot (csrc/dx_comp.cu) and tml_gemm_fft
@@ -2692,15 +2699,16 @@ def phase_sparse_times(spd: dict, card: str) -> dict:
     return ms
 
 
-DX_KERNEL_NS = (8, 16, 24, 31, 32, 33, 48, 64, 96, 127, 128, 256)   # phase 18's sizes: potrf's
-# routes (dx.solver._potrf_route) are a warp to 32, panels to 224, in place at 256
+DX_KERNEL_NS = (8, 16, 24, 31, 32, 33, 48, 63, 64, 96, 127, 128, 224, 225, 256)   # phase 18's
+# sizes: potrf's and getrf's routes (dx.solver._potrf_route, _getrf_route) are a warp to 32,
+# panels to 224, in place from 225
 DX_KERNEL_BATCH = 37                                # a batch that is a multiple of nothing
 DX_MAIN = (8192, 32)   # (batch, n) of bench.py's batched lines (bench.py:366)
 DX_WIDE = (1024, 128)  # (batch, n) of the _run_batched route
 DX_K = 4               # right-hand sides of gesv and posv
 DX_COUNTS = (dxs._potrf, dxs._getrf, dxs._geqrf, pallas_matmul, gemm._gemm_tf32x3,
              gemm._gemm_simt)
-LU_ROUTES = ("warp", "block")   # dx.solver._getrf_route's routes, each counted apart
+LU_ROUTES = ("warp", "panel", "in place")   # dx.solver._getrf_route's routes, each counted apart
 # Max-scaled tolerance of each kernel's factors against its plain version, on
 # the matrices whose pivots agree. The kernels contract multiply-adds to FMAs
 # and sum in their own order, and elimination carries those roundings on, so
@@ -2796,13 +2804,6 @@ def _dx_control(kind: str, m) -> float:
     return max_scaled_err(lu_lo[agree], lu[agree])
 
 
-def _lu_route_label(n: int, k: int, where: str) -> str:
-    """The route tml_getrf_batched takes at (n, k): "warp", or "block" in
-    shared memory or in place."""
-    route = dxs._getrf_route(n, k)
-    return route if route == "warp" else f"block, {where}"
-
-
 def _lu_close(lu, lu_p) -> bool:
     return max_scaled_err(lu, lu_p) <= DX_TOL["getrf"]
 
@@ -2811,8 +2812,10 @@ def phase_dx_kernel(dev) -> None:
     """The three kernels of csrc/dx_solver.cu against their plain versions
     and float64 on the host, at n = 8 … 256 and a batch of 37: potrf's three
     routes (``dx.solver._potrf_route``: a warp a matrix to n = 32, 32-column
-    panels to 224, in place at 256; posv also at n = 32 with k = 32), and
-    getrf's and geqrf's shared-memory and in-place instantiations. Against the
+    panels to 224, in place from 225; posv also at n = 32 with k = 32), and
+    getrf's three routes (the same rule: ``dx.solver._getrf_route``; each
+    line names its route; the solves also at k = 33, which puts n = 224 in
+    place) and geqrf's shared-memory and in-place instantiations. Against the
     plain version, max-scaled, DX_TOL on the factors of the matrices whose
     pivots agree (the kernels' FMAs and order of summation round otherwise,
     and a near-tie may pick another pivot: the count of matrices whose
@@ -2824,12 +2827,12 @@ def phase_dx_kernel(dev) -> None:
     below 5e-5, |L| ≤ 1 with pivoting, and the solves' normwise backward
     error below 1e-5. At n = 32 and 128 the bf16 control (_dx_control) must
     exceed each tolerance. Then the cases of ROADMAP C10 and C11, ties and
-    a zero column. getrf and gesv take a warp a matrix for n, k ≤ 32 and a
-    block above (``dx.solver._getrf_route``; each line names its route): the
-    ties and C11 also at n = 16, and a zero pivot column with a NaN matrix
-    among good ones (C10) at n = 16 (pad rows past n) and 32, whose pivots
-    and NaN must be the plain version's and whose good matrices must equal
-    their factors alone."""
+    a zero column. The LU's ties and C11 at n = 16, 32 (warp), 48 and 128
+    (panels), and a zero pivot column with a NaN matrix among good ones (C10)
+    at n = 16, 32, 48, 100 and 128 (pad rows past n at 16, 48 and 100: 0 / 0
+    would make them NaN, and a NaN row wins a pivot), whose pivots and NaN
+    must be the plain version's and whose good matrices must equal their
+    factors alone."""
     gen = torch.Generator(device=dev).manual_seed(7373)
     failures, cases = [], 0
 
@@ -2862,7 +2865,7 @@ def phase_dx_kernel(dev) -> None:
             vs_p = max_scaled_err(lu[agree], lu_p[agree]) if bool(agree.any()) else 0.0
             res, lmax = _lu_residual(m.cpu(), lu.cpu(), piv.cpu())
             in_range = bool(((piv >= 0) & (piv < n)).all())
-            hold(f"getrf pivot={pivot} n={n} ({_lu_route_label(n, 0, where)})",
+            hold(f"getrf pivot={pivot} n={n} ({dxs._getrf_route(n)})",
                  vs_p <= DX_TOL["getrf"] and res < 5e-5 and (lmax <= 1 + 1e-6 or not pivot)
                  and in_range
                  and int((~agree).sum()) <= 3,
@@ -2880,7 +2883,8 @@ def phase_dx_kernel(dev) -> None:
                 hold(f"{kind} bf16 control n={n}", ctl > DX_TOL[kind],
                      f"{ctl:.3e} above the tolerance {DX_TOL[kind]:g}")
         piv_agree = _pivots_agree(dxs._getrf(g)[1], dxs._getrf_plain(g)[1])
-        for k in (1, DX_K) + ((32,) if n == 32 else ()):   # k = 32: the warp route's widest
+        # k = 32: the warp route's widest; 33: the panel route's (in place at n = 224)
+        for k in (1, DX_K) + ((32,) if n == 32 else ()) + ((33,) if n >= 32 else ()):
             rhs = torch.randn((bsz, n, k), generator=gen, device=dev)
             for kind, m, run, plain in (("gesv", g, lambda m, b: dxs._getrf(m, True, b),
                                          dxs._gesv_plain),
@@ -2895,12 +2899,12 @@ def phase_dx_kernel(dev) -> None:
                 fwd = float(((x[sel] - x_p[sel]).double().cpu().flatten(1).abs().amax(1)
                              / _amax(x_p[sel].double().cpu()).clamp(min=1) / cond).max())
                 res = _solve_residual(m.cpu(), x.cpu(), rhs.cpu())
-                route = dxs._potrf_route(n, k) if kind == "posv" else _lu_route_label(n, k, where)
+                route = dxs._potrf_route(n, k) if kind == "posv" else dxs._getrf_route(n, k)
                 hold(f"{kind} n={n} k={k} ({route})", fwd <= 5e-5 and res < 1e-5
                      and bool(torch.isfinite(x).all()),
                      f"vs plain / cond {fwd:.3e} backward error {res:.3e}")
 
-    for n in (16, 32, 48):   # ties: -5 at row 7 and 5 at row 12 give pivot 7
+    for n in (16, 32, 48, 128):   # ties: -5 at row 7 and 5 at row 12 give pivot 7
         m = 0.01 * torch.randn((3, n, n), generator=gen, device=dev)
         m[:, 7, 0], m[:, 12, 0] = -5.0, 5.0
         p0 = dxs._getrf(m)[1][:, 0].tolist()
@@ -2921,7 +2925,7 @@ def phase_dx_kernel(dev) -> None:
         hold(f"C10 non-SPD among SPD n={n}", alone and pattern and same,
              f"neighbours alone {alone}, NaN from column 10 on {pattern}, as plain {same}")
     # C11: NaN in a pivot column: pivots in range, the first NaN row, NaN in LU
-    for n in (16, 32, 48):
+    for n in (16, 32, 48, 128):
         m = torch.randn((3, n, n), generator=gen, device=dev)
         m[0, 5, 0] = m[0, 9, 0] = float("nan")
         lu, piv = dxs._getrf(m)
@@ -2930,9 +2934,10 @@ def phase_dx_kernel(dev) -> None:
               and bool(lu[0].isnan().any()) and torch.equal(piv, piv_p))
         hold(f"C11 NaN in pivot column n={n}", ok,
              f"piv[0][:4] {piv[0, :4].tolist()}, NaN in LU {bool(lu[0].isnan().any())}")
-    # getrf's warp route: a zero pivot column (0/0 from there on; the pad rows
-    # past n = 16 are never pivots) and C10 (a NaN stays in its own matrix)
-    for n in (16, 32):
+    # getrf's warp and panel routes: a zero pivot column (0/0 from there on;
+    # the pad rows past n = 16, 48 and 100 are never pivots) and C10 (a NaN
+    # stays in its own matrix)
+    for n in (16, 32, 48, 100, 128):
         m = torch.randn((8, n, n), generator=gen, device=dev)
         m[1, :, 3] = 0.0
         m[2, n - 1, 4] = float("nan")
@@ -3019,7 +3024,8 @@ def phase_dx_main(dev) -> dict:
     torch.cuda.synchronize()
     for f in DX_COUNTS:
         f.launches = 0
-    dxs._getrf.warp_launches = dxs._getrf.block_launches = 0
+    for r in LU_ROUTES:
+        setattr(dxs._getrf, f"{r.replace(' ', '_')}_launches", 0)
     outs, grew, route_grew = {}, {}, {}
     for name, (route, _, _, _) in routes.items():
         before, before_routes = {f.__name__: f.launches for f in DX_COUNTS}, _lu_counts()
@@ -3109,7 +3115,8 @@ def phase_dx_main(dev) -> dict:
 
 def _lu_counts() -> dict:
     """Launches of the batched LU on each route, as "_getrf.warp"."""
-    return {f"_getrf.{r}": getattr(dxs._getrf, f"{r}_launches") for r in LU_ROUTES}
+    return {f"_getrf.{r}": getattr(dxs._getrf, f"{r.replace(' ', '_')}_launches")
+            for r in LU_ROUTES}
 
 
 def _dx_nk(name: str) -> tuple[int, int]:
@@ -3143,8 +3150,8 @@ def phase_dx_times(dxd: dict, card: str) -> dict:
     cholesky_ex, lu_factor_ex with pivot on and off, torch.geqrf,
     torch.linalg.solve for gesv and posv, torch.linalg.cholesky for
     potrf_blocked), each beside its bound; and the registers and spills of
-    the three Cholesky routes' kernels and the LU's warp kernels (none may
-    spill)."""
+    the three Cholesky routes' kernels and the LU's warp and panel kernels
+    (none may spill)."""
     fast, slow = {}, {}
     for name, (route, _, plain, library) in dxd["routes"].items():
         target = slow if name.startswith("potrf_blocked") else fast
@@ -3155,7 +3162,8 @@ def phase_dx_times(dxd: dict, card: str) -> dict:
     ms = _loop_ms(fast, warmup=3, reps=20, samples=5)
     ms.update(_loop_ms(slow, warmup=1, reps=2, samples=3))
     ms["ptxas"] = _ptxas_report("potrf_", "dx-times")
-    ms["lu_ptxas"] = _ptxas_report("getrf_warp_kernel", "dx-times")
+    ms["lu_ptxas"] = {route: _ptxas_report(f"getrf_{route}_kernel", "dx-times")
+                      for route in ("warp", "panel")}
     bounds = {}
     for name, (_, count, _, _) in dxd["routes"].items():
         bounds[name] = bound = _dx_bound(name)
@@ -3172,14 +3180,19 @@ def phase_dx_times(dxd: dict, card: str) -> dict:
 
 
 DXE_KERNEL_NS = (1, 2, 7, 8, 16, 31, 32, 63, 64)   # phase 21's Jacobi sizes: both routes
-DXE_LSQ = ((32, 32), (64, 32), (48, 10))     # phase 21's (m, n) of gels and unmqr
+DXE_LSQ = ((32, 32), (64, 32))     # phase 21's (m, n) of unmqr
+# phase 21's gels cases, ((m, n), right-hand sides): the warp route (m <= 64, n <= 32, k <= 32)
+# at its corners, the block route past each of its edges
+DXE_GELS_CASES = (((32, 32), (1, 4, 32)), ((64, 32), (1, 4, 32, 33)), ((48, 10), (1, 4, 32)),
+                  ((33, 1), (1, 4, 32)), ((64, 1), (1, 4, 32)), ((65, 32), (1, 4)))
 DXE_GELS = (8192, 64, 32, 4)   # (batch, m, n, k): 8192 fits of 32 coefficients to 64 samples
 DXE_SQ = (8192, 32)            # (batch, n) of unmqr (k = 4), syevd and gesvd
 DXE_WIDE = (2048, 64)          # (batch, n) of syevd and gesvd at the reference's largest n
 XSYEVD_N = 2048                # bench.py:354-362
 XGESVD_N = 4096
 DXE_COUNTS = (dxs._unmqr, dxs._gels, dxs._syevd, dxs._gesvd)
-JACOBI_ROUTES = ("warp", "block")   # dx.solver._jacobi_route's routes, each counted apart
+ROUTED = (dxs._gels, dxs._syevd, dxs._gesvd)   # wrappers that also count each route's launches
+DXE_ROUTES = ("warp", "block")   # their routes (dx.solver._gels_route, _jacobi_route)
 # Tolerances of each kernel against its plain version (kernels B7e-B7h): values
 # (w, s) max-scaled; vectors signed and scaled by their gap (_vec_err); X over
 # max|X| and A's condition (_x_err); Q·C max-scaled. Set from the card's
@@ -3318,8 +3331,9 @@ def phase_dxe_kernel(dev) -> None:
     csrc/dx_jacobi.cu) against their plain versions and float64, batch 37,
     through the public functions (which sort the Jacobi results): syevd and
     gesvd at n = 1 … 64 on both routes (each case prints its route), unmqr
-    at (m, n) = (32, 32) and (64, 32) with both trans, gels at (32, 32),
-    (64, 32), (48, 10), k = 1 and 4. Against the plain version DXE_TOL;
+    at (m, n) = (32, 32) and (64, 32) with both trans, k = 1 and 4, gels at
+    DXE_GELS_CASES on both its routes (each case prints its route). Against
+    the plain version DXE_TOL;
     against float64 the reference test's bounds
     (tests/test_dx_solver.py:128-214): w and s within 2e-4 of the largest,
     AV − VΛ and U·S·Vᵀ − A below 5e-4·max|A|·n, VᵀV − I below 5e-4 (syevd)
@@ -3360,20 +3374,22 @@ def phase_dxe_kernel(dev) -> None:
              and rec < 5e-4 and orth < 1e-3,
              f"vs plain s {e_v:.3e} U,V {e_vec:.3e} | f64 s {e_s:.3e} USVᵀ−A {rec:.3e} orth {orth:.3e}",
              values=e_v, vectors=e_vec)
+    for (m, n), ks in DXE_GELS_CASES:
+        a = torch.randn((bsz, m, n), generator=gen, device=dev)
+        for k in ks:
+            b = torch.randn((bsz, m, k), generator=gen, device=dev)
+            x, x_p = dxs.gels_batched(a, b), _plain_of(lambda: dxs.gels_batched(a, b))()
+            e_x, x64 = _x_err(a, x, x_p), _lstsq64(a, b)
+            e_64 = float(((x.double() - x64).flatten(1).abs().amax(1) / _amax(x64)).max())
+            hold(f"gels m={m} n={n} k={k} {dxs._gels_route(m, n, k)}",
+                 e_x <= tol["x"] and e_64 < 5e-4 and bool(torch.isfinite(x).all()),
+                 f"vs plain / cond {e_x:.3e} | vs f64 lstsq {e_64:.3e}", x=e_x)
     for m, n in DXE_LSQ:
         a = torch.randn((bsz, m, n), generator=gen, device=dev)
         qr, taus = dxs._geqrf_plain(a)
         q64 = _q_of(qr, taus)
         for k in (1, DX_K):
             b = torch.randn((bsz, m, k), generator=gen, device=dev)
-            x, x_p = dxs.gels_batched(a, b), _plain_of(lambda: dxs.gels_batched(a, b))()
-            e_x, x64 = _x_err(a, x, x_p), _lstsq64(a, b)
-            e_64 = float(((x.double() - x64).flatten(1).abs().amax(1) / _amax(x64)).max())
-            hold(f"gels m={m} n={n} k={k}", e_x <= tol["x"] and e_64 < 5e-4
-                 and bool(torch.isfinite(x).all()),
-                 f"vs plain / cond {e_x:.3e} | vs f64 lstsq {e_64:.3e}", x=e_x)
-            if n == 10:   # unmqr at (32, 32) and (64, 32)
-                continue
             for trans in (True, False):
                 qc = dxs.unmqr_batched(qr, taus, b, trans)
                 qc_p = _plain_of(lambda: dxs.unmqr_batched(qr, taus, b, trans))()
@@ -3447,18 +3463,19 @@ def _dxe_routes(x):
             for name, (route, count, library) in routes.items()}
 
 
-def _jacobi_line_route(name: str) -> str | None:
-    """The route of a syevd_batched or gesvd_batched line of phase 22 (None
-    for the other lines)."""
+def _line_route(name: str) -> str | None:
+    """The route of a gels_batched, syevd_batched or gesvd_batched line of
+    phase 22 (None for the other lines)."""
+    if name.startswith("gels_batched"):
+        return dxs._gels_route(*DXE_GELS[1:])
     if not name.startswith(("syevd_batched", "gesvd_batched")):
         return None
     return dxs._jacobi_route(int(re.search(r" n(\d+)", name).group(1)))
 
 
-def _jacobi_counts() -> dict:
-    """Launches of each Jacobi wrapper on each route, as "_syevd.warp"."""
-    return {f"{f.__name__}.{r}": getattr(f, f"{r}_launches") for f in (dxs._syevd, dxs._gesvd)
-            for r in JACOBI_ROUTES}
+def _route_counts() -> dict:
+    """Launches of each wrapper of ROUTED on each route, as "_syevd.warp"."""
+    return {f"{f.__name__}.{r}": getattr(f, f"{r}_launches") for f in ROUTED for r in DXE_ROUTES}
 
 
 def phase_dxe_main(dev) -> dict:
@@ -3466,8 +3483,9 @@ def phase_dxe_main(dev) -> dict:
     batch 8192 × m 64 × n 32, k 4; unmqr_batched both ways on
     geqrf_batched's factors of 8192 × 32 × 32 and C (8192, 32, 4);
     syevd_batched and gesvd_batched at 8192 × 32 and 2048 × 64. Each must
-    grow its kernel's count by one (syevd and gesvd: and the count of their
-    route, the warp route at n = 32 and the block route at 64, and no other)
+    grow its kernel's count by one (gels: and its warp route's; syevd and
+    gesvd: and the count of their route, the warp route at n = 32 and the
+    block route at 64, and no other)
     and is held to its plain version
     (DXE_TOL) and to float64 (phase 21's bounds). Then the routes that
     launch no kernel, against float64: syevj_batched and gesvdj_batched at
@@ -3493,21 +3511,21 @@ def phase_dxe_main(dev) -> dict:
     torch.cuda.synchronize()
     for f in DXE_COUNTS:
         f.launches = 0
-    for f in (dxs._syevd, dxs._gesvd):
-        for r in JACOBI_ROUTES:
+    for f in ROUTED:
+        for r in DXE_ROUTES:
             setattr(f, f"{r}_launches", 0)
     outs, grew, route_grew, events = {}, {}, {}, {}
     for name, (route, _, _, _) in routes.items():
-        before, before_routes = {f.__name__: f.launches for f in DXE_COUNTS}, _jacobi_counts()
+        before, before_routes = {f.__name__: f.launches for f in DXE_COUNTS}, _route_counts()
         events[name] = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         events[name][0].record()
         outs[name] = route()
         events[name][1].record()
         grew[name] = {f.__name__: f.launches - before[f.__name__] for f in DXE_COUNTS}
-        route_grew[name] = {k: t - before_routes[k] for k, t in _jacobi_counts().items()}
+        route_grew[name] = {k: t - before_routes[k] for k, t in _route_counts().items()}
     torch.cuda.synchronize()
     once_ms = {name: start.elapsed_time(end) for name, (start, end) in events.items()}
-    launches = {f.__name__: f.launches for f in DXE_COUNTS} | _jacobi_counts()
+    launches = {f.__name__: f.launches for f in DXE_COUNTS} | _route_counts()
     print(f"[dxe] launches in the main path: {launches}", flush=True)
 
     tol, max_abs, failures = DXE_TOL, {}, []
@@ -3517,10 +3535,10 @@ def phase_dxe_main(dev) -> dict:
             launched = sum(grew[name].values()) == 0
         else:
             launched = grew[name][count] == 1 and sum(grew[name].values()) == 1
-        want = _jacobi_line_route(name)
-        if want is not None:   # one launch, on the route of its n
+        want = _line_route(name)
+        if want is not None:   # one launch, on the route of its shape
             launched = launched and all(
-                route_grew[name][f"{count}.{r}"] == (r == want) for r in JACOBI_ROUTES)
+                route_grew[name][f"{count}.{r}"] == (r == want) for r in DXE_ROUTES)
         if name.startswith("gels"):
             x_p = plain_fn()
             e_x, x64 = _x_err(x["a"], out, x_p), _lstsq64(x["a"], x["b"])
@@ -3634,9 +3652,9 @@ def phase_dxe_times(dxe: dict, card: str) -> dict:
     """CUDA events around back-to-back calls (``_loop_ms``) of each route of
     phase 22, its plain version (short loops) and its library call
     (torch.linalg.lstsq with driver gels, torch.ormqr, torch.linalg.eigh,
-    torch.linalg.svd), each beside its bound, the Jacobi kernels' with their
-    route; and the registers and spills of the Jacobi warp route's kernels
-    (none may spill). A call that takes more than 100 ms (the Jacobi plain
+    torch.linalg.svd), each beside its bound, gels' and the Jacobi kernels'
+    with their route; and the registers and spills of the gels and Jacobi
+    warp routes' kernels (none may spill). A call that takes more than 100 ms (the Jacobi plain
     versions, torch.ormqr, which loops over the batch, and eigh and svd at
     n = 64) is timed once in each turn; the routes that launch no kernel
     keep their one call of phase 22."""
@@ -3653,7 +3671,8 @@ def phase_dxe_times(dxe: dict, card: str) -> dict:
     ms.update(_loop_ms(slowest, warmup=0, reps=1, samples=1))
     ms.update({f"{name} route": t for name, t in dxe["once_ms"].items()
                if dxe["routes"][name][1] is None})
-    ms["ptxas"] = {k: _ptxas_report(f"{k}_warp_kernel", "dxe-times") for k in ("syevd", "gesvd")}
+    ms["ptxas"] = {k: _ptxas_report(f"{k}_warp_kernel", "dxe-times")
+                   for k in ("gels", "syevd", "gesvd")}
     bounds = {}
     for name, (_, count, _, _) in dxe["routes"].items():
         if count is None:
@@ -3661,10 +3680,10 @@ def phase_dxe_times(dxe: dict, card: str) -> dict:
                   f"22; no kernel of the repository) | {card}", flush=True)
             continue
         bounds[name] = bound = _dxe_bound(name)
-        jacobi = _jacobi_line_route(name)
+        taken = _line_route(name)
         for route in ("kernel", "plain", "library"):
             t = ms[f"{name} {route}"]
-            on = f" ({jacobi} route)" if jacobi and route == "kernel" else ""
+            on = f" ({taken} route)" if taken and route == "kernel" else ""
             print(f"[dxe-times] {name:34s} {route:7s} {t:.4f} ms{on} | bound "
                   f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), {bound['bound_ms'] / t:.1%} "
                   f"of it | {card}", flush=True)
@@ -5861,7 +5880,7 @@ def main() -> None:
            if count == "_potrf" else {}),
         **({"getrf_route": dxs._getrf_route(*_dx_nk(line)),
             "route_launches": dxd["route_grew"][line][f"_getrf.{dxs._getrf_route(*_dx_nk(line))}"],
-            **({"ptxas": dx_ms["lu_ptxas"]} if dxs._getrf_route(*_dx_nk(line)) == "warp" else {})}
+            "ptxas": dx_ms["lu_ptxas"][dxs._getrf_route(*_dx_nk(line))]}
            if count == "_getrf" else {}),
     } for name, line, count, site in (
         ("potrf_batched_packed (tml_potrf_batched)", "potrf_batched b8192 n32", "_potrf", "977"),
@@ -5875,8 +5894,8 @@ def main() -> None:
         ("posv_batched (tml_potrf_batched with a right-hand side)", "posv_batched b8192 n32 k4",
          "_potrf", "359"),
         ("potrf_batched n=128 (tml_potrf_batched)", "potrf_batched b1024 n128", "_potrf", "222"),
-        ("getrf_batched n=128 block route (tml_getrf_batched: getrf_kernel, n >= 33)",
-         "getrf_batched b1024 n128", "_getrf", "222"))] + [{
+        ("getrf_batched n=128 panel route (tml_getrf_batched: getrf_panel_kernel, 32-column "
+         "panels, n <= 224)", "getrf_batched b1024 n128", "_getrf", "222"))] + [{
         "name": name,
         "route": "cuda",
         "source": f"tpumathlib_torch/csrc/{source}",
@@ -5887,13 +5906,13 @@ def main() -> None:
         "plain_ms": dxe_ms[f"{line} plain"],
         **dxe_ms["bounds"][line],
         "library_ms": dxe_ms[f"{line} library"],
-        **({"jacobi_route": _jacobi_line_route(line)} if _jacobi_line_route(line) else {}),
-        **({"ptxas": dxe_ms["ptxas"][count[1:6]]} if count.endswith(".warp") else {}),
+        **({"kernel_route": _line_route(line)} if _line_route(line) else {}),
+        **({"ptxas": dxe_ms["ptxas"][count.split(".")[0][1:]]} if count.endswith(".warp") else {}),
     } for name, line, count, source, site in (
         ("unmqr_batched (tml_unmqr_batched)", "unmqr_batched trans b8192 n32 k4", "_unmqr",
          "dx_solver.cu", "597"),
-        ("gels_batched (tml_gels_batched)", "gels_batched b8192 m64 n32 k4", "_gels",
-         "dx_solver.cu", "637"),
+        ("gels_batched warp route (tml_gels_batched: gels_warp_kernel, m <= 64, n <= 32, k <= 32)",
+         "gels_batched b8192 m64 n32 k4", "_gels.warp", "dx_solver.cu", "637"),
         ("syevd_batched warp route (tml_syevd_batched: syevd_warp_kernel, n <= 32)",
          "syevd_batched b8192 n32", "_syevd.warp", "dx_jacobi.cu", "758"),
         ("syevd_batched block route (tml_syevd_batched: syevd_kernel, 33 <= n <= 64)",

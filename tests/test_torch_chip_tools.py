@@ -65,6 +65,7 @@ def test_f32_paths_run_on_the_cpu(monkeypatch):
     monkeypatch.setattr(mod, "FFT", (4, 256))
     monkeypatch.setattr(mod, "BATCHED", ((8, 32), (2, 128)))
     monkeypatch.setattr(mod, "JACOBI", ((4, 32), (2, 64)))
+    monkeypatch.setattr(mod, "GELS", (8, 64, 32, 4))
     monkeypatch.setattr(mod, "MP", (64, 32, 128))
     monkeypatch.setattr(mod, "VV10", 300)
     paths = mod._paths(torch.device("cpu"))
@@ -83,6 +84,7 @@ def test_f32_paths_run_on_the_cpu(monkeypatch):
                                     "getrf_batched_8192x32", "getrf_batched_nopivot_8192x32",
                                     "gesv_batched_8192x32_k4", "getrf_batched_1024x128",
                                     "geqrf_batched_8192x32", "geqrf_batched_1024x128",
+                                    "gels_batched_8192x64x32_k4",
                                     "syevd_batched_8192x32", "gesvd_batched_8192x32",
                                     "syevd_batched_2048x64", "gesvd_batched_2048x64",
                                     "matmul_ag_overlapped", "matmul_rs_overlapped"])

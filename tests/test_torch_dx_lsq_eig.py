@@ -554,3 +554,147 @@ def test_cpu_takes_plain_versions_without_launch():
     port.gels_batched(g, g)
     port.unmqr_batched(g, g[:, 0], g)
     assert _grew(before) == [0, 0, 0, 0]
+
+
+# ---------------------------------------------------------------------------
+# tml_gels_batched's warp route, mirrored in numpy (csrc/dx_solver.cu's
+# gels_warp_kernel)
+
+def _sum4(term, lo, m, shape):
+    """The kernel's sum of term(r) over rows lo ≤ r < m: four partial sums by
+    row mod 4, added as (s0 + s1) + (s2 + s3)."""
+    part = np.zeros((4,) + shape, np.float32)
+    for r in range(lo, m):
+        part[r % 4] = part[r % 4] + term(r)
+    return (part[0] + part[1]) + (part[2] + part[3])
+
+
+def _model_warp_gels(a, b):
+    """gels_warp_kernel on f32 A (B, m, n) and B (B, m, k), m ≤ 64, n, k ≤
+    32: lane c holds column c of A (rows to 32·R, zeros past m and n that
+    take no part), lane r rows r and r + 32 of B. Step j: the tail's sum of
+    squares (``_sum4``), then x_j² added, and geqrf_steps' dlarfg scalars;
+    every lane c ≥ j forms w_c = tau_h·Σ v_r a_rc (``_sum4``) and
+    subtracts v_r w_c (lane j keeps R's entry and v_r / v_j below it, as the
+    kernel's division after the last step leaves it); B takes the stored
+    reflectors in order (v_j = 1, tau = tau_h·v_j²): each lane's rows summed
+    (row r, then r + 32), the lanes added by the 5-step xor butterfly, then
+    each row updated. Then R·X = Y by warp_solve_step's steps, j
+    descending. Without the kernel's FMAs. Returns X (B, n, k)."""
+    bsz, m, n = a.shape
+    k = b.shape[-1]
+    mm = 32 if m <= 32 else 64
+    lanes = np.arange(32)
+    col = np.zeros((bsz, 32, mm), np.float32)      # col[:, c, r] = A(r, c)
+    col[:, :n, :m] = a.transpose(0, 2, 1)
+    xs = np.zeros((bsz, mm // 32, 32, k), np.float32)   # xs[:, q, lane] = B's row lane + 32 q
+    xs.reshape(bsz, mm, k)[:, :m] = b
+    f32 = np.float32
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        for j in range(n):
+            cj = col[:, j]
+            ts = _sum4(lambda r: cj[:, r] * cj[:, r], j + 1, m, (bsz,))
+            xj = cj[:, j].copy()
+            ss = ts + xj * xj
+            degenerate = ts == 0
+            sign = np.where(xj > 0, f32(1), np.where(xj < 0, f32(-1), np.where(xj == 0, f32(1), xj)))
+            alpha = np.where(degenerate, xj, -sign * np.sqrt(ss))
+            vj = xj - alpha
+            vsq = np.where(degenerate, f32(0), ts + vj * vj)
+            safe = vsq > 0
+            tau_h = np.where(safe, f32(2) / np.where(safe, vsq, f32(1)), f32(0))
+            vdiv = np.where(vj == 0, f32(1), vj)
+            tau = np.where(safe, tau_h * vj * vj, f32(0))
+            v = np.where(degenerate[:, None], f32(0), cj.copy())
+            v[:, j] = np.where(degenerate, f32(0), vj)
+            acc = _sum4(lambda r: v[:, r, None] * col[:, :, r], j, m, (bsz, 32))
+            wc = np.where(degenerate[:, None], f32(0), acc * tau_h[:, None])
+            upd = (lanes >= j) & (lanes < n)
+            for r in range(j, m):
+                col[:, :, r] = np.where(upd, col[:, :, r] - v[:, r, None] * wc, col[:, :, r])
+            col[:, j, j + 1:m] = v[:, j + 1:m] / vdiv[:, None]
+            vr = np.zeros((bsz, mm), f32)
+            vr[:, :m] = v[:, :m] / vdiv[:, None]
+            vr[:, j] = 1
+            on = ((np.arange(mm) >= j) & (np.arange(mm) < m)).reshape(mm // 32, 32)
+            vr = vr.reshape(bsz, mm // 32, 32)
+            s = np.zeros((bsz, 32, k), f32)
+            for q in range(mm // 32):
+                s = np.where(on[q][:, None], s + vr[:, q, :, None] * xs[:, q], s)
+            for off in (16, 8, 4, 2, 1):
+                s = s + s[:, lanes ^ off]
+            wq = s * tau[:, None, None]
+            xs = np.where(on[None, :, :, None], xs - vr[..., None] * wq[:, None], xs)
+        r_rows = col[:, :, :32].transpose(0, 2, 1)     # r_rows[:, r, c] = R(r, c)
+        x = xs[:, 0].copy()
+        for j in reversed(range(n)):
+            y = x[:, j] / r_rows[:, j, j, None]
+            x[:, j] = y
+            x[:, :j] = x[:, :j] - r_rows[:, :j, j, None] * y[:, None]
+    return x[:, :n]
+
+
+def _gels_cases(m, n, k):
+    rng = _rng()
+    a = rng.normal(size=(5, m, n)).astype(np.float32)
+    b = rng.normal(size=(5, m, k)).astype(np.float32)
+    if n > 3:
+        a[1, :, 3] = 0.0   # C18: R[3, 3] = 0, inf in X's row 3 and NaN above
+    return a, b
+
+
+@pytest.mark.parametrize("m, n, k", [(64, 32, 4), (33, 1, 1), (48, 10, 4), (32, 32, 32),
+                                     (64, 32, 32)])
+def test_gels_warp_model_against_the_plain_version(m, n, k):
+    """The warp route's model against _gels_plain: the same NaN and inf, and
+    on the finite matrices within 1e-6 of max(|X|, 1) times A's condition
+    (chip_smoke.py's DXE_TOL for the kernel: the two sum in other orders) and
+    within the reference test's 5e-4 of float64 least squares."""
+    a, b = _gels_cases(m, n, k)
+    x = _model_warp_gels(a, b)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        want = to_numpy(port._gels_plain(from_numpy(a), from_numpy(b)))
+    np.testing.assert_array_equal(np.isnan(x), np.isnan(want))
+    np.testing.assert_array_equal(np.isinf(x), np.isinf(want))
+    good = [i for i in range(5) if np.isfinite(want[i]).all()]
+    assert len(good) >= 4
+    cond = np.linalg.cond(a[good].astype(np.float64))
+    diff = np.abs(x[good] - want[good]).reshape(len(good), -1).max(1)
+    scale = np.maximum(np.abs(want[good]).reshape(len(good), -1).max(1), 1)
+    assert (diff / scale / cond).max() <= 1e-6
+    for i in good:
+        x64 = np.linalg.lstsq(a[i].astype(np.float64), b[i].astype(np.float64), rcond=None)[0]
+        np.testing.assert_allclose(x[i], x64, rtol=0, atol=5e-4 * np.abs(x64).max())
+
+
+def test_gels_warp_model_zero_column_c18():
+    """C18 on the warp route: the zero column's row of X is inf, the rows
+    above NaN (0 · inf), the rows below finite, as the plain version."""
+    a, b = _gels_cases(64, 32, 4)
+    x = _model_warp_gels(a, b)
+    assert not np.isfinite(x[1, 3]).any() and np.isnan(x[1, :3]).all()
+    assert np.isfinite(x[1, 4:]).all() and np.isfinite(x[[0, 2, 3, 4]]).all()
+
+
+def test_gels_routes():
+    assert [port._gels_route(m, n, k) for m, n, k in (
+        (1, 1, 1), (32, 32, 32), (33, 1, 1), (64, 32, 32), (64, 32, 0), (65, 32, 4), (65, 1, 1),
+        (64, 33, 4), (64, 32, 33), (300, 200, 2))] == [
+        "warp", "warp", "warp", "warp", "warp", "block", "block", "block", "block", "block"]
+
+
+@pytest.mark.parametrize("m, n, k", [(64, 32, 4), (33, 1, 1), (32, 32, 32), (65, 32, 4),
+                                     (64, 32, 33)])
+def test_cuda_branch_gels_counts_its_route(emulated, m, n, k):
+    """Each gels launch grows ``_gels.launches`` and its route's count, and
+    no work space goes to the warp route."""
+    rng = _rng()
+    a = from_numpy(rng.normal(size=(2, m, n)).astype(np.float32))
+    b = from_numpy(rng.normal(size=(2, m, k)).astype(np.float32))
+    before = (port._gels.launches, port._gels.warp_launches, port._gels.block_launches)
+    got = port.gels_batched(a, b)
+    warp = port._gels_route(m, n, k) == "warp"
+    assert (port._gels.launches, port._gels.warp_launches, port._gels.block_launches) == (
+        before[0] + 1, before[1] + int(warp), before[2] + int(not warp))
+    assert emulated.solver_calls[-1]["work"] is False
+    assert torch.equal(got, port._gels_plain(a, b))

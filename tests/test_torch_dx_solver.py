@@ -376,7 +376,7 @@ class _EmulatedLib(_EmulatedGemmLib):
         self.solver_calls = []
 
     def _refuse(self, factor, n, k):
-        return self.rc or (1 if k and not factor and port._smem_bytes(n, k) > port.SMEM_MAX
+        return self.rc or (1 if k and not factor and port._getrf_route(n, k) == "in place"
                            else 0)
 
     def tml_potrf_batched(self, a, l, b, x, batch, n, k, stream):
@@ -437,8 +437,8 @@ def _grew(before):
 
 
 def _lu_routes():
-    """Launches of the batched LU on each route: (warp, block)."""
-    return port._getrf.warp_launches, port._getrf.block_launches
+    """Launches of the batched LU on each route: (warp, panel, in place)."""
+    return port._getrf.warp_launches, port._getrf.panel_launches, port._getrf.in_place_launches
 
 
 @pytest.mark.parametrize("n", [32, 48])
@@ -457,7 +457,7 @@ def test_cuda_branch_factor_marshalling(emulated, rng, kind, n):
         got, want = dx.getrf_batched(a, pivot=pivot), port._getrf_plain(a, pivot)
         counter = [0, 1, 0, 0]
         call = dict(kernel="getrf", batch=bsz, n=n, k=0, factor=True, piv=True, pivot=int(pivot),
-                    route="warp" if n <= 32 else "block")
+                    route="warp" if n <= 32 else "panel")
     else:
         got, want, counter = dx.geqrf_batched(a), port._geqrf_plain(a), [0, 0, 1, 0]
         call = dict(kernel="geqrf", batch=bsz, n=n)
@@ -465,7 +465,7 @@ def test_cuda_branch_factor_marshalling(emulated, rng, kind, n):
     assert emulated.solver_calls == [call]
     lu_route = call.get("route")   # only that route's count grows
     assert [r - r0 for r, r0 in zip(_lu_routes(), routes)] == [
-        int(lu_route == "warp"), int(lu_route == "block")]
+        int(lu_route == "warp"), int(lu_route == "panel"), 0]
     for g_, w in zip(got, want):
         assert g_.dtype == w.dtype and torch.equal(g_, w)
 
@@ -488,7 +488,7 @@ def test_cuda_branch_solve_marshalling(emulated, rng, kind, k):
         call = dict(kernel="potrf", batch=bsz, n=n, k=k, factor=False)
     assert _grew(before) == counter
     assert emulated.solver_calls == [call]
-    assert [r - r0 for r, r0 in zip(_lu_routes(), routes)] == [int(kind == "gesv"), 0]
+    assert [r - r0 for r, r0 in zip(_lu_routes(), routes)] == [int(kind == "gesv"), 0, 0]
     assert got.shape == (bsz, n, k) and torch.equal(got, want)
 
 
@@ -877,17 +877,181 @@ def test_gesv_warp_model_takes_the_plain_steps(rng, n, k):
 
 
 def test_getrf_routes(emulated, rng):
-    """_getrf_route's rule, and each call counted on its own route."""
+    """_getrf_route's rule at its edges (n and k 32/33, the last panel n
+    against the first in-place one, with and without a right-hand side), and
+    each call counted on its own route, with a factor buffer exactly on the
+    in-place route."""
     assert [port._getrf_route(n, k) for n, k in ((1, 0), (32, 0), (32, 32), (16, 4), (33, 0),
-                                                 (32, 33), (48, 4), (256, 0))] == [
-        "warp", "warp", "warp", "warp", "block", "block", "block", "block"]
-    for n, k in ((32, 0), (32, 32), (33, 0), (32, 33)):
+                                                 (32, 33), (48, 4), (224, 0), (225, 0),
+                                                 (256, 0), (224, 4), (224, 32), (128, 321),
+                                                 (128, 322), (1, 33))] == [
+        "warp", "warp", "warp", "warp", "panel", "panel", "panel", "panel", "in place",
+        "in place", "panel", "in place", "panel", "in place", "panel"]
+    assert port._getrf_route(224, 0) == port._potrf_route(224, 0)
+    for n, k in ((32, 0), (32, 32), (33, 0), (32, 33), (225, 0), (225, 2)):
         a = from_numpy(rng.normal(size=(2, n, n)).astype(np.float32))
         routes = _lu_routes()
         if k:
             dx.gesv_batched(a, from_numpy(rng.normal(size=(2, n, k)).astype(np.float32)))
         else:
             dx.getrf_batched(a)
-        warp = port._getrf_route(n, k) == "warp"
-        assert [r - r0 for r, r0 in zip(_lu_routes(), routes)] == [int(warp), int(not warp)]
-        assert emulated.solver_calls[-1]["route"] == ("warp" if warp else "block")
+        route = port._getrf_route(n, k)
+        assert [r - r0 for r, r0 in zip(_lu_routes(), routes)] == [
+            int(route == "warp"), int(route == "panel"), int(route == "in place")]
+        assert emulated.solver_calls[-1]["route"] == route
+        assert emulated.solver_calls[-1]["factor"] is (not k or route == "in place")
+
+
+# ---------------------------------------------------------------------------
+# tml_getrf_batched's panel route, mirrored in numpy (csrc/dx_solver.cu's
+# getrf_panel_kernel)
+
+_INT_MAX = 2**31 - 1
+
+
+def _pivot_key(v, live):
+    """csrc/dx_solver.cu's pivot_key: |v|'s bits + 1 (a NaN above every
+    number), 0 for a row that is not live."""
+    m = np.abs(v).astype(np.float32)
+    key = m.view(np.uint32).astype(np.int64) + 1
+    return np.where(live, np.where(np.isnan(m), 2**32 - 1, key), 0)
+
+
+def _model_panel_getrf(a, pivot=True, b=None):
+    """getrf_panel_kernel on f32 (B, n, n): the matrix padded to np = n
+    rounded up to 32 with the identity, a thread a row. A panel p0: thread
+    t's 32 panel entries in "registers" with ``pos`` and ``live`` (pad rows
+    never live); step j's pivot by each warp's largest pivot key then lowest
+    pos among those (the warp's slot: key, pos, thread), then the first slot
+    of the warps from p0 / 32 on in (key, −pos) order; the live rows divide
+    by the pivot and subtract l·u_c from their entries c > j. Each row then
+    goes to row pos; the panel's swaps go in sequence down every other column
+    (and X's); right of the panel L11·U12 = A12 row by row in ascending j;
+    then the trailing block, rows and columns to n rounded up to 4 (the
+    kernel's 4 × 4 tiles), takes the panel's 32 products in ascending j.
+    With b (B, n, k): after the last panel L·y = P·b and U·x = y, a column
+    at a time, as gesv_solves. Without the kernel's FMAs. Returns (LU, piv)
+    or X."""
+    bsz, n, _ = a.shape
+    np_ = -(-n // 32) * 32
+    warps, rows, threads = np_ // 32, np.arange(bsz), np.arange(np_)
+    buf = np.zeros((bsz, np_, np_ + 4), np.float32)
+    buf[:, :n, :n] = a
+    buf[:, np.arange(n, np_), np.arange(n, np_)] = 1
+    x = None if b is None else b.astype(np.float32).copy()
+    piv = np.zeros((bsz, n), np.int32)
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        for p0 in range(0, n, 32):
+            w = min(32, n - p0)
+            reg = buf[:, :, p0:p0 + 32].copy()
+            pos = np.tile(threads, (bsz, 1))
+            live = np.tile((threads >= p0) & (threads < n), (bsz, 1))
+            for jj in range(w):
+                j = p0 + jj
+                if pivot:
+                    key = _pivot_key(reg[:, :, jj], live).reshape(bsz, warps, 32)
+                    wkey = key.max(axis=2)
+                    win = (key == wkey[..., None]) & (key != 0)
+                    wpos = np.where(win, pos.reshape(bsz, warps, 32), _INT_MAX).min(axis=2)
+                    wtid = np.argmax(win & (pos.reshape(bsz, warps, 32) == wpos[..., None]),
+                                     axis=2) + 32 * np.arange(warps)
+                    best = np.full(bsz, p0 // 32)
+                    for wi in range(p0 // 32 + 1, warps):
+                        bk, bp = wkey[rows, best], wpos[rows, best]
+                        best = np.where((wkey[:, wi] > bk) | ((wkey[:, wi] == bk) & (wpos[:, wi] < bp)),
+                                        wi, best)
+                    pr, prow = wpos[rows, best], wtid[rows, best]
+                    pos = np.where(pos == j, pr[:, None], pos)
+                    pos[rows, prow] = j
+                else:
+                    pr = prow = np.full(bsz, j)
+                piv[:, j] = pr
+                u = reg[rows, prow].copy()
+                live[rows, prow] = False
+                l = reg[:, :, jj] / u[:, jj, None]
+                for c in range(jj + 1, 32):
+                    reg[:, :, c] = np.where(live, reg[:, :, c] - l * u[:, c, None], reg[:, :, c])
+                reg[:, :, jj] = np.where(live, l, reg[:, :, jj])
+            buf[rows[:, None], pos[:, p0:], p0:p0 + 32] = reg[:, p0:]
+            other = [c for c in range(n) if c < p0 or c >= p0 + w]
+            cols = buf[:, :, other]
+            for jj in range(w):   # laswp, on the other columns and X
+                pr = piv[:, p0 + jj]
+                for m in (cols,) if x is None else (cols, x):
+                    top, pivrow = m[rows, p0 + jj].copy(), m[rows, pr].copy()
+                    m[rows, p0 + jj] = pivrow
+                    m[rows, pr] = top
+            buf[:, :, other] = cols
+            if p0 + 32 < n:
+                u12 = buf[:, p0:p0 + 32, p0 + 32:n]
+                for r in range(1, 32):
+                    v = u12[:, r]
+                    for jj in range(r):
+                        v = v - u12[:, jj] * buf[:, p0 + r, p0 + jj, None]
+                    u12[:, r] = v
+                rb, n4 = p0 + 32, -(-n // 4) * 4
+                for jj in range(32):
+                    buf[:, rb:n4, rb:n4] = (buf[:, rb:n4, rb:n4]
+                                            - buf[:, rb:n4, p0 + jj, None] * buf[:, p0 + jj, None, rb:n4])
+        if b is None:
+            return buf[:, :n, :n], piv
+        for j in range(n):
+            x[:, j + 1:] = x[:, j + 1:] - buf[:, j + 1:n, j, None] * x[:, j, None]
+        for j in reversed(range(n)):
+            x[:, j] = x[:, j] / buf[:, j, j, None]
+            x[:, :j] = x[:, :j] - buf[:, :j, j, None] * x[:, j, None]
+    return x
+
+
+def _panel_cases(rng, n):
+    """_lu_cases (a tie, C11's NaN, a zero column), C10's bad matrix (an inf
+    among good ones: it stays in its own factor), and a singular matrix
+    whose first column is zero: 0 / 0 makes every live row NaN at once, and
+    a pad row that took part would be NaN too and win the next pivot."""
+    a = np.concatenate([_lu_cases(rng, n), rng.normal(size=(2, n, n)).astype(np.float32)])
+    a[5, n - 1, 3] = np.inf
+    a[6, :, 0] = 0.0
+    return a
+
+
+@pytest.mark.parametrize("n", [33, 48, 64, 100, 128])
+def test_getrf_panel_model_takes_the_plain_steps(rng, n):
+    """The panel route's model equals _getrf_plain bit for bit, LU and piv,
+    pivoted and not, with ties, NaN, a zero column, an inf (C10) and a zero
+    first column; no pad row is ever a pivot."""
+    a = _panel_cases(rng, n)
+    for pivot in (True, False):
+        m = a if pivot else a + n * np.eye(n, dtype=np.float32)
+        lu, piv = _model_panel_getrf(m, pivot)
+        with np.errstate(invalid="ignore", over="ignore"):
+            want_lu, want_piv = (to_numpy(t) for t in port._getrf_plain(from_numpy(m), pivot))
+        np.testing.assert_array_equal(piv, want_piv)
+        np.testing.assert_array_equal(lu, want_lu)
+        assert ((piv >= 0) & (piv < n)).all()
+        if pivot:
+            assert piv[1, 0] == 1 and piv[2, 0] == 1 and np.isnan(lu[2]).any()
+            assert np.isnan(lu[6]).any() and piv[6, 0] == 0
+        bad = _nonfinite_per_matrix(lu)
+        assert bad[5] > 0 and bad[0] == bad[4] == 0
+
+
+@pytest.mark.parametrize("n", [33, 48, 64, 100, 128])
+@pytest.mark.parametrize("k", [1, 4, 33])
+def test_gesv_panel_model_takes_the_plain_steps(rng, n, k):
+    a = _panel_cases(rng, n)
+    b = rng.normal(size=(len(a), n, k)).astype(np.float32)
+    with np.errstate(invalid="ignore", over="ignore"):
+        want = to_numpy(port._gesv_plain(from_numpy(a), from_numpy(b)))
+    np.testing.assert_array_equal(_model_panel_getrf(a, True, b), want)
+
+
+def test_panel_model_keeps_pad_rows_out():
+    """A matrix of zeros at n = 33 (31 pad rows): every step's pivot is a
+    real row, 0 / 0 leaves NaN in the real rows only, as the plain loop's."""
+    a = np.zeros((1, 33, 33), np.float32)
+    lu, piv = _model_panel_getrf(a)
+    with np.errstate(invalid="ignore"):
+        want_lu, want_piv = (to_numpy(t) for t in port._getrf_plain(from_numpy(a)))
+    np.testing.assert_array_equal(piv, want_piv)
+    np.testing.assert_array_equal(lu, want_lu)
+    assert piv[0].tolist() == list(range(33))

@@ -17,10 +17,11 @@ The paths, each through its public function:
 - the FFTs at batch 4096 x N 4096: fft.stockham.dif_fft (B5) on f32 planes
   in natural order and on bf16 planes in raw order, fft.kernels.pallas_fft
   (B5b) and fft.pallas_split.pallas_fft2 (B5c);
-- the batched solvers of dx.solver (B7a, B7b, B7d): potrf_batched at
+- the batched solvers of dx.solver (B7a, B7b, B7d, B7f): potrf_batched at
   1024 x 128 and 8192 x 32, posv_batched and gesv_batched at 8192 x 32 with
   4 right-hand sides, getrf_batched at 8192 x 32 (pivoted and not) and 1024
-  x 128, and geqrf_batched at both;
+  x 128, geqrf_batched at both, and gels_batched at 8192 x 64 x 32 with 4
+  right-hand sides;
 - the Jacobi kernels of dx.solver (B7g, B7h): syevd_batched and
   gesvd_batched at 8192 x 32 (the warp route) and 2048 x 64 (the block
   route);
@@ -83,6 +84,7 @@ SPMV = (128, 128, 32, 128)         # (mb, nb, ellw, bs) of bench_spmv_bell
 FFT = (4096, 4096)                 # (batch, N) of the bench's FFT lines
 BATCHED = ((8192, 32), (1024, 128))   # (batch, n) of the batched solvers' lines
 JACOBI = ((8192, 32), (2048, 64))     # (batch, n) of syevd_batched and gesvd_batched
+GELS = (8192, 64, 32, 4)              # (batch, m, n, k): chip_smoke.py's DXE_GELS
 VV10 = 40960                          # G: chip_smoke.py's VV10_MAIN
 MP = (8192, 4096, 16384)              # (tokens, n_embd, n_inner): chip_smoke.py's MP_MAIN
 RANKS = 4                             # the rings' ranks, all on the one card
@@ -150,6 +152,9 @@ def _paths(dev) -> dict:
         batched[order] = (m @ m.mT + order * torch.eye(order, device=dev), m)
     rhs = torch.randn((BATCHED[0][0], BATCHED[0][1], 4), generator=gen, device=dev)
     dom32 = batched[32][1] + 32 * torch.eye(32, device=dev)   # no pivoting needed
+    bg, mg, ng, kg = GELS
+    gels_a = torch.randn((bg, mg, ng), generator=gen, device=dev)
+    gels_b = torch.randn((bg, mg, kg), generator=gen, device=dev)
     jacobi = []   # (symmetric matrices, Gaussian ones) at each shape of JACOBI
     for bsz, order in JACOBI:
         m = torch.randn((bsz, order, order), generator=gen, device=dev)
@@ -186,6 +191,7 @@ def _paths(dev) -> dict:
         "getrf_batched_1024x128": lambda: dx.getrf_batched(batched[128][1]),
         "geqrf_batched_8192x32": lambda: dx.geqrf_batched(batched[32][1]),
         "geqrf_batched_1024x128": lambda: dx.geqrf_batched(batched[128][1]),
+        "gels_batched_8192x64x32_k4": lambda: dxs.gels_batched(gels_a, gels_b),
         "syevd_batched_8192x32": lambda: dxs.syevd_batched(jacobi[0][0]),
         "gesvd_batched_8192x32": lambda: dxs.gesvd_batched(jacobi[0][1]),
         "syevd_batched_2048x64": lambda: dxs.syevd_batched(jacobi[1][0]),

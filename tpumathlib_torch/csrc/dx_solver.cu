@@ -30,26 +30,28 @@
 // factor is 67.1 MB, 0.020 ms at 3.35 TB/s (50.9 MB, 0.015 ms, for Cholesky,
 // which needs only A's lower triangle), while n^3/3 flop a matrix is
 // 2.7e8 in all, 0.004 ms at 67 TFLOP/s (n^3/3 x B at the FP32 peak: 1.3 us
-// for potrf, twice that for getrf): device memory bounds them. Design of
-// getrf, geqrf, unmqr and gels: a block copies its matrix (and right-hand
-// side) into shared memory once, runs the n dependent steps there, each a
-// read of column j, a reduction where the step needs one and a masked rank-1
-// update, separated by __syncthreads, and writes its result once. A matrix
-// larger than a block's 227 KB (about n >= 240 without a right-hand side) is
-// factored by a second instantiation of the same kernels in place in the
-// output, in device memory, so no n is refused for its size. potrf (and
-// posv) take one of three routes, below "Cholesky": a warp a matrix for n <=
-// 32, with no barrier; 32-column panels in shared memory, a few barriers a
-// panel, up to n = 224; and the in-place column steps above. getrf (and gesv)
-// take a warp a matrix for n <= 32 and k <= 32 too (getrf_warp_kernel: the
-// rows in the lanes' registers, pivoted virtually, the pivot search a shuffle
-// reduction; below "LU, a warp a matrix"), else the block layout above; on an
-// H100 (700 W; chip_smoke.py phase 20) the warp route factors 8192 matrices
-// of 32 in 0.078 ms pivoted and 0.061 unpivoted, against 0.193 and 0.184
-// for torch.linalg.lu_factor_ex. unmqr and gels
-// take getrf's layout with m rows: at batch 8192 x m 64 x n 32, k 4, gels
-// reads A and B and writes X, 79.7 MB, 0.024 ms, against about 1 GFLOP
-// (0.015 ms) of QR and Q^T B.
+// for potrf, twice that for getrf): device memory bounds them. potrf and
+// getrf (and their solves, posv and gesv) take one of three routes by (n, k)
+// (factor_route): a warp a matrix for n <= 32 and k <= 32, the rows in the
+// lanes' registers with no barrier (getrf's pivoted virtually, the pivot
+// search a shuffle reduction); right-looking 32-column panels in a block's
+// shared memory while the padded matrix and the right-hand side fit, up to n
+// = 224 without one, a few barriers a panel for potrf and one a column for
+// getrf (whose panel's rows sit in its threads' registers); and above that
+// the column steps in place in the output, in device memory, so no n is
+// refused for its size (below "Cholesky", "LU, a warp a matrix" and "LU,
+// 32-column panels"). On an H100 (700 W; chip_smoke.py phase 20) the LU's
+// warp route factors 8192 matrices of 32 in 0.078 ms pivoted and 0.061
+// unpivoted, against 0.193 and 0.184 for torch.linalg.lu_factor_ex. geqrf,
+// unmqr and gels: a block copies its matrix (and right-hand side) into
+// shared memory once, runs the n dependent steps there, each a read of
+// column j, a reduction where the step needs one and a masked rank-1 update,
+// separated by __syncthreads, and writes its result once; past a block's
+// 227 KB a second instantiation works in place in device memory. gels takes
+// a warp a matrix for m <= 64, n <= 32 and k <= 32 (below "gels, a warp a
+// matrix": A's columns in the lanes' registers, B's rows beside them, no
+// barrier): at batch 8192 x m 64 x n 32, k 4, it reads A and B and writes X,
+// 79.7 MB, 0.024 ms, against about 1 GFLOP (0.015 ms) of QR and Q^T B.
 //
 // Numerical conventions, shared with the plain versions:
 // - potrf: 1/sqrt of the pivot; L's column is the column times it; the
@@ -73,6 +75,7 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <climits>
 #include <cstdint>
 
 namespace {
@@ -177,7 +180,7 @@ __device__ void unstage(const Args& p, const Block& s, bool lower) {
 
 // ----------------------------- Cholesky -----------------------------
 //
-// Three routes by size (potrf_route; dx/solver.py::_potrf_route mirrors it):
+// Three routes by size (factor_route; dx/solver.py::_potrf_route mirrors it):
 // - n <= 32 and k <= 32: a warp a matrix (potrf_warp_kernel), 4 matrices a
 //   block, the matrix in its lanes' registers, no block barrier.
 // - else, where the padded matrix fits in a block's shared memory
@@ -199,6 +202,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarpN = 32;          // the warp route's largest n and k
 constexpr int kWarpMatrices = 4;    // matrices (warps) a block on the warp route
 constexpr int kPanel = 32;          // the panel route's panel width
+constexpr int kMaxPanelWarps = 7;   // the panel route's largest block: n <= 224, a row a thread
 
 // The column steps of a 32 x 32 matrix in a warp, in the row layout: lane r
 // holds row r, a[c] = A(r, c) for c <= r (a[c] for c > r is never read, and
@@ -500,15 +504,25 @@ __global__ void __launch_bounds__(kMaxThreads) potrf_inplace_kernel(const Args p
   unstage<false>(p, s, true);
 }
 
-enum PotrfRoute { kWarpRoute, kPanelRoute, kInPlaceRoute };
+// The routes of potrf and getrf (and their solves), one rule for both
+// (dx/solver.py::_potrf_route and ::_getrf_route mirror it).
+enum Route { kWarpRoute, kPanelRoute, kInPlaceRoute };
 
-PotrfRoute potrf_route(int64_t n, int64_t k) {
+Route factor_route(int64_t n, int64_t k) {
   if (n <= kWarpN && k <= kWarpN) return kWarpRoute;
   return panel_bytes(n, k) <= kSmemMax ? kPanelRoute : kInPlaceRoute;
 }
 
+// A block of the panel routes' kernels: bytes of dynamic shared memory,
+// raised past 48 KB (the default) where it needs more.
+cudaError_t smem_for(Kernel kernel, int64_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
 cudaError_t launch_potrf(const Args& p, int64_t batch, cudaStream_t stream) {
-  const PotrfRoute route = potrf_route(p.n, p.k);
+  const Route route = factor_route(p.n, p.k);
   if (route == kWarpRoute) {
     const unsigned blocks = static_cast<unsigned>((batch + kWarpMatrices - 1) / kWarpMatrices);
     void (*kernel)(Args, int64_t) = p.k == 0   ? potrf_warp_kernel<0>
@@ -520,22 +534,16 @@ cudaError_t launch_potrf(const Args& p, int64_t batch, cudaStream_t stream) {
   if (route == kPanelRoute) {
     const Kernel kernel = p.k ? potrf_panel_kernel<true> : potrf_panel_kernel<false>;
     const int64_t bytes = panel_bytes(p.n, p.k);
-    if (bytes > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-      if (e != cudaSuccess) return e;
-    }
+    const cudaError_t e = smem_for(kernel, bytes);
+    if (e != cudaSuccess) return e;
     kernel<<<static_cast<unsigned>(batch), panel_np(p.n) <= 64 ? 128 : 256,
              static_cast<size_t>(bytes), stream>>>(p);
     return cudaGetLastError();
   }
   if (p.out == nullptr) return cudaErrorInvalidValue;
   const int64_t bytes = small_bytes(p.n, p.n, p.k);
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        potrf_inplace_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-    if (e != cudaSuccess) return e;
-  }
+  const cudaError_t e = smem_for(potrf_inplace_kernel, bytes);
+  if (e != cudaSuccess) return e;
   potrf_inplace_kernel<<<static_cast<unsigned>(batch), threads_for(p.n), static_cast<size_t>(bytes),
                          stream>>>(p);
   return cudaGetLastError();
@@ -636,19 +644,18 @@ __device__ void gesv_solves(const Mat& LU, const int* s_piv, float* X, int n, in
   upper_solve(LU, X, n, k);
 }
 
-template <bool kShared>
-__global__ void __launch_bounds__(kMaxThreads) getrf_kernel(const Args p) {
+// The in-place route: the column steps in device memory, in the output.
+__global__ void __launch_bounds__(kMaxThreads) getrf_inplace_kernel(const Args p) {
   extern __shared__ float smem[];
-  const Block s = stage<kShared>(p, smem);
+  const Block s = stage<false>(p, smem);
   int32_t* piv = p.piv ? p.piv + static_cast<int64_t>(blockIdx.x) * p.n : nullptr;
   getrf_steps(s.A, p.n, p.pivot != 0, s.piv, piv);
   if (p.k) gesv_solves(s.A, s.piv, s.X, p.n, p.k);
-  unstage<kShared>(p, s, false);
 }
 
 // ----------------------------- LU, a warp a matrix -----------------------------
 //
-// n <= 32 and k <= 32 (getrf_route; dx/solver.py::_getrf_route mirrors it),
+// n <= 32 and k <= 32 (factor_route; dx/solver.py::_getrf_route mirrors it),
 // 4 matrices a block, no block barrier:
 // lane r holds row r of A in registers, a[c] = A(r, c), loaded and stored
 // through the warp's 32 x 33 tile so that device memory moves a row at a
@@ -763,10 +770,273 @@ getrf_warp_kernel(const Args p, int64_t batch) {
   }
 }
 
-enum GetrfRoute { kGetrfWarp, kGetrfBlock };
+// ----------------------------- LU, 32-column panels -----------------------------
+//
+// n > 32 or k > 32 while the padded matrix and the right-hand side fit in a
+// block's shared memory (factor_route, panel_bytes: n <= 224 without a
+// right-hand side): right-looking LU in 32-column panels, LAPACK's getf2,
+// laswp, trsm and gemm, a block of np = n rounded up to 32 threads a matrix.
+// Shared memory as potrf_panel_kernel's: the matrix padded to np with the
+// identity, ld = np + 4; the panel's 32 pivots; X (n x k). The 4 words past
+// np of the first rows, which hold no entry of the matrix, hold the pivot
+// search's slots. A panel p0 (its 32 columns, w = min(32, n - p0) of them
+// the matrix's) takes w + 4 barriers:
+// 1. Its steps, thread t holding row t's 32 panel entries in registers. Rows
+//    do not move (virtual pivoting, as in getrf_warp_kernel): each keeps pos,
+//    its row's index after the swaps so far, and live, not yet a pivot row;
+//    rows past n are never live, so a pad row (which 0 / 0 turns to NaN after
+//    a zero pivot) is never a pivot. Step j: each warp finds its first live
+//    (|a[j]|, pos) in before()'s order by two __reduce_*_sync (pivot_key, then
+//    the lowest pos); its winner writes its row to its own place in shared
+//    memory (read only at the step that row is the pivot, after which it is
+//    never live again) and the warp's key, 255 - pos and thread to a 64-bit
+//    slot (two sets, alternate steps); one barrier; every thread takes the
+//    largest slot, reads the pivot row, and the live rows divide a[j] by the
+//    pivot (a true division: the multiplier) and subtract l u_c from a[c], c
+//    > j. Without pivoting the pivot of step j is row j. A barrier; each row
+//    goes to row pos; a barrier.
+// 2. A thread a column outside the panel (and a column of X) applies the
+//    panel's swaps in sequence (laswp); right of the panel it then solves
+//    L11 U12 = A12 down its column, row r against L11's row r (float4 reads),
+//    in ascending j.
+// 3. The trailing A22 -= L21 U12 in 4 x 4 tiles a thread, each element's 32
+//    products in ascending j, from float4 chunks of L's rows and U's rows.
+// Swaps commute with the work on other columns and each element takes its
+// updates in _getrf_plain's order, so the pivots are the plain loop's and
+// the factor equals its to rounding (nvcc's FMAs). SOLVE: X's rows take
+// each panel's swaps in step 2; after the last panel a warp a column of X
+// runs L y = P b and U x = y in gesv_solves' order.
 
-GetrfRoute getrf_route(int64_t n, int64_t k) {
-  return n <= kWarpN && k <= kWarpN ? kGetrfWarp : kGetrfBlock;
+// A row's pivot key, the larger first: before()'s order of magnitudes, a NaN
+// above every number; 0 for a row that is not live, below every live one.
+__device__ __forceinline__ unsigned pivot_key(float v, bool live) {
+  const float m = fabsf(v);
+  return !live ? 0u : isnan(m) ? 0xffffffffu : __float_as_uint(m) + 1u;
+}
+
+// 168 registers a thread keep three blocks of 128 threads on an SM (n = 128:
+// shared memory allows three) without a spill (launch bounds for 224 threads
+// cap it at 128, where it spills).
+template <bool SOLVE>
+__global__ void __maxnreg__(168) getrf_panel_kernel(const Args p) {
+  extern __shared__ __align__(16) float smem[];
+  const int n = p.n, k = p.k, np = panel_np(n), ld = np + 4;
+  float* A = smem;
+  int* s_piv = reinterpret_cast<int*>(A + np * ld);
+  float* X = A + np * ld + kPanel;
+  const int64_t bi = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, warps = blockDim.x >> 5;
+  const bool pivot = p.pivot != 0;
+  const float* a = p.a + bi * n * n;
+  if (n % 4 == 0 && (reinterpret_cast<uintptr_t>(a) & 15) == 0) {
+    const int cq = tid % (np / 4), c = 4 * cq;   // thread t: float4 column cq, rows r0 + 4 i
+#pragma unroll 4
+    for (int r = tid / (np / 4); r < np; r += 4) {
+      const float4 v = r < n && c < n ? __ldg(reinterpret_cast<const float4*>(a + r * n) + cq)
+                                      : make_float4(r == c, r == c + 1, r == c + 2, r == c + 3);
+      *reinterpret_cast<float4*>(A + r * ld + c) = v;
+    }
+  } else {
+#pragma unroll 8
+    for (int r = 0; r < np; ++r)   // thread t loads column t, 8 rows in flight
+      A[r * ld + tid] = r < n && tid < n ? __ldg(a + r * n + tid) : (r == tid ? 1.f : 0.f);
+  }
+  if constexpr (SOLVE) {
+    const float* b = p.b + bi * n * k;
+    for (int e = tid; e < n * k; e += blockDim.x) X[e] = __ldg(b + e);
+  }
+  __syncthreads();
+  // slot s of the pivot search: the words past np of row s
+  auto slot = [&](int s) { return reinterpret_cast<unsigned long long*>(A + s * ld + np); };
+
+  for (int p0 = 0; p0 < n; p0 += kPanel) {
+    float row[kPanel];
+    float4* mine = reinterpret_cast<float4*>(A + tid * ld + p0);
+#pragma unroll
+    for (int q = 0; q < kPanel / 4; ++q) {
+      const float4 v = tid >= p0 ? mine[q] : make_float4(0.f, 0.f, 0.f, 0.f);
+      row[4 * q] = v.x;
+      row[4 * q + 1] = v.y;
+      row[4 * q + 2] = v.z;
+      row[4 * q + 3] = v.w;
+    }
+    int pos = tid;
+    bool live = tid >= p0 && tid < n;
+#pragma unroll
+    for (int jj = 0; jj < kPanel; ++jj) {
+      const int j = p0 + jj;
+      if (j >= n) break;
+      int pr = j, prow = j;   // the pivot's pos, and the thread holding its row
+      bool write = tid == j;  // this thread puts its row where the others read it
+      if (pivot) {
+        const unsigned key = pivot_key(row[jj], live);
+        const unsigned wkey = __reduce_max_sync(kFull, key);
+        const int wpos = __reduce_min_sync(kFull, key == wkey && key != 0u ? pos : INT_MAX);
+        write = key == wkey && key != 0u && pos == wpos;
+        if (write || (wkey == 0u && lane == 0))   // key, then 255 - pos, then the row's thread
+          *slot((jj & 1) * warps + warp) =
+              wkey == 0u ? 0ull : (static_cast<unsigned long long>(wkey) << 32) |
+                                      static_cast<unsigned>((255 - wpos) << 8 | tid);
+      }
+      if (write) {
+#pragma unroll
+        for (int q = jj / 4; q < kPanel / 4; ++q)
+          mine[q] = make_float4(row[4 * q], row[4 * q + 1], row[4 * q + 2], row[4 * q + 3]);
+      }
+      __syncthreads();
+      if (pivot) {   // the largest slot of the warps that hold rows >= p0, all read at once
+        unsigned long long key[kMaxPanelWarps];
+#pragma unroll
+        for (int w = 0; w < kMaxPanelWarps; ++w)
+          key[w] = w >= p0 / 32 && w < warps ? *slot((jj & 1) * warps + w) : 0ull;
+#pragma unroll
+        for (int span = 1; span < kMaxPanelWarps; span *= 2)
+#pragma unroll
+          for (int w = 0; w + span < kMaxPanelWarps; w += 2 * span) key[w] = max(key[w], key[w + span]);
+        pr = 255 - static_cast<int>(key[0] >> 8 & 0xff);
+        prow = static_cast<int>(key[0] & 0xff);
+        if (pos == j) pos = pr;
+        if (tid == prow) pos = j;
+      }
+      if (tid == 0) {
+        s_piv[jj] = pr;
+        if (p.piv != nullptr) p.piv[bi * n + j] = pr;
+      }
+      if (tid == prow) live = false;
+      // every thread computes; the live rows keep it (no branch: the next
+      // step's pivot key can start as soon as its column is done). The pivot
+      // row is read before the division, whose slow path is a branch.
+      const float4* u = reinterpret_cast<const float4*>(A + prow * ld + p0);
+      float uq[kPanel];
+#pragma unroll
+      for (int q = jj / 4; q < kPanel / 4; ++q) {
+        const float4 v = u[q];
+        uq[4 * q] = v.x;
+        uq[4 * q + 1] = v.y;
+        uq[4 * q + 2] = v.z;
+        uq[4 * q + 3] = v.w;
+      }
+      const float l = row[jj] / uq[jj];
+#pragma unroll
+      for (int c = jj + 1; c < kPanel; ++c) row[c] = live ? fmaf(-l, uq[c], row[c]) : row[c];
+      row[jj] = live ? l : row[jj];
+    }
+    __syncthreads();
+    if (tid >= p0) {
+      float4* to = reinterpret_cast<float4*>(A + pos * ld + p0);
+#pragma unroll
+      for (int q = 0; q < kPanel / 4; ++q)
+        to[q] = make_float4(row[4 * q], row[4 * q + 1], row[4 * q + 2], row[4 * q + 3]);
+    }
+    __syncthreads();
+
+    const int w = min(kPanel, n - p0), outside = n - w;
+    for (int i = tid; i < outside + k; i += blockDim.x) {
+      float* col = i < outside ? A + (i < p0 ? i : i + w) : X + (i - outside);
+      const int stride = i < outside ? ld : k;
+      for (int jj = 0; jj < w; ++jj) {   // laswp
+        const int pr = s_piv[jj];
+        if (pr != p0 + jj) {
+          const float t = col[(p0 + jj) * stride];
+          col[(p0 + jj) * stride] = col[pr * stride];
+          col[pr * stride] = t;
+        }
+      }
+      if (i < outside && i >= p0) {   // right of the panel (w = 32): L11 U12 = A12
+        float x[kPanel];
+#pragma unroll
+        for (int r = 0; r < kPanel; ++r) x[r] = col[(p0 + r) * ld];
+#pragma unroll
+        for (int r = 1; r < kPanel; ++r) {
+          const float4* lrow = reinterpret_cast<const float4*>(A + (p0 + r) * ld + p0);
+          float v = x[r];
+#pragma unroll
+          for (int q = 0; 4 * q < r; ++q) {
+            const float4 l = lrow[q];
+            const float lq[4] = {l.x, l.y, l.z, l.w};
+#pragma unroll
+            for (int e = 0; e < 4 && 4 * q + e < r; ++e) v = fmaf(-x[4 * q + e], lq[e], v);
+          }
+          x[r] = v;
+        }
+#pragma unroll
+        for (int r = 1; r < kPanel; ++r) col[(p0 + r) * ld] = x[r];
+      }
+    }
+    __syncthreads();
+
+    const int rb = p0 + kPanel, m4 = (n - rb + 3) / 4;   // trailing tiles along an edge
+    for (int t = tid; rb < n && t < m4 * m4; t += blockDim.x) {
+      const int r0 = rb + 4 * (t / m4), c0 = rb + 4 * (t % m4);
+      float acc[4][4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float4 v = *reinterpret_cast<const float4*>(A + (r0 + e) * ld + c0);
+        acc[e][0] = v.x;
+        acc[e][1] = v.y;
+        acc[e][2] = v.z;
+        acc[e][3] = v.w;
+      }
+#pragma unroll 1
+      for (int jq = 0; jq < kPanel / 4; ++jq) {
+        float lv[4][4], uv[4][4];   // L(r0 + e, p0 + 4 jq + q), U(p0 + 4 jq + q, c0 + f)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float4 l = *reinterpret_cast<const float4*>(A + (r0 + e) * ld + p0 + 4 * jq);
+          const float4 u = *reinterpret_cast<const float4*>(A + (p0 + 4 * jq + e) * ld + c0);
+          lv[e][0] = l.x;
+          lv[e][1] = l.y;
+          lv[e][2] = l.z;
+          lv[e][3] = l.w;
+          uv[e][0] = u.x;
+          uv[e][1] = u.y;
+          uv[e][2] = u.z;
+          uv[e][3] = u.w;
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+#pragma unroll
+            for (int f = 0; f < 4; ++f) acc[e][f] = fmaf(-lv[e][q], uv[q][f], acc[e][f]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        *reinterpret_cast<float4*>(A + (r0 + e) * ld + c0) =
+            make_float4(acc[e][0], acc[e][1], acc[e][2], acc[e][3]);
+    }
+    __syncthreads();
+  }
+
+  if constexpr (SOLVE) {
+    for (int c = warp; c < k; c += warps) {
+      for (int j = 0; j < n; ++j) {   // L y = P b, L unit lower
+        const float y = X[j * k + c];
+        for (int r = j + 1 + lane; r < n; r += 32) X[r * k + c] = fmaf(-A[r * ld + j], y, X[r * k + c]);
+        __syncwarp();
+      }
+      for (int j = n - 1; j >= 0; --j) {   // U x = y
+        const float y = X[j * k + c] / A[j * ld + j];
+        __syncwarp();
+        if (lane == 0) X[j * k + c] = y;
+        for (int r = lane; r < j; r += 32) X[r * k + c] = fmaf(-A[r * ld + j], y, X[r * k + c]);
+        __syncwarp();
+      }
+    }
+    __syncthreads();
+    float* x = p.x + bi * n * k;
+    for (int e = tid; e < n * k; e += blockDim.x) x[e] = X[e];
+  }
+  if (p.out != nullptr) {
+    float* o = p.out + bi * n * n;
+    if (n % 4 == 0 && (reinterpret_cast<uintptr_t>(o) & 15) == 0) {
+      const int cq = tid % (np / 4), c = 4 * cq;
+      for (int r = tid / (np / 4); r < n && c < n; r += 4)
+        reinterpret_cast<float4*>(o + r * n)[cq] = *reinterpret_cast<const float4*>(A + r * ld + c);
+    } else if (tid < n) {
+      for (int r = 0; r < n; ++r) o[r * n + tid] = A[r * ld + tid];
+    }
+  }
 }
 
 // ----------------------------- QR -----------------------------
@@ -889,6 +1159,200 @@ __global__ void __launch_bounds__(kMaxThreads) gels_kernel(const Args p) {
   unstage<kShared>(p, s, false);
 }
 
+// ----------------------------- gels, a warp a matrix -----------------------------
+//
+// m <= 64, n <= 32 and k <= 32 (gels_warp_route; dx/solver.py::_gels_route
+// mirrors it), kWarpMatrices matrices a block, no block barrier. Lane c holds
+// column c of A, rows 0 ... 32 R - 1 in registers (R = 1 for m <= 32, else 2;
+// the rows past m zeros that take no part: m = 32 R takes an instantiation of
+// the steps that tests no row), loaded a row of A at a time. Step j: lane j
+// sums its tail's squares (four partial sums by row mod 4), forms dlarfg's
+// scalars with geqrf_steps' formulas (sign(0) = +1, a zero tail gives tau =
+// 0) and writes v (v_j = x_j - alpha, below it the column; zeros for a zero
+// tail) twice and the scalars to the warp's slice of shared memory; after a
+// __syncwarp each lane c > j (and lane j for its row j) forms w_c = tau_h
+// sum_r v_r a_rc over its own registers (four partial sums likewise) from the
+// one copy and subtracts v_r w_c reading the other: from one copy the
+// compiler keeps all of v in registers between the two passes and spills.
+// Lane j keeps R's entry and v below it; after the last step each lane divides
+// its column below the diagonal by its v_j, all lanes at once: the reflector
+// geqrf_steps stores. The factored columns then go to the warp's tile (QR, m x
+// 33), and B is taken 4 columns at a time (lane r holds rows r and r + 32 of
+// them in registers): the stored reflectors (v_j = 1, tau = tau_h v_j^2,
+// each lane reading its rows' entries from the tile) go on in order, as
+// _apply_q_plain applies them: each lane forms its rows' share of v^T B's
+// sums, a 5-step butterfly adds them (every lane gets the same sum), and each
+// lane updates its rows; then R X = (Q^T B)[:n], R's row r in lane r, by
+// warp_solve_step's divisions in _trsm_upper_rect_plain's order; X is written
+// as the substitution leaves it (ROADMAP C18). The QR's and Q^T B's sums run
+// in another order than torch's products: the result equals _gels_plain's to
+// rounding. R = 2 takes 153 registers without a spill at three blocks an SM
+// (at four, whose cap is 128, it spills).
+
+// Four partial sums by row mod 4, added as (s0 + s1) + (s2 + s3).
+__device__ __forceinline__ float sum4(const float (&s)[4]) { return (s[0] + s[1]) + (s[2] + s[3]); }
+
+// dlarfg of a column whose entry j is xj and whose tail's sum of squares is
+// ts, as geqrf_steps forms it: returns v_j, and through the references tau_h,
+// tau (= tau_h v_j^2, 0 where unsafe) and whether the tail is zero.
+__device__ __forceinline__ float dlarfg(float xj, float ts, float& tau_h, float& tau, bool& degenerate) {
+  const float ss = fmaf(xj, xj, ts);
+  degenerate = ts == 0.f;
+  const float sign = xj > 0.f ? 1.f : xj < 0.f ? -1.f : xj == 0.f ? 1.f : xj;
+  const float alpha = degenerate ? xj : -sign * sqrtf(ss);
+  const float vj = xj - alpha;
+  const float vsq = degenerate ? 0.f : ts + vj * vj;
+  const bool safe = vsq > 0.f;
+  tau_h = safe ? 2.f / vsq : 0.f;
+  tau = safe ? tau_h * vj * vj : 0.f;
+  return vj;
+}
+
+// The QR steps on lane `lane`'s column a (32 R rows); FULL: m = 32 R, no row
+// needs testing. v: v, its copy, then 4 scalars. Leaves R above the diagonal,
+// v below it (the stored reflector times v_j, returned in vdiv), tau in taus.
+template <int R, bool FULL>
+__device__ __forceinline__ void gels_qr_steps(float (&a)[32 * R], float* v, float* taus, float& vdiv,
+                                              int lane, int m, int n) {
+  constexpr int M = 32 * R;
+  auto real = [m](int r) { return FULL || r < 32 * (R - 1) || r < m; };
+#pragma unroll
+  for (int j = 0; j < kWarpN; ++j) {
+    if (j >= n) break;
+    if (lane == j) {
+      float sq[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int r = j + 1; r < M; ++r)
+        if (real(r)) sq[r & 3] = fmaf(a[r], a[r], sq[r & 3]);
+      float tau_h, tau;
+      bool degenerate;
+      const float vj = dlarfg(a[j], sum4(sq), tau_h, tau, degenerate);
+      vdiv = vj == 0.f ? 1.f : vj;
+      taus[j] = tau;
+#pragma unroll
+      for (int q = j / 4; q < M / 4; ++q) {   // v: zero for a zero tail (rows < j unread)
+        float e4[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 4 * q + e;
+          e4[e] = degenerate ? 0.f : r == j ? vj : a[r];
+        }
+        reinterpret_cast<float4*>(v)[q] = make_float4(e4[0], e4[1], e4[2], e4[3]);
+        reinterpret_cast<float4*>(v + M)[q] = make_float4(e4[0], e4[1], e4[2], e4[3]);
+      }
+#pragma unroll
+      for (int r = j + 1; r < M; ++r)
+        if (degenerate) a[r] = 0.f;
+      reinterpret_cast<float4*>(v + 2 * M)[0] = make_float4(tau_h, 0.f, 0.f, degenerate ? 1.f : 0.f);
+    }
+    __syncwarp();
+    const float4 sc = reinterpret_cast<const float4*>(v + 2 * M)[0];
+    float part[4] = {0.f, 0.f, 0.f, 0.f};   // v^T a_c over rows >= j
+#pragma unroll
+    for (int q = j / 4; q < M / 4; ++q) {
+      const float4 vq = reinterpret_cast<const float4*>(v)[q];
+      const float ve[4] = {vq.x, vq.y, vq.z, vq.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (4 * q + e >= j && real(4 * q + e)) part[e] = fmaf(ve[e], a[4 * q + e], part[e]);
+    }
+    const float wc = sc.w != 0.f ? 0.f : sum4(part) * sc.x;
+    const bool update = lane > j && lane < n;   // and lane j its row j (R's entry)
+#pragma unroll
+    for (int q = j / 4; q < M / 4; ++q) {
+      const float4 vq = reinterpret_cast<const float4*>(v + M)[q];
+      const float ve[4] = {vq.x, vq.y, vq.z, vq.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 4 * q + e;
+        if (r >= j && real(r) && (update || (lane == j && r == j))) a[r] = fmaf(-ve[e], wc, a[r]);
+      }
+    }
+    __syncwarp();
+  }
+}
+
+template <int R>
+__global__ void __launch_bounds__(kWarpMatrices * 32, R == 1 ? 4 : 3) gels_warp_kernel(const Args p, int64_t batch) {
+  constexpr int M = 32 * R, KG = 4;   // KG: B's columns in registers at a time
+  __shared__ __align__(16) float slices[kWarpMatrices][2 * M + 4];   // v, its copy, 4 scalars
+  __shared__ float tiles[kWarpMatrices][M][kWarpN + 1];              // QR
+  __shared__ float tau_of[kWarpMatrices][kWarpN];
+  const int lane = threadIdx.x & 31, wi = threadIdx.x >> 5;
+  float (*t)[kWarpN + 1] = tiles[wi];
+  float* taus = tau_of[wi];
+  const int64_t bi = int64_t(blockIdx.x) * kWarpMatrices + wi;
+  if (bi >= batch) return;
+  const int m = p.m, n = p.n, k = p.k;
+  const float* A = p.a + bi * m * n;
+  float a[M];
+#pragma unroll
+  for (int r = 0; r < M; ++r) a[r] = lane < n && r < m ? __ldg(A + r * n + lane) : 0.f;
+  float vdiv = 1.f;
+  if (m == M)
+    gels_qr_steps<R, true>(a, slices[wi], taus, vdiv, lane, m, n);
+  else
+    gels_qr_steps<R, false>(a, slices[wi], taus, vdiv, lane, m, n);
+#pragma unroll
+  for (int r = 0; r < M; ++r) {   // the reflectors: v_r / v_j below the diagonal, as stored
+    if (r > lane) a[r] = a[r] / vdiv;
+    if (r < m) t[r][lane] = a[r];
+  }
+  __syncwarp();
+
+  float rrow[kWarpN];   // R's row `lane`
+#pragma unroll
+  for (int j = 0; j < kWarpN; ++j) rrow[j] = t[lane][j];
+  const float* B = p.b + bi * m * k;
+  float* X = p.x + bi * n * k;
+  for (int c0 = 0; c0 < k; c0 += KG) {
+    float x[R][KG];
+#pragma unroll
+    for (int q = 0; q < R; ++q)
+#pragma unroll
+      for (int c = 0; c < KG; ++c)
+        x[q][c] = lane + 32 * q < m && c0 + c < k ? __ldg(B + (lane + 32 * q) * k + c0 + c) : 0.f;
+#pragma unroll
+    for (int j = 0; j < kWarpN; ++j) {   // H_j = I - tau_j v v^T, v_j = 1 and below it QR's column j
+      if (j >= n) break;
+      const float tau = taus[j];
+      float vr[R];
+      bool on[R];
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const int r = lane + 32 * q;
+        on[q] = r >= j && r < m;
+        vr[q] = r == j ? 1.f : on[q] ? t[r][j] : 0.f;
+      }
+#pragma unroll
+      for (int c = 0; c < KG; ++c) {
+        float s = 0.f;
+#pragma unroll
+        for (int q = 0; q < R; ++q)
+          if (on[q]) s = fmaf(vr[q], x[q][c], s);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(kFull, s, off);
+        const float wq = s * tau;
+#pragma unroll
+        for (int q = 0; q < R; ++q)
+          if (on[q]) x[q][c] = fmaf(-vr[q], wq, x[q][c]);
+      }
+    }
+#pragma unroll
+    for (int j = kWarpN - 1; j >= 0; --j) {   // R X = (Q^T B)[:n]
+      if (j >= n) continue;
+      warp_solve_step<KG>(x[0], j, __shfl_sync(kFull, rrow[j], j), rrow[j], lane == j, lane < j);
+    }
+#pragma unroll
+    for (int c = 0; c < KG; ++c)
+      if (lane < n && c0 + c < k) X[lane * k + c0 + c] = x[0][c];
+  }
+}
+
+bool gels_warp_route(int64_t m, int64_t n, int64_t k) {
+  return m <= 2 * kWarpN && n <= kWarpN && k <= kWarpN;
+}
+
 // ----------------------------- launch -----------------------------
 
 cudaError_t launch(Kernel in_shared, Kernel in_place, const Args& p, int64_t batch, void* stream) {
@@ -948,9 +1412,11 @@ int tml_potrf_batched(const void* a, void* l, const void* b, void* x, int64_t ba
 // As tml_potrf_batched, for LU: lu (batch, n, n) in the packed L\U layout and
 // piv (batch, n) int32, the row swapped with j at step j (j itself when
 // pivot = 0). With a right-hand side (gesv; pivot must be 1) piv may be null.
-// n <= 32 and k <= 32 take a warp a matrix (getrf_warp_kernel), the rest a
-// block a matrix (getrf_kernel), in shared memory or, past 232448 bytes, in
-// place in lu.
+// Routes by factor_route: n <= 32 and k <= 32 a warp a matrix
+// (getrf_warp_kernel); else, where panel_bytes(n, k) <= 232448, 32-column
+// panels in a block's shared memory (getrf_panel_kernel; lu may then be null
+// for a solve); else the column steps in place in lu (getrf_inplace_kernel),
+// which a solve must then pass as the factor's work space.
 int tml_getrf_batched(const void* a, void* lu, void* piv, const void* b, void* x, int64_t batch,
                       int64_t n, int64_t k, int pivot, void* stream) {
   if (bad_sizes(a, batch, n, n, k, b, x) || (k == 0 && (lu == nullptr || piv == nullptr)) ||
@@ -960,15 +1426,25 @@ int tml_getrf_batched(const void* a, void* lu, void* piv, const void* b, void* x
   Args p = make_args(a, lu, b, x, n, n, k);
   p.piv = static_cast<int32_t*>(piv);
   p.pivot = pivot;
-  if (getrf_route(n, k) == kGetrfWarp) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Route route = factor_route(n, k);
+  if (route == kWarpRoute) {
     const unsigned blocks = static_cast<unsigned>((batch + kWarpMatrices - 1) / kWarpMatrices);
     void (*kernel)(Args, int64_t) = k == 0   ? getrf_warp_kernel<0>
                                     : k <= 4 ? getrf_warp_kernel<4>
                                              : getrf_warp_kernel<kWarpN>;
-    kernel<<<blocks, kWarpMatrices * 32, 0, static_cast<cudaStream_t>(stream)>>>(p, batch);
+    kernel<<<blocks, kWarpMatrices * 32, 0, s>>>(p, batch);
     return cudaGetLastError();
   }
-  return launch(getrf_kernel<true>, getrf_kernel<false>, p, batch, stream);
+  const Kernel kernel = route == kPanelRoute ? (k ? getrf_panel_kernel<true> : getrf_panel_kernel<false>)
+                                             : getrf_inplace_kernel;
+  if (route == kInPlaceRoute && lu == nullptr) return cudaErrorInvalidValue;
+  const int64_t bytes = route == kPanelRoute ? panel_bytes(n, k) : small_bytes(n, n, k);
+  const cudaError_t e = smem_for(kernel, bytes);
+  if (e != cudaSuccess) return e;
+  kernel<<<static_cast<unsigned>(batch), route == kPanelRoute ? panel_np(n) : threads_for(n),
+           static_cast<size_t>(bytes), s>>>(p);
+  return cudaGetLastError();
 }
 
 // a: (batch, n, n) f32 contiguous; qr (batch, n, n) the R factor and the
@@ -999,13 +1475,21 @@ int tml_unmqr_batched(const void* qr, const void* tau, const void* c, void* x, v
 // a (batch, m, n), m >= n, and b (batch, m, k) f32 contiguous; writes the
 // least-squares solution X to x: (batch, n, k) where full_bytes(m, n, k) <=
 // 232448 and work is null; else x is (batch, m, k), worked in place, X its
-// first n rows, and work (batch, m, n) holds the QR.
+// first n rows, and work (batch, m, n) holds the QR. m <= 64, n <= 32 and k
+// <= 32 take a warp a matrix (gels_warp_kernel), the rest a block
+// (gels_kernel).
 int tml_gels_batched(const void* a, const void* b, void* x, void* work, int64_t batch, int64_t m,
                      int64_t n, int64_t k, void* stream) {
   if (bad_sizes(a, batch, m, n, k, b, x) || m < n) return cudaErrorInvalidValue;
   if (batch == 0) return cudaSuccess;
   Args p = make_args(a, work, b, x, m, n, k);
   p.xrows = p.n;
+  if (gels_warp_route(m, n, k)) {
+    const unsigned blocks = static_cast<unsigned>((batch + kWarpMatrices - 1) / kWarpMatrices);
+    void (*kernel)(Args, int64_t) = m <= kWarpN ? gels_warp_kernel<1> : gels_warp_kernel<2>;
+    kernel<<<blocks, kWarpMatrices * 32, 0, static_cast<cudaStream_t>(stream)>>>(p, batch);
+    return cudaGetLastError();
+  }
   return launch(gels_kernel<true>, gels_kernel<false>, p, batch, stream);
 }
 

@@ -11,19 +11,27 @@ reference's names, checks and return tuples.
 The reference runs three step loops (Cholesky, LU with or without partial
 pivoting, Householder QR) over VMEM tiles of a batch, or, for n ≤ 64 with
 128 % n == 0, over 128//n matrices packed into one lane row. Lane packing is
-a TPU layout; here one thread block factors one matrix (one warp, for a
-Cholesky or an LU of n ≤ 32), so the packed functions launch the same
-kernels as the others. Five kernels in
-``csrc/dx_solver.cu`` serve seven sites:
+a TPU layout; here one warp or one thread block factors one matrix, so the
+packed functions launch the same kernels as the others. Five entry points
+in ``csrc/dx_solver.cu`` serve seven sites:
 
 - ``tml_potrf_batched`` (B7a potrf, B7i; with a right-hand side B7c, posv),
 - ``tml_getrf_batched`` (B7a getrf, B7d; with a right-hand side B7b, gesv),
 - ``tml_geqrf_batched`` (B7a geqrf),
 - ``tml_unmqr_batched`` (B7e: Qᵀ·C or Q·C from geqrf's reflectors),
 - ``tml_gels_batched`` (B7f: the QR steps on m ≥ n rows, Qᵀ·B, then the
-  upper substitution);
+  upper substitution).
 
-and two in ``csrc/dx_jacobi.cu``, over the round-robin schedule
+potrf and getrf take one of three routes by (n, k) (``_potrf_route``,
+``_getrf_route``, one rule): a warp a matrix for n, k ≤ 32, the rows in its
+lanes' registers; right-looking 32-column panels in a block's shared memory
+while the padded matrix and right-hand side fit (n ≤ 224 without one); the
+column steps in place in device memory beyond. gels takes a warp a matrix
+for m ≤ 64, n ≤ 32, k ≤ 32 (``_gels_route``: A's columns in the lanes'
+registers, B's rows beside them), else a block a matrix. geqrf and unmqr
+take a block a matrix.
+
+Two more in ``csrc/dx_jacobi.cu`` run over the round-robin schedule
 ``_roundrobin`` (where the reference has permutation matrices, because
 Mosaic cannot gather):
 
@@ -58,10 +66,11 @@ On CPU tensors each wrapper (``_potrf``, ``_getrf``, ``_geqrf``,
 ``_unmqr``, ``_gels``, ``_syevd``, ``_gesvd``) takes its plain PyTorch
 version: batched step loops with the reference's formulas. On CUDA tensors
 it launches its kernel or raises. Each wrapper's ``.launches`` counts its
-launches; ``_getrf``, ``_syevd`` and ``_gesvd`` also count each route's
-(``.warp_launches``, ``.block_launches``; the rules ``_getrf_route`` and
-``_jacobi_route``). The reference pads a batch to its tile; here nothing is
-padded.
+launches; ``_getrf``, ``_gels``, ``_syevd`` and ``_gesvd`` also count each
+route's (``_getrf``: ``.warp_launches``, ``.panel_launches``,
+``.in_place_launches``; the others ``.warp_launches``, ``.block_launches``;
+the rules ``_getrf_route``, ``_gels_route`` and ``_jacobi_route``). The
+reference pads a batch to its tile; here nothing is padded.
 """
 
 from __future__ import annotations
@@ -370,25 +379,28 @@ def _factor_out(a32, k, in_place: bool):
 
 def _count_route(wrapper, route: str) -> None:
     """One launch on ``wrapper.launches`` and on its route's count,
-    ``wrapper.warp_launches`` or ``wrapper.block_launches``."""
+    ``wrapper.<route>_launches`` (a space in the route's name as "_")."""
     wrapper.launches += 1
-    if route == "warp":
-        wrapper.warp_launches += 1
-    else:
-        wrapper.block_launches += 1
+    name = f"{route.replace(' ', '_')}_launches"
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
-def _potrf_route(n: int, k: int = 0) -> str:
-    """The route ``tml_potrf_batched`` takes (csrc/dx_solver.cu's
-    ``potrf_route``): "warp" (a warp a matrix, n and k ≤ 32), "panel" (32-column
-    panels in a block's shared memory: the matrix padded to a multiple of 32
-    rows, its rows 4 floats longer, 32 pivots and the n × k right-hand side,
-    under ``SMEM_MAX``) or "in place" (the column steps in device memory, in
-    the factor buffer)."""
+def _factor_route(n: int, k: int) -> str:
+    """csrc/dx_solver.cu's ``factor_route``, potrf's and getrf's: "warp" for
+    n and k ≤ 32, "panel" where the matrix padded to a multiple of 32 rows,
+    its rows 4 floats longer, 32 words and the n × k right-hand side fit
+    under ``SMEM_MAX`` (``panel_bytes``), else "in place"."""
     if n <= 32 and k <= 32:
         return "warp"
     np_ = -(-n // 32) * 32
     return "panel" if 4 * (np_ * (np_ + 4) + 32 + n * k) <= SMEM_MAX else "in place"
+
+
+def _potrf_route(n: int, k: int = 0) -> str:
+    """The route ``tml_potrf_batched`` takes (``_factor_route``): "warp" (a
+    warp a matrix), "panel" (32-column panels in a block's shared memory) or
+    "in place" (the column steps in device memory, in the factor buffer)."""
+    return _factor_route(n, k)
 
 
 def _potrf(a, b=None):
@@ -419,27 +431,33 @@ _potrf.launches = 0
 
 
 def _getrf_route(n: int, k: int = 0) -> str:
-    """The route ``tml_getrf_batched`` takes (csrc/dx_solver.cu's
-    ``getrf_route``): "warp" for n ≤ 32 and k ≤ 32 (a warp a matrix, lane r
-    holding row r in registers, the rows pivoted virtually: each lane keeps
-    the index its row has after the swaps, and the pivot search is a shuffle
-    reduction over the rows not yet taken), else "block" (a block a matrix
-    in shared memory, or in place in the factor buffer past ``SMEM_MAX``).
-    Both take ``_getrf_plain``'s steps in its order, and gesv's solves in
-    ``_gesv_plain``'s."""
-    return "warp" if n <= 32 and k <= 32 else "block"
+    """The route ``tml_getrf_batched`` takes (``_factor_route``): "warp" for
+    n ≤ 32 and k ≤ 32 (a warp a matrix, lane r holding row r in registers,
+    the rows pivoted virtually: each lane keeps the index its row has after
+    the swaps, and the pivot search is a shuffle reduction over the rows not
+    yet taken); "panel" while the padded matrix and right-hand side fit in a
+    block's shared memory (right-looking 32-column panels: a panel's rows in
+    its threads' registers, pivoted virtually, one barrier a column; then the
+    panel's swaps on the other columns, L11·U12 = A12, and the trailing
+    update in 4 × 4 tiles; n ≤ 224 without a right-hand side); else "in
+    place" (the column steps in device memory, in the factor buffer). All
+    take ``_getrf_plain``'s pivots and each element's updates in its order,
+    and gesv's solves in ``_gesv_plain``'s."""
+    return _factor_route(n, k)
 
 
 def _getrf(a, pivot: bool = True, b=None):
     """Batched LU of f32 (B, n, n) through ``tml_getrf_batched``: (LU, piv),
-    or, with B (B, n, k), the solution X of A·X = B (gesv, always
-    pivoted). Counts each launch on ``.launches`` and on its route's
-    ``.warp_launches`` or ``.block_launches`` (``_getrf_route``)."""
+    or, with B (B, n, k), the solution X of A·X = B (gesv, always pivoted;
+    a factor buffer only on the in-place route). Counts each launch on
+    ``.launches`` and on its route's ``.warp_launches``, ``.panel_launches``
+    or ``.in_place_launches`` (``_getrf_route``)."""
     if not on_cuda(a, b):
         return _getrf_plain(a, pivot) if b is None else _gesv_plain(a, b)
     a32, b32, k = _operands(a, b)
     bsz, n = a32.shape[0], a32.shape[-1]
-    out = _factor_out(a32, k, _smem_bytes(n, k) > SMEM_MAX)
+    route = _getrf_route(n, k)
+    out = _factor_out(a32, k, route == "in place")
     piv = torch.empty((bsz, n), dtype=torch.int32, device=a.device) if b is None else None
     x = None if b is None else torch.empty_like(b32)
     lib = cuda_utils.load_kernels()
@@ -447,11 +465,11 @@ def _getrf(a, pivot: bool = True, b=None):
         rc = lib.tml_getrf_batched(a32.data_ptr(), _ptr(out), _ptr(piv), _ptr(b32), _ptr(x),
                                    bsz, n, k, int(pivot), _stream(a.device))
     cuda_utils.check_launch(lib, rc, "tml_getrf_batched")
-    _count_route(_getrf, _getrf_route(n, k))
+    _count_route(_getrf, route)
     return (out, piv) if b is None else x
 
 
-_getrf.launches = _getrf.warp_launches = _getrf.block_launches = 0
+_getrf.launches = _getrf.warp_launches = _getrf.panel_launches = _getrf.in_place_launches = 0
 
 
 def _geqrf(a):
@@ -502,10 +520,24 @@ def _unmqr(qr, taus, c, trans: bool):
 _unmqr.launches = 0
 
 
+def _gels_route(m: int, n: int, k: int) -> str:
+    """The route ``tml_gels_batched`` takes (csrc/dx_solver.cu's
+    ``gels_warp_route``): "warp" for m ≤ 64, n ≤ 32 and k ≤ 32 (a warp a
+    matrix: lane c holds column c of A, lane r rows r and r + 32 of B; lane
+    j forms step j's reflector, which goes to the others through the warp's
+    shared memory, and each right-hand side's sum over the rows is a 5-step
+    butterfly), else "block" (a block a matrix in shared memory, or in place
+    past ``SMEM_MAX``). Both take ``_gels_plain``'s steps, the sums in their
+    own order."""
+    return "warp" if m <= 64 and n <= 32 and k <= 32 else "block"
+
+
 def _gels(a, b):
     """Least squares of f32 (B, m, n), m ≥ n, against (B, m, k) through
     ``tml_gels_batched``: X (B, n, k). A block that works in place keeps all
-    m rows of its right-hand side in X."""
+    m rows of its right-hand side in X. Counts each launch on ``.launches``
+    and on its route's ``.warp_launches`` or ``.block_launches``
+    (``_gels_route``)."""
     if not on_cuda(a, b):
         return _gels_plain(a, b)
     a32, b32 = a.to(F32).contiguous(), b.to(F32).contiguous()
@@ -518,11 +550,11 @@ def _gels(a, b):
         rc = lib.tml_gels_batched(a32.data_ptr(), b32.data_ptr(), x.data_ptr(), _ptr(work), bsz,
                                   m, n, k, _stream(a.device))
     cuda_utils.check_launch(lib, rc, "tml_gels_batched")
-    _gels.launches += 1
+    _count_route(_gels, _gels_route(m, n, k))
     return x[:, :n]
 
 
-_gels.launches = 0
+_gels.launches = _gels.warp_launches = _gels.block_launches = 0
 
 
 @functools.lru_cache(maxsize=16)
