@@ -166,7 +166,8 @@ Phases; any failure raises and the exit code is non-zero:
    (csrc/dx_solver.cu), tml_syevd_batched and tml_gesvd_batched
    (csrc/dx_jacobi.cu) through the public functions against their plain
    versions and float64 at batch 37: syevd and gesvd at n = 1 … 64 on both
-   routes (a warp a matrix to n = 32, a block beyond), unmqr at
+   routes (a warp a matrix to n = 32, two warps a matrix beyond: n = 33, 40,
+   48, 63 and 64), unmqr at
    m = n = 32 and m = 64 × n = 32 both ways, gels on its warp route (m ≤
    64, n ≤ 32, k ≤ 32) at (32, 32), (64, 32), (48, 10), (33, 1) and (64, 1)
    with 1, 4 and 32 right-hand sides and on its block route at (65, 32) and
@@ -183,8 +184,8 @@ Phases; any failure raises and the exit code is non-zero:
    launch no kernel, against float64.
 23. dx lsq/eig times — CUDA events for each route of phase 22, the plain
    version and the library call (lstsq, ormqr, eigh, svd), with the share of
-   the bound and the route; the gels and Jacobi warp kernels' registers and
-   spills (none may spill).
+   the bound and the route; the gels warp kernels' and both Jacobi routes'
+   registers and spills (none may spill).
 24. codec and fused kernels — tml_cascaded_encode, tml_cascaded_decode,
    tml_cascaded_decode_dot (csrc/dx_comp.cu) and tml_gemm_fft
    (csrc/dx_fused.cu) against their plain versions and float64: the codec at
@@ -399,9 +400,15 @@ def phase_build() -> None:
         if compiled != want:
             raise SystemExit(f"chip_smoke: compiled {what} configs {compiled} differ from "
                              f"dx/gemm.py's {want}")
-    print(f"[build] tpumathlib_torch/csrc -> {cuda_utils.build_kernels()} in {secs:.1f} s; "
+    built = cuda_utils.build_kernels()
+    print(f"[build] tpumathlib_torch/csrc -> {built} in {secs:.1f} s; "
           f"the stamped gemm_wgmma.cu beside it, {time.perf_counter() - t0:.1f} s in all",
           flush=True)
+    each = built.parent / "compile_seconds.json"
+    if each.exists():   # absent from a library built before the file was kept
+        print("[build] each source's nvcc, all started together: " + ", ".join(
+            f"{name} {t} s" for name, t in sorted(json.loads(each.read_text()).items(),
+                                                  key=lambda kv: -kv[1])), flush=True)
 
 
 def _operand(gen, shape, dtype, dev):
@@ -3179,7 +3186,8 @@ def phase_dx_times(dxd: dict, card: str) -> dict:
     return ms
 
 
-DXE_KERNEL_NS = (1, 2, 7, 8, 16, 31, 32, 63, 64)   # phase 21's Jacobi sizes: both routes
+# phase 21's Jacobi sizes: the warp route to 32, the block route from 33
+DXE_KERNEL_NS = (1, 2, 7, 8, 16, 31, 32, 33, 40, 48, 63, 64)
 DXE_LSQ = ((32, 32), (64, 32))     # phase 21's (m, n) of unmqr
 # phase 21's gels cases, ((m, n), right-hand sides): the warp route (m <= 64, n <= 32, k <= 32)
 # at its corners, the block route past each of its edges
@@ -3653,11 +3661,11 @@ def phase_dxe_times(dxe: dict, card: str) -> dict:
     phase 22, its plain version (short loops) and its library call
     (torch.linalg.lstsq with driver gels, torch.ormqr, torch.linalg.eigh,
     torch.linalg.svd), each beside its bound, gels' and the Jacobi kernels'
-    with their route; and the registers and spills of the gels and Jacobi
-    warp routes' kernels (none may spill). A call that takes more than 100 ms (the Jacobi plain
-    versions, torch.ormqr, which loops over the batch, and eigh and svd at
-    n = 64) is timed once in each turn; the routes that launch no kernel
-    keep their one call of phase 22."""
+    with their route; and the registers and spills of the gels warp route's
+    kernels and of both Jacobi routes' (none may spill). A call that takes
+    more than 100 ms (the Jacobi plain versions, torch.ormqr, which loops
+    over the batch, and eigh and svd at n = 64) is timed once in each turn;
+    the routes that launch no kernel keep their one call of phase 22."""
     fast, slow, slowest = {}, {}, {}
     for name, (route, count, plain, library) in dxe["routes"].items():
         if count is None:
@@ -3671,8 +3679,9 @@ def phase_dxe_times(dxe: dict, card: str) -> dict:
     ms.update(_loop_ms(slowest, warmup=0, reps=1, samples=1))
     ms.update({f"{name} route": t for name, t in dxe["once_ms"].items()
                if dxe["routes"][name][1] is None})
-    ms["ptxas"] = {k: _ptxas_report(f"{k}_warp_kernel", "dxe-times")
-                   for k in ("gels", "syevd", "gesvd")}
+    ms["ptxas"] = {f"{k}.{route}": _ptxas_report(f"{k}_{route}_kernel", "dxe-times")
+                   for k, route in (("gels", "warp"), ("syevd", "warp"), ("gesvd", "warp"),
+                                    ("syevd", "block"), ("gesvd", "block"))}
     bounds = {}
     for name, (_, count, _, _) in dxe["routes"].items():
         if count is None:
@@ -5907,7 +5916,7 @@ def main() -> None:
         **dxe_ms["bounds"][line],
         "library_ms": dxe_ms[f"{line} library"],
         **({"kernel_route": _line_route(line)} if _line_route(line) else {}),
-        **({"ptxas": dxe_ms["ptxas"][count.split(".")[0][1:]]} if count.endswith(".warp") else {}),
+        **({"ptxas": dxe_ms["ptxas"][count[1:]]} if "." in count else {}),
     } for name, line, count, source, site in (
         ("unmqr_batched (tml_unmqr_batched)", "unmqr_batched trans b8192 n32 k4", "_unmqr",
          "dx_solver.cu", "597"),
@@ -5915,12 +5924,14 @@ def main() -> None:
          "gels_batched b8192 m64 n32 k4", "_gels.warp", "dx_solver.cu", "637"),
         ("syevd_batched warp route (tml_syevd_batched: syevd_warp_kernel, n <= 32)",
          "syevd_batched b8192 n32", "_syevd.warp", "dx_jacobi.cu", "758"),
-        ("syevd_batched block route (tml_syevd_batched: syevd_kernel, 33 <= n <= 64)",
-         "syevd_batched b2048 n64", "_syevd.block", "dx_jacobi.cu", "758"),
+        ("syevd_batched block route (tml_syevd_batched: syevd_block_kernel, two warps a "
+         "matrix, 33 <= n <= 64)", "syevd_batched b2048 n64", "_syevd.block",
+         "dx_jacobi_block.cu", "758"),
         ("gesvd_batched warp route (tml_gesvd_batched: gesvd_warp_kernel, n <= 32)",
          "gesvd_batched b8192 n32", "_gesvd.warp", "dx_jacobi.cu", "843"),
-        ("gesvd_batched block route (tml_gesvd_batched: gesvd_kernel, 33 <= n <= 64)",
-         "gesvd_batched b2048 n64", "_gesvd.block", "dx_jacobi.cu", "843"))] + [{
+        ("gesvd_batched block route (tml_gesvd_batched: gesvd_block_kernel, two warps a "
+         "matrix, 33 <= n <= 64)", "gesvd_batched b2048 n64", "_gesvd.block",
+         "dx_jacobi_block.cu", "843"))] + [{
         "name": name,
         "route": "cuda",
         "source": f"tpumathlib_torch/csrc/{source}",

@@ -108,3 +108,31 @@ def test_f32_paths_imports_neither_jax_nor_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_jacobi_variants_imports_neither_jax_nor_reference():
+    code = ("import sys, runpy\n"
+            "sys.argv = ['jacobi_variants.py']\n"
+            "runpy.run_path('jacobi_variants.py', run_name='not_main')\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'tpumathlib'))\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("name", ["skip", "pair_sums", "syevd_unroll1", "gesvd_unroll1",
+                                  "blocks5"])
+def test_jacobi_variants_edit_the_source(name):
+    """Each variant's edits still find their text in csrc/dx_jacobi_block.cu
+    and change it; the pair_sums variant's header holds the warp route's
+    pair_sums."""
+    mod = _load("jacobi_variants")
+    assert sorted(mod.VARIANTS) == sorted(["skip", "pair_sums", "syevd_unroll1", "gesvd_unroll1",
+                                           "blocks5"])
+    assert mod.edited(name) != mod.SRC.read_text()
+    if name == "pair_sums":
+        assert "void pair_sums(" in mod.pair_sums_header()

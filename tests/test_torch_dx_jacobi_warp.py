@@ -61,15 +61,20 @@ class _Circle:
     def holds_p(self, s):
         return s == 0 or 2 <= s <= self.pairs
 
+    def earlier(self, s):
+        """The slot that holds, a round earlier, what slot s holds."""
+        return 0 if s == 0 else 1 if s == self.m else s + 1
+
     def dead(self, n, r):
         """The pair the column turns skip: the spare index's, in slot m − r."""
         return self.pair_of(self.m - r) if n % 2 else -1
 
 
-def _lanes(circle, n, r):
-    """Each lane's view of round r: (slot, partner, live, holds p)."""
+def _lanes(circle, n, r, threads=32):
+    """Each lane's (or thread's) view of round r: (slot, partner, live,
+    holds p); ``threads``: 32 on the warp route, 64 on the block route."""
     out = []
-    for lane in range(32):
+    for lane in range(threads):
         paired = lane < circle.npad
         slot = circle.slot_of(lane, r) if paired else 0
         partner = circle.index_at(circle.partner_slot(slot), r) if paired else lane
@@ -77,28 +82,68 @@ def _lanes(circle, n, r):
     return out
 
 
+def _cols(circle, n, r):
+    """Round r's live pairs by the slots the column turns take: {k: (p, q)}."""
+    return {k: (circle.index_at(circle.p_slot(k), r), circle.index_at(circle.q_slot(k), r))
+            for k in range(circle.pairs) if k != circle.dead(n, r)}
+
+
 def _warp_schedule(n):
-    """The pairs the warp route turns, round by round: (npad − 1, live
-    pairs, 2) as (p, q), checked against what every lane finds for itself."""
+    """The pairs the Jacobi kernels turn, round by round: (npad − 1, live
+    pairs, 2) as (p, q), checked against what every lane finds for itself:
+    a warp's 32 lanes to n = 32, the block route's 64 threads (two warps)
+    beyond. On the warp route lane p writes its pair's (c, s); on the block
+    route lane k of each warp forms pair k's, syevd's from the entries of
+    the row turn before (``_block_entry_rows``)."""
     circle = _Circle(n + n % 2)
+    threads = 32 if port._jacobi_route(n) == "warp" else 64
     rounds = []
     for r in range(circle.m):
-        dead = circle.dead(n, r)
-        cols = {k: (circle.index_at(circle.p_slot(k), r), circle.index_at(circle.q_slot(k), r))
-                for k in range(circle.pairs) if k != dead}
+        cols = _cols(circle, n, r)
+        lanes = _lanes(circle, n, r, threads)
         rows, writers = {}, {}
-        for lane, (slot, partner, live, own_p) in enumerate(_lanes(circle, n, r)):
+        for lane, (slot, partner, live, own_p) in enumerate(lanes):
             if not live:
                 continue
             k = circle.pair_of(slot)
             rows[k] = rows.get(k, (None, None))
             rows[k] = (lane, rows[k][1]) if own_p else (rows[k][0], lane)
-            assert _lanes(circle, n, r)[partner][1] == lane
+            assert lanes[partner][1] == lane
             if own_p:
                 writers[k] = lane
         assert rows == cols and writers == {k: p for k, (p, _) in cols.items()}
+        if threads == 64:
+            assert _block_entry_rows(circle, n, r) == {
+                k: {x: _turned_with(circle, n, (r - 1) % circle.m, x) for x in pq}
+                for k, pq in cols.items()}
         rounds.append([cols[k] for k in sorted(cols)])
     return np.array(rounds, np.int32).reshape(circle.m, -1, 2)
+
+
+def _turned_with(circle, n, r, x):
+    """From _live_pairs(n)[r]: (partner, x is p) of index x, or None for a bye."""
+    for p, q in port._live_pairs(n)[r]:
+        if x in (p, q):
+            return (int(q if x == p else p), bool(x == p))
+    return None
+
+
+def _block_entry_rows(circle, n, r):
+    """syevd_block_kernel's lane k, forming pair k's (c, s) for round r from
+    round r − 1's tile: p and q sit there in slots earlier(p_slot(k)) and
+    earlier(q_slot(k)), whatever the round; for each, the row it was turned
+    with in round r − 1 and its role there (``turned_entry``), or None where
+    it was not turned."""
+    prev = (r - 1) % circle.m
+    out = {}
+    for k, pq in _cols(circle, n, r).items():
+        out[k] = {}
+        for x, s in zip(pq, (circle.p_slot(k), circle.q_slot(k))):
+            sx = circle.earlier(s)
+            assert circle.index_at(sx, prev) == x and circle.slot_of(x, prev) == sx
+            y = circle.index_at(circle.partner_slot(sx), prev)
+            out[k][x] = (y, circle.holds_p(sx)) if y < n else None
+    return out
 
 
 def test_jacobi_route():
@@ -106,7 +151,7 @@ def test_jacobi_route():
         "warp", "warp", "warp", "block", "block"]
 
 
-@pytest.mark.parametrize("n", range(1, 33))
+@pytest.mark.parametrize("n", range(1, 65))
 def test_warp_schedule_is_live_pairs(n):
     np.testing.assert_array_equal(_warp_schedule(n), port._live_pairs(n))
 

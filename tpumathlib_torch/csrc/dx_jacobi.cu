@@ -11,11 +11,11 @@
 // pallas_call (:758, kernel _syevd_kernel :685) and gesvd_batched's (:843,
 // kernel _gesvd_kernel :779). There each round is a few matmuls against 0/1
 // permutation matrices, because Mosaic cannot gather lanes; here a warp (n <=
-// 32) or a thread block holds one matrix and V and reads each pair's entries
-// directly. tpumathlib_torch/dx/solver.py holds the wrappers, the
-// plain PyTorch versions (_syevd_plain, _gesvd_plain) and the schedule
-// (_roundrobin, passed in as an int table, which the block route reads and
-// the warp route computes); the wrappers sort the results.
+// 32) or two (n <= 64) hold one matrix and V, a row a lane, and turn each
+// pair's columns in registers. tpumathlib_torch/dx/solver.py holds the
+// wrappers, the plain PyTorch versions (_syevd_plain, _gesvd_plain) and the
+// schedule (_roundrobin, passed in as an int table, which both routes
+// compute in the kernel instead); the wrappers sort the results.
 //
 // Each sweep runs the rounds of the round-robin schedule, each round
 // rotating n/2 disjoint pairs (p, q) by [[c, s], [-s, c]]:
@@ -36,15 +36,19 @@
 // turned, gives the same result).
 //
 // Two routes by n (jacobi_route; dx/solver.py::_jacobi_route mirrors it):
-// - n <= 32: a warp a matrix (syevd_warp_kernel, gesvd_warp_kernel), 4
-//   matrices a block. Lane i holds row i of A and of V in registers, the
-//   columns in the order of the circle method's slots (Circle below), so
-//   that every pair's columns are registers fixed at compile time; between
-//   rounds the rotating slots move down by one register. No block barrier
-//   and no table load in the loop: each round's (c, s) go through a
-//   per-warp buffer in shared memory behind one __syncwarp.
-// - 33 <= n <= 64: a block a matrix with A and V in shared memory
-//   (syevd_kernel, gesvd_kernel), the pairs read from the table.
+// - n <= 32: a warp a matrix (syevd_warp_kernel, gesvd_warp_kernel, below),
+//   4 matrices a block. Lane i holds row i of A and of V in registers, the
+//   columns in the order of the circle method's slots (Circle, in
+//   dx_jacobi.cuh), so that every pair's columns are registers fixed at
+//   compile time; between rounds the rotating slots move down by one
+//   register. No block barrier and no table load in the loop: each round's
+//   (c, s) go through a per-warp buffer in shared memory behind one
+//   __syncwarp.
+// - 33 <= n <= 64: two warps a matrix (syevd_block_kernel,
+//   gesvd_block_kernel, csrc/dx_jacobi_block.cu), thread i holding row i of
+//   A and of V in registers in the same slots, one block barrier a round:
+//   gesvd's two warps add their halves of the column sums through shared
+//   memory, syevd's threads exchange their rows of A·J through a tile.
 //
 // What bounds them: at batch 8192 x n 32 f32, a sweep has 31 rounds of n/2
 // pairs. syevd needs 12 n flop a pair (A stays symmetric, so J^T A J needs
@@ -61,233 +65,27 @@
 // pick what it keeps); then 62 register moves of the rotation, which syevd
 // pays once in two rounds (its loop is unrolled by 2). Measured through the
 // public calls on an H100 at 700 W (chip_smoke.py, time_paths.py) at 8192 x
-// 32: syevd 1.84 ms and gesvd 2.52, where the block route took 11.2 and 17.0
-// (its 3 or 2 barriers a round) and torch.linalg's eigh and svd take 4.7 and
-// 8.4. The block route keeps many blocks on an SM (33 KB at n = 64) to hide
-// its barriers.
+// 32: syevd 1.84 ms and gesvd 2.52, where a block a matrix with A and V in
+// shared memory took 11.2 and 17.0 (its 3 or 2 barriers a round) and
+// torch.linalg's eigh and svd take 4.7 and 8.4.
 
-#include <cuda_runtime.h>
+#include "dx_jacobi.cuh"
 
-#include <cstdint>
-
+namespace tml_jacobi {
 namespace {
 
-constexpr int kMaxN = 64;
-constexpr int kMaxThreads = 512;
-
-struct Args {
-  const float* a;         // (batch, n, n)
-  const int32_t* pairs;   // (rounds, npairs, 2) for n rounded up to even
-  float* u;               // gesvd: (batch, n, n); syevd: unused
-  float* d;               // syevd: w (batch, n); gesvd: s (batch, n)
-  float* v;               // (batch, n, n)
-  int n, rounds, npairs, sweeps;
-};
-
-// Shared memory: A and V (n x (n + 1): column reads spread over banks), each
-// pair's c, s, p, q, and n floats for gesvd's norms.
-int64_t smem_bytes(int n, int npairs) {
-  return (2 * static_cast<int64_t>(n) * (n + 1) + 4 * npairs + n) * 4;
-}
-
-struct Block {
-  float* A;
-  float* V;
-  float* c;
-  float* s;
-  int* p;
-  int* q;
-  float* norm;
-  int ld;
-};
-
-__device__ Block stage(const Args& a, float* smem) {
-  const int n = a.n, ld = n + 1;
-  Block b;
-  b.A = smem;
-  b.V = b.A + n * ld;
-  b.c = b.V + n * ld;
-  b.s = b.c + a.npairs;
-  b.p = reinterpret_cast<int*>(b.s + a.npairs);
-  b.q = b.p + a.npairs;
-  b.norm = reinterpret_cast<float*>(b.q + a.npairs);
-  b.ld = ld;
-  const float* src = a.a + static_cast<int64_t>(blockIdx.x) * n * n;
-  for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
-    const int r = e / n, c = e % n;
-    b.A[r * ld + c] = src[e];
-    b.V[r * ld + c] = r == c ? 1.f : 0.f;
-  }
-  __syncthreads();
-  return b;
-}
-
-// The rotation of one pair, from its two diagonal entries (or squared column
-// norms) and its coupling.
-__device__ __forceinline__ void rot_coeffs(float app, float aqq, float apq, float& c, float& s) {
-  if (!(fabsf(apq) > 1e-30f)) {
-    c = 1.f;
-    s = 0.f;
-    return;
-  }
-  const float tau = (aqq - app) / (2.f * apq);
-  const float t = tau == 0.f ? 1.f : copysignf(1.f, tau) / (fabsf(tau) + sqrtf(1.f + tau * tau));
-  c = rsqrtf(1.f + t * t);
-  s = t * c;
-}
-
-// Pair k of round r, or p = -1 where it holds the spare index of odd n.
-__device__ __forceinline__ void pair_of(const Args& a, int r, int k, int& p, int& q) {
-  const int32_t* pq = a.pairs + (static_cast<int64_t>(r) * a.npairs + k) * 2;
-  p = pq[0];
-  q = pq[1];
-  if (p >= a.n || q >= a.n) p = -1;
-}
-
-// Columns p and q of M (ld) turned for every live pair: (c a_p - s a_q,
-// s a_p + c a_q), one thread a (pair, row).
-__device__ __forceinline__ void turn_columns(const Block& b, float* M, int n, int npairs) {
-  for (int e = threadIdx.x; e < npairs * n; e += blockDim.x) {
-    const int k = e / n, i = e % n, p = b.p[k];
-    if (p < 0) continue;
-    const int q = b.q[k];
-    const float c = b.c[k], s = b.s[k];
-    const float x = M[i * b.ld + p], y = M[i * b.ld + q];
-    M[i * b.ld + p] = c * x - s * y;
-    M[i * b.ld + q] = s * x + c * y;
-  }
-}
-
-__global__ void __launch_bounds__(kMaxThreads) syevd_kernel(const Args a) {
-  extern __shared__ float smem[];
-  const Block b = stage(a, smem);
-  const int n = a.n, ld = b.ld;
-  for (int sweep = 0; sweep < a.sweeps; ++sweep)
-    for (int r = 0; r < a.rounds; ++r) {
-      for (int k = threadIdx.x; k < a.npairs; k += blockDim.x) {
-        int p, q;
-        pair_of(a, r, k, p, q);
-        float c = 1.f, s = 0.f;
-        if (p >= 0) rot_coeffs(b.A[p * ld + p], b.A[q * ld + q], b.A[p * ld + q], c, s);
-        b.p[k] = p;
-        b.q[k] = q;
-        b.c[k] = c;
-        b.s[k] = s;
-      }
-      __syncthreads();
-      turn_columns(b, b.A, n, a.npairs);
-      turn_columns(b, b.V, n, a.npairs);
-      __syncthreads();
-      // rows p and q of A: (c a_p - s a_q, s a_p + c a_q)
-      for (int e = threadIdx.x; e < a.npairs * n; e += blockDim.x) {
-        const int k = e / n, i = e % n, p = b.p[k];
-        if (p < 0) continue;
-        const int q = b.q[k];
-        const float c = b.c[k], s = b.s[k];
-        const float x = b.A[p * ld + i], y = b.A[q * ld + i];
-        b.A[p * ld + i] = c * x - s * y;
-        b.A[q * ld + i] = s * x + c * y;
-      }
-      __syncthreads();
-    }
-  const int64_t bi = blockIdx.x;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) a.d[bi * n + i] = b.A[i * ld + i];
-  for (int e = threadIdx.x; e < n * n; e += blockDim.x)
-    a.v[bi * n * n + e] = b.V[(e / n) * ld + e % n];
-}
-
-__global__ void __launch_bounds__(kMaxThreads) gesvd_kernel(const Args a) {
-  extern __shared__ float smem[];
-  const Block b = stage(a, smem);
-  const int n = a.n, ld = b.ld;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
-  for (int sweep = 0; sweep < a.sweeps; ++sweep)
-    for (int r = 0; r < a.rounds; ++r) {
-      for (int k = warp; k < a.npairs; k += warps) {
-        int p, q;
-        pair_of(a, r, k, p, q);
-        float al = 0.f, be = 0.f, ga = 0.f;
-        if (p >= 0)
-          for (int i = lane; i < n; i += 32) {
-            const float x = b.A[i * ld + p], y = b.A[i * ld + q];
-            al += x * x;
-            be += y * y;
-            ga += x * y;
-          }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          al += __shfl_xor_sync(0xffffffffu, al, off);
-          be += __shfl_xor_sync(0xffffffffu, be, off);
-          ga += __shfl_xor_sync(0xffffffffu, ga, off);
-        }
-        if (lane == 0) {
-          float c = 1.f, s = 0.f;
-          if (p >= 0) rot_coeffs(al, be, ga, c, s);
-          b.p[k] = p;
-          b.q[k] = q;
-          b.c[k] = c;
-          b.s[k] = s;
-        }
-      }
-      __syncthreads();
-      turn_columns(b, b.A, n, a.npairs);
-      turn_columns(b, b.V, n, a.npairs);
-      __syncthreads();
-    }
-  // sigma_j = |a_j|, one warp a column; U = A / sigma (sigma = 0: / 1)
-  for (int j = warp; j < n; j += warps) {
-    float ss = 0.f;
-    for (int i = lane; i < n; i += 32) ss += b.A[i * ld + j] * b.A[i * ld + j];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
-    if (lane == 0) b.norm[j] = sqrtf(ss);
-  }
-  __syncthreads();
-  const int64_t bi = blockIdx.x;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) a.d[bi * n + j] = b.norm[j];
-  for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
-    const int i = e / n, j = e % n;
-    const float sig = b.norm[j];
-    a.u[bi * n * n + e] = b.A[i * ld + j] / (sig > 0.f ? sig : 1.f);
-    a.v[bi * n * n + e] = b.V[i * ld + j];
-  }
-}
-
-// ----------------------------- the warp route -----------------------------
-
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarpN = 32;          // the warp route's largest n
 constexpr int kWarpMatrices = 4;    // matrices (warps) a block on the warp route
 constexpr int kWarpBlocks = 4;      // blocks an SM the warp route asks for: 128 registers a lane
 
-__host__ __device__ constexpr int ceil_log2(int n) {
-  return n <= 1 ? 0 : 1 + ceil_log2((n + 1) / 2);
-}
-
-// _roundrobin(NPAD) as the circle method lays it out. Index 0 stays in slot
-// 0; in round r (0 <= r < kM) slot s >= 1 holds index 1 + (s - 1 + r) mod kM,
-// so between rounds slot s takes what slot s + 1 held and slot kM what slot
-// 1 held. Pair k takes slots (0, 1) for k = 0 and (1 + k, NPAD - k)
-// otherwise, its p first: round r's pairs in _roundrobin's order and roles.
-// For odd n (= kM) the spare index kM sits in slot kM - r.
-template <int NPAD>
-struct Circle {
-  static constexpr int kM = NPAD - 1;
-  static constexpr int kPairs = NPAD / 2;
-  __host__ __device__ static constexpr int p_slot(int k) { return k == 0 ? 0 : 1 + k; }
-  __host__ __device__ static constexpr int q_slot(int k) { return k == 0 ? 1 : NPAD - k; }
-  __device__ static int index_at(int s, int r) {
-    const int i = s - 1 + r;
-    return s == 0 ? 0 : 1 + (i >= kM ? i - kM : i);
-  }
-  __device__ static int slot_of(int i, int r) {
-    const int d = i - 1 - r;
-    return i == 0 ? 0 : 1 + (d < 0 ? d + kM : d);
-  }
-  __device__ static int partner_slot(int s) { return s == 0 ? 1 : s == 1 ? 0 : NPAD + 1 - s; }
-  __device__ static int pair_of(int s) { return s <= 1 ? 0 : s <= kPairs ? s - 1 : NPAD - s; }
-  __device__ static bool holds_p(int s) { return s == 0 || (s >= 2 && s <= kPairs); }
+struct Args {
+  const float* a;         // (batch, n, n)
+  float* u;               // gesvd: (batch, n, n); syevd: unused
+  float* d;               // syevd: w (batch, n); gesvd: s (batch, n)
+  float* v;               // (batch, n, n)
+  int n, sweeps;
 };
+
+// ----------------------------- the warp route -----------------------------
 
 // x[i] for a runtime i < N by a tree of selects on i's bits: a register
 // array indexed by a runtime value would go to local memory.
@@ -341,43 +139,6 @@ __device__ __forceinline__ void store_rows(const float (&x)[NPAD], float (*t)[kW
     if (r < n && lane < n) dst[r * n + lane] = t[r][lane];
 }
 
-__device__ __forceinline__ void turn(float& x, float& y, float c, float s) {
-  const float x0 = x, y0 = y;
-  x = c * x0 - s * y0;
-  y = s * x0 + c * y0;
-}
-
-// Columns p and q of A's and V's rows for every pair but `dead` (the spare
-// index's, for odd n; -1 for even n), with the round's (c, s) from cs.
-template <int NPAD>
-__device__ __forceinline__ void turn_columns(float (&a)[NPAD], float (&v)[NPAD], const float4* cs,
-                                             int dead) {
-  using C = Circle<NPAD>;
-#pragma unroll
-  for (int k = 0; k < C::kPairs; k += 2) {
-    const float4 q = cs[k / 2];
-    if (k != dead) {
-      turn(a[C::p_slot(k)], a[C::q_slot(k)], q.x, q.y);
-      turn(v[C::p_slot(k)], v[C::q_slot(k)], q.x, q.y);
-    }
-    if (k + 1 < C::kPairs && k + 1 != dead) {
-      constexpr int kLast = C::kPairs - 1;   // k + 1 past the pairs is never read
-      const int k1 = k + 1 < C::kPairs ? k + 1 : kLast;
-      turn(a[C::p_slot(k1)], a[C::q_slot(k1)], q.z, q.w);
-      turn(v[C::p_slot(k1)], v[C::q_slot(k1)], q.z, q.w);
-    }
-  }
-}
-
-// Slots 1 .. kM move down by one: slot s takes slot s + 1's column.
-template <int NPAD>
-__device__ __forceinline__ void rotate(float (&x)[NPAD]) {
-  const float first = x[1];
-#pragma unroll
-  for (int s = 1; s + 1 < NPAD; ++s) x[s] = x[s + 1];
-  x[NPAD - 1] = first;
-}
-
 // Two-sided Jacobi, a warp a matrix. Each round, every lane finds its
 // slot, its partner's index and its role; the pair's diagonal entries and
 // coupling A(p, q) come from the two lanes (a select tree for the lane's
@@ -419,7 +180,7 @@ __global__ void __launch_bounds__(kWarpMatrices * 32, kWarpBlocks)
     if (live && own_p)
       reinterpret_cast<float2*>(ws.cs[buf])[C::pair_of(slot)] = make_float2(c, s);
     __syncwarp();
-    turn_columns<NPAD>(a, v, ws.cs[buf], odd ? C::pair_of(C::kM - r) : -1);
+    turn_columns<NPAD>(a, v, ws.cs[buf], C::dead(odd, r));
     const float sr = own_p ? -s : s;
 #pragma unroll
     for (int j = 0; j < NPAD; ++j) {
@@ -435,35 +196,6 @@ __global__ void __launch_bounds__(kWarpMatrices * 32, kWarpBlocks)
   store_rows<NPAD>(v, ws.tile, p.v + bi * n * n, n, lane);
 }
 
-// The sums over the warp's lanes of alpha, beta and gamma of every pair,
-// formed in each lane from its row. At each step a lane keeps half of the
-// pairs it holds (the upper half where its lane bit `mask` is set) and adds
-// its xor partner's copy of them, one shuffle a value kept: the first step
-// (mask 16) as the products are formed, so that only half of them are ever
-// live; then butterflies on the one pair left. Lane l ends with pair
-// l >> (5 - log2 H)'s sums (H: the pairs rounded up to a power of two), the
-// same in every lane that holds it. The steps recurse on HALF so that every
-// index is known at compile time.
-__device__ __forceinline__ void halve(float& lo, float hi, bool up, int mask) {
-  const float keep = up ? hi : lo, send = up ? lo : hi;
-  lo = keep + __shfl_xor_sync(kFull, send, mask);
-}
-
-template <int HALF, int H, int MASK>
-__device__ __forceinline__ void halve_pairs(float (&al)[H], float (&be)[H], float (&ga)[H],
-                                            int lane) {
-  if constexpr (HALF >= 1) {
-    const bool up = lane & MASK;
-#pragma unroll
-    for (int i = 0; i < HALF; ++i) {
-      halve(al[i], al[i + HALF], up, MASK);
-      halve(be[i], be[i + HALF], up, MASK);
-      halve(ga[i], ga[i + HALF], up, MASK);
-    }
-    halve_pairs<HALF / 2, H, MASK / 2>(al, be, ga, lane);
-  }
-}
-
 // Pair k's products in this lane's row (zeros for k past the pairs).
 template <int NPAD>
 __device__ __forceinline__ void products(const float (&a)[NPAD], int k, float& al, float& be,
@@ -477,7 +209,12 @@ __device__ __forceinline__ void products(const float (&a)[NPAD], int k, float& a
   ga = x * y;
 }
 
-// H: the pairs rounded up to a power of two; al, be, ga get this lane's sums.
+// The sums over the warp's lanes of alpha, beta and gamma of every pair,
+// formed in each lane from its row: the first halving step (mask 16) as the
+// products are formed, so that only half of them are ever live; then
+// halve_pairs, then butterflies on the one pair left. Lane l ends with pair
+// l >> (5 - log2 H)'s sums (H: the pairs rounded up to a power of two), the
+// same in every lane that holds it; al, be, ga get them.
 template <int NPAD, int H>
 __device__ __forceinline__ void pair_sums(const float (&a)[NPAD], int lane, float& al, float& be,
                                           float& ga) {
@@ -542,7 +279,7 @@ __global__ void __launch_bounds__(kWarpMatrices * 32, kWarpBlocks)
     rot_coeffs(al, be, ga, c, s);
     if (writer) reinterpret_cast<float2*>(ws.cs[buf])[held] = make_float2(c, s);
     __syncwarp();
-    turn_columns<NPAD>(a, v, ws.cs[buf], odd ? C::pair_of(C::kM - r) : -1);
+    turn_columns<NPAD>(a, v, ws.cs[buf], C::dead(odd, r));
     rotate<NPAD>(a);
     rotate<NPAD>(v);
     buf ^= 1;
@@ -595,36 +332,30 @@ cudaError_t launch(bool svd, const void* a, const void* pairs, void* u, void* d,
   if (batch == 0) return cudaSuccess;
   Args p{};
   p.a = static_cast<const float*>(a);
-  p.pairs = static_cast<const int32_t*>(pairs);
   p.u = static_cast<float*>(u);
   p.d = static_cast<float*>(d);
   p.v = static_cast<float*>(v);
   p.n = static_cast<int>(n);
-  const int npad = p.n + p.n % 2;
-  p.rounds = npad - 1;
-  p.npairs = npad / 2;
   p.sweeps = static_cast<int>(sweeps);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (jacobi_route(n) == kWarpRoute) return launch_warp_route(svd, p, batch, s);
-  void (*kernel)(Args) = svd ? gesvd_kernel : syevd_kernel;
-  const size_t smem = static_cast<size_t>(smem_bytes(p.n, p.npairs));
-  kernel<<<static_cast<unsigned>(batch), kMaxThreads, smem, s>>>(p);
-  return cudaGetLastError();
+  return launch_block_route(svd, p.a, p.u, p.d, p.v, batch, p.n, p.sweeps, s);
 }
 
 }  // namespace
+}  // namespace tml_jacobi
 
 extern "C" {
 
 // a: (batch, n, n) f32 contiguous, symmetric, n <= 64; pairs: int32
-// (npad - 1, npad / 2, 2), npad = n + n % 2, the round-robin schedule (read
-// by the block route, n > 32; the warp route computes the same pairs). Writes
+// (npad - 1, npad / 2, 2), npad = n + n % 2, the round-robin schedule (both
+// routes compute the same pairs in the kernel; the table is not read). Writes
 // the unsorted eigenvalues w (batch, n) and eigenvectors v (batch, n, n) after
 // `sweeps` sweeps. Launches on `stream`; returns the CUDA status (0 on
 // success).
 int tml_syevd_batched(const void* a, const void* pairs, void* w, void* v, int64_t batch, int64_t n,
                       int64_t sweeps, void* stream) {
-  return launch(false, a, pairs, nullptr, w, v, batch, n, sweeps, stream);
+  return tml_jacobi::launch(false, a, pairs, nullptr, w, v, batch, n, sweeps, stream);
 }
 
 // As tml_syevd_batched, for the SVD of a (batch, n, n): u (batch, n, n), the
@@ -632,7 +363,7 @@ int tml_syevd_batched(const void* a, const void* pairs, void* w, void* v, int64_
 int tml_gesvd_batched(const void* a, const void* pairs, void* u, void* s, void* v, int64_t batch,
                       int64_t n, int64_t sweeps, void* stream) {
   if (u == nullptr) return cudaErrorInvalidValue;
-  return launch(true, a, pairs, u, s, v, batch, n, sweeps, stream);
+  return tml_jacobi::launch(true, a, pairs, u, s, v, batch, n, sweeps, stream);
 }
 
 }  // extern "C"

@@ -18,10 +18,12 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -53,11 +55,31 @@ def _nvcc() -> str:
     return found
 
 
+def _communicate_all(procs) -> tuple[list[str], list[float]]:
+    """Each process's output and the seconds, from this call, at which it
+    ended: one thread a process reads its pipe while it runs."""
+    t0 = time.perf_counter()
+    outs, secs = [""] * len(procs), [0.0] * len(procs)
+
+    def wait(j):
+        outs[j] = procs[j].communicate()[0]
+        secs[j] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=wait, args=(j,)) for j in range(len(procs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return outs, secs
+
+
 def build_kernels() -> Path:
     """Compile ``csrc/*.cu`` (once per content hash); returns the library path.
     Raises ExecutionError with nvcc's output when the build fails. The
     compiler's resource report (registers, shared memory, spills) is kept
-    beside the library as ``nvcc.log``."""
+    beside the library as ``nvcc.log``, and each source's compile time (in
+    seconds from the start of all: they run at once) as
+    ``compile_seconds.json``."""
     srcs = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in srcs + sorted(CSRC.glob("*.cuh")):
@@ -74,8 +96,10 @@ def build_kernels() -> Path:
                 for src, obj in zip(srcs, objs)]
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for cmd in compiles]
-    outs = [proc.communicate()[0] for proc in procs]
+    outs, secs = _communicate_all(procs)
     (out_dir / "nvcc.log").write_text("".join(outs))
+    (out_dir / "compile_seconds.json").write_text(json.dumps(
+        {src.name: round(t, 1) for src, t in zip(srcs, secs)}, indent=1))
     for cmd, proc, out in zip(compiles, procs, outs):
         if proc.returncode != 0:
             raise ExecutionError(

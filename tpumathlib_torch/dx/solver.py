@@ -40,8 +40,11 @@ Mosaic cannot gather):
 
 Each takes one of two routes by n (``_jacobi_route``): for n ≤ 32 a warp a
 matrix, A's and V's rows in its lanes' registers, with the schedule's pairs
-computed in the kernel and no block barrier; for 33 ≤ n ≤ 64 a thread block
-a matrix, A and V in shared memory, the pairs read from the table.
+computed in the kernel and no block barrier; for 33 ≤ n ≤ 64 two warps a
+matrix (``csrc/dx_jacobi_block.cu``), a row of A and of V a thread in the
+same slots, with one block barrier a round: gesvd's warps add their halves
+of the column sums, syevd's threads exchange their rows of A·J through
+shared memory.
 
 The sweep counts are fixed, with no early exit, as in the reference; the
 wrappers sort the results after the kernel (stable, as ``jnp.argsort``).
@@ -575,10 +578,13 @@ def _jacobi_route(n: int) -> str:
     matrix, lane i holding row i of A and of V, the columns in the circle
     method's slots, so that each round's pairs are registers fixed at
     compile time; the spare index of odd n is skipped, never turned) and
-    "block" for 33 ≤ n ≤ 64 (a block a matrix, A and V in shared memory, the
-    pairs from ``_pair_table``). Both take ``_live_pairs(n)`` in its order
-    with its p/q roles, so ``_syevd_plain`` and ``_gesvd_plain`` are the
-    function of both."""
+    "block" for 33 ≤ n ≤ 64 (two warps, a block of 64 threads, a matrix:
+    thread i holding row i of A and of V in the same slots; one block
+    barrier a round, behind which gesvd's warps add their halves of the
+    column sums and syevd's threads read their partners' rows of A·J from a
+    tile in shared memory). Neither reads ``_pair_table``: both compute
+    ``_live_pairs(n)`` in its order with its p/q roles, so ``_syevd_plain``
+    and ``_gesvd_plain`` are the function of both."""
     return "warp" if n <= 32 else "block"
 
 
