@@ -187,24 +187,29 @@ Phases; any failure raises and the exit code is non-zero:
    the bound and the route; the gels warp kernels' and both Jacobi routes'
    registers and spills (none may spill).
 24. codec and fused kernels — tml_cascaded_encode, tml_cascaded_decode,
-   tml_cascaded_decode_dot (csrc/dx_comp.cu) and tml_gemm_fft
-   (csrc/dx_fused.cu) against their plain versions and float64: the codec at
-   every width 1 … 32 and n = 160 … 2^20, its words and leaders bit for bit,
-   the int32 extremes and a width too narrow; decode_dot at rows 1, 37 and
-   4096, W widths 1 … 256; gemm_fft up to (4096, 1024, 1024) under every
-   epilogue and an unknown string (ROADMAP C14); a bf16 control above each
-   tolerance.
+   tml_cascaded_decode_dot (csrc/dx_comp.cu: decode warps feeding 3xTF32
+   wgmma) and tml_gemm_fft / tml_gemm_fft_simt (csrc/dx_fused.cu: the
+   product tile, then in-block radix passes) against their plain versions
+   and float64: the codec at every width 1 … 32 and n = 160 … 2^20, its
+   words and leaders bit for bit, the int32 extremes and a width too narrow;
+   decode_dot at rows 1, 37 and 4096, W widths 1 … 256; gemm_fft up to
+   (4096, 1024, 1024) under every epilogue and an unknown string (ROADMAP
+   C14), each shape on its size rule's route and on the SIMT route; a bf16
+   control above each tolerance.
 25. codec and fused main path — bench.py's codec line (64 Mi int32, bits 8)
    through comp.device_cascaded_compress and _decompress, with bits unset
    and the ratio; the lossy codec on 64 Mi f32 at delta 1.0 and 0.3;
    dx_decompress_dot on that payload (524288 rows, W 128 x 128); gemm_fft at
-   (32768, 256, 256) with gelu; gemm_fft_composed, gemm_gemm,
-   fft_convolution (4096 x 4096) and fft_convolution_nd (8 x 64^3): each
-   step must grow exactly its kernels' counts, and agree with the plain
-   version and float64.
+   (32768, 256, 256) with gelu (the tensor-core route, and one split of
+   B^T); gemm_fft_composed, gemm_gemm, fft_convolution (4096 x 4096) and
+   fft_convolution_nd (8 x 64^3): each step must grow exactly its kernels'
+   counts (each route's apart), and agree with the plain version and
+   float64.
 26. codec and fused times — CUDA events for each kernel route of phase 25
    and its plain version (decode and encode also in GB/s), with the share of
-   the bound, and the compositions that stand in for a library call.
+   the bound (decode_dot and gemm_fft at the 3xTF32 rate), the compositions
+   that stand in for a library call, and the registers and spills of the
+   decode_dot and gemm_fft kernels (none may spill).
 27. RNG kernels — tml_random_uniform (csrc/dx_rng.cu) and tml_dropout_matmul
    (the dropout epilogue of the 3xTF32 kernel, csrc/gemm_tf32x3.cu; both
    draw from csrc/philox.cuh) against their plain versions: the uniforms bit
@@ -2176,16 +2181,19 @@ def _tf32_mp_sites(gen, dev) -> dict:
 
 
 def _tf32_b1_sites(gen, dev) -> dict:
-    """B1's f32 route, B10b and B6a's f32 SpMM on the 3xTF32 kernels, which
-    run TF32 by design and read no torch setting: pallas_matmul (gelu+bias,
-    1000-deep), _matmul_into at K = 256 (the host loops' launcher, C = D),
-    the dropout's kept values, and sparse.spmm on an f32 Blocked-ELL (K =
-    ellw·bs = 384, a pad slot, ragged k), each against float64 at TF32_TOL."""
+    """B1's f32 route, B10b, B6a's f32 SpMM, B8c and B9 on the 3xTF32
+    kernels, which run TF32 by design and read no torch setting:
+    pallas_matmul (gelu+bias, 1000-deep), _matmul_into at K = 256 (the host
+    loops' launcher, C = D), the dropout's kept values, sparse.spmm on an
+    f32 Blocked-ELL (K = ellw·bs = 384, a pad slot, ragged k),
+    dx_decompress_dot (1024 rows, N = 200, scale 0.01) and gemm_fft ((300,
+    256, 256) and a ragged k = 250, gelu), each against float64 at
+    TF32_TOL."""
     a, b = (torch.randn(shape, generator=gen, device=dev) for shape in ((384, 1000), (1000, 520)))
     bias = torch.randn((520,), generator=gen, device=dev)
     a64, b64 = a.double(), b.double()
 
-    def fused():
+    def b1_fused():
         pre = a64 @ b64 + bias.double()
         want = 0.5 * pre * (1 + torch.tanh(math.sqrt(2 / math.pi) * (pre + 0.044715 * pre**3)))
         got = pallas_matmul(a, b, bias=bias, epilogue="gelu_bias")
@@ -2209,10 +2217,29 @@ def _tf32_b1_sites(gen, dev) -> dict:
     def spmm():
         return {"Y": max_scaled_err(sparse.spmm(bell, bb, alpha=0.5), 0.5 * _spmm64(bell, bb))}
 
-    return {"B1 f32 route, 3xTF32 (dx/gemm.py)": fused,
+    walk = torch.cumsum(torch.randint(-60, 61, (1024 * 128,), generator=gen, device=dev), 0)
+    payload = dxc.dx_compress(walk.to(torch.int32), bits=8)
+    w = torch.randn((128, 200), generator=gen, device=dev)
+
+    def decode_dot():
+        got = dxc.dx_decompress_dot(*payload, w, bits=8, scale=0.01)
+        return {"out": max_scaled_err(got, (walk.reshape(-1, 128).double() * 0.01) @ w.double())}
+
+    def gemm_fft():
+        errs = {}
+        for k in (256, 250):
+            fa, fb = a[:300, :k], b[:k, :256]
+            got = fused.gemm_fft(fa, fb, "gelu")
+            want = _gemm_fft64(fa, fb, "gelu")
+            errs[f"Y k={k}"] = max(max_scaled_err(got[0], want.real), max_scaled_err(got[1], want.imag))
+        return errs
+
+    return {"B1 f32 route, 3xTF32 (dx/gemm.py)": b1_fused,
             "B1 _matmul_into, 3xTF32 (dx/gemm.py)": into,
             "B10b dropout, 3xTF32 (dx/rng.py)": dropout,
-            "B6a f32 SpMM, 3xTF32 (sparse/pallas_kernels.py)": spmm}
+            "B6a f32 SpMM, 3xTF32 (sparse/pallas_kernels.py)": spmm,
+            "B8c decode_dot, 3xTF32 (dx/comp.py)": decode_dot,
+            "B9 gemm_fft, 3xTF32 (dx/fused.py)": gemm_fft}
 
 
 def phase_tf32(dev) -> None:
@@ -2222,7 +2249,8 @@ def phase_tf32(dev) -> None:
     caller's setting back after, and a bare torch.matmul of one DFT stage
     beside it. Then the C16 sites (syevj, gesvdj, spmv on a BSR matrix,
     sddmm_bsr, xormqr) through their public functions against float64 at
-    TF32_TOL, B1's f32 route and B10b (``_tf32_b1_sites``) at TF32_TOL, and
+    TF32_TOL, the 3xTF32 sites (``_tf32_b1_sites``: B1's f32 route, B10b, B6a,
+    B8c and B9) at TF32_TOL, and
     the Mp slice's sites (``_tf32_mp_sites``) at MP_F64_TOL;
     each is also run with its pin lifted (``_unpinned``), to show what the
     pin keeps out. TF32 is turned off again at the end."""
@@ -3710,10 +3738,13 @@ DXC_W = 128                          # W (128, 128) of decode_dot on that payloa
 GEMM_FFT_MAIN = (32768, 256, 256)    # (m, k, n): the n at which dx/fused.py:37-40 compares
 CONV_MAIN = (4096, 4096)             # fft_convolution's (batch, n)
 CONV_ND = (8, 64)                    # fft_convolution_nd's batch and side: 8 × 64³
-DXC_COUNTS = (dxc._encode, dxc._decode, dxc._decode_dot, fused._gemm_fft, pallas_matmul, DIF_FFT)
+DXC_COUNTS = (dxc._encode, dxc._decode, dxc._decode_dot, fused._gemm_fft, pallas_matmul, DIF_FFT,
+              tf32x3.split_tf32)
+GEMM_FFT_ROUTES = ("tc", "simt")   # dx.fused._gemm_fft_route's routes, each counted apart
 # Tolerances against the plain version (max over the output of |kernel −
-# plain| over max|plain|): decode_dot 1e-5 and gemm_fft 1e-5, the same f32
-# products summed in another order; the codec is held bit for bit.
+# plain| over max|plain|): decode_dot 1e-5 (3xTF32 against f32 products) and
+# gemm_fft 1e-5 (3xTF32 or f32 products, then the FFT's sums against the
+# plain version's DFT products); the codec is held bit for bit.
 DXC_TOL = {"dot": 1e-5, "gemm_fft": 1e-5}
 
 
@@ -3743,6 +3774,17 @@ def _gemm_fft64(a, b, epilogue):
 
 def _pair_rel_l2(pair, want) -> float:
     return _rel(torch.complex(pair[0].double(), pair[1].double()), want)
+
+
+def _gemm_fft_route_counts() -> dict:
+    return {r: getattr(fused._gemm_fft, f"{r}_launches") for r in GEMM_FFT_ROUTES}
+
+
+def _dxc_counts() -> dict:
+    """Every count of phase 25 by name: DXC_COUNTS' and gemm_fft's routes."""
+    counts = {f.__name__: f.launches for f in DXC_COUNTS}
+    counts.update({f"_gemm_fft.{r}": c for r, c in _gemm_fft_route_counts().items()})
+    return counts
 
 
 def phase_dxc_kernel(dev) -> None:
@@ -3828,12 +3870,18 @@ def phase_dxc_kernel(dev) -> None:
         a = torch.randn((m, k), generator=gen, device=dev)
         b = torch.randn((k, n), generator=gen, device=dev)
         wr, wi = fft_kernels._dft_on(n, False, dev)
-        for epilogue in GEMM_FFT_EPILOGUES:
-            got = fused.gemm_fft(a, b, epilogue)
-            e_p = _scaled(got, fused._gemm_fft_plain(a, b, wr, wi, epilogue))
-            e_64 = _pair_rel_l2(got, _gemm_fft64(a, b, epilogue))
-            hold(f"gemm_fft ({m}, {k}, {n}) {epilogue}", e_p <= tol["gemm_fft"] and e_64 < 1e-5,
-                 f"vs plain {e_p:.3e} | vs f64 rel-L2 {e_64:.3e}", gemm_fft=e_p)
+        rule = fused._gemm_fft_route(n)
+        for route in (rule, "simt") if rule != "simt" else (rule,):
+            for epilogue in GEMM_FFT_EPILOGUES:
+                before = _gemm_fft_route_counts()
+                got = fused._gemm_fft(a, b, epilogue, route=route)
+                took = {r: c - before[r] for r, c in _gemm_fft_route_counts().items()}
+                e_p = _scaled(got, fused._gemm_fft_plain(a, b, wr, wi, epilogue))
+                e_64 = _pair_rel_l2(got, _gemm_fft64(a, b, epilogue))
+                hold(f"gemm_fft ({m}, {k}, {n}) {epilogue} {route}",
+                     e_p <= tol["gemm_fft"] and e_64 < 1e-5 and took[route] == 1,
+                     f"vs plain {e_p:.3e} | vs f64 rel-L2 {e_64:.3e} | route {took}",
+                     **{f"gemm_fft {route}": e_p})
         if (m, k, n) == GEMM_FFT_SHAPES[0]:   # C14: any other string is no epilogue
             none, unknown = fused.gemm_fft(a, b), fused.gemm_fft(a, b, "gelu_bias")
             hold("gemm_fft C14 gelu_bias == default", torch.equal(none[0], unknown[0])
@@ -3914,11 +3962,13 @@ def _dxc_steps(x: dict, outs: dict) -> dict:
             lambda: dxc.dx_decompress_dot(*outs["device_cascaded_compress bits=8"][0], x["w"],
                                           bits=DXC_BITS, scale=0.01), {"_decode_dot": 1}),
         f"gemm_fft {mkn} gelu": (
-            lambda: fused.gemm_fft(x["a"], x["b"], "gelu"), {"_gemm_fft": 1}),
-        f"gemm_fft_composed {mkn} gelu": (
-            lambda: fused.gemm_fft_composed(x["a"], x["b"], "gelu"), {"pallas_matmul": 1}),
+            lambda: fused.gemm_fft(x["a"], x["b"], "gelu"),
+            {"_gemm_fft": 1, "_gemm_fft.tc": 1, "split_tf32": 1}),
+        f"gemm_fft_composed {mkn} gelu": (   # B1's f32 route: Bᵀ split once
+            lambda: fused.gemm_fft_composed(x["a"], x["b"], "gelu"),
+            {"pallas_matmul": 1, "split_tf32": 1}),
         f"gemm_gemm {mkn} x ({nf}, {nf})": (
-            lambda: fused.gemm_gemm(x["a"], x["b"], x["c"]), {"pallas_matmul": 2}),
+            lambda: fused.gemm_gemm(x["a"], x["b"], x["c"]), {"pallas_matmul": 2, "split_tf32": 2}),
         "fft_convolution {} x {}".format(*CONV_MAIN): (
             lambda: fused.fft_convolution(x["conv_x"], x["conv_k"]), {"dif_fft": 3}),
         "fft_convolution_nd {} x {}^3".format(*CONV_ND): (
@@ -3949,13 +3999,15 @@ def phase_dxc_main(dev) -> dict:
     torch.cuda.synchronize()
     for f in DXC_COUNTS:
         f.launches = 0
+    for r in GEMM_FFT_ROUTES:
+        setattr(fused._gemm_fft, f"{r}_launches", 0)
     grew = {}
     for name, (step, _) in steps.items():
-        before = {f.__name__: f.launches for f in DXC_COUNTS}
+        before = _dxc_counts()
         outs[name] = step()
-        grew[name] = {f.__name__: f.launches - before[f.__name__] for f in DXC_COUNTS}
+        grew[name] = {key: c - before[key] for key, c in _dxc_counts().items()}
     torch.cuda.synchronize()
-    launches = {f.__name__: f.launches for f in DXC_COUNTS}
+    launches = _dxc_counts()
     print(f"[dxc] launches in the main path: {launches}", flush=True)
 
     n, tol, failures, max_abs = DXC_N, DXC_TOL, [], {}
@@ -4036,27 +4088,31 @@ def phase_dxc_main(dev) -> dict:
             failures.append(name)
     if failures:
         raise SystemExit(f"chip_smoke: codec/fused main path failed: {failures}")
-    return {"launches": launches, "max_abs_err": max_abs, "x": x, "payload": (packed, leaders)}
+    return {"launches": launches, "grew": grew, "max_abs_err": max_abs, "x": x,
+            "payload": (packed, leaders)}
 
 
 def _dxc_bound(name: str) -> dict:
     """The bound of a line of phase 26: inputs read and outputs written once.
     decode and encode: the words (rows·4·bits), the leaders (rows) and the
     values (n), 4 bytes each; their integer work is not counted (the peak
-    table has no int32 rate). decode_dot: 2·rows·128·N flop at the f32 peak;
-    words, leaders, W and the output. gemm_fft: the product's 2mkn flop and
-    an FFT's 5·n·log2 n a row, counted as phase 14 counts B5 (the kernel's
-    two DFT products do 4mn², more than the function needs); A, B and the
-    two output planes."""
+    table has no int32 rate). decode_dot: the product as the kernel runs it,
+    three TF32 products, 3·2·rows·128·N flop at the TF32 peak; words,
+    leaders, W and the output. gemm_fft: the product's three TF32 products,
+    3·2mkn at the TF32 peak, plus an FFT's 5·n·log2 n a row at the f32 peak,
+    counted as phase 14 counts B5. ``_bound`` takes one peak, so the FFT's
+    flop go in at the TF32 rate scaled by PEAK_TF32 / PEAK_F32: the ops term
+    is the sum of the two times. A, B and the two output planes."""
     n, rows = DXC_N, DXC_N // 128
     codec = 4 * (rows * 4 * DXC_BITS + rows + n)
     if name in ("decode", "encode"):
         return _bound(0.0, PEAK_F32, codec)
     if name == "decode_dot":
-        return _bound(2.0 * rows * 128 * DXC_W, PEAK_F32,
+        return _bound(3 * 2.0 * rows * 128 * DXC_W, PEAK_TF32,
                       4 * (rows * 4 * DXC_BITS + rows + 128 * DXC_W + rows * DXC_W))
     m, k, nf = GEMM_FFT_MAIN
-    return _bound(2.0 * m * k * nf + 5.0 * m * nf * math.log2(nf), PEAK_F32,
+    fft_flop = 5.0 * m * nf * math.log2(nf)
+    return _bound(3 * 2.0 * m * k * nf + fft_flop * PEAK_TF32 / PEAK_F32, PEAK_TF32,
                   4 * (m * k + k * nf + 2 * m * nf))
 
 
@@ -4082,7 +4138,9 @@ def phase_dxc_times(dxc_run: dict, card: str) -> dict:
     library_ms is null; the compositions timed instead: for decode_dot, the
     decode kernel then torch.matmul with f32 products; for gemm_fft,
     torch.fft.fft(gelu(A @ B)) on complex64 and the port's
-    gemm_fft_composed."""
+    gemm_fft_composed. gemm_fft's SIMT route is timed at the same shape
+    beside its tensor-core route. Then the registers and spills of
+    decode_dot's and gemm_fft's kernels from nvcc.log (none may spill)."""
     x = dxc_run["x"]
     p, ld = dxc_run["payload"]
     n = DXC_N
@@ -4101,6 +4159,7 @@ def phase_dxc_times(dxc_run: dict, card: str) -> dict:
         "decode_dot kernel": lambda: dxc.dx_decompress_dot(p, ld, x["w"], bits=DXC_BITS,
                                                            scale=0.01),
         "gemm_fft kernel": lambda: fused.gemm_fft(x["a"], x["b"], "gelu"),
+        "gemm_fft simt route": lambda: fused._gemm_fft(x["a"], x["b"], "gelu", route="simt"),
     }
     composed = {
         "decode_dot composed (decode, torch.matmul)": decoded_then_matmul,
@@ -4136,6 +4195,8 @@ def phase_dxc_times(dxc_run: dict, card: str) -> dict:
             print(f"[dxc-times] {route:48s} {t:.4f} ms |{rate} bound {bound['bound_ms']:.4f} ms "
                   f"({bound['bound_by']}), {bound['bound_ms'] / t:.1%} of it | {card}", flush=True)
     ms["bounds"] = bounds
+    ms["ptxas"] = {name: _ptxas_report(name, "dxc-times")
+                   for name in ("decode_dot_kernel", "gemm_fft_tc_kernel", "gemm_fft_simt_kernel")}
     return ms
 
 RNG_SEEDS = (0, 42, -1, 2**31 - 1)
@@ -5945,19 +6006,29 @@ def main() -> None:
         "library_ms_null_because": why,
         "composed_ms": {route[len(line) + 10:]: t for route, t in dxc_ms.items()
                         if route.startswith(f"{line} composed")},
-    } for name, line, count, source, replaces, why in (
+        **extra,
+    } for name, line, count, source, replaces, why, extra in (
         ("cascaded_decode (tml_cascaded_decode)", "decode", "_decode", "dx_comp.cu",
          "tpumathlib/dx/comp.py:186", "no torch call decodes the cascaded format (nvCOMP is not "
-         "installed)"),
+         "installed)", {}),
         ("cascaded_encode (tml_cascaded_encode)", "encode", "_encode", "dx_comp.cu",
          "tpumathlib/dx/comp.py:233", "no torch call encodes the cascaded format (nvCOMP is not "
-         "installed)"),
-        ("cascaded_decode_dot (tml_cascaded_decode_dot)", "decode_dot", "_decode_dot",
-         "dx_comp.cu", "tpumathlib/dx/comp.py:302", "no torch call fuses a decode with a "
-         "product; composed_ms times the decode kernel then torch.matmul"),
-        ("gemm_fft (tml_gemm_fft)", "gemm_fft", "_gemm_fft", "dx_fused.cu",
+         "installed)", {}),
+        ("cascaded_decode_dot (tml_cascaded_decode_dot: decode warps feeding 3xTF32 wgmma, "
+         "W^T resident, persistent)", "decode_dot", "_decode_dot", "dx_comp.cu",
+         "tpumathlib/dx/comp.py:302", "no torch call fuses a decode with a product; composed_ms "
+         "times the decode kernel then torch.matmul",
+         {"ptxas": dxc_ms["ptxas"]["decode_dot_kernel"]}),
+        ("gemm_fft tensor-core route (tml_gemm_fft: 3xTF32 wgmma tile, then in-block Stockham "
+         "passes; n > 256: tml_gemm_fft_simt)", "gemm_fft", "_gemm_fft", "dx_fused.cu",
          "tpumathlib/dx/fused.py:70", "no torch call fuses a GEMM with an FFT; composed_ms times "
-         "torch.fft.fft(gelu(A @ B)) and gemm_fft_composed"))] + [{
+         "torch.fft.fft(gelu(A @ B)) and gemm_fft_composed",
+         {"kernel_route": fused._gemm_fft_route(GEMM_FFT_MAIN[2]),
+          "route_launches": dxc_run["launches"]["_gemm_fft.tc"],
+          "split_launches": dxc_run["grew"]["gemm_fft ({}, {}, {}) gelu".format(*GEMM_FFT_MAIN)][
+              "split_tf32"],
+          "simt_route_ms": dxc_ms["gemm_fft simt route"],
+          "ptxas": {k: dxc_ms["ptxas"][k] for k in ("gemm_fft_tc_kernel", "gemm_fft_simt_kernel")}}))] + [{
         "name": name,
         "route": "cuda",
         "source": "tpumathlib_torch/csrc/dx_rng.cu",

@@ -68,6 +68,8 @@ def test_f32_paths_run_on_the_cpu(monkeypatch):
     monkeypatch.setattr(mod, "GELS", (8, 64, 32, 4))
     monkeypatch.setattr(mod, "MP", (64, 32, 128))
     monkeypatch.setattr(mod, "VV10", 300)
+    monkeypatch.setattr(mod, "CODEC_N", 64 * 128)
+    monkeypatch.setattr(mod, "GEMM_FFT", (32, 16, 64))
     paths = mod._paths(torch.device("cpu"))
     mp_paths = mod._mp_paths(torch.device("cpu"))
     assert not set(paths) & set(mp_paths)   # the rings' inputs are made apart, timed last
@@ -87,6 +89,8 @@ def test_f32_paths_run_on_the_cpu(monkeypatch):
                                     "gels_batched_8192x64x32_k4",
                                     "syevd_batched_8192x32", "gesvd_batched_8192x32",
                                     "syevd_batched_2048x64", "gesvd_batched_2048x64",
+                                    "dx_decompress_dot_524288x128x128",
+                                    "gemm_fft_32768x256x256_gelu",
                                     "matmul_ag_overlapped", "matmul_rs_overlapped"])
     for name, fn in paths.items():
         out = fn()
@@ -136,3 +140,40 @@ def test_jacobi_variants_edit_the_source(name):
     assert mod.edited(name) != mod.SRC.read_text()
     if name == "pair_sums":
         assert "void pair_sums(" in mod.pair_sums_header()
+
+
+FUSED_VARIANTS = ["decode_dot:no_decode", "decode_dot:no_products", "decode_dot:no_stores",
+                  "decode_dot:no_fetch", "decode_dot:funnel_only", "decode_dot:stores_cs",
+                  "decode_dot:stamps", "gemm_fft:no_fft", "gemm_fft:no_products"]
+
+
+def test_fused_variants_imports_neither_jax_nor_reference():
+    code = ("import sys, runpy\n"
+            "sys.argv = ['fused_variants.py']\n"
+            "runpy.run_path('fused_variants.py', run_name='not_main')\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'tpumathlib'))\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("name", FUSED_VARIANTS)
+def test_fused_variants_edit_the_source(name):
+    """Each variant's edits still find their text in csrc/dx_comp.cu or
+    csrc/dx_fused.cu and change it; the stamped variant stamps every slot
+    the summary reads."""
+    mod = _load("fused_variants")
+    assert sorted(mod.VARIANTS) == sorted(FUSED_VARIANTS)
+    kernel = name.split(":")[0]
+    src = (mod.cuda_utils.CSRC / mod.SOURCES[kernel][0]).read_text()
+    got = mod.edited(name)
+    assert got != src
+    if name == "decode_dot:stamps":   # the consumers' slots 0, 1 + q, 5 and the decoders' 0, 1, 2 + q
+        for stamp in ("STAMP(cg, i >> 1, 0)", "STAMP(cg, i >> 1, 1 + q)", "STAMP(cg, i >> 1, 5)",
+                      "STAMP(2 + dw, i >> 1, 0)", "STAMP(2 + dw, i >> 1, 1)",
+                      "STAMP(2 + dw, i >> 1, 2 + q)"):
+            assert stamp in got

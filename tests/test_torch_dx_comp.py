@@ -19,6 +19,10 @@ with the reference, whose Pallas kernels run in interpret mode.
   tests/test_dx_gemm.py:121-124) and against the reference's kernel at 1e-6
   (measured at most 5.9e-7: the same f32 products summed in another
   order).
+- A model of the card kernel's arithmetic (``_model_decode_dot``: A =
+  float(v)·scale split into its TF32 planes, Wᵀ likewise, three products
+  into a fresh f32 partial a 32-deep stage) within 1e-5 of
+  ``_dx_decompress_dot_plain`` and of the reference's ``dx_decompress_dot``.
 - tests/test_dx_gemm.py:90-124 and tests/test_native_dss_comp.py:474-545
   through both packages, the device codec's ratio equal in both.
 - The CUDA branch of each wrapper against ``_EmulatedLib``, a CPU emulation
@@ -43,7 +47,7 @@ from tpumathlib_torch import dx
 from tpumathlib_torch.core.errors import ExecutionError, InvalidValueError
 from tpumathlib_torch.core.interop import from_numpy, to_numpy
 from tpumathlib_torch.dx import comp as port
-from tpumathlib_torch.dx import cuda_utils
+from tpumathlib_torch.dx import cuda_utils, tf32x3
 from test_torch_dx_gemm import _view
 from test_torch_dx_lsq_eig import _EmulatedLib as _EmulatedLsqEigLib
 
@@ -251,6 +255,102 @@ def test_decompress_dot(rng, ncols, scale):
     assert _rel(got, f64) < DOT_TOL
     rp, rl = _ref_payload(v, bits)
     assert _rel(got, ref.dx_decompress_dot(rp, rl, jnp.asarray(w), bits=bits, scale=scale)) < REF_TOL
+
+
+# ---------------------------------------------------------------------------
+# A model of the card kernel's 3xTF32 arithmetic (csrc/dx_comp.cu,
+# decode_dot_kernel)
+
+def _model_tf32x3(a, bt_hi, bt_lo):
+    """The tensor cores' product of f32 A (m, K) and Bᵀ's TF32 planes (n, K)
+    as the 3xTF32 kernels form it: A split into rna TF32 planes, and for
+    each 32-deep stage of K lo·hi + hi·lo + hi·hi into a fresh f32 partial,
+    added to the sum in f32 (the tensor cores' own additions within a stage
+    are modelled by f32 ones)."""
+    a_hi, a_lo = tf32x3._split_tf32_plain(a)
+    acc = torch.zeros((a.shape[0], bt_hi.shape[0]), dtype=torch.float32)
+    for k0 in range(0, a.shape[1], 32):
+        s = slice(k0, k0 + 32)
+        acc = acc + (a_lo[:, s] @ bt_hi[:, s].mT + a_hi[:, s] @ bt_lo[:, s].mT
+                     + a_hi[:, s] @ bt_hi[:, s].mT)
+    return acc
+
+
+def _model_decode_dot(packed, leaders, w, bits, scale):
+    """B8c on the card: the decoded values as float(v)·scale in f32 (the
+    reference's vals.astype(f32) * scale, bit for bit), against W's
+    transposed TF32 planes (each block splits its column tile of W)."""
+    vals = port._dx_decompress_plain(packed, leaders, bits).reshape(-1, 128)
+    a = vals.to(torch.float32) * torch.tensor(scale, dtype=torch.float32)
+    return _model_tf32x3(a, *tf32x3._split_tf32_plain(w, transpose=True))
+
+
+STAGE_WORDS = 32 * 33   # a decode warp's staging buffer, words (csrc/dx_comp.cu kDotStage)
+
+
+def _model_row_decode(packed, leaders, bits):
+    """The card kernel's decode warps, a row a lane: 32 rows' words staged
+    ``groups`` groups at a time with an odd row stride, then each row's
+    values in order, value j of a staged group from the 64-bit window of
+    words wi, wi + 1 (wi + 1 may be the pad or the next row's first word:
+    the mask drops it), zigzag-decoded and summed onto the leader in uint32.
+    Returns the values (rows, 128) as int64."""
+    words = port._words_i64(packed).numpy()
+    rows = words.shape[0]
+    groups = 4 if bits <= 8 else 2 if bits <= 16 else 1   # at most 32 words a row staged
+    gb = groups * bits
+    stride = gb | 1
+    assert 31 * stride + gb < STAGE_WORDS   # the last lane's window stays in the buffer
+    mask = (1 << bits) - 1
+    out = np.zeros((rows, 128), np.int64)
+    for r0 in range(0, rows, 32):
+        block = words[r0:r0 + 32]
+        n = block.shape[0]
+        total = (leaders.numpy()[r0:r0 + 32].astype(np.int64)) & 0xFFFFFFFF
+        for g0 in range(0, 4, groups):
+            area = np.zeros(STAGE_WORDS, np.int64)   # garbage where nothing is staged
+            for rr in range(n):
+                area[rr * stride:rr * stride + gb] = block[rr, g0 * bits:g0 * bits + gb]
+            for q in range(g0, g0 + groups):
+                for j in range(32):
+                    bit = j * bits
+                    wi = (q - g0) * bits + (bit >> 5)
+                    idx = np.arange(n) * stride + wi
+                    window = (area[idx + 1] << 32) | area[idx]
+                    f = (window >> (bit & 31)) & mask
+                    total = (total + port._zigzag_dec(f)) & 0xFFFFFFFF
+                    out[r0:r0 + n, 32 * q + j] = total
+    return port._wrap_i32(out)
+
+
+@pytest.mark.parametrize("bits", list(range(1, 33)))
+def test_model_of_the_row_decode(rng, bits):
+    """Bit for bit the plain decoder's values, at every width, on random
+    words (any words decode) and on a packed walk."""
+    words = torch.from_numpy(rng.integers(0, 1 << 32, (70, 4 * bits), dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32))
+    leaders = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, 70).astype(np.int32))
+    want = port._dx_decompress_plain(words, leaders, bits).reshape(-1, 128).to(torch.int64)
+    assert torch.equal(torch.from_numpy(_model_row_decode(words, leaders, bits)), want)
+    p, ld = port._dx_compress_plain(from_numpy(_walk(rng, 37 * 128, bits)), bits)
+    want = port._dx_decompress_plain(p, ld, bits).reshape(-1, 128).to(torch.int64)
+    assert torch.equal(torch.from_numpy(_model_row_decode(p, ld, bits)), want)
+
+
+@pytest.mark.parametrize("scale", [1.0, 0.01])
+@pytest.mark.parametrize("rows, ncols", [(37, 1), (128, 64), (64, 100), (128, 256)])
+def test_model_of_the_tensor_core_arithmetic(rng, rows, ncols, scale):
+    v = np.cumsum(rng.integers(-60, 61, rows * 128)).astype(np.int32)
+    rp, rl = _ref_payload(v, 8)
+    p, ld = from_numpy(rp), from_numpy(rl)
+    w = rng.normal(size=(128, ncols)).astype(np.float32)
+    got = _model_decode_dot(p, ld, from_numpy(w), 8, scale)
+    assert got.shape == (rows, ncols)
+    assert _rel(got, port._dx_decompress_dot_plain(p, ld, from_numpy(w), 8, scale)) < 1e-5
+    assert _rel(got, ref.dx_decompress_dot(rp, rl, jnp.asarray(w), bits=8, tile=rows,
+                                           scale=scale)) < 1e-5
+    f64 = (v.reshape(-1, 128).astype(np.float64) * scale) @ w.astype(np.float64)
+    assert _rel(got, f64) < DOT_TOL
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,9 @@ The paths, each through its public function:
 - the Jacobi kernels of dx.solver (B7g, B7h): syevd_batched and
   gesvd_batched at 8192 x 32 (the warp route) and 2048 x 64 (the block
   route);
+- the fused kernels of dx (B8c, B9) at chip_smoke.py's phase 25 sizes:
+  dx.dx_decompress_dot on 64 Mi int32 packed at bits 8 (524288 rows) against
+  W (128, 128), and dx.fused.gemm_fft at (32768, 256, 256) with gelu;
 - VV10 (B11) at G = 40960 (chip_smoke.py's inputs): the energy alone
   (dx.vv10.vv10_pair_energy_pallas, the forward sweep) and value plus
   gradient through torch.autograd.grad (both sweeps);
@@ -66,7 +69,7 @@ import torch
 
 import tpumathlib_torch
 from tpumathlib_torch import dx, mp, sparse
-from tpumathlib_torch.dx import cuda_utils, gemm
+from tpumathlib_torch.dx import cuda_utils, fused, gemm
 from tpumathlib_torch.dx import rng as dxr
 from tpumathlib_torch.dx import solver as dxs
 from tpumathlib_torch.dx import vv10
@@ -84,6 +87,8 @@ SPMV = (128, 128, 32, 128)         # (mb, nb, ellw, bs) of bench_spmv_bell
 FFT = (4096, 4096)                 # (batch, N) of the bench's FFT lines
 BATCHED = ((8192, 32), (1024, 128))   # (batch, n) of the batched solvers' lines
 JACOBI = ((8192, 32), (2048, 64))     # (batch, n) of syevd_batched and gesvd_batched
+CODEC_N = 64 << 20                    # int32 values of the codec line, packed at bits 8
+GEMM_FFT = (32768, 256, 256)          # (m, k, n): chip_smoke.py's GEMM_FFT_MAIN
 GELS = (8192, 64, 32, 4)              # (batch, m, n, k): chip_smoke.py's DXE_GELS
 VV10 = 40960                          # G: chip_smoke.py's VV10_MAIN
 MP = (8192, 4096, 16384)              # (tokens, n_embd, n_inner): chip_smoke.py's MP_MAIN
@@ -159,6 +164,13 @@ def _paths(dev) -> dict:
     for bsz, order in JACOBI:
         m = torch.randn((bsz, order, order), generator=gen, device=dev)
         jacobi.append(((m + m.mT) / 2, m))
+    walk = torch.cumsum(torch.randint(-60, 61, (CODEC_N,), generator=gen, device=dev), 0)
+    packed, leaders = dx.dx_compress(walk.to(torch.int32), bits=8)
+    del walk
+    w_dot = torch.randn((128, 128), generator=gen, device=dev)
+    fm, fk, fn = GEMM_FFT
+    a_fft = torch.randn((fm, fk), generator=gen, device=dev)
+    b_fft = torch.randn((fk, fn), generator=gen, device=dev)
     return {
         "potrf_onelaunch": lambda: onelaunch.potrf_onelaunch(spd),
         "getrf_onelaunch": lambda: onelaunch.getrf_onelaunch(dom),
@@ -196,6 +208,9 @@ def _paths(dev) -> dict:
         "gesvd_batched_8192x32": lambda: dxs.gesvd_batched(jacobi[0][1]),
         "syevd_batched_2048x64": lambda: dxs.syevd_batched(jacobi[1][0]),
         "gesvd_batched_2048x64": lambda: dxs.gesvd_batched(jacobi[1][1]),
+        "dx_decompress_dot_524288x128x128": lambda: dx.dx_decompress_dot(packed, leaders, w_dot,
+                                                                         bits=8, scale=0.01),
+        "gemm_fft_32768x256x256_gelu": lambda: fused.gemm_fft(a_fft, b_fft, "gelu"),
     }
 
 

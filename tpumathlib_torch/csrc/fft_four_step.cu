@@ -30,8 +30,8 @@
 // an SM, its passes instruction-bound); mode 2 0.2110 and 0.2769 ms (76.0 % and
 // 57.9 % of its own 0.160); torch.fft.fft 0.0961 and 0.1181 ms.
 //
-// The design (the passes, their twiddles and the pad live in
-// stockham_passes.cuh, shared with B5's fft_dif.cu):
+// The design (the passes, their twiddles, the pad and the direct pass live in
+// stockham_passes.cuh, shared with B5's fft_dif.cu and B9's dx_fused.cu):
 // - The plan. The host factors each transform's length into passes, as many
 //   radix-16 as divide it, one radix-8, -4 or -2 for the power of two left, then
 //   radix-3 and radix-5 passes, then one direct pass for each other prime factor
@@ -99,69 +99,6 @@ constexpr int kPointsMixed = 64;     // points a thread for any N that is not a 
 constexpr int kThreadsMixed = 256;   // that family's launch bound: up to 255 registers (a
                                      // radix-3 pass holds 66 points)
 constexpr int kSmemMax = 232448;     // the shared memory a block may use on sm_90
-constexpr int kChunk = 64;           // terms a partial sum of a direct pass
-
-// A pass whose radix is a prime above 5: output q of butterfly u is the sum
-// over r of x[u + r N / R] w_{ns R}^{r (k + q ns)}, each factor from the table.
-// Reads shared memory (a copy pass runs first where it is the first pass).
-// The sum runs in chunks of kChunk terms (N = 12289 sums 12289 terms).
-template <int P>
-__device__ __forceinline__ void direct_pass(const Launch& lp, const Pass& ps, const Row& w,
-                                            bool last, float* __restrict__ yr,
-                                            float* __restrict__ yi, const float2* __restrict__ tab) {
-  const int R = ps.radix, nb = lp.n / R, m = ps.ns * R;
-  float ar[P], ai[P];
-#pragma unroll
-  for (int s = 0; s < P; ++s) {
-    const int f = w.t + s * lp.threads;
-    float accr = 0.f, acci = 0.f;
-    if (f < lp.n) {
-      const int u = f % nb, q = f / nb;
-      const int k = (u / lp.lanes) % ps.ns;
-      const int step = k + q * ps.ns;   // < m
-      int e = 0;
-      for (int r0 = 0; r0 < R; r0 += kChunk) {   // chunks keep the f32 sum's error ~ sqrt(R / kChunk)
-        float cr = 0.f, ci = 0.f;
-        const int r1 = min(R, r0 + kChunk);
-        for (int r = r0; r < r1; ++r) {
-          const float2 t = __ldg(tab + e * ps.stride);
-          const float a = w.sr[u + r * nb], b = w.sr[lp.ld + u + r * nb];
-          cr = fmaf(a, t.x, fmaf(-b, t.y, cr));
-          ci = fmaf(a, t.y, fmaf(b, t.x, ci));
-          e += step;
-          if (e >= m) e -= m;
-        }
-        accr += cr;
-        acci += ci;
-      }
-    }
-    ar[s] = accr;
-    ai[s] = acci;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int s = 0; s < P; ++s) {
-    int f = w.t + s * lp.threads;
-    asm volatile("" : "+r"(f));   // recompute the indices here, not hold them across the barrier
-    if (f < lp.n) {
-      const int u = f % nb, q = f / nb;
-      const int j = u / lp.lanes, v = u - j * lp.lanes;
-      const int k = j % ps.ns;
-      const int pos = (j - k) * R + k + q * ps.ns;
-      if (last && !lp.to_scratch) {
-        if (w.live) {
-          yr[w.off + pos * lp.lanes + v] = ar[s];
-          yi[w.off + pos * lp.lanes + v] = lp.conj_out ? -ai[s] : ai[s];
-        }
-      } else {
-        const int o = last ? v * (lp.len + 1) + pos : pos * lp.lanes + v;
-        w.sr[o] = ar[s];
-        w.sr[lp.ld + o] = ai[s];
-      }
-    }
-  }
-  if (!(last && !lp.to_scratch)) __syncthreads();
-}
 
 // One block takes lp.rows rows (the last block may have fewer).
 template <int P>
@@ -214,16 +151,6 @@ four_step_kernel(const __grid_constant__ Launch lp, const float* __restrict__ xr
   }
 }
 
-int ilog2(int v) {
-  int k = 0;
-  while ((1 << k) < v) ++k;
-  return k;
-}
-
-bool host_register_radix(int r) {
-  return r == 2 || r == 3 || r == 4 || r == 5 || r == 8 || r == 16;
-}
-
 // Reads one launch of the plan at words[at]: (len, lanes, threads, rows,
 // points, npasses, radices...). False where it does not describe a transform
 // of want_len points over want_lanes lanes that the kernel can run.
@@ -253,7 +180,7 @@ bool parse_launch(const int32_t* words, int64_t count, int64_t& at, int n, int w
   lp.to_scratch = to_scratch;
   lp.ld = (std::max(n + n / 32 + 1, n + (to_scratch ? lanes : 0)) + 31) / 32 * 32;
   int k = 0, ns = 1;
-  if (np == 0 || !host_register_radix(words[at])) {   // a copy first (the other family's)
+  if (np == 0 || !register_radix(words[at])) {   // a copy first (the other family's)
     if (pow2) return false;
     lp.pass[k++] = Pass{1, 1, n};
   }

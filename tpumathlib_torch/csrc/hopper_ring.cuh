@@ -1,9 +1,10 @@
 // The TMA + wgmma ring shared by gemm_wgmma.cu (B1's tensor-core route),
 // bell_wgmma.cu (B6a's, both kernels) and gemm_tf32x3.cu (the 3xTF32 product
-// of f32 operands): mbarriers, TMA loads, tensor-map encoding, wgmma's
-// shared-memory descriptors, fences and instructions, the consumers' main
-// loops, the staging of a finished tile in shared memory, and B1's fused
-// epilogue over it (gemm_wgmma.cu's and gemm_tf32x3.cu's).
+// of f32 operands), and the 3xTF32 stage of dx_comp.cu (B8c) and dx_fused.cu
+// (B9): mbarriers, TMA loads, tensor-map encoding, wgmma's shared-memory
+// descriptors, fences and instructions, the consumers' main loops, the
+// staging of a finished tile in shared memory, and B1's fused epilogue over
+// it (gemm_wgmma.cu's and gemm_tf32x3.cu's).
 //
 // The ring. A block of 384 threads: warpgroup 0 is the producer, whose one
 // thread keeps TMA loads in flight into STAGES stages of (128 rows of A, BN
@@ -388,6 +389,45 @@ __device__ __forceinline__ void stage_tf32x3_split_a(float (&part)[BN / 2], uint
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
   }
   fence_acc(part);
+}
+
+// The three products of one 32-deep stage with A in f32, split in registers
+// (hi = rna(x), lo = rna(x - hi)), for a calling warpgroup whose 64 rows of A
+// start at `a` (32-value rows as TMA's 128-byte swizzle lays them out,
+// `swizzled`) and whose 128 rows of B^T's hi and lo planes (K-major, the same
+// swizzle) are at b_hi and b_lo: stage_tf32x3_split_a's products in its
+// order (lo·hi, hi·lo, then hi·hi each k8 step, one commit group a step, two
+// register sets alternating) for operands anywhere in shared memory: B8c's
+// resident W, B9's A shared by both consumers. (The ring keeps its own copy:
+// the same steps through this function changed its kernels' code and time.)
+// part is overwritten; the caller waits for the groups (wgmma.wait_group 0)
+// before it reads part or runs another stage, whose fragments reuse these
+// registers.
+__device__ __forceinline__ void stage_tf32x3_at(float (&part)[64], uint32_t a, uint32_t b_hi,
+                                                uint32_t b_lo) {
+  uint32_t h0[4], l0[4], h1[4], l1[4];
+  fence_acc(part);
+#pragma unroll
+  for (int kk = 0; kk < kBK32 / 8; ++kk) {
+    uint32_t(&hi)[4] = kk % 2 ? h1 : h0;
+    uint32_t(&lo)[4] = kk % 2 ? l1 : l0;
+    if (kk >= 2) asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    split_fragment(a, 0, kk, hi, lo);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    const uint64_t dbh = make_desc(b_hi + kk * 32, 16, 1024);
+    const uint64_t dbl = make_desc(b_lo + kk * 32, 16, 1024);
+    wgmma_tf32(part, lo, dbh, kk > 0);
+    wgmma_tf32(part, hi, dbl, 1);
+    wgmma_tf32(part, hi, dbh, 1);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  }
+  fence_acc(part);
+}
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// reads of it by the async proxy (wgmma's operands written by threads).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Bytes of a 3xTF32 stage: A's two planes and B's, or (SPLIT_A) A in f32 or

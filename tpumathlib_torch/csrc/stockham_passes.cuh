@@ -1,8 +1,9 @@
-// The in-block Stockham radix passes shared by fft_four_step.cu (B5b, B5c)
-// and fft_dif.cu (B5): the R-point DFTs in registers, the two-load twiddles,
-// the padded shared-memory index, and one pass of radix R over the rows a
-// block holds, read from device memory or shared memory and written to
-// shared memory or to device memory.
+// The in-block Stockham radix passes shared by fft_four_step.cu (B5b, B5c),
+// fft_dif.cu (B5) and dx_fused.cu (B9): the R-point DFTs in registers, the
+// two-load twiddles, the padded shared-memory index, one pass of radix R over
+// the rows a block holds, read from device memory or shared memory and
+// written to shared memory or to device memory, and the direct pass of a
+// prime radix above 5 (from shared memory).
 //
 // A launch sees each row as `lanes` interleaved transforms of `len` points
 // (point p of lane v at p lanes + v). A pass of radix R on butterfly u (j = u
@@ -40,6 +41,18 @@ namespace tml_stockham {
 constexpr int kMaxPasses = 15;       // 14 prime factors at most (2^14) and a copy pass
 constexpr int kPointsPow2 = 16;      // points a thread: a power-of-two N >= 4
 constexpr int kThreadsPow2 = 1024;   // that family's launch bound: 64 registers a thread
+
+// Host helpers of the plans' readers (fft_four_step.cu, dx_fused.cu): the
+// least k with 2^k >= v, and whether a radix runs in registers.
+inline int ilog2(int v) {
+  int k = 0;
+  while ((1 << k) < v) ++k;
+  return k;
+}
+
+inline bool register_radix(int r) {
+  return r == 2 || r == 3 || r == 4 || r == 5 || r == 8 || r == 16;
+}
 
 struct Pass {
   int radix;    // 1 (a copy), 2, 3, 4, 5, 8 or 16 in registers; any other: a direct pass
@@ -451,6 +464,70 @@ __device__ __forceinline__ void radix_pass(const Launch& lp, const Pass& ps, con
     }
   }
   __syncthreads();
+}
+
+constexpr int kChunk = 64;   // terms a partial sum of a direct pass
+
+// A pass whose radix is a prime above 5: output q of butterfly u is the sum
+// over r of x[u + r N / R] w_{ns R}^{r (k + q ns)}, each factor from the table.
+// Reads shared memory (a copy pass runs first where it is the first pass).
+// The sum runs in chunks of kChunk terms (N = 12289 sums 12289 terms).
+template <int P>
+__device__ __forceinline__ void direct_pass(const Launch& lp, const Pass& ps, const Row& w,
+                                            bool last, float* __restrict__ yr,
+                                            float* __restrict__ yi, const float2* __restrict__ tab) {
+  const int R = ps.radix, nb = lp.n / R, m = ps.ns * R;
+  float ar[P], ai[P];
+#pragma unroll
+  for (int s = 0; s < P; ++s) {
+    const int f = w.t + s * lp.threads;
+    float accr = 0.f, acci = 0.f;
+    if (f < lp.n) {
+      const int u = f % nb, q = f / nb;
+      const int k = (u / lp.lanes) % ps.ns;
+      const int step = k + q * ps.ns;   // < m
+      int e = 0;
+      for (int r0 = 0; r0 < R; r0 += kChunk) {   // chunks keep the f32 sum's error ~ sqrt(R / kChunk)
+        float cr = 0.f, ci = 0.f;
+        const int r1 = min(R, r0 + kChunk);
+        for (int r = r0; r < r1; ++r) {
+          const float2 t = __ldg(tab + e * ps.stride);
+          const float a = w.sr[u + r * nb], b = w.sr[lp.ld + u + r * nb];
+          cr = fmaf(a, t.x, fmaf(-b, t.y, cr));
+          ci = fmaf(a, t.y, fmaf(b, t.x, ci));
+          e += step;
+          if (e >= m) e -= m;
+        }
+        accr += cr;
+        acci += ci;
+      }
+    }
+    ar[s] = accr;
+    ai[s] = acci;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < P; ++s) {
+    int f = w.t + s * lp.threads;
+    asm volatile("" : "+r"(f));   // recompute the indices here, not hold them across the barrier
+    if (f < lp.n) {
+      const int u = f % nb, q = f / nb;
+      const int j = u / lp.lanes, v = u - j * lp.lanes;
+      const int k = j % ps.ns;
+      const int pos = (j - k) * R + k + q * ps.ns;
+      if (last && !lp.to_scratch) {
+        if (w.live) {
+          yr[w.off + pos * lp.lanes + v] = ar[s];
+          yi[w.off + pos * lp.lanes + v] = lp.conj_out ? -ai[s] : ai[s];
+        }
+      } else {
+        const int o = last ? v * (lp.len + 1) + pos : pos * lp.lanes + v;
+        w.sr[o] = ar[s];
+        w.sr[lp.ld + o] = ai[s];
+      }
+    }
+  }
+  if (!(last && !lp.to_scratch)) __syncthreads();
 }
 
 }  // namespace tml_stockham

@@ -22,6 +22,13 @@ are read directly.
 Too few bits corrupt silently, as the reference documents: the caller
 validates with ``dx_required_bits``.
 
+``dx_decompress_dot`` (B8c) runs on the tensor cores: persistent blocks
+keep the TF32 hi and lo planes of their 128-column tile of Wᵀ in shared
+memory, four decode warps write each 64-row tile as float(v)·scale, and two
+warpgroups multiply it in 3xTF32 (three TF32 products a k step, each
+32-deep stage summed apart in f32), within f32's error of the plain
+version's f32 product.
+
 On CPU tensors each wrapper (``_encode``, ``_decode``, ``_decode_dot``) takes
 its plain PyTorch version (``_dx_compress_plain``, ``_dx_decompress_plain``,
 ``_dx_decompress_dot_plain``). Those compute in int64 masked to 32 bits,
@@ -224,7 +231,8 @@ _decode.launches = 0
 
 def _decode_dot(packed, leaders, w, bits: int, scale: float):
     """B8c through ``tml_cascaded_decode_dot``: (values · scale) @ W, f32
-    (rows, N); the decoded values stay in shared memory."""
+    (rows, N), in 3xTF32 on the tensor cores; the decoded values stay in
+    shared memory."""
     if not on_cuda(packed, leaders, w):
         return _dx_decompress_dot_plain(packed, leaders, w, bits, scale)
     p, ld = _kernel_words(packed, leaders)

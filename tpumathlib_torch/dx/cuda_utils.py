@@ -194,9 +194,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tml_cascaded_encode.restype = i32
     lib.tml_cascaded_decode_dot.argtypes = [p, p, p, p, i64, i64, i32, f32, p]
     lib.tml_cascaded_decode_dot.restype = i32
-    # dx_fused.cu: (a, b, wr, wi, yr, yi, m, k, n, epilogue code, stream), f32
-    lib.tml_gemm_fft.argtypes = [p, p, p, p, p, p, i64, i64, i64, i32, p]
+    # dx_fused.cu, f32: (a, lda, b, scratch bt_hi, bt_lo, ldt, roots, plan words, plan length,
+    # yr, yi, m, k, n, epilogue code, stream); the SIMT route (a, b, roots, plan, plan length,
+    # yr, yi, m, k, n, epilogue code, stream)
+    lib.tml_gemm_fft.argtypes = [p, i64, p, p, p, i64, p, ctypes.POINTER(i32), i64, p, p, i64, i64,
+                                 i64, i32, p]
     lib.tml_gemm_fft.restype = i32
+    lib.tml_gemm_fft_simt.argtypes = [p, p, p, ctypes.POINTER(i32), i64, p, p, i64, i64, i64, i32,
+                                      p]
+    lib.tml_gemm_fft_simt.restype = i32
     # dx_rng.cu: uniform (out, n, key0, key1, stream)
     u32 = ctypes.c_uint32
     lib.tml_random_uniform.argtypes = [p, i64, u32, u32, p]
