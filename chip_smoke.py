@@ -142,49 +142,55 @@ Phases; any failure raises and the exit code is non-zero:
    spin, with both SpMM kernels' registers and spills from nvcc.log (none
    may spill); then each route of phase 16 on the host clock.
 18. dx solver kernels — tml_potrf_batched, tml_getrf_batched (pivot on and
-   off) and tml_geqrf_batched (csrc/dx_solver.cu) against their plain
-   versions and float64 at n = 8 … 256 on a batch of 37 (potrf's and getrf's
-   routes: a warp a matrix to n = 32, 32-column panels to 224, in place at
-   225 and 256), gesv and posv with 1, 4 and 33 right-hand sides, with the
+   off) and tml_geqrf_batched (csrc/dx_solver.cu; geqrf's warp route in
+   csrc/dx_qr_warp.cu) against their plain versions and float64 at n = 8 …
+   256 on a batch of 37 (potrf's and getrf's routes: a warp a matrix to n =
+   32, 32-column panels to 224, in place at 225 and 256; geqrf's: a warp a
+   matrix to n = 32, a block beyond), gesv and posv with 1, 4 and 33 right-hand sides, with the
    residuals L·Lᵀ − A, P·A − L·U (|L| ≤ 1), Q·R − A, QᵀQ − I and A·X − B,
    and a bf16 control that each tolerance must stay under; pivot ties, a
    non-SPD matrix among SPD ones (C10), a NaN in a pivot column (C11) and a
    zero pivot column beside a NaN matrix (pad rows past n on the panel
-   route), and a zero column for geqrf.
+   route), and for geqrf a zero column, x_0 = 0 and an upper triangular
+   matrix beside a NaN matrix at n = 8, 32 and 33.
 19. dx main path — bench.py's batch 8192 × n 32 through potrf_batched and
    getrf_batched (pivot on and off; the packed routes), geqrf_batched,
-   gesv_batched and posv_batched (4 right-hand sides), potrf and getrf at
-   batch 1024 × n 128, and potrf_blocked at n = 4096: each must grow its
-   kernel's count (potrf_blocked also B1's, every product on its 3xTF32
-   route), and is held against its plain
+   gesv_batched and posv_batched (4 right-hand sides), potrf, getrf and
+   geqrf at batch 1024 × n 128, and potrf_blocked at n = 4096: each must
+   grow its kernel's count (getrf and geqrf on their route's count alone;
+   potrf_blocked also B1's, every product on its 3xTF32 route), and is held
+   against its plain
    version (pivot mismatches counted) and its residuals.
 20. dx times — CUDA events over back-to-back calls for each route of phase
    19, its plain version and its torch.linalg call, with the share of the
-   bound; the Cholesky's and the LU's kernels' registers and spills (none
-   may spill).
+   bound (geqrf's also one call and device time behind a spin); the
+   Cholesky's, the LU's and geqrf's warp kernels' registers and spills
+   (none may spill).
 21. dx least squares and Jacobi — tml_unmqr_batched, tml_gels_batched
    (csrc/dx_solver.cu), tml_syevd_batched and tml_gesvd_batched
    (csrc/dx_jacobi.cu) through the public functions against their plain
    versions and float64 at batch 37: syevd and gesvd at n = 1 … 64 on both
    routes (a warp a matrix to n = 32, two warps a matrix beyond: n = 33, 40,
-   48, 63 and 64), unmqr at
-   m = n = 32 and m = 64 × n = 32 both ways, gels on its warp route (m ≤
+   48, 63 and 64), unmqr both ways on its warp route (csrc/dx_qr_warp.cu:
+   m ≤ 64, n ≤ 32) at (32, 32), (33, 32) and (64, 32) with 1, 4, 32 and 33
+   right-hand sides and on its block route at (65, 32), gels on its warp route (m ≤
    64, n ≤ 32, k ≤ 32) at (32, 32), (64, 32), (48, 10), (33, 1) and (64, 1)
    with 1, 4 and 32 right-hand sides and on its block route at (65, 32) and
    k = 33; circulant matrices and
    0.5·ones + 0.5·I, whose ties the reference never turns (ROADMAP C12),
    against eigvalsh and svdvals; a bf16 control above every tolerance.
 22. dx lsq/eig main path — gels_batched at 8192 × 64 × 32 (k = 4),
-   unmqr_batched both ways on geqrf_batched's 8192 × 32 factors, syevd and
-   gesvd at 8192 × 32 and 2048 × 64: each must grow its kernel's count by
-   one (gels also its warp route's; syevd and gesvd their route's: warp at
-   32, block at 64) and
+   unmqr_batched both ways on geqrf_batched's 8192 × 32 factors and Qᵀ·B on
+   gels's 8192 × 64 × 32 reflectors, syevd and gesvd at 8192 × 32 and 2048
+   × 64: each must grow its kernel's count by one (unmqr and gels also their
+   warp route's; syevd and gesvd their route's: warp at 32, block at 64) and
    agree with its plain version and float64; then syevj_batched,
    gesvdj_batched (8192 × 32, float64), xsyevd (n = 2048) and xgesvd (4096²), which
    launch no kernel, against float64.
 23. dx lsq/eig times — CUDA events for each route of phase 22, the plain
    version and the library call (lstsq, ormqr, eigh, svd), with the share of
-   the bound and the route; the gels warp kernels' and both Jacobi routes'
+   the bound and the route (unmqr's also one call and device time behind a
+   spin); the unmqr and gels warp kernels' and both Jacobi routes'
    registers and spills (none may spill).
 24. codec and fused kernels — tml_cascaded_encode, tml_cascaded_decode,
    tml_cascaded_decode_dot (csrc/dx_comp.cu: decode warps feeding 3xTF32
@@ -2744,6 +2750,7 @@ DX_K = 4               # right-hand sides of gesv and posv
 DX_COUNTS = (dxs._potrf, dxs._getrf, dxs._geqrf, pallas_matmul, gemm._gemm_tf32x3,
              gemm._gemm_simt)
 LU_ROUTES = ("warp", "panel", "in place")   # dx.solver._getrf_route's routes, each counted apart
+QR_ROUTES = ("warp", "block")   # dx.solver._geqrf_route's and _unmqr_route's routes
 # Max-scaled tolerance of each kernel's factors against its plain version, on
 # the matrices whose pivots agree. The kernels contract multiply-adds to FMAs
 # and sum in their own order, and elimination carries those roundings on, so
@@ -2839,6 +2846,14 @@ def _dx_control(kind: str, m) -> float:
     return max_scaled_err(lu_lo[agree], lu[agree])
 
 
+def _geqrf_where(n: int) -> str:
+    """geqrf's route at n (``dx.solver._geqrf_route``), and for the block
+    route whether its matrix sits in shared memory or in place."""
+    if dxs._geqrf_route(n) == "warp":
+        return "warp"
+    return f"block, {'in place' if dxs._smem_bytes(n, 0) > dxs.SMEM_MAX else 'shared'}"
+
+
 def _lu_close(lu, lu_p) -> bool:
     return max_scaled_err(lu, lu_p) <= DX_TOL["getrf"]
 
@@ -2850,7 +2865,8 @@ def phase_dx_kernel(dev) -> None:
     panels to 224, in place from 225; posv also at n = 32 with k = 32), and
     getrf's three routes (the same rule: ``dx.solver._getrf_route``; each
     line names its route; the solves also at k = 33, which puts n = 224 in
-    place) and geqrf's shared-memory and in-place instantiations. Against the
+    place) and geqrf's two routes (``dx.solver._geqrf_route``: a warp a
+    matrix to n = 32, then a block in shared memory or in place). Against the
     plain version, max-scaled, DX_TOL on the factors of the matrices whose
     pivots agree (the kernels' FMAs and order of summation round otherwise,
     and a near-tie may pick another pivot: the count of matrices whose
@@ -2867,7 +2883,9 @@ def phase_dx_kernel(dev) -> None:
     at n = 16, 32, 48, 100 and 128 (pad rows past n at 16, 48 and 100: 0 / 0
     would make them NaN, and a NaN row wins a pivot), whose pivots and NaN
     must be the plain version's and whose good matrices must equal their
-    factors alone."""
+    factors alone; geqrf's degenerate columns (a zero column, x_0 = 0, an
+    upper triangular matrix, whose factor is itself with tau = 0) beside a
+    NaN matrix at n = 8, 32 (warp) and 33 (block), likewise."""
     gen = torch.Generator(device=dev).manual_seed(7373)
     failures, cases = [], 0
 
@@ -2883,7 +2901,6 @@ def phase_dx_kernel(dev) -> None:
         spd = _dx_spd(gen, bsz, n, dev)
         g = torch.randn((bsz, n, n), generator=gen, device=dev)
         dom = g + n * torch.eye(n, device=dev)
-        where = "in place" if dxs._smem_bytes(n, 0) > dxs.SMEM_MAX else "shared"
         l, l_p = dxs._potrf(spd), dxs._potrf_plain(spd)
         torch.cuda.synchronize()
         l64 = torch.linalg.cholesky(spd.double().cpu())
@@ -2910,7 +2927,8 @@ def phase_dx_kernel(dev) -> None:
         torch.cuda.synchronize()
         vs_p = max(max_scaled_err(qr, qr_p), max_scaled_err(taus, taus_p))
         res, orth = _qr_residual(g.cpu(), qr.cpu(), taus.cpu())
-        hold(f"geqrf n={n} ({where})", vs_p <= DX_TOL["geqrf"] and res < 5e-5 and orth < 5e-5,
+        hold(f"geqrf n={n} ({_geqrf_where(n)})",
+             vs_p <= DX_TOL["geqrf"] and res < 5e-5 and orth < 5e-5,
              f"vs plain {vs_p:.3e} QR−A {res:.3e} QᵀQ−I {orth:.3e}")
         if n in (32, 128):
             for kind, m in (("potrf", spd), ("getrf", g), ("geqrf", g)):
@@ -2986,13 +3004,28 @@ def phase_dx_kernel(dev) -> None:
         hold(f"getrf zero column, C10 n={n} ({dxs._getrf_route(n)})", ok,
              f"pivots as plain {torch.equal(piv, piv_p)}, NaN where plain "
              f"{torch.equal(lu.isnan(), lu_p.isnan())}, neighbours alone {alone}")
-    m = torch.randn((2, 32, 32), generator=gen, device=dev)
-    m[0, :, 5] = 0.0
-    m[1, 0, 0] = 0.0
-    (qr, taus), (qr_p, taus_p) = dxs._geqrf(m), dxs._geqrf_plain(m)
-    err = max(max_scaled_err(qr, qr_p), max_scaled_err(taus, taus_p))
-    hold("geqrf zero column, x_j = 0", float(taus[0, 5]) == 0.0 and err <= DX_TOL["geqrf"],
-         f"tau {float(taus[0, 5])} vs plain {err:.3e}")
+    # geqrf on both routes: a zero column (tau = 0), x_0 = 0 with a non-zero
+    # tail (sign +1), an upper triangular matrix (every tail zero: tau = 0 and
+    # QR = A) and a NaN matrix among Gaussian ones, which must equal their
+    # factors alone (the warp route holds four matrices a block)
+    for n in (8, 32, 33):
+        m = torch.randn((8, n, n), generator=gen, device=dev)
+        m[0, :, 5] = 0.0
+        m[1, 0, 0] = 0.0
+        m[2] = torch.triu(m[2])
+        m[3, n - 1, 4] = float("nan")
+        (qr, taus), (qr_p, taus_p) = dxs._geqrf(m), dxs._geqrf_plain(m)
+        good = [0, 1, 2, 4, 5, 6, 7]
+        err = max(max_scaled_err(qr[good], qr_p[good]), max_scaled_err(taus[good], taus_p[good]))
+        alone = all(torch.equal(qr[i], dxs._geqrf(m[i:i + 1])[0][0]) for i in good)
+        nan_as_plain = (torch.equal(qr.isnan(), qr_p.isnan())
+                        and torch.equal(taus.isnan(), taus_p.isnan()))
+        ok = (float(taus[0, 5]) == 0.0 and float(qr[1, 0, 0]) < 0 and torch.equal(qr[2], m[2])
+              and not bool(taus[2].any()) and err <= DX_TOL["geqrf"] and alone and nan_as_plain
+              and bool(torch.isfinite(qr[good]).all()) and bool(qr[3].isnan().any()))
+        hold(f"geqrf zero column, x_j = 0, zero tails, NaN n={n} ({_geqrf_where(n)})", ok,
+             f"tau {float(taus[0, 5])} R00 {float(qr[1, 0, 0]):.4f} | vs plain {err:.3e}, "
+             f"NaN where plain {nan_as_plain}, neighbours alone {alone}")
     if failures:
         raise SystemExit(f"chip_smoke: {len(failures)} of {cases} dx solver cases failed: {failures}")
     print(f"[dx-kernel] {cases} cases agree", flush=True)
@@ -3026,6 +3059,8 @@ def _dx_routes(x):
                                             lambda: torch.linalg.lu_factor_ex(dom, pivot=False)),
         "geqrf_batched b8192 n32": (lambda: dxs.geqrf_batched(g), "_geqrf",
                                     lambda: dxs._geqrf_plain(g), lambda: torch.geqrf(g)),
+        "geqrf_batched b1024 n128": (lambda: dxs.geqrf_batched(g_w), "_geqrf",
+                                     lambda: dxs._geqrf_plain(g_w), lambda: torch.geqrf(g_w)),
         "gesv_batched b8192 n32 k4": (lambda: dxs.gesv_batched(g, rhs), "_getrf",
                                       lambda: dxs._gesv_plain(g, rhs),
                                       lambda: torch.linalg.solve(g, rhs)),
@@ -3061,14 +3096,16 @@ def phase_dx_main(dev) -> dict:
         f.launches = 0
     for r in LU_ROUTES:
         setattr(dxs._getrf, f"{r.replace(' ', '_')}_launches", 0)
+    for r in QR_ROUTES:
+        setattr(dxs._geqrf, f"{r}_launches", 0)
     outs, grew, route_grew = {}, {}, {}
     for name, (route, _, _, _) in routes.items():
-        before, before_routes = {f.__name__: f.launches for f in DX_COUNTS}, _lu_counts()
+        before, before_routes = {f.__name__: f.launches for f in DX_COUNTS}, _dx_route_counts()
         outs[name] = route()
         grew[name] = {f.__name__: f.launches - before[f.__name__] for f in DX_COUNTS}
-        route_grew[name] = {k: t - before_routes[k] for k, t in _lu_counts().items()}
+        route_grew[name] = {k: t - before_routes[k] for k, t in _dx_route_counts().items()}
     torch.cuda.synchronize()
-    launches = {f.__name__: f.launches for f in DX_COUNTS} | _lu_counts()
+    launches = {f.__name__: f.launches for f in DX_COUNTS} | _dx_route_counts()
     print(f"[dx] launches in the main path: {launches}", flush=True)
 
     piv_agree = None
@@ -3076,10 +3113,10 @@ def phase_dx_main(dev) -> dict:
     for name, (_, count, plain_fn, _) in routes.items():
         out = outs[name]
         launched = grew[name][count] >= 1
-        if count == "_getrf":   # one launch, on the route of its (n, k), and none on the other
-            want = dxs._getrf_route(*_dx_nk(name))
-            launched = launched and all(route_grew[name][f"_getrf.{r}"] == (r == want)
-                                        for r in LU_ROUTES)
+        if count in ("_getrf", "_geqrf"):   # one launch, on the route of its (n, k), none other
+            want = _dx_route(name)
+            launched = launched and all(route_grew[name][f"{count}.{r}"] == (r == want)
+                                        for r in (LU_ROUTES if count == "_getrf" else QR_ROUTES))
         if name == "potrf_blocked n4096":   # its products f32: B1's 3xTF32 route, every one
             launched = (launched and grew[name]["pallas_matmul"] >= 1
                         and grew[name]["_gemm_tf32x3"] == grew[name]["pallas_matmul"])
@@ -3148,10 +3185,19 @@ def phase_dx_main(dev) -> dict:
             "routes": routes}
 
 
-def _lu_counts() -> dict:
-    """Launches of the batched LU on each route, as "_getrf.warp"."""
-    return {f"_getrf.{r}": getattr(dxs._getrf, f"{r.replace(' ', '_')}_launches")
-            for r in LU_ROUTES}
+def _dx_route_counts() -> dict:
+    """Launches of the batched LU and QR on each route, as "_getrf.warp"."""
+    return ({f"_getrf.{r}": getattr(dxs._getrf, f"{r.replace(' ', '_')}_launches")
+             for r in LU_ROUTES}
+            | {f"_geqrf.{r}": getattr(dxs._geqrf, f"{r}_launches") for r in QR_ROUTES})
+
+
+def _dx_route(name: str) -> str | None:
+    """The route of a getrf, gesv or geqrf line of phase 19 (None for the
+    Cholesky lines, whose routes are not counted apart)."""
+    if name.startswith(("getrf", "gesv")):
+        return dxs._getrf_route(*_dx_nk(name))
+    return dxs._geqrf_route(_dx_nk(name)[0]) if name.startswith("geqrf") else None
 
 
 def _dx_nk(name: str) -> tuple[int, int]:
@@ -3184,9 +3230,10 @@ def phase_dx_times(dxd: dict, card: str) -> dict:
     phase 19, its plain version and its library call (torch.linalg's
     cholesky_ex, lu_factor_ex with pivot on and off, torch.geqrf,
     torch.linalg.solve for gesv and posv, torch.linalg.cholesky for
-    potrf_blocked), each beside its bound; and the registers and spills of
-    the three Cholesky routes' kernels and the LU's warp and panel kernels
-    (none may spill)."""
+    potrf_blocked), each beside its bound; geqrf's lines also one call after
+    a synchronise and behind a spin (``_call_and_device``); and the registers
+    and spills of the three Cholesky routes' kernels, the LU's warp and panel
+    kernels and geqrf's warp kernel (none may spill)."""
     fast, slow = {}, {}
     for name, (route, _, plain, library) in dxd["routes"].items():
         target = slow if name.startswith("potrf_blocked") else fast
@@ -3199,24 +3246,59 @@ def phase_dx_times(dxd: dict, card: str) -> dict:
     ms["ptxas"] = _ptxas_report("potrf_", "dx-times")
     ms["lu_ptxas"] = {route: _ptxas_report(f"getrf_{route}_kernel", "dx-times")
                       for route in ("warp", "panel")}
+    ms["qr_ptxas"] = _ptxas_report("geqrf_warp_kernel", "dx-times")
     bounds = {}
-    for name, (_, count, _, _) in dxd["routes"].items():
+    for name, (route_fn, count, plain, library) in dxd["routes"].items():
         bounds[name] = bound = _dx_bound(name)
-        lu = f" ({dxs._getrf_route(*_dx_nk(name))} route)" if count == "_getrf" else ""
+        taken = _dx_route(name)
+        on = f" ({taken} route)" if taken else ""
         for route in ("kernel", "plain", "library"):
             t = ms.get(f"{name} {route}")
             if t is not None:
-                print(f"[dx-times] {name:32s} {route:7s} {t:.4f} ms{lu if route == 'kernel' else ''}"
+                print(f"[dx-times] {name:32s} {route:7s} {t:.4f} ms{on if route == 'kernel' else ''}"
                       f" | bound {bound['bound_ms']:.4f} "
                       f"ms ({bound['bound_by']}), {bound['bound_ms'] / t:.1%} of it | {card}",
                       flush=True)
+        if count == "_geqrf":
+            ms[f"{name} ways"] = _call_and_device(
+                {"kernel": route_fn, "plain": plain, "library": library}, name, bound, card, "dx-times")
     ms["bounds"] = bounds
     return ms
 
 
+def _ways_keys(ways: dict) -> dict:
+    """The record keys of ``_call_and_device``'s times of a line."""
+    return {"one_call_ms": ways["kernel"]["call"], "device_ms": ways["kernel"]["device"],
+            "plain_one_call_ms": ways["plain"]["call"], "plain_device_ms": ways["plain"]["device"],
+            "library_one_call_ms": ways["library"]["call"],
+            "library_device_ms": ways["library"]["device"]}
+
+
+def _call_and_device(runs: dict, line: str, bound: dict, card: str, tag: str,
+                     few: tuple = ("plain",)) -> dict:
+    """Each route of ``runs`` (kernel, plain, library) of a line: CUDA events
+    around one call after a synchronise (``_median_ms``, the host's launch
+    included) and its device time a call behind a spin (``_queued_ms``, with
+    the host's enqueue a call and whether the spin covered it), each printed
+    beside the line's bound; the routes named in ``few`` with fewer calls."""
+    out = {}
+    for route, fn in runs.items():
+        slow = route in few
+        call = _median_ms({route: fn}, warmup=1, iters=2 if slow else 10)[route]
+        device, host, covered = _queued_ms(fn, 2 if slow else 20)
+        out[route] = {"call": call, "device": device, "host": host, "covered": covered}
+        print(f"[{tag}] {line:32s} {route:7s} one call {call:.4f} ms ({bound['bound_ms'] / call:.1%}"
+              f" of the bound), device {device:.4f} ({bound['bound_ms'] / device:.1%}; host enqueue "
+              f"{host:.4f}, {'covered' if covered else 'not covered'}) | {card}", flush=True)
+    return out
+
+
 # phase 21's Jacobi sizes: the warp route to 32, the block route from 33
 DXE_KERNEL_NS = (1, 2, 7, 8, 16, 31, 32, 33, 40, 48, 63, 64)
-DXE_LSQ = ((32, 32), (64, 32))     # phase 21's (m, n) of unmqr
+# phase 21's unmqr cases, ((m, n), right-hand sides): the warp route (m <= 64, n <= 32, any k)
+# at its edges, and the block route past m = 64
+DXE_LSQ = (((32, 32), (1, 4, 32, 33)), ((33, 32), (1, 4, 32, 33)), ((64, 32), (1, 4, 32, 33)),
+           ((65, 32), (1, 4)))
 # phase 21's gels cases, ((m, n), right-hand sides): the warp route (m <= 64, n <= 32, k <= 32)
 # at its corners, the block route past each of its edges
 DXE_GELS_CASES = (((32, 32), (1, 4, 32)), ((64, 32), (1, 4, 32, 33)), ((48, 10), (1, 4, 32)),
@@ -3227,8 +3309,8 @@ DXE_WIDE = (2048, 64)          # (batch, n) of syevd and gesvd at the reference'
 XSYEVD_N = 2048                # bench.py:354-362
 XGESVD_N = 4096
 DXE_COUNTS = (dxs._unmqr, dxs._gels, dxs._syevd, dxs._gesvd)
-ROUTED = (dxs._gels, dxs._syevd, dxs._gesvd)   # wrappers that also count each route's launches
-DXE_ROUTES = ("warp", "block")   # their routes (dx.solver._gels_route, _jacobi_route)
+ROUTED = DXE_COUNTS   # wrappers that also count each route's launches
+DXE_ROUTES = ("warp", "block")   # their routes (dx.solver._unmqr_route, _gels_route, _jacobi_route)
 # Tolerances of each kernel against its plain version (kernels B7e-B7h): values
 # (w, s) max-scaled; vectors signed and scaled by their gap (_vec_err); X over
 # max|X| and A's condition (_x_err); Q·C max-scaled. Set from the card's
@@ -3367,7 +3449,8 @@ def phase_dxe_kernel(dev) -> None:
     csrc/dx_jacobi.cu) against their plain versions and float64, batch 37,
     through the public functions (which sort the Jacobi results): syevd and
     gesvd at n = 1 … 64 on both routes (each case prints its route), unmqr
-    at (m, n) = (32, 32) and (64, 32) with both trans, k = 1 and 4, gels at
+    at DXE_LSQ with both trans (the warp route to m = 64 at k = 1, 4, 32 and
+    33, the block route at m = 65; each case prints its route), gels at
     DXE_GELS_CASES on both its routes (each case prints its route). Against
     the plain version DXE_TOL;
     against float64 the reference test's bounds
@@ -3420,18 +3503,19 @@ def phase_dxe_kernel(dev) -> None:
             hold(f"gels m={m} n={n} k={k} {dxs._gels_route(m, n, k)}",
                  e_x <= tol["x"] and e_64 < 5e-4 and bool(torch.isfinite(x).all()),
                  f"vs plain / cond {e_x:.3e} | vs f64 lstsq {e_64:.3e}", x=e_x)
-    for m, n in DXE_LSQ:
+    for (m, n), ks in DXE_LSQ:
         a = torch.randn((bsz, m, n), generator=gen, device=dev)
         qr, taus = dxs._geqrf_plain(a)
         q64 = _q_of(qr, taus)
-        for k in (1, DX_K):
+        for k in ks:
             b = torch.randn((bsz, m, k), generator=gen, device=dev)
             for trans in (True, False):
                 qc = dxs.unmqr_batched(qr, taus, b, trans)
                 qc_p = _plain_of(lambda: dxs.unmqr_batched(qr, taus, b, trans))()
                 want = (q64.mT if trans else q64) @ b.double()
                 e_q, e_64 = max_scaled_err(qc, qc_p), float((qc.double() - want).abs().max())
-                hold(f"unmqr m={m} n={n} k={k} trans={trans}", e_q <= tol["qc"] and e_64 < 5e-4,
+                hold(f"unmqr m={m} n={n} k={k} trans={trans} {dxs._unmqr_route(m, n)}",
+                     e_q <= tol["qc"] and e_64 < 5e-4,
                      f"vs plain {e_q:.3e} | vs f64 Q·C {e_64:.3e}", qc=e_q)
     for n in (8, 32, 64):   # C12: ties the reference never turns
         c = _circulant(gen, 4, n, dev)
@@ -3468,7 +3552,7 @@ def phase_dxe_kernel(dev) -> None:
 def _dxe_routes(x):
     """name: (public call, its kernel's counter or None, plain route or None,
     library call or None)."""
-    a, b, qr, taus, c = x["a"], x["b"], x["qr"], x["taus"], x["c"]
+    a, b, qr, taus, c, qr64, taus64 = (x[k] for k in ("a", "b", "qr", "taus", "c", "qr64", "taus64"))
     sq, sym, wide, sym_w, big_sym, big = (x[k] for k in ("sq", "sym", "wide", "sym_w", "big_sym",
                                                          "big"))
     routes = {
@@ -3479,6 +3563,10 @@ def _dxe_routes(x):
                                                                            transpose=True)),
         "unmqr_batched b8192 n32 k4": (lambda: dxs.unmqr_batched(qr, taus, c, False), "_unmqr",
                                        lambda: torch.ormqr(qr, taus, c)),
+        # gels's reflectors (A of its line) applied to its B
+        "unmqr_batched trans b8192 m64 n32 k4": (lambda: dxs.unmqr_batched(qr64, taus64, b, True),
+                                                 "_unmqr", lambda: torch.ormqr(qr64, taus64, b,
+                                                                               transpose=True)),
         "syevd_batched b8192 n32": (lambda: dxs.syevd_batched(sym), "_syevd",
                                     lambda: torch.linalg.eigh(sym)),
         "gesvd_batched b8192 n32": (lambda: dxs.gesvd_batched(sq), "_gesvd",
@@ -3499,11 +3587,20 @@ def _dxe_routes(x):
             for name, (route, count, library) in routes.items()}
 
 
+def _unmqr_line(name: str) -> tuple:
+    """(QR, taus, C) keys of phase 22's inputs and (m, n) of an unmqr line."""
+    if " m64" in name:
+        return ("qr64", "taus64", "b"), DXE_GELS[1:3]
+    return ("qr", "taus", "c"), (DXE_SQ[1], DXE_SQ[1])
+
+
 def _line_route(name: str) -> str | None:
-    """The route of a gels_batched, syevd_batched or gesvd_batched line of
-    phase 22 (None for the other lines)."""
+    """The route of a line of phase 22 whose wrapper counts its routes (None
+    for the other lines)."""
     if name.startswith("gels_batched"):
         return dxs._gels_route(*DXE_GELS[1:])
+    if name.startswith("unmqr_batched"):
+        return dxs._unmqr_route(*_unmqr_line(name)[1])
     if not name.startswith(("syevd_batched", "gesvd_batched")):
         return None
     return dxs._jacobi_route(int(re.search(r" n(\d+)", name).group(1)))
@@ -3517,9 +3614,10 @@ def _route_counts() -> dict:
 def phase_dxe_main(dev) -> dict:
     """The slice's main path through the public functions: gels_batched at
     batch 8192 × m 64 × n 32, k 4; unmqr_batched both ways on
-    geqrf_batched's factors of 8192 × 32 × 32 and C (8192, 32, 4);
+    geqrf_batched's factors of 8192 × 32 × 32 and C (8192, 32, 4), and Qᵀ·B
+    from gels's A (its reflectors by _geqrf_plain) and B;
     syevd_batched and gesvd_batched at 8192 × 32 and 2048 × 64. Each must
-    grow its kernel's count by one (gels: and its warp route's; syevd and
+    grow its kernel's count by one (unmqr and gels: and their warp route's; syevd and
     gesvd: and the count of their route, the warp route at n = 32 and the
     block route at 64, and no other)
     and is held to its plain version
@@ -3543,6 +3641,7 @@ def phase_dxe_main(dev) -> dict:
     g = torch.randn((XSYEVD_N, XSYEVD_N), generator=gen, device=dev)
     x["big_sym"] = (g + g.T) / 2
     x["qr"], x["taus"] = dxs.geqrf_batched(sq)
+    x["qr64"], x["taus64"] = dxs._geqrf_plain(x["a"])
     routes = _dxe_routes(x)
     torch.cuda.synchronize()
     for f in DXE_COUNTS:
@@ -3584,11 +3683,12 @@ def phase_dxe_main(dev) -> dict:
             detail = f"vs plain / cond {e_x:.3e} | vs f64 lstsq {e_64:.3e}"
         elif name.startswith("unmqr"):
             qc_p = plain_fn()
-            q64 = _q_of(x["qr"], x["taus"])
-            want = (q64.mT if "trans" in name else q64) @ x["c"].double()
+            qr_, taus_, c_ = (x[k] for k in _unmqr_line(name)[0])
+            q64 = _q_of(qr_, taus_)
+            want = (q64.mT if "trans" in name else q64) @ c_.double()
             e_q, e_64 = max_scaled_err(out, qc_p), float((out.double() - want).abs().max())
-            back = dxs.unmqr_batched(x["qr"], x["taus"], out, "trans" not in name)
-            e_back = max_scaled_err(back, x["c"])
+            back = dxs.unmqr_batched(qr_, taus_, out, "trans" not in name)
+            e_back = max_scaled_err(back, c_)
             ok = e_q <= tol["qc"] and e_64 < 5e-4 and e_back < 1e-5
             max_abs[name] = max_abs_rel(out, qc_p)[0]
             detail = f"vs plain {e_q:.3e} | vs f64 Q·C {e_64:.3e}, round trip {e_back:.3e}"
@@ -3673,9 +3773,9 @@ def _dxe_bound(name: str) -> dict:
         flop = 2 * m * n * n - 2 * n**3 / 3 + 4 * m * n * k - 2 * n * n * k + n * n * k
         return _bound(b * flop, PEAK_F32, 4 * b * (m * n + m * k + n * k))
     if name.startswith("unmqr"):
-        (b, n), k = DXE_SQ, DX_K
-        words = n * n - n * (n + 1) // 2 + n + 2 * n * k
-        return _bound(b * (4 * n * n * k - 2 * n * n * k), PEAK_F32, 4 * b * words)
+        (m, n), b, k = _unmqr_line(name)[1], DXE_SQ[0], DX_K
+        words = m * n - n * (n + 1) // 2 + n + 2 * m * k
+        return _bound(b * (4 * m * n * k - 2 * n * n * k), PEAK_F32, 4 * b * words)
     b, n = DXE_WIDE if "n64" in name else DXE_SQ
     sweeps, outs, per_pair = ((10, 2 * n * n + n, 12 * n) if name.startswith("syevd")
                               else (12, 3 * n * n + n, 18 * n))
@@ -3689,8 +3789,10 @@ def phase_dxe_times(dxe: dict, card: str) -> dict:
     phase 22, its plain version (short loops) and its library call
     (torch.linalg.lstsq with driver gels, torch.ormqr, torch.linalg.eigh,
     torch.linalg.svd), each beside its bound, gels' and the Jacobi kernels'
-    with their route; and the registers and spills of the gels warp route's
-    kernels and of both Jacobi routes' (none may spill). A call that takes
+    with their route; unmqr's lines also one call after a synchronise and
+    behind a spin (``_call_and_device``); and the registers and spills of
+    the unmqr and gels warp routes' kernels and of both Jacobi routes'
+    (none may spill). A call that takes
     more than 100 ms (the Jacobi plain versions, torch.ormqr, which loops
     over the batch, and eigh and svd at n = 64) is timed once in each turn;
     the routes that launch no kernel keep their one call of phase 22."""
@@ -3708,10 +3810,10 @@ def phase_dxe_times(dxe: dict, card: str) -> dict:
     ms.update({f"{name} route": t for name, t in dxe["once_ms"].items()
                if dxe["routes"][name][1] is None})
     ms["ptxas"] = {f"{k}.{route}": _ptxas_report(f"{k}_{route}_kernel", "dxe-times")
-                   for k, route in (("gels", "warp"), ("syevd", "warp"), ("gesvd", "warp"),
-                                    ("syevd", "block"), ("gesvd", "block"))}
+                   for k, route in (("unmqr", "warp"), ("gels", "warp"), ("syevd", "warp"),
+                                    ("gesvd", "warp"), ("syevd", "block"), ("gesvd", "block"))}
     bounds = {}
-    for name, (_, count, _, _) in dxe["routes"].items():
+    for name, (route_fn, count, plain, library) in dxe["routes"].items():
         if count is None:
             print(f"[dxe-times] {name:34s} route   {ms[f'{name} route']:.4f} ms (one call, phase "
                   f"22; no kernel of the repository) | {card}", flush=True)
@@ -3724,6 +3826,10 @@ def phase_dxe_times(dxe: dict, card: str) -> dict:
             print(f"[dxe-times] {name:34s} {route:7s} {t:.4f} ms{on} | bound "
                   f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), {bound['bound_ms'] / t:.1%} "
                   f"of it | {card}", flush=True)
+        if count == "_unmqr":
+            ms[f"{name} ways"] = _call_and_device(
+                {"kernel": route_fn, "plain": plain, "library": library}, name, bound, card,
+                "dxe-times", few=("plain", "library"))
     ms["bounds"] = bounds
     return ms
 
@@ -5938,7 +6044,7 @@ def main() -> None:
              "library_gather_ms": sp_ms["spmv gather"]}))] + [{
         "name": name,
         "route": "cuda",
-        "source": "tpumathlib_torch/csrc/dx_solver.cu",
+        "source": f"tpumathlib_torch/csrc/{source}",
         "replaces": f"tpumathlib/dx/solver.py:{site}",
         "launches": dxd["grew"][line][count],
         "max_abs_err": dxd["max_abs_err"][line],
@@ -5948,24 +6054,33 @@ def main() -> None:
         "library_ms": dx_ms[f"{line} library"],
         **({"potrf_route": dxs._potrf_route(*_dx_nk(line)), "ptxas": dx_ms["ptxas"]}
            if count == "_potrf" else {}),
-        **({"getrf_route": dxs._getrf_route(*_dx_nk(line)),
-            "route_launches": dxd["route_grew"][line][f"_getrf.{dxs._getrf_route(*_dx_nk(line))}"],
-            "ptxas": dx_ms["lu_ptxas"][dxs._getrf_route(*_dx_nk(line))]}
+        **({"getrf_route": _dx_route(line),
+            "route_launches": dxd["route_grew"][line][f"_getrf.{_dx_route(line)}"],
+            "ptxas": dx_ms["lu_ptxas"][_dx_route(line)]}
            if count == "_getrf" else {}),
-    } for name, line, count, site in (
-        ("potrf_batched_packed (tml_potrf_batched)", "potrf_batched b8192 n32", "_potrf", "977"),
+        **({"kernel_route": _dx_route(line),
+            "route_launches": dxd["route_grew"][line][f"_geqrf.{_dx_route(line)}"],
+            **_ways_keys(dx_ms[f"{line} ways"])} if count == "_geqrf" else {}),
+        **({"ptxas": dx_ms["qr_ptxas"]} if source == "dx_qr_warp.cu" else {}),
+    } for name, line, count, source, site in (
+        ("potrf_batched_packed (tml_potrf_batched)", "potrf_batched b8192 n32", "_potrf",
+         "dx_solver.cu", "977"),
         ("getrf_batched_packed warp route (tml_getrf_batched: getrf_warp_kernel, n <= 32)",
-         "getrf_batched b8192 n32", "_getrf", "480"),
+         "getrf_batched b8192 n32", "_getrf", "dx_solver.cu", "480"),
         ("getrf_batched_packed pivot=False warp route (tml_getrf_batched: getrf_warp_kernel)",
-         "getrf_batched nopivot b8192 n32", "_getrf", "480"),
-        ("geqrf_batched (tml_geqrf_batched)", "geqrf_batched b8192 n32", "_geqrf", "222"),
+         "getrf_batched nopivot b8192 n32", "_getrf", "dx_solver.cu", "480"),
+        ("geqrf_batched warp route (tml_geqrf_batched: geqrf_warp_kernel, n <= 32)",
+         "geqrf_batched b8192 n32", "_geqrf", "dx_qr_warp.cu", "222"),
+        ("geqrf_batched n=128 block route (tml_geqrf_batched: geqrf_kernel)",
+         "geqrf_batched b1024 n128", "_geqrf", "dx_solver.cu", "222"),
         ("gesv_batched warp route (tml_getrf_batched: getrf_warp_kernel with a right-hand side)",
-         "gesv_batched b8192 n32 k4", "_getrf", "301"),
+         "gesv_batched b8192 n32 k4", "_getrf", "dx_solver.cu", "301"),
         ("posv_batched (tml_potrf_batched with a right-hand side)", "posv_batched b8192 n32 k4",
-         "_potrf", "359"),
-        ("potrf_batched n=128 (tml_potrf_batched)", "potrf_batched b1024 n128", "_potrf", "222"),
+         "_potrf", "dx_solver.cu", "359"),
+        ("potrf_batched n=128 (tml_potrf_batched)", "potrf_batched b1024 n128", "_potrf",
+         "dx_solver.cu", "222"),
         ("getrf_batched n=128 panel route (tml_getrf_batched: getrf_panel_kernel, 32-column "
-         "panels, n <= 224)", "getrf_batched b1024 n128", "_getrf", "222"))] + [{
+         "panels, n <= 224)", "getrf_batched b1024 n128", "_getrf", "dx_solver.cu", "222"))] + [{
         "name": name,
         "route": "cuda",
         "source": f"tpumathlib_torch/csrc/{source}",
@@ -5978,9 +6093,10 @@ def main() -> None:
         "library_ms": dxe_ms[f"{line} library"],
         **({"kernel_route": _line_route(line)} if _line_route(line) else {}),
         **({"ptxas": dxe_ms["ptxas"][count[1:]]} if "." in count else {}),
+        **(_ways_keys(dxe_ms[f"{line} ways"]) if count.startswith("_unmqr") else {}),
     } for name, line, count, source, site in (
-        ("unmqr_batched (tml_unmqr_batched)", "unmqr_batched trans b8192 n32 k4", "_unmqr",
-         "dx_solver.cu", "597"),
+        ("unmqr_batched warp route (tml_unmqr_batched: unmqr_warp_kernel, m <= 64, n <= 32)",
+         "unmqr_batched trans b8192 n32 k4", "_unmqr.warp", "dx_qr_warp.cu", "597"),
         ("gels_batched warp route (tml_gels_batched: gels_warp_kernel, m <= 64, n <= 32, k <= 32)",
          "gels_batched b8192 m64 n32 k4", "_gels.warp", "dx_solver.cu", "637"),
         ("syevd_batched warp route (tml_syevd_batched: syevd_warp_kernel, n <= 32)",

@@ -86,6 +86,8 @@ def test_f32_paths_run_on_the_cpu(monkeypatch):
                                     "getrf_batched_8192x32", "getrf_batched_nopivot_8192x32",
                                     "gesv_batched_8192x32_k4", "getrf_batched_1024x128",
                                     "geqrf_batched_8192x32", "geqrf_batched_1024x128",
+                                    "unmqr_batched_trans_8192x32x32_k4",
+                                    "unmqr_batched_8192x32x32_k4",
                                     "gels_batched_8192x64x32_k4",
                                     "syevd_batched_8192x32", "gesvd_batched_8192x32",
                                     "syevd_batched_2048x64", "gesvd_batched_2048x64",

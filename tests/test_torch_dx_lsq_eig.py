@@ -372,9 +372,12 @@ class _EmulatedLib(_EmulatedSolverLib):
         return not work and port._smem_bytes(n, k, m) > port.SMEM_MAX
 
     def tml_unmqr_batched(self, qr, tau, c, x, work, batch, m, n, k, trans, stream):
+        # csrc/dx_qr_warp.cuh's unmqr_warp_route: a warp a matrix for m <= 64,
+        # n <= 32, which reads no work space
+        route = "warp" if m <= 64 and n <= 32 else "block"
         self.solver_calls.append(dict(kernel="unmqr", batch=batch, m=m, n=n, k=k,
-                                      work=bool(work), trans=trans))
-        if self.rc or self._needs_work(work, m, n, k):
+                                      work=bool(work), trans=trans, route=route))
+        if self.rc or (route == "block" and self._needs_work(work, m, n, k)):
             return self.rc or 1
         q = _view(qr, F32, (batch, m, n), (m * n, n, 1)).clone()
         t = _view(tau, F32, (batch, n), (n, 1)).clone()
@@ -452,7 +455,7 @@ def test_cuda_branch_unmqr(emulated, trans, m, n, k):
     got = port.unmqr_batched(qr, taus, c, trans)
     assert _grew(before) == [1, 0, 0, 0]
     assert emulated.solver_calls == [dict(kernel="unmqr", batch=3, m=m, n=n, k=k, work=False,
-                                          trans=int(trans))]
+                                          trans=int(trans), route="warp")]
     assert got.shape == (3, m, k) and torch.equal(got, port._apply_q_plain(qr, taus, c, trans))
 
 
@@ -558,7 +561,9 @@ def test_cpu_takes_plain_versions_without_launch():
 
 # ---------------------------------------------------------------------------
 # tml_gels_batched's warp route, mirrored in numpy (csrc/dx_solver.cu's
-# gels_warp_kernel)
+# gels_warp_kernel on csrc/dx_qr_warp.cuh's QR core; the models of the QR
+# and of the reflectors' application serve tests/test_torch_dx_qr_warp.py
+# too)
 
 def _sum4(term, lo, m, shape):
     """The kernel's sum of term(r) over rows lo ≤ r < m: four partial sums by
@@ -569,26 +574,22 @@ def _sum4(term, lo, m, shape):
     return (part[0] + part[1]) + (part[2] + part[3])
 
 
-def _model_warp_gels(a, b):
-    """gels_warp_kernel on f32 A (B, m, n) and B (B, m, k), m ≤ 64, n, k ≤
-    32: lane c holds column c of A (rows to 32·R, zeros past m and n that
-    take no part), lane r rows r and r + 32 of B. Step j: the tail's sum of
-    squares (``_sum4``), then x_j² added, and geqrf_steps' dlarfg scalars;
-    every lane c ≥ j forms w_c = tau_h·Σ v_r a_rc (``_sum4``) and
-    subtracts v_r w_c (lane j keeps R's entry and v_r / v_j below it, as the
-    kernel's division after the last step leaves it); B takes the stored
-    reflectors in order (v_j = 1, tau = tau_h·v_j²): each lane's rows summed
-    (row r, then r + 32), the lanes added by the 5-step xor butterfly, then
-    each row updated. Then R·X = Y by warp_solve_step's steps, j
-    descending. Without the kernel's FMAs. Returns X (B, n, k)."""
+def _model_warp_qr(a):
+    """gels_qr_steps (csrc/dx_qr_warp.cuh) on f32 A (B, m, n), m ≤ 64, n ≤
+    32, as gels_warp_kernel and geqrf_warp_kernel run it: lane c holds
+    column c of A (rows to 32·R, zeros past m and n that take no part).
+    Step j: the tail's sum of squares (``_sum4``), then x_j² added, and
+    geqrf_steps' dlarfg scalars; every lane c ≥ j forms w_c = tau_h·Σ v_r
+    a_rc (``_sum4``) and subtracts v_r w_c (lane j keeps R's entry and
+    v_r / v_j below it, as the kernels' division after the last step leaves
+    it). Without the kernels' FMAs. Returns (col, taus): col[:, c, r] =
+    QR(r, c) as stored (B, 32, 32·R), taus (B, n)."""
     bsz, m, n = a.shape
-    k = b.shape[-1]
     mm = 32 if m <= 32 else 64
     lanes = np.arange(32)
     col = np.zeros((bsz, 32, mm), np.float32)      # col[:, c, r] = A(r, c)
     col[:, :n, :m] = a.transpose(0, 2, 1)
-    xs = np.zeros((bsz, mm // 32, 32, k), np.float32)   # xs[:, q, lane] = B's row lane + 32 q
-    xs.reshape(bsz, mm, k)[:, :m] = b
+    taus = np.zeros((bsz, n), np.float32)
     f32 = np.float32
     with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
         for j in range(n):
@@ -604,7 +605,7 @@ def _model_warp_gels(a, b):
             safe = vsq > 0
             tau_h = np.where(safe, f32(2) / np.where(safe, vsq, f32(1)), f32(0))
             vdiv = np.where(vj == 0, f32(1), vj)
-            tau = np.where(safe, tau_h * vj * vj, f32(0))
+            taus[:, j] = np.where(safe, tau_h * vj * vj, f32(0))
             v = np.where(degenerate[:, None], f32(0), cj.copy())
             v[:, j] = np.where(degenerate, f32(0), vj)
             acc = _sum4(lambda r: v[:, r, None] * col[:, :, r], j, m, (bsz, 32))
@@ -613,24 +614,65 @@ def _model_warp_gels(a, b):
             for r in range(j, m):
                 col[:, :, r] = np.where(upd, col[:, :, r] - v[:, r, None] * wc, col[:, :, r])
             col[:, j, j + 1:m] = v[:, j + 1:m] / vdiv[:, None]
-            vr = np.zeros((bsz, mm), f32)
-            vr[:, :m] = v[:, :m] / vdiv[:, None]
+    return col, taus
+
+
+def _butterfly(s):
+    """The 5-step xor butterfly over the lanes (axis 1) of s (B, 32, ...):
+    every lane ends with the same sum."""
+    lanes = np.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        s = s + s[:, lanes ^ off]
+    return s
+
+
+def _model_warp_apply(qr, taus, c, trans=True, sums=_butterfly):
+    """The stored reflectors of qr (B, m, n) applied to C (B, m, k), m ≤ 64,
+    as gels_warp_kernel (Qᵀ·B) and unmqr_warp_kernel take them: v_j = 1 and
+    below it qr's column j, tau_j; ascending for Qᵀ·C, descending for Q·C,
+    over min(m, n) reflectors. Lane r holds rows r and r + 32 (zeros past
+    m); each lane's rows summed (row r, then r + 32), the lanes added by
+    ``sums`` (the kernel's reduction: every lane gets each column's sum),
+    then each row updated. Without the kernels' FMAs. Returns (B, m, k)."""
+    bsz, m, n = qr.shape
+    k = c.shape[-1]
+    mm = 32 if m <= 32 else 64
+    xs = np.zeros((bsz, mm // 32, 32, k), np.float32)   # xs[:, q, lane] = C's row lane + 32 q
+    xs.reshape(bsz, mm, k)[:, :m] = c
+    steps = range(min(m, n))
+    with np.errstate(invalid="ignore", over="ignore"):
+        for j in (steps if trans else reversed(steps)):
+            vr = np.zeros((bsz, mm), np.float32)
+            vr[:, j + 1:m] = qr[:, j + 1:m, j]
             vr[:, j] = 1
             on = ((np.arange(mm) >= j) & (np.arange(mm) < m)).reshape(mm // 32, 32)
             vr = vr.reshape(bsz, mm // 32, 32)
-            s = np.zeros((bsz, 32, k), f32)
+            s = np.zeros((bsz, 32, k), np.float32)
             for q in range(mm // 32):
                 s = np.where(on[q][:, None], s + vr[:, q, :, None] * xs[:, q], s)
-            for off in (16, 8, 4, 2, 1):
-                s = s + s[:, lanes ^ off]
-            wq = s * tau[:, None, None]
+            wq = sums(s) * taus[:, j, None, None]
             xs = np.where(on[None, :, :, None], xs - vr[..., None] * wq[:, None], xs)
+    return xs.reshape(bsz, mm, k)[:, :m]
+
+
+def _model_warp_gels(a, b):
+    """gels_warp_kernel on f32 A (B, m, n) and B (B, m, k), m ≤ 64, n, k ≤
+    32: the QR steps (``_model_warp_qr``), then B takes the stored
+    reflectors in order (``_model_warp_apply``: each lane's rows summed, the
+    lanes added by the 5-step xor butterfly, then each row updated), then
+    R·X = Y by warp_solve_step's steps, j descending. Without the kernel's
+    FMAs. Returns X (B, n, k)."""
+    bsz, m, n = a.shape
+    col, taus = _model_warp_qr(a)
+    y = _model_warp_apply(col[:, :n, :m].transpose(0, 2, 1), taus, b)
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
         r_rows = col[:, :, :32].transpose(0, 2, 1)     # r_rows[:, r, c] = R(r, c)
-        x = xs[:, 0].copy()
+        x = np.zeros((bsz, 32, b.shape[-1]), np.float32)
+        x[:, :min(m, 32)] = y[:, :32]
         for j in reversed(range(n)):
-            y = x[:, j] / r_rows[:, j, j, None]
-            x[:, j] = y
-            x[:, :j] = x[:, :j] - r_rows[:, :j, j, None] * y[:, None]
+            yj = x[:, j] / r_rows[:, j, j, None]
+            x[:, j] = yj
+            x[:, :j] = x[:, :j] - r_rows[:, :j, j, None] * yj[:, None]
     return x[:, :n]
 
 

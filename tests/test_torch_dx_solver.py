@@ -408,7 +408,9 @@ class _EmulatedLib(_EmulatedGemmLib):
         return 0
 
     def tml_geqrf_batched(self, a, qr, tau, batch, n, stream):
-        self.solver_calls.append(dict(kernel="geqrf", batch=batch, n=n))
+        # csrc/dx_qr_warp.cuh's geqrf_warp_route: a warp a matrix to n = 32
+        self.solver_calls.append(dict(kernel="geqrf", batch=batch, n=n,
+                                      route="warp" if n <= 32 else "block"))
         if self.rc:
             return self.rc
         f, t = port._geqrf_plain(_batch(a, batch, n, n).clone())
@@ -460,10 +462,10 @@ def test_cuda_branch_factor_marshalling(emulated, rng, kind, n):
                     route="warp" if n <= 32 else "panel")
     else:
         got, want, counter = dx.geqrf_batched(a), port._geqrf_plain(a), [0, 0, 1, 0]
-        call = dict(kernel="geqrf", batch=bsz, n=n)
+        call = dict(kernel="geqrf", batch=bsz, n=n, route="warp" if n <= 32 else "block")
     assert _grew(before) == counter
     assert emulated.solver_calls == [call]
-    lu_route = call.get("route")   # only that route's count grows
+    lu_route = call.get("route") if kind.startswith("getrf") else None   # only its count grows
     assert [r - r0 for r, r0 in zip(_lu_routes(), routes)] == [
         int(lu_route == "warp"), int(lu_route == "panel"), 0]
     for g_, w in zip(got, want):

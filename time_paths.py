@@ -20,8 +20,9 @@ The paths, each through its public function:
 - the batched solvers of dx.solver (B7a, B7b, B7d, B7f): potrf_batched at
   1024 x 128 and 8192 x 32, posv_batched and gesv_batched at 8192 x 32 with
   4 right-hand sides, getrf_batched at 8192 x 32 (pivoted and not) and 1024
-  x 128, geqrf_batched at both, and gels_batched at 8192 x 64 x 32 with 4
-  right-hand sides;
+  x 128, geqrf_batched at both, unmqr_batched both ways on geqrf_batched's
+  8192 x 32 x 32 factors with 4 columns of C (B7e), and gels_batched at 8192
+  x 64 x 32 with 4 right-hand sides;
 - the Jacobi kernels of dx.solver (B7g, B7h): syevd_batched and
   gesvd_batched at 8192 x 32 (the warp route) and 2048 x 64 (the block
   route);
@@ -157,6 +158,7 @@ def _paths(dev) -> dict:
         batched[order] = (m @ m.mT + order * torch.eye(order, device=dev), m)
     rhs = torch.randn((BATCHED[0][0], BATCHED[0][1], 4), generator=gen, device=dev)
     dom32 = batched[32][1] + 32 * torch.eye(32, device=dev)   # no pivoting needed
+    qr32, taus32 = dx.geqrf_batched(batched[32][1])
     bg, mg, ng, kg = GELS
     gels_a = torch.randn((bg, mg, ng), generator=gen, device=dev)
     gels_b = torch.randn((bg, mg, kg), generator=gen, device=dev)
@@ -203,6 +205,8 @@ def _paths(dev) -> dict:
         "getrf_batched_1024x128": lambda: dx.getrf_batched(batched[128][1]),
         "geqrf_batched_8192x32": lambda: dx.geqrf_batched(batched[32][1]),
         "geqrf_batched_1024x128": lambda: dx.geqrf_batched(batched[128][1]),
+        "unmqr_batched_trans_8192x32x32_k4": lambda: dxs.unmqr_batched(qr32, taus32, rhs, True),
+        "unmqr_batched_8192x32x32_k4": lambda: dxs.unmqr_batched(qr32, taus32, rhs, False),
         "gels_batched_8192x64x32_k4": lambda: dxs.gels_batched(gels_a, gels_b),
         "syevd_batched_8192x32": lambda: dxs.syevd_batched(jacobi[0][0]),
         "gesvd_batched_8192x32": lambda: dxs.gesvd_batched(jacobi[0][1]),

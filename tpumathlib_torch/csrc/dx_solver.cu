@@ -47,7 +47,9 @@
 // shared memory once, runs the n dependent steps there, each a read of
 // column j, a reduction where the step needs one and a masked rank-1 update,
 // separated by __syncthreads, and writes its result once; past a block's
-// 227 KB a second instantiation works in place in device memory. gels takes
+// 227 KB a second instantiation works in place in device memory. geqrf for n
+// <= 32 and unmqr for m <= 64, n <= 32 take a warp a matrix instead
+// (csrc/dx_qr_warp.cu, on the QR core of csrc/dx_qr_warp.cuh). gels takes
 // a warp a matrix for m <= 64, n <= 32 and k <= 32 (below "gels, a warp a
 // matrix": A's columns in the lanes' registers, B's rows beside them, no
 // barrier): at batch 8192 x m 64 x n 32, k 4, it reads A and B and writes X,
@@ -77,6 +79,8 @@
 #include <algorithm>
 #include <climits>
 #include <cstdint>
+
+#include "dx_qr_warp.cuh"
 
 namespace {
 
@@ -198,9 +202,9 @@ __device__ void unstage(const Args& p, const Block& s, bool lower) {
 // warp route factors 8192 matrices of 32 in 0.036 ms and the panel route 1024
 // of 128 in 0.165 ms, where torch.linalg.cholesky_ex takes 0.237 and 0.508.
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarpN = 32;          // the warp route's largest n and k
-constexpr int kWarpMatrices = 4;    // matrices (warps) a block on the warp route
+using tml_qr::kFull;
+using tml_qr::kWarpN;          // the warp routes' largest n and k
+using tml_qr::kWarpMatrices;   // matrices (warps) a block on the warp routes
 constexpr int kPanel = 32;          // the panel route's panel width
 constexpr int kMaxPanelWarps = 7;   // the panel route's largest block: n <= 224, a row a thread
 
@@ -1165,15 +1169,9 @@ __global__ void __launch_bounds__(kMaxThreads) gels_kernel(const Args p) {
 // mirrors it), kWarpMatrices matrices a block, no block barrier. Lane c holds
 // column c of A, rows 0 ... 32 R - 1 in registers (R = 1 for m <= 32, else 2;
 // the rows past m zeros that take no part: m = 32 R takes an instantiation of
-// the steps that tests no row), loaded a row of A at a time. Step j: lane j
-// sums its tail's squares (four partial sums by row mod 4), forms dlarfg's
-// scalars with geqrf_steps' formulas (sign(0) = +1, a zero tail gives tau =
-// 0) and writes v (v_j = x_j - alpha, below it the column; zeros for a zero
-// tail) twice and the scalars to the warp's slice of shared memory; after a
-// __syncwarp each lane c > j (and lane j for its row j) forms w_c = tau_h
-// sum_r v_r a_rc over its own registers (four partial sums likewise) from the
-// one copy and subtracts v_r w_c reading the other: from one copy the
-// compiler keeps all of v in registers between the two passes and spills.
+// the steps that tests no row), loaded a row of A at a time, and the QR
+// steps run as gels_qr_steps takes them (csrc/dx_qr_warp.cuh, shared with
+// geqrf's warp route in csrc/dx_qr_warp.cu).
 // Lane j keeps R's entry and v below it; after the last step each lane divides
 // its column below the diagonal by its v_j, all lanes at once: the reflector
 // geqrf_steps stores. The factored columns then go to the warp's tile (QR, m x
@@ -1189,88 +1187,7 @@ __global__ void __launch_bounds__(kMaxThreads) gels_kernel(const Args p) {
 // rounding. R = 2 takes 153 registers without a spill at three blocks an SM
 // (at four, whose cap is 128, it spills).
 
-// Four partial sums by row mod 4, added as (s0 + s1) + (s2 + s3).
-__device__ __forceinline__ float sum4(const float (&s)[4]) { return (s[0] + s[1]) + (s[2] + s[3]); }
-
-// dlarfg of a column whose entry j is xj and whose tail's sum of squares is
-// ts, as geqrf_steps forms it: returns v_j, and through the references tau_h,
-// tau (= tau_h v_j^2, 0 where unsafe) and whether the tail is zero.
-__device__ __forceinline__ float dlarfg(float xj, float ts, float& tau_h, float& tau, bool& degenerate) {
-  const float ss = fmaf(xj, xj, ts);
-  degenerate = ts == 0.f;
-  const float sign = xj > 0.f ? 1.f : xj < 0.f ? -1.f : xj == 0.f ? 1.f : xj;
-  const float alpha = degenerate ? xj : -sign * sqrtf(ss);
-  const float vj = xj - alpha;
-  const float vsq = degenerate ? 0.f : ts + vj * vj;
-  const bool safe = vsq > 0.f;
-  tau_h = safe ? 2.f / vsq : 0.f;
-  tau = safe ? tau_h * vj * vj : 0.f;
-  return vj;
-}
-
-// The QR steps on lane `lane`'s column a (32 R rows); FULL: m = 32 R, no row
-// needs testing. v: v, its copy, then 4 scalars. Leaves R above the diagonal,
-// v below it (the stored reflector times v_j, returned in vdiv), tau in taus.
-template <int R, bool FULL>
-__device__ __forceinline__ void gels_qr_steps(float (&a)[32 * R], float* v, float* taus, float& vdiv,
-                                              int lane, int m, int n) {
-  constexpr int M = 32 * R;
-  auto real = [m](int r) { return FULL || r < 32 * (R - 1) || r < m; };
-#pragma unroll
-  for (int j = 0; j < kWarpN; ++j) {
-    if (j >= n) break;
-    if (lane == j) {
-      float sq[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int r = j + 1; r < M; ++r)
-        if (real(r)) sq[r & 3] = fmaf(a[r], a[r], sq[r & 3]);
-      float tau_h, tau;
-      bool degenerate;
-      const float vj = dlarfg(a[j], sum4(sq), tau_h, tau, degenerate);
-      vdiv = vj == 0.f ? 1.f : vj;
-      taus[j] = tau;
-#pragma unroll
-      for (int q = j / 4; q < M / 4; ++q) {   // v: zero for a zero tail (rows < j unread)
-        float e4[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = 4 * q + e;
-          e4[e] = degenerate ? 0.f : r == j ? vj : a[r];
-        }
-        reinterpret_cast<float4*>(v)[q] = make_float4(e4[0], e4[1], e4[2], e4[3]);
-        reinterpret_cast<float4*>(v + M)[q] = make_float4(e4[0], e4[1], e4[2], e4[3]);
-      }
-#pragma unroll
-      for (int r = j + 1; r < M; ++r)
-        if (degenerate) a[r] = 0.f;
-      reinterpret_cast<float4*>(v + 2 * M)[0] = make_float4(tau_h, 0.f, 0.f, degenerate ? 1.f : 0.f);
-    }
-    __syncwarp();
-    const float4 sc = reinterpret_cast<const float4*>(v + 2 * M)[0];
-    float part[4] = {0.f, 0.f, 0.f, 0.f};   // v^T a_c over rows >= j
-#pragma unroll
-    for (int q = j / 4; q < M / 4; ++q) {
-      const float4 vq = reinterpret_cast<const float4*>(v)[q];
-      const float ve[4] = {vq.x, vq.y, vq.z, vq.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (4 * q + e >= j && real(4 * q + e)) part[e] = fmaf(ve[e], a[4 * q + e], part[e]);
-    }
-    const float wc = sc.w != 0.f ? 0.f : sum4(part) * sc.x;
-    const bool update = lane > j && lane < n;   // and lane j its row j (R's entry)
-#pragma unroll
-    for (int q = j / 4; q < M / 4; ++q) {
-      const float4 vq = reinterpret_cast<const float4*>(v + M)[q];
-      const float ve[4] = {vq.x, vq.y, vq.z, vq.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = 4 * q + e;
-        if (r >= j && real(r) && (update || (lane == j && r == j))) a[r] = fmaf(-ve[e], wc, a[r]);
-      }
-    }
-    __syncwarp();
-  }
-}
+using tml_qr::gels_qr_steps;
 
 template <int R>
 __global__ void __launch_bounds__(kWarpMatrices * 32, R == 1 ? 4 : 3) gels_warp_kernel(const Args p, int64_t batch) {
@@ -1448,24 +1365,37 @@ int tml_getrf_batched(const void* a, void* lu, void* piv, const void* b, void* x
 }
 
 // a: (batch, n, n) f32 contiguous; qr (batch, n, n) the R factor and the
-// reflectors below the diagonal, tau (batch, n).
+// reflectors below the diagonal, tau (batch, n). n <= 32 takes a warp a
+// matrix (csrc/dx_qr_warp.cu's geqrf_warp_kernel), the rest a block
+// (geqrf_kernel).
 int tml_geqrf_batched(const void* a, void* qr, void* tau, int64_t batch, int64_t n, void* stream) {
   if (bad_sizes(a, batch, n, n, 0, nullptr, nullptr) || qr == nullptr || tau == nullptr)
     return cudaErrorInvalidValue;
   if (batch == 0) return cudaSuccess;
+  if (tml_qr::geqrf_warp_route(n))
+    return tml_qr::launch_geqrf_warp(static_cast<const float*>(a), static_cast<float*>(qr),
+                                     static_cast<float*>(tau), batch, static_cast<int>(n),
+                                     static_cast<cudaStream_t>(stream));
   Args p = make_args(a, qr, nullptr, nullptr, n, n, 0);
   p.tau = static_cast<float*>(tau);
   return launch(geqrf_kernel<true>, geqrf_kernel<false>, p, batch, stream);
 }
 
 // qr (batch, m, n) and tau (batch, n) as geqrf leaves them, c (batch, m, k) f32
-// contiguous; writes x (batch, m, k) = Q^T C (trans = 1) or Q C. work is null
-// where full_bytes(m, n, k) <= 232448, else (batch, m, n) space for the
-// reflectors (x is then worked in place).
+// contiguous; writes x (batch, m, k) = Q^T C (trans = 1) or Q C. m <= 64 and
+// n <= 32 take a warp a matrix (csrc/dx_qr_warp.cu's unmqr_warp_kernel), work
+// unread; the rest a block (unmqr_kernel), work null where full_bytes(m, n,
+// k) <= 232448, else (batch, m, n) space for the reflectors (x is then worked
+// in place).
 int tml_unmqr_batched(const void* qr, const void* tau, const void* c, void* x, void* work,
                       int64_t batch, int64_t m, int64_t n, int64_t k, int trans, void* stream) {
   if (bad_sizes(qr, batch, m, n, k, c, x) || tau == nullptr) return cudaErrorInvalidValue;
   if (batch == 0) return cudaSuccess;
+  if (tml_qr::unmqr_warp_route(m, n))
+    return tml_qr::launch_unmqr_warp(static_cast<const float*>(qr), static_cast<const float*>(tau),
+                                     static_cast<const float*>(c), static_cast<float*>(x), batch,
+                                     static_cast<int>(m), static_cast<int>(n), static_cast<int>(k),
+                                     trans != 0, static_cast<cudaStream_t>(stream));
   Args p = make_args(qr, work, c, x, m, n, k);
   p.tau = const_cast<float*>(static_cast<const float*>(tau));
   p.trans = trans;

@@ -17,8 +17,9 @@ in ``csrc/dx_solver.cu`` serve seven sites:
 
 - ``tml_potrf_batched`` (B7a potrf, B7i; with a right-hand side B7c, posv),
 - ``tml_getrf_batched`` (B7a getrf, B7d; with a right-hand side B7b, gesv),
-- ``tml_geqrf_batched`` (B7a geqrf),
-- ``tml_unmqr_batched`` (B7e: Qᵀ·C or Q·C from geqrf's reflectors),
+- ``tml_geqrf_batched`` (B7a geqrf; its warp route in ``csrc/dx_qr_warp.cu``),
+- ``tml_unmqr_batched`` (B7e: Qᵀ·C or Q·C from geqrf's reflectors; its warp
+  route in ``csrc/dx_qr_warp.cu``),
 - ``tml_gels_batched`` (B7f: the QR steps on m ≥ n rows, Qᵀ·B, then the
   upper substitution).
 
@@ -28,8 +29,10 @@ lanes' registers; right-looking 32-column panels in a block's shared memory
 while the padded matrix and right-hand side fit (n ≤ 224 without one); the
 column steps in place in device memory beyond. gels takes a warp a matrix
 for m ≤ 64, n ≤ 32, k ≤ 32 (``_gels_route``: A's columns in the lanes'
-registers, B's rows beside them), else a block a matrix. geqrf and unmqr
-take a block a matrix.
+registers, B's rows beside them), else a block a matrix. geqrf takes gels's
+QR core, a warp a matrix, for n ≤ 32 (``_geqrf_route``), and unmqr a warp a
+matrix for m ≤ 64, n ≤ 32 (``_unmqr_route``: C's rows in the lanes'
+registers, as gels takes B), else a block a matrix.
 
 Two more in ``csrc/dx_jacobi.cu`` run over the round-robin schedule
 ``_roundrobin`` (where the reference has permutation matrices, because
@@ -69,10 +72,10 @@ On CPU tensors each wrapper (``_potrf``, ``_getrf``, ``_geqrf``,
 ``_unmqr``, ``_gels``, ``_syevd``, ``_gesvd``) takes its plain PyTorch
 version: batched step loops with the reference's formulas. On CUDA tensors
 it launches its kernel or raises. Each wrapper's ``.launches`` counts its
-launches; ``_getrf``, ``_gels``, ``_syevd`` and ``_gesvd`` also count each
-route's (``_getrf``: ``.warp_launches``, ``.panel_launches``,
-``.in_place_launches``; the others ``.warp_launches``, ``.block_launches``;
-the rules ``_getrf_route``, ``_gels_route`` and ``_jacobi_route``). The
+launches; all but ``_potrf`` also count each route's (``_getrf``:
+``.warp_launches``, ``.panel_launches``, ``.in_place_launches``; the others
+``.warp_launches``, ``.block_launches``; the rules ``_getrf_route``,
+``_geqrf_route``, ``_unmqr_route``, ``_gels_route`` and ``_jacobi_route``). The
 reference pads a batch to its tile; here nothing is padded.
 """
 
@@ -475,9 +478,22 @@ def _getrf(a, pivot: bool = True, b=None):
 _getrf.launches = _getrf.warp_launches = _getrf.panel_launches = _getrf.in_place_launches = 0
 
 
+def _geqrf_route(n: int) -> str:
+    """The route ``tml_geqrf_batched`` takes (csrc/dx_qr_warp.cuh's
+    ``geqrf_warp_route``): "warp" for n ≤ 32 (a warp a matrix on gels's QR
+    core: lane c holds column c in registers, lane j forms step j's
+    reflector, which goes to the others through the warp's shared memory),
+    else "block" (a block a matrix in shared memory, or in place past
+    ``SMEM_MAX``). Both take ``_geqrf_plain``'s steps, the sums in their own
+    order."""
+    return "warp" if n <= 32 else "block"
+
+
 def _geqrf(a):
     """Batched Householder QR of f32 (B, n, n) through
-    ``tml_geqrf_batched``: (QR, taus)."""
+    ``tml_geqrf_batched``: (QR, taus). Counts each launch on ``.launches``
+    and on its route's ``.warp_launches`` or ``.block_launches``
+    (``_geqrf_route``)."""
     if not on_cuda(a):
         return _geqrf_plain(a)
     a32, _, _ = _operands(a)
@@ -489,11 +505,11 @@ def _geqrf(a):
         rc = lib.tml_geqrf_batched(a32.data_ptr(), out.data_ptr(), taus.data_ptr(), bsz, n,
                                    _stream(a.device))
     cuda_utils.check_launch(lib, rc, "tml_geqrf_batched")
-    _geqrf.launches += 1
+    _count_route(_geqrf, _geqrf_route(n))
     return out, taus
 
 
-_geqrf.launches = 0
+_geqrf.launches = _geqrf.warp_launches = _geqrf.block_launches = 0
 
 
 def _work(a32, m, n, k):
@@ -502,25 +518,40 @@ def _work(a32, m, n, k):
     return torch.empty_like(a32) if _smem_bytes(n, k, m) > SMEM_MAX else None
 
 
+def _unmqr_route(m: int, n: int) -> str:
+    """The route ``tml_unmqr_batched`` takes for QR (m, n) (csrc/dx_qr_warp.cuh's
+    ``unmqr_warp_route``), whatever C's k: "warp" for m ≤ 64 and n ≤ 32 (a
+    warp a matrix: QR's reflectors in the warp's shared memory, lane r holding
+    rows r and r + 32 of C, 4 columns at a time; each reflector's four sums
+    over the lanes by one transposing reduction), else "block" (a block a
+    matrix in shared memory, or in place past ``SMEM_MAX``). Both take
+    ``_apply_q_plain``'s reflectors in its order, the sums in their own."""
+    return "warp" if m <= 64 and n <= 32 else "block"
+
+
 def _unmqr(qr, taus, c, trans: bool):
-    """Qᵀ·C or Q·C of f32 (B, m, k) through ``tml_unmqr_batched``."""
+    """Qᵀ·C or Q·C of f32 (B, m, k) through ``tml_unmqr_batched``. A work
+    space goes only to the block route. Counts each launch on ``.launches``
+    and on its route's ``.warp_launches`` or ``.block_launches``
+    (``_unmqr_route``)."""
     if not on_cuda(qr, taus, c):
         return _apply_q_plain(qr, taus, c, trans)
     q32, t32, c32 = (t.to(F32).contiguous() for t in (qr, taus, c))
     bsz, m, n = q32.shape
     k = c32.shape[2]
     x = torch.empty_like(c32)
-    work = _work(q32, m, n, k)
+    route = _unmqr_route(m, n)
+    work = _work(q32, m, n, k) if route == "block" else None
     lib = cuda_utils.load_kernels()
     with torch.cuda.device(qr.device):
         rc = lib.tml_unmqr_batched(q32.data_ptr(), t32.data_ptr(), c32.data_ptr(), x.data_ptr(),
                                    _ptr(work), bsz, m, n, k, int(trans), _stream(qr.device))
     cuda_utils.check_launch(lib, rc, "tml_unmqr_batched")
-    _unmqr.launches += 1
+    _count_route(_unmqr, route)
     return x
 
 
-_unmqr.launches = 0
+_unmqr.launches = _unmqr.warp_launches = _unmqr.block_launches = 0
 
 
 def _gels_route(m: int, n: int, k: int) -> str:
