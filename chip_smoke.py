@@ -2750,7 +2750,7 @@ DX_K = 4               # right-hand sides of gesv and posv
 DX_COUNTS = (dxs._potrf, dxs._getrf, dxs._geqrf, pallas_matmul, gemm._gemm_tf32x3,
              gemm._gemm_simt)
 LU_ROUTES = ("warp", "panel", "in place")   # dx.solver._getrf_route's routes, each counted apart
-QR_ROUTES = ("warp", "block")   # dx.solver._geqrf_route's and _unmqr_route's routes
+QR_ROUTES = ("warp", "panel", "block")   # dx.solver._geqrf_route's and _unmqr_route's routes
 # Max-scaled tolerance of each kernel's factors against its plain version, on
 # the matrices whose pivots agree. The kernels contract multiply-adds to FMAs
 # and sum in their own order, and elimination carries those roundings on, so
@@ -2849,8 +2849,9 @@ def _dx_control(kind: str, m) -> float:
 def _geqrf_where(n: int) -> str:
     """geqrf's route at n (``dx.solver._geqrf_route``), and for the block
     route whether its matrix sits in shared memory or in place."""
-    if dxs._geqrf_route(n) == "warp":
-        return "warp"
+    route = dxs._geqrf_route(n)
+    if route != "block":
+        return route
     return f"block, {'in place' if dxs._smem_bytes(n, 0) > dxs.SMEM_MAX else 'shared'}"
 
 
@@ -2865,8 +2866,9 @@ def phase_dx_kernel(dev) -> None:
     panels to 224, in place from 225; posv also at n = 32 with k = 32), and
     getrf's three routes (the same rule: ``dx.solver._getrf_route``; each
     line names its route; the solves also at k = 33, which puts n = 224 in
-    place) and geqrf's two routes (``dx.solver._geqrf_route``: a warp a
-    matrix to n = 32, then a block in shared memory or in place). Against the
+    place) and geqrf's three routes (``dx.solver._geqrf_route``: a warp a
+    matrix to n = 32, 32-column panels to n = 224, then a block in shared
+    memory or in place). Against the
     plain version, max-scaled, DX_TOL on the factors of the matrices whose
     pivots agree (the kernels' FMAs and order of summation round otherwise,
     and a near-tie may pick another pivot: the count of matrices whose
@@ -2885,7 +2887,7 @@ def phase_dx_kernel(dev) -> None:
     must be the plain version's and whose good matrices must equal their
     factors alone; geqrf's degenerate columns (a zero column, x_0 = 0, an
     upper triangular matrix, whose factor is itself with tau = 0) beside a
-    NaN matrix at n = 8, 32 (warp) and 33 (block), likewise."""
+    NaN matrix at n = 8, 32 (warp), 33, 64 and 224 (panels), likewise."""
     gen = torch.Generator(device=dev).manual_seed(7373)
     failures, cases = [], 0
 
@@ -3008,7 +3010,7 @@ def phase_dx_kernel(dev) -> None:
     # tail (sign +1), an upper triangular matrix (every tail zero: tau = 0 and
     # QR = A) and a NaN matrix among Gaussian ones, which must equal their
     # factors alone (the warp route holds four matrices a block)
-    for n in (8, 32, 33):
+    for n in (8, 32, 33, 64, 224):
         m = torch.randn((8, n, n), generator=gen, device=dev)
         m[0, :, 5] = 0.0
         m[1, 0, 0] = 0.0
@@ -3233,7 +3235,7 @@ def phase_dx_times(dxd: dict, card: str) -> dict:
     potrf_blocked), each beside its bound; geqrf's lines also one call after
     a synchronise and behind a spin (``_call_and_device``); and the registers
     and spills of the three Cholesky routes' kernels, the LU's warp and panel
-    kernels and geqrf's warp kernel (none may spill)."""
+    kernels and geqrf's warp and panel kernels (none may spill)."""
     fast, slow = {}, {}
     for name, (route, _, plain, library) in dxd["routes"].items():
         target = slow if name.startswith("potrf_blocked") else fast
@@ -3246,7 +3248,8 @@ def phase_dx_times(dxd: dict, card: str) -> dict:
     ms["ptxas"] = _ptxas_report("potrf_", "dx-times")
     ms["lu_ptxas"] = {route: _ptxas_report(f"getrf_{route}_kernel", "dx-times")
                       for route in ("warp", "panel")}
-    ms["qr_ptxas"] = _ptxas_report("geqrf_warp_kernel", "dx-times")
+    ms["qr_ptxas"] = {route: _ptxas_report(f"geqrf_{route}_kernel", "dx-times")
+                      for route in ("warp", "panel")}
     bounds = {}
     for name, (route_fn, count, plain, library) in dxd["routes"].items():
         bounds[name] = bound = _dx_bound(name)
@@ -3296,21 +3299,24 @@ def _call_and_device(runs: dict, line: str, bound: dict, card: str, tag: str,
 # phase 21's Jacobi sizes: the warp route to 32, the block route from 33
 DXE_KERNEL_NS = (1, 2, 7, 8, 16, 31, 32, 33, 40, 48, 63, 64)
 # phase 21's unmqr cases, ((m, n), right-hand sides): the warp route (m <= 64, n <= 32, any k)
-# at its edges, and the block route past m = 64
+# at its edges, the panel route past it to m = 224, and the block route past m = 224
 DXE_LSQ = (((32, 32), (1, 4, 32, 33)), ((33, 32), (1, 4, 32, 33)), ((64, 32), (1, 4, 32, 33)),
-           ((65, 32), (1, 4)))
+           ((65, 32), (1, 4, 33, 128)), ((128, 128), (1, 4, 33, 128)),
+           ((224, 224), (1, 4, 33, 128)), ((240, 64), (1, 33)))
 # phase 21's gels cases, ((m, n), right-hand sides): the warp route (m <= 64, n <= 32, k <= 32)
 # at its corners, the block route past each of its edges
 DXE_GELS_CASES = (((32, 32), (1, 4, 32)), ((64, 32), (1, 4, 32, 33)), ((48, 10), (1, 4, 32)),
                   ((33, 1), (1, 4, 32)), ((64, 1), (1, 4, 32)), ((65, 32), (1, 4)))
 DXE_GELS = (8192, 64, 32, 4)   # (batch, m, n, k): 8192 fits of 32 coefficients to 64 samples
 DXE_SQ = (8192, 32)            # (batch, n) of unmqr (k = 4), syevd and gesvd
+DXE_QR_WIDE = (1024, 128)      # (batch, n) of unmqr on geqrf's panel route (k = 4, and Q·I)
 DXE_WIDE = (2048, 64)          # (batch, n) of syevd and gesvd at the reference's largest n
 XSYEVD_N = 2048                # bench.py:354-362
 XGESVD_N = 4096
 DXE_COUNTS = (dxs._unmqr, dxs._gels, dxs._syevd, dxs._gesvd)
 ROUTED = DXE_COUNTS   # wrappers that also count each route's launches
-DXE_ROUTES = ("warp", "block")   # their routes (dx.solver._unmqr_route, _gels_route, _jacobi_route)
+DXE_ROUTES = ("warp", "block")   # their routes (dx.solver._gels_route, _jacobi_route)
+ROUTES_OF = {"_unmqr": QR_ROUTES}   # and unmqr's (dx.solver._unmqr_route)
 # Tolerances of each kernel against its plain version (kernels B7e-B7h): values
 # (w, s) max-scaled; vectors signed and scaled by their gap (_vec_err); X over
 # max|X| and A's condition (_x_err); Q·C max-scaled. Set from the card's
@@ -3450,7 +3456,8 @@ def phase_dxe_kernel(dev) -> None:
     through the public functions (which sort the Jacobi results): syevd and
     gesvd at n = 1 … 64 on both routes (each case prints its route), unmqr
     at DXE_LSQ with both trans (the warp route to m = 64 at k = 1, 4, 32 and
-    33, the block route at m = 65; each case prints its route), gels at
+    33, the panel route at (65, 32), (128, 128) and (224, 224) at k = 1, 4,
+    33 and 128, the block route at m = 240; each case prints its route), gels at
     DXE_GELS_CASES on both its routes (each case prints its route). Against
     the plain version DXE_TOL;
     against float64 the reference test's bounds
@@ -3555,6 +3562,7 @@ def _dxe_routes(x):
     a, b, qr, taus, c, qr64, taus64 = (x[k] for k in ("a", "b", "qr", "taus", "c", "qr64", "taus64"))
     sq, sym, wide, sym_w, big_sym, big = (x[k] for k in ("sq", "sym", "wide", "sym_w", "big_sym",
                                                          "big"))
+    qr_w, taus_w, c_w, eye_w = (x[k] for k in ("qr_w", "taus_w", "c_w", "eye_w"))
     routes = {
         "gels_batched b8192 m64 n32 k4": (lambda: dxs.gels_batched(a, b), "_gels",
                                           lambda: torch.linalg.lstsq(a, b, driver="gels")),
@@ -3567,6 +3575,14 @@ def _dxe_routes(x):
         "unmqr_batched trans b8192 m64 n32 k4": (lambda: dxs.unmqr_batched(qr64, taus64, b, True),
                                                  "_unmqr", lambda: torch.ormqr(qr64, taus64, b,
                                                                                transpose=True)),
+        # the panel route: geqrf_batched's 1024 x 128 x 128 reflectors, C with 4 columns and I
+        "unmqr_batched trans b1024 n128 k4": (lambda: dxs.unmqr_batched(qr_w, taus_w, c_w, True),
+                                              "_unmqr", lambda: torch.ormqr(qr_w, taus_w, c_w,
+                                                                            transpose=True)),
+        "unmqr_batched b1024 n128 k4": (lambda: dxs.unmqr_batched(qr_w, taus_w, c_w, False),
+                                        "_unmqr", lambda: torch.ormqr(qr_w, taus_w, c_w)),
+        "unmqr_batched Q·I b1024 n128 k128": (lambda: dxs.unmqr_batched(qr_w, taus_w, eye_w, False),
+                                              "_unmqr", lambda: torch.ormqr(qr_w, taus_w, eye_w)),
         "syevd_batched b8192 n32": (lambda: dxs.syevd_batched(sym), "_syevd",
                                     lambda: torch.linalg.eigh(sym)),
         "gesvd_batched b8192 n32": (lambda: dxs.gesvd_batched(sq), "_gesvd",
@@ -3588,10 +3604,15 @@ def _dxe_routes(x):
 
 
 def _unmqr_line(name: str) -> tuple:
-    """(QR, taus, C) keys of phase 22's inputs and (m, n) of an unmqr line."""
+    """(QR, taus, C) keys of phase 22's inputs and (batch, m, n, k) of an
+    unmqr line."""
     if " m64" in name:
-        return ("qr64", "taus64", "b"), DXE_GELS[1:3]
-    return ("qr", "taus", "c"), (DXE_SQ[1], DXE_SQ[1])
+        return ("qr64", "taus64", "b"), DXE_GELS
+    if " b1024" in name:
+        b, n = DXE_QR_WIDE
+        qi = "Q·I" in name
+        return ("qr_w", "taus_w", "eye_w" if qi else "c_w"), (b, n, n, n if qi else DX_K)
+    return ("qr", "taus", "c"), (DXE_SQ[0], DXE_SQ[1], DXE_SQ[1], DX_K)
 
 
 def _line_route(name: str) -> str | None:
@@ -3600,7 +3621,7 @@ def _line_route(name: str) -> str | None:
     if name.startswith("gels_batched"):
         return dxs._gels_route(*DXE_GELS[1:])
     if name.startswith("unmqr_batched"):
-        return dxs._unmqr_route(*_unmqr_line(name)[1])
+        return dxs._unmqr_route(*_unmqr_line(name)[1][1:3])
     if not name.startswith(("syevd_batched", "gesvd_batched")):
         return None
     return dxs._jacobi_route(int(re.search(r" n(\d+)", name).group(1)))
@@ -3608,16 +3629,20 @@ def _line_route(name: str) -> str | None:
 
 def _route_counts() -> dict:
     """Launches of each wrapper of ROUTED on each route, as "_syevd.warp"."""
-    return {f"{f.__name__}.{r}": getattr(f, f"{r}_launches") for f in ROUTED for r in DXE_ROUTES}
+    return {f"{f.__name__}.{r}": getattr(f, f"{r}_launches") for f in ROUTED
+            for r in ROUTES_OF.get(f.__name__, DXE_ROUTES)}
 
 
 def phase_dxe_main(dev) -> dict:
     """The slice's main path through the public functions: gels_batched at
     batch 8192 × m 64 × n 32, k 4; unmqr_batched both ways on
     geqrf_batched's factors of 8192 × 32 × 32 and C (8192, 32, 4), and Qᵀ·B
-    from gels's A (its reflectors by _geqrf_plain) and B;
+    from gels's A (its reflectors by _geqrf_plain) and B; on the panel
+    route, unmqr_batched both ways on geqrf_batched's factors of 1024 × 128 ×
+    128 and C (1024, 128, 4), and Q·I (k = 128);
     syevd_batched and gesvd_batched at 8192 × 32 and 2048 × 64. Each must
-    grow its kernel's count by one (unmqr and gels: and their warp route's; syevd and
+    grow its kernel's count by one (unmqr and gels: and their route's, warp or
+    panel; syevd and
     gesvd: and the count of their route, the warp route at n = 32 and the
     block route at 64, and no other)
     and is held to its plain version
@@ -3642,12 +3667,16 @@ def phase_dxe_main(dev) -> dict:
     x["big_sym"] = (g + g.T) / 2
     x["qr"], x["taus"] = dxs.geqrf_batched(sq)
     x["qr64"], x["taus64"] = dxs._geqrf_plain(x["a"])
+    bq, nq = DXE_QR_WIDE
+    x["qr_w"], x["taus_w"] = dxs.geqrf_batched(torch.randn((bq, nq, nq), generator=gen, device=dev))
+    x["c_w"] = torch.randn((bq, nq, DX_K), generator=gen, device=dev)
+    x["eye_w"] = torch.eye(nq, device=dev).repeat(bq, 1, 1)
     routes = _dxe_routes(x)
     torch.cuda.synchronize()
     for f in DXE_COUNTS:
         f.launches = 0
     for f in ROUTED:
-        for r in DXE_ROUTES:
+        for r in ROUTES_OF.get(f.__name__, DXE_ROUTES):
             setattr(f, f"{r}_launches", 0)
     outs, grew, route_grew, events = {}, {}, {}, {}
     for name, (route, _, _, _) in routes.items():
@@ -3673,7 +3702,8 @@ def phase_dxe_main(dev) -> dict:
         want = _line_route(name)
         if want is not None:   # one launch, on the route of its shape
             launched = launched and all(
-                route_grew[name][f"{count}.{r}"] == (r == want) for r in DXE_ROUTES)
+                route_grew[name][f"{count}.{r}"] == (r == want)
+                for r in ROUTES_OF.get(count, DXE_ROUTES))
         if name.startswith("gels"):
             x_p = plain_fn()
             e_x, x64 = _x_err(x["a"], out, x_p), _lstsq64(x["a"], x["b"])
@@ -3773,7 +3803,7 @@ def _dxe_bound(name: str) -> dict:
         flop = 2 * m * n * n - 2 * n**3 / 3 + 4 * m * n * k - 2 * n * n * k + n * n * k
         return _bound(b * flop, PEAK_F32, 4 * b * (m * n + m * k + n * k))
     if name.startswith("unmqr"):
-        (m, n), b, k = _unmqr_line(name)[1], DXE_SQ[0], DX_K
+        b, m, n, k = _unmqr_line(name)[1]
         words = m * n - n * (n + 1) // 2 + n + 2 * m * k
         return _bound(b * (4 * m * n * k - 2 * n * n * k), PEAK_F32, 4 * b * words)
     b, n = DXE_WIDE if "n64" in name else DXE_SQ
@@ -3810,8 +3840,9 @@ def phase_dxe_times(dxe: dict, card: str) -> dict:
     ms.update({f"{name} route": t for name, t in dxe["once_ms"].items()
                if dxe["routes"][name][1] is None})
     ms["ptxas"] = {f"{k}.{route}": _ptxas_report(f"{k}_{route}_kernel", "dxe-times")
-                   for k, route in (("unmqr", "warp"), ("gels", "warp"), ("syevd", "warp"),
-                                    ("gesvd", "warp"), ("syevd", "block"), ("gesvd", "block"))}
+                   for k, route in (("unmqr", "warp"), ("unmqr", "panel"), ("gels", "warp"),
+                                    ("syevd", "warp"), ("gesvd", "warp"), ("syevd", "block"),
+                                    ("gesvd", "block"))}
     bounds = {}
     for name, (route_fn, count, plain, library) in dxe["routes"].items():
         if count is None:
@@ -6061,7 +6092,7 @@ def main() -> None:
         **({"kernel_route": _dx_route(line),
             "route_launches": dxd["route_grew"][line][f"_geqrf.{_dx_route(line)}"],
             **_ways_keys(dx_ms[f"{line} ways"])} if count == "_geqrf" else {}),
-        **({"ptxas": dx_ms["qr_ptxas"]} if source == "dx_qr_warp.cu" else {}),
+        **({"ptxas": dx_ms["qr_ptxas"][_dx_route(line)]} if count == "_geqrf" else {}),
     } for name, line, count, source, site in (
         ("potrf_batched_packed (tml_potrf_batched)", "potrf_batched b8192 n32", "_potrf",
          "dx_solver.cu", "977"),
@@ -6071,8 +6102,8 @@ def main() -> None:
          "getrf_batched nopivot b8192 n32", "_getrf", "dx_solver.cu", "480"),
         ("geqrf_batched warp route (tml_geqrf_batched: geqrf_warp_kernel, n <= 32)",
          "geqrf_batched b8192 n32", "_geqrf", "dx_qr_warp.cu", "222"),
-        ("geqrf_batched n=128 block route (tml_geqrf_batched: geqrf_kernel)",
-         "geqrf_batched b1024 n128", "_geqrf", "dx_solver.cu", "222"),
+        ("geqrf_batched n=128 panel route (tml_geqrf_batched: geqrf_panel_kernel, 32-column "
+         "panels, 32 < n <= 224)", "geqrf_batched b1024 n128", "_geqrf", "dx_qr_panel.cu", "222"),
         ("gesv_batched warp route (tml_getrf_batched: getrf_warp_kernel with a right-hand side)",
          "gesv_batched b8192 n32 k4", "_getrf", "dx_solver.cu", "301"),
         ("posv_batched (tml_potrf_batched with a right-hand side)", "posv_batched b8192 n32 k4",
@@ -6094,9 +6125,19 @@ def main() -> None:
         **({"kernel_route": _line_route(line)} if _line_route(line) else {}),
         **({"ptxas": dxe_ms["ptxas"][count[1:]]} if "." in count else {}),
         **(_ways_keys(dxe_ms[f"{line} ways"]) if count.startswith("_unmqr") else {}),
+        **({f"{key}_{what}": dxe_ms[f"{other} {route}"] if what != "bound_ms"
+            else dxe_ms["bounds"][other]["bound_ms"]
+            for key, other in (("q", "unmqr_batched b1024 n128 k4"),
+                               ("qi", "unmqr_batched Q·I b1024 n128 k128"))
+            for what, route in (("ms", "kernel"), ("plain_ms", "plain"), ("library_ms", "library"),
+                                ("bound_ms", None))}
+           if count == "_unmqr.panel" else {}),
     } for name, line, count, source, site in (
         ("unmqr_batched warp route (tml_unmqr_batched: unmqr_warp_kernel, m <= 64, n <= 32)",
          "unmqr_batched trans b8192 n32 k4", "_unmqr.warp", "dx_qr_warp.cu", "597"),
+        ("unmqr_batched panel route (tml_unmqr_batched: unmqr_panel_kernel, 32 reflectors staged "
+         "at a time, m <= 224; q_ and qi_ keys: Q·C at k = 4 and Q·I at k = 128)",
+         "unmqr_batched trans b1024 n128 k4", "_unmqr.panel", "dx_qr_panel.cu", "597"),
         ("gels_batched warp route (tml_gels_batched: gels_warp_kernel, m <= 64, n <= 32, k <= 32)",
          "gels_batched b8192 m64 n32 k4", "_gels.warp", "dx_solver.cu", "637"),
         ("syevd_batched warp route (tml_syevd_batched: syevd_warp_kernel, n <= 32)",

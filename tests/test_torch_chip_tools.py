@@ -88,6 +88,9 @@ def test_f32_paths_run_on_the_cpu(monkeypatch):
                                     "geqrf_batched_8192x32", "geqrf_batched_1024x128",
                                     "unmqr_batched_trans_8192x32x32_k4",
                                     "unmqr_batched_8192x32x32_k4",
+                                    "unmqr_batched_trans_1024x128x128_k4",
+                                    "unmqr_batched_1024x128x128_k4",
+                                    "unmqr_batched_QI_1024x128x128_k128",
                                     "gels_batched_8192x64x32_k4",
                                     "syevd_batched_8192x32", "gesvd_batched_8192x32",
                                     "syevd_batched_2048x64", "gesvd_batched_2048x64",
@@ -114,6 +117,36 @@ def test_f32_paths_imports_neither_jax_nor_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_qr_panel_variants_imports_neither_jax_nor_reference():
+    code = ("import sys, runpy\n"
+            "sys.argv = ['qr_panel_variants.py']\n"
+            "runpy.run_path('qr_panel_variants.py', run_name='not_main')\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'tpumathlib'))\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_qr_panel_variants_edit_the_source():
+    """The WY variant's edits still find their text in csrc/dx_qr_panel.cu:
+    design (ii) takes the place of design (i)'s trailing update, and its
+    launch asks for W's shared memory."""
+    mod = _load("qr_panel_variants")
+    assert sorted(mod.VARIANTS) == ["source", "trailing4", "unmqr16", "unmqr16_w4", "unmqr4",
+                                    "unmqr_blocks2", "wy"]
+    for name in ("trailing4", "unmqr4", "unmqr_blocks2", "unmqr16", "unmqr16_w4"):
+        assert mod.edited(name) != mod.SRC.read_text()
+    got = mod.edited("wy")
+    assert got != mod.SRC.read_text()
+    assert "trailing_wy(A, ld, n, p0, taus, part, taus + kPanel, tid, np);" in got
+    assert "trailing_update<" not in got.split("geqrf_panel_kernel(")[1]
+    assert f"geqrf_panel_bytes(n) + 4 * kPanel * {mod.WY_CHUNK}" in got
 
 
 def test_jacobi_variants_imports_neither_jax_nor_reference():

@@ -372,9 +372,10 @@ class _EmulatedLib(_EmulatedSolverLib):
         return not work and port._smem_bytes(n, k, m) > port.SMEM_MAX
 
     def tml_unmqr_batched(self, qr, tau, c, x, work, batch, m, n, k, trans, stream):
-        # csrc/dx_qr_warp.cuh's unmqr_warp_route: a warp a matrix for m <= 64,
-        # n <= 32, which reads no work space
-        route = "warp" if m <= 64 and n <= 32 else "block"
+        # csrc/dx_qr_warp.cuh's unmqr_warp_route and unmqr_panel_route: a warp
+        # a matrix for m <= 64, n <= 32, then panels to m = 224, neither
+        # reading a work space
+        route = "warp" if m <= 64 and n <= 32 else "panel" if m <= 224 else "block"
         self.solver_calls.append(dict(kernel="unmqr", batch=batch, m=m, n=n, k=k,
                                       work=bool(work), trans=trans, route=route))
         if self.rc or (route == "block" and self._needs_work(work, m, n, k)):

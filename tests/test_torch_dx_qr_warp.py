@@ -200,46 +200,56 @@ def test_unmqr_warp_model_against_the_plain_version_and_the_reference(m, n, k, t
 # The rules, and the CUDA branch against the emulated library
 
 def test_geqrf_and_unmqr_routes():
+    """geqrf: a warp a matrix to n = 32, panels to 224 (n = 33 and 128 on
+    the panel route since it came), a block beyond; unmqr: a warp a matrix
+    for m ≤ 64, n ≤ 32, panels to m = 224 whatever n, a block beyond."""
     assert [port._geqrf_route(n) for n in (1, 8, 31, 32, 33, 128)] == [
-        "warp", "warp", "warp", "warp", "block", "block"]
+        "warp", "warp", "warp", "warp", "panel", "panel"]
     assert [port._unmqr_route(m, n) for m, n in (
         (1, 1), (24, 10), (32, 32), (33, 32), (64, 32), (64, 1), (65, 32), (64, 33), (65, 1),
-        (300, 200))] == ["warp"] * 6 + ["block"] * 4
+        (300, 200))] == ["warp"] * 6 + ["panel"] * 3 + ["block"]
 
 
 def _route_counts(wrapper):
-    return wrapper.launches, wrapper.warp_launches, wrapper.block_launches
+    return (wrapper.launches, wrapper.warp_launches, wrapper.panel_launches,
+            wrapper.block_launches)
 
 
-@pytest.mark.parametrize("n", [8, 31, 32, 33, 48])
+def _grown(wrapper, before, route):
+    """The route counts of ``wrapper`` after one launch on ``route``."""
+    return (before[0] + 1,) + tuple(b + (r == route) for b, r in zip(
+        before[1:], ("warp", "panel", "block")))
+
+
+@pytest.mark.parametrize("n", [8, 31, 32, 33, 48, 224, 225])
 def test_cuda_branch_geqrf_counts_its_route(emulated, n):
     a = from_numpy(_rng().normal(size=(3, n, n)).astype(F32))
     before = _route_counts(port._geqrf)
     qr, taus = port.geqrf_batched(a)
-    warp = port._geqrf_route(n) == "warp"
-    assert _route_counts(port._geqrf) == (before[0] + 1, before[1] + warp, before[2] + (not warp))
-    assert emulated.solver_calls == [dict(kernel="geqrf", batch=3, n=n,
-                                          route="warp" if warp else "block")]
+    route = port._geqrf_route(n)
+    assert _route_counts(port._geqrf) == _grown(port._geqrf, before, route)
+    assert emulated.solver_calls == [dict(kernel="geqrf", batch=3, n=n, route=route)]
     want = port._geqrf_plain(a)
     assert torch.equal(qr, want[0]) and torch.equal(taus, want[1])
 
 
 @pytest.mark.parametrize("m, n, k", [(32, 32, 4), (64, 32, 32), (64, 32, 33), (24, 10, 5),
-                                     (65, 32, 4), (64, 33, 4), (64, 32, 1000)])
+                                     (65, 32, 4), (64, 33, 4), (64, 32, 1000), (224, 224, 200),
+                                     (225, 32, 4), (240, 240, 200)])
 def test_cuda_branch_unmqr_counts_its_route(emulated, m, n, k):
     """Each launch grows ``_unmqr.launches`` and its route's count; the warp
-    route takes any k and no work space, even where the block route would
-    need one (k = 1000)."""
+    and panel routes take any k and no work space, even where the block route
+    would need one (k = 1000 at m = 64, k = 200 at m = 224)."""
     rng = _rng()
     qr, taus = port._geqrf_plain(from_numpy(rng.normal(size=(2, m, n)).astype(F32)))
     c = from_numpy(rng.normal(size=(2, m, k)).astype(F32))
     before = _route_counts(port._unmqr)
     got = port.unmqr_batched(qr, taus, c, trans=k % 2 == 0)
-    warp = port._unmqr_route(m, n) == "warp"
-    assert _route_counts(port._unmqr) == (before[0] + 1, before[1] + warp, before[2] + (not warp))
+    route = port._unmqr_route(m, n)
+    assert _route_counts(port._unmqr) == _grown(port._unmqr, before, route)
     call = emulated.solver_calls[-1]
-    assert call["route"] == ("warp" if warp else "block")
-    assert call["work"] is (not warp and port._smem_bytes(n, k, m) > port.SMEM_MAX)
+    assert call["route"] == route
+    assert call["work"] is (route == "block" and port._smem_bytes(n, k, m) > port.SMEM_MAX)
     assert torch.equal(got, port._apply_q_plain(qr, taus, c, trans=k % 2 == 0))
 
 

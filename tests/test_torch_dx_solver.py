@@ -408,9 +408,10 @@ class _EmulatedLib(_EmulatedGemmLib):
         return 0
 
     def tml_geqrf_batched(self, a, qr, tau, batch, n, stream):
-        # csrc/dx_qr_warp.cuh's geqrf_warp_route: a warp a matrix to n = 32
+        # csrc/dx_qr_warp.cuh's geqrf_warp_route and geqrf_panel_route: a warp
+        # a matrix to n = 32, 32-column panels to n = 224
         self.solver_calls.append(dict(kernel="geqrf", batch=batch, n=n,
-                                      route="warp" if n <= 32 else "block"))
+                                      route="warp" if n <= 32 else "panel" if n <= 224 else "block"))
         if self.rc:
             return self.rc
         f, t = port._geqrf_plain(_batch(a, batch, n, n).clone())
@@ -462,7 +463,7 @@ def test_cuda_branch_factor_marshalling(emulated, rng, kind, n):
                     route="warp" if n <= 32 else "panel")
     else:
         got, want, counter = dx.geqrf_batched(a), port._geqrf_plain(a), [0, 0, 1, 0]
-        call = dict(kernel="geqrf", batch=bsz, n=n, route="warp" if n <= 32 else "block")
+        call = dict(kernel="geqrf", batch=bsz, n=n, route="warp" if n <= 32 else "panel")
     assert _grew(before) == counter
     assert emulated.solver_calls == [call]
     lu_route = call.get("route") if kind.startswith("getrf") else None   # only its count grows

@@ -21,8 +21,9 @@ The paths, each through its public function:
   1024 x 128 and 8192 x 32, posv_batched and gesv_batched at 8192 x 32 with
   4 right-hand sides, getrf_batched at 8192 x 32 (pivoted and not) and 1024
   x 128, geqrf_batched at both, unmqr_batched both ways on geqrf_batched's
-  8192 x 32 x 32 factors with 4 columns of C (B7e), and gels_batched at 8192
-  x 64 x 32 with 4 right-hand sides;
+  8192 x 32 x 32 factors with 4 columns of C (B7e) and on its 1024 x 128 x
+  128 factors with 4 columns of C, and Q·I there (C = I, k = 128), and
+  gels_batched at 8192 x 64 x 32 with 4 right-hand sides;
 - the Jacobi kernels of dx.solver (B7g, B7h): syevd_batched and
   gesvd_batched at 8192 x 32 (the warp route) and 2048 x 64 (the block
   route);
@@ -47,6 +48,9 @@ script's own directory), so that two checkouts can be compared on one card
 in one run, in turns (a, b, b, a):
 
     PYTHONPATH=path/to/checkout python3 -P time_paths.py --tree a
+
+``--paths`` names substrings of the paths to time (all when not given),
+e.g. ``--paths _batched`` for the batched solvers alone.
 
 Each run prints the card's name and power limit, then one JSON line
 {"tree": ..., "package": ..., "card": ..., "smi": {"before", "after"}, "ms":
@@ -173,6 +177,10 @@ def _paths(dev) -> dict:
     fm, fk, fn = GEMM_FFT
     a_fft = torch.randn((fm, fk), generator=gen, device=dev)
     b_fft = torch.randn((fk, fn), generator=gen, device=dev)
+    bw, nw = BATCHED[1]
+    qr128, taus128 = dx.geqrf_batched(batched[128][1])
+    c128 = torch.randn((bw, nw, 4), generator=gen, device=dev)
+    eye128 = torch.eye(nw, device=dev).repeat(bw, 1, 1)
     return {
         "potrf_onelaunch": lambda: onelaunch.potrf_onelaunch(spd),
         "getrf_onelaunch": lambda: onelaunch.getrf_onelaunch(dom),
@@ -207,6 +215,10 @@ def _paths(dev) -> dict:
         "geqrf_batched_1024x128": lambda: dx.geqrf_batched(batched[128][1]),
         "unmqr_batched_trans_8192x32x32_k4": lambda: dxs.unmqr_batched(qr32, taus32, rhs, True),
         "unmqr_batched_8192x32x32_k4": lambda: dxs.unmqr_batched(qr32, taus32, rhs, False),
+        "unmqr_batched_trans_1024x128x128_k4": lambda: dxs.unmqr_batched(qr128, taus128, c128, True),
+        "unmqr_batched_1024x128x128_k4": lambda: dxs.unmqr_batched(qr128, taus128, c128, False),
+        "unmqr_batched_QI_1024x128x128_k128": lambda: dxs.unmqr_batched(qr128, taus128, eye128,
+                                                                        False),
         "gels_batched_8192x64x32_k4": lambda: dxs.gels_batched(gels_a, gels_b),
         "syevd_batched_8192x32": lambda: dxs.syevd_batched(jacobi[0][0]),
         "gesvd_batched_8192x32": lambda: dxs.gesvd_batched(jacobi[0][1]),
@@ -271,7 +283,13 @@ def _clocks() -> str:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=".", help="a label for the checkout, printed back")
+    ap.add_argument("--paths", nargs="*", default=None,
+                    help="time only the paths whose names hold one of these")
     args = ap.parse_args()
+
+    def wanted(name: str) -> bool:
+        return args.paths is None or any(p in name for p in args.paths)
+
     if not torch.cuda.is_available():
         raise SystemExit("time_paths: no CUDA device")
     if torch.backends.cuda.matmul.allow_tf32:
@@ -281,8 +299,9 @@ def main() -> None:
     cuda_utils.load_kernels()
     dev = torch.device("cuda", 0)
     smi = {"before": _clocks()}
-    ms = {name: _time(fn) for name, fn in _paths(dev).items()}
-    ms |= {name: _time(fn) for name, fn in _mp_paths(dev).items()}
+    ms = {name: _time(fn) for name, fn in _paths(dev).items() if wanted(name)}
+    if any(wanted(name) for name in ("matmul_ag_overlapped", "matmul_rs_overlapped")):
+        ms |= {name: _time(fn) for name, fn in _mp_paths(dev).items() if wanted(name)}
     smi["after"] = _clocks()
     print(card, flush=True)
     print(json.dumps({"tree": args.tree, "package": tpumathlib_torch.__file__, "card": card,

@@ -46,30 +46,6 @@
 namespace tml_qr {
 namespace {
 
-// The sums of four columns' partial sums s over the warp's 32 lanes, every
-// lane left with all four: lanes exchange half of their sums over lane bit
-// 16 and half of the rest over bit 8, so each lane holds one column's sum
-// over its four lanes; a butterfly over bits 4, 2 and 1 completes it, and
-// two exchanges over 8 and 16 hand the four sums back to every lane. Each
-// sum takes the butterfly's tree (lane l's and lane l ^ 16's, then those of
-// l and l ^ 8, ...), and an addition's result does not depend on the order
-// of its operands, so the sums equal four butterflies' bit for bit.
-__device__ __forceinline__ void warp_sums4(float (&s)[4], int lane) {
-  const bool h = lane & 16, b = lane & 8;
-  const float k0 = (h ? s[2] : s[0]) + __shfl_xor_sync(kFull, h ? s[0] : s[2], 16);
-  const float k1 = (h ? s[3] : s[1]) + __shfl_xor_sync(kFull, h ? s[1] : s[3], 16);
-  float w = (b ? k1 : k0) + __shfl_xor_sync(kFull, b ? k0 : k1, 8);   // column 2 h + b
-#pragma unroll
-  for (int off = 4; off > 0; off >>= 1) w += __shfl_xor_sync(kFull, w, off);
-  const float o = __shfl_xor_sync(kFull, w, 8);
-  const float p0 = b ? o : w, p1 = b ? w : o;   // columns 2 h and 2 h + 1
-  const float q0 = __shfl_xor_sync(kFull, p0, 16), q1 = __shfl_xor_sync(kFull, p1, 16);
-  s[0] = h ? q0 : p0;
-  s[1] = h ? q1 : p1;
-  s[2] = h ? p0 : q0;
-  s[3] = h ? p1 : q1;
-}
-
 __global__ void __launch_bounds__(kWarpMatrices * 32, 4)
     geqrf_warp_kernel(const float* __restrict__ a, float* __restrict__ qr, float* __restrict__ tau,
                       int n, int64_t batch) {

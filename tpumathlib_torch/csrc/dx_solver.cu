@@ -49,7 +49,9 @@
 // separated by __syncthreads, and writes its result once; past a block's
 // 227 KB a second instantiation works in place in device memory. geqrf for n
 // <= 32 and unmqr for m <= 64, n <= 32 take a warp a matrix instead
-// (csrc/dx_qr_warp.cu, on the QR core of csrc/dx_qr_warp.cuh). gels takes
+// (csrc/dx_qr_warp.cu, on the QR core of csrc/dx_qr_warp.cuh), and geqrf for
+// n <= 224 and unmqr for m <= 224 32-column panels (csrc/dx_qr_panel.cu), so
+// these block kernels serve gels and the sizes beyond. gels takes
 // a warp a matrix for m <= 64, n <= 32 and k <= 32 (below "gels, a warp a
 // matrix": A's columns in the lanes' registers, B's rows beside them, no
 // barrier): at batch 8192 x m 64 x n 32, k 4, it reads A and B and writes X,
@@ -1366,16 +1368,17 @@ int tml_getrf_batched(const void* a, void* lu, void* piv, const void* b, void* x
 
 // a: (batch, n, n) f32 contiguous; qr (batch, n, n) the R factor and the
 // reflectors below the diagonal, tau (batch, n). n <= 32 takes a warp a
-// matrix (csrc/dx_qr_warp.cu's geqrf_warp_kernel), the rest a block
+// matrix (csrc/dx_qr_warp.cu's geqrf_warp_kernel), n <= 224 32-column panels
+// (csrc/dx_qr_panel.cu's geqrf_panel_kernel), the rest a block
 // (geqrf_kernel).
 int tml_geqrf_batched(const void* a, void* qr, void* tau, int64_t batch, int64_t n, void* stream) {
   if (bad_sizes(a, batch, n, n, 0, nullptr, nullptr) || qr == nullptr || tau == nullptr)
     return cudaErrorInvalidValue;
   if (batch == 0) return cudaSuccess;
-  if (tml_qr::geqrf_warp_route(n))
-    return tml_qr::launch_geqrf_warp(static_cast<const float*>(a), static_cast<float*>(qr),
-                                     static_cast<float*>(tau), batch, static_cast<int>(n),
-                                     static_cast<cudaStream_t>(stream));
+  if (tml_qr::geqrf_warp_route(n) || tml_qr::geqrf_panel_route(n))
+    return (tml_qr::geqrf_warp_route(n) ? tml_qr::launch_geqrf_warp : tml_qr::launch_geqrf_panel)(
+        static_cast<const float*>(a), static_cast<float*>(qr), static_cast<float*>(tau), batch,
+        static_cast<int>(n), static_cast<cudaStream_t>(stream));
   Args p = make_args(a, qr, nullptr, nullptr, n, n, 0);
   p.tau = static_cast<float*>(tau);
   return launch(geqrf_kernel<true>, geqrf_kernel<false>, p, batch, stream);
@@ -1383,19 +1386,20 @@ int tml_geqrf_batched(const void* a, void* qr, void* tau, int64_t batch, int64_t
 
 // qr (batch, m, n) and tau (batch, n) as geqrf leaves them, c (batch, m, k) f32
 // contiguous; writes x (batch, m, k) = Q^T C (trans = 1) or Q C. m <= 64 and
-// n <= 32 take a warp a matrix (csrc/dx_qr_warp.cu's unmqr_warp_kernel), work
-// unread; the rest a block (unmqr_kernel), work null where full_bytes(m, n,
-// k) <= 232448, else (batch, m, n) space for the reflectors (x is then worked
-// in place).
+// n <= 32 take a warp a matrix (csrc/dx_qr_warp.cu's unmqr_warp_kernel), the
+// rest to m = 224 32-reflector panels (csrc/dx_qr_panel.cu's
+// unmqr_panel_kernel), both with work unread; beyond, a block (unmqr_kernel),
+// work null where full_bytes(m, n, k) <= 232448, else (batch, m, n) space for
+// the reflectors (x is then worked in place).
 int tml_unmqr_batched(const void* qr, const void* tau, const void* c, void* x, void* work,
                       int64_t batch, int64_t m, int64_t n, int64_t k, int trans, void* stream) {
   if (bad_sizes(qr, batch, m, n, k, c, x) || tau == nullptr) return cudaErrorInvalidValue;
   if (batch == 0) return cudaSuccess;
-  if (tml_qr::unmqr_warp_route(m, n))
-    return tml_qr::launch_unmqr_warp(static_cast<const float*>(qr), static_cast<const float*>(tau),
-                                     static_cast<const float*>(c), static_cast<float*>(x), batch,
-                                     static_cast<int>(m), static_cast<int>(n), static_cast<int>(k),
-                                     trans != 0, static_cast<cudaStream_t>(stream));
+  if (tml_qr::unmqr_warp_route(m, n) || tml_qr::unmqr_panel_route(m))
+    return (tml_qr::unmqr_warp_route(m, n) ? tml_qr::launch_unmqr_warp : tml_qr::launch_unmqr_panel)(
+        static_cast<const float*>(qr), static_cast<const float*>(tau), static_cast<const float*>(c),
+        static_cast<float*>(x), batch, static_cast<int>(m), static_cast<int>(n),
+        static_cast<int>(k), trans != 0, static_cast<cudaStream_t>(stream));
   Args p = make_args(qr, work, c, x, m, n, k);
   p.tau = const_cast<float*>(static_cast<const float*>(tau));
   p.trans = trans;

@@ -17,9 +17,10 @@ in ``csrc/dx_solver.cu`` serve seven sites:
 
 - ``tml_potrf_batched`` (B7a potrf, B7i; with a right-hand side B7c, posv),
 - ``tml_getrf_batched`` (B7a getrf, B7d; with a right-hand side B7b, gesv),
-- ``tml_geqrf_batched`` (B7a geqrf; its warp route in ``csrc/dx_qr_warp.cu``),
+- ``tml_geqrf_batched`` (B7a geqrf; its warp route in ``csrc/dx_qr_warp.cu``,
+  its panel route in ``csrc/dx_qr_panel.cu``),
 - ``tml_unmqr_batched`` (B7e: Qᵀ·C or Q·C from geqrf's reflectors; its warp
-  route in ``csrc/dx_qr_warp.cu``),
+  route in ``csrc/dx_qr_warp.cu``, its panel route in ``csrc/dx_qr_panel.cu``),
 - ``tml_gels_batched`` (B7f: the QR steps on m ≥ n rows, Qᵀ·B, then the
   upper substitution).
 
@@ -30,9 +31,11 @@ while the padded matrix and right-hand side fit (n ≤ 224 without one); the
 column steps in place in device memory beyond. gels takes a warp a matrix
 for m ≤ 64, n ≤ 32, k ≤ 32 (``_gels_route``: A's columns in the lanes'
 registers, B's rows beside them), else a block a matrix. geqrf takes gels's
-QR core, a warp a matrix, for n ≤ 32 (``_geqrf_route``), and unmqr a warp a
-matrix for m ≤ 64, n ≤ 32 (``_unmqr_route``: C's rows in the lanes'
-registers, as gels takes B), else a block a matrix.
+QR core, a warp a matrix, for n ≤ 32 and right-looking 32-column panels for
+n ≤ 224 (``_geqrf_route``), and unmqr a warp a matrix for m ≤ 64, n ≤ 32
+and one panel of 32 reflectors at a time for m ≤ 224 (``_unmqr_route``:
+C's rows in the lanes' registers, as gels takes B); beyond, both a block a
+matrix.
 
 Two more in ``csrc/dx_jacobi.cu`` run over the round-robin schedule
 ``_roundrobin`` (where the reference has permutation matrices, because
@@ -478,22 +481,36 @@ def _getrf(a, pivot: bool = True, b=None):
 _getrf.launches = _getrf.warp_launches = _getrf.panel_launches = _getrf.in_place_launches = 0
 
 
+def _geqrf_panel_bytes(n: int) -> int:
+    """csrc/dx_qr_warp.cuh's ``geqrf_panel_bytes``: the matrix padded to np =
+    n rounded up to 32, rows of np + 4 floats; two sets of 7 warps' 32 sums
+    and of a row's 32 entries; a panel's 32 tau."""
+    np_ = -(-n // 32) * 32
+    return 4 * (np_ * (np_ + 4) + 2 * 7 * 32 + 2 * 32 + 32)
+
+
 def _geqrf_route(n: int) -> str:
     """The route ``tml_geqrf_batched`` takes (csrc/dx_qr_warp.cuh's
-    ``geqrf_warp_route``): "warp" for n ≤ 32 (a warp a matrix on gels's QR
-    core: lane c holds column c in registers, lane j forms step j's
-    reflector, which goes to the others through the warp's shared memory),
-    else "block" (a block a matrix in shared memory, or in place past
-    ``SMEM_MAX``). Both take ``_geqrf_plain``'s steps, the sums in their own
-    order."""
-    return "warp" if n <= 32 else "block"
+    ``geqrf_warp_route`` and ``geqrf_panel_route``): "warp" for n ≤ 32 (a
+    warp a matrix on gels's QR core: lane c holds column c in registers,
+    lane j forms step j's reflector, which goes to the others through the
+    warp's shared memory); "panel" for n ≤ 224 (a block a matrix, a row a
+    thread, right-looking 32-column panels: each column step one barrier,
+    its norm and the panel's sums by a transposing reduction over each
+    warp's lanes; then the trailing columns 8 at a time a warp, the panel's
+    reflectors applied with no barrier between them); else "block" (a block
+    a matrix in shared memory, or in place past ``SMEM_MAX``). All take
+    ``_geqrf_plain``'s steps, the sums in their own order."""
+    if n <= 32:
+        return "warp"
+    return "panel" if n <= 224 and _geqrf_panel_bytes(n) <= SMEM_MAX else "block"
 
 
 def _geqrf(a):
     """Batched Householder QR of f32 (B, n, n) through
     ``tml_geqrf_batched``: (QR, taus). Counts each launch on ``.launches``
-    and on its route's ``.warp_launches`` or ``.block_launches``
-    (``_geqrf_route``)."""
+    and on its route's ``.warp_launches``, ``.panel_launches`` or
+    ``.block_launches`` (``_geqrf_route``)."""
     if not on_cuda(a):
         return _geqrf_plain(a)
     a32, _, _ = _operands(a)
@@ -509,7 +526,7 @@ def _geqrf(a):
     return out, taus
 
 
-_geqrf.launches = _geqrf.warp_launches = _geqrf.block_launches = 0
+_geqrf.launches = _geqrf.warp_launches = _geqrf.panel_launches = _geqrf.block_launches = 0
 
 
 def _work(a32, m, n, k):
@@ -520,20 +537,27 @@ def _work(a32, m, n, k):
 
 def _unmqr_route(m: int, n: int) -> str:
     """The route ``tml_unmqr_batched`` takes for QR (m, n) (csrc/dx_qr_warp.cuh's
-    ``unmqr_warp_route``), whatever C's k: "warp" for m ≤ 64 and n ≤ 32 (a
-    warp a matrix: QR's reflectors in the warp's shared memory, lane r holding
-    rows r and r + 32 of C, 4 columns at a time; each reflector's four sums
-    over the lanes by one transposing reduction), else "block" (a block a
-    matrix in shared memory, or in place past ``SMEM_MAX``). Both take
-    ``_apply_q_plain``'s reflectors in its order, the sums in their own."""
-    return "warp" if m <= 64 and n <= 32 else "block"
+    ``unmqr_warp_route`` and ``unmqr_panel_route``), whatever C's k: "warp"
+    for m ≤ 64 and n ≤ 32 (a warp a matrix: QR's reflectors in the warp's
+    shared memory, lane r holding rows r and r + 32 of C, 4 columns at a
+    time; each reflector's four sums over the lanes by one transposing
+    reduction); "panel" for the rest to m = 224 (the reflectors staged in a
+    block's shared memory 32 at a time, C's columns 8 at a time a warp (4
+    where k ≤ 4), all m rows in its lanes' registers, no barrier a
+    reflector; several matrices a block where k ≤ 16); else "block" (a block
+    a matrix in shared memory,
+    or in place past ``SMEM_MAX``). All take ``_apply_q_plain``'s reflectors
+    in its order, the sums in their own."""
+    if m <= 64 and n <= 32:
+        return "warp"
+    return "panel" if m <= 224 else "block"
 
 
 def _unmqr(qr, taus, c, trans: bool):
     """Qᵀ·C or Q·C of f32 (B, m, k) through ``tml_unmqr_batched``. A work
     space goes only to the block route. Counts each launch on ``.launches``
-    and on its route's ``.warp_launches`` or ``.block_launches``
-    (``_unmqr_route``)."""
+    and on its route's ``.warp_launches``, ``.panel_launches`` or
+    ``.block_launches`` (``_unmqr_route``)."""
     if not on_cuda(qr, taus, c):
         return _apply_q_plain(qr, taus, c, trans)
     q32, t32, c32 = (t.to(F32).contiguous() for t in (qr, taus, c))
@@ -551,7 +575,7 @@ def _unmqr(qr, taus, c, trans: bool):
     return x
 
 
-_unmqr.launches = _unmqr.warp_launches = _unmqr.block_launches = 0
+_unmqr.launches = _unmqr.warp_launches = _unmqr.panel_launches = _unmqr.block_launches = 0
 
 
 def _gels_route(m: int, n: int, k: int) -> str:
